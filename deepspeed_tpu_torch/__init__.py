@@ -7,8 +7,10 @@ an NVIDIA H100 with PyTorch and hand-written Hopper kernels.  It imports
 caller passes ``device="cpu"``.
 
 Ported so far: the inference path, ``init_inference(model)`` ->
-``InferenceEngine.forward`` / ``generate`` over the dense causal LM, with
-the flash-attention forward kernel.  ROADMAP.md lists what comes next.
+``InferenceEngine.forward`` / ``generate`` over the dense causal LM, and
+the training path on one device, ``initialize(model=...)`` ->
+``DeepSpeedEngine.train_batch``, with the flash-attention forward and
+backward kernels.  ROADMAP.md lists what comes next.
 """
 from __future__ import annotations
 
@@ -17,6 +19,36 @@ from typing import Any
 from .accelerator import get_accelerator
 
 __version__ = "0.1.0"
+
+
+def initialize(args=None, model: Any = None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, loss_fn=None, init_fn=None, params=None,
+               param_specs=None, mesh=None, device=None):
+    """Build the training engine (reference deepspeed/__init__.py:64).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.  The
+    model contract is functional: ``loss_fn(params, batch, generator)`` and
+    ``init_fn(generator)``, or a model adapter exposing them
+    (``models.CausalLM``); ``params=`` trains a given tree (a JAX tree
+    converted with ``models.convert.params_from_jax``, say).  One device:
+    ``device`` defaults to CUDA.  ``args``, ``model_parameters``,
+    ``dist_init_required`` and ``collate_fn`` are accepted for signature
+    parity and unused, as in the JAX package.
+    """
+    from .runtime.engine import DeepSpeedEngine
+
+    if mpu is not None or param_specs is not None or mesh is not None:
+        raise NotImplementedError(
+            "mpu=/param_specs=/mesh= (model parallelism over several devices) "
+            "is not ported yet (ROADMAP queue 1, item 4)")
+    cfg = config if config is not None else config_params
+    engine = DeepSpeedEngine(model=model, loss_fn=loss_fn, init_fn=init_fn,
+                             params=params, config=cfg, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler,
+                             training_data=training_data, device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_schedule
 
 
 def init_inference(model: Any = None, config=None, device=None, **kwargs):
@@ -52,4 +84,4 @@ def init_inference(model: Any = None, config=None, device=None, **kwargs):
     return InferenceEngine(model, config=cfg, device=device, **engine_kwargs)
 
 
-__all__ = ["init_inference", "get_accelerator", "__version__"]
+__all__ = ["initialize", "init_inference", "get_accelerator", "__version__"]

@@ -3,7 +3,9 @@
 
 ``CausalLM`` is an ``nn.Module`` that keeps the JAX package's functional
 contract: ``init_fn`` makes a parameter tree, ``apply_fn(params, tokens)``
-runs the forward, ``init_cache``/``apply_cached`` drive KV-cached decoding.
+runs the forward, ``loss_fn(params, batch, generator)`` and ``eval_fn`` are
+the training engine's model contract, ``init_cache``/``apply_cached`` drive
+KV-cached decoding.
 ``load_params`` attaches a tree so that ``model(tokens)`` works as a module
 call and ``init_inference(model)`` finds the weights.
 """
@@ -45,6 +47,42 @@ class CausalLM(nn.Module):
         return forward(self.config, params, tokens, positions=positions, rng=rng,
                        attn_impl=self.attn_impl, deterministic=deterministic,
                        return_aux=return_aux, pld_theta=pld_theta)
+
+    def _split(self, batch):
+        """(tokens, labels, positions, pld_theta) of a batch: a dict with
+        ``input_ids`` (``labels``, ``positions``, ``pld_theta`` optional) or
+        the token tensor alone.  Labels default to the tokens shifted by one,
+        with -100 (ignored) at the end."""
+        pld_theta = None
+        if isinstance(batch, dict):
+            tokens = batch["input_ids"]
+            labels = batch.get("labels")
+            positions = batch.get("positions")
+            pld_theta = batch.get("pld_theta")
+        else:
+            tokens, labels, positions = batch, None, None
+        if labels is None:
+            labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -100)],
+                               dim=1)
+        return tokens, labels, positions, pld_theta
+
+    def _loss(self, params, batch, rng, deterministic):
+        tokens, labels, positions, pld_theta = self._split(batch)
+        logits = self.apply_fn(params, tokens, positions=positions, rng=rng,
+                               deterministic=deterministic,
+                               pld_theta=None if deterministic else pld_theta)
+        return cross_entropy_loss(logits, labels)
+
+    def loss_fn(self, params, batch, rng: Optional[torch.Generator] = None):
+        """Training loss (dropout on, drawn from ``rng``)."""
+        return self._loss(params, batch, rng, deterministic=False)
+
+    def eval_fn(self, params, batch, rng: Optional[torch.Generator] = None):
+        return self._loss(params, batch, rng, deterministic=True)
+
+    @property
+    def param_count(self) -> int:
+        return self.config.param_count
 
     def forward(self, tokens, positions=None):
         if self.params is None:

@@ -7,12 +7,13 @@ layout (``wq`` is ``[d, nh*hd]``), so a JAX parameter tree loads without
 transposes (``models/convert.py``).  The JAX ``lax.scan`` over layers is a
 Python loop over ``[L]`` slices.
 
-Ported: the dense causal-LM forward (``forward``), the KV-cached decode path
-(``init_cache``/``forward_cached``) and ``cross_entropy_loss``.  Raising
-``NotImplementedError`` until their slices land (ROADMAP queue 1): MoE
-layers, pipeline stages, training-only passes (dropout, remat, random-LTD,
-progressive layer drop), activation fake-quant, ring/Ulysses attention and
-the paged serving cache.
+Ported: the dense causal-LM forward (``forward``) with its training passes
+(dropout, full-layer remat through ``torch.utils.checkpoint``), the
+KV-cached decode path (``init_cache``/``forward_cached``) and
+``cross_entropy_loss``.  Raising ``NotImplementedError`` until their slices
+land (ROADMAP queue 1): MoE layers, pipeline stages, the selective remat
+policies, random-LTD, progressive layer drop, activation fake-quant,
+ring/Ulysses attention and the paged serving cache.
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
@@ -26,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device
 from ..ops.kernels.common import NEG_INF
@@ -95,6 +97,32 @@ class TransformerConfig:
     @property
     def dims_per_head(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def param_count(self) -> int:
+        """Parameters of the dense tree (MoE layers are not ported)."""
+        d, f, v, L = self.hidden_size, self.intermediate_size, self.vocab_size, self.num_layers
+        hd, nh, nkv = self.dims_per_head, self.num_heads, self.kv_heads
+        attn = d * hd * nh + 2 * d * hd * nkv + hd * nh * d
+        if self.attn_bias:
+            attn += nh * hd + 2 * nkv * hd + d
+        mlp = 3 * d * f if self.activation == "swiglu" else 2 * d * f
+        if self.mlp_bias:
+            mlp += (2 * f if self.activation == "swiglu" else f) + d
+        n_norms = 1 if self.shared_layernorm else 2
+        norms = n_norms * d * (2 if self.norm == "layernorm" else 1)
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        if self.lm_head_bias and not self.tie_embeddings:
+            embed += v
+        pos = self.max_seq_len * d if self.position == "learned" else 0
+        extra = 0
+        if self.embed_layernorm:
+            extra += d * (2 if self.norm == "layernorm" else 1)
+        if self.type_vocab_size:
+            extra += self.type_vocab_size * d
+        final_norm = (d * (2 if self.norm == "layernorm" else 1)
+                      if self.final_norm else 0)
+        return L * (attn + norms + mlp) + embed + pos + extra + final_norm
 
 
 # -- named configs (sizes from the public model cards) --
@@ -429,26 +457,50 @@ def _out_proj(cfg, lp, attn, B, S):
     return attn + lp["bo"] if cfg.attn_bias else attn
 
 
+def _dropout(cfg: TransformerConfig, x, gen: Optional[torch.Generator]):
+    """Inverted dropout at ``cfg.dropout`` (identity when ``gen`` is None)."""
+    if gen is None or not cfg.dropout:
+        return x
+    keep = 1.0 - cfg.dropout
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return x * mask / keep
+
+
+def _layer_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """One layer's dropout stream: a fresh generator from the layer's seed,
+    so a layer recomputed under remat draws the same masks again."""
+    if seed is None:
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
-                  attn_impl: str, custom_positions: bool = False, window=None):
+                  attn_impl: str, custom_positions: bool = False, window=None,
+                  seed: Optional[int] = None):
     """Post-layernorm encoder block (BERT): x = LN(x + attn(x));
     x = LN(x + mlp(x))."""
     B, S, _ = x.shape
+    gen = _layer_generator(seed, x.device)
     q, k, v = _qkv(cfg, lp, x, B, S)
     attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
                       window=window)
-    x = _norm(cfg, x + _out_proj(cfg, lp, attn, B, S), lp["attn_norm_scale"],
-              lp.get("attn_norm_bias"))
-    return _norm(cfg, x + _mlp(cfg, lp, x), lp["mlp_norm_scale"],
-                 lp.get("mlp_norm_bias"))
+    attn = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), gen)
+    x = _norm(cfg, x + attn, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    m = _dropout(cfg, _mlp(cfg, lp, x), gen)
+    return _norm(cfg, x + m, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
 
 
 def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
-           attn_impl: str, custom_positions: bool = False, window=None):
+           attn_impl: str, custom_positions: bool = False, window=None,
+           seed: Optional[int] = None):
+    """One pre-norm layer.  ``seed`` (training only) seeds its dropout."""
     if cfg.post_layernorm:
         return _block_postln(cfg, lp, x, positions, attn_impl,
-                             custom_positions, window=window)
+                             custom_positions, window=window, seed=seed)
     B, S, _ = x.shape
+    gen = _layer_generator(seed, x.device)
     h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
     q, k, v = _qkv(cfg, lp, h, B, S)
     if cfg.position == "rope":
@@ -456,14 +508,35 @@ def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
                      rotary_dim=cfg.rotary_dim, interleaved=cfg.rope_interleaved)
     attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
                       window=window)
-    attn = _out_proj(cfg, lp, attn, B, S)
+    attn = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), gen)
     if cfg.parallel_residual:
         h2 = h if cfg.shared_layernorm else _norm(
             cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
-        return x + attn + _mlp(cfg, lp, h2)
+        return x + attn + _dropout(cfg, _mlp(cfg, lp, h2), gen)
     x = x + attn
     h = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
-    return x + _mlp(cfg, lp, h)
+    return x + _dropout(cfg, _mlp(cfg, lp, h), gen)
+
+
+def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool):
+    """One layer's apply fn ``block(lp, x, positions, window, seed)``, with
+    remat applied while autograd records: ``nothing_saveable`` keeps only
+    the layer's inputs and recomputes the layer (the flash forward
+    included) in the backward, as ``jax.checkpoint`` does."""
+    def block(lp, x, positions, window, seed):
+        return _block(cfg, lp, x, positions, attn_impl, custom_positions,
+                      window=window, seed=seed)
+
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block
+    if cfg.remat_policy != "nothing_saveable":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP queue "
+            "1, item 2): only 'nothing_saveable' (full-layer recompute) is")
+    # the dropout streams are explicit generators, so no global RNG state
+    # needs saving for the recompute
+    return lambda *args: checkpoint(block, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -472,6 +545,17 @@ def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     if isinstance(layers, (list, tuple)):
         raise NotImplementedError(_MOE_ROW)
     return {name: leaf[i] for name, leaf in layers.items()}
+
+
+def _layers(params: Dict[str, Any]):
+    """Every layer's weights, unbound from the stacked leaves in one op per
+    leaf (so the backward stacks each leaf's gradient once)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        raise NotImplementedError(_MOE_ROW)
+    names = list(layers)
+    return [dict(zip(names, views))
+            for views in zip(*(layers[n].unbind(0) for n in names))]
 
 
 def _embed(cfg, params, tokens, positions, token_type_ids=None):
@@ -498,19 +582,25 @@ def _head(cfg, params, x):
 
 
 def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None, rng=None,
+            positions: Optional[torch.Tensor] = None,
+            rng: Optional[torch.Generator] = None,
             attn_impl: str = "xla", deterministic: bool = True,
             seq_sharded: bool = True, return_aux: bool = False,
             pld_theta=None, token_type_ids: Optional[torch.Tensor] = None):
     """tokens [B, S] -> logits [B, S, V] (+ aux dict if return_aux).
 
-    Inference forward only: ``deterministic=False`` (dropout, random-LTD,
-    remat under training) raises until the training slice.  ``rng`` and
-    ``seq_sharded`` are accepted for signature parity and unused."""
-    if not deterministic or pld_theta is not None:
+    ``deterministic=False`` turns on dropout (``cfg.dropout``) drawn from
+    ``rng``, a ``torch.Generator`` (seed 0 on the tokens' device when None):
+    it draws one seed per layer, as the JAX package splits one key per
+    layer.  ``cfg.remat`` recomputes each layer in the backward when
+    autograd records the call.  ``seq_sharded`` is accepted for signature
+    parity and unused."""
+    if pld_theta is not None:
         raise NotImplementedError(
-            "training passes (dropout, remat, random-LTD, progressive layer "
-            "drop) are not ported yet (ROADMAP queue 1, items 2-3)")
+            "progressive layer drop is not ported yet (ROADMAP queue 1, item 11)")
+    if cfg.random_ltd and cfg.random_ltd_keep > 0:
+        raise NotImplementedError(
+            "random-LTD is not ported yet (ROADMAP queue 1, item 11)")
     _check_supported(cfg)
     B, S = tokens.shape
     tokens = tokens.long()
@@ -518,11 +608,18 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None, :].expand(B, S)
+    seeds = [None] * cfg.num_layers
+    if cfg.dropout and not deterministic:
+        if rng is None:
+            rng = torch.Generator(device=tokens.device)
+            rng.manual_seed(0)
+        seeds = torch.randint(0, 2 ** 62, (cfg.num_layers,), generator=rng,
+                              device=rng.device).tolist()
     x = _embed(cfg, params, tokens, positions, token_type_ids)
-    windows = layer_windows(cfg)
-    for i in range(cfg.num_layers):
-        x = _block(cfg, _layer(params, i), x, positions, attn_impl,
-                   custom_positions, None if windows is None else windows[i])
+    windows = layer_windows(cfg) or [None] * cfg.num_layers
+    block = _build_block(cfg, attn_impl, custom_positions)
+    for lp, window, seed in zip(_layers(params), windows, seeds):
+        x = block(lp, x, positions, window, seed)
     if cfg.final_norm:
         x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     logits = _head(cfg, params, x)

@@ -32,16 +32,11 @@
 // = 137 GFLOP of tensor-core work -> 0.139 ms, against 134 MB of q/k/v/out
 // traffic -> 0.040 ms: compute-bound.  mma.sync issues from one warp at a
 // time and cannot reach wgmma's rate; PERF.md records the measured time.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;   // ops/kernels/common.py NEG_INF
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+using namespace flash;
 
 // tensor-core kernel (bf16 / fp16)
 constexpr int BLOCK_M = 128;        // query rows per CTA (S % 128 == 0)
@@ -51,83 +46,6 @@ constexpr int NUM_THREADS = 256;    // 8 warps x 16 query rows
 // CUDA-core kernel (fp32)
 constexpr int F32_BLOCK = 64;       // query rows per CTA == keys per tile
 constexpr int F32_THREADS = 128;    // two threads per query row
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Start copying a [ROWS x HD] tile whose rows are `row_stride` elements
-// apart in global memory into shared memory rows of LD elements.
-template <typename T, int HD, int LD, int ROWS>
-__device__ __forceinline__ void cp_tile(T* dst, const T* src, int64_t row_stride) {
-  constexpr int CHUNKS = HD / 8;   // 16-byte chunks per row
-  static_assert((ROWS * CHUNKS) % NUM_THREADS == 0, "tile / thread mismatch");
-#pragma unroll
-  for (int i = 0; i < ROWS * CHUNKS / NUM_THREADS; ++i) {
-    const int c = threadIdx.x + i * NUM_THREADS;
-    const int r = c / CHUNKS, cc = c % CHUNKS;
-    cp_async16(dst + r * LD + cc * 8, src + r * row_stride + cc * 8);
-  }
-}
 
 template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(NUM_THREADS, 2)
@@ -158,9 +76,9 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (int64_t)b * S * kv_stride + (int64_t)hk * HD;
 
   const int n_tiles = CAUSAL ? (q0 + BLOCK_M) / BLOCK_N : S / BLOCK_N;
-  cp_tile<T, HD, LD, BLOCK_M>(Qs, qb, q_stride);
-  cp_tile<T, HD, LD, BLOCK_N>(Ks, kb, kv_stride);
-  cp_tile<T, HD, LD, BLOCK_N>(Vs, vb, kv_stride);
+  cp_tile<T, HD, LD, BLOCK_M, NUM_THREADS>(Qs, qb, q_stride);
+  cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Ks, kb, kv_stride);
+  cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Vs, vb, kv_stride);
   cp_async_commit();
 
   // ldmatrix row addresses of this lane (bytes).  A (Q): matrices
@@ -183,8 +101,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int stage = kj & 1;
     if (kj + 1 < n_tiles) {   // prefetch the next tile into the other stage
       const int64_t next = (int64_t)(kj + 1) * BLOCK_N * kv_stride;
-      cp_tile<T, HD, LD, BLOCK_N>(Ks + (stage ^ 1) * KV_TILE, kb + next, kv_stride);
-      cp_tile<T, HD, LD, BLOCK_N>(Vs + (stage ^ 1) * KV_TILE, vb + next, kv_stride);
+      cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Ks + (stage ^ 1) * KV_TILE, kb + next, kv_stride);
+      cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Vs + (stage ^ 1) * KV_TILE, vb + next, kv_stride);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

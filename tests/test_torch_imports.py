@@ -25,7 +25,12 @@ def _clean_env():
 def test_import_loads_no_jax_pydantic_or_reference():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.models, "
             "deepspeed_tpu_torch.inference, deepspeed_tpu_torch.models.convert, "
-            "deepspeed_tpu_torch.ops.kernels.flash_attention\n"
+            "deepspeed_tpu_torch.ops.kernels.flash_attention, "
+            "deepspeed_tpu_torch.runtime.engine, deepspeed_tpu_torch.runtime.config, "
+            "deepspeed_tpu_torch.runtime.optimizer, "
+            "deepspeed_tpu_torch.runtime.lr_schedules, "
+            "deepspeed_tpu_torch.runtime.fp16.loss_scaler, "
+            "deepspeed_tpu_torch.runtime.dataloader, deepspeed_tpu_torch.utils.timer\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
@@ -63,7 +68,10 @@ def test_entry_points_default_to_cuda_and_refuse_to_run_on_cpu():
             "for name, call in (('init_fn', m.init_fn),\n"
             "                   ('init_cache', lambda: m.init_cache(1, 128)),\n"
             "                   ('init_inference',\n"
-            "                    lambda: ds.init_inference(m, params=p))):\n"
+            "                    lambda: ds.init_inference(m, params=p)),\n"
+            "                   ('initialize',\n"
+            "                    lambda: ds.initialize(model=m, params=p,\n"
+            "                                          config={'train_batch_size': 1}))):\n"
             "    try:\n"
             "        call()\n"
             "    except RuntimeError as e:\n"
@@ -74,9 +82,9 @@ def test_entry_points_default_to_cuda_and_refuse_to_run_on_cpu():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    for name in ("init_fn", "init_cache", "init_inference"):
+    for name in ("init_fn", "init_cache", "init_inference", "initialize"):
         assert f"{name} raised:" in res.stdout, res.stdout
-    assert res.stdout.count("torch.cuda.is_available() is False") == 3
+    assert res.stdout.count("torch.cuda.is_available() is False") == 4
 
 
 def test_cpu_accelerator_only_when_asked(monkeypatch):

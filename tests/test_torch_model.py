@@ -155,9 +155,9 @@ def test_params_round_trip_and_unported_configs_raise():
         jax.tree_util.tree_leaves(back)))
     with pytest.raises(NotImplementedError, match="MoE"):
         CausalLM("tiny-moe").init_fn()
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(NotImplementedError, match="progressive layer drop"):
         ttf.forward(tcfg, tparams, torch.zeros((1, 8), dtype=torch.long),
-                    deterministic=False)
+                    deterministic=False, pld_theta=0.5)
 
 
 def test_module_call_runs_the_forward():
