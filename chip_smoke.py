@@ -11,14 +11,15 @@ one JSON line each; any failure exits non-zero with no result line:
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few more, with kernel / plain / library timings
    (CUDA events, median of 20 after warm-up): K1 the flash forward, K2 the
-   dq backward and K3 the dk/dv backward; then the yardstick of the decode
-   kernel still to be ported (K4): its bound and the library's time;
-3. the training path (this slice's main path): ``initialize`` ->
-   ``train_batch`` on llama-740m at full width and depth, S=16384, micro
-   batch 1, bf16 over fp32 masters, AdamW (bf16 mu), full-layer remat;
-   2 warm and 5 timed steps on one batch from the seed.  Every step must
-   launch K1 2L times (forward and remat recompute), K2 and K3 L times,
-   and the loss must stay finite and fall;
+   dq backward, K3 the dk/dv backward, K4 the paged decode attention (at
+   the serving stream's decode shape, GQA, hd 64, page 16, a contiguous
+   cache, fp16, fp32, a slot at length 0 and a page shared by two slots);
+3. the training path: ``initialize`` -> ``train_batch`` on llama-740m at
+   full width and depth, S=16384, micro batch 1, bf16 over fp32 masters,
+   AdamW (bf16 mu), full-layer remat; 2 warm and 5 timed steps on one
+   batch from the seed.  Every step must launch K1 2L times (forward and
+   remat recompute), K2 and K3 L times, and the loss must stay finite and
+   fall;
 4. training parity at S=2048: 3 steps from the same weights and batch
    through the kernels and through the plain attention branch (which must
    launch none); losses and the gradient norm must agree, and both are
@@ -28,12 +29,19 @@ one JSON line each; any failure exits non-zero with no result line:
    must launch once per layer), the same tokens through the plain
    attention branch and through an fp32 engine (logit gates), then greedy
    ``generate`` on 4 ragged prompts, twice (must be token-equal);
-6. with ``--profile`` only: ``torch.profiler`` device time by kernel for
-   one warm train step, one forward and one decode step, and the device's
-   busy share;
-7. the ``kernels`` line: per kernel its launches on the training path,
-   error against the plain version, times and the bound from this run's
-   shapes.
+6. the paged serving path on the same engine: ``engine.serving(b_slots=8,
+   page_size=128, max_model_len=4096)`` -> ``run`` of 24 requests from the
+   seed (mixed prompt lengths, 4 sharing a 600-token prefix, 4 sampled
+   lanes), twice on fresh engines (token-equal).  Every decode tick
+   replays one CUDA graph holding 32 K4 launches, with no new capture; the
+   page accounting balances; served greedy tokens agree with an fp32
+   teacher-forced ``forward`` on decisive positions; sampled lanes equal
+   ``generate(sampling=...)`` (gated in fp32, reported in bf16);
+7. with ``--profile`` only: ``torch.profiler`` device time by kernel for
+   one warm train step, one forward, one decode step and 10 warm decode
+   ticks of the serving engine, and the device's busy share;
+8. the ``kernels`` line: per kernel its launches on its main path, error
+   against the plain version, times and the bound from this run's shapes.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -143,6 +151,43 @@ PARITY_LOSS_RTOL = 2e-3
 PARITY_GRAD_NORM_RTOL = 2e-2
 GEN_PROMPTS, GEN_NEW = [17, 45, 90, 128], 32
 
+# The paged serving stream: 24 requests arriving at t=0, prompts 16-2000
+# tokens (log-uniform), 32-128 new tokens, 4 sharing a 600-token prefix
+# (whole pages and a copy-on-write boundary page), 4 sampled lanes.
+SERVE_SLOTS, SERVE_PAGE, SERVE_MAX_LEN = 8, 128, 4096
+SERVE_REQUESTS, SHARED_PREFIX = 24, 600
+SHARED_RIDS, SAMPLED_RIDS = (3, 9, 15, 21), (1, 6, 12, 18)
+# K4 cases: (label, B, Hq, Hkv, hd, dtype, page, pages per slot).  The first
+# is the serving decode tick's (lengths from the stream); "identity" runs a
+# contiguous [B, T, Hkv, hd] cache; "len0" has a slot at length 0 (its
+# table row all trash page); "shared" maps slot 0's pages into slot 1.
+DECODE_CASES = [
+    ("serve", 8, 32, 32, 128, torch.bfloat16, 128, 32),
+    ("gqa", 8, 32, 8, 128, torch.bfloat16, 128, 32),
+    ("hd64", 8, 16, 16, 64, torch.bfloat16, 128, 32),
+    ("page16", 8, 32, 32, 128, torch.bfloat16, 16, 256),
+    ("identity", 8, 32, 32, 128, torch.bfloat16, 4096, 1),
+    ("fp16", 8, 32, 32, 128, torch.float16, 128, 32),
+    ("fp32", 8, 32, 32, 128, torch.float32, 128, 32),
+    ("len0", 8, 32, 32, 128, torch.bfloat16, 128, 32),
+    ("shared", 8, 32, 32, 128, torch.bfloat16, 128, 32),
+]
+# K4 against its plain version, per (slot, head) output row: the worst
+# row's relative error and a per-element bound (``agreement`` with one row
+# per tile).  The kernel keeps the scores in fp32 and rounds the
+# unnormalised P of its online softmax, the plain version the normalised
+# one.  Each row limit lies between two readings on the H100 (PERF.md):
+# above the kernel's worst row over every case here and in
+# tests/test_torch_kernels_gpu.py (bf16 4.4e-3, fp16 4.8e-4, fp32 6.5e-7),
+# below the lower-precision yardstick's (scores rounded to the input dtype:
+# >= 7.1e-3 / 1.5e-3 / 9.8e-3).  The per-element bounds sit 3x above the
+# kernel's need (0.0104 / 0.0006 / ~0).
+DECODE_TOL = {
+    torch.bfloat16: {"tile_rel": 6e-3, "elem_rtol": 2e-2, "elem_atol_rms": 3e-2},
+    torch.float16: {"tile_rel": 8e-4, "elem_rtol": 2e-2, "elem_atol_rms": 3e-3},
+    torch.float32: {"tile_rel": 1e-5, "elem_rtol": 1e-4, "elem_atol_rms": 1e-4},
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -211,6 +256,12 @@ def nvidia_smi_line() -> str:
 
 
 def _kernel_label(mangled: str) -> str:
+    if "decode_attention_kernel" in mangled:
+        g = re.search(r"Li(\d+)ELi(\d+)E", mangled)
+        dtype = ("bf16" if "bfloat16" in mangled else "fp16" if "half" in mangled
+                 else "fp32")
+        return (f"decode_attention_kernel<{dtype},hd{g.group(1) if g else '?'},"
+                f"G{g.group(2) if g else '?'}>")
     name = re.search(r"\d+(flash_\w+?_kernel)", mangled)
     hd = re.search(r"Li(\d+)E", mangled)
     dtype = ("bf16" if "bfloat16" in mangled else "fp16" if "half" in mangled
@@ -242,10 +293,11 @@ def ptxas_report(log: str) -> dict:
 
 def phase_build():
     """Every kernel source, one nvcc each, all started together."""
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
     from deepspeed_tpu_torch.ops.op_builder import BUILD_DIR
 
-    builders = fa.builders()
+    builders = fa.builders() + da.builders()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         list(pool.map(lambda b: b.load(), builders))
@@ -508,31 +560,180 @@ def phase_bwd_kernels(gen: torch.Generator):
     return records
 
 
-def phase_decode_yardstick():
-    """K4 (the retired Pallas decode kernel, not yet ported): its bound at
-    the generate phase's decode shape and the library's time there, a
-    query of one token against a [B, T, H, hd] cache (T rounded up to a
-    multiple of 128, as K4 requires) with an int mask."""
-    B, Hq, Hkv, hd = len(GEN_PROMPTS), SERVE_SHAPE[2], SERVE_SHAPE[3], SERVE_SHAPE[4]
-    tokens = max(GEN_PROMPTS) + GEN_NEW
-    T = -(-tokens // 128) * 128
-    g = torch.Generator(device="cuda").manual_seed(7)
-    q = torch.randn((B, Hq, 1, hd), generator=g, device="cuda").bfloat16()
-    k, v = (torch.randn((B, Hkv, T, hd), generator=g, device="cuda").bfloat16()
-            for _ in range(2))
-    mask = torch.zeros((B, 1, 1, T), dtype=torch.bool, device="cuda")
-    mask[..., :tokens] = True
-    with torch.inference_mode():
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=Hq != Hkv))
-    flops = 4.0 * B * Hq * T * hd
-    nbytes = 2 * (2 * B * Hq * hd + 2 * B * T * Hkv * hd) + 4 * B * T
-    bound, bound_by = _bound(flops, nbytes, torch.bfloat16)
-    emit({"phase": "decode_yardstick", "kernel": "K4 flash_decode (not ported)",
-          "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "hd": hd, "T": T,
-                    "valid_tokens": tokens, "dtype": "bfloat16"},
-          "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
-          "library_what": "scaled_dot_product_attention, query length 1, bool mask"})
+def serving_stream(seed: int, vocab: int):
+    """The paged serving stream (``Request``s, all arriving at t=0)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, SHARED_PREFIX)
+    reqs = []
+    for rid in range(SERVE_REQUESTS):
+        if rid in SHARED_RIDS:
+            tail = rng.integers(0, vocab, int(rng.integers(24, 400)))
+            ids = np.concatenate([prefix, tail])
+        else:
+            n = int(np.exp(rng.uniform(math.log(16), math.log(2000))))
+            ids = rng.integers(0, vocab, n)
+        sampling = (SamplingParams(temperature=0.9, top_k=50, top_p=0.95,
+                                   seed=1000 + rid)
+                    if rid in SAMPLED_RIDS else None)
+        reqs.append(Request(rid=rid, input_ids=ids.astype(np.int32),
+                            max_new_tokens=int(rng.integers(32, 129)),
+                            sampling=sampling))
+    return reqs
+
+
+def _decode_case(gen, case, lengths):
+    """K4 inputs of one case: q [B, Hq, hd], pools [P, page, Hkv, hd] (or a
+    contiguous cache), a shuffled page table and the mask t <= length."""
+    label, B, Hq, Hkv, hd, dtype, page, maxp = case
+    T = page * maxp
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(dtype)
+    if label == "identity":
+        k, v = (torch.randn((B, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        table = None
+    else:
+        P = 1 + B * maxp
+        k, v = (torch.randn((P, page, Hkv, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+        table = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
+        used = (lengths.long() + page) // page            # pages holding 0..length
+        table = torch.where(torch.arange(maxp, device="cuda")[None] < used[:, None],
+                            table, torch.zeros_like(table))
+        if label == "shared":
+            n = int(used[0].item())
+            table[1, :n] = table[0, :n]
+    mask = (torch.arange(T, device="cuda")[None] <= lengths[:, None]).to(torch.int32)
+    return q, k, v, mask, table
+
+
+def decode_low_precision(q, k, v, mask, table):
+    """The yardstick the K4 gate must reject: the plain version with the
+    scores rounded to the input dtype (to bf16 for fp32 inputs)."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import _as_pool
+
+    k, v, table = _as_pool(k, v, table)
+    B, Hq, hd = q.shape
+    P, page, Hkv, _ = k.shape
+    T = mask.shape[1]
+    t = torch.arange(T, device=q.device)
+    rows = table.long()[:, t // page] * page + t % page
+    ck, cv = (x.reshape(P * page, Hkv, hd)[rows] for x in (k, v))
+    low = torch.bfloat16 if q.dtype == torch.float32 else q.dtype
+    s = (torch.einsum("bkgd,btkd->bkgt", q.reshape(B, Hkv, Hq // Hkv, hd), ck)
+         / math.sqrt(hd)).to(low).float()
+    s = s.masked_fill(~mask.bool()[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgt,btkd->bkgd", p, cv).reshape(B, Hq, hd)
+
+
+def decode_compare(got, ref, low, G, tol) -> dict:
+    """``agreement`` per (slot, head) output row, beside two yardsticks:
+    the lower-precision version and the kernel's output with the last KV
+    head's group of the last slot zeroed (a grid one CTA short)."""
+    def rows(x):
+        return x[:, :, None, :]   # [B, Hq, 1, hd]: one row per tile
+
+    broken = got.clone()
+    broken[-1, -G:] = 0
+    keys = ("max_abs_err", "rel_l2", "worst_tile_rel_l2", "elem_atol_rms_needed")
+    out = agreement(rows(got), rows(ref), tol, tile=1)
+    for name, x in (("low_precision", low), ("last_group_zeroed", broken)):
+        reading = agreement(rows(x), rows(ref), tol, tile=1)
+        out[name] = {**{k: reading[k] for k in keys}, "rejected": not reading["ok"]}
+    out["yardsticks_rejected"] = all(out[n]["rejected"] for n in
+                                     ("low_precision", "last_group_zeroed"))
+    return out
+
+
+def decode_bound_ms(case, lengths) -> tuple:
+    """Least time for K4's work on these inputs: the K/V bytes of the
+    attended rows plus q, out and the mask (and the page table), against
+    4 * attended * Hq * hd operations (q.k and p.v) at the dtype's peak."""
+    label, B, Hq, Hkv, hd, dtype, page, maxp = case
+    esize = torch.tensor([], dtype=dtype).element_size()
+    attended = sum(n + 1 for n in lengths)
+    nbytes = (2 * attended * Hkv * hd * esize + 2 * B * Hq * hd * esize
+              + 4 * B * page * maxp + 4 * B * maxp)
+    return _bound(4.0 * attended * Hq * hd, nbytes, dtype)
+
+
+def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
+    """K4 vs its plain version at DECODE_CASES; library: SDPA with query
+    length 1 and a bool mask on the same keys gathered contiguous (the
+    gather is not timed).  Returns {label: record}."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        _as_pool, decode_attention, decode_attention_reference)
+
+    stream = serving_stream(seed, 32000)
+    base = [len(r.input_ids) + r.max_new_tokens // 2 for r in stream[:8]]
+    records = {}
+    for case in DECODE_CASES:
+        label, B, Hq, Hkv, hd, dtype, page, maxp = case
+        lengths = list(base)
+        if label == "len0":
+            lengths[3] = 0
+        q, k, v, mask, table = _decode_case(gen, case, lengths)
+        tol = DECODE_TOL[dtype]
+        with torch.inference_mode():
+            before = decode_attention.launches
+            out = decode_attention(q, k, v, mask, table)
+            torch.cuda.synchronize()
+            check(decode_attention.launches == before + 1, "K4 did not count its launch")
+            ref = decode_attention_reference(q, k, v, mask, table)
+            agree = decode_compare(out, ref, decode_low_precision(q, k, v, mask, table),
+                                   Hq // Hkv, tol)
+            kernel_ms = time_ms(lambda: decode_attention(q, k, v, mask, table))
+            plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, mask, table))
+            pk, pv, pt = _as_pool(k, v, table)
+            t = torch.arange(mask.shape[1], device="cuda")
+            rows = pt.long()[:, t // page] * page + t % page
+            ck, cv = (x.reshape(-1, Hkv, hd)[rows].transpose(1, 2).contiguous()
+                      for x in (pk, pv))
+            bmask = mask.bool()[:, None, None, :]
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], ck, cv, attn_mask=bmask, enable_gqa=Hq != Hkv))
+        bound, bound_by = decode_bound_ms(case, lengths)
+        rec = {"phase": "kernel", "name": "decode_attention", "case": label,
+               "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+                         "dtype": str(dtype).replace("torch.", ""), "page": page,
+                         "pages_per_slot": maxp, "lengths": lengths,
+                         "paged": table is not None},
+               "max_abs_err": agree["max_abs_err"], "out": agree, "tol": tol,
+               "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_what": "scaled_dot_product_attention, query length 1, "
+                               "bool mask, keys gathered contiguous (gather "
+                               "not timed)",
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_share": bound / kernel_ms}
+        emit(rec)
+        if gate:
+            check(agree["ok"], f"decode_attention disagrees with its plain version "
+                               f"at {label}: {agree}")
+            check(agree["yardsticks_rejected"],
+                  f"the decode_attention gate passed a yardstick at {label}: {agree}")
+        records[label] = rec
+        del q, k, v, mask, table, ck, cv
+        free_memory()
+    # what the kernel does not take raises, never runs the plain version
+    x = torch.zeros((1, 3, 128), device="cuda", dtype=torch.bfloat16)
+    pool = torch.zeros((2, 8, 1, 128), device="cuda", dtype=torch.bfloat16)
+    m = torch.ones((1, 8), device="cuda", dtype=torch.int32)
+    pt = torch.ones((1, 1), device="cuda", dtype=torch.int32)
+    for bad in (lambda: decode_attention(x, pool, pool, m, pt),            # G = 3
+                lambda: decode_attention(x[:, :1].double(), pool.double(),
+                                         pool.double(), m, pt)):
+        try:
+            bad()
+        except (NotImplementedError, TypeError):
+            pass
+        else:
+            raise RuntimeError("decode_attention ran an input it does not take")
+    return records
 
 
 def kernel_counts() -> tuple:
@@ -544,9 +745,10 @@ def kernel_counts() -> tuple:
 
 def reset_counts() -> None:
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 
     for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv):
+               fa.flash_attention_bwd_dkv, decode_attention):
         fn.launches = 0
 
 
@@ -884,9 +1086,227 @@ def phase_serving(seed: int, profile: bool):
         profile_step("forward", lambda: engine.forward(tokens))
         profile_step("generate_2_tokens",
                      lambda: engine.generate(ids128, max_new_tokens=2))
+    del tokens
+    free_memory()
+    paged = phase_paged_serving(engine, params, seed, profile)
     del engine, params
     free_memory()
+    return launches, paged
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+def _serve_once(engine, stream, label):
+    """One fresh ServingEngine over the stream; per-tick times by wrapping
+    its decode tick (the tick ends in a host fetch of the tokens, so the
+    host clock around it is the tick's time)."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sv = engine.serving(b_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                        max_model_len=SERVE_MAX_LEN)
+    build_s = time.perf_counter() - t0
+    inv0 = sv.program_inventory()
+    tick_s = []
+    tick = sv._decode_tick
+
+    def timed_tick():
+        t = time.perf_counter()
+        tick()
+        tick_s.append(time.perf_counter() - t)
+
+    sv._decode_tick = timed_tick
+    t0 = time.perf_counter()
+    results = sv.run(list(stream))
+    run_s = time.perf_counter() - t0
+    del sv._decode_tick
+    inv1 = sv.program_inventory()
+    acct = sv.page_accounting()
+    ex = sv._exec
+    out_tokens = sum(len(r.output_ids) for r in results)
+    ttft = [r.ttft_s for r in results]
+    rec = {"phase": "paged_serving", "run": label, "requests": len(results),
+           "engine_build_s": build_s, "run_s": run_s,
+           "output_tokens": out_tokens, "output_tok_per_s": out_tokens / run_s,
+           "decode_ticks": ex.replays, "decode_ticks_per_s": ex.replays / run_s,
+           "mean_decode_tick_ms": 1e3 * statistics.mean(tick_s),
+           "median_decode_tick_ms": 1e3 * statistics.median(tick_s),
+           "decode_share_of_run": sum(tick_s) / run_s,
+           "ttft_p50_s": _percentile(ttft, 50), "ttft_p99_s": _percentile(ttft, 99),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kv_pool_gb": sv.health()["kv_pool_bytes_total"] / 1e9,
+           "k4_launches_in_graph": ex.graph_k4_launches,
+           "graph_captures": ex.captures, "inventory": inv1,
+           "k4_counter": decode_attention.launches,
+           "prefix_hits": sv.prefix_hits, "cow_copies": sv.cow_copies,
+           "prefix_shared_tokens": sv.prefix_shared_tokens,
+           "page_accounting": acct}
+    cfg = engine.model.config
+    check(len(results) == len(stream), f"{len(results)} of {len(stream)} served")
+    check(ex.graph_k4_launches == cfg.num_layers,
+          f"the decode graph holds {ex.graph_k4_launches} K4 launches, "
+          f"expected one per layer ({cfg.num_layers})")
+    check(ex.captures == 1 and inv0["captures"] == inv1["captures"] == 1
+          and ex.replays == len(tick_s),
+          f"new captures in steady state: {inv0} -> {inv1}, replays {ex.replays} "
+          f"for {len(tick_s)} ticks")
+    check(acct["balanced"] and acct["referenced"] == acct["cached"],
+          f"page accounting after the run: {acct}")
+    check(sv.prefix_hits >= len(SHARED_RIDS) - 1 and sv.cow_copies >= 1,
+          f"the shared prefix was not shared: {sv.health()}")
+    for r in results:
+        ids = r.output_ids
+        check(len(ids) == stream[r.rid].max_new_tokens and r.finish_reason == "length"
+              and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+              f"request {r.rid}: {r.finish_reason}, {len(ids)} tokens")
+    return sv, {r.rid: r.output_ids for r in results}, rec
+
+
+def _positions_logits(engine, stream, outs, rids):
+    """Teacher-forced logits over prompt + served output at the positions
+    that predicted each served token ([n_out, V] fp32 per request)."""
+    got = {}
+    for rid in rids:
+        prompt = stream[rid].input_ids
+        seq = torch.tensor(list(prompt) + list(outs[rid][:-1]), device="cuda")[None]
+        got[rid] = engine.forward(seq)[0, len(prompt) - 1:].float().clone()
+    return got
+
+
+def phase_paged_serving(engine, params, seed: int, profile: bool):
+    """The paged serving path on the llama2-7b engine.  Returns the K4
+    launch record of the main path's run."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+
+    cfg = engine.model.config
+    stream = serving_stream(seed, cfg.vocab_size)
+    # the paged serving path: counts to 0 just before, read just after
+    reset_counts()
+    sv, first, rec = _serve_once(engine, stream, "first")
+    launches = {"counter": decode_attention.launches,
+                "per_tick": sv._exec.graph_k4_launches,
+                "ticks": sv._exec.replays,
+                "replayed": sv._exec.graph_k4_launches * sv._exec.replays}
+    emit(rec)
+    del sv
+    free_memory()
+    sv, second, rec2 = _serve_once(engine, stream, "rerun")
+    emit(rec2)
+    same = all(np.array_equal(first[r], second[r]) for r in first)
+    check(same, "the rerun of the stream served other tokens")
+    if profile:
+        profile_serving(sv, stream)
+    del sv
+    free_memory()
+
+    # sampled lanes beside generate(sampling=...) in bf16 (reported)
+    def lane_stream(eng, rid):
+        r = stream[rid]
+        full = eng.generate(r.input_ids[None], max_new_tokens=r.max_new_tokens,
+                            sampling=r.sampling)
+        return full[0, len(r.input_ids):].cpu().numpy()
+
+    bf16_lanes = {}
+    for rid in SAMPLED_RIDS:
+        ref = lane_stream(engine, rid)
+        diff = np.flatnonzero(ref != first[rid])
+        bf16_lanes[rid] = {"tokens": len(ref),
+                           "first_divergence": int(diff[0]) if len(diff) else None}
+
+    # greedy lanes against fp32, on decisive positions: the bf16 plain
+    # branch's own deviation from fp32 sets the noise level
+    greedy = [r.rid for r in stream if r.rid not in SAMPLED_RIDS]
+    engine.model.attn_impl = "xla"
+    plain = _positions_logits(engine, stream, first, greedy)
+    engine.model.attn_impl = "auto"
+    ref_model = CausalLM("llama2-7b", attn_impl="xla", dtype=torch.float32)
+    f32 = deepspeed_tpu_torch.init_inference(ref_model, config={"dtype": "fp32"},
+                                             params=params)
+    ref = _positions_logits(f32, stream, first, greedy)
+    noise = max((plain[r] - ref[r]).abs().max().item() for r in greedy)
+    n_dec = n_agree = n_all = n_all_agree = 0
+    for rid in greedy:
+        top2 = ref[rid].topk(2, dim=-1)
+        served = torch.as_tensor(first[rid], device="cuda").long()
+        ok = top2.indices[:, 0] == served
+        dec = (top2.values[:, 0] - top2.values[:, 1]) > noise
+        n_dec += int(dec.sum())
+        n_agree += int((ok & dec).sum())
+        n_all += len(served)
+        n_all_agree += int(ok.sum())
+    del plain, ref
+    free_memory()
+
+    # sampled lanes in fp32: a serving engine and generate(sampling=...)
+    sampled_reqs = [stream[r] for r in SAMPLED_RIDS]
+    longest = max(len(r.input_ids) + r.max_new_tokens for r in sampled_reqs)
+    sv32 = f32.serving(b_slots=len(SAMPLED_RIDS), page_size=SERVE_PAGE,
+                       max_model_len=-(-longest // SERVE_PAGE) * SERVE_PAGE)
+    got32 = {r.rid: r.output_ids for r in sv32.run(sampled_reqs)}
+    check(sv32.page_accounting()["balanced"], "fp32 page accounting")
+    del sv32
+    free_memory()
+    f32_exact = {rid: bool(np.array_equal(got32[rid], lane_stream(f32, rid)))
+                 for rid in SAMPLED_RIDS}
+    del f32
+    free_memory()
+    rec = {"phase": "paged_serving_gates", "k4_launches": launches,
+           "rerun_identical": same,
+           "greedy_positions": n_all, "greedy_top1_vs_fp32": n_all_agree / n_all,
+           "noise_plain_bf16_vs_fp32": noise, "decisive_positions": n_dec,
+           "greedy_top1_vs_fp32_decisive": n_agree / max(n_dec, 1),
+           "sampled_bf16_vs_generate_bf16": bf16_lanes,
+           "sampled_fp32_serving_equals_generate_fp32": f32_exact}
+    emit(rec)
+    check(n_dec >= 32, f"too few decisive positions to judge: {rec}")
+    check(n_agree / n_dec >= 0.99, f"served greedy tokens disagree with fp32 on "
+                                   f"decisive positions: {rec}")
+    check(all(f32_exact.values()), f"sampled lanes differ from generate: {rec}")
     return launches
+
+
+def profile_serving(sv, stream) -> None:
+    """10 warm decode ticks of a full slot fleet under torch.profiler: the
+    device's busy share, K4's share and launches (32 per tick), top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    import dataclasses
+
+    reqs = [dataclasses.replace(r, rid=f"p{r.rid}", max_new_tokens=64)
+            for r in stream[:SERVE_SLOTS]]
+    for r in reqs:
+        sv.submit(r)
+    sv.step()                      # admits all 8 (prefill) and decodes once
+    sv.step()
+    check(int(sv._active.sum()) == SERVE_SLOTS and not sv._queue,
+          "profile: the slot fleet is not full")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            sv.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    sv.run([])
+    busy_us, by_name = device_activity(prof.events())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    k4 = [(t, n) for name, (t, n) in by_name.items() if "decode_attention" in name]
+    k4_ms, k4_n = sum(t for t, _ in k4) / 1e3, sum(n for _, n in k4)
+    emit({"phase": "profile", "what": "serving_10_decode_ticks", "wall_ms": wall_ms,
+          "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e3 / wall_ms,
+          "k4_ms": k4_ms, "k4_launches": k4_n, "k4_share_of_wall": k4_ms / wall_ms,
+          "top_kernels": [{"name": name[:90], "ms": t / 1e3, "count": n}
+                          for name, (t, n) in top[:12]]})
+    check(k4_n == 10 * sv._exec.graph_k4_launches,
+          f"profiler counts {k4_n} K4 launches in 10 ticks, expected "
+          f"{10 * sv._exec.graph_k4_launches}")
 
 
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
@@ -901,8 +1321,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one train step, one forward and one "
-                         "decode step")
+                    help="also profile one train step, one forward, one "
+                         "decode step and 10 serving decode ticks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -922,12 +1342,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     fwd = phase_fwd_kernel(gen)
     bwd = phase_bwd_kernels(gen)
-    phase_decode_yardstick()
+    dec = phase_decode_kernel(gen, args.seed)
     k1, (k2, k3) = fwd[TRAIN_SHAPE], bwd[TRAIN_SHAPE]
     train_launches = phase_train(args.seed, args.profile,
                                  {"fwd": k1["ms"], "dq": k2["ms"], "dkv": k3["ms"]})
     phase_train_parity(args.seed)
-    serve_launches = phase_serving(args.seed, args.profile)
+    serve_launches, k4_launches = phase_serving(args.seed, args.profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     src = "deepspeed_tpu_torch/ops/csrc/"
     jax_src = "deepspeed_tpu/ops/pallas/flash_attention.py"
@@ -939,7 +1359,15 @@ def main() -> int:
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
-                      jax_src + ":236", train_launches[2], k3)]})
+                      jax_src + ":236", train_launches[2], k3),
+        _kernel_entry("decode_attention", src + "decode_attention.cu",
+                      "tools/retired_decode_attention.py:53", k4_launches["counter"],
+                      dec["serve"], launches_per_decode_tick=k4_launches["per_tick"],
+                      decode_ticks=k4_launches["ticks"],
+                      launches_replayed=k4_launches["replayed"],
+                      launches_counted="wrapper calls on the paged serving path: "
+                                       "2 warm-up runs and the capture of the decode "
+                                       "graph; each tick replays the captured ones")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,12 @@ an NVIDIA H100 with PyTorch and hand-written Hopper kernels.  It imports
 caller passes ``device="cpu"``.
 
 Ported so far: the inference path, ``init_inference(model)`` ->
-``InferenceEngine.forward`` / ``generate`` over the dense causal LM, and
-the training path on one device, ``initialize(model=...)`` ->
+``InferenceEngine.forward`` / ``generate`` over the dense causal LM; the
+training path on one device, ``initialize(model=...)`` ->
 ``DeepSpeedEngine.train_batch``, with the flash-attention forward and
-backward kernels.  ROADMAP.md lists what comes next.
+backward kernels; and the paged serving path, ``engine.serving()`` ->
+``ServingEngine.run``, with the paged decode-attention kernel.  ROADMAP.md
+lists what comes next.
 """
 from __future__ import annotations
 

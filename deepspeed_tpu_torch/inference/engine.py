@@ -8,9 +8,13 @@ with the JAX engine's shapes: prompts right-padded to a power-of-two bucket
 eagerly, so where the JAX engine compiles one program per shape the port
 runs the same steps as a Python loop under ``torch.inference_mode()``.
 
+``serving()`` builds the paged continuous-batching
+:class:`~.serving.ServingEngine` over the engine's params and device.
+
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP row): the
-paged ``serving()`` engines, tensor-parallel auto-TP, weight quantization
-and the full-recompute ``generate`` fallback for models without a KV cache.
+supervised and fleet serving engines, tensor-parallel auto-TP, weight
+quantization and the full-recompute ``generate`` fallback for models
+without a KV cache.
 """
 from __future__ import annotations
 
@@ -24,8 +28,6 @@ from ..utils.logging import log_dist, logger
 from .config import DeepSpeedInferenceConfig
 from .sampling import SamplingParams, position_generator, sample_tokens
 
-_SERVING_ROW = ("the paged serving engines are not ported yet (ROADMAP queue 1, "
-                "item 7)")
 
 
 def _cast_tree(tree, dtype: torch.dtype, device: torch.device):
@@ -75,10 +77,25 @@ class InferenceEngine:
         return self._model
 
     def serving(self, **kwargs):
-        raise NotImplementedError(_SERVING_ROW)
+        """A continuous-batching :class:`~.serving.ServingEngine` sharing
+        this engine's model, params and device, so serving numerics follow
+        :meth:`generate`'s (greedy token-exact in fp32; in bf16 the paged
+        decode attention rounds differently).  Keyword arguments are the
+        ServingEngine's (``b_slots``, ``page_size``, ``max_model_len``,
+        ``num_pages``, ``prefix_cache``, ...)."""
+        if self._model is None or not hasattr(self._model, "apply_paged"):
+            raise ValueError(
+                "serving() needs a model with the paged decode contract "
+                "(apply_paged); see models.CausalLM")
+        from .serving import ServingEngine
+
+        kwargs.setdefault("device", self.device)
+        return ServingEngine(self._model, self.params, **kwargs)
 
     def supervised_serving(self, max_restarts: int = 5, **kwargs):
-        raise NotImplementedError(_SERVING_ROW)
+        raise NotImplementedError(
+            "the serving supervisor (warm restarts) is not ported yet "
+            "(ROADMAP queue 1, item 7)")
 
     def serving_fleet(self, *args, **kwargs):
         raise NotImplementedError(

@@ -16,12 +16,12 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
-__all__ = ["SamplingParams", "filter_logits", "position_generator",
-           "sample_tokens"]
+__all__ = ["SamplingParams", "GREEDY", "as_lanes", "filter_logits",
+           "position_generator", "sample_tokens"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +47,18 @@ class SamplingParams:
         if self.seed < 0:
             raise ValueError(f"seed={self.seed} must be >= 0")
         return self
+
+
+GREEDY = SamplingParams()
+
+
+def as_lanes(sampling: Optional[SamplingParams]):
+    """``(temperature, top_k, top_p, seed)`` scalar lane values for one
+    request (``None`` = the greedy lane): what the serving engine writes
+    into its per-slot lane arrays at admission."""
+    sp = sampling if sampling is not None else GREEDY
+    return (float(sp.temperature), int(sp.top_k), float(sp.top_p),
+            int(sp.seed))
 
 
 _MASK64 = (1 << 64) - 1

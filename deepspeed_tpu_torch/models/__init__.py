@@ -5,7 +5,8 @@
 contract: ``init_fn`` makes a parameter tree, ``apply_fn(params, tokens)``
 runs the forward, ``loss_fn(params, batch, generator)`` and ``eval_fn`` are
 the training engine's model contract, ``init_cache``/``apply_cached`` drive
-KV-cached decoding.
+KV-cached decoding and ``init_paged_cache``/``apply_paged`` the paged
+serving engine.
 ``load_params`` attaches a tree so that ``model(tokens)`` works as a module
 call and ``init_inference(model)`` finds the weights.
 """
@@ -16,12 +17,14 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from .transformer import (CONFIGS, TransformerConfig, cross_entropy_loss,
-                          forward, forward_cached, get_config, init_cache,
-                          init_params)
+from .transformer import (CONFIGS, PAGE_SIZE, TransformerConfig,
+                          cross_entropy_loss, forward, forward_cached,
+                          forward_paged, get_config, init_cache,
+                          init_paged_cache, init_params)
 
 __all__ = ["CausalLM", "TransformerConfig", "CONFIGS", "get_config", "forward",
-           "forward_cached", "init_cache", "init_params", "cross_entropy_loss"]
+           "forward_cached", "forward_paged", "init_cache", "init_paged_cache",
+           "init_params", "cross_entropy_loss"]
 
 
 class CausalLM(nn.Module):
@@ -96,3 +99,15 @@ class CausalLM(nn.Module):
     def apply_cached(self, params, tokens, cache, positions, input_mask):
         return forward_cached(self.config, params, tokens, cache, positions,
                               input_mask)
+
+    # -- block-paged decode contract (used by ServingEngine): one physical
+    #    page pool multiplexed across decode slots via per-slot page tables --
+    def init_paged_cache(self, num_pages, page_size=PAGE_SIZE, dtype=None,
+                         kv_dtype=None, device=None):
+        return init_paged_cache(self.config, num_pages, page_size, dtype,
+                                kv_dtype=kv_dtype, device=device)
+
+    def apply_paged(self, params, tokens, cache, page_table, start, seq_mask,
+                    adapters=None):
+        return forward_paged(self.config, params, tokens, cache, page_table,
+                             start, seq_mask, adapters=adapters)

@@ -1,7 +1,8 @@
 """Weights carried across packages: the JAX parameter tree (as numpy
 arrays, stacked ``[L, ...]`` leaves under JAX's key names) to the port's
-tree and back.  The layouts are the same (``x @ W``), so leaves map one to
-one without transposes."""
+tree and back, and a JAX paged KV pool to the port's.  The layouts are the
+same (``x @ W``; pools ``[L, P, page, Hkv, hd]``), so leaves map one to one
+without transposes."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -29,6 +30,21 @@ def params_from_jax(np_tree: Dict[str, Any], device="cuda",
         return t.to(device)
 
     return conv(np_tree)
+
+
+def pool_from_jax(np_cache: Dict[str, Any], device="cuda",
+                  dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A JAX paged cache (``init_paged_cache``/``forward_paged``: ``k``/``v``
+    ``[L, P, page, Hkv, hd]`` as numpy) -> the port's cache dict on
+    ``device``; ``params_to_numpy`` takes it back."""
+    if "k_scale" in np_cache:
+        raise NotImplementedError(
+            "int8 KV pages are not ported yet (ROADMAP queue 1, item 7)")
+    out = {}
+    for key in ("k", "v"):
+        t = torch.from_numpy(np.array(np_cache[key]))
+        out[key] = t.to(device=device, dtype=dtype or t.dtype)
+    return out
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

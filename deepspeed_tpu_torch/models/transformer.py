@@ -9,11 +9,13 @@ Python loop over ``[L]`` slices.
 
 Ported: the dense causal-LM forward (``forward``) with its training passes
 (dropout, full-layer remat through ``torch.utils.checkpoint``), the
-KV-cached decode path (``init_cache``/``forward_cached``) and
-``cross_entropy_loss``.  Raising ``NotImplementedError`` until their slices
-land (ROADMAP queue 1): MoE layers, pipeline stages, the selective remat
-policies, random-LTD, progressive layer drop, activation fake-quant,
-ring/Ulysses attention and the paged serving cache.
+KV-cached decode path (``init_cache``/``forward_cached``), the paged
+serving path (``init_paged_cache``/``forward_paged``/``cow_copy_pool``,
+decode attention through the K4 kernel) and ``cross_entropy_loss``.
+Raising ``NotImplementedError`` until their slices land (ROADMAP queue 1):
+MoE layers, pipeline stages, the selective remat policies, random-LTD,
+progressive layer drop, activation fake-quant, ring/Ulysses attention, and
+the int8 pages and per-slot adapters of the paged path.
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device
 from ..ops.kernels.common import NEG_INF
+from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
 
 
@@ -735,6 +738,189 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
                           None if windows is None else windows[i])
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     cache["next_slot"] = ns + S
+    return _head(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Block-paged KV cache (serving).  One physical pool [L, P, page, Hkv, hd]
+# is shared by every decode slot through per-slot page tables; physical page
+# 0 is the trash page (masked writes and unallocated table entries).
+# Slot-local token index == position, so the causal mask is the validity
+# mask.  Unlike the JAX package's functional update, the port writes the
+# pool IN PLACE (``index_copy_`` on a flat view of each layer), so the pool
+# exists once and a CUDA graph of the decode step keeps writing the same
+# tensors on every replay.
+# ---------------------------------------------------------------------------
+
+PAGE_SIZE = 128   # tokens per KV page (the JAX package's lane-aligned size)
+
+# canonical leaf order of a paged cache dict (k/v; the int8 scale planes are
+# not ported)
+PAGED_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+KV_QUANT_DTYPES = ("int8",)
+_KV_INT8_ROW = ("int8 KV pages (kv_dtype='int8') are not ported yet (ROADMAP "
+                "queue 1, item 7)")
+
+
+def paged_pool_tuple(cache: Dict[str, Any]) -> tuple:
+    """The cache dict's pool tensors in canonical order."""
+    return tuple(cache[k] for k in PAGED_POOL_KEYS if k in cache)
+
+
+def paged_pool_cache(pools) -> Dict[str, Any]:
+    """Inverse of :func:`paged_pool_tuple`."""
+    return dict(zip(PAGED_POOL_KEYS, pools))
+
+
+def _check_kv_dtype(kv_dtype) -> None:
+    if kv_dtype is None:
+        return
+    name = str(kv_dtype).replace("torch.", "")
+    if name in KV_QUANT_DTYPES:
+        raise NotImplementedError(_KV_INT8_ROW)
+    raise ValueError(
+        f"kv_dtype={kv_dtype!r} is not a quantized KV storage dtype; "
+        f"supported: {KV_QUANT_DTYPES} (None = full precision)")
+
+
+def init_paged_cache(cfg: TransformerConfig, num_pages: int,
+                     page_size: int = PAGE_SIZE, dtype=None, kv_dtype=None,
+                     device=None) -> Dict[str, Any]:
+    """Allocate the physical page pool: ``k``/``v`` are ``[L, num_pages,
+    page_size, Hkv, hd]`` zeros on ``device`` (default: the accelerator's).
+    Page 0 is reserved as the trash page; the serving engine hands out
+    pages 1..num_pages-1.  Full pages are immutable once written (a slot
+    only writes at its own advancing position), which is what lets several
+    slots map one page; a partial boundary page is shared by value instead
+    (:func:`cow_copy_pool`)."""
+    _check_kv_dtype(kv_dtype)
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    kv = (cfg.num_layers, num_pages, page_size, cfg.kv_heads, cfg.dims_per_head)
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device)}
+
+
+def cow_copy_pool(pools, src: int, dst: int):
+    """Copy-on-write: snapshot physical page ``src`` onto ``dst`` across
+    every layer of each ``[L, P, page, Hkv, hd]`` pool, in place.  ``dst ==
+    src`` is a harmless self-copy."""
+    for a in pools:
+        a[:, dst].copy_(a[:, src])
+    return tuple(pools)
+
+
+def _attention_paged(cfg, q, ck, cv, q_pos):
+    """q:[B,S,Hq,hd] against gathered per-slot pages ck/cv:[B,T,Hkv,hd]
+    with the causal mask ``t <= q_pos`` (the JAX package's einsum; prefill
+    and alibi take it, decode goes to K4)."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = ck.shape[1], ck.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float()
+    scores = scores * _sm_scale(cfg, hd)
+    t = torch.arange(T, dtype=torch.int32, device=q.device)
+    if cfg.position == "alibi":
+        slopes = torch.from_numpy(_alibi_slopes(Hq)).to(q.device).reshape(Hkv, G)
+        rel = (q_pos[:, :, None] - t[None, None, :]).float()
+        scores = scores - (rel.abs()[:, None, None, :, :]
+                           * slopes[None, :, :, None, None])
+    ok = t[None, None, :] <= q_pos[:, :, None]                  # [B,S,T]
+    scores = scores.masked_fill(~ok[:, None, None, :, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, cv)
+    return out.reshape(B, S, Hq, hd)
+
+
+def _block_paged(cfg, lp, x, ck, cv, positions, write_idx, page_table, T):
+    """One block against layer pools ``ck``/``cv`` [P, page, Hkv, hd]:
+    write this step's K/V at ``write_idx`` (flat rows, in place), then
+    attend.  Decode (S == 1) of a non-alibi config goes to K4 over the pool
+    and the page table (no gather); prefill and alibi gather each slot's
+    pages and take the einsum, as the JAX package computes them outside any
+    kernel (alibi is dispatched by config, as ``_attention`` sends it to
+    the plain branch)."""
+    B, S, _ = x.shape
+    P, ps, nkv, hd = ck.shape
+    ckf, cvf = ck.view(P * ps, nkv, hd), cv.view(P * ps, nkv, hd)
+    h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    q, k, v = _qkv(cfg, lp, h, B, S)
+    if cfg.position == "rope":
+        q, k = _rope(q, k, positions, cfg.rope_theta, hd,
+                     rotary_dim=cfg.rotary_dim, interleaved=cfg.rope_interleaved)
+    ckf.index_copy_(0, write_idx, k.reshape(B * S, nkv, hd).to(ckf.dtype))
+    cvf.index_copy_(0, write_idx, v.reshape(B * S, nkv, hd).to(cvf.dtype))
+    t = torch.arange(T, device=x.device)
+    if S == 1 and cfg.position != "alibi":
+        mask = (t[None, :] <= positions).to(torch.int32)            # [B, T]
+        attn = decode_attention(q[:, 0], ck, cv, mask, page_table,
+                                _sm_scale(cfg, hd))[:, None]
+    else:
+        rows = page_table.long()[:, t // ps] * ps + t % ps          # [B, T]
+        attn = _attention_paged(cfg, q, ckf[rows], cvf[rows], positions)
+    attn = _out_proj(cfg, lp, attn, B, S)
+    if cfg.parallel_residual:
+        h2 = h if cfg.shared_layernorm else _norm(
+            cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+        return x + attn + _mlp(cfg, lp, h2)
+    x = x + attn
+    h = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+    return x + _mlp(cfg, lp, h)
+
+
+def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
+                  tokens: torch.Tensor, cache: Dict[str, Any],
+                  page_table: torch.Tensor, start: torch.Tensor,
+                  seq_mask: torch.Tensor, adapters=None):
+    """Run ``tokens [B,S]`` against the paged pool, writing each real
+    token's K/V at its slot position (in place) and attending each query to
+    its own slot's pages only.
+
+    ``page_table [B, maxp]`` int32: the physical page of each logical page
+    (0 = the trash page, also the unallocated filler).  ``start [B]``: slot
+    position of ``tokens[:, 0]`` (0 for a cold prefill, the shared-prefix
+    length for a tail prefill, the current length for decode).
+    ``seq_mask [B,S]``: True for real tokens; masked tokens and positions
+    past the page table write to the trash page, and their logits are
+    garbage the caller never reads.  Everything is tensor arithmetic with no
+    host synchronisation, so the decode step ``[B_slots, 1]`` can be
+    captured in a CUDA graph.  Returns ``(logits [B,S,V], cache)``, the same
+    cache dict."""
+    _check_supported(cfg)
+    if not cfg.causal:
+        raise NotImplementedError(
+            "paged decode is a causal-LM operation; encoder models "
+            "(causal=False) have no autoregressive cache")
+    if isinstance(params["layers"], (list, tuple)):
+        raise NotImplementedError(_MOE_ROW)
+    if cfg.attention_layers is not None:
+        raise NotImplementedError(
+            "paged decode does not support per-layer attention windows "
+            "(attention_layers); use the contiguous cache path")
+    if adapters is not None:
+        raise NotImplementedError(
+            "per-slot LoRA adapters in the paged path are not ported yet "
+            "(ROADMAP queue 1, item 7)")
+    if "k_scale" in cache:
+        raise NotImplementedError(_KV_INT8_ROW)
+    B, S = tokens.shape
+    ps = cache["k"].shape[2]
+    maxp = page_table.shape[1]
+    positions = start.to(torch.int32)[:, None] + torch.arange(
+        S, dtype=torch.int32, device=tokens.device)[None, :]
+    raw_idx = positions // ps
+    page_idx = raw_idx.clamp(max=maxp - 1).long()
+    phys = torch.gather(page_table, 1, page_idx).long()             # [B,S]
+    flat = phys * ps + (positions % ps).long()
+    write_idx = torch.where(seq_mask & (raw_idx < maxp), flat,
+                            torch.zeros_like(flat)).reshape(B * S)
+    safe_pos = positions.clamp(max=cfg.max_seq_len - 1)
+    x = _embed(cfg, params, tokens.long(), safe_pos)
+    for i, lp in enumerate(_layers(params)):
+        x = _block_paged(cfg, lp, x, cache["k"][i], cache["v"][i], positions,
+                         write_idx, page_table, maxp * ps)
+    x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     return _head(cfg, params, x), cache
 
 

@@ -25,7 +25,11 @@ def _clean_env():
 def test_import_loads_no_jax_pydantic_or_reference():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.models, "
             "deepspeed_tpu_torch.inference, deepspeed_tpu_torch.models.convert, "
+            "deepspeed_tpu_torch.inference.serving, "
+            "deepspeed_tpu_torch.inference.execution, "
+            "deepspeed_tpu_torch.inference.prefix_cache, "
             "deepspeed_tpu_torch.ops.kernels.flash_attention, "
+            "deepspeed_tpu_torch.ops.kernels.decode_attention, "
             "deepspeed_tpu_torch.runtime.engine, deepspeed_tpu_torch.runtime.config, "
             "deepspeed_tpu_torch.runtime.optimizer, "
             "deepspeed_tpu_torch.runtime.lr_schedules, "
@@ -69,6 +73,7 @@ def test_entry_points_default_to_cuda_and_refuse_to_run_on_cpu():
             "                   ('init_cache', lambda: m.init_cache(1, 128)),\n"
             "                   ('init_inference',\n"
             "                    lambda: ds.init_inference(m, params=p)),\n"
+            "                   ('init_paged_cache', lambda: m.init_paged_cache(3, 8)),\n"
             "                   ('initialize',\n"
             "                    lambda: ds.initialize(model=m, params=p,\n"
             "                                          config={'train_batch_size': 1}))):\n"
@@ -82,9 +87,10 @@ def test_entry_points_default_to_cuda_and_refuse_to_run_on_cpu():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    for name in ("init_fn", "init_cache", "init_inference", "initialize"):
+    for name in ("init_fn", "init_cache", "init_inference", "init_paged_cache",
+                 "initialize"):
         assert f"{name} raised:" in res.stdout, res.stdout
-    assert res.stdout.count("torch.cuda.is_available() is False") == 4
+    assert res.stdout.count("torch.cuda.is_available() is False") == 5
 
 
 def test_cpu_accelerator_only_when_asked(monkeypatch):

@@ -154,6 +154,7 @@ def test_config_and_unported_paths():
         deepspeed_tpu_torch.init_inference("/some/hf/checkpoint", device="cpu")
     eng = deepspeed_tpu_torch.init_inference(model, params=params, device="cpu")
     assert eng.params["embed"].dtype == torch.bfloat16   # default dtype
-    for call in (eng.serving, eng.supervised_serving, eng.serving_fleet):
+    for call in (eng.supervised_serving, eng.serving_fleet,
+                 lambda: eng.serving(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

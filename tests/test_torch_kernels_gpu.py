@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(K1-K3 the flash-attention kernels, K4 the paged decode attention and its
+CUDA-graph capture in the serving engine).
 
 Marked ``gpu``: they skip on a host without a CUDA card.  This file imports
 no jax (the GPU machine has none), so it runs there on its own:
@@ -12,7 +14,10 @@ import json
 import pytest
 import torch
 
-from chip_smoke import AGREE_TOL, LSE_ATOL, agreement
+from chip_smoke import (AGREE_TOL, DECODE_CASES, DECODE_TOL, LSE_ATOL, _decode_case,
+                        agreement, decode_compare, decode_low_precision)
+from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+    decode_attention, decode_attention_reference)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
     flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
@@ -124,3 +129,79 @@ def test_flash_forward_refuses_what_it_cannot_run(cuda):
         flash_attention(x, x, x)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd_dkv(q, q, q, q, lse[:, :1], lse)
+
+
+# ---------------------------------------------------------------------------
+# K4, the paged decode attention, at chip_smoke.py's shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in DECODE_CASES])
+def test_decode_attention_matches_plain_version(cuda, case):
+    spec = next(c for c in DECODE_CASES if c[0] == case)
+    lengths = [17, 300, 2047, 1000, 0 if case == "len0" else 129, 64, 555, 1500]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, mask, table = _decode_case(g, spec, lengths)
+    with torch.inference_mode():
+        before = decode_attention.launches
+        out = decode_attention(q, k, v, mask, table)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        ref = decode_attention_reference(q, k, v, mask, table)
+        low = decode_low_precision(q, k, v, mask, table)
+    reading = decode_compare(out, ref, low, spec[2] // spec[3], DECODE_TOL[spec[5]])
+    print(json.dumps(reading))
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert reading["ok"] and reading["yardsticks_rejected"], reading
+
+
+def _hd64_engine(dtype):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    model = CausalLM("tiny", hidden_size=256, intermediate_size=512, num_heads=4,
+                     dtype=dtype)
+    params = model.init_fn(torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=dtype)
+    return deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": str(dtype).replace("torch.", "")}, params=params)
+
+
+@pytest.mark.gpu
+def test_decode_graph_replay_matches_eager_decode(cuda):
+    """The serving engine's decode step, captured once as a CUDA graph:
+    a replay gives the eager forward's logits on the same inputs, and the
+    served fp32 streams equal generate()."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import Request
+
+    eng = _hd64_engine(torch.float32)
+    sv = eng.serving(b_slots=3, page_size=16, max_model_len=128)
+    ex = sv._exec
+    assert ex.captures == 1 and ex.graph_k4_launches == eng.model.config.num_layers
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, input_ids=rng.integers(1, 250, n).astype(np.int32),
+                    max_new_tokens=12) for i, n in enumerate((5, 40, 17, 70))]
+    for r in reqs:
+        sv.submit(r)
+    for _ in range(3):
+        sv.step()
+    state = (sv._page_table.copy(), sv._lengths.copy(), sv._last_tok.copy(),
+             sv._active.copy())
+    with torch.no_grad():
+        eager = ex._decode_forward(*(torch.from_numpy(x).to("cuda") for x in (
+            state[0], state[1], state[2].astype(np.int64), state[3])))[:, -1].clone()
+        for buf, x in zip((ex._g_pt, ex._g_len, ex._g_tok, ex._g_active), state):
+            buf.copy_(torch.from_numpy(x.astype(np.int64) if x is state[2] else x))
+        ex._graph.replay()
+        replayed = ex._g_logits[:, -1].clone()
+    live = torch.from_numpy(state[3]).to("cuda")
+    torch.testing.assert_close(replayed[live], eager[live], rtol=0, atol=0)
+    results = sv.run([])
+    assert ex.captures == 1 and ex.replays > 0
+    for res in results:
+        req = reqs[res.rid]
+        base = eng.generate(req.input_ids[None], max_new_tokens=12)
+        np.testing.assert_array_equal(
+            res.output_ids, base[0, len(req.input_ids):].cpu().numpy())
+    assert sv.page_accounting()["balanced"]
