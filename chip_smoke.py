@@ -14,22 +14,33 @@ one JSON line each; any failure exits non-zero with no result line:
    dq backward, K3 the dk/dv backward, K4 the paged decode attention (at
    the serving stream's decode shape, GQA, hd 64, page 16, a contiguous
    cache, fp16, fp32, a slot at length 0 and a page shared by two slots);
-3. the training path: ``initialize`` -> ``train_batch`` on llama-740m at
+3. block-sparse attention (``SparseSelfAttention`` -> the ``block_mask``
+   mode of K1, K2, K3) at SPARSE_CASES: llama-740m's attention at S=16384
+   under the "fixed" layout (the main case), llama2-7b's width under
+   BigBird, GQA, hd 64, sub-tile mask blocks, fp16, a dense layout (must
+   equal the unmasked kernels) and a raw mask with dead rows (exact zeros,
+   lse -1e30).  Each forward + backward launches K1, K2 and K3 once; each
+   output is held against its plain version as in phase 2; times against
+   the same kernels unmasked, the plain versions, SDPA with the mask as a
+   bool attn_mask and the bound over the live pairs.  Then
+   ``DeepSpeedTransformerLayer`` (BERT-large width, pre-LN and post-LN,
+   bf16): bidirectional, so no kernel launches;
+4. the training path: ``initialize`` -> ``train_batch`` on llama-740m at
    full width and depth, S=16384, micro batch 1, bf16 over fp32 masters,
    AdamW (bf16 mu), full-layer remat; 2 warm and 5 timed steps on one
    batch from the seed.  Every step must launch K1 2L times (forward and
    remat recompute), K2 and K3 L times, and the loss must stay finite and
    fall;
-4. training parity at S=2048: 3 steps from the same weights and batch
+5. training parity at S=2048: 3 steps from the same weights and batch
    through the kernels and through the plain attention branch (which must
    launch none); losses and the gradient norm must agree, and both are
    held beside an fp32 engine;
-5. the serving path at full llama2-7b width and depth with random weights
+6. the serving path at full llama2-7b width and depth with random weights
    from the seed: ``init_inference`` -> ``engine.forward`` on S=4096 (K1
    must launch once per layer), the same tokens through the plain
    attention branch and through an fp32 engine (logit gates), then greedy
    ``generate`` on 4 ragged prompts, twice (must be token-equal);
-6. the paged serving path on the same engine: ``engine.serving(b_slots=8,
+7. the paged serving path on the same engine: ``engine.serving(b_slots=8,
    page_size=128, max_model_len=4096)`` -> ``run`` of 24 requests from the
    seed (mixed prompt lengths, 4 sharing a 600-token prefix, 4 sampled
    lanes), twice on fresh engines (token-equal).  Every decode tick
@@ -37,11 +48,12 @@ one JSON line each; any failure exits non-zero with no result line:
    page accounting balances; served greedy tokens agree with an fp32
    teacher-forced ``forward`` on decisive positions; sampled lanes equal
    ``generate(sampling=...)`` (gated in fp32, reported in bf16);
-7. with ``--profile`` only: ``torch.profiler`` device time by kernel for
+8. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
-8. the ``kernels`` line: per kernel its launches on its main path, error
-   against the plain version, times and the bound from this run's shapes.
+9. the ``kernels`` line: per kernel its launches on its main path, error
+   against the plain version, times and the bound from this run's shapes
+   (K1-K3 with a ``block_mask`` record from the sparse main case).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -188,6 +200,42 @@ DECODE_TOL = {
     torch.float32: {"tile_rel": 1e-5, "elem_rtol": 1e-4, "elem_atol_rms": 1e-4},
 }
 
+# Block-sparse attention (``SparseSelfAttention`` -> the masked K1, K2, K3):
+# (label, (B, S, Hq, Hkv, hd, dtype), (sparsity config, its arguments)).
+# The first is the main case: llama-740m's attention at bench.py's training
+# length under the GPT-3 "fixed" pattern; then llama2-7b's width under
+# BigBird (bidirectional), GQA with 64-blocks (below K1/K2's 128-row tile),
+# hd 64 with 32-blocks (below K3's tile too), fp16, a dense layout that must
+# equal the unmasked kernels, and a raw mask with dead block rows (layout
+# None: ``dead_rows_mask``).
+SPARSE_CASES = [
+    ("fixed_740m", (1, 16384, 14, 14, 128, torch.bfloat16),
+     ("FixedSparsityConfig", {"block": 128, "num_local_blocks": 4,
+                              "num_global_blocks": 1})),
+    ("bigbird_7b", (1, 4096, 32, 32, 128, torch.bfloat16),
+     ("BigBirdSparsityConfig", {"block": 128, "attention": "bidirectional"})),
+    ("longformer_gqa", (2, 2048, 32, 8, 128, torch.bfloat16),
+     ("BSLongformerSparsityConfig", {"block": 64, "num_sliding_window_blocks": 3})),
+    ("variable_hd64", (2, 2048, 12, 12, 64, torch.bfloat16),
+     ("VariableSparsityConfig", {"block": 32, "local_window_blocks": (2, 4),
+                                 "global_block_indices": (0,)})),
+    ("fixed_fp16", (1, 2048, 16, 16, 128, torch.float16),
+     ("FixedSparsityConfig", {"block": 128, "num_local_blocks": 4,
+                              "num_global_blocks": 1})),
+    ("dense_equiv", (1, 4096, 32, 32, 128, torch.bfloat16),
+     ("DenseSparsityConfig", {"block": 128})),
+    ("dead_rows", (1, 2048, 8, 8, 128, torch.bfloat16), None),
+]
+# The masked kernels must take at most this share of the same kernel's
+# unmasked time at the main case (27.4% of the causal pairs live): dead
+# tiles are neither loaded nor computed.
+SPARSE_MAX_TIME_RATIO = 0.7
+# DeepSpeedTransformerLayer at BERT-large width, bf16 activations
+LAYER_SHAPE = {"batch_size": 8, "seq": 512, "hidden_size": 1024, "heads": 16,
+               "intermediate_size": 4096, "num_hidden_layers": 24}
+# bf16 activations against the same layer in fp32: relative L2 of the output
+LAYER_REL_TOL = 5e-2
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -230,12 +278,15 @@ def _pairs(S: int, causal: bool) -> int:
     return S * (S + 1) // 2 if causal else S * S
 
 
-def attention_bound_ms(B, S, Hq, Hkv, hd, dtype, causal, kernel="fwd") -> tuple:
+def attention_bound_ms(B, S, Hq, Hkv, hd, dtype, causal, kernel="fwd",
+                       pairs=None) -> tuple:
     """Least time for the work these inputs need, at the dtype's peak or
-    the memory rate.  Products over the attended (query, key) pairs: the
-    forward does 2 (QK^T, PV), K2 3 (QK^T, dO V^T, dS K), K3 4 (the same
-    two scores, P^T dO, dS^T Q).  Bytes: each input read once, each output
-    written once (fp32 lse/delta rows [B, Hq, S])."""
+    the memory rate.  Products over the attended (query, key) pairs
+    (``pairs``: the live pairs of a block mask; by default every pair, or
+    the causal triangle): the forward does 2 (QK^T, PV), K2 3 (QK^T, dO
+    V^T, dS K), K3 4 (the same two scores, P^T dO, dS^T Q).  Bytes: each
+    input read once, each output written once (fp32 lse/delta rows [B, Hq,
+    S])."""
     esize = torch.tensor([], dtype=dtype).element_size()
     q_bytes, kv_bytes, row_bytes = (esize * B * S * Hq * hd, esize * B * S * Hkv * hd,
                                     4 * B * Hq * S)
@@ -244,7 +295,7 @@ def attention_bound_ms(B, S, Hq, Hkv, hd, dtype, causal, kernel="fwd") -> tuple:
         "dq": (3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),         # q,k,v,dO,lse,delta -> dq
         "dkv": (4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),        # ... -> dk,dv
     }[kernel]
-    flops = gemms * 2.0 * B * Hq * _pairs(S, causal) * hd
+    flops = gemms * 2.0 * B * Hq * (_pairs(S, causal) if pairs is None else pairs) * hd
     return _bound(flops, nbytes, dtype)
 
 
@@ -266,8 +317,9 @@ def _kernel_label(mangled: str) -> str:
     hd = re.search(r"Li(\d+)E", mangled)
     dtype = ("bf16" if "bfloat16" in mangled else "fp16" if "half" in mangled
              else "fp32")
+    causal, masked = (re.findall(r"Lb([01])E", mangled) + ["?", "?"])[:2]
     return (f"{name.group(1) if name else mangled[:60]}<{dtype},"
-            f"hd{hd.group(1) if hd else '?'},causal={int('Lb1E' in mangled)}>")
+            f"hd{hd.group(1) if hd else '?'},causal={causal},masked={masked}>")
 
 
 def ptxas_report(log: str) -> dict:
@@ -348,9 +400,13 @@ def _shape_dict(shape, slices):
     return d
 
 
-def agreement(got, ref, tol: dict, tile: int = 128) -> dict:
+def agreement(got, ref, tol: dict, tile: int = 128, dead=None) -> dict:
     """How far ``got`` [B, S, H, hd] is from the plain version ``ref``, and
-    whether that is within ``tol`` (an ``AGREE_TOL`` entry; key ``ok``)."""
+    whether that is within ``tol`` (an ``AGREE_TOL`` entry; key ``ok``).
+    ``dead`` (bool [S]): the rows a block mask leaves with nothing to attend
+    (or keys no live query sees); both tensors must be exactly zero there,
+    and tiles whose reference is all zero are left out of the worst tile's
+    ratio."""
     got, ref = got.float(), ref.float()
     diff = got - ref
     B, S, H, hd = ref.shape
@@ -359,33 +415,45 @@ def agreement(got, ref, tol: dict, tile: int = 128) -> dict:
         return x.reshape(B, S // tile, tile, H, hd).pow(2).sum((2, 4)).sqrt()
 
     rms = ref.pow(2).mean().sqrt().item()
-    tile_rel = (tile_norms(diff) / tile_norms(ref)).max().item()
+    ref_norms = tile_norms(ref)
+    live = ref_norms > 0
+    tile_rel = (tile_norms(diff)[live] / ref_norms[live]).max().item()
     # the smallest elem_atol_rms this pair passes at the dtype's elem_rtol
     atol_needed = ((diff.abs() - tol["elem_rtol"] * ref.abs()).clamp(min=0).max()
                    .item() / rms)
-    return {"max_abs_err": diff.abs().max().item(),
-            "max_abs_ref": ref.abs().max().item(), "rms_ref": rms,
-            "rel_l2": (diff.norm() / ref.norm()).item(),
-            "worst_tile_rel_l2": tile_rel, "elem_atol_rms_needed": atol_needed,
-            "ok": tile_rel <= tol["tile_rel"] and atol_needed <= tol["elem_atol_rms"]}
+    out = {"max_abs_err": diff.abs().max().item(),
+           "max_abs_ref": ref.abs().max().item(), "rms_ref": rms,
+           "rel_l2": (diff.norm() / ref.norm()).item(),
+           "worst_tile_rel_l2": tile_rel, "elem_atol_rms_needed": atol_needed,
+           "ok": tile_rel <= tol["tile_rel"] and atol_needed <= tol["elem_atol_rms"]}
+    if dead is not None:
+        exact = bool((got[:, dead] == 0).all() and (ref[:, dead] == 0).all())
+        out.update(dead_rows=int(dead.sum()), dead_rows_exact=exact,
+                   ok=out["ok"] and exact)
+    return out
 
 
-def plain_low_precision(q, k, v, causal, do=None, lse=None, delta=None):
+def plain_low_precision(q, k, v, causal, do=None, lse=None, delta=None,
+                        block_mask=None):
     """The yardstick the gates must reject: the plain formulas with the
     scores S (and dP) rounded to the input dtype after their products, as
     a kernel that kept them in half precision would (to bf16 for fp32
     inputs).  Returns out, or (dq, dk, dv) when given dO, lse and delta."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import attended
+
     B, S, Hq, hd = q.shape
     Hkv, scale = k.shape[2], 1.0 / math.sqrt(hd)
     kr, vr = (x.repeat_interleave(Hq // Hkv, dim=2) for x in (k, v))
     low = torch.bfloat16 if q.dtype == torch.float32 else q.dtype
     s = (torch.einsum("bqhd,bkhd->bhqk", q, kr) * scale).to(low)
-    if causal:
-        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    keep = attended(S, causal, block_mask, q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
     if do is None:
-        p = torch.softmax(s, dim=-1).to(q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", p, vr)
+        p = torch.softmax(s, dim=-1)
+        if block_mask is not None:      # dead rows: 0, not the softmax's NaN
+            p = p.masked_fill(~keep, 0.0)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), vr)
     p = torch.exp(s.float() - lse[..., None]).to(q.dtype)
     del s
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vr)
@@ -400,18 +468,21 @@ def plain_low_precision(q, k, v, causal, do=None, lse=None, delta=None):
             group_sum(torch.einsum("bhqk,bqhd->bkhd", p, do)))
 
 
-def compare(got, ref, low, tol: dict, tile: int = 128) -> dict:
+def compare(got, ref, low, tol: dict, tile: int = 128, dead=None) -> dict:
     """``agreement`` of the kernel's output, with the readings of two
     yardsticks beside it: the lower-precision version ``low``, and the
-    kernel's output with its last ``tile`` rows zeroed (a grid one CTA
+    kernel's output with its last live ``tile`` rows zeroed (a grid one CTA
     short: the longest causal rows for dq and out, the last keys for dk
     and dv, where the values are smallest)."""
+    B, S = ref.shape[:2]
+    live = ref.reshape(B, S // tile, -1).abs().amax(dim=(0, 2)) > 0
+    last = int(live.nonzero().max())
     broken = got.clone()
-    broken[:, -tile:] = 0
+    broken[:, last * tile:(last + 1) * tile] = 0
     keys = ("max_abs_err", "rel_l2", "worst_tile_rel_l2", "elem_atol_rms_needed")
-    out = agreement(got, ref, tol, tile)
+    out = agreement(got, ref, tol, tile, dead)
     for name, x in (("low_precision", low), ("last_tile_zeroed", broken)):
-        reading = agreement(x, ref, tol, tile)
+        reading = agreement(x, ref, tol, tile, dead)
         out[name] = {**{k: reading[k] for k in keys}, "rejected": not reading["ok"]}
     out["yardsticks_rejected"] = all(out[n]["rejected"] for n in
                                      ("low_precision", "last_tile_zeroed"))
@@ -734,6 +805,277 @@ def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
         else:
             raise RuntimeError("decode_attention ran an input it does not take")
     return records
+
+
+def dead_rows_mask(S: int):
+    """The raw block mask of the ``dead_rows`` case: 64-blocks, causal, half
+    the blocks below the diagonal live, the diagonal live except in block
+    rows 5 and 22 (whole dead rows, each half of a 128-row tile) and key
+    block 13 seen by no query."""
+    import numpy as np
+
+    n = S // 64
+    mask = np.tril(np.random.default_rng(7).random((n, n)) < 0.5)
+    np.fill_diagonal(mask, True)
+    mask[[5, 22]] = False
+    mask[:, 13] = False
+    return mask
+
+
+def _sparse_case(S: int, spec):
+    """(SparseSelfAttention or None, block mask, causal, block) of a case."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa_mod
+
+    if spec is None:
+        return None, dead_rows_mask(S), True, 64
+    name, kw = spec
+    cfg = getattr(sa_mod, name)(**kw)
+    sa = sa_mod.SparseSelfAttention(cfg, max_seq_length=S)
+    return sa, sa.layout(S), cfg.attention == "unidirectional", cfg.block
+
+
+def _sdpa_ms(q, k, v, do, keep):
+    """The library yardstick of the masked kernels:
+    ``scaled_dot_product_attention`` with the layout expanded to a bool
+    ``[S, S]`` attn_mask (forward, backward alone, forward + backward)."""
+    gqa = q.shape[2] != k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                              enable_gqa=gqa)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd)
+    out = fwd()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+    del out
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot))
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_bwd_ms": both_ms}
+
+
+def phase_sparse_attention(gen: torch.Generator):
+    """Block-sparse attention at SPARSE_CASES: per case, the main path
+    (``SparseSelfAttention`` forward + backward on tensors that require
+    grad, counts set to 0 just before and read just after: one K1, one K2
+    and one K3 launch), then the masked K1/K2/K3 against their plain
+    versions on the kernel's residuals, against the same kernels unmasked
+    (time, and the dense layout's outputs), against SDPA with the mask, and
+    the bound over the live pairs.  Returns {label: record}."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    records = {}
+    for label, (B, S, Hq, Hkv, hd, dtype), spec in SPARSE_CASES:
+        sa, mask, causal, block = _sparse_case(S, spec)
+        shape = (B, S, Hq, Hkv, hd, dtype, causal)
+        bm = fa._as_block_mask(mask, S)
+        scale = 1.0 / math.sqrt(hd)
+        q, k, v, do = _inputs(gen, shape, 4)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+        def masked_call(*x):
+            if sa is not None:
+                return sa(*x)
+            return fa.flash_attention(*x, causal=causal, block_q=block, block_k=block,
+                                      block_mask=mask)
+
+        # the main path of this slice: counts to 0 just before, read just after
+        reset_counts()
+        out = masked_call(qg, kg, vg)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        check(launches == (1, 1, 1), f"{label}: SparseSelfAttention forward + "
+                                     f"backward launched K1/K2/K3 {launches} times")
+        grads = (qg.grad, kg.grad, vg.grad)
+        out = out.detach()
+        del qg, kg, vg
+
+        tables = fa.live_tile_tables(bm, S, causal, q.device)
+        keep = fa.attended(S, causal, bm, q.device)
+        pairs = int(keep.sum())
+        # query rows with no live key, keys no live query sees
+        dead_q, dead_k = ~keep.any(-1), ~keep.any(0)
+        slices = _slices(shape)
+        tol_f, tol_b = AGREE_TOL["fwd"][dtype], AGREE_TOL["bwd"][dtype]
+        with torch.inference_mode():
+            # the masked kernels on the main path's residuals: the forward's
+            # internal entry gives lse
+            out_k, lse = fa._forward(q, k, v, causal, scale, bm)
+            delta = (do.float() * out_k.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, causal, scale, bm)
+            dq = fa.flash_attention_bwd_dq(*args)
+            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            same_as_autograd = all(torch.equal(a, b) for a, b in
+                                   zip((out, *grads), (out_k, dq, dk, dv)))
+            check(same_as_autograd, f"{label}: the autograd path and the direct "
+                                    "kernel calls differ on the same inputs")
+            parts = _parts(slices, q, k, v, do, lse, delta)
+            p0 = parts[0]
+            if slices is not None:
+                lo, hi = slices[0]
+                out_k, dq, dk, dv = (_heads(x, lo, hi) for x in (out_k, dq, dk, dv))
+                lse_k = _heads(lse, lo, hi, dim=1)
+            else:
+                lse_k = lse
+            ref, ref_lse = fa.flash_attention_reference(*p0[:3], causal, scale, True, bm)
+            agree = {"out": compare(out_k, ref, plain_low_precision(
+                *p0[:3], causal, block_mask=bm), tol_f, dead=dead_q)}
+            lse_err = (lse_k - ref_lse).abs().max().item()
+            dead_lse = bool((lse_k[:, :, dead_q] == -1e30).all())
+            del ref, ref_lse
+            low = plain_low_precision(*p0[:3], causal, *p0[3:], block_mask=bm)
+            agree["dq"] = compare(dq, fa.flash_attention_bwd_dq_reference(
+                *p0, causal, scale, bm), low[0], tol_b, dead=dead_q)
+            rk, rv = fa.flash_attention_bwd_dkv_reference(*p0, causal, scale, bm)
+            agree["dk"] = compare(dk, rk, low[1], tol_b, dead=dead_k)
+            agree["dv"] = compare(dv, rv, low[2], tol_b, dead=dead_k)
+            del rk, rv, low, out_k, dq, dk, dv
+            free_memory()
+
+            # the same kernels unmasked at the same shape and causality
+            out_u, lse_u = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+            delta_u = (do.float() * out_u.float()).sum(-1).transpose(1, 2).contiguous()
+            args_u = (q, k, v, do, lse_u, delta_u, causal, scale)
+            if label == "dense_equiv":
+                # a dense layout runs the masked kernels over every causal
+                # tile: the unmasked kernels' results, within the same limits
+                dense = {}
+                for name, got, want, tol in (
+                        ("out", out, out_u, tol_f),
+                        ("dq", grads[0], fa.flash_attention_bwd_dq(*args_u), tol_b),
+                        *zip(("dk", "dv"), grads[1:],
+                             fa.flash_attention_bwd_dkv(*args_u), (tol_b, tol_b))):
+                    dense[name] = {**agreement(got, want, tol),
+                                   "bit_equal": torch.equal(got, want)}
+                check(all(r["ok"] for r in dense.values()),
+                      f"dense_equiv: the masked kernels differ from the unmasked "
+                      f"ones: {dense}")
+            ms = {
+                "K1": time_ms(lambda: masked_call(q, k, v)),
+                "K2": time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+                "K3": time_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
+            }
+            unmasked_ms = {
+                "K1": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
+                "K2": time_ms(lambda: fa.flash_attention_bwd_dq(*args_u)),
+                "K3": time_ms(lambda: fa.flash_attention_bwd_dkv(*args_u)),
+            }
+            reps, warm = (20, 3) if slices is None else (5, 1)
+            plain_ms = {
+                "K1": time_ms(lambda: [fa.flash_attention_reference(
+                    *p[:3], causal, scale, False, bm) for p in parts], reps, warm),
+                "K2": time_ms(lambda: [fa.flash_attention_bwd_dq_reference(
+                    *p, causal, scale, bm) for p in parts], reps, warm),
+                "K3": time_ms(lambda: [fa.flash_attention_bwd_dkv_reference(
+                    *p, causal, scale, bm) for p in parts], reps, warm),
+            }
+            del parts, out_u, lse_u, delta_u, args_u
+        free_memory()
+        sdpa = _sdpa_ms(q, k, v, do, keep)
+        library = {"K1": sdpa["fwd_ms"], "K2": sdpa["bwd_ms"], "K3": sdpa["bwd_ms"]}
+        kernels = {}
+        for name, kernel, outs in (("K1", "fwd", ("out",)), ("K2", "dq", ("dq",)),
+                                   ("K3", "dkv", ("dk", "dv"))):
+            bound, bound_by = attention_bound_ms(*shape, kernel=kernel, pairs=pairs)
+            unmasked_bound, _ = attention_bound_ms(*shape, kernel=kernel)
+            kernels[name] = {
+                "launches": launches[("K1", "K2", "K3").index(name)],
+                "max_abs_err": max(agree[o]["max_abs_err"] for o in outs),
+                "ms": ms[name], "unmasked_ms": unmasked_ms[name],
+                "ratio_to_unmasked": ms[name] / unmasked_ms[name],
+                "plain_ms": plain_ms[name], "library_ms": library[name],
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_share": bound / ms[name],
+                "unmasked_bound_ms": unmasked_bound}
+        rec = {"phase": "sparse_attention", "case": label,
+               "shape": _shape_dict(shape, slices), "block": block,
+               "layout": spec[0] if spec else "raw block_mask (dead_rows_mask)",
+               "layout_args": spec[1] if spec else None,
+               "block_density": float(mask.mean()), "live_pairs": pairs,
+               "live_share_of_unmasked_pairs": pairs / _pairs(S, causal),
+               "tiles": {n: {"visited": int(t.idx.numel()),
+                             "partly_live_share": t.partial_share()}
+                         for n, t in tables.items() if n != "f32"},
+               "launches": dict(zip(("K1", "K2", "K3"), launches)),
+               "autograd_equals_direct_calls": same_as_autograd,
+               "kernels": kernels, "agreement": agree, "tol": {"fwd": tol_f, "bwd": tol_b},
+               "lse_max_abs_err": lse_err, "dead_rows_lse_neg_inf": dead_lse,
+               "dead_query_rows": int(dead_q.sum()), "dead_key_rows": int(dead_k.sum()),
+               "sdpa_with_mask": {**sdpa, "what": "scaled_dot_product_attention, "
+                                  "bool [S, S] attn_mask of the attended pairs"}}
+        if label == "dense_equiv":
+            rec["equals_unmasked_kernels"] = dense
+        emit(rec)
+        for o, a in agree.items():
+            check(a["ok"], f"{label}: masked {o} disagrees with its plain version: {a}")
+            check(a["yardsticks_rejected"],
+                  f"{label}: the {o} gate passed a yardstick: {a}")
+        check(lse_err <= LSE_ATOL and dead_lse,
+              f"{label}: lse err {lse_err}, dead rows NEG_INF {dead_lse}")
+        if label == "dead_rows":
+            check(rec["dead_query_rows"] >= 128 and rec["dead_key_rows"] >= 64,
+                  f"dead_rows: the case has no dead rows to check: {rec}")
+        if label == SPARSE_CASES[0][0]:
+            check(all(r["ratio_to_unmasked"] <= SPARSE_MAX_TIME_RATIO
+                      for r in kernels.values()),
+                  f"{label}: a masked kernel takes more than {SPARSE_MAX_TIME_RATIO}"
+                  f" of its unmasked time: {kernels}")
+        records[label] = rec
+        del q, k, v, do, grads, out, keep, dead_q, dead_k, args, lse, delta
+        free_memory()
+    return records
+
+
+def phase_transformer_layer(seed: int):
+    """``DeepSpeedTransformerLayer`` at BERT-large width, pre-LN and post-LN,
+    in bf16 (``fp16=True`` selects bf16 activations, the parameters are cast
+    to bf16): bidirectional, so its attention takes the plain branch and
+    launches no kernel; the output is finite and close to the same layer in
+    fp32 on the fp32 parameters."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
+                                                      DeepSpeedTransformerLayer)
+
+    shape = dict(LAYER_SHAPE)
+    B, S = shape.pop("batch_size"), shape.pop("seq")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    x = torch.randn((B, S, shape["hidden_size"]), generator=gen, device="cuda")
+    for pre_ln in (True, False):
+        layers = {fp16: DeepSpeedTransformerLayer(DeepSpeedTransformerConfig(
+            batch_size=B, fp16=fp16, pre_layer_norm=pre_ln, training=False, **shape))
+            for fp16 in (True, False)}
+        params = layers[False].init(torch.Generator(device="cuda").manual_seed(seed))
+        low = {key: p.to(torch.bfloat16) for key, p in params.items()}
+        before = flash_attention.launches
+        with torch.inference_mode():
+            out = layers[True].apply(low, x)
+            ms = time_ms(lambda: layers[True].apply(low, x), reps=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layers[True].apply(low, x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            ref = layers[False].apply(params, x)
+        torch.cuda.synchronize()
+        k1 = flash_attention.launches - before
+        rel = ((out.float() - ref).norm() / ref.norm()).item()
+        rec = {"phase": "transformer_layer", "pre_layer_norm": pre_ln, "B": B, "S": S,
+               **shape, "dtype": str(out.dtype).replace("torch.", ""), "ms": ms,
+               "wall_ms": wall_ms,
+               "tokens_per_s": B * S / ms * 1e3, "k1_launches": k1,
+               "finite": bool(torch.isfinite(out).all()),
+               "rel_l2_vs_fp32": rel, "rel_tol": LAYER_REL_TOL}
+        emit(rec)
+        check(tuple(out.shape) == tuple(x.shape) and rec["finite"],
+              f"transformer layer output: {rec}")
+        check(k1 == 0, f"the bidirectional layer launched K1 {k1} times")
+        check(rel <= LAYER_REL_TOL, f"bf16 layer strays from fp32: {rec}")
+        del layers, params, low, out, ref
+    free_memory()
 
 
 def kernel_counts() -> tuple:
@@ -1343,6 +1685,8 @@ def main() -> int:
     fwd = phase_fwd_kernel(gen)
     bwd = phase_bwd_kernels(gen)
     dec = phase_decode_kernel(gen, args.seed)
+    sparse = phase_sparse_attention(gen)
+    phase_transformer_layer(args.seed)
     k1, (k2, k3) = fwd[TRAIN_SHAPE], bwd[TRAIN_SHAPE]
     train_launches = phase_train(args.seed, args.profile,
                                  {"fwd": k1["ms"], "dq": k2["ms"], "dkv": k3["ms"]})
@@ -1351,15 +1695,27 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     src = "deepspeed_tpu_torch/ops/csrc/"
     jax_src = "deepspeed_tpu/ops/pallas/flash_attention.py"
+    main_case = sparse[SPARSE_CASES[0][0]]
+
+    def block_mask(name, replaces):
+        rec = main_case["kernels"][name]
+        return {"case": main_case["case"], "replaces": jax_src + replaces,
+                **{key: rec[key] for key in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "unmasked_ms", "ratio_to_unmasked")}}
+
     emit({"kernels": [
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",
                       jax_src + ":74", train_launches[0], k1,
                       launches_serving_forward=serve_launches,
-                      serving_shape_ms=fwd[SERVE_SHAPE]["ms"]),
+                      serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
+                      block_mask=block_mask("K1", ":88")),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
-                      jax_src + ":189", train_launches[1], k2),
+                      jax_src + ":189", train_launches[1], k2,
+                      block_mask=block_mask("K2", ":202")),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
-                      jax_src + ":236", train_launches[2], k3),
+                      jax_src + ":236", train_launches[2], k3,
+                      block_mask=block_mask("K3", ":254")),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], launches_per_decode_tick=k4_launches["per_tick"],

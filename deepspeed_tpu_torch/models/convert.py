@@ -32,6 +32,23 @@ def params_from_jax(np_tree: Dict[str, Any], device="cuda",
     return conv(np_tree)
 
 
+LAYER_KEYS = ("attn_norm_scale", "attn_norm_bias", "mlp_norm_scale",
+              "mlp_norm_bias", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
+              "w_in", "b_in", "w_down", "b_down")
+
+
+def layer_params_from_jax(np_params: Dict[str, Any], device="cuda",
+                          dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """One ``DeepSpeedTransformerLayer``'s parameters: the JAX layer's flat
+    dict (``init``, as numpy; no ``[L]`` dim) -> the port's flat dict of
+    tensors on ``device``, for ``ops.transformer.DeepSpeedTransformerLayer.
+    apply``.  A missing key raises."""
+    missing = [key for key in LAYER_KEYS if key not in np_params]
+    if missing:
+        raise KeyError(f"not a transformer layer's parameters: missing {missing}")
+    return params_from_jax(dict(np_params), device=device, dtype=dtype)
+
+
 def pool_from_jax(np_cache: Dict[str, Any], device="cuda",
                   dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """A JAX paged cache (``init_paged_cache``/``forward_paged``: ``k``/``v``

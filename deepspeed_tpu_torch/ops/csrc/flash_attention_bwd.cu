@@ -41,6 +41,20 @@
 // A warp skips a tile that lies wholly above the diagonal for its rows;
 // heavy causal tiles are scheduled first.
 //
+// Masked mode (`block_mask`, the block-sparse path; the Pallas kernels'
+// `masked` skips at :202-207 and :254-259).  Each loop walks only the live
+// tiles of its CTA, from the wrapper's table (flash_common.cuh TileTable) at
+// the kernel's own tiling: K2 the live 64-key tiles of its 128-row query
+// tile (the same table as K1), K3 the live 32-row query tiles of its 128-key
+// tile, times the G query heads of the group.  Dead tiles cost neither
+// cp.async loads nor math.  Tiles that a mask block edge cuts carry their
+// live 8x8 groups bit by bit: a warp with no live group skips the tile, and
+// partly live tiles set p = 0 element by element.  p of a masked pair is 0
+// explicitly, never exp(s - lse): a row with no live key has lse = NEG_INF,
+// where that would be 1.  A CTA whose list is empty writes zeros (dq of a
+// dead row, dk/dv of keys no live query sees).  CTAs take the tiles with the
+// longest lists first.
+//
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s) at the training
 // shape (B=1, S=16384, 14 heads of 128, causal): K2 does 3 products over
 // the S(S+1)/2 attended pairs, 1.44 TFLOP -> 1.46 ms; K3 does 4, 1.92 TFLOP
@@ -59,13 +73,13 @@ constexpr int DQ_BLOCK_N = 64;     // K2: keys per K/V tile
 constexpr int DKV_BLOCK_N = 128;   // K3: keys per CTA (8 warps x 16)
 constexpr int DKV_BLOCK_M = 32;    // K3: query rows per tile
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(NUM_THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int S, int Hq, int Hkv, float scale,
-                    float scale_log2) {
+                    T* __restrict__ dq, TileTable tt, int S, int Hq, int Hkv,
+                    float scale, float scale_log2) {
   constexpr int LD = HD + 8;   // padded shared-memory row, in elements
   constexpr int KV_TILE = DQ_BLOCK_N * LD;
   constexpr int SZ = (int)sizeof(T);
@@ -75,7 +89,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Ks = dOs + DQ_BLOCK_M * LD;     // two stages
   T* Vs = Ks + 2 * KV_TILE;          // two stages
 
-  const int qi = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
+  // heavy tiles first: the longest live lists, or the late causal rows
+  const int qi = MASKED ? tt.order[blockIdx.x] : gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -90,12 +105,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (int64_t)b * S * kv_stride + (int64_t)hk * HD;
   const T* vb = v + (int64_t)b * S * kv_stride + (int64_t)hk * HD;
 
-  const int n_tiles = CAUSAL ? (q0 + DQ_BLOCK_M) / DQ_BLOCK_N : S / DQ_BLOCK_N;
-  cp_tile<T, HD, LD, DQ_BLOCK_M, NUM_THREADS>(Qs, q + q_off, q_stride);
-  cp_tile<T, HD, LD, DQ_BLOCK_M, NUM_THREADS>(dOs, dout + q_off, q_stride);
-  cp_tile<T, HD, LD, DQ_BLOCK_N, NUM_THREADS>(Ks, kb, kv_stride);
-  cp_tile<T, HD, LD, DQ_BLOCK_N, NUM_THREADS>(Vs, vb, kv_stride);
-  cp_async_commit();
+  // the key tiles visited: up to the diagonal when causal, or this query
+  // tile's live list in the masked mode
+  const int e0 = MASKED ? tt.off[qi] : 0;
+  const int n_tiles = MASKED ? tt.off[qi + 1] - e0
+                             : (CAUSAL ? (q0 + DQ_BLOCK_M) / DQ_BLOCK_N : S / DQ_BLOCK_N);
+  auto key0 = [&](int j) { return (MASKED ? tt.idx[e0 + j] : j) * DQ_BLOCK_N; };
+  if (n_tiles > 0) {
+    const int64_t first = (int64_t)key0(0) * kv_stride;
+    cp_tile<T, HD, LD, DQ_BLOCK_M, NUM_THREADS>(Qs, q + q_off, q_stride);
+    cp_tile<T, HD, LD, DQ_BLOCK_M, NUM_THREADS>(dOs, dout + q_off, q_stride);
+    cp_tile<T, HD, LD, DQ_BLOCK_N, NUM_THREADS>(Ks, kb + first, kv_stride);
+    cp_tile<T, HD, LD, DQ_BLOCK_N, NUM_THREADS>(Vs, vb + first, kv_stride);
+    cp_async_commit();
+  }
 
   // this thread's rows (wr + g) and (wr + g + 8): lse (log2 domain), delta
   const int64_t row_off = ((int64_t)b * Hq + h) * S + q0 + wr + g;
@@ -115,7 +138,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kj = 0; kj < n_tiles; ++kj) {
     const int stage = kj & 1;
     if (kj + 1 < n_tiles) {   // prefetch the next tile into the other stage
-      const int64_t next = (int64_t)(kj + 1) * DQ_BLOCK_N * kv_stride;
+      const int64_t next = (int64_t)key0(kj + 1) * kv_stride;
       cp_tile<T, HD, LD, DQ_BLOCK_N, NUM_THREADS>(Ks + (stage ^ 1) * KV_TILE,
                                                   kb + next, kv_stride);
       cp_tile<T, HD, LD, DQ_BLOCK_N, NUM_THREADS>(Vs + (stage ^ 1) * KV_TILE,
@@ -127,8 +150,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    const int k0 = kj * DQ_BLOCK_N;
-    if (!(CAUSAL && k0 > q0 + wr + 15)) {
+    const int k0 = key0(kj);
+    // this warp's live 8x8 groups of the tile: bit r * 8 + n-tile
+    uint32_t live = 0xFFFF;
+    if (MASKED) live = (tt.bits[(e0 + kj) * 4 + (warp >> 1)] >> ((warp & 1) * 16)) & 0xFFFF;
+    if (live != 0 && !(CAUSAL && k0 > q0 + wr + 15)) {
       const T* Kst = Ks + stage * KV_TILE;
       const T* Vst = Vs + stage * KV_TILE;
       const uint32_t kn_base = smem_addr(Kst + n_lane);   // K as B of Q K^T
@@ -158,8 +184,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // p = exp(s * scale - lse), 0 above the diagonal; ds into s
+      // p = exp(s * scale - lse), 0 above the diagonal and in the dead
+      // groups of a partly live tile; ds into s
       const bool diag = CAUSAL && k0 + DQ_BLOCK_N - 1 > q0 + wr;
+      const bool part = MASKED && live != 0xFFFF;
 #pragma unroll
       for (int nt = 0; nt < DQ_BLOCK_N / 8; ++nt) {
 #pragma unroll
@@ -170,6 +198,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
             if (row < col) p = 0.f;
           }
+          if (part && !((live >> ((e >> 1) * 8 + nt)) & 1)) p = 0.f;
           s[nt][e] = p * (dp[nt][e] - dlt[e >> 1]) * scale;
         }
       }
@@ -201,13 +230,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(NUM_THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int S, int Hq,
-                     int Hkv, float scale, float scale_log2) {
+                     T* __restrict__ dk, T* __restrict__ dv, TileTable tt, int S,
+                     int Hq, int Hkv, float scale, float scale_log2) {
   constexpr int LD = HD + 8;
   constexpr int Q_TILE = DKV_BLOCK_M * LD;
   constexpr int SZ = (int)sizeof(T);
@@ -219,7 +248,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Qs = Vs + DKV_BLOCK_N * LD;                         // two stages
   T* dOs = Qs + 2 * Q_TILE;                              // two stages
 
-  const int kt = blockIdx.x;   // causal: tile 0 sees the most queries
+  // causal: tile 0 sees the most queries; masked: the longest lists first
+  const int kt = MASKED ? tt.order[blockIdx.x] : blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -232,15 +262,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_stride = (int64_t)Hkv * HD;
   const int64_t kv_off = ((int64_t)b * S + k0) * kv_stride + (int64_t)hk * HD;
 
-  // query tiles per head: from the diagonal on when causal
+  // query tiles per head: from the diagonal on when causal, or this key
+  // tile's live list in the masked mode
+  const int e0 = MASKED ? tt.off[kt] : 0;
   const int qt0 = CAUSAL ? k0 / DKV_BLOCK_M : 0;
-  const int nq = S / DKV_BLOCK_M - qt0;
+  const int nq = MASKED ? tt.off[kt + 1] - e0 : S / DKV_BLOCK_M - qt0;
   const int n_iters = G * nq;
+  auto query0 = [&](int i) {   // first query of the i-th visited tile of a head
+    return (MASKED ? tt.idx[e0 + i] : qt0 + i) * DKV_BLOCK_M;
+  };
 
-  // tile j: q head hk * G + j / nq, query tile qt0 + j % nq
+  // tile j: q head hk * G + j / nq, visited query tile j % nq
   auto load_q_tile = [&](int j, int stage) {
     const int h = hk * G + j / nq;
-    const int qs = (qt0 + j % nq) * DKV_BLOCK_M;
+    const int qs = query0(j % nq);
     const int64_t off = ((int64_t)b * S + qs) * q_stride + (int64_t)h * HD;
     cp_tile<T, HD, LD, DKV_BLOCK_M, NUM_THREADS>(Qs + stage * Q_TILE, q + off, q_stride);
     cp_tile<T, HD, LD, DKV_BLOCK_M, NUM_THREADS>(dOs + stage * Q_TILE, dout + off,
@@ -254,10 +289,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  delta + row + (threadIdx.x - CH) * 4);
   };
 
-  cp_tile<T, HD, LD, DKV_BLOCK_N, NUM_THREADS>(Ks, k + kv_off, kv_stride);
-  cp_tile<T, HD, LD, DKV_BLOCK_N, NUM_THREADS>(Vs, v + kv_off, kv_stride);
-  load_q_tile(0, 0);
-  cp_async_commit();
+  if (n_iters > 0) {
+    cp_tile<T, HD, LD, DKV_BLOCK_N, NUM_THREADS>(Ks, k + kv_off, kv_stride);
+    cp_tile<T, HD, LD, DKV_BLOCK_N, NUM_THREADS>(Vs, v + kv_off, kv_stride);
+    load_q_tile(0, 0);
+    cp_async_commit();
+  }
 
   const uint32_t ka_base = smem_addr(Ks + a_lane(wr, lane, LD));   // A = K rows
   const uint32_t va_base = smem_addr(Vs + a_lane(wr, lane, LD));   // A = V rows
@@ -282,9 +319,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    const int q0 = (qt0 + j % nq) * DKV_BLOCK_M;
-    // a tile wholly above the diagonal for this warp's keys adds nothing
-    if (!(CAUSAL && q0 + DKV_BLOCK_M - 1 < k0 + wr)) {
+    const int q0 = query0(j % nq);
+    // this warp's live 8x8 groups of the tile: bit r * 4 + n-tile for its
+    // keys wr + 8r .. wr + 8r + 7
+    uint32_t live = 0xFF;
+    if (MASKED) live = (tt.bits[(e0 + j % nq) * 2 + (warp >> 2)] >> ((warp & 3) * 8)) & 0xFF;
+    // a tile wholly above the diagonal for this warp's keys, or dead for
+    // them, adds nothing
+    if (live != 0 && !(CAUSAL && q0 + DKV_BLOCK_M - 1 < k0 + wr)) {
       const T* Qst = Qs + stage * Q_TILE;
       const T* dOst = dOs + stage * Q_TILE;
       const float* lse_t = lse_s + stage * DKV_BLOCK_M;
@@ -319,6 +361,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // p^T into s, ds^T into dp (columns are queries)
       const bool diag = CAUSAL && q0 < k0 + wr + 15;
+      const bool part = MASKED && live != 0xFF;
 #pragma unroll
       for (int nt = 0; nt < DKV_BLOCK_M / 8; ++nt) {
 #pragma unroll
@@ -326,6 +369,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int col = nt * 8 + t4 * 2 + (e & 1);
           float p = exp2f(s[nt][e] * scale_log2 - lse_t[col] * LOG2E);
           if (diag && q0 + col < key_lo + (e >= 2 ? 8 : 0)) p = 0.f;
+          if (part && !((live >> ((e >> 1) * 4 + nt)) & 1)) p = 0.f;
           s[nt][e] = p;
           dp[nt][e] = p * (dp[nt][e] - dlt_t[col]) * scale;
         }
@@ -369,14 +413,15 @@ struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
+  TileTable tt;
   int B, S, Hq, Hkv;
   float scale;
 };
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool MASKED>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   const int smem = (2 * DQ_BLOCK_M + 4 * DQ_BLOCK_N) * (HD + 8) * (int)sizeof(T);
-  auto kern = flash_bwd_dq_kernel<T, HD, CAUSAL>;
+  auto kern = flash_bwd_dq_kernel<T, HD, CAUSAL, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -384,15 +429,15 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   kern<<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.dq), a.S, a.Hq, a.Hkv, a.scale, a.scale * LOG2E);
+      static_cast<T*>(a.dq), a.tt, a.S, a.Hq, a.Hkv, a.scale, a.scale * LOG2E);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool MASKED>
 cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   const int smem = 4 * DKV_BLOCK_M * (int)sizeof(float) +
                    (2 * DKV_BLOCK_N + 4 * DKV_BLOCK_M) * (HD + 8) * (int)sizeof(T);
-  auto kern = flash_bwd_dkv_kernel<T, HD, CAUSAL>;
+  auto kern = flash_bwd_dkv_kernel<T, HD, CAUSAL, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -400,36 +445,42 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   kern<<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S, a.Hq, a.Hkv, a.scale,
-      a.scale * LOG2E);
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tt, a.S, a.Hq, a.Hkv,
+      a.scale, a.scale * LOG2E);
   return cudaGetLastError();
 }
 
 // which: 0 = K2 (dq), 1 = K3 (dk, dv)
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool MASKED>
 cudaError_t launch(int which, const BwdArgs& a, cudaStream_t stream) {
-  return which == 0 ? launch_dq<T, HD, CAUSAL>(a, stream)
-                    : launch_dkv<T, HD, CAUSAL>(a, stream);
+  return which == 0 ? launch_dq<T, HD, CAUSAL, MASKED>(a, stream)
+                    : launch_dkv<T, HD, CAUSAL, MASKED>(a, stream);
+}
+
+template <typename T, int HD>
+cudaError_t dispatch_mode(int which, int causal, const BwdArgs& a, cudaStream_t stream) {
+  const bool masked = a.tt.off != nullptr;
+  if (causal)
+    return masked ? launch<T, HD, true, true>(which, a, stream)
+                  : launch<T, HD, true, false>(which, a, stream);
+  return masked ? launch<T, HD, false, true>(which, a, stream)
+                : launch<T, HD, false, false>(which, a, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_shape(int which, int hd, int causal, const BwdArgs& a,
                            cudaStream_t stream) {
-  if (hd == 64)
-    return causal ? launch<T, 64, true>(which, a, stream)
-                  : launch<T, 64, false>(which, a, stream);
-  if (hd == 128)
-    return causal ? launch<T, 128, true>(which, a, stream)
-                  : launch<T, 128, false>(which, a, stream);
+  if (hd == 64) return dispatch_mode<T, 64>(which, causal, a, stream);
+  if (hd == 128) return dispatch_mode<T, 128>(which, causal, a, stream);
   return cudaErrorInvalidValue;
 }
 
 int run(int which, const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dq, void* dk, void* dv,
-        int B, int S, int Hq, int Hkv, int hd, int dtype, int causal,
+        TileTable tt, int B, int S, int Hq, int Hkv, int hd, int dtype, int causal,
         float sm_scale, void* stream) {
   if (S % DKV_BLOCK_N != 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq, Hkv, sm_scale};
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, tt, B, S, Hq, Hkv, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1: return dispatch_shape<__half>(which, hd, causal, a, st);
@@ -442,25 +493,33 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
 
 extern "C" {
 
-// dtype: 1 = float16, 2 = bfloat16.  Each returns the cudaError_t of its
-// launch (0 on success).  The Python wrapper has checked shapes, dtypes,
-// contiguity and S % 128 == 0 before calling.
+// dtype: 1 = float16, 2 = bfloat16.  off/idx/bits/order: the live-tile
+// table of the masked mode (K2: 128-row query tiles x 64-key tiles, as K1;
+// K3: 128-key tiles x 32-row query tiles), all null when unmasked.  Each
+// returns the cudaError_t of its launch (0 on success).  The Python wrapper
+// has checked shapes, dtypes, contiguity and S % 128 == 0 before calling.
 int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
-                              const float* delta, void* dq, int B, int S, int Hq,
-                              int Hkv, int hd, int dtype, int causal,
-                              float sm_scale, void* stream) {
-  return run(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, S, Hq, Hkv,
-             hd, dtype, causal, sm_scale, stream);
+                              const float* delta, void* dq, const int* off,
+                              const int* idx, const uint32_t* bits,
+                              const int* order, int B, int S, int Hq, int Hkv,
+                              int hd, int dtype, int causal, float sm_scale,
+                              void* stream) {
+  return run(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+             TileTable{off, idx, bits, order}, B, S, Hq, Hkv, hd, dtype, causal,
+             sm_scale, stream);
 }
 
 int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
-                               const float* delta, void* dk, void* dv, int B,
+                               const float* delta, void* dk, void* dv,
+                               const int* off, const int* idx,
+                               const uint32_t* bits, const int* order, int B,
                                int S, int Hq, int Hkv, int hd, int dtype,
                                int causal, float sm_scale, void* stream) {
-  return run(1, q, k, v, dout, lse, delta, nullptr, dk, dv, B, S, Hq, Hkv, hd,
-             dtype, causal, sm_scale, stream);
+  return run(1, q, k, v, dout, lse, delta, nullptr, dk, dv,
+             TileTable{off, idx, bits, order}, B, S, Hq, Hkv, hd, dtype, causal,
+             sm_scale, stream);
 }
 
 const char* ds_cuda_error_string(int err) {

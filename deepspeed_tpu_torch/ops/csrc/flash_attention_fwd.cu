@@ -27,6 +27,20 @@
 // index) are scheduled first to shorten the tail.  fp32 inputs take a
 // separate CUDA-core (FMA) kernel: the JAX kernel accepts any float dtype.
 //
+// Masked mode (`block_mask`, the block-sparse path; the Pallas kernel's
+// `masked` skip at :88-93).  The Pallas kernel still streams every dead
+// block's K/V through its pipeline; here the loop itself walks only the live
+// key tiles of this query tile, from the wrapper's table (flash_common.cuh
+// TileTable), so dead tiles cost neither loads nor math.  The table's tiles
+// are the kernel's own (128 x 64, fp32 64 x 64), whatever the mask's block:
+// a tile that a mask block edge cuts is "partly live", its live 8x8 groups
+// marked bit by bit; a warp whose rows have no live group skips it, and only
+// partly live tiles test elements.  A dead element's score is -inf, so its
+// p is 0 even in a row that has seen no live key (m = NEG_INF there, where
+// exp(NEG_INF - m) would be 1), and a row with no live key at all writes
+// out 0 and lse = NEG_INF, as the Pallas kernel's l == 0 guard does.  CTAs
+// take the query tiles with the longest lists first.
+//
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the causal main
 // path launch (B=1, S=4096, 32 heads of 128) does 2 * 2 * S(S+1)/2 * hd * H
 // = 137 GFLOP of tensor-core work -> 0.139 ms, against 134 MB of q/k/v/out
@@ -47,11 +61,11 @@ constexpr int NUM_THREADS = 256;    // 8 warps x 16 query rows
 constexpr int F32_BLOCK = 64;       // query rows per CTA == keys per tile
 constexpr int F32_THREADS = 128;    // two threads per query row
 
-template <typename T, int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(NUM_THREADS, 2)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int Hq, int Hkv,
+                     float* __restrict__ lse, TileTable tt, int S, int Hq, int Hkv,
                      float scale_log2) {
   constexpr int LD = HD + 8;   // padded shared-memory row, in elements
   constexpr int KV_TILE = BLOCK_N * LD;
@@ -60,7 +74,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Ks = Qs + BLOCK_M * LD;         // two stages
   T* Vs = Ks + 2 * KV_TILE;          // two stages
 
-  const int qi = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
+  // heavy tiles first: the longest live lists, or the late causal rows
+  const int qi = MASKED ? tt.order[blockIdx.x] : gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -75,11 +90,19 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (int64_t)b * S * kv_stride + (int64_t)hk * HD;
   const T* vb = v + (int64_t)b * S * kv_stride + (int64_t)hk * HD;
 
-  const int n_tiles = CAUSAL ? (q0 + BLOCK_M) / BLOCK_N : S / BLOCK_N;
-  cp_tile<T, HD, LD, BLOCK_M, NUM_THREADS>(Qs, qb, q_stride);
-  cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Ks, kb, kv_stride);
-  cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Vs, vb, kv_stride);
-  cp_async_commit();
+  // the key tiles visited: 0 .. n_tiles - 1 (up to the diagonal when
+  // causal), or this query tile's live list in the masked mode
+  const int e0 = MASKED ? tt.off[qi] : 0;
+  const int n_tiles = MASKED ? tt.off[qi + 1] - e0
+                             : (CAUSAL ? (q0 + BLOCK_M) / BLOCK_N : S / BLOCK_N);
+  auto key0 = [&](int j) { return (MASKED ? tt.idx[e0 + j] : j) * BLOCK_N; };
+  if (n_tiles > 0) {
+    const int64_t first = (int64_t)key0(0) * kv_stride;
+    cp_tile<T, HD, LD, BLOCK_M, NUM_THREADS>(Qs, qb, q_stride);
+    cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Ks, kb + first, kv_stride);
+    cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Vs, vb + first, kv_stride);
+    cp_async_commit();
+  }
 
   // ldmatrix row addresses of this lane (bytes).  A (Q): matrices
   // (rows 0-7 | 8-15) x (k 0-7 | 8-15).  B of Q K^T (K rows = keys,
@@ -100,7 +123,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kj = 0; kj < n_tiles; ++kj) {
     const int stage = kj & 1;
     if (kj + 1 < n_tiles) {   // prefetch the next tile into the other stage
-      const int64_t next = (int64_t)(kj + 1) * BLOCK_N * kv_stride;
+      const int64_t next = (int64_t)key0(kj + 1) * kv_stride;
       cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Ks + (stage ^ 1) * KV_TILE, kb + next, kv_stride);
       cp_tile<T, HD, LD, BLOCK_N, NUM_THREADS>(Vs + (stage ^ 1) * KV_TILE, vb + next, kv_stride);
       cp_async_commit();
@@ -110,10 +133,14 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    const int k0 = kj * BLOCK_N;
-    // a tile wholly above this warp's rows contributes nothing (JAX skips
-    // such blocks too)
-    if (!(CAUSAL && k0 > q0 + wr + 15)) {
+    const int k0 = key0(kj);
+    // this warp's live 8x8 groups of the tile: bit r * 8 + n-tile for its
+    // rows wr + 8r .. wr + 8r + 7 (all live when unmasked)
+    uint32_t live = 0xFFFF;
+    if (MASKED) live = (tt.bits[(e0 + kj) * 4 + (warp >> 1)] >> ((warp & 1) * 16)) & 0xFFFF;
+    // a tile wholly above this warp's rows, or dead for them, contributes
+    // nothing (JAX skips such blocks too)
+    if (live != 0 && !(CAUSAL && k0 > q0 + wr + 15)) {
       const uint32_t k_base = smem_addr(Ks + stage * KV_TILE + k_lane);
       const uint32_t v_base = smem_addr(Vs + stage * KV_TILE + v_lane);
 
@@ -135,8 +162,10 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // scale into the log2 domain, mask the diagonal, running max
+      // scale into the log2 domain, mask the diagonal and (partly live
+      // tiles) the dead groups, running max
       const bool diag = CAUSAL && k0 + BLOCK_N - 1 > q0 + wr;
+      const bool part = MASKED && live != 0xFFFF;
       float mc[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
@@ -148,6 +177,10 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
             if (row < col) x = NEG_INF;
           }
+          // a dead group's score is -inf, not NEG_INF: m stays finite (it
+          // starts at NEG_INF), so p = exp2(-inf - m) = 0 even in a row
+          // that has seen no live key yet
+          if (part && !((live >> ((e >> 1) * 8 + nt)) & 1)) x = -CUDART_INF_F;
           s[nt][e] = x;
           mc[e >> 1] = fmaxf(mc[e >> 1], x);
         }
@@ -207,7 +240,8 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // every warp is done with this stage before reuse
   }
 
-  // epilogue: normalise (l == 0 guard), write out and lse
+  // epilogue: normalise (l == 0 guard), write out and lse (NEG_INF for a
+  // row with no live key)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l_safe = l_i[r] == 0.f ? 1.f : l_i[r];
@@ -219,17 +253,18 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
           Mma<T>::pack(acc[dt][2 * r] / l_safe, acc[dt][2 * r + 1] / l_safe);
     }
     if (t4 == 0)
-      lse[((int64_t)b * Hq + h) * S + row] = m_i[r] * LN2 + logf(l_safe);
+      lse[((int64_t)b * Hq + h) * S + row] = l_i[r] == 0.f ? NEG_INF
+                                                           : m_i[r] * LN2 + logf(l_safe);
   }
 }
 
 // fp32 inputs: 64-row tiles on CUDA cores.  Two threads per query row;
 // each scores half of the tile's keys, then each accumulates half of hd.
-template <int HD, bool CAUSAL>
+template <int HD, bool CAUSAL, bool MASKED>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int S, int Hq, int Hkv,
+                      float* __restrict__ lse, TileTable tt, int S, int Hq, int Hkv,
                       float sm_scale) {
   constexpr int LD = HD + 1;        // odd stride: row-parallel reads hit distinct banks
   constexpr int PLD = F32_BLOCK + 1;
@@ -240,7 +275,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + F32_BLOCK * LD;
   float* Ps = Vs + F32_BLOCK * LD;
 
-  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int qi = MASKED ? tt.order[blockIdx.x] : gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -261,9 +296,14 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < HALF_D; ++d) acc[d] = 0.f;
 
-  const int n_tiles = CAUSAL ? qi + 1 : S / F32_BLOCK;
+  const int e0 = MASKED ? tt.off[qi] : 0;
+  const int n_tiles = MASKED ? tt.off[qi + 1] - e0 : (CAUSAL ? qi + 1 : S / F32_BLOCK);
   for (int kj = 0; kj < n_tiles; ++kj) {
-    const int k0 = kj * F32_BLOCK;
+    const int kt = MASKED ? tt.idx[e0 + kj] : kj;
+    const int k0 = kt * F32_BLOCK;
+    // this row's live 8-key groups of the tile: bit key / 8
+    const uint32_t live =
+        MASKED ? (tt.bits[(e0 + kj) * 2 + (r >> 5)] >> (((r >> 3) & 3) * 8)) & 0xFF : 0xFF;
     __syncthreads();
     for (int c = threadIdx.x; c < F32_BLOCK * HD; c += F32_THREADS) {
       const int64_t src = (int64_t)(k0 + c / HD) * kv_stride + c % HD;
@@ -280,7 +320,8 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.f;
       for (int d = 0; d < HD; ++d) dot = fmaf(Qs[r * LD + d], Ks[key * LD + d], dot);
       float x = dot * sm_scale;
-      if (CAUSAL && kj == qi && r < key) x = NEG_INF;
+      if (CAUSAL && kt == qi && r < key) x = NEG_INF;
+      if (MASKED && !((live >> (key >> 3)) & 1)) x = -CUDART_INF_F;   // p = 0 (see above)
       s[j] = x;
       mc = fmaxf(mc, x);
     }
@@ -312,73 +353,90 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* orow = o + ((int64_t)b * S + q0 + r) * q_stride + (int64_t)h * HD + half * HALF_D;
 #pragma unroll
   for (int d = 0; d < HALF_D; ++d) orow[d] = acc[d] / l_safe;
-  if (half == 0) lse[((int64_t)b * Hq + h) * S + q0 + r] = m_i + logf(l_safe);
+  if (half == 0)
+    lse[((int64_t)b * Hq + h) * S + q0 + r] = l_i == 0.f ? NEG_INF : m_i + logf(l_safe);
 }
 
-template <typename T, int HD, bool CAUSAL>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int S, int Hq, int Hkv, float sm_scale,
-                       cudaStream_t stream) {
+struct FwdArgs {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  TileTable tt;
+  int B, S, Hq, Hkv;
+  float scale;
+};
+
+template <typename T, int HD, bool CAUSAL, bool MASKED>
+cudaError_t launch_mma(const FwdArgs& a, cudaStream_t stream) {
   const int smem = (BLOCK_M + 4 * BLOCK_N) * (HD + 8) * (int)sizeof(T);
-  auto kern = flash_fwd_mma_kernel<T, HD, CAUSAL>;
+  auto kern = flash_fwd_mma_kernel<T, HD, CAUSAL, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(S / BLOCK_M, Hq, B);
+  dim3 grid(a.S / BLOCK_M, a.Hq, a.B);
   kern<<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, S, Hq, Hkv, sm_scale * LOG2E);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.tt, a.S, a.Hq,
+      a.Hkv, a.scale * LOG2E);
   return cudaGetLastError();
 }
 
-template <int HD, bool CAUSAL>
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int S, int Hq, int Hkv, float sm_scale,
-                        cudaStream_t stream) {
+template <int HD, bool CAUSAL, bool MASKED>
+cudaError_t launch_fp32(const FwdArgs& a, cudaStream_t stream) {
   const int smem = (3 * F32_BLOCK * (HD + 1) + F32_BLOCK * (F32_BLOCK + 1)) *
                    (int)sizeof(float);
-  auto kern = flash_fwd_fp32_kernel<HD, CAUSAL>;
+  auto kern = flash_fwd_fp32_kernel<HD, CAUSAL, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(S / F32_BLOCK, Hq, B);
+  dim3 grid(a.S / F32_BLOCK, a.Hq, a.B);
   kern<<<grid, F32_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq, Hkv,
-      sm_scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.tt, a.S,
+      a.Hq, a.Hkv, a.scale);
   return cudaGetLastError();
 }
 
-template <int HD, bool CAUSAL>
-cudaError_t dispatch_dtype(int dtype, const void* q, const void* k, const void* v,
-                           void* o, float* lse, int B, int S, int Hq, int Hkv,
-                           float sm_scale, cudaStream_t stream) {
+template <int HD, bool CAUSAL, bool MASKED>
+cudaError_t dispatch_dtype(int dtype, const FwdArgs& a, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch_fp32<HD, CAUSAL>(q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, stream);
-    case 1: return launch_mma<__half, HD, CAUSAL>(q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, stream);
-    case 2: return launch_mma<__nv_bfloat16, HD, CAUSAL>(q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, stream);
+    case 0: return launch_fp32<HD, CAUSAL, MASKED>(a, stream);
+    case 1: return launch_mma<__half, HD, CAUSAL, MASKED>(a, stream);
+    case 2: return launch_mma<__nv_bfloat16, HD, CAUSAL, MASKED>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int HD>
+cudaError_t dispatch_mode(int dtype, int causal, const FwdArgs& a, cudaStream_t stream) {
+  const bool masked = a.tt.off != nullptr;
+  if (causal)
+    return masked ? dispatch_dtype<HD, true, true>(dtype, a, stream)
+                  : dispatch_dtype<HD, true, false>(dtype, a, stream);
+  return masked ? dispatch_dtype<HD, false, true>(dtype, a, stream)
+                : dispatch_dtype<HD, false, false>(dtype, a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  Returns the cudaError_t
-// of the launch (0 on success).  The Python wrapper has checked shapes,
-// dtypes, contiguity and S % 128 == 0 before calling.
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  off/idx/bits/order: the
+// live-tile table of the masked mode (64 x 64 tiles for float32, 128 x 64
+// otherwise), all null when unmasked.  Returns the cudaError_t of the launch
+// (0 on success).  The Python wrapper has checked shapes, dtypes, contiguity
+// and S % 128 == 0 before calling.
 int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                           float* lse, int B, int S, int Hq, int Hkv, int hd,
-                           int dtype, int causal, float sm_scale, void* stream) {
+                           float* lse, const int* off, const int* idx,
+                           const uint32_t* bits, const int* order, int B, int S,
+                           int Hq, int Hkv, int hd, int dtype, int causal,
+                           float sm_scale, void* stream) {
   if (S % BLOCK_M != 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  const FwdArgs a{q, k, v, o, lse, TileTable{off, idx, bits, order}, B, S, Hq, Hkv,
+                  sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return causal ? dispatch_dtype<64, true>(dtype, q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, st)
-                  : dispatch_dtype<64, false>(dtype, q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, st);
-  if (hd == 128)
-    return causal ? dispatch_dtype<128, true>(dtype, q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, st)
-                  : dispatch_dtype<128, false>(dtype, q, k, v, o, lse, B, S, Hq, Hkv, sm_scale, st);
+  if (hd == 64) return dispatch_mode<64>(dtype, causal, a, st);
+  if (hd == 128) return dispatch_mode<128>(dtype, causal, a, st);
   return cudaErrorInvalidValue;
 }
 

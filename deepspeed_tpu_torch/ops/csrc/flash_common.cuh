@@ -22,6 +22,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace flash {
@@ -29,6 +30,21 @@ namespace flash {
 constexpr float NEG_INF = -1e30f;   // ops/kernels/common.py NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// Live-tile table of the block-sparse (masked) mode, one per kernel tiling,
+// built by the wrapper (ops/kernels/flash_attention.py `live_tile_tables`):
+// the CTA of tile t along its own axis visits the other axis' tiles
+// idx[off[t] .. off[t+1]) in ascending order; bits[e * W ..] (W 32-bit words
+// per entry) marks entry e's live 8x8 element groups, row group major (the
+// mask ANDed with causal at group level; the diagonal groups are masked
+// element by element as before); order[blockIdx.x] is the tile a CTA takes,
+// longest list first.  Unmasked launches pass null pointers.
+struct TileTable {
+  const int* off;
+  const int* idx;
+  const uint32_t* bits;
+  const int* order;
+};
 
 template <typename T> struct Mma;
 

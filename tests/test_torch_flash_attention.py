@@ -83,8 +83,12 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
 
 def test_unsupported_modes_raise_cleanly():
     q, k, v = (torch.from_numpy(a) for a in _qkv(S=128))
-    with pytest.raises(NotImplementedError, match="block_mask"):
+    # a block mask must match the grid block_q/block_k set (1x1 at S=128 by
+    # default), and it gives no lse, as in the JAX package
+    with pytest.raises(ValueError, match="block grid"):
         flash_attention(q, k, v, block_mask=np.ones((2, 2), bool))
+    with pytest.raises(NotImplementedError, match="return_lse"):
+        flash_attention(q, k, v, block_mask=np.ones((1, 1), bool), return_lse=True)
     with pytest.raises(NotImplementedError, match="bias"):
         flash_attention(q, k, v, bias=torch.zeros(1))
     q2, k2, v2 = (torch.from_numpy(a) for a in _qkv(S=100))
@@ -182,12 +186,12 @@ def test_plain_bwd_functions_match_jax_bwd(causal, Hq, Hkv):
 
 def test_cuda_only_path_raises_cleanly():
     """The kernel path never falls back to the plain version: its checks
-    raise before any launch (block-sparse masks, fp64, head_dim, a backward
-    of fp64), and without nvcc the builds raise with a message instead of a
-    plain run."""
+    raise before any launch (fp64, head_dim, mask blocks the kernels cannot
+    mask, a backward of fp64), and without nvcc the builds raise with a
+    message instead of a plain run."""
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(S=128))
-    with pytest.raises(NotImplementedError, match="block_mask"):
-        flash_attention(q, k, v, block_mask=np.ones((2, 2), bool))
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        fa_module._launch(q, k, v, True, 0.125, np.ones((32, 32), bool))
     with pytest.raises(TypeError, match="float32/float16/bfloat16"):
         fa_module._launch(q.double(), k.double(), v.double(), True, 0.125)
     with pytest.raises(NotImplementedError, match="head_dim"):

@@ -30,6 +30,9 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.inference.prefix_cache, "
             "deepspeed_tpu_torch.ops.kernels.flash_attention, "
             "deepspeed_tpu_torch.ops.kernels.decode_attention, "
+            "deepspeed_tpu_torch.ops.sparse_attention, "
+            "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config, "
+            "deepspeed_tpu_torch.ops.transformer, "
             "deepspeed_tpu_torch.runtime.engine, deepspeed_tpu_torch.runtime.config, "
             "deepspeed_tpu_torch.runtime.optimizer, "
             "deepspeed_tpu_torch.runtime.lr_schedules, "
@@ -41,6 +44,24 @@ def test_import_loads_no_jax_pydantic_or_reference():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_ops_exports_sparse_attention_and_the_layer_api():
+    """``deepspeed_tpu_torch.ops`` exports both new modules, whichever is
+    imported first (``ops.transformer`` builds on ``models.transformer``,
+    which imports ``ops``), and loads no jax."""
+    code = ("import sys\n"
+            "import deepspeed_tpu_torch.ops as ops\n"
+            "assert ops.__all__ == ['sparse_attention', 'transformer']\n"
+            "ops.transformer.DeepSpeedTransformerLayer\n"
+            "ops.sparse_attention.SparseSelfAttention\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "sys.exit(1 if bad else 0)")
+    for first in ("", "import deepspeed_tpu_torch.ops.transformer\n"):
+        res = subprocess.run([sys.executable, "-c", first + code], cwd=str(ROOT),
+                             env=_clean_env(), capture_output=True, text=True,
+                             timeout=120)
+        assert res.returncode == 0, res.stdout + res.stderr
 
 
 def _imported_roots(path: Path):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(K1-K3 the flash-attention kernels, K4 the paged decode attention and its
-CUDA-graph capture in the serving engine).
+(K1-K3 the flash-attention kernels, unmasked and in their block-sparse
+``block_mask`` mode, K4 the paged decode attention and its CUDA-graph
+capture in the serving engine).
 
 Marked ``gpu``: they skip on a host without a CUDA card.  This file imports
 no jax (the GPU machine has none), so it runs there on its own:
@@ -16,23 +17,26 @@ import torch
 
 from chip_smoke import (AGREE_TOL, DECODE_CASES, DECODE_TOL, LSE_ATOL, _decode_case,
                         agreement, decode_compare, decode_low_precision)
+from deepspeed_tpu_torch.ops import sparse_attention as sa
+from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     decode_attention, decode_attention_reference)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
-    flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
-    flash_attention_reference)
+    attended, flash_attention, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference, flash_attention_reference)
 
 # bf16 autograd against an fp32 autograd of the plain forward, which rounds
 # neither P nor dS: worst tile 3.0e-3 and per-element need 0.033 on the H100
 VS_FP32_TOL = {"tile_rel": 1e-2, "elem_rtol": 2e-2, "elem_atol_rms": 0.1}
 
 
-def assert_agrees(got, ref, tol):
+def assert_agrees(got, ref, tol, dead=None):
     """``chip_smoke.agreement``: the worst 128-row tile's relative error and
-    a per-element bound, within ``tol``.  The readings are printed (shown
-    with ``-rP``) for setting the limits."""
-    reading = agreement(got, ref, tol)
+    a per-element bound, within ``tol`` (and exact zeros on the ``dead``
+    rows).  The readings are printed (shown with ``-rP``) for setting the
+    limits."""
+    reading = agreement(got, ref, tol, dead=dead)
     print(json.dumps(reading))
     assert reading["ok"], reading
 
@@ -113,8 +117,11 @@ def test_flash_autograd_launches_each_kernel_once(cuda):
 @pytest.mark.gpu
 def test_flash_forward_refuses_what_it_cannot_run(cuda):
     q = torch.randn((1, 128, 2, 128), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="block_mask"):
+    with pytest.raises(ValueError, match="block grid"):
         flash_attention(q, q, q, block_mask=torch.ones((2, 2), dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="return_lse"):
+        flash_attention(q, q, q, block_mask=torch.ones((1, 1), dtype=torch.bool),
+                        return_lse=True)
     f = q.float().requires_grad_()
     with pytest.raises(NotImplementedError, match="bfloat16/float16"):
         flash_attention(f, f, f)
@@ -129,6 +136,116 @@ def test_flash_forward_refuses_what_it_cannot_run(cuda):
         flash_attention(x, x, x)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd_dkv(q, q, q, q, lse[:, :1], lse)
+
+
+# ---------------------------------------------------------------------------
+# The block-sparse (masked) mode of K1-K3
+# ---------------------------------------------------------------------------
+
+# (B, S, Hq, Hkv, hd, dtype, causal, block_q, block_k): mask blocks below,
+# at and above the kernels' tiles, square and not
+MASK_CASES = [
+    (1, 512, 8, 2, 128, "bfloat16", True, 64, 64),
+    (2, 384, 4, 4, 64, "bfloat16", False, 32, 32),
+    (1, 512, 4, 4, 128, "float16", True, 256, 128),
+    (1, 512, 8, 2, 64, "bfloat16", False, 64, 16),
+]
+
+
+def _block_mask(S, bq, bk, seed):
+    """Half the blocks live, block row 1 dead (no live key) and key block 2
+    seen by no query."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.rand((S // bq, S // bk), generator=g) < 0.5
+    mask[:, 0] = True
+    mask[1] = False
+    mask[:, 2] = False
+    return mask
+
+
+def _dead(S, causal, mask):
+    keep = attended(S, causal, mask, "cuda")
+    return ~keep.any(-1), ~keep.any(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MASK_CASES, ids=lambda c: f"{c[5]}-hd{c[4]}-"
+                         f"{'causal' if c[6] else 'full'}-b{c[7]}x{c[8]}-{c[2]}x{c[3]}")
+def test_masked_kernels_match_plain_versions(cuda, case):
+    B, S, Hq, Hkv, hd, dtype, causal, bq, bk = case
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(B, S, Hq, Hkv, hd, dt, seed=bq + bk)
+    mask = _block_mask(S, bq, bk, seed=hd)
+    dead_q, dead_k = _dead(S, causal, mask)
+    scale = hd ** -0.5
+    with torch.inference_mode():
+        counts = (flash_attention.launches, flash_attention_bwd_dq.launches,
+                  flash_attention_bwd_dkv.launches)
+        out, lse = fa._forward(q, k, v, causal, scale, mask)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, causal, scale, mask)
+        dq = flash_attention_bwd_dq(*args)
+        dk, dv = flash_attention_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+                flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+        ref, ref_lse = flash_attention_reference(q, k, v, causal, scale, True, mask)
+        rq = flash_attention_bwd_dq_reference(*args)
+        rk, rv = flash_attention_bwd_dkv_reference(*args)
+    assert_agrees(out, ref, AGREE_TOL["fwd"][dt], dead_q)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    assert (lse[:, :, dead_q] == -1e30).all()
+    for got, want, dead in ((dq, rq, dead_q), (dk, rk, dead_k), (dv, rv, dead_k)):
+        assert got.dtype == dt and got.shape == want.shape
+        assert_agrees(got, want, AGREE_TOL["bwd"][dt], dead)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_masked_fp32_forward_matches_plain_version(cuda, causal):
+    """The CUDA-core fp32 variant of K1 walks its own 64 x 64 tile table."""
+    q, k, v, _ = _inputs(1, 384, 4, 2, 128, torch.float32, seed=5)
+    mask = _block_mask(384, 32, 64, seed=6)
+    dead_q, _ = _dead(384, causal, mask)
+    with torch.inference_mode():
+        out = flash_attention(q, k, v, causal=causal, block_q=32, block_k=64,
+                              block_mask=mask)
+        ref = flash_attention_reference(q, k, v, causal, None, False, mask)
+    assert_agrees(out, ref, AGREE_TOL["fwd"][torch.float32], dead_q)
+
+
+@pytest.mark.gpu
+def test_sparse_self_attention_launches_each_kernel_once(cuda):
+    q, k, v, do = _inputs(1, 1024, 8, 2, 128, torch.bfloat16, seed=8)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    layer = sa.SparseSelfAttention(sa.BSLongformerSparsityConfig(block=64))
+    counts = (flash_attention.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    layer(q, k, v).backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    mask = layer.layout(1024)
+    qr, kr, vr = (x.detach().float().requires_grad_() for x in (q, k, v))
+    flash_attention_reference(qr, kr, vr, True, None, False, mask).backward(do.float())
+    for got, ref in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
+        assert_agrees(got, ref, VS_FP32_TOL)
+
+
+@pytest.mark.gpu
+def test_dense_layout_equals_unmasked_kernels(cuda):
+    q, k, v, do = _inputs(1, 512, 8, 8, 128, torch.bfloat16, seed=9)
+    dense = sa.SparseSelfAttention(sa.DenseSparsityConfig(block=128))
+    got, want = [], []
+    for call, acc in ((dense, got), (lambda *x: flash_attention(*x, causal=True), want)):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = call(*x)
+        out.backward(do)
+        acc.extend([out.detach(), *(t.grad for t in x)])
+    torch.cuda.synchronize()
+    for g, w, kind in zip(got, want, ("fwd", "bwd", "bwd", "bwd")):
+        print("bit_equal", torch.equal(g, w))
+        assert_agrees(g, w, AGREE_TOL[kind][torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------
