@@ -1,13 +1,17 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--first-launch]
+    python3 chip_smoke.py --ab NAME=PATH ...   # K1 variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
 one JSON line each; any failure exits non-zero with no result line:
 
 1. environment and build: the card (``nvidia-smi`` name and power limit),
    torch/CUDA versions, and the nvcc builds of every kernel source in the
-   checkout, in parallel, with ptxas registers and spills per kernel;
+   checkout, in parallel, with ptxas registers and spills per kernel; then
+   K1's first launches (S=256 and the training shape) in a child process
+   killed after FIRST_LAUNCH_TIMEOUT_S, so that a pipeline that hangs
+   fails the run at once;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few more, with kernel / plain / library timings
    (CUDA events, median of 20 after warm-up): K1 the flash forward, K2 the
@@ -299,6 +303,11 @@ def attention_bound_ms(B, S, Hq, Hkv, hd, dtype, causal, kernel="fwd",
     return _bound(flops, nbytes, dtype)
 
 
+def attention_flops(B, S, Hq, Hkv, hd, dtype, causal) -> float:
+    """The forward's tensor-core work over the attended pairs (QK^T, PV)."""
+    return 2 * 2.0 * B * Hq * _pairs(S, causal) * hd
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -323,9 +332,16 @@ def _kernel_label(mangled: str) -> str:
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: {registers, spill_stores, spill_loads}} from nvcc -Xptxas=-v."""
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc -Xptxas=-v,
+    and ptxas's performance warnings by code and kernel (C7513 and the like:
+    wgmma serialised) under ``warnings``."""
     out, current = {}, None
     for line in log.splitlines():
+        m = re.search(r"\((C\d+)\) (.*?) in the function '(\S+)'", line)
+        if m:
+            out.setdefault("warnings", []).append(
+                f"{m.group(1)} {_kernel_label(m.group(3))}: {m.group(2)[:160]}")
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             current = _kernel_label(m.group(1))
@@ -357,6 +373,72 @@ def phase_build():
           "per_source_seconds": {b.name: b.build_seconds for b in builders},
           "build_dir": str(BUILD_DIR),
           "ptxas": {b.name: ptxas_report(b.log) for b in builders}})
+
+
+# K1's first launches, in a child process with a time limit: a wrong
+# mbarrier phase parity in its TMA/wgmma pipeline hangs the kernel instead
+# of failing it, and a hang would otherwise hold the whole run.
+FIRST_LAUNCH_SHAPES = [
+    (1, 256, 2, 2, 64, torch.bfloat16, True),
+    (1, 256, 2, 2, 128, torch.bfloat16, True),
+    (1, 256, 2, 2, 128, torch.float16, False),
+    TRAIN_SHAPE,
+]
+FIRST_LAUNCH_TIMEOUT_S = 180
+K1_DESIGN = ("wgmma+TMA, warp-specialised: a producer warpgroup (setmaxnreg 24) "
+             "feeds a 2-3 stage K/V ring by TMA; two consumer warpgroups "
+             "(setmaxnreg 240) of 64 query rows, 128-key tiles, S=QK^T SS and "
+             "O+=PV RS, a tile's softmax overlapping the next products")
+
+
+def _child(args, timeout_s: int, what: str):
+    """Run this script again with ``args``, killed after ``timeout_s``: a
+    hang raises with what the child printed so far."""
+    try:
+        return subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                              capture_output=True, text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        out = e.stdout.decode() if isinstance(e.stdout, bytes) else (e.stdout or "")
+        raise RuntimeError(f"{what} did not finish in {timeout_s} s: the kernel hangs. "
+                           f"Its output so far:\n{out[-4000:]}")
+
+
+def first_launches() -> int:
+    """The child's side of ``phase_first_launch``: launch K1 once at each
+    FIRST_LAUNCH_SHAPES entry, synchronise, and compare the small ones with
+    the plain version (worst-tile gate).  Prints one JSON line."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for shape in FIRST_LAUNCH_SHAPES:
+        q, k, v = _inputs(gen, shape, 3)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            o = flash_attention(q, k, v, causal=shape[-1])
+            torch.cuda.synchronize()
+            rec = {"shape": _shape_dict(shape, None), "s": time.perf_counter() - t0}
+            if shape[1] < CHUNK_FROM_S:
+                ref = flash_attention_reference(q, k, v, shape[-1])
+                rec["agreement"] = agreement(o, ref, AGREE_TOL["fwd"][shape[5]])
+        out.append(rec)
+        del q, k, v, o
+    emit({"first_launches": out})
+    return 0 if all(r.get("agreement", {"ok": True})["ok"] for r in out) else 1
+
+
+def phase_first_launch():
+    """K1's first launches in a child process that is killed after
+    FIRST_LAUNCH_TIMEOUT_S: a hang fails the run here, with a message."""
+    t0 = time.perf_counter()
+    res = _child(["--first-launch"], FIRST_LAUNCH_TIMEOUT_S, "K1's first launches")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    emit({"phase": "first_launch", "seconds": time.perf_counter() - t0,
+          "returncode": res.returncode, **rec})
+    check(res.returncode == 0, f"K1's first launches failed (exit {res.returncode}): "
+                               f"{res.stdout[-2000:]} {res.stderr[-4000:]}")
 
 
 def _heads(x, lo, hi, dim=2):
@@ -528,7 +610,8 @@ def phase_fwd_kernel(gen: torch.Generator):
                "lse_atol": LSE_ATOL, "ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound, "bound_by": bound_by,
-               "bound_share": bound / kernel_ms}
+               "bound_share": bound / kernel_ms,
+               "tflops": attention_flops(*shape) / kernel_ms / 1e9}
         emit(rec)
         check(agree["ok"] and lse_err <= LSE_ATOL,
               f"flash_attention_fwd disagrees with its plain version at "
@@ -1651,6 +1734,137 @@ def profile_serving(sv, stream) -> None:
           f"{10 * sv._exec.graph_k4_launches}")
 
 
+# ---------------------------------------------------------------------------
+# --ab: K1 variants side by side (the measurements of a redesign's steps)
+# ---------------------------------------------------------------------------
+
+# K1 shapes of the A/B timing: the two main paths' and the full-attention
+# training shape; the masked main case is timed beside TRAIN_SHAPE
+AB_SHAPES = [TRAIN_SHAPE, SERVE_SHAPE, TRAIN_SHAPE[:-1] + (False,)]
+
+
+def _ab_builders(specs):
+    """{name: KernelBuilder} of ``name=path`` specs: a copy of
+    flash_attention_fwd.cu (path from the repo root; ``repo`` for the
+    checkout's own source), built with the same flags and headers."""
+    from pathlib import Path
+
+    from deepspeed_tpu_torch.ops.op_builder import KernelBuilder
+
+    out = {}
+    for spec in specs:
+        name, path = spec.split("=", 1)
+        b = KernelBuilder(f"flash_attention_fwd_{name}", "flash_attention_fwd.cu")
+        if path != "repo":
+            b.source = Path(ROOT) / path
+        out[name] = b
+    return out
+
+
+def _ab_use(builder) -> None:
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    fa._FWD_BUILDER = builder
+
+
+def ab_check(specs, name) -> int:
+    """The child of ``ab``: one variant against the plain version at the
+    first-launch shapes, GQA 32/8 over two batches (hd 64/128, bf16/fp16,
+    causal and full), the dead-rows mask and random masks of 32- and
+    64-blocks."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    _ab_use(_ab_builders(specs)[name])
+    S1 = 1024
+    rng = np.random.default_rng(0)
+    masks = [dead_rows_mask(2048)] + [rng.random((S1 // b, S1 // b)) < 0.5 for b in (32, 64)]
+    cases = [(shape, None) for shape in FIRST_LAUNCH_SHAPES[:-1]]
+    cases += [((2, 1024, 32, 8, hd, dt, c), None) for hd in (64, 128)
+              for dt in (torch.bfloat16, torch.float16) for c in (True, False)]
+    cases += [((1, 2048, 8, 8, 128, torch.bfloat16, True), masks[0])]
+    cases += [((2, S1, 8, 2, hd, torch.bfloat16, c), m) for m in masks[1:]
+              for hd in (64, 128) for c in (True, False)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok = True
+    for shape, mask in cases:
+        B, S, Hq, Hkv, hd, dtype, causal = shape
+        q, k, v = _inputs(gen, shape, 3)
+        scale = hd ** -0.5
+        keep = fa.attended(S, causal, mask, "cuda")
+        dead = None if mask is None else ~keep.any(-1)
+        with torch.inference_mode():
+            out, lse = fa._forward(q, k, v, causal, scale, mask)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_reference(q, k, v, causal, scale, True, mask)
+        agree = agreement(out, ref, AGREE_TOL["fwd"][dtype], dead=dead)
+        lse_err = (lse - ref_lse).abs().max().item()
+        good = agree["ok"] and lse_err <= LSE_ATOL
+        ok &= good
+        emit({"ab_check": name, "shape": _shape_dict(shape, None),
+              "mask": None if mask is None else list(mask.shape), "ok": good,
+              "worst_tile_rel_l2": agree["worst_tile_rel_l2"], "lse_max_abs_err": lse_err})
+    return 0 if ok else 1
+
+
+def ab(specs) -> int:
+    """Build every variant (in parallel; ptxas registers and spills), check
+    each in a child with the first-launch time limit, then time them in
+    turns (A B .. B A) in this process at AB_SHAPES, with SDPA's forward
+    beside them."""
+    import numpy as np
+
+    builders = _ab_builders(specs)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builders)) as pool:
+        list(pool.map(lambda b: b.load(), builders.values()))
+    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
+          "ptxas": {n: ptxas_report(b.log) for n, b in builders.items()}})
+    failed = {}
+    for name in list(builders):
+        try:
+            res = _child(["--ab-check", name, *specs], FIRST_LAUNCH_TIMEOUT_S,
+                         f"variant {name}'s checks")
+            print(res.stdout, end="", flush=True)
+            if res.returncode:
+                failed[name] = res.stderr[-4000:]
+        except RuntimeError as e:   # a hang: the child was killed
+            failed[name] = str(e)
+        if name in failed:
+            emit({"phase": "ab_check_failed", "variant": name, "error": failed[name]})
+            del builders[name]
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sa, _, _, _ = _sparse_case(TRAIN_SHAPE[1], SPARSE_CASES[0][2])
+    order = list(builders) + list(builders)[::-1]
+    for shape in AB_SHAPES:
+        causal = shape[-1]
+        q, k, v = _inputs(gen, shape, 3)
+        ms, masked = {n: [] for n in builders}, {n: [] for n in builders}
+        with torch.inference_mode():
+            for name in order:
+                _ab_use(builders[name])
+                ms[name].append(time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)))
+                if shape == TRAIN_SHAPE:
+                    masked[name].append(time_ms(lambda: sa(q, k, v)))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+        rec = {"phase": "ab_time", "shape": _shape_dict(shape, None), "ms": ms,
+               "library_ms": library_ms,
+               "ratio_to_library": {n: float(np.mean(t)) / library_ms for n, t in ms.items()},
+               "tflops": {n: attention_flops(*shape) / float(np.mean(t)) / 1e9
+                          for n, t in ms.items()}}
+        if shape == TRAIN_SHAPE:
+            rec["masked_fixed_740m_ms"] = masked
+        emit(rec)
+        del q, k, v, qt, kt, vt
+        free_memory()
+    return 1 if failed else 0
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -1665,12 +1879,28 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one train step, one forward, one "
                          "decode step and 10 serving decode ticks")
+    ap.add_argument("--first-launch", action="store_true",
+                    help="only K1's first launches (the child process of the "
+                         "hang guard)")
+    ap.add_argument("--ab", nargs="+", metavar="NAME=PATH",
+                    help="only build, check and time these copies of "
+                         "flash_attention_fwd.cu against each other (PATH "
+                         "from the repo root, or `repo`)")
+    ap.add_argument("--ab-check", nargs="+", metavar="ARG",
+                    help=argparse.SUPPRESS)   # NAME SPEC...: --ab's child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.first_launch:
+        return first_launches()
+    if args.ab_check:
+        return ab_check(args.ab_check[1:], args.ab_check[0])
+    if args.ab:
+        print(nvidia_smi_line(), flush=True)
+        return ab(args.ab)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references in fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -1681,6 +1911,7 @@ def main() -> int:
           "count": torch.cuda.device_count()})
     t_start = time.perf_counter()
     phase_build()
+    phase_first_launch()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     fwd = phase_fwd_kernel(gen)
     bwd = phase_bwd_kernels(gen)
@@ -1707,6 +1938,8 @@ def main() -> int:
     emit({"kernels": [
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",
                       jax_src + ":74", train_launches[0], k1,
+                      design=K1_DESIGN, tflops=k1["tflops"],
+                      serving_shape_tflops=fwd[SERVE_SHAPE]["tflops"],
                       launches_serving_forward=serve_launches,
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88")),

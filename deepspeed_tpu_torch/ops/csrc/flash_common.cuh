@@ -1,6 +1,9 @@
-// Warp-level building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): mma.sync m16n8k16 with
-// fp32 accumulation, ldmatrix operand loads and cp.async copies.
+// Pieces shared by the flash-attention kernels: the constants and the
+// live-tile table of both sources, and the warp-level building blocks of
+// the backward kernels (flash_attention_bwd.cu): mma.sync m16n8k16 with
+// fp32 accumulation, ldmatrix operand loads and cp.async copies.  The
+// forward (flash_attention_fwd.cu) runs on wgmma and TMA from
+// hopper_common.cuh.
 //
 // Fragment coordinates of m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A 16x16 row-major: a[0] (g, 2t4..+1), a[1] (g+8, 2t4..), a[2] (g, 8+2t4..),

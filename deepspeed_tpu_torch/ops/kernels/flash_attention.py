@@ -134,10 +134,11 @@ def attended(S: int, causal: bool, block_mask=None, device=None):
 
 
 # Tiles of each CUDA kernel's loop, (rows of the CTA's own axis, rows of the
-# axis it walks), by table name: K1 (bf16/fp16) and K2 walk 64-key tiles of
-# a 128-row query tile, K1's fp32 variant 64-key tiles of a 64-row tile, K3
-# 32-row query tiles of a 128-key tile.
-_TILES = {"q": (128, 64), "f32": (64, 64), "kv": (128, 32)}
+# axis it walks), by table name: K1 (bf16/fp16) walks 128-key tiles of a
+# 128-row query tile (``BLOCK_M``/``BLOCK_N`` of flash_attention_fwd.cu), K2
+# 64-key tiles of a 128-row query tile, K1's fp32 variant 64-key tiles of a
+# 64-row tile, K3 32-row query tiles of a 128-key tile.
+_TILES = {"fwd": (128, 128), "q": (128, 64), "f32": (64, 64), "kv": (128, 32)}
 _GROUP = 8      # the tables' granularity: live 8x8 element groups
 # least recently used tables, by (layout, S, causal, device)
 _TABLE_CACHE: "OrderedDict[tuple, Dict[str, TileTable]]" = OrderedDict()
@@ -186,8 +187,8 @@ def _table(groups: torch.Tensor, rows: int, cols: int) -> TileTable:
 
 
 def live_tile_tables(block_mask, S: int, causal: bool, device) -> Dict[str, TileTable]:
-    """The kernels' live-tile tables of a block mask at length S (``"q"``:
-    K1 and K2; ``"f32"``: K1's fp32 variant; ``"kv"``: K3), built on
+    """The kernels' live-tile tables of a block mask at length S (``"fwd"``:
+    K1; ``"q"``: K2; ``"f32"``: K1's fp32 variant; ``"kv"``: K3), built on
     ``device`` at first use and cached per (layout, S, causal, device)."""
     bm = _as_block_mask(block_mask, S)
     device = torch.device(device)
@@ -360,7 +361,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_mask=None):
     _check_launch(q=q, k=k, v=v)
     B, S, Hq, hd = q.shape
     table = _table_ptrs(block_mask, S, causal, q.device,
-                        "f32" if q.dtype == torch.float32 else "q")
+                        "f32" if q.dtype == torch.float32 else "fwd")
     lib = _fwd_lib()
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)

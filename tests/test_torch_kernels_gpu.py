@@ -72,6 +72,37 @@ def test_flash_forward_matches_plain_version(cuda, dtype, hd, causal):
     torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
 
 
+# K1's TMA/wgmma pipeline: one tile (fewer tiles than ring stages), many
+# more tiles than stages, GQA 32/8 over two batches; hd 64/128, causal and
+# full, bf16 and fp16
+PIPELINE_CASES = [
+    (1, 128, 4, 4, 128, "bfloat16", True),
+    (1, 128, 4, 4, 64, "float16", False),
+    (1, 2048, 4, 4, 128, "bfloat16", True),
+    (1, 2048, 4, 4, 64, "bfloat16", False),
+    (1, 2048, 4, 4, 128, "float16", False),
+    (1, 2048, 4, 4, 64, "float16", True),
+    (2, 1024, 32, 8, 128, "bfloat16", True),
+    (2, 1024, 32, 8, 64, "bfloat16", False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PIPELINE_CASES, ids=lambda c: f"{c[5]}-hd{c[4]}-"
+                         f"{'causal' if c[6] else 'full'}-B{c[0]}S{c[1]}-{c[2]}x{c[3]}")
+def test_flash_forward_pipeline_matches_plain_version(cuda, case):
+    B, S, Hq, Hkv, hd, dtype, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _inputs(B, S, Hq, Hkv, hd, dt, seed=S + hd)
+    with torch.inference_mode():
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_reference(q, k, v, causal, None, True)
+    assert out.dtype == dt and out.shape == q.shape
+    assert_agrees(out, ref, AGREE_TOL["fwd"][dt])
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
@@ -198,6 +229,46 @@ def test_masked_kernels_match_plain_versions(cuda, case):
     for got, want, dead in ((dq, rq, dead_q), (dk, rk, dead_k), (dv, rv, dead_k)):
         assert got.dtype == dt and got.shape == want.shape
         assert_agrees(got, want, AGREE_TOL["bwd"][dt], dead)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("block", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_masked_forward_partly_live_tiles(cuda, causal, block, hd):
+    """Mask blocks below K1's 128 x 128 tile: most visited tiles are partly
+    live, and a warpgroup or a whole query tile may have no live group."""
+    S = 1024
+    q, k, v, _ = _inputs(2, S, 8, 2, hd, torch.bfloat16, seed=block + hd)
+    mask = _block_mask(S, block, block, seed=block)
+    dead_q, _ = _dead(S, causal, mask)
+    with torch.inference_mode():
+        out, lse = fa._forward(q, k, v, causal, hd ** -0.5, mask)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_reference(q, k, v, causal, None, True, mask)
+    assert_agrees(out, ref, AGREE_TOL["fwd"][torch.bfloat16], dead_q)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_masked_forward_dead_rows(cuda, dtype):
+    """chip_smoke.py's raw mask with dead block rows (half of a 128-row
+    tile each) and a key block no query sees: exact zeros, lse -1e30."""
+    from chip_smoke import dead_rows_mask
+
+    S, dt = 2048, getattr(torch, dtype)
+    q, k, v, _ = _inputs(1, S, 8, 8, 128, dt, seed=21)
+    mask = torch.from_numpy(dead_rows_mask(S))
+    dead_q, _ = _dead(S, True, mask)
+    assert int(dead_q.sum()) >= 128
+    with torch.inference_mode():
+        out, lse = fa._forward(q, k, v, True, 128 ** -0.5, mask)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_reference(q, k, v, True, None, True, mask)
+    assert_agrees(out, ref, AGREE_TOL["fwd"][dt], dead_q)
+    assert (lse[:, :, dead_q] == -1e30).all()
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
 
 
 @pytest.mark.gpu

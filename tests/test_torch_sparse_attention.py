@@ -10,6 +10,9 @@ fed to both: forward at fp32 atol 2e-5, gradients against ``jax.grad`` at
 kernels' live-tile tables are checked by decoding them the way the CUDA
 kernels do; the kernels themselves run on the card
 (tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -271,7 +274,10 @@ def _decode(table, name, S, causal):
             r0, c0 = t * rows, idx[e] * cols
             for a in range(rows):
                 for c in range(cols):
-                    if name == "q":       # K1 (bf16/fp16) and K2
+                    if name == "fwd":     # K1 (bf16/fp16): one word per consumer warp
+                        warp, r = a // 16, (a // 8) % 2
+                        on = (u[warp] >> (r * 16 + c // 8)) & 1
+                    elif name == "q":     # K2
                         warp, r, g = a // 16, (a // 8) % 2, a % 8
                         live = (u[warp >> 1] >> ((warp & 1) * 16)) & 0xFFFF
                         on = (live >> (r * 8 + c // 8)) & 1
@@ -308,6 +314,31 @@ def test_live_tile_tables_cover_exactly_the_attended_pairs(block_q, block_k, cau
             lst = table.idx[table.off[t]:table.off[t + 1]].tolist()
             assert lst == sorted(set(lst))
     assert live_tile_tables(mask, S, causal, "cpu") is tables    # cached
+
+
+def _cu_constants(source):
+    """The ``constexpr int NAME = value;`` lines of a kernel source."""
+    text = (Path(fa.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    return {m[1]: int(m[2]) for m in
+            re.finditer(r"^constexpr int (\w+) = (\d+);", text, re.MULTILINE)}
+
+
+def test_table_tiles_match_the_kernels_tiles():
+    """The wrapper's table tiles are the CUDA kernels' own loop tiles: a
+    mismatch would show only on the card, as wrong or skipped tiles."""
+    fwd = _cu_constants("flash_attention_fwd.cu")
+    bwd = _cu_constants("flash_attention_bwd.cu")
+    assert fa._TILES["fwd"] == (fwd["BLOCK_M"], fwd["BLOCK_N"])
+    assert fa._TILES["f32"] == (fwd["F32_BLOCK"], fwd["F32_BLOCK"])
+    assert fa._TILES["q"] == (bwd["DQ_BLOCK_M"], bwd["DQ_BLOCK_N"])
+    assert fa._TILES["kv"] == (bwd["DKV_BLOCK_N"], bwd["DKV_BLOCK_M"])
+    # K1 reads one 32-bit word of an entry per consumer warp (the threads
+    # past the producer warpgroup), each covering 16 rows of the tile
+    rows, cols = fa._TILES["fwd"]
+    words = rows // 8 * (cols // 8) // 32
+    assert words == (fwd["NUM_THREADS"] - 128) // 32 == rows // 16
+    tables = live_tile_tables(np.ones((2, 2), bool), 256, True, "cpu")
+    assert tables["fwd"].bits.shape[1] == words
 
 
 def test_tables_refuse_blocks_the_kernels_cannot_mask():
