@@ -1,21 +1,22 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--profile] [--first-launch]
-    python3 chip_smoke.py --ab NAME=PATH ...   # K1 variants side by side
+    python3 chip_smoke.py --ab NAME=PATH ...   # K1 (or K2/K3) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
 one JSON line each; any failure exits non-zero with no result line:
 
 1. environment and build: the card (``nvidia-smi`` name and power limit),
    torch/CUDA versions, and the nvcc builds of every kernel source in the
-   checkout, in parallel, with ptxas registers and spills per kernel; then
-   K1's first launches (S=256 and the training shape) in a child process
-   killed after FIRST_LAUNCH_TIMEOUT_S, so that a pipeline that hangs
-   fails the run at once;
+   checkout, in parallel, with ptxas registers, spills and warnings per
+   kernel; then the first launches of K1, K2 and K3 (S=256 and the
+   training shape) in a child process killed after FIRST_LAUNCH_TIMEOUT_S,
+   so that a pipeline that hangs fails the run at once;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few more, with kernel / plain / library timings
    (CUDA events, median of 20 after warm-up): K1 the flash forward, K2 the
-   dq backward, K3 the dk/dv backward, K4 the paged decode attention (at
+   dq backward, K3 the dk/dv backward (bf16/fp16 and fp32; an fp32
+   gradient through autograd), K4 the paged decode attention (at
    the serving stream's decode shape, GQA, hd 64, page 16, a contiguous
    cache, fp16, fp32, a slot at length 0 and a page shared by two slots);
 3. block-sparse attention (``SparseSelfAttention`` -> the ``block_mask``
@@ -38,7 +39,8 @@ one JSON line each; any failure exits non-zero with no result line:
 5. training parity at S=2048: 3 steps from the same weights and batch
    through the kernels and through the plain attention branch (which must
    launch none); losses and the gradient norm must agree, and both are
-   held beside an fp32 engine;
+   held beside an fp32 engine; an fp32 engine through the kernels (their
+   fp32 variants) must agree with the fp32 plain branch;
 6. the serving path at full llama2-7b width and depth with random weights
    from the seed: ``init_inference`` -> ``engine.forward`` on S=4096 (K1
    must launch once per layer), the same tokens through the plain
@@ -74,6 +76,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -99,14 +102,18 @@ FWD_SHAPES = [
     (1, 1024, 8, 8, 128, torch.float16, True),
     (1, 1024, 8, 2, 64, torch.float32, True),
 ]
-# K2/K3 (bf16/fp16 only: fp32 gradients on CUDA raise, checked below)
+# K2/K3: the tensor-core kernels (bf16/fp16), then the CUDA-core fp32 ones
 BWD_SHAPES = [
     TRAIN_SHAPE,
     (2, 2048, 32, 8, 128, torch.bfloat16, True),
     (2, 2048, 12, 12, 64, torch.bfloat16, True),
     (1, 2048, 16, 16, 128, torch.bfloat16, False),
     (1, 1024, 8, 8, 128, torch.float16, True),
+    (1, 2048, 8, 2, 64, torch.float32, True),
+    (1, 2048, 8, 2, 128, torch.float32, True),
+    (1, 2048, 8, 2, 128, torch.float32, False),
 ]
+FP32_BWD_SHAPE = BWD_SHAPES[6]   # the fp32 record of the kernels line
 # From this length on, one fp32 [S, S] score plane per head is over 0.27 GB
 # and the plain versions run on slices of PLAIN_HEADS heads: compared on the
 # first slice, timed over all of them.
@@ -138,9 +145,11 @@ AGREE_TOL = {
     },
     # K2/K3: worst tile 8.7e-4 bf16 / 8.7e-5 fp16; yardstick >= 6.7e-3 /
     # 1.0e-3.  Per element: needs <= 0.008 / 0.0011, yardstick >= 0.064 / 0.010.
+    # fp32 (summation order only): fp32's tile limit of PERF.md, as K1's.
     "bwd": {
         torch.bfloat16: {"tile_rel": 3e-3, "elem_rtol": 2e-2, "elem_atol_rms": 3e-2},
         torch.float16: {"tile_rel": 4e-4, "elem_rtol": 2e-2, "elem_atol_rms": 5e-3},
+        torch.float32: {"tile_rel": 1e-5, "elem_rtol": 1e-4, "elem_atol_rms": 1e-3},
     },
 }
 LSE_ATOL = 1e-5   # lse is fp32 always: 1.9e-6 at most on the H100
@@ -165,6 +174,13 @@ PARITY_S, PARITY_STEPS = 2048, 3
 # 0.67% in gradient norm at step 3; PERF.md)
 PARITY_LOSS_RTOL = 2e-3
 PARITY_GRAD_NORM_RTOL = 2e-2
+# fp32 through the kernels (attn_impl="auto") vs the fp32 plain branch: the
+# two differ in summation order only (4.1e-7 in loss, 1.4e-6 in gradient
+# norm on the H100).  Each limit lies between that reading and the
+# yardstick every run must exceed: the bf16 kernel path's own distance
+# from fp32 (4.0e-4 / 4.9e-3; PERF.md).
+FP32_PARITY_LOSS_RTOL = 1e-5
+FP32_PARITY_GRAD_NORM_RTOL = 1e-4
 GEN_PROMPTS, GEN_NEW = [17, 45, 90, 128], 32
 
 # The paged serving stream: 24 requests arriving at t=0, prompts 16-2000
@@ -375,13 +391,14 @@ def phase_build():
           "ptxas": {b.name: ptxas_report(b.log) for b in builders}})
 
 
-# K1's first launches, in a child process with a time limit: a wrong
-# mbarrier phase parity in its TMA/wgmma pipeline hangs the kernel instead
-# of failing it, and a hang would otherwise hold the whole run.
+# The first launches of K1, K2 and K3, in a child process with a time
+# limit: a wrong mbarrier phase parity in their TMA/wgmma pipelines hangs a
+# kernel instead of failing it, and a hang would otherwise hold the run.
 FIRST_LAUNCH_SHAPES = [
     (1, 256, 2, 2, 64, torch.bfloat16, True),
     (1, 256, 2, 2, 128, torch.bfloat16, True),
     (1, 256, 2, 2, 128, torch.float16, False),
+    (1, 256, 4, 2, 128, torch.float32, True),
     TRAIN_SHAPE,
 ]
 FIRST_LAUNCH_TIMEOUT_S = 180
@@ -389,6 +406,18 @@ K1_DESIGN = ("wgmma+TMA, warp-specialised: a producer warpgroup (setmaxnreg 24) 
              "feeds a 2-3 stage K/V ring by TMA; two consumer warpgroups "
              "(setmaxnreg 240) of 64 query rows, 128-key tiles, S=QK^T SS and "
              "O+=PV RS, a tile's softmax overlapping the next products")
+K2_DESIGN = ("wgmma+TMA, warp-specialised: Q and dO resident (128 query rows), a "
+             "producer warpgroup (setmaxnreg 24) feeds a 3-4 stage ring of 64-key "
+             "K/V tiles by TMA; two consumer warpgroups (setmaxnreg 240) of 64 rows: "
+             "S=QK^T and dP=dO V^T SS m64n64, P on S while dP runs, dQ+=dS K RS "
+             "with K read MN-major; fp32: a CUDA-core kernel of 64-row tiles")
+K3_DESIGN = ("wgmma+TMA, warp-specialised: K and V resident (128 keys), a producer "
+             "warpgroup (setmaxnreg 24) feeds a 2-3 stage ring of 64-row Q/dO tiles "
+             "by TMA and their lse/delta by bulk copy, over every q head of the "
+             "group; two consumer warpgroups (setmaxnreg 240) of 64 keys: "
+             "S^T=KQ^T and dP^T=V dO^T SS m64n64, dV+=P^T dO and dK+=dS^T Q RS "
+             "with dO and Q read MN-major, dS in registers only; fp32: a "
+             "CUDA-core kernel of 64-key tiles")
 
 
 def _child(args, timeout_s: int, what: str):
@@ -404,41 +433,65 @@ def _child(args, timeout_s: int, what: str):
 
 
 def first_launches() -> int:
-    """The child's side of ``phase_first_launch``: launch K1 once at each
-    FIRST_LAUNCH_SHAPES entry, synchronise, and compare the small ones with
-    the plain version (worst-tile gate).  Prints one JSON line."""
-    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_reference)
+    """The child's side of ``phase_first_launch``: launch K1, then K2 and
+    K3 on its residuals, once at each FIRST_LAUNCH_SHAPES entry, synchronise
+    after each, and compare the small ones with the plain versions
+    (worst-tile gates).  Prints one JSON line per launch as it goes (a hang
+    shows which kernel hung) and a summary line."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
     for shape in FIRST_LAUNCH_SHAPES:
-        q, k, v = _inputs(gen, shape, 3)
-        t0 = time.perf_counter()
+        causal, dtype, small = shape[-1], shape[5], shape[1] < CHUNK_FROM_S
+        q, k, v, do = _inputs(gen, shape, 4)
+        scale = shape[4] ** -0.5
+        rec = {"shape": _shape_dict(shape, None)}
         with torch.inference_mode():
-            o = flash_attention(q, k, v, causal=shape[-1])
+            t0 = time.perf_counter()
+            o, lse = fa._forward(q, k, v, causal, scale)
             torch.cuda.synchronize()
-            rec = {"shape": _shape_dict(shape, None), "s": time.perf_counter() - t0}
-            if shape[1] < CHUNK_FROM_S:
-                ref = flash_attention_reference(q, k, v, shape[-1])
-                rec["agreement"] = agreement(o, ref, AGREE_TOL["fwd"][shape[5]])
+            rec["K1_s"] = time.perf_counter() - t0
+            emit({"first_launch": "K1", **rec})
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, causal, scale)
+            t0 = time.perf_counter()
+            dq = fa.flash_attention_bwd_dq(*args)
+            torch.cuda.synchronize()
+            rec["K2_s"] = time.perf_counter() - t0
+            emit({"first_launch": "K2", **rec})
+            t0 = time.perf_counter()
+            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            rec["K3_s"] = time.perf_counter() - t0
+            emit({"first_launch": "K3", **rec})
+            if small:
+                ref = fa.flash_attention_reference(q, k, v, causal, scale)
+                rec["agreement"] = {"out": agreement(o, ref, AGREE_TOL["fwd"][dtype])}
+                rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
+                for name, got, want in (
+                        ("dq", dq, fa.flash_attention_bwd_dq_reference(*args)),
+                        ("dk", dk, rk), ("dv", dv, rv)):
+                    rec["agreement"][name] = agreement(got, want, AGREE_TOL["bwd"][dtype])
         out.append(rec)
-        del q, k, v, o
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        free_memory()
     emit({"first_launches": out})
-    return 0 if all(r.get("agreement", {"ok": True})["ok"] for r in out) else 1
+    return 0 if all(a["ok"] for r in out for a in r.get("agreement", {}).values()) else 1
 
 
 def phase_first_launch():
-    """K1's first launches in a child process that is killed after
+    """The first launches of K1-K3 in a child process that is killed after
     FIRST_LAUNCH_TIMEOUT_S: a hang fails the run here, with a message."""
     t0 = time.perf_counter()
-    res = _child(["--first-launch"], FIRST_LAUNCH_TIMEOUT_S, "K1's first launches")
+    res = _child(["--first-launch"], FIRST_LAUNCH_TIMEOUT_S, "the first launches of K1-K3")
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
     rec = json.loads(lines[-1]) if lines else {}
     emit({"phase": "first_launch", "seconds": time.perf_counter() - t0,
           "returncode": res.returncode, **rec})
-    check(res.returncode == 0, f"K1's first launches failed (exit {res.returncode}): "
-                               f"{res.stdout[-2000:]} {res.stderr[-4000:]}")
+    check(res.returncode == 0, f"the first launches of K1-K3 failed (exit "
+                               f"{res.returncode}): {res.stdout[-2000:]} "
+                               f"{res.stderr[-4000:]}")
 
 
 def _heads(x, lo, hi, dim=2):
@@ -631,7 +684,8 @@ def phase_bwd_kernels(gen: torch.Generator):
     and dv in one call).  Returns {shape: (K2 record, K3 record)}."""
     from deepspeed_tpu_torch.ops.kernels.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
-        flash_attention_bwd_dq, flash_attention_bwd_dq_reference)
+        flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
+        flash_attention_reference)
 
     records = {}
     for shape in BWD_SHAPES:
@@ -703,14 +757,21 @@ def phase_bwd_kernels(gen: torch.Generator):
         records[shape] = tuple(pair)
         del q, k, v, do, lse, delta, args
         free_memory()
-    # fp32 gradients on the card are refused, never run on the plain version
-    f = torch.randn((1, 128, 2, 64), device="cuda").requires_grad_()
-    try:
-        flash_attention(f, f, f)
-    except NotImplementedError:
-        pass
-    else:
-        raise RuntimeError("an fp32 flash gradient on CUDA did not raise")
+    # fp32 gradients on the card run through K1-K3 under autograd (once
+    # refused) and agree with an fp32 autograd of the plain forward
+    f = [torch.randn((1, 256, 4, 64), generator=gen, device="cuda").requires_grad_()
+         for _ in range(3)]
+    do = torch.randn((1, 256, 4, 64), generator=gen, device="cuda")
+    before = kernel_counts()
+    flash_attention(*f).backward(do)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(kernel_counts(), before))
+    check(got == (1, 1, 1), f"an fp32 flash gradient launched K1/K2/K3 {got} times")
+    fr = [x.detach().clone().requires_grad_() for x in f]
+    flash_attention_reference(*fr).backward(do)
+    for x, r in zip(f, fr):
+        a = agreement(x.grad, r.grad, AGREE_TOL["bwd"][torch.float32])
+        check(a["ok"], f"fp32 flash autograd disagrees with the plain autograd: {a}")
     return records
 
 
@@ -1082,7 +1143,7 @@ def phase_sparse_attention(gen: torch.Generator):
                "live_share_of_unmasked_pairs": pairs / _pairs(S, causal),
                "tiles": {n: {"visited": int(t.idx.numel()),
                              "partly_live_share": t.partial_share()}
-                         for n, t in tables.items() if n != "f32"},
+                         for n, t in tables.items() if not n.startswith("f32")},
                "launches": dict(zip(("K1", "K2", "K3"), launches)),
                "autograd_equals_direct_calls": same_as_autograd,
                "kernels": kernels, "agreement": agree, "tol": {"fwd": tol_f, "bwd": tol_b},
@@ -1253,7 +1314,10 @@ def phase_train(seed: int, profile: bool, kernel_ms: dict):
 def phase_train_parity(seed: int):
     """3 steps from one set of weights on one batch at S=2048 through the
     kernels (attn_impl="auto") and through the plain branch ("xla"), both
-    bf16, and through an fp32 engine on the plain branch."""
+    bf16, and through fp32 engines on the plain branch and on the kernels
+    (K1's and K2/K3's CUDA-core fp32 variants): the fp32 kernel path must
+    stay within FP32_PARITY_* of the fp32 plain branch, a distance the bf16
+    kernel path's must exceed."""
     from deepspeed_tpu_torch.models import CausalLM
 
     S = PARITY_S
@@ -1265,7 +1329,7 @@ def phase_train_parity(seed: int):
     L = base.config.num_layers
     runs = {}
     for label, impl, fp32 in (("kernel", "auto", False), ("plain", "xla", False),
-                              ("fp32", "xla", True)):
+                              ("fp32", "xla", True), ("fp32_kernel", "auto", True)):
         _, engine = _train_engine(seed, S, impl, fp32, params=params)
         before = kernel_counts()
         losses, norms = [], []
@@ -1274,7 +1338,7 @@ def phase_train_parity(seed: int):
             norms.append(engine.get_global_grad_norm())
         got = tuple(a - b for a, b in zip(kernel_counts(), before))
         want = ((2 * L * PARITY_STEPS, L * PARITY_STEPS, L * PARITY_STEPS)
-                if label == "kernel" else (0, 0, 0))
+                if impl == "auto" else (0, 0, 0))
         check(got == want, f"{label} run launched K1/K2/K3 {got}, expected {want}")
         runs[label] = {"losses": losses, "grad_norms": norms, "launches": got}
         del engine
@@ -1283,7 +1347,7 @@ def phase_train_parity(seed: int):
     def rel(a, b):
         return abs(a - b) / abs(b)
 
-    k, p, f = runs["kernel"], runs["plain"], runs["fp32"]
+    k, p, f, fk = runs["kernel"], runs["plain"], runs["fp32"], runs["fp32_kernel"]
     rec = {"phase": "train_parity", "model": TRAIN_MODEL, "S": S,
            "steps": PARITY_STEPS, **{f"{n}_{key}": r[key] for n, r in runs.items()
                                      for key in ("losses", "grad_norms")},
@@ -1297,9 +1361,17 @@ def phase_train_parity(seed: int):
            "grad_norm_rel_diff_vs_fp32": {
                "kernel": [rel(a, b) for a, b in zip(k["grad_norms"], f["grad_norms"])],
                "plain": [rel(a, b) for a, b in zip(p["grad_norms"], f["grad_norms"])]},
+           "fp32_kernel_vs_fp32_plain": {
+               "loss_rel_diff": [rel(a, b) for a, b in zip(fk["losses"], f["losses"])],
+               "grad_norm_rel_diff": [rel(a, b) for a, b in
+                                      zip(fk["grad_norms"], f["grad_norms"])]},
            "gates": {"loss_rtol": PARITY_LOSS_RTOL,
                      "grad_norm_rtol": PARITY_GRAD_NORM_RTOL,
-                     "vs_fp32": "kernel path no further than the plain branch"}}
+                     "vs_fp32": "kernel path no further than the plain branch",
+                     "fp32_loss_rtol": FP32_PARITY_LOSS_RTOL,
+                     "fp32_grad_norm_rtol": FP32_PARITY_GRAD_NORM_RTOL,
+                     "fp32_yardstick": "the bf16 kernel path's distance from fp32 "
+                                       "must exceed the fp32 limits"}}
     emit(rec)
     check(max(rec["loss_rel_diff_kernel_vs_plain"]) <= PARITY_LOSS_RTOL,
           f"kernel and plain loss trajectories differ: {rec}")
@@ -1309,6 +1381,16 @@ def phase_train_parity(seed: int):
         check(max(rec[key]["kernel"]) <= max(rec[key]["plain"]),
               f"the kernel path strays further from fp32 than the plain "
               f"branch ({key}): {rec}")
+    f32 = rec["fp32_kernel_vs_fp32_plain"]
+    for diffs, yard, tol in (
+            (f32["loss_rel_diff"], rec["loss_rel_diff_vs_fp32"]["kernel"],
+             FP32_PARITY_LOSS_RTOL),
+            (f32["grad_norm_rel_diff"], rec["grad_norm_rel_diff_vs_fp32"]["kernel"],
+             FP32_PARITY_GRAD_NORM_RTOL)):
+        check(max(diffs) <= tol, f"fp32 training through the kernels strays from the "
+                                 f"fp32 plain branch: {rec}")
+        check(max(yard) > tol, f"the fp32 parity limit {tol} passes the bf16 kernel "
+                               f"path too: {rec}")
     del params, batch
     free_memory()
 
@@ -1735,91 +1817,215 @@ def profile_serving(sv, stream) -> None:
 
 
 # ---------------------------------------------------------------------------
-# --ab: K1 variants side by side (the measurements of a redesign's steps)
+# --ab: variants of K1, or of K2/K3, side by side (a redesign's steps)
 # ---------------------------------------------------------------------------
 
 # K1 shapes of the A/B timing: the two main paths' and the full-attention
 # training shape; the masked main case is timed beside TRAIN_SHAPE
 AB_SHAPES = [TRAIN_SHAPE, SERVE_SHAPE, TRAIN_SHAPE[:-1] + (False,)]
+# K2/K3: the training shape, full attention at its length, GQA and the
+# fp32 kernels' record shape; the masked main case beside TRAIN_SHAPE
+AB_BWD_SHAPES = [TRAIN_SHAPE, TRAIN_SHAPE[:-1] + (False,),
+                 (2, 2048, 32, 8, 128, torch.bfloat16, True), FP32_BWD_SHAPE]
+AB_SOURCES = {"fwd": "flash_attention_fwd.cu", "bwd": "flash_attention_bwd.cu"}
+
+
+def _ab_kind(path: str) -> str:
+    """``fwd`` or ``bwd``: ``repo`` is the checkout's forward source,
+    ``repo-bwd`` its backward source, a copy is told by its entry points."""
+    if path in ("repo", "repo-bwd"):
+        return "fwd" if path == "repo" else "bwd"
+    text = (Path(ROOT) / path).read_text()
+    return "bwd" if "ds_flash_attention_bwd_dq" in text else "fwd"
 
 
 def _ab_builders(specs):
-    """{name: KernelBuilder} of ``name=path`` specs: a copy of
-    flash_attention_fwd.cu (path from the repo root; ``repo`` for the
-    checkout's own source), built with the same flags and headers."""
-    from pathlib import Path
-
+    """(kind, {name: KernelBuilder}) of ``name=path`` specs, all copies of
+    one source (path from the repo root; ``repo`` / ``repo-bwd`` for the
+    checkout's own), built with the same flags and headers.  A copy's own
+    directory comes first on its include path, so an older source can keep
+    the header it had beside it."""
     from deepspeed_tpu_torch.ops.op_builder import KernelBuilder
 
-    out = {}
+    kinds, out = set(), {}
     for spec in specs:
         name, path = spec.split("=", 1)
-        b = KernelBuilder(f"flash_attention_fwd_{name}", "flash_attention_fwd.cu")
-        if path != "repo":
+        kind = _ab_kind(path)
+        kinds.add(kind)
+        b = KernelBuilder(f"flash_attention_{kind}_{name}", AB_SOURCES[kind])
+        if not path.startswith("repo"):
             b.source = Path(ROOT) / path
         out[name] = b
-    return out
+    if len(kinds) != 1:
+        raise ValueError(f"--ab compares copies of one source, got {sorted(kinds)}")
+    return kinds.pop(), out
 
 
-def _ab_use(builder) -> None:
+def _ab_use(kind, builder) -> None:
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
-    fa._FWD_BUILDER = builder
+    if kind == "fwd":
+        fa._FWD_BUILDER = builder
+    else:
+        fa._BWD_BUILDER = builder
+
+
+def _ab_masked_ok(kind, builder) -> bool:
+    """Whether a variant walks the tiles of the wrapper's tables: an older
+    tiling would read them wrongly, so its masked mode is neither checked
+    nor timed."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    c = {m[1]: int(m[2]) for m in re.finditer(
+        r"^constexpr int (\w+) = (\d+);", builder.source.read_text(), re.MULTILINE)}
+    if kind == "fwd":
+        return fa._TILES["fwd"] == (c.get("BLOCK_M"), c.get("BLOCK_N"))
+    return (fa._TILES["q"] == (c.get("DQ_BLOCK_M"), c.get("DQ_BLOCK_N"))
+            and fa._TILES["kv"] == (c.get("DKV_BLOCK_N"), c.get("DKV_BLOCK_M")))
+
+
+def _ab_takes_fp32(builder) -> bool:
+    """Whether a backward source has the fp32 kernels (an older one refuses
+    fp32 inputs)."""
+    return "flash_bwd_dq_fp32_kernel" in builder.source.read_text()
 
 
 def ab_check(specs, name) -> int:
-    """The child of ``ab``: one variant against the plain version at the
+    """The child of ``ab``: one variant against the plain versions at the
     first-launch shapes, GQA 32/8 over two batches (hd 64/128, bf16/fp16,
     causal and full), the dead-rows mask and random masks of 32- and
-    64-blocks."""
+    64-blocks.  A backward variant runs on the checkout's K1; the fp32
+    cases are skipped for a source without fp32 kernels (an older one)."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
-    _ab_use(_ab_builders(specs)[name])
+    kind, builders = _ab_builders(specs)
+    _ab_use(kind, builders[name])
+    masked_ok = _ab_masked_ok(kind, builders[name])
+    fp32_ok = kind == "fwd" or _ab_takes_fp32(builders[name])
     S1 = 1024
     rng = np.random.default_rng(0)
     masks = [dead_rows_mask(2048)] + [rng.random((S1 // b, S1 // b)) < 0.5 for b in (32, 64)]
     cases = [(shape, None) for shape in FIRST_LAUNCH_SHAPES[:-1]]
     cases += [((2, 1024, 32, 8, hd, dt, c), None) for hd in (64, 128)
               for dt in (torch.bfloat16, torch.float16) for c in (True, False)]
-    cases += [((1, 2048, 8, 8, 128, torch.bfloat16, True), masks[0])]
-    cases += [((2, S1, 8, 2, hd, torch.bfloat16, c), m) for m in masks[1:]
-              for hd in (64, 128) for c in (True, False)]
+    if masked_ok:
+        cases += [((1, 2048, 8, 8, 128, torch.bfloat16, True), masks[0])]
+        cases += [((2, S1, 8, 2, hd, torch.bfloat16, c), m) for m in masks[1:]
+                  for hd in (64, 128) for c in (True, False)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
     for shape, mask in cases:
         B, S, Hq, Hkv, hd, dtype, causal = shape
-        q, k, v = _inputs(gen, shape, 3)
+        q, k, v, do = _inputs(gen, shape, 4)
         scale = hd ** -0.5
         keep = fa.attended(S, causal, mask, "cuda")
-        dead = None if mask is None else ~keep.any(-1)
+        dead_q = None if mask is None else ~keep.any(-1)
+        dead_k = None if mask is None else ~keep.any(0)
+        rec = {"ab_check": name, "shape": _shape_dict(shape, None),
+               "mask": None if mask is None else list(mask.shape)}
+        if dtype == torch.float32 and not fp32_ok:
+            emit({**rec, "skipped": "this source has no fp32 backward kernels"})
+            continue
         with torch.inference_mode():
             out, lse = fa._forward(q, k, v, causal, scale, mask)
             torch.cuda.synchronize()
-            ref, ref_lse = fa.flash_attention_reference(q, k, v, causal, scale, True, mask)
-        agree = agreement(out, ref, AGREE_TOL["fwd"][dtype], dead=dead)
-        lse_err = (lse - ref_lse).abs().max().item()
-        good = agree["ok"] and lse_err <= LSE_ATOL
+            if kind == "fwd":
+                ref, ref_lse = fa.flash_attention_reference(q, k, v, causal, scale,
+                                                            True, mask)
+                agree = {"out": agreement(out, ref, AGREE_TOL["fwd"][dtype], dead=dead_q)}
+                rec["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+                good = rec["lse_max_abs_err"] <= LSE_ATOL
+            else:
+                delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+                args = (q, k, v, do, lse, delta, causal, scale, mask)
+                dq = fa.flash_attention_bwd_dq(*args)
+                dk, dv = fa.flash_attention_bwd_dkv(*args)
+                torch.cuda.synchronize()
+                rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
+                tol = AGREE_TOL["bwd"][dtype]
+                agree = {"dq": agreement(dq, fa.flash_attention_bwd_dq_reference(*args),
+                                         tol, dead=dead_q),
+                         "dk": agreement(dk, rk, tol, dead=dead_k),
+                         "dv": agreement(dv, rv, tol, dead=dead_k)}
+                good = True
+        good = good and all(a["ok"] for a in agree.values())
         ok &= good
-        emit({"ab_check": name, "shape": _shape_dict(shape, None),
-              "mask": None if mask is None else list(mask.shape), "ok": good,
-              "worst_tile_rel_l2": agree["worst_tile_rel_l2"], "lse_max_abs_err": lse_err})
+        emit({**rec, "ok": good,
+              "worst_tile_rel_l2": {n: a["worst_tile_rel_l2"] for n, a in agree.items()}})
     return 0 if ok else 1
 
 
+def _ab_time_fwd(builders, gen, sa, shape):
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    causal = shape[-1]
+    q, k, v = _inputs(gen, shape, 3)
+    order = list(builders) + list(builders)[::-1]
+    ms, masked = {n: [] for n in builders}, {n: [] for n in builders}
+    with torch.inference_mode():
+        for name in order:
+            _ab_use("fwd", builders[name])
+            ms[name].append(time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)))
+            if shape == TRAIN_SHAPE and _ab_masked_ok("fwd", builders[name]):
+                masked[name].append(time_ms(lambda: sa(q, k, v)))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=shape[2] != shape[3]))
+    flops = attention_flops(*shape)
+    return ms, masked, library_ms, flops
+
+
+def _ab_time_bwd(builders, gen, sa, shape):
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, S, Hq, Hkv, hd, dtype, causal = shape
+    scale = hd ** -0.5
+    q, k, v, do = _inputs(gen, shape, 4)
+    masks = [None]
+    if shape == TRAIN_SHAPE:
+        masks.append(fa._as_block_mask(sa.layout(S), S))
+    res = {}
+    with torch.inference_mode():
+        for mask in masks:
+            out, lse = fa._forward(q, k, v, causal, scale, mask)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, causal, scale, mask)
+            del out
+            names = [n for n in builders
+                     if mask is None or _ab_masked_ok("bwd", builders[n])]
+            if dtype == torch.float32:
+                names = [n for n in names if _ab_takes_fp32(builders[n])]
+            ms = {n: {"K2": [], "K3": []} for n in names}
+            for name in names + names[::-1]:
+                _ab_use("bwd", builders[name])
+                ms[name]["K2"].append(time_ms(lambda: fa.flash_attention_bwd_dq(*args)))
+                ms[name]["K3"].append(time_ms(lambda: fa.flash_attention_bwd_dkv(*args)))
+            res["unmasked" if mask is None else "masked_fixed_740m"] = ms
+            del lse, delta, args
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=Hq != Hkv)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    bounds = {key: attention_bound_ms(*shape, kernel=key)[0] for key in ("dq", "dkv")}
+    return res, library_ms, bounds
+
+
 def ab(specs) -> int:
-    """Build every variant (in parallel; ptxas registers and spills), check
-    each in a child with the first-launch time limit, then time them in
-    turns (A B .. B A) in this process at AB_SHAPES, with SDPA's forward
-    beside them."""
+    """Build every variant (in parallel; ptxas registers, spills and
+    warnings), check each in a child with the first-launch time limit, then
+    time them in turns (A B .. B A) in this process: K1 variants at
+    AB_SHAPES with SDPA's forward beside them, K2/K3 variants at
+    AB_BWD_SHAPES with SDPA's backward (dq, dk, dv in one call)."""
     import numpy as np
 
-    builders = _ab_builders(specs)
+    kind, builders = _ab_builders(specs)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         list(pool.map(lambda b: b.load(), builders.values()))
-    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "ab_build", "kind": kind, "seconds": time.perf_counter() - t0,
           "ptxas": {n: ptxas_report(b.log) for n, b in builders.items()}})
     failed = {}
     for name in list(builders):
@@ -1834,34 +2040,34 @@ def ab(specs) -> int:
         if name in failed:
             emit({"phase": "ab_check_failed", "variant": name, "error": failed[name]})
             del builders[name]
-    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     sa, _, _, _ = _sparse_case(TRAIN_SHAPE[1], SPARSE_CASES[0][2])
-    order = list(builders) + list(builders)[::-1]
-    for shape in AB_SHAPES:
-        causal = shape[-1]
-        q, k, v = _inputs(gen, shape, 3)
-        ms, masked = {n: [] for n in builders}, {n: [] for n in builders}
-        with torch.inference_mode():
-            for name in order:
-                _ab_use(builders[name])
-                ms[name].append(time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)))
-                if shape == TRAIN_SHAPE:
-                    masked[name].append(time_ms(lambda: sa(q, k, v)))
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
-        rec = {"phase": "ab_time", "shape": _shape_dict(shape, None), "ms": ms,
-               "library_ms": library_ms,
-               "ratio_to_library": {n: float(np.mean(t)) / library_ms for n, t in ms.items()},
-               "tflops": {n: attention_flops(*shape) / float(np.mean(t)) / 1e9
-                          for n, t in ms.items()}}
-        if shape == TRAIN_SHAPE:
-            rec["masked_fixed_740m_ms"] = masked
-        emit(rec)
-        del q, k, v, qt, kt, vt
-        free_memory()
+    if kind == "fwd":
+        for shape in AB_SHAPES:
+            ms, masked, library_ms, flops = _ab_time_fwd(builders, gen, sa, shape)
+            rec = {"phase": "ab_time", "shape": _shape_dict(shape, None), "ms": ms,
+                   "library_ms": library_ms,
+                   "ratio_to_library": {n: float(np.mean(t)) / library_ms
+                                        for n, t in ms.items()},
+                   "tflops": {n: flops / float(np.mean(t)) / 1e9 for n, t in ms.items()}}
+            if shape == TRAIN_SHAPE:
+                rec["masked_fixed_740m_ms"] = masked
+            emit(rec)
+            free_memory()
+    else:
+        for shape in AB_BWD_SHAPES:
+            res, library_ms, bounds = _ab_time_bwd(builders, gen, sa, shape)
+            un = res["unmasked"]
+            emit({"phase": "ab_time_bwd", "shape": _shape_dict(shape, None), "ms": res,
+                  "library_ms": library_ms, "bound_ms": bounds,
+                  "pair_ms": {n: float(np.mean(t["K2"]) + np.mean(t["K3"]))
+                              for n, t in un.items()},
+                  "ratio_to_library": {n: float(np.mean(t["K2"]) + np.mean(t["K3"]))
+                                       / library_ms for n, t in un.items()},
+                  "bound_share": {n: {"K2": bounds["dq"] / float(np.mean(t["K2"])),
+                                      "K3": bounds["dkv"] / float(np.mean(t["K3"]))}
+                                  for n, t in un.items()}})
+            free_memory()
     return 1 if failed else 0
 
 
@@ -1880,12 +2086,13 @@ def main() -> int:
                     help="also profile one train step, one forward, one "
                          "decode step and 10 serving decode ticks")
     ap.add_argument("--first-launch", action="store_true",
-                    help="only K1's first launches (the child process of the "
-                         "hang guard)")
+                    help="only the first launches of K1-K3 (the child process "
+                         "of the hang guard)")
     ap.add_argument("--ab", nargs="+", metavar="NAME=PATH",
                     help="only build, check and time these copies of "
-                         "flash_attention_fwd.cu against each other (PATH "
-                         "from the repo root, or `repo`)")
+                         "flash_attention_fwd.cu, or of flash_attention_bwd.cu, "
+                         "against each other (PATH from the repo root, `repo` "
+                         "for the forward source, `repo-bwd` for the backward)")
     ap.add_argument("--ab-check", nargs="+", metavar="ARG",
                     help=argparse.SUPPRESS)   # NAME SPEC...: --ab's child
     args = ap.parse_args()
@@ -1928,6 +2135,11 @@ def main() -> int:
     jax_src = "deepspeed_tpu/ops/pallas/flash_attention.py"
     main_case = sparse[SPARSE_CASES[0][0]]
 
+    def fp32_record(i):
+        rec = bwd[FP32_BWD_SHAPE][i]
+        return {"shape": rec["shape"], **{key: rec[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
     def block_mask(name, replaces):
         rec = main_case["kernels"][name]
         return {"case": main_case["case"], "replaces": jax_src + replaces,
@@ -1944,10 +2156,12 @@ def main() -> int:
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88")),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
-                      jax_src + ":189", train_launches[1], k2,
+                      jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
+                      bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202")),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
-                      jax_src + ":236", train_launches[2], k3,
+                      jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
+                      bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254")),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],

@@ -59,7 +59,7 @@
 // Masked mode (`block_mask`, the block-sparse path; the Pallas kernel's
 // `masked` skip at :88-93).  The Pallas kernel still streams every dead
 // block's K/V through its pipeline; here the producer walks only the live
-// key tiles of this query tile, from the wrapper's table (flash_common.cuh
+// key tiles of this query tile, from the wrapper's table (hopper_common.cuh
 // TileTable, the "fwd" table at this kernel's 128 x 128 tiles; fp32 its
 // own 64 x 64 "f32" table), so dead tiles cost neither loads nor math.  A
 // table entry carries its live 8x8 element groups as 256 bits, one 32-bit
@@ -74,12 +74,14 @@
 // the query tiles with the longest lists first.
 #include <cstdio>
 
-#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
-using namespace flash;
+using hopper::LN2;
+using hopper::LOG2E;
+using hopper::NEG_INF;
+using hopper::TileTable;
 
 // tensor-core kernel (bf16 / fp16)
 constexpr int BLOCK_M = 128;        // query rows per CTA: two consumer warpgroups x 64

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's CUDA kernels: TMA tensor
 // maps and loads, mbarrier pipelines, warpgroup matrix multiply (wgmma) and
-// register reallocation (setmaxnreg).  The flash-attention forward
-// (flash_attention_fwd.cu) is built from them; flash_common.cuh keeps the
-// warp-level mma.sync pieces that the backward kernels still use.
+// register reallocation (setmaxnreg), and what the flash-attention kernels
+// share (their constants and the live-tile table of the masked mode).  The
+// forward (flash_attention_fwd.cu) and both backward kernels
+// (flash_attention_bwd.cu) are built from them.
 //
 // wgmma m64nNk16 (fp32 accumulate), per warpgroup of 128 threads: warp w
 // (0-3) owns rows 16w..16w+15; lane = 4 g + t4.  Accumulator d[i] of an
@@ -24,19 +25,43 @@
 //   swizzle to the address it forms, so an offset inside the atom is fine).
 //   MN-major operand (the contraction runs down the rows: V of P.V, with
 //   the transpose bit): SBO = 1024 (next 8 rows of k), LBO = the byte
-//   distance between two 64-column boxes along N; k step kc of 16 rows
-//   starts 2048 kc bytes in.
+//   distance between two 64-column boxes along N, which is the tile's
+//   height times 128 (16 KB for 128 rows, 8 KB for 64); k step kc of 16
+//   rows starts 2048 kc bytes in.
+// One swizzled tile can be read both ways: the backward reads Q, dO (and
+// K) K-major as the B operand of a score product and MN-major as the B
+// operand of a gradient product (kmajor_desc / mnmajor_desc below).
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace hopper {
+
+constexpr float NEG_INF = -1e30f;   // ops/kernels/common.py NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Live-tile table of the block-sparse (masked) mode, one per kernel tiling,
+// built by the wrapper (ops/kernels/flash_attention.py `live_tile_tables`):
+// the CTA of tile t along its own axis visits the other axis' tiles
+// idx[off[t] .. off[t+1]) in ascending order; bits[e * W ..] (W 32-bit words
+// per entry) marks entry e's live 8x8 element groups, row group major (the
+// mask ANDed with causal at group level; the diagonal groups are masked
+// element by element as before); order[blockIdx.x] is the tile a CTA takes,
+// longest list first.  Unmasked launches pass null pointers.
+struct TileTable {
+  const int* off;
+  const int* idx;
+  const uint32_t* bits;
+  const int* order;
+};
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps
@@ -149,6 +174,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A contiguous run of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory by the bulk-copy unit (1-D, no tensor map):
+// the fp32 lse / delta rows of a tile; completes on the barrier like a box.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
 // 2^x on the SFU with denormal results flushed to zero (ex2.approx.ftz:
 // one MUFU.EX2; exp2f without -ftz adds a denormal range fix-up).
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -167,6 +205,20 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// k step kk (16 elements) of a K-major tile: the contraction runs along the
+// 128-byte rows, `box` bytes between its 64-column boxes (rows x 128).
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, uint32_t box,
+                                                int kk) {
+  return sw128_desc(tile + (kk / 4) * box + (kk % 4) * 32, 16, 1024);
+}
+
+// k step kc (16 rows) of an MN-major tile (use with the transpose bit): the
+// contraction runs down the rows, N across the boxes, `box` bytes apart.
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, uint32_t box,
+                                                 int kc) {
+  return sw128_desc(tile + kc * 2048, box, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -240,6 +292,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
       : HOPPER_ACC128(d) \
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
 
+#define HOPPER_WGMMA_SS_N64(TY, d, da, db, scale_d, TA, TB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n" \
+      : HOPPER_ACC64(d) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+
 #define HOPPER_WGMMA_RS_N64(TY, d, a, db, scale_d, TB) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
@@ -282,9 +344,14 @@ template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  static_assert(N == 128, "m64nNk16 SS: N of 128 (add the shape a kernel needs)");
-  if constexpr (bf16) HOPPER_WGMMA_SS_N128("bf16", d, da, db, scale_d, TA, TB);
-  else HOPPER_WGMMA_SS_N128("f16", d, da, db, scale_d, TA, TB);
+  static_assert(N == 64 || N == 128, "m64nNk16 SS: N of 64 or 128");
+  if constexpr (N == 64) {
+    if constexpr (bf16) HOPPER_WGMMA_SS_N64("bf16", d, da, db, scale_d, TA, TB);
+    else HOPPER_WGMMA_SS_N64("f16", d, da, db, scale_d, TA, TB);
+  } else {
+    if constexpr (bf16) HOPPER_WGMMA_SS_N128("bf16", d, da, db, scale_d, TA, TB);
+    else HOPPER_WGMMA_SS_N128("f16", d, da, db, scale_d, TA, TB);
+  }
 }
 
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], A from registers (the m16n8k16 A

@@ -29,9 +29,6 @@ CTA walks only its live tiles, and tests the mask element by element only
 in tiles that are partly live.  A row with no live key gives out 0, lse
 ``NEG_INF`` and no gradient, as the Pallas kernels give (they never run a
 dead block).  ``return_lse`` with a mask raises, as in JAX.
-
-The backward of fp32 inputs on CUDA is not ported (the forward has a
-CUDA-core fp32 variant; the backward kernels take bf16/fp16 only).
 """
 from __future__ import annotations
 
@@ -136,9 +133,13 @@ def attended(S: int, causal: bool, block_mask=None, device=None):
 # Tiles of each CUDA kernel's loop, (rows of the CTA's own axis, rows of the
 # axis it walks), by table name: K1 (bf16/fp16) walks 128-key tiles of a
 # 128-row query tile (``BLOCK_M``/``BLOCK_N`` of flash_attention_fwd.cu), K2
-# 64-key tiles of a 128-row query tile, K1's fp32 variant 64-key tiles of a
-# 64-row tile, K3 32-row query tiles of a 128-key tile.
-_TILES = {"fwd": (128, 128), "q": (128, 64), "f32": (64, 64), "kv": (128, 32)}
+# 64-key tiles of a 128-row query tile, the fp32 variants of K1 and K2
+# 64-key tiles of a 64-row query tile, K3 64-row query tiles of a 128-key
+# tile, K3's fp32 variant 64-row query tiles of a 64-key tile.  The tables
+# of K3 ("kv", "f32kv") run along the keys: their rows are keys.
+_TILES = {"fwd": (128, 128), "q": (128, 64), "f32": (64, 64), "kv": (128, 64),
+          "f32kv": (64, 64)}
+_KEY_ROWS = ("kv", "f32kv")
 _GROUP = 8      # the tables' granularity: live 8x8 element groups
 # least recently used tables, by (layout, S, causal, device)
 _TABLE_CACHE: "OrderedDict[tuple, Dict[str, TileTable]]" = OrderedDict()
@@ -188,7 +189,8 @@ def _table(groups: torch.Tensor, rows: int, cols: int) -> TileTable:
 
 def live_tile_tables(block_mask, S: int, causal: bool, device) -> Dict[str, TileTable]:
     """The kernels' live-tile tables of a block mask at length S (``"fwd"``:
-    K1; ``"q"``: K2; ``"f32"``: K1's fp32 variant; ``"kv"``: K3), built on
+    K1; ``"q"``: K2; ``"f32"``: the fp32 variants of K1 and K2; ``"kv"``:
+    K3; ``"f32kv"``: K3's fp32 variant), built on
     ``device`` at first use and cached per (layout, S, causal, device)."""
     bm = _as_block_mask(block_mask, S)
     device = torch.device(device)
@@ -208,7 +210,7 @@ def live_tile_tables(block_mask, S: int, causal: bool, device) -> Dict[str, Tile
                .repeat_interleave(bk // _GROUP, 1)
     if causal:
         groups = groups & torch.ones_like(groups).tril()
-    tables = {name: _table(groups.t() if name == "kv" else groups, *tile)
+    tables = {name: _table(groups.t() if name in _KEY_ROWS else groups, *tile)
               for name, tile in _TILES.items()}
     with _TABLE_LOCK:
         _TABLE_CACHE[key] = tables
@@ -331,15 +333,15 @@ def _check(q, k, v):
             f"S={S} is not a multiple of the {BLOCK}-row tile; use the plain path")
 
 
-def _check_launch(dtypes=_DTYPE_CODES, **tensors):
+def _check_launch(**tensors):
     """Device, dtype, head_dim and layout checks before any launch."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{', '.join(tensors)} on different devices: {devices}")
     kinds = {t.dtype for name, t in tensors.items() if name not in ("lse", "delta")}
-    if len(kinds) != 1 or next(iter(kinds)) not in dtypes:
+    if len(kinds) != 1 or next(iter(kinds)) not in _DTYPE_CODES:
         raise TypeError(
-            f"the flash kernels take {'/'.join(str(d).replace('torch.', '') for d in dtypes)}"
+            f"the flash kernels take {'/'.join(str(d).replace('torch.', '') for d in _DTYPE_CODES)}"
             f", all alike; got {', '.join(f'{n} {t.dtype}' for n, t in tensors.items())}")
     hd = tensors["q"].shape[-1]
     if hd not in HEAD_DIMS:
@@ -347,9 +349,6 @@ def _check_launch(dtypes=_DTYPE_CODES, **tensors):
     for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
-_BWD_DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 
 
 def _stream(device) -> int:
@@ -378,7 +377,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_mask=None):
 
 
 def _check_bwd(q, k, v, do, lse, delta):
-    _check_launch(dtypes=_BWD_DTYPES, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    _check_launch(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     B, S, Hq, _ = q.shape
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} != q {tuple(q.shape)}")
@@ -402,14 +401,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                                                 sm_scale, block_mask)
     _check_bwd(q, k, v, do, lse, delta)
     B, S, Hq, hd = q.shape
-    table = _table_ptrs(block_mask, S, causal, q.device, "q")
+    table = _table_ptrs(block_mask, S, causal, q.device,
+                        "f32" if q.dtype == torch.float32 else "q")
     lib = _bwd_lib()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.ds_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *table, B, S, Hq,
-            k.shape[2], hd, _BWD_DTYPES[q.dtype], int(causal), float(sm_scale),
+            k.shape[2], hd, _DTYPE_CODES[q.dtype], int(causal), float(sm_scale),
             _stream(q.device))
     if err:
         raise RuntimeError("flash_attention_bwd_dq launch failed: "
@@ -432,14 +432,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                                                  sm_scale, block_mask)
     _check_bwd(q, k, v, do, lse, delta)
     B, S, Hq, hd = q.shape
-    table = _table_ptrs(block_mask, S, causal, q.device, "kv")
+    table = _table_ptrs(block_mask, S, causal, q.device,
+                        "f32kv" if q.dtype == torch.float32 else "kv")
     lib = _bwd_lib()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.ds_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *table, B, S, Hq, k.shape[2], hd, _BWD_DTYPES[q.dtype], int(causal),
+            *table, B, S, Hq, k.shape[2], hd, _DTYPE_CODES[q.dtype], int(causal),
             float(sm_scale), _stream(q.device))
     if err:
         raise RuntimeError("flash_attention_bwd_dkv launch failed: "
@@ -549,10 +550,6 @@ def flash_attention(q, k, v, causal: bool = True,
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         out, lse = _forward(q, k, v, causal, sm_scale, block_mask)
         return (out, lse) if return_lse else out
-    if q.device.type == "cuda" and q.dtype not in _BWD_DTYPES:
-        raise NotImplementedError(
-            f"the flash backward kernels take bfloat16/float16, not {q.dtype} "
-            "(ROADMAP queue 2): run fp32 training through the plain branch")
     if return_lse:
         return _FlashLse.apply(q, k, v, causal, sm_scale)
     out, _ = _Flash.apply(q, k, v, causal, sm_scale, block_mask)

@@ -197,8 +197,9 @@ def test_cuda_only_path_raises_cleanly():
     with pytest.raises(NotImplementedError, match="head_dim"):
         fa_module._launch(q[..., :32], k[..., :32], v[..., :32], True, 0.125)
     lse = torch.zeros((2, 4, 128))
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa_module._check_bwd(q, k, v, q, lse, lse)
+    fa_module._check_bwd(q, k, v, q, lse, lse)     # fp32 has backward kernels too
+    with pytest.raises(TypeError, match="float32/float16/bfloat16"):
+        fa_module._check_bwd(q.double(), k.double(), v.double(), q.double(), lse, lse)
     try:
         find_nvcc()
     except KernelBuildError as e:

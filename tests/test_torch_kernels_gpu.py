@@ -105,7 +105,7 @@ def test_flash_forward_pipeline_matches_plain_version(cuda, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
 def test_flash_backward_kernels_match_plain_versions(cuda, Hq, Hkv, hd, dtype,
@@ -153,12 +153,19 @@ def test_flash_forward_refuses_what_it_cannot_run(cuda):
     with pytest.raises(NotImplementedError, match="return_lse"):
         flash_attention(q, q, q, block_mask=torch.ones((1, 1), dtype=torch.bool),
                         return_lse=True)
+    # fp32 gradients run through K1-K3 (they were refused before the fp32
+    # backward kernels); fp64 ones raise
     f = q.float().requires_grad_()
-    with pytest.raises(NotImplementedError, match="bfloat16/float16"):
-        flash_attention(f, f, f)
+    counts = (flash_attention.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    flash_attention(f, f, f).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    assert torch.isfinite(f.grad).all()
     lse = torch.zeros((1, 2, 128), device="cuda")
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention_bwd_dq(q.float(), q.float(), q.float(), q.float(), lse, lse)
+    with pytest.raises(TypeError, match="float32/float16/bfloat16"):
+        flash_attention_bwd_dq(q.double(), q.double(), q.double(), q.double(), lse, lse)
     with pytest.raises(TypeError):
         flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -180,6 +187,7 @@ MASK_CASES = [
     (2, 384, 4, 4, 64, "bfloat16", False, 32, 32),
     (1, 512, 4, 4, 128, "float16", True, 256, 128),
     (1, 512, 8, 2, 64, "bfloat16", False, 64, 16),
+    (1, 384, 8, 2, 128, "float32", True, 32, 64),
 ]
 
 
@@ -283,6 +291,66 @@ def test_masked_fp32_forward_matches_plain_version(cuda, causal):
                               block_mask=mask)
         ref = flash_attention_reference(q, k, v, causal, None, False, mask)
     assert_agrees(out, ref, AGREE_TOL["fwd"][torch.float32], dead_q)
+
+
+# fp32 training through the kernels (attn_impl="auto" at S >= 2048) against
+# the fp32 plain branch ("xla"): summation order only (9.5e-8 in loss,
+# 4.7e-7 in gradient norm on the H100).  The limits sit between that gap
+# and the yardstick each run must exceed, the bf16 kernel path's distance
+# from the same fp32 run (1.1e-4 / 3.9e-4).
+FP32_TRAIN_LOSS_RTOL = 1e-5
+FP32_TRAIN_GRAD_NORM_RTOL = 1e-4
+
+
+def _train(dtype, attn_impl, S, steps=3):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    model = CausalLM("tiny", hidden_size=256, intermediate_size=512, num_heads=4,
+                     num_layers=2, max_seq_len=S, attn_impl=attn_impl, dtype=dtype)
+    params = model.init_fn(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    bf16 = dtype == torch.bfloat16
+    config = {"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+              "bf16": {"enabled": bf16},
+              "data_types": {"grad_accum_dtype": "bf16" if bf16 else "fp32"},
+              "steps_per_print": 10 ** 9, "seed": 0}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, params=params)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"input_ids": torch.randint(0, 256, (1, S), generator=g, device="cuda")}
+    counts = (flash_attention.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(batch=batch)))
+        norms.append(engine.get_global_grad_norm())
+    launches = tuple(n - c for n, c in zip((flash_attention.launches,
+                                            flash_attention_bwd_dq.launches,
+                                            flash_attention_bwd_dkv.launches), counts))
+    return losses, norms, launches
+
+
+@pytest.mark.gpu
+def test_fp32_training_through_the_kernels_matches_plain_branch(cuda):
+    S, steps = 2048, 3
+    kernel = _train(torch.float32, "auto", S, steps)
+    plain = _train(torch.float32, "xla", S, steps)
+    bf16 = _train(torch.bfloat16, "auto", S, steps)
+    assert kernel[2] == (2 * steps, 2 * steps, 2 * steps)   # 2 layers, no remat
+    assert plain[2] == (0, 0, 0)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    reading = {"loss": rel(kernel[0], plain[0]), "grad_norm": rel(kernel[1], plain[1]),
+               "bf16_loss": rel(bf16[0], plain[0]), "bf16_grad_norm": rel(bf16[1], plain[1])}
+    print(json.dumps(reading))
+    assert all(map(lambda x: x == x and abs(x) < float("inf"), kernel[0]))
+    assert reading["loss"] <= FP32_TRAIN_LOSS_RTOL, reading
+    assert reading["grad_norm"] <= FP32_TRAIN_GRAD_NORM_RTOL, reading
+    # the yardstick: the limits reject the bf16 kernel path
+    assert reading["bf16_loss"] > FP32_TRAIN_LOSS_RTOL or \
+        reading["bf16_grad_norm"] > FP32_TRAIN_GRAD_NORM_RTOL, reading
 
 
 @pytest.mark.gpu

@@ -277,18 +277,16 @@ def _decode(table, name, S, causal):
                     if name == "fwd":     # K1 (bf16/fp16): one word per consumer warp
                         warp, r = a // 16, (a // 8) % 2
                         on = (u[warp] >> (r * 16 + c // 8)) & 1
-                    elif name == "q":     # K2
-                        warp, r, g = a // 16, (a // 8) % 2, a % 8
+                    elif name in ("q", "kv"):   # K2, K3: 16 bits per consumer warp
+                        warp, r = a // 16, (a // 8) % 2
                         live = (u[warp >> 1] >> ((warp & 1) * 16)) & 0xFFFF
                         on = (live >> (r * 8 + c // 8)) & 1
-                    elif name == "kv":    # K3: rows are keys, cols queries
-                        warp, r = a // 16, (a // 8) % 2
-                        live = (u[warp >> 2] >> ((warp & 3) * 8)) & 0xFF
-                        on = (live >> (r * 4 + c // 8)) & 1
-                    else:                 # K1 fp32: one row per thread pair
+                    else:                 # fp32 K1/K2 ("f32"), K3 ("f32kv"): per row
                         live = (u[a >> 5] >> (((a >> 3) & 3) * 8)) & 0xFF
                         on = (live >> (c // 8)) & 1
-                    qi, ki = (c0 + c, r0 + a) if name == "kv" else (r0 + a, c0 + c)
+                    # K3's tables run along the keys: rows are keys, cols queries
+                    qi, ki = ((c0 + c, r0 + a) if name in ("kv", "f32kv")
+                              else (r0 + a, c0 + c))
                     if on and (not causal or qi >= ki):
                         got[qi, ki] = True
     return got
@@ -332,6 +330,11 @@ def test_table_tiles_match_the_kernels_tiles():
     assert fa._TILES["f32"] == (fwd["F32_BLOCK"], fwd["F32_BLOCK"])
     assert fa._TILES["q"] == (bwd["DQ_BLOCK_M"], bwd["DQ_BLOCK_N"])
     assert fa._TILES["kv"] == (bwd["DKV_BLOCK_N"], bwd["DKV_BLOCK_M"])
+    # the fp32 backward kernels walk 64 x 64 tiles: K2's the forward's
+    # "f32" table, K3's its transposed "f32kv"
+    assert fa._TILES["f32"] == (bwd["F32_BLOCK"], bwd["F32_BLOCK"])
+    assert fa._TILES["f32kv"] == (bwd["F32_BLOCK"], bwd["F32_BLOCK"])
+    assert set(fa._TILES) == {"fwd", "q", "f32", "kv", "f32kv"}
     # K1 reads one 32-bit word of an entry per consumer warp (the threads
     # past the producer warpgroup), each covering 16 rows of the tile
     rows, cols = fa._TILES["fwd"]
@@ -339,6 +342,12 @@ def test_table_tiles_match_the_kernels_tiles():
     assert words == (fwd["NUM_THREADS"] - 128) // 32 == rows // 16
     tables = live_tile_tables(np.ones((2, 2), bool), 256, True, "cpu")
     assert tables["fwd"].bits.shape[1] == words
+    # K2 and K3 read 16 bits of an entry per consumer warp: TILE_WORDS
+    # words, each covering two warps' 16 rows
+    for name, (rows, cols) in (("q", fa._TILES["q"]), ("kv", fa._TILES["kv"])):
+        assert rows // 16 == (bwd["NUM_THREADS"] - 128) // 32
+        assert rows // 8 * (cols // 8) // 32 == bwd["TILE_WORDS"]
+        assert tables[name].bits.shape[1] == bwd["TILE_WORDS"]
 
 
 def test_tables_refuse_blocks_the_kernels_cannot_mask():
