@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--profile] [--first-launch]
-    python3 chip_smoke.py --ab NAME=PATH ...   # K1 (or K2/K3) variants side by side
+    python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
 one JSON line each; any failure exits non-zero with no result line:
@@ -10,15 +10,18 @@ one JSON line each; any failure exits non-zero with no result line:
    torch/CUDA versions, and the nvcc builds of every kernel source in the
    checkout, in parallel, with ptxas registers, spills and warnings per
    kernel; then the first launches of K1, K2 and K3 (S=256 and the
-   training shape) in a child process killed after FIRST_LAUNCH_TIMEOUT_S,
-   so that a pipeline that hangs fails the run at once;
+   training shape) and of K4 (four decode cases) in a child process killed
+   after FIRST_LAUNCH_TIMEOUT_S, so that a pipeline that hangs fails the
+   run at once;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few more, with kernel / plain / library timings
    (CUDA events, median of 20 after warm-up): K1 the flash forward, K2 the
    dq backward, K3 the dk/dv backward (bf16/fp16 and fp32; an fp32
    gradient through autograd), K4 the paged decode attention (at
    the serving stream's decode shape, GQA, hd 64, page 16, a contiguous
-   cache, fp16, fp32, a slot at length 0 and a page shared by two slots);
+   cache, fp16, fp32, a slot at length 0, a page shared by two slots,
+   every slot full and one full slot beside seven short ones; timed with
+   the L2 flushed before each call, as a decode tick finds it);
 3. block-sparse attention (``SparseSelfAttention`` -> the ``block_mask``
    mode of K1, K2, K3) at SPARSE_CASES: llama-740m's attention at S=16384
    under the "fixed" layout (the main case), llama2-7b's width under
@@ -192,7 +195,9 @@ SHARED_RIDS, SAMPLED_RIDS = (3, 9, 15, 21), (1, 6, 12, 18)
 # K4 cases: (label, B, Hq, Hkv, hd, dtype, page, pages per slot).  The first
 # is the serving decode tick's (lengths from the stream); "identity" runs a
 # contiguous [B, T, Hkv, hd] cache; "len0" has a slot at length 0 (its
-# table row all trash page); "shared" maps slot 0's pages into slot 1.
+# table row all trash page); "shared" maps slot 0's pages into slot 1;
+# "full" has every slot at T - 1 (bandwidth alone decides) and "skew" slot
+# 0 at T - 1 beside seven slots at 1 (``decode_lengths``).
 DECODE_CASES = [
     ("serve", 8, 32, 32, 128, torch.bfloat16, 128, 32),
     ("gqa", 8, 32, 8, 128, torch.bfloat16, 128, 32),
@@ -203,6 +208,8 @@ DECODE_CASES = [
     ("fp32", 8, 32, 32, 128, torch.float32, 128, 32),
     ("len0", 8, 32, 32, 128, torch.bfloat16, 128, 32),
     ("shared", 8, 32, 32, 128, torch.bfloat16, 128, 32),
+    ("full", 8, 32, 32, 128, torch.bfloat16, 128, 32),
+    ("skew", 8, 32, 32, 128, torch.bfloat16, 128, 32),
 ]
 # K4 against its plain version, per (slot, head) output row: the worst
 # row's relative error and a per-element bound (``agreement`` with one row
@@ -271,13 +278,16 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median device time of one call, by CUDA events around each call;
+    ``flush`` (``l2_flush``) runs before each call, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -286,6 +296,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+L2_FLUSH_BYTES = 1 << 30   # 20x the H100's 50 MB L2
+
+
+def l2_flush():
+    """A callable that reads L2_FLUSH_BYTES through the L2, leaving it full
+    of other (clean) lines: a decode tick finds the pools cold, since one
+    layer's weights (~400 MB at llama2-7b) pass through the L2 between two
+    K4 launches.  Read rather than written, as those weights are: a written
+    buffer would leave dirty lines whose write-back the timed call pays.
+    The read keeps the card busy ~0.33 ms, longer than the host takes to
+    enqueue the timed call behind it, so the events time the device alone
+    (a shorter flush left the host's launch time inside the events)."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    return lambda: buf.sum()
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -391,9 +417,11 @@ def phase_build():
           "ptxas": {b.name: ptxas_report(b.log) for b in builders}})
 
 
-# The first launches of K1, K2 and K3, in a child process with a time
-# limit: a wrong mbarrier phase parity in their TMA/wgmma pipelines hangs a
-# kernel instead of failing it, and a hang would otherwise hold the run.
+# The first launches of K1, K2 and K3, then K4 at FIRST_LAUNCH_DECODE, in a
+# child process with a time limit: a wrong mbarrier phase parity in their
+# TMA pipelines (or a tile list that producer and consumers walk apart)
+# hangs a kernel instead of failing it, and a hang would otherwise hold the
+# run.
 FIRST_LAUNCH_SHAPES = [
     (1, 256, 2, 2, 64, torch.bfloat16, True),
     (1, 256, 2, 2, 128, torch.bfloat16, True),
@@ -401,6 +429,7 @@ FIRST_LAUNCH_SHAPES = [
     (1, 256, 4, 2, 128, torch.float32, True),
     TRAIN_SHAPE,
 ]
+FIRST_LAUNCH_DECODE = ("serve", "len0", "page16", "fp32")
 FIRST_LAUNCH_TIMEOUT_S = 180
 K1_DESIGN = ("wgmma+TMA, warp-specialised: a producer warpgroup (setmaxnreg 24) "
              "feeds a 2-3 stage K/V ring by TMA; two consumer warpgroups "
@@ -434,10 +463,12 @@ def _child(args, timeout_s: int, what: str):
 
 def first_launches() -> int:
     """The child's side of ``phase_first_launch``: launch K1, then K2 and
-    K3 on its residuals, once at each FIRST_LAUNCH_SHAPES entry, synchronise
-    after each, and compare the small ones with the plain versions
-    (worst-tile gates).  Prints one JSON line per launch as it goes (a hang
-    shows which kernel hung) and a summary line."""
+    K3 on its residuals, once at each FIRST_LAUNCH_SHAPES entry, then K4 at
+    each FIRST_LAUNCH_DECODE case; synchronise after each, and compare the
+    small ones and K4 with the plain versions (worst-tile / worst-row
+    gates).  Prints one JSON line per launch as it goes (a hang shows which
+    kernel hung) and a summary line."""
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -476,20 +507,36 @@ def first_launches() -> int:
         out.append(rec)
         del q, k, v, do, o, lse, delta, dq, dk, dv
         free_memory()
+    for label in FIRST_LAUNCH_DECODE:
+        case = next(c for c in DECODE_CASES if c[0] == label)
+        q, k, v, mask, table = _decode_case(gen, case, decode_lengths(case, 0))
+        rec = {"case": label}
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            o = da.decode_attention(q, k, v, mask, table)
+            torch.cuda.synchronize()
+            rec["K4_s"] = time.perf_counter() - t0
+            emit({"first_launch": "K4", **rec})
+            ref = da.decode_attention_reference(q, k, v, mask, table)
+            rec["agreement"] = {"out": agreement(o[:, :, None], ref[:, :, None],
+                                                 DECODE_TOL[case[5]], tile=1)}
+        out.append(rec)
+        del q, k, v, mask, table, o, ref
+        free_memory()
     emit({"first_launches": out})
     return 0 if all(a["ok"] for r in out for a in r.get("agreement", {}).values()) else 1
 
 
 def phase_first_launch():
-    """The first launches of K1-K3 in a child process that is killed after
+    """The first launches of K1-K4 in a child process that is killed after
     FIRST_LAUNCH_TIMEOUT_S: a hang fails the run here, with a message."""
     t0 = time.perf_counter()
-    res = _child(["--first-launch"], FIRST_LAUNCH_TIMEOUT_S, "the first launches of K1-K3")
+    res = _child(["--first-launch"], FIRST_LAUNCH_TIMEOUT_S, "the first launches of K1-K4")
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
     rec = json.loads(lines[-1]) if lines else {}
     emit({"phase": "first_launch", "seconds": time.perf_counter() - t0,
           "returncode": res.returncode, **rec})
-    check(res.returncode == 0, f"the first launches of K1-K3 failed (exit "
+    check(res.returncode == 0, f"the first launches of K1-K4 failed (exit "
                                f"{res.returncode}): {res.stdout[-2000:]} "
                                f"{res.stderr[-4000:]}")
 
@@ -877,21 +924,64 @@ def decode_bound_ms(case, lengths) -> tuple:
     return _bound(4.0 * attended * Hq * hd, nbytes, dtype)
 
 
+def decode_lengths(case, seed: int) -> list:
+    """The slot lengths of a K4 case: the first B requests of the serving
+    stream halfway through their decode (slot 3 at 0 for "len0"), or the
+    case's own ("full": every slot at T - 1; "skew": slot 0 at T - 1, the
+    rest at 1)."""
+    label, B, _, _, _, _, page, maxp = case
+    T = page * maxp
+    if label == "full":
+        return [T - 1] * B
+    if label == "skew":
+        return [T - 1] + [1] * (B - 1)
+    lengths = [len(r.input_ids) + r.max_new_tokens // 2
+               for r in serving_stream(seed, 32000)[:B]]
+    if label == "len0":
+        lengths[3] = 0
+    return lengths
+
+
+def decode_sdpa_ms(q, k, v, mask, table, flush) -> float:
+    """SDPA with query length 1 and a bool mask on the same keys gathered
+    contiguous (the gather is not timed)."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import _as_pool
+
+    B, Hq, hd = q.shape
+    pk, pv, pt = _as_pool(k, v, table)
+    page, Hkv = pk.shape[1], pk.shape[2]
+    t = torch.arange(mask.shape[1], device="cuda")
+    rows = pt.long()[:, t // page] * page + t % page
+    ck, cv = (x.reshape(-1, Hkv, hd)[rows].transpose(1, 2).contiguous()
+              for x in (pk, pv))
+    bmask = mask.bool()[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], ck, cv, attn_mask=bmask, enable_gqa=Hq != Hkv), flush=flush)
+
+
+K4_DESIGN = ("TMA page ring + cluster split + DSMEM merge: grid (Hkv, B, NSPLIT), "
+             "clusters of NSPLIT <= 8 CTAs split a (slot, KV head)'s keys, tiles of "
+             "R rows of a page interleaved over the ranks; each CTA lists its live "
+             "tiles from the mask, one producer warp streams their K/V by TMA into "
+             "a 32 KB mbarrier ring, four consumer warps run per-stream online "
+             "softmax on CUDA cores; each rank pushes its state into the column "
+             "owners' inboxes through distributed shared memory, one cluster "
+             "barrier, each owner merges in rank order")
+
+
 def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
     """K4 vs its plain version at DECODE_CASES; library: SDPA with query
     length 1 and a bool mask on the same keys gathered contiguous (the
-    gather is not timed).  Returns {label: record}."""
+    gather is not timed).  Every timing finds the L2 cold (``l2_flush``).
+    Returns {label: record}."""
     from deepspeed_tpu_torch.ops.kernels.decode_attention import (
-        _as_pool, decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, split_plan)
 
-    stream = serving_stream(seed, 32000)
-    base = [len(r.input_ids) + r.max_new_tokens // 2 for r in stream[:8]]
+    flush = l2_flush()
     records = {}
     for case in DECODE_CASES:
         label, B, Hq, Hkv, hd, dtype, page, maxp = case
-        lengths = list(base)
-        if label == "len0":
-            lengths[3] = 0
+        lengths = decode_lengths(case, seed)
         q, k, v, mask, table = _decode_case(gen, case, lengths)
         tol = DECODE_TOL[dtype]
         with torch.inference_mode():
@@ -902,28 +992,24 @@ def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
             ref = decode_attention_reference(q, k, v, mask, table)
             agree = decode_compare(out, ref, decode_low_precision(q, k, v, mask, table),
                                    Hq // Hkv, tol)
-            kernel_ms = time_ms(lambda: decode_attention(q, k, v, mask, table))
-            plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, mask, table))
-            pk, pv, pt = _as_pool(k, v, table)
-            t = torch.arange(mask.shape[1], device="cuda")
-            rows = pt.long()[:, t // page] * page + t % page
-            ck, cv = (x.reshape(-1, Hkv, hd)[rows].transpose(1, 2).contiguous()
-                      for x in (pk, pv))
-            bmask = mask.bool()[:, None, None, :]
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], ck, cv, attn_mask=bmask, enable_gqa=Hq != Hkv))
+            kernel_ms = time_ms(lambda: decode_attention(q, k, v, mask, table), flush=flush)
+            plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, mask, table),
+                               flush=flush)
+            library_ms = decode_sdpa_ms(q, k, v, mask, table, flush)
         bound, bound_by = decode_bound_ms(case, lengths)
+        nsplit, rows = split_plan(page * maxp, page, hd, dtype)
         rec = {"phase": "kernel", "name": "decode_attention", "case": label,
                "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "hd": hd,
                          "dtype": str(dtype).replace("torch.", ""), "page": page,
                          "pages_per_slot": maxp, "lengths": lengths,
                          "paged": table is not None},
+               "nsplit": nsplit, "tile_rows": rows,
                "max_abs_err": agree["max_abs_err"], "out": agree, "tol": tol,
                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "library_what": "scaled_dot_product_attention, query length 1, "
                                "bool mask, keys gathered contiguous (gather "
                                "not timed)",
-               "bound_ms": bound, "bound_by": bound_by,
+               "l2": "flushed", "bound_ms": bound, "bound_by": bound_by,
                "bound_share": bound / kernel_ms}
         emit(rec)
         if gate:
@@ -932,7 +1018,7 @@ def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
             check(agree["yardsticks_rejected"],
                   f"the decode_attention gate passed a yardstick at {label}: {agree}")
         records[label] = rec
-        del q, k, v, mask, table, ck, cv
+        del q, k, v, mask, table
         free_memory()
     # what the kernel does not take raises, never runs the plain version
     x = torch.zeros((1, 3, 128), device="cuda", dtype=torch.bfloat16)
@@ -1817,7 +1903,7 @@ def profile_serving(sv, stream) -> None:
 
 
 # ---------------------------------------------------------------------------
-# --ab: variants of K1, or of K2/K3, side by side (a redesign's steps)
+# --ab: variants of K1, of K2/K3 or of K4, side by side (a redesign's steps)
 # ---------------------------------------------------------------------------
 
 # K1 shapes of the A/B timing: the two main paths' and the full-attention
@@ -1827,22 +1913,28 @@ AB_SHAPES = [TRAIN_SHAPE, SERVE_SHAPE, TRAIN_SHAPE[:-1] + (False,)]
 # fp32 kernels' record shape; the masked main case beside TRAIN_SHAPE
 AB_BWD_SHAPES = [TRAIN_SHAPE, TRAIN_SHAPE[:-1] + (False,),
                  (2, 2048, 32, 8, 128, torch.bfloat16, True), FP32_BWD_SHAPE]
-AB_SOURCES = {"fwd": "flash_attention_fwd.cu", "bwd": "flash_attention_bwd.cu"}
+AB_SOURCES = {"fwd": "flash_attention_fwd.cu", "bwd": "flash_attention_bwd.cu",
+              "decode": "decode_attention.cu"}
+AB_REPO = {"repo": "fwd", "repo-bwd": "bwd", "repo-decode": "decode"}
 
 
 def _ab_kind(path: str) -> str:
-    """``fwd`` or ``bwd``: ``repo`` is the checkout's forward source,
-    ``repo-bwd`` its backward source, a copy is told by its entry points."""
-    if path in ("repo", "repo-bwd"):
-        return "fwd" if path == "repo" else "bwd"
+    """``fwd``, ``bwd`` or ``decode``: ``repo``, ``repo-bwd`` and
+    ``repo-decode`` are the checkout's forward, backward and decode
+    sources, a copy is told by its entry points."""
+    if path in AB_REPO:
+        return AB_REPO[path]
     text = (Path(ROOT) / path).read_text()
+    if "ds_decode_attention" in text:
+        return "decode"
     return "bwd" if "ds_flash_attention_bwd_dq" in text else "fwd"
 
 
 def _ab_builders(specs):
     """(kind, {name: KernelBuilder}) of ``name=path`` specs, all copies of
     one source (path from the repo root; ``repo`` / ``repo-bwd`` for the
-    checkout's own), built with the same flags and headers.  A copy's own
+    checkout's own; ``repo-decode`` for K4's), built with the same flags and
+    headers.  A copy's own
     directory comes first on its include path, so an older source can keep
     the header it had beside it."""
     from deepspeed_tpu_torch.ops.op_builder import KernelBuilder
@@ -1852,8 +1944,8 @@ def _ab_builders(specs):
         name, path = spec.split("=", 1)
         kind = _ab_kind(path)
         kinds.add(kind)
-        b = KernelBuilder(f"flash_attention_{kind}_{name}", AB_SOURCES[kind])
-        if not path.startswith("repo"):
+        b = KernelBuilder(f"{Path(AB_SOURCES[kind]).stem}_{name}", AB_SOURCES[kind])
+        if path not in AB_REPO:
             b.source = Path(ROOT) / path
         out[name] = b
     if len(kinds) != 1:
@@ -1862,9 +1954,12 @@ def _ab_builders(specs):
 
 
 def _ab_use(kind, builder) -> None:
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
-    if kind == "fwd":
+    if kind == "decode":
+        da._BUILDER = builder
+    elif kind == "fwd":
         fa._FWD_BUILDER = builder
     else:
         fa._BWD_BUILDER = builder
@@ -1902,6 +1997,8 @@ def ab_check(specs, name) -> int:
 
     kind, builders = _ab_builders(specs)
     _ab_use(kind, builders[name])
+    if kind == "decode":
+        return _ab_check_decode(name)
     masked_ok = _ab_masked_ok(kind, builders[name])
     fp32_ok = kind == "fwd" or _ab_takes_fp32(builders[name])
     S1 = 1024
@@ -1955,6 +2052,87 @@ def ab_check(specs, name) -> int:
         emit({**rec, "ok": good,
               "worst_tile_rel_l2": {n: a["worst_tile_rel_l2"] for n, a in agree.items()}})
     return 0 if ok else 1
+
+
+def _ab_check_decode(name) -> int:
+    """A K4 variant against the plain version at every DECODE_CASES entry
+    (the gate of phase ``kernel``, yardsticks included)."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ok = True
+    for case in DECODE_CASES:
+        label, B, Hq, Hkv, hd, dtype, page, maxp = case
+        q, k, v, mask, table = _decode_case(gen, case, decode_lengths(case, 0))
+        with torch.inference_mode():
+            out = decode_attention(q, k, v, mask, table)
+            torch.cuda.synchronize()
+            agree = decode_compare(out, decode_attention_reference(q, k, v, mask, table),
+                                   decode_low_precision(q, k, v, mask, table), Hq // Hkv,
+                                   DECODE_TOL[dtype])
+        good = agree["ok"] and agree["yardsticks_rejected"]
+        ok &= good
+        emit({"ab_check": name, "case": label, "ok": good,
+              "worst_row_rel_l2": agree["worst_tile_rel_l2"],
+              "max_abs_err": agree["max_abs_err"]})
+        del q, k, v, mask, table, out
+        free_memory()
+    return 0 if ok else 1
+
+
+def _ab_time_decode(builders, gen) -> None:
+    """K4 variants in turns (A B .. B A) at every DECODE_CASES entry, the L2
+    flushed before each call, SDPA beside them."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+
+    flush = l2_flush()
+    order = list(builders) + list(builders)[::-1]
+    for case in DECODE_CASES:
+        lengths = decode_lengths(case, 0)
+        q, k, v, mask, table = _decode_case(gen, case, lengths)
+        ms = {n: [] for n in builders}
+        with torch.inference_mode():
+            for name in order:
+                _ab_use("decode", builders[name])
+                ms[name].append(time_ms(lambda: decode_attention(q, k, v, mask, table),
+                                        flush=flush))
+            library_ms = decode_sdpa_ms(q, k, v, mask, table, flush)
+        bound, bound_by = decode_bound_ms(case, lengths)
+        emit({"phase": "ab_time_decode", "case": case[0], "l2": "flushed", "ms": ms,
+              "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+              "bound_share": {n: bound / float(np.mean(t)) for n, t in ms.items()},
+              "ratio_to_library": {n: float(np.mean(t)) / library_ms
+                                   for n, t in ms.items()}})
+        del q, k, v, mask, table
+        free_memory()
+
+
+def _ab_serve_decode(builders, seed: int) -> None:
+    """The paged serving stream on llama2-7b (random bf16 weights from the
+    seed) with each K4 variant in turns (A B .. B A): each run's fresh
+    ServingEngine captures its decode graph with that variant; the records
+    and checks of phase ``paged_serving``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    model = CausalLM("llama2-7b")
+    params = model.init_fn(torch.Generator(device="cuda").manual_seed(seed),
+                           device="cuda", dtype=torch.bfloat16)
+    engine = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
+                                                params=params)
+    stream = serving_stream(seed, model.config.vocab_size)
+    runs = {n: [] for n in builders}
+    for name in list(builders) + list(builders)[::-1]:
+        _ab_use("decode", builders[name])
+        sv, _, rec = _serve_once(engine, stream, name)
+        runs[name].append({key: rec[key] for key in (
+            "median_decode_tick_ms", "mean_decode_tick_ms", "output_tok_per_s",
+            "decode_ticks", "ttft_p50_s")})
+        del sv
+        free_memory()
+    emit({"phase": "ab_serve_decode", "model": "llama2-7b", "runs": runs})
 
 
 def _ab_time_fwd(builders, gen, sa, shape):
@@ -2013,12 +2191,16 @@ def _ab_time_bwd(builders, gen, sa, shape):
     return res, library_ms, bounds
 
 
-def ab(specs) -> int:
+def ab(specs, unchecked: bool = False) -> int:
     """Build every variant (in parallel; ptxas registers, spills and
     warnings), check each in a child with the first-launch time limit, then
     time them in turns (A B .. B A) in this process: K1 variants at
     AB_SHAPES with SDPA's forward beside them, K2/K3 variants at
-    AB_BWD_SHAPES with SDPA's backward (dq, dk, dv in one call)."""
+    AB_BWD_SHAPES with SDPA's backward (dq, dk, dv in one call), K4
+    variants at DECODE_CASES with SDPA (``_ab_time_decode``) and then on
+    the paged serving stream (``_ab_serve_decode``).  ``unchecked``: no
+    checks and no serving, for diagnostic copies that skip work on
+    purpose (their outputs are wrong)."""
     import numpy as np
 
     kind, builders = _ab_builders(specs)
@@ -2028,7 +2210,7 @@ def ab(specs) -> int:
     emit({"phase": "ab_build", "kind": kind, "seconds": time.perf_counter() - t0,
           "ptxas": {n: ptxas_report(b.log) for n, b in builders.items()}})
     failed = {}
-    for name in list(builders):
+    for name in [] if unchecked else list(builders):
         try:
             res = _child(["--ab-check", name, *specs], FIRST_LAUNCH_TIMEOUT_S,
                          f"variant {name}'s checks")
@@ -2041,6 +2223,11 @@ def ab(specs) -> int:
             emit({"phase": "ab_check_failed", "variant": name, "error": failed[name]})
             del builders[name]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "decode":
+        _ab_time_decode(builders, gen)
+        if not unchecked:
+            _ab_serve_decode(builders, 0)
+        return 1 if failed else 0
     sa, _, _, _ = _sparse_case(TRAIN_SHAPE[1], SPARSE_CASES[0][2])
     if kind == "fwd":
         for shape in AB_SHAPES:
@@ -2086,13 +2273,17 @@ def main() -> int:
                     help="also profile one train step, one forward, one "
                          "decode step and 10 serving decode ticks")
     ap.add_argument("--first-launch", action="store_true",
-                    help="only the first launches of K1-K3 (the child process "
+                    help="only the first launches of K1-K4 (the child process "
                          "of the hang guard)")
     ap.add_argument("--ab", nargs="+", metavar="NAME=PATH",
                     help="only build, check and time these copies of "
-                         "flash_attention_fwd.cu, or of flash_attention_bwd.cu, "
-                         "against each other (PATH from the repo root, `repo` "
-                         "for the forward source, `repo-bwd` for the backward)")
+                         "flash_attention_fwd.cu, of flash_attention_bwd.cu or "
+                         "of decode_attention.cu against each other (PATH from "
+                         "the repo root; `repo`, `repo-bwd`, `repo-decode` for "
+                         "the checkout's forward, backward and decode sources)")
+    ap.add_argument("--ab-unchecked", action="store_true",
+                    help="with --ab: time the copies without checking them "
+                         "(diagnostic copies that skip work on purpose)")
     ap.add_argument("--ab-check", nargs="+", metavar="ARG",
                     help=argparse.SUPPRESS)   # NAME SPEC...: --ab's child
     args = ap.parse_args()
@@ -2107,7 +2298,7 @@ def main() -> int:
         return ab_check(args.ab_check[1:], args.ab_check[0])
     if args.ab:
         print(nvidia_smi_line(), flush=True)
-        return ab(args.ab)
+        return ab(args.ab, args.ab_unchecked)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references in fp32
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -2165,7 +2356,12 @@ def main() -> int:
                       block_mask=block_mask("K3", ":254")),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
-                      dec["serve"], launches_per_decode_tick=k4_launches["per_tick"],
+                      dec["serve"], design=K4_DESIGN, l2="flushed",
+                      bound_share=dec["serve"]["bound_share"],
+                      cases={label: {key: rec[key] for key in (
+                          "ms", "plain_ms", "library_ms", "bound_ms", "bound_share")}
+                          for label, rec in dec.items()},
+                      launches_per_decode_tick=k4_launches["per_tick"],
                       decode_ticks=k4_launches["ticks"],
                       launches_replayed=k4_launches["replayed"],
                       launches_counted="wrapper calls on the paged serving path: "

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's CUDA kernels: TMA tensor
 // maps and loads, mbarrier pipelines, warpgroup matrix multiply (wgmma) and
-// register reallocation (setmaxnreg), and what the flash-attention kernels
-// share (their constants and the live-tile table of the masked mode).  The
-// forward (flash_attention_fwd.cu) and both backward kernels
-// (flash_attention_bwd.cu) are built from them.
+// register reallocation (setmaxnreg), thread-block clusters and their
+// distributed shared memory, and what the flash-attention kernels share
+// (their constants and the live-tile table of the masked mode).  The
+// forward (flash_attention_fwd.cu), both backward kernels
+// (flash_attention_bwd.cu) and the paged decode kernel
+// (decode_attention.cu) are built from them.
 //
 // wgmma m64nNk16 (fp32 accumulate), per warpgroup of 128 threads: warp w
 // (0-3) owns rows 16w..16w+15; lane = 4 g + t4.  Accumulator d[i] of an
@@ -185,6 +187,57 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
          "r"(smem_u32(bar))
       : "memory");
+}
+
+// A barrier over `threads` threads (a multiple of 32) of the CTA, by id
+// (0 is __syncthreads' own): the consumer warps of a warp-specialised
+// kernel synchronise without the producer.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: thread-block clusters and distributed shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: shared-memory writes before it
+// (to this CTA's or a peer's) are visible to the cluster's reads after it.
+// All threads of a warp execute it together (.aligned).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_sync, for work between them: arrive (relaxed:
+// orders nothing) and wait.  A CTA may touch a peer's shared memory only
+// once every CTA of the cluster has started: an arrive at the start and a
+// wait before the first access see to that.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Writes v at `p`'s offset in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ void st_dsmem(uint32_t* p, uint32_t rank, uint32_t v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(remote), "r"(v) : "memory");
 }
 
 // 2^x on the SFU with denormal results flushed to zero (ex2.approx.ftz:

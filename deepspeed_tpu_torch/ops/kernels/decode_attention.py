@@ -21,7 +21,12 @@ CUDA tensors launch ``ops/csrc/decode_attention.cu`` (built by the op
 builder at first use; ``decode_attention.launches`` counts the launches) or
 raise; CPU tensors run :func:`decode_attention_reference`.  The wrapper
 allocates its output, launches on the current stream and never
-synchronises, so a CUDA graph can capture it.
+synchronises, so a CUDA graph can capture it.  The kernel splits each
+(slot, KV head)'s keys over a thread-block cluster: tiles of ``rows`` keys
+inside one page, tile ``j`` to cluster rank ``j % nsplit``
+(:func:`split_plan`, :func:`key_tiles`), each rank's online-softmax state
+merged in rank order; :func:`decode_attention_split_reference` repeats that
+arithmetic for the tests.
 """
 from __future__ import annotations
 
@@ -39,6 +44,9 @@ GROUPS = (1, 2, 4, 8)          # query heads per KV head the kernel is built for
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _BUILDER = KernelBuilder("decode_attention", "decode_attention.cu")
+# the kernel's tiling (decode_attention.cu): a tile holds at most TILE_BYTES
+# of K and MAX_ROWS keys of one page; clusters of up to MAX_SPLIT CTAs
+TILE_BYTES, MAX_ROWS, MAX_SPLIT = 8 * 1024, 64, 8
 
 
 def builders():
@@ -109,6 +117,93 @@ def decode_attention_reference(q, k, v, mask, page_table=None,
     s = s.masked_fill(~mask.bool()[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bkgt,btkd->bkgd", p, cv).reshape(B, Hq, hd)
+
+
+def split_plan(T: int, page: int, hd: int, dtype) -> tuple:
+    """``(nsplit, rows)`` the kernel takes for these shapes: tiles of
+    ``rows`` keys inside one page, and a cluster of ``nsplit`` CTAs, the
+    largest of 1, 2, 4, 8 not above the number of tiles."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    rows = max(1, min(TILE_BYTES // (hd * esize), MAX_ROWS, page))
+    ntiles = int(key_tiles(T, page, rows)[-1]) + 1 if T else 0
+    nsplit = 1
+    while nsplit * 2 <= min(MAX_SPLIT, ntiles):
+        nsplit *= 2
+    return nsplit, rows
+
+
+def key_tiles(T: int, page: int, rows: int) -> torch.Tensor:
+    """The kernel's tile of each key ``0 .. T-1``: ``ceil(page / rows)``
+    tiles a page, numbered in key order (the last of a page may be short).
+    Tile ``j`` belongs to cluster rank ``j % nsplit``."""
+    t = torch.arange(T)
+    return (t // page) * -(-page // rows) + (t % page) // rows
+
+
+def _split_states(q, k, v, mask, page_table, nsplit, sm_scale):
+    """Each cluster rank's online-softmax state ``(m, l, acc)`` over its
+    tiles in order ([B, Hkv, G], [B, Hkv, G], [B, Hkv, G, hd], fp32), as
+    the kernel keeps it: scores in fp32, P rounded to V's dtype before P.V,
+    a dead key's V never read.  A rank without a live key keeps
+    ``(NEG_INF, 0, 0)``."""
+    B, Hq, hd = q.shape
+    P, page, Hkv, _ = k.shape
+    T, G = mask.shape[1], Hq // Hkv
+    t = torch.arange(T, device=q.device)
+    rows = page_table.long()[:, t // page] * page + t % page       # [B, T]
+    ck = k.reshape(P * page, Hkv, hd)[rows].float()                 # [B, T, Hkv, hd]
+    cv = v.reshape(P * page, Hkv, hd)[rows]
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, Hkv, G, hd).float(), ck) * sm_scale
+    live = mask.bool()
+    rows = split_plan(T, page, hd, q.dtype)[1]
+    tiles = key_tiles(T, page, rows).to(q.device)
+    ntiles = int(tiles[-1]) + 1 if T else 0
+    states = []
+    for r in range(nsplit):
+        m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, G), device=q.device)
+        acc = torch.zeros((B, Hkv, G, hd), device=q.device)
+        for j in range(r, ntiles, nsplit):
+            keys = (tiles == j).nonzero().squeeze(1)
+            lj = live[:, keys][:, None, None, :]                    # [B, 1, 1, n]
+            sj = s[..., keys].masked_fill(~lj, NEG_INF)
+            mn = torch.maximum(m, sj.amax(-1))
+            alpha = torch.exp(m - mn)
+            p = torch.where(lj, torch.exp(sj - mn[..., None]), 0.0)
+            vj = torch.where(live[:, keys][:, :, None, None], cv[:, keys], 0).float()
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgn,bnkd->bkgd", p.to(v.dtype).float(), vj)
+            m = mn
+        states.append((m, l, acc))
+    return states
+
+
+def decode_attention_split_reference(q, k, v, mask, page_table=None,
+                                     nsplit: Optional[int] = None,
+                                     sm_scale: Optional[float] = None):
+    """K4's arithmetic in PyTorch: the keys split into the kernel's tiles
+    over ``nsplit`` cluster ranks (by default the kernel's own choice,
+    :func:`split_plan`), one online softmax per rank (:func:`_split_states`),
+    then the ranks merged in rank order, ``O = sum_r acc_r e^(m_r - M) /
+    sum_r l_r e^(m_r - M)``, zeros where no key is live.  Used by the tests;
+    nothing on the main path calls it."""
+    k, v, page_table = _as_pool(k, v, page_table)
+    _check(q, k, v, mask, page_table)
+    B, Hq, hd = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    if nsplit is None:
+        nsplit = split_plan(mask.shape[1], k.shape[1], hd, q.dtype)[0]
+    states = _split_states(q, k, v, mask, page_table, nsplit, sm_scale)
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    L, O = torch.zeros_like(M), torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        w = torch.exp(m - M)
+        L = L + l * w
+        O = O + acc * w[..., None]
+    out = torch.where(L[..., None] > 0, O / L.clamp_min(1e-30)[..., None], 0.0)
+    return out.reshape(B, Hq, hd).to(q.dtype)
 
 
 def _launch(q, k, v, mask, page_table, sm_scale: float):

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from chip_smoke import (AGREE_TOL, DECODE_CASES, DECODE_TOL, LSE_ATOL, _decode_case,
-                        agreement, decode_compare, decode_low_precision)
+                        agreement, decode_compare, decode_lengths, decode_low_precision)
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
@@ -396,6 +396,8 @@ def test_dense_layout_equals_unmasked_kernels(cuda):
 def test_decode_attention_matches_plain_version(cuda, case):
     spec = next(c for c in DECODE_CASES if c[0] == case)
     lengths = [17, 300, 2047, 1000, 0 if case == "len0" else 129, 64, 555, 1500]
+    if case in ("full", "skew"):          # cases with lengths of their own
+        lengths = decode_lengths(spec, 0)
     g = torch.Generator(device="cuda").manual_seed(11)
     q, k, v, mask, table = _decode_case(g, spec, lengths)
     with torch.inference_mode():
@@ -409,6 +411,112 @@ def test_decode_attention_matches_plain_version(cuda, case):
     print(json.dumps(reading))
     assert out.dtype == q.dtype and out.shape == q.shape
     assert reading["ok"] and reading["yardsticks_rejected"], reading
+
+
+def _decode_inputs(case, lengths, seed=11):
+    spec = next(c for c in DECODE_CASES if c[0] == case)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return spec, _decode_case(g, spec, lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["serve", "skew", "gqa", "fp32"])
+def test_decode_attention_reruns_are_bit_identical(cuda, case):
+    """The cluster ranks merge in a fixed order through distributed shared
+    memory (no atomics): two launches give the same bits."""
+    spec, (q, k, v, mask, table) = _decode_inputs(case, [17, 300, 2047, 1000, 129, 64,
+                                                         555, 4095])
+    with torch.inference_mode():
+        first = decode_attention(q, k, v, mask, table)
+        second = decode_attention(q, k, v, mask, table)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_decode_graph_replay_follows_lengths_and_tables(cuda):
+    """A CUDA graph captured once (the grid depends on shapes only, the
+    pools' tensor maps are encoded at capture) and replayed on static
+    buffers whose lengths and page tables change gives the eager calls'
+    outputs, bit for bit."""
+    spec, (q, k, v, mask, table) = _decode_inputs("serve", [5] * 8)
+    B, maxp = table.shape
+    T = mask.shape[1]
+    sq, smask, stable = q.clone(), mask.clone(), table.clone()
+    with torch.inference_mode():
+        decode_attention(sq, k, v, smask, stable)          # settle before capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = decode_attention(sq, k, v, smask, stable)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        for lengths in ([0, 1, 127, 128, 129, 1000, 2047, 4095],
+                        [4095, 1, 1, 1, 1, 1, 1, 1], [300] * 8):
+            n = torch.tensor(lengths, device="cuda")
+            smask.copy_((torch.arange(T, device="cuda")[None] <= n[:, None]).to(torch.int32))
+            stable.copy_(torch.randperm(k.shape[0] - 1, generator=g, device="cuda")[
+                :B * maxp].reshape(B, maxp).to(torch.int32) + 1)
+            sq.copy_(torch.randn(q.shape, generator=g, device="cuda").to(q.dtype))
+            graph.replay()
+            eager = decode_attention(sq, k, v, smask, stable)
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(32, 32, 128), (32, 8, 128), (16, 2, 64)])
+def test_decode_attention_honours_mask_holes(cuda, Hq, Hkv, hd, dtype):
+    """Holes below the length (single keys, a whole 32-key tile, every
+    other key) are not attended: K4 agrees with the plain version on the
+    same mask, and the keys in the holes hold NaN when the kernel runs (not
+    when the plain version does), which a kernel that read them into its
+    sums would carry into the output.  A row with no live key is written as
+    zeros."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, page, maxp = 4, 64, 16
+    T, P = page * maxp, 1 + B * maxp
+    q = torch.randn((B, Hq, hd), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((P, page, Hkv, hd), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    table = (torch.randperm(P - 1, generator=g, device="cuda")[:B * maxp]
+             .reshape(B, maxp).to(torch.int32) + 1)
+    t = torch.arange(T, device="cuda")
+    mask = (t[None] <= torch.tensor([900, 700, 1023, 0], device="cuda")[:, None])
+    mask[0, 64:96] = False                               # a whole tile
+    mask[0, [3, 100, 511]] = False
+    mask[1, 1::2] = False                                # every other key
+    mask[2] = torch.rand(T, generator=g, device="cuda") < 0.3
+    mask[3] = False                                      # no live key
+    imask = mask.to(torch.int32)
+    with torch.inference_mode():
+        ref = decode_attention_reference(q, k, v, imask, table)
+        dead = (table.long()[:, t // page] * page + t % page)[~mask]
+        for pool in (k, v):
+            pool.view(-1, Hkv, hd)[dead] = float("nan")   # after the plain version
+        out = decode_attention(q, k, v, imask, table)
+        torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert not out[3].any()
+    reading = agreement(out[:3, :, None], ref[:3, :, None], DECODE_TOL[dt], tile=1)
+    print(json.dumps(reading))
+    assert reading["ok"], reading
+
+
+@pytest.mark.gpu
+def test_decode_attention_empty_cache_writes_zeros(cuda):
+    """T = 0: no row has a key, and every output row is written as zeros
+    (not left as the allocator's leftovers: the block freed below holds
+    NaN, and the caching allocator hands the output that block)."""
+    q = torch.randn((2, 4, 128), device="cuda").to(torch.bfloat16)
+    pool = torch.zeros((3, 16, 2, 128), device="cuda", dtype=torch.bfloat16)
+    table = torch.ones((2, 1), device="cuda", dtype=torch.int32)
+    mask = torch.zeros((2, 0), device="cuda", dtype=torch.int32)
+    torch.full_like(q, float("nan"))          # freed at once: the next block of this size
+    with torch.inference_mode():
+        out = decode_attention(q, pool, pool, mask, table)
+        torch.cuda.synchronize()
+    assert out.shape == q.shape and not out.isnan().any() and not out.any()
 
 
 def _hd64_engine(dtype):
