@@ -39,11 +39,33 @@ one JSON line each; any failure exits non-zero with no result line:
    batch from the seed.  Every step must launch K1 2L times (forward and
    remat recompute), K2 and K3 L times, and the loss must stay finite and
    fall;
+   Then ``train_remat``: the same model, weights and batch under each
+   remat policy (1 warm step through ``forward``/``backward``/``step`` and
+   3 timed ``train_batch`` steps each): K1 launches L times a
+   step under ``save_qkv``/``save_matmuls`` and 2L under ``save_attn``/
+   ``dots_saveable``, K2 and K3 L times; the first step's loss and
+   gradient norm equal the ``nothing_saveable`` run's bit for bit (else
+   within PARITY_*, and the record says by how much); step time, MFU,
+   peak memory, and the memory the forward's graph holds beyond
+   ``nothing_saveable``'s, which must be what the policy keeps
+   (``saved_bytes_per_layer``) within REMAT_HELD_*;
 5. training parity at S=2048: 3 steps from the same weights and batch
    through the kernels and through the plain attention branch (which must
    launch none); losses and the gradient norm must agree, and both are
    held beside an fp32 engine; an fp32 engine through the kernels (their
-   fp32 variants) must agree with the fp32 plain branch;
+   fp32 variants) must agree with the fp32 plain branch.  ``train_loop``:
+   2 steps of gas 2 through ``forward``/``backward``/``step`` equal 2
+   steps of ``train_batch``, losses and masters bit for bit; ``frozen``: 2
+   steps with ``frozen_keywords=("embed",)`` leave the embedding and its
+   Adam moments untouched; ``checkpoint`` (S=16384, full width, in a
+   temporary directory outside the checkout, removed after): train 2
+   steps, ``save_checkpoint``, train 2; a fresh engine
+   ``load_checkpoint``s and trains the same 2 (losses and every master bit
+   for bit), then an async save, one step during the write, and a third
+   engine resumes from that tag bit for bit; GB written, save and load
+   GB/s (sha256 of the payload included), the async return and commit
+   times; the depth is cut (never the width) if the disk cannot hold two
+   tags;
 6. the serving path at full llama2-7b width and depth with random weights
    from the seed: ``init_inference`` -> ``engine.forward`` on S=4096 (K1
    must launch once per layer), the same tokens through the plain
@@ -172,6 +194,17 @@ TRAIN_CONFIG = {
 }
 WARM_STEPS, TIMED_STEPS = 2, 5
 PARITY_S, PARITY_STEPS = 2048, 3
+# K1 launches per layer and step under each named remat policy (K2 and K3:
+# one each): save_qkv and save_matmuls keep the kernel's own output and lse
+REMAT_POLICY_K1 = {"nothing_saveable": 2, "save_attn": 2, "save_qkv": 1,
+                   "save_matmuls": 1, "dots_saveable": 2}
+REMAT_TIMED_STEPS = 3
+# what a policy's forward holds beyond nothing_saveable's must be what it
+# keeps (``saved_bytes_per_layer``) within this share and this many GB
+REMAT_HELD_RTOL, REMAT_HELD_ATOL_GB = 0.1, 0.1
+# bytes a parameter of a checkpoint: bf16 params, fp32 masters, bf16 mu,
+# fp32 nu (TRAIN_CONFIG)
+CKPT_BYTES_PER_PARAM = 2 + 4 + 2 + 4
 # bf16 kernel path vs bf16 plain branch (P rounded at different points),
 # every step: a few times the gaps measured on the card (5.7e-4 in loss,
 # 0.67% in gradient norm at step 3; PERF.md)
@@ -1324,16 +1357,17 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def _train_engine(seed, S, attn_impl="auto", fp32=False, params=None):
+def _train_engine(seed, S, attn_impl="auto", fp32=False, params=None,
+                  config_extra=None, **model_kw):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM
 
-    config = {**TRAIN_CONFIG, "seed": seed}
+    config = {**TRAIN_CONFIG, "seed": seed, **(config_extra or {})}
     if fp32:
         config["bf16"] = {"enabled": False}
         config["data_types"] = {"grad_accum_dtype": "fp32"}
     model = CausalLM(TRAIN_MODEL, max_seq_len=S, attn_impl=attn_impl,
-                     dtype=torch.float32 if fp32 else torch.bfloat16)
+                     dtype=torch.float32 if fp32 else torch.bfloat16, **model_kw)
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
                                                 params=params)
     return model, engine
@@ -1354,7 +1388,7 @@ def phase_train(seed: int, profile: bool, kernel_ms: dict):
     L = cfg.num_layers
     per_step = (2 * L, L, L)
     torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
+    losses, step_s, norms = [], [], []
     # the main path: counts to 0 just before, read just after
     reset_counts()
     for _ in range(WARM_STEPS + TIMED_STEPS):
@@ -1365,10 +1399,12 @@ def phase_train(seed: int, profile: bool, kernel_ms: dict):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
+        norms.append(engine.get_global_grad_norm())
         got = tuple(a - b for a, b in zip(kernel_counts(), before))
         check(got == per_step, f"a train step launched K1/K2/K3 {got} times, "
                                f"expected {per_step}")
     launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     timed = step_s[WARM_STEPS:]
     med = statistics.median(timed)
     flops_per_token = 6.0 * model.param_count + 12.0 * L * cfg.hidden_size * S
@@ -1381,7 +1417,7 @@ def phase_train(seed: int, profile: bool, kernel_ms: dict):
            "median_step_s": med, "tokens_per_s": S / med,
            "model_flops_per_token": flops_per_token, "model_tflops": tflops,
            "mfu": tflops * 1e12 / PEAK_FLOPS[torch.bfloat16],
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_memory_gb": peak_gb,
            "losses": losses, "grad_norm": engine.get_global_grad_norm(),
            "launches": dict(zip(("K1", "K2", "K3"), launches)),
            "launches_per_step": dict(zip(("K1", "K2", "K3"), per_step)),
@@ -1394,7 +1430,291 @@ def phase_train(seed: int, profile: bool, kernel_ms: dict):
         profile_step("train_step", lambda: engine.train_batch(batch=batch))
     del engine, model, batch
     free_memory()
-    return launches
+    return launches, {"loss": losses[0], "grad_norm": norms[0], "peak_gb": peak_gb,
+                      "median_step_s": med}
+
+
+def _train_batch(cfg, S, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"input_ids": torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                                       device="cuda")}
+
+
+def saved_bytes_per_layer(cfg, S: int, policy: str) -> int:
+    """What a policy keeps beyond ``nothing_saveable``, a layer at micro
+    batch 1 and bf16: JAX's names (q, k, v post-rope; attn_out; the fp32
+    lse; mlp_gate, mlp_up), or every matmul output for ``dots_saveable``."""
+    q, kv = cfg.num_heads * cfg.dims_per_head, cfg.kv_heads * cfg.dims_per_head
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    lse = 4 * cfg.num_heads * S
+    return {"save_attn": 2 * S * q,
+            "save_qkv": 2 * S * (2 * q + 2 * kv) + lse,
+            "save_matmuls": 2 * S * (2 * q + 2 * kv + 2 * f) + lse,
+            "dots_saveable": 2 * S * (q + 2 * kv + d + 2 * f + d)}[policy]
+
+
+def phase_train_remat(seed: int, base: dict):
+    """llama-740m at S=16384 under each remat policy: launches per step,
+    step time, MFU, peak memory and what the forward's graph holds (read
+    between ``forward`` and ``backward`` of the first step, which runs
+    through the reference loop); the first step's loss and gradient norm
+    against phase ``train``'s (same weights, same batch, ``train_batch``)."""
+    S = TRAIN_SHAPE[1]
+    out = {}
+    for policy, k1 in REMAT_POLICY_K1.items():
+        t_phase = time.perf_counter()
+        model, engine = _train_engine(seed, S, remat_policy=policy)
+        cfg = model.config
+        L = cfg.num_layers
+        batch = _train_batch(cfg, S, seed + 1)
+        per_step = (k1 * L, L, L)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, step_s = [], [], []
+        reset_counts()
+        for step in range(1 + REMAT_TIMED_STEPS):
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if step == 0:
+                m0 = torch.cuda.memory_allocated()
+                engine.forward(batch)
+                held = torch.cuda.memory_allocated() - m0
+                engine.backward()
+                losses.append(float(engine.step()["loss"]))
+            else:
+                losses.append(float(engine.train_batch(batch=batch)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            norms.append(engine.get_global_grad_norm())
+            got = tuple(a - b for a, b in zip(kernel_counts(), before))
+            check(got == per_step, f"{policy}: a step launched K1/K2/K3 {got} "
+                                   f"times, expected {per_step}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        med = statistics.median(step_s[1:])
+        flops_per_token = 6.0 * model.param_count + 12.0 * L * cfg.hidden_size * S
+        loss_diff = abs(losses[0] - base["loss"]) / abs(base["loss"])
+        norm_diff = abs(norms[0] - base["grad_norm"]) / abs(base["grad_norm"])
+        bit_equal = losses[0] == base["loss"] and norms[0] == base["grad_norm"]
+        rec = {"phase": "train_remat", "policy": policy, "model": TRAIN_MODEL,
+               "S": S, "launches_per_step": dict(zip(("K1", "K2", "K3"), per_step)),
+               "step_s": step_s, "median_step_s": med, "tokens_per_s": S / med,
+               "mfu": S / med * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+               "peak_memory_gb": peak_gb,
+               "held_after_forward_gb": held / 1e9,
+               "first_loss": losses[0], "first_grad_norm": norms[0],
+               "bit_equal_to_train_phase": bit_equal,
+               "loss_rel_diff": loss_diff, "grad_norm_rel_diff": norm_diff,
+               "losses": losses, "seconds": time.perf_counter() - t_phase}
+        if policy != "nothing_saveable":
+            ref = out["nothing_saveable"]
+            rec["extra_peak_gb"] = peak_gb - ref["peak_memory_gb"]
+            rec["extra_held_gb"] = rec["held_after_forward_gb"] - ref["held_after_forward_gb"]
+            rec["kept_gb"] = L * saved_bytes_per_layer(cfg, S, policy) / 1e9
+        emit(rec)
+        check(bit_equal or (loss_diff <= PARITY_LOSS_RTOL
+                            and norm_diff <= PARITY_GRAD_NORM_RTOL),
+              f"{policy}: first step strays from nothing_saveable: {rec}")
+        check(all(math.isfinite(x) for x in losses), f"{policy}: non-finite loss")
+        if "kept_gb" in rec:
+            check(abs(rec["extra_held_gb"] - rec["kept_gb"])
+                  <= REMAT_HELD_RTOL * rec["kept_gb"] + REMAT_HELD_ATOL_GB,
+                  f"{policy} holds other tensors than the ones it keeps: {rec}")
+        out[policy] = rec
+        del engine, model, batch
+        free_memory()
+    return out
+
+
+def phase_train_loop(seed: int):
+    """Two steps of gas 2 through ``forward``/``backward``/``step`` and
+    through ``train_batch`` from the same initial state (the same seed):
+    losses and every parameter bit for bit."""
+    t0 = time.perf_counter()
+    S, gas = PARITY_S, 2
+    extra = {"gradient_accumulation_steps": gas}
+    batches = None
+    results = []
+    for loop in (False, True):
+        model, engine = _train_engine(seed, S, config_extra=extra)
+        if batches is None:
+            batches = [_train_batch(model.config, S, seed + 10 + i)
+                       for i in range(2 * gas)]
+        losses = []
+        for step in range(2):
+            micro = batches[step * gas:(step + 1) * gas]
+            if loop:
+                for mb in micro:
+                    engine.backward(engine.forward(mb))
+                    check(engine.is_gradient_accumulation_boundary()
+                          == (mb is micro[-1]), "boundary flag out of step")
+                losses.append(float(engine.step()["loss"]))
+            else:
+                losses.append(float(engine.train_batch(
+                    batch={"input_ids": torch.cat([m["input_ids"] for m in micro])})))
+        results.append((losses, [t.clone() for t in
+                                 _leaves(engine.get_params(fp32=True))]))
+        del engine, model
+        free_memory()
+    (la, pa), (lb, pb) = results
+    same = la == lb and all(torch.equal(x, y) for x, y in zip(pa, pb))
+    rec = {"phase": "train_loop", "model": TRAIN_MODEL, "S": S, "gas": gas,
+           "train_batch_losses": la, "loop_losses": lb, "bit_equal": same,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(same, f"forward/backward/step differs from train_batch: {rec}")
+    del pa, pb
+    free_memory()
+
+
+def _leaves(tree):
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(r, n)) for r, _, files in os.walk(path)
+               for n in files) / 1e9
+
+
+def phase_checkpoint(seed: int):
+    """Save, resume and async-save llama-740m at S=16384 (full width), in a
+    temporary directory outside the checkout: the resumed run's losses and
+    every master must equal the uninterrupted run's, bit for bit."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.resilience import verify_checkpoint_dir
+
+    t0 = time.perf_counter()
+    S = TRAIN_SHAPE[1]
+    root = tempfile.mkdtemp(prefix="ds_port_ckpt_")
+    try:
+        disk = shutil.disk_usage(root)
+        from deepspeed_tpu_torch.models import get_config
+
+        cfg = get_config(TRAIN_MODEL)
+        state_gb = CKPT_BYTES_PER_PARAM * cfg.param_count / 1e9
+        layers = cfg.num_layers
+        # two tags must fit: cut depth (never width) until they do
+        while layers > 1 and 2.2 * state_gb * layers / cfg.num_layers > disk.free / 1e9:
+            layers -= 1
+        cut = {} if layers == cfg.num_layers else {"num_layers": layers}
+        emit({"phase": "checkpoint_disk", "dir": root, "free_gb": disk.free / 1e9,
+              "state_gb_full_depth": state_gb, "layers": layers, "depth_cut": cut})
+        batches = [_train_batch(cfg, S, seed + 20 + i) for i in range(5)]
+
+        def run(engine, bs):
+            return [float(engine.train_batch(batch=b)) for b in bs]
+
+        def masters(engine):
+            return [t.clone() for t in _leaves(engine.get_params(fp32=True))]
+
+        _, a = _train_engine(seed, S, **cut)
+        run(a, batches[:2])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tag_dir = a.save_checkpoint(root)
+        save_s = time.perf_counter() - t
+        gb = _dir_gb(os.path.join(tag_dir, "state"))
+        t = time.perf_counter()
+        verify_checkpoint_dir(tag_dir)   # the sha256 pass alone
+        verify_s = time.perf_counter() - t
+        want_losses, want_masters = run(a, batches[2:4]), masters(a)
+        del a
+        free_memory()
+        _, b = _train_engine(seed + 1, S, **cut)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        got_losses = run(b, batches[2:4])
+        sync_equal = got_losses == want_losses and all(
+            torch.equal(x, y) for x, y in zip(masters(b), want_masters))
+        del want_masters
+        # async: returns after the device->host snapshot; the step after it
+        # runs while the write goes on
+        b.config.checkpoint_config.async_save = True
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        async_dir = b.save_checkpoint(root)
+        async_return_s = time.perf_counter() - t
+        async_losses = run(b, batches[4:5])
+        b.wait_for_checkpoint()
+        async_done_s = time.perf_counter() - t
+        manifest = verify_checkpoint_dir(async_dir)
+        with open(os.path.join(root, "latest")) as f:
+            latest = f.read().strip()
+        async_masters = masters(b)
+        del b
+        free_memory()
+        _, c = _train_engine(seed + 2, S, **cut)
+        c.load_checkpoint(root)
+        async_equal = run(c, batches[4:5]) == async_losses and all(
+            torch.equal(x, y) for x, y in zip(masters(c), async_masters))
+        del c, async_masters
+        free_memory()
+        rec = {"phase": "checkpoint", "model": TRAIN_MODEL, "S": S,
+               "layers": layers, "depth_cut": cut, "gb_written": gb,
+               "save_s": save_s, "save_gbps": gb / save_s,
+               "sha256_pass_s": verify_s,
+               "load_s": load_s, "load_gbps": gb / load_s,
+               "async_return_s": async_return_s,
+               "async_until_durable_s": async_done_s,
+               "async_tag": os.path.basename(async_dir), "latest": latest,
+               "manifest_payload_files": len(manifest["payload"]),
+               "resume_losses": got_losses, "uninterrupted_losses": want_losses,
+               "bit_equal": sync_equal, "async_bit_equal": async_equal,
+               "timings_include": "sha256 of every payload file (save: manifest; "
+                                  "load: verify_on_load)",
+               "seconds": time.perf_counter() - t0}
+        emit(rec)
+        check(sync_equal, f"resume is not bit-exact: {rec}")
+        check(async_equal and latest == rec["async_tag"],
+              f"async resume is not bit-exact or latest not published: {rec}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _adam_state(opt_state):
+    """The Adam link's state in an optimizer chain's nested tuple."""
+    from deepspeed_tpu_torch.runtime.optimizer import ScaleByAdamState
+
+    if isinstance(opt_state, ScaleByAdamState):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def phase_frozen(seed: int):
+    """2 steps with ``frozen_keywords=("embed",)`` at S=2048: the embedding
+    does not move a bit and its Adam moments stay zero."""
+    t0 = time.perf_counter()
+    S = PARITY_S
+    model, engine = _train_engine(seed, S, frozen_keywords=("embed",))
+    before = engine.get_params(fp32=True)["embed"].clone()
+    other = engine.get_params(fp32=True)["lm_head"].clone()
+    losses = [float(engine.train_batch(batch=_train_batch(model.config, S, seed + i)))
+              for i in range(2)]
+    adam = _adam_state(engine.state.opt_state)
+    rec = {"phase": "frozen", "model": TRAIN_MODEL, "S": S, "losses": losses,
+           "embed_unchanged": torch.equal(engine.get_params(fp32=True)["embed"], before),
+           "embed_moments_zero": not (adam.mu["embed"].any() or adam.nu["embed"].any()),
+           "lm_head_moved": not torch.equal(engine.get_params(fp32=True)["lm_head"],
+                                            other),
+           "grad_norm": engine.get_global_grad_norm(),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(rec["embed_unchanged"] and rec["embed_moments_zero"] and rec["lm_head_moved"],
+          f"frozen parameters moved or trainable ones did not: {rec}")
+    del engine, model, before, other
+    free_memory()
 
 
 def phase_train_parity(seed: int):
@@ -2317,9 +2637,13 @@ def main() -> int:
     sparse = phase_sparse_attention(gen)
     phase_transformer_layer(args.seed)
     k1, (k2, k3) = fwd[TRAIN_SHAPE], bwd[TRAIN_SHAPE]
-    train_launches = phase_train(args.seed, args.profile,
-                                 {"fwd": k1["ms"], "dq": k2["ms"], "dkv": k3["ms"]})
+    train_launches, base = phase_train(
+        args.seed, args.profile, {"fwd": k1["ms"], "dq": k2["ms"], "dkv": k3["ms"]})
+    remat = phase_train_remat(args.seed, base)
     phase_train_parity(args.seed)
+    phase_train_loop(args.seed)
+    phase_frozen(args.seed)
+    phase_checkpoint(args.seed)
     serve_launches, k4_launches = phase_serving(args.seed, args.profile)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     src = "deepspeed_tpu_torch/ops/csrc/"
@@ -2344,6 +2668,7 @@ def main() -> int:
                       design=K1_DESIGN, tflops=k1["tflops"],
                       serving_shape_tflops=fwd[SERVE_SHAPE]["tflops"],
                       launches_serving_forward=serve_launches,
+                      launches_per_step_save_qkv=remat["save_qkv"]["launches_per_step"]["K1"],
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88")),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",

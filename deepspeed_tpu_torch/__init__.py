@@ -9,8 +9,9 @@ caller passes ``device="cpu"``.
 Ported so far: the inference path, ``init_inference(model)`` ->
 ``InferenceEngine.forward`` / ``generate`` over the dense causal LM; the
 training path on one device, ``initialize(model=...)`` ->
-``DeepSpeedEngine.train_batch``, with the flash-attention forward and
-backward kernels; and the paged serving path, ``engine.serving()`` ->
+``DeepSpeedEngine.train_batch`` (or ``forward``/``backward``/``step``) ->
+``save_checkpoint``/``load_checkpoint``, with the flash-attention forward
+and backward kernels; and the paged serving path, ``engine.serving()`` ->
 ``ServingEngine.run``, with the paged decode-attention kernel.  ROADMAP.md
 lists what comes next.
 """

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..utils.tree import tree_leaves, tree_map_with_path
 from .transformer import (CONFIGS, PAGE_SIZE, TransformerConfig,
                           cross_entropy_loss, forward, forward_cached,
                           forward_paged, get_config, init_cache,
@@ -40,6 +41,34 @@ class CausalLM(nn.Module):
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
         """Random weights drawn from ``generator`` on ``device``."""
         return init_params(self.config, generator, device=device, dtype=dtype)
+
+    def frozen_spec(self) -> Optional[Dict[str, Any]]:
+        """The engine's frozen-parameter contract (``requires_grad=False``
+        semantics): a tree of bools (True = frozen) shaped like the
+        parameter tree, from ``config.frozen_keywords``, or None when
+        nothing is frozen.  A keyword freezes the leaves whose path holds it
+        as an EXACT '/'-separated segment: 'embed' freezes 'embed' but not
+        'pos_embed'; a '/'-qualified keyword matches that run of segments
+        ('layers/wq' freezes layers/wq only)."""
+        keywords = self.config.frozen_keywords
+        if not keywords:
+            return None
+        if isinstance(keywords, str):   # tuple-vs-string slip: 'embed'
+            keywords = (keywords,)      # must not iterate as characters
+        shapes = init_params(self.config, torch.Generator(), device="meta")
+
+        def frozen(path, _):
+            name = "/" + path + "/"
+            return any("/" + k.strip("/") + "/" in name for k in keywords)
+
+        mask = tree_map_with_path(frozen, shapes)
+        if not any(tree_leaves(mask)):
+            raise ValueError(
+                f"frozen_keywords {tuple(keywords)} matched no parameter "
+                "path — keywords match exact '/'-separated segments "
+                "('embed', 'wq') or qualified runs ('layers/wq'); paths "
+                "look like 'layers/wq', 'embed', 'lm_head'")
+        return mask
 
     def load_params(self, params: Dict[str, Any]) -> "CausalLM":
         self.params = params

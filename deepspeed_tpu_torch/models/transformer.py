@@ -8,14 +8,16 @@ transposes (``models/convert.py``).  The JAX ``lax.scan`` over layers is a
 Python loop over ``[L]`` slices.
 
 Ported: the dense causal-LM forward (``forward``) with its training passes
-(dropout, full-layer remat through ``torch.utils.checkpoint``), the
-KV-cached decode path (``init_cache``/``forward_cached``), the paged
-serving path (``init_paged_cache``/``forward_paged``/``cow_copy_pool``,
-decode attention through the K4 kernel) and ``cross_entropy_loss``.
-Raising ``NotImplementedError`` until their slices land (ROADMAP queue 1):
-MoE layers, pipeline stages, the selective remat policies, random-LTD,
-progressive layer drop, activation fake-quant, ring/Ulysses attention, and
-the int8 pages and per-slot adapters of the paged path.
+(dropout; remat through ``torch.utils.checkpoint`` under every policy of
+the JAX package's ``_build_block``: ``nothing_saveable``, ``save_attn``,
+``save_qkv``, ``save_matmuls``, ``dots_saveable``), the KV-cached decode
+path (``init_cache``/``forward_cached``), the paged serving path
+(``init_paged_cache``/``forward_paged``/``cow_copy_pool``, decode
+attention through the K4 kernel) and ``cross_entropy_loss``.  Raising
+``NotImplementedError`` until their slices land (ROADMAP queue 1): MoE
+layers, pipeline stages, random-LTD, progressive layer drop, activation
+fake-quant, ring/Ulysses attention, and the int8 pages and per-slot
+adapters of the paged path.
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
@@ -23,6 +25,7 @@ bf16-activation model over fp32 weights computes those products in fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -375,6 +378,14 @@ def _alibi_bias(cfg, positions, num_heads, S, dtype):
     return (-rel.abs()[:, None, :, :] * slopes[None, :, None, None]).to(dtype)
 
 
+def _takes_flash(cfg, S, attn_impl, custom_positions, window) -> bool:
+    """Whether ``_attention`` takes the flash kernel at these arguments."""
+    if attn_impl == "auto":
+        attn_impl = "pallas" if S >= 2048 else "xla"
+    return (attn_impl == "pallas" and cfg.position != "alibi" and cfg.causal
+            and not custom_positions and window is None and S % 128 == 0)
+
+
 def _attention(cfg: TransformerConfig, q, k, v, positions, attn_impl: str = "xla",
                custom_positions: bool = False, window=None):
     """q:[B,S,Hq,hd] k,v:[B,S,Hkv,hd] -> [B,S,Hq,hd].
@@ -390,10 +401,7 @@ def _attention(cfg: TransformerConfig, q, k, v, positions, attn_impl: str = "xla
         raise NotImplementedError(
             f"{attn_impl} attention (sequence parallelism) is not ported yet "
             "(ROADMAP queue 1, item 8)")
-    if attn_impl == "auto":
-        attn_impl = "pallas" if S >= 2048 else "xla"
-    if attn_impl == "pallas" and cfg.position != "alibi" and cfg.causal \
-            and not custom_positions and window is None and S % 128 == 0:
+    if _takes_flash(cfg, S, attn_impl, custom_positions, window):
         # GQA is handled in-kernel (KV-head indexing), no repeat
         return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg, hd))
     if Hkv != Hq:  # GQA: repeat KV groups
@@ -414,15 +422,27 @@ def _attention(cfg: TransformerConfig, q, k, v, positions, attn_impl: str = "xla
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _dense_mlp(cfg: TransformerConfig, lp: Dict[str, Any], h):
+def _mlp_in(cfg: TransformerConfig, lp: Dict[str, Any], h) -> tuple:
+    """The MLP's input projections, before their biases: (gate, up) for
+    SwiGLU, (up,) otherwise: the tensors JAX names ``mlp_gate`` and
+    ``mlp_up``."""
+    if "router" in lp:
+        raise NotImplementedError(_MOE_ROW)
     if cfg.activation == "swiglu":
-        g = _mm(h, lp["w_gate"])
-        u = _mm(h, lp["w_up"])
+        return _mm(h, lp["w_gate"]), _mm(h, lp["w_up"])
+    return (_mm(h, lp["w_in"]),)
+
+
+def _mlp_out(cfg: TransformerConfig, lp: Dict[str, Any], acts: tuple):
+    """The rest of the dense MLP from :func:`_mlp_in`'s outputs: biases,
+    activation, down projection."""
+    if cfg.activation == "swiglu":
+        g, u = acts
         if cfg.mlp_bias:
             g, u = g + lp["b_gate"], u + lp["b_up"]
         m = _mm(F.silu(g) * u, lp["w_down"])
     else:
-        m = _mm(h, lp["w_in"])
+        (m,) = acts
         if cfg.mlp_bias:
             m = m + lp["b_in"]
         if cfg.activation == "relu":
@@ -441,9 +461,7 @@ def _dense_mlp(cfg: TransformerConfig, lp: Dict[str, Any], h):
 
 def _mlp(cfg: TransformerConfig, lp: Dict[str, Any], h):
     """Post-norm MLP body shared by the block and the cached decode block."""
-    if "router" in lp:
-        raise NotImplementedError(_MOE_ROW)
-    return _dense_mlp(cfg, lp, h)
+    return _mlp_out(cfg, lp, _mlp_in(cfg, lp, h))
 
 
 def _qkv(cfg, lp, h, B, S):
@@ -460,23 +478,74 @@ def _out_proj(cfg, lp, attn, B, S):
     return attn + lp["bo"] if cfg.attn_bias else attn
 
 
-def _dropout(cfg: TransformerConfig, x, gen: Optional[torch.Generator]):
-    """Inverted dropout at ``cfg.dropout`` (identity when ``gen`` is None)."""
-    if gen is None or not cfg.dropout:
+# Dropout sites of a layer: each draws from its own generator, seeded from
+# the layer's seed and the site, so a layer (or any part of one) recomputed
+# under remat draws the same masks again.
+_SITE_ATTN, _SITE_MLP = 0, 1
+
+
+def _dropout(cfg: TransformerConfig, x, seed: Optional[int], site: int):
+    """Inverted dropout at ``cfg.dropout`` from site ``site`` of the layer
+    seeded ``seed`` (identity when ``seed`` is None: no training)."""
+    if seed is None or not cfg.dropout:
         return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed + site * 2 ** 62)   # seeds are < 2**62
     keep = 1.0 - cfg.dropout
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return x * mask / keep
 
 
-def _layer_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    """One layer's dropout stream: a fresh generator from the layer's seed,
-    so a layer recomputed under remat draws the same masks again."""
-    if seed is None:
-        return None
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
+# ---------------------------------------------------------------------------
+# The layer, in the parts the remat policies cut it into.  Pre-norm:
+#   q, k, v = _attn_in(x)                      norm, projections, rope
+#   attn    = _attention(q, k, v)              the flash kernel (or plain)
+#   x1, h   = _attn_residual(x, attn)          out proj, dropout, residual,
+#                                              the MLP's norm
+#   acts    = _mlp_in(h)                       gate/up projections
+#   out     = x1 + dropout(_mlp_out(acts))
+# ---------------------------------------------------------------------------
+
+def _attn_in(cfg, lp, x, positions):
+    B, S, _ = x.shape
+    h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    q, k, v = _qkv(cfg, lp, h, B, S)
+    if cfg.position == "rope":
+        q, k = _rope(q, k, positions, cfg.rope_theta, cfg.dims_per_head,
+                     rotary_dim=cfg.rotary_dim, interleaved=cfg.rope_interleaved)
+    return q, k, v
+
+
+def _attn_residual(cfg, lp, x, attn, seed):
+    """(x1, h): the residual stream after attention and the MLP's input
+    (parallel residual: the MLP branches off x, not x1)."""
+    B, S, _ = x.shape
+    a = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), seed, _SITE_ATTN)
+    if cfg.parallel_residual:
+        h = (_norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+             if cfg.shared_layernorm
+             else _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias")))
+        return x + a, h
+    x1 = x + a
+    return x1, _norm(cfg, x1, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+
+
+def _mlp_residual(cfg, lp, acts, seed):
+    return _dropout(cfg, _mlp_out(cfg, lp, acts), seed, _SITE_MLP)
+
+
+def _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions, window, seed):
+    """Post-LN's first half: x1 = LN(x + attn(x))."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, lp, x, B, S)
+    attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
+                      window=window)
+    a = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), seed, _SITE_ATTN)
+    return _norm(cfg, x + a, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+
+
+def _postln_out(cfg, lp, y):
+    return _norm(cfg, y, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
 
 
 def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
@@ -484,15 +553,10 @@ def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
                   seed: Optional[int] = None):
     """Post-layernorm encoder block (BERT): x = LN(x + attn(x));
     x = LN(x + mlp(x))."""
-    B, S, _ = x.shape
-    gen = _layer_generator(seed, x.device)
-    q, k, v = _qkv(cfg, lp, x, B, S)
-    attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
-                      window=window)
-    attn = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), gen)
-    x = _norm(cfg, x + attn, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
-    m = _dropout(cfg, _mlp(cfg, lp, x), gen)
-    return _norm(cfg, x + m, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+    x1 = _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions,
+                      window, seed)
+    m = _mlp_residual(cfg, lp, _mlp_in(cfg, lp, x1), seed)
+    return _postln_out(cfg, lp, x1 + m)
 
 
 def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
@@ -502,44 +566,124 @@ def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
     if cfg.post_layernorm:
         return _block_postln(cfg, lp, x, positions, attn_impl,
                              custom_positions, window=window, seed=seed)
-    B, S, _ = x.shape
-    gen = _layer_generator(seed, x.device)
-    h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
-    q, k, v = _qkv(cfg, lp, h, B, S)
-    if cfg.position == "rope":
-        q, k = _rope(q, k, positions, cfg.rope_theta, cfg.dims_per_head,
-                     rotary_dim=cfg.rotary_dim, interleaved=cfg.rope_interleaved)
+    q, k, v = _attn_in(cfg, lp, x, positions)
     attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
                       window=window)
-    attn = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), gen)
-    if cfg.parallel_residual:
-        h2 = h if cfg.shared_layernorm else _norm(
-            cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
-        return x + attn + _dropout(cfg, _mlp(cfg, lp, h2), gen)
-    x = x + attn
-    h = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
-    return x + _dropout(cfg, _mlp(cfg, lp, h), gen)
+    x1, h = _attn_residual(cfg, lp, x, attn, seed)
+    return x1 + _mlp_residual(cfg, lp, _mlp_in(cfg, lp, h), seed)
+
+
+# ---------------------------------------------------------------------------
+# Remat policies (``jax.checkpoint`` policies of the JAX package's
+# ``_build_block``).  ``nothing_saveable`` recomputes the whole layer from its
+# input; the named policies keep exactly the tensors JAX's
+# ``save_only_these_names`` keeps, by checkpointing the parts between them:
+#   save_attn     attn_out
+#   save_qkv      q_proj, k_proj, v_proj (post-rope), attn_out, attn_lse
+#   save_matmuls  those and mlp_gate, mlp_up
+# A non-reentrant checkpoint keeps its inputs and recomputes what the
+# backward reads inside it, so a named tensor is kept by being the input of
+# the next checkpointed part.  The flash kernel's autograd Function keeps q,
+# k, v, out and lse itself, so under save_qkv/save_matmuls it runs outside
+# any checkpoint and K1 launches once per layer; under save_attn it is
+# inside the first part and runs again in the backward, as under
+# nothing_saveable.  ``dots_saveable`` keeps every matmul output and no
+# kernel output, through torch's selective checkpoint on the matmul ops:
+# K1 runs again.  The autograd graph is the same under
+# every policy; only where the backward finds its saved tensors differs, so
+# the gradients are bit-equal.
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("nothing_saveable", "save_attn", "save_qkv", "save_matmuls",
+                  "dots_saveable")
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _ckpt(fn, *args, **kwargs):
+    # the dropout streams are explicit generators, so no global RNG state
+    # needs saving for the recompute
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      **kwargs)
 
 
 def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool):
     """One layer's apply fn ``block(lp, x, positions, window, seed)``, with
-    remat applied while autograd records: ``nothing_saveable`` keeps only
-    the layer's inputs and recomputes the layer (the flash forward
-    included) in the backward, as ``jax.checkpoint`` does."""
+    ``cfg.remat_policy`` applied while autograd records (see above)."""
+    policy = cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; ported: "
+                         f"{', '.join(REMAT_POLICIES)}")
+
     def block(lp, x, positions, window, seed):
         return _block(cfg, lp, x, positions, attn_impl, custom_positions,
                       window=window, seed=seed)
 
     if not (cfg.remat and torch.is_grad_enabled()):
         return block
-    if cfg.remat_policy != "nothing_saveable":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP queue "
-            "1, item 2): only 'nothing_saveable' (full-layer recompute) is")
-    # the dropout streams are explicit generators, so no global RNG state
-    # needs saving for the recompute
-    return lambda *args: checkpoint(block, *args, use_reentrant=False,
-                                    preserve_rng_state=False)
+    if policy == "nothing_saveable" or (
+            cfg.post_layernorm and policy in ("save_attn", "save_qkv")):
+        # post-LN blocks name no attention tensor (JAX's _block_postln)
+        return lambda *args: _ckpt(block, *args)
+    if policy == "dots_saveable":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return lambda *args: _ckpt(block, *args, context_fn=context)
+
+    def attend(q, k, v, positions, window):
+        return _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
+                          window=window)
+
+    def mlp_in_part(lp, x, attn, seed):
+        x1, h = _attn_residual(cfg, lp, x, attn, seed)
+        return (x1, *_mlp_in(cfg, lp, h))
+
+    def mlp_part(lp, acts, seed):
+        return _mlp_residual(cfg, lp, acts, seed)
+
+    if cfg.post_layernorm:   # save_matmuls: mlp_gate/mlp_up only
+        def postln_block(lp, x, positions, window, seed):
+            def first(lp, x, positions, window, seed):
+                x1 = _postln_attn(cfg, lp, x, positions, attn_impl,
+                                  custom_positions, window, seed)
+                return (x1, *_mlp_in(cfg, lp, x1))
+
+            x1, *acts = _ckpt(first, lp, x, positions, window, seed)
+            y = x1 + _ckpt(mlp_part, lp, tuple(acts), seed)
+            # keeps the last norm's input y: one [B,S,d] more than JAX's names
+            return _ckpt(functools.partial(_postln_out, cfg), lp, y)
+
+        return postln_block
+
+    def after_attention(lp, x, attn, seed):
+        x1, *acts = mlp_in_part(lp, x, attn, seed)
+        return x1 + mlp_part(lp, tuple(acts), seed)
+
+    def named_block(lp, x, positions, window, seed):
+        if policy == "save_attn":
+            attn = _ckpt(lambda lp, x, positions, window: attend(
+                *_attn_in(cfg, lp, x, positions), positions, window),
+                lp, x, positions, window)
+            return _ckpt(after_attention, lp, x, attn, seed)
+        q, k, v = _ckpt(functools.partial(_attn_in, cfg), lp, x, positions)
+        if _takes_flash(cfg, x.shape[1], attn_impl, custom_positions, window):
+            attn = attend(q, k, v, positions, window)   # keeps q, k, v, out, lse
+        else:
+            attn = _ckpt(attend, q, k, v, positions, window)
+        if policy == "save_qkv":
+            return _ckpt(after_attention, lp, x, attn, seed)
+        x1, *acts = _ckpt(mlp_in_part, lp, x, attn, seed)
+        return x1 + _ckpt(mlp_part, lp, tuple(acts), seed)
+
+    return named_block
 
 
 def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:

@@ -15,7 +15,12 @@ A gradient flows through one of two ``torch.autograd.Function``s, as the
 JAX package's two ``custom_vjp``s: ``_Flash`` drops the lse cotangent,
 ``_FlashLse`` (``return_lse=True``) folds it into ``delta``.  The backward
 computes ``delta = rowsum(dO * O)`` in fp32 as a torch expression and
-launches K2 then K3.  CUDA tensors launch the kernels (built by the op
+launches K2 then K3.  ``_Flash`` keeps q, k, v, out and lse with
+``save_for_backward`` and returns out in the model's layout, so the
+attention output a remat policy names (``attn_out``) is the residual
+itself: called outside a checkpoint (``save_qkv``, ``save_matmuls`` in
+``models/transformer.py``) the backward finds all five kept and K1 runs
+once; inside one, the recompute runs K1 again.  CUDA tensors launch the kernels (built by the op
 builder at first use) or raise; CPU tensors run the plain versions.  There
 is no fallback from one to the other.
 

@@ -1,0 +1,275 @@
+"""Checkpointing on ``torch.distributed.checkpoint`` (the counterpart of
+``deepspeed_tpu/runtime/checkpoint_engine/orbax_engine.py``, the default
+engine).
+
+The directory layout keeps the JAX package's names::
+
+    save_dir/
+      latest                  # text file with the newest committed tag
+      <tag>/                  # default tag: global_step{N}
+        state/                # DCP files of the flat state dict below
+        client_state.json     # engine counters + user client_state
+        ds_config.json        # config snapshot
+        manifest.json         # resilience/integrity.py: the commit marker
+
+The saved state is the whole ``TrainState`` and the engine's dropout
+generator, flattened to one dict keyed by path ('/'-joined): ``step``,
+``params/...`` (compute precision), ``master_params/...`` (fp32 masters),
+``opt_state/...`` (the optimizer chain's states, counts included),
+``scaler/...`` (the loss scaler's fields) and ``rng/dropout`` (the
+generator's ``get_state()``).  Python numbers are stored as 0-d tensors
+(float64, int64 or bool), so every value comes back exactly and a resumed
+run continues bit for bit.
+
+DCP stores sharded state dicts (DTensor) in the same format as whole ones,
+so the format carries over when the state is sharded (ROADMAP queue 1,
+item 4).  Here the world size is 1 and no process group is needed: only
+``dcp.save``/``dcp.load`` with ``FileSystemWriter``/``FileSystemReader``.
+A load restores in place into a state dict built from the live engine
+(JAX's "restore against target").  Left for later, each refused by name:
+offload state files (item 10), data-sampler and curriculum state (item
+11), fault-injection sites (item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from .checkpoint_engine import CheckpointEngine
+from ...resilience.integrity import (LATEST_FILE, build_manifest,
+                                     mark_incomplete, read_latest,
+                                     verify_checkpoint_dir, write_manifest)
+from ...utils.logging import log_dist, logger
+
+CHECKPOINT_VERSION = "1.0"
+STATE_DIR = "state"
+_WRITE_THREADS = 8
+
+
+def _dcp():
+    # without a process group DCP saves and loads in this process alone
+    # (and says so once, in a warning)
+    import torch.distributed.checkpoint as dcp
+
+    return dcp
+
+
+class DCPCheckpointEngine(CheckpointEngine):
+    """``save`` writes a flat dict of tensors; ``load`` fills ``target``
+    (the same keys, tensors of the saved shapes and dtypes) in place."""
+
+    def save(self, state_dict: Dict[str, torch.Tensor], path: str) -> None:
+        dcp = _dcp()
+        dcp.save(state_dict, storage_writer=dcp.FileSystemWriter(
+            path, thread_count=_WRITE_THREADS))
+
+    def load(self, path: str, target: Dict[str, torch.Tensor] = None):
+        dcp = _dcp()
+        dcp.load(target, storage_reader=dcp.FileSystemReader(path))
+        return target
+
+
+# ---------------------------------------------------------------------------
+# The engine's state as one flat dict, and back
+# ---------------------------------------------------------------------------
+
+def flatten_state(obj: Any, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """Tensors of ``obj`` (nested dicts, tuples, dataclasses) into ``out``
+    under '/'-joined paths; Python numbers as 0-d tensors; None skipped."""
+    if isinstance(obj, torch.Tensor):
+        out[prefix] = obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            flatten_state(getattr(obj, f.name), f"{prefix}/{f.name}", out)
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            flatten_state(obj[k], f"{prefix}/{k}", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, x in enumerate(obj):
+            flatten_state(x, f"{prefix}/{i}", out)
+    elif isinstance(obj, bool):
+        out[prefix] = torch.tensor(obj)
+    elif isinstance(obj, int):
+        out[prefix] = torch.tensor(obj, dtype=torch.int64)
+    elif isinstance(obj, float):
+        out[prefix] = torch.tensor(obj, dtype=torch.float64)
+    elif obj is not None:
+        raise TypeError(f"cannot checkpoint {prefix} of type {type(obj).__name__}")
+
+
+def restore_state(template: Any, prefix: str, flat: Dict[str, torch.Tensor]) -> Any:
+    """``template``'s structure with its values from ``flat`` (the inverse
+    of :func:`flatten_state`)."""
+    if isinstance(template, torch.Tensor):
+        return flat[prefix]
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: restore_state(getattr(template, f.name), f"{prefix}/{f.name}", flat)
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: restore_state(v, f"{prefix}/{k}", flat) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(restore_state(x, f"{prefix}/{i}", flat)
+                              for i, x in enumerate(template))
+    if isinstance(template, (bool, int, float)):
+        return type(template)(flat[prefix].item())
+    return template
+
+
+def engine_state_dict(engine, module: bool = True, rest: bool = True,
+                      optimizer: bool = True) -> Dict[str, torch.Tensor]:
+    """The engine's state as a flat dict: the weights (``module``), the step,
+    scaler and dropout generator (``rest``) and the optimizer state
+    (``optimizer``).  Tensors are the live ones."""
+    state, out = engine.state, {}
+    if module:
+        flatten_state(state.params, "params", out)
+        flatten_state(state.master_params, "master_params", out)
+    if rest:
+        flatten_state(state.step, "step", out)
+        flatten_state(state.scaler, "scaler", out)
+        out["rng/dropout"] = engine.generator.get_state()
+    if optimizer:
+        flatten_state(state.opt_state, "opt_state", out)
+    return out
+
+
+def tree_summary(flat: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    return {k: {"shape": list(v.shape), "dtype": str(v.dtype).replace("torch.", "")}
+            for k, v in flat.items()}
+
+
+def _meta(engine, client_state) -> Dict[str, Any]:
+    """``client_state.json``: the JAX package's keys."""
+    return {"checkpoint_version": CHECKPOINT_VERSION,
+            "global_steps": engine.global_steps,
+            "skipped_steps": engine.skipped_steps,
+            "micro_steps": engine.micro_steps,
+            "param_count": engine.param_count,
+            "zero_stage": engine.zero_stage,
+            "mesh_shape": {"data": engine.dp_world},
+            "client_state": client_state or {}}
+
+
+def _publish_latest(save_dir: str, tag: str) -> None:
+    tmp = os.path.join(save_dir, LATEST_FILE + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(str(tag))
+    os.replace(tmp, os.path.join(save_dir, LATEST_FILE))
+
+
+def _check_no_open_window(engine, what: str) -> None:
+    if engine._accum_count or engine._pending_loss is not None:
+        raise RuntimeError(f"{what} inside an open forward/backward window "
+                           "(banked gradients are not saved): call step() first")
+
+
+def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
+                           client_state: Optional[Dict] = None,
+                           save_latest: bool = True) -> str:
+    """Write ``save_dir/<tag>``: the torn-save marker, the state, the
+    sidecars, then the manifest (the commit) and ``latest``.  With
+    ``checkpoint.async_save`` the state is snapshotted to host memory and the
+    rest runs on a background thread (``async_engine``)."""
+    from .async_engine import (AsyncCheckpointEngine, commit_in_background,
+                               wait_for_pending_checkpoint)
+
+    _check_no_open_window(engine, "save_checkpoint()")
+    tag = str(tag or f"global_step{engine.global_steps}")
+    ckpt_dir = os.path.join(save_dir, tag)
+    async_save = engine.config.checkpoint_config.async_save
+    # one save in flight: the previous must be durable before this one
+    # reuses its host buffers or moves `latest` after it
+    wait_for_pending_checkpoint(engine)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    mark_incomplete(ckpt_dir)
+    flat = engine_state_dict(engine)
+    manifest = build_manifest(tag, engine.global_steps, tree_summary(flat))
+    with open(os.path.join(ckpt_dir, "client_state.json"), "w") as f:
+        json.dump(_meta(engine, client_state), f, indent=2)
+    with open(os.path.join(ckpt_dir, "ds_config.json"), "w") as f:
+        json.dump(engine.config.to_dict(), f, indent=2, default=str)
+    state_path = os.path.join(ckpt_dir, STATE_DIR)
+    if async_save:
+        if engine._async_ckpt_engine is None:
+            engine._async_ckpt_engine = AsyncCheckpointEngine()
+        engine._async_ckpt_engine.save(flat, state_path)
+        del flat
+        commit_in_background(engine, save_dir, ckpt_dir, tag, save_latest, manifest)
+        log_dist(f"async checkpoint {tag} snapshotted; committing in "
+                 f"background -> {ckpt_dir}", ranks=[0])
+        return ckpt_dir
+    DCPCheckpointEngine().save(flat, state_path)
+    del flat
+    # manifest last (the commit), then `latest`: a crash between any two
+    # writes leaves an uncommitted tag or a committed one `latest` does not
+    # name, never a published torn tag
+    write_manifest(ckpt_dir, manifest)
+    if save_latest:
+        _publish_latest(save_dir, tag)
+    log_dist(f"saved checkpoint {tag} -> {ckpt_dir}", ranks=[0])
+    return ckpt_dir
+
+
+def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
+                           load_optimizer_states: bool = True,
+                           load_module_only: bool = False):
+    """Restore ``load_dir/<tag>`` (default: ``latest``) into ``engine`` in
+    place, after verifying the tag (``resilience.verify_on_load``) and
+    before touching any state.  ``load_module_only`` keeps this engine's
+    optimizer state, step, scaler and generator; ``load_optimizer_states=
+    False`` keeps its optimizer state.  Returns ``(tag_dir, client_state)``,
+    ``(None, {})`` without a ``latest``."""
+    from .async_engine import wait_for_pending_checkpoint
+
+    wait_for_pending_checkpoint(engine)   # never read through an in-flight save
+    _check_no_open_window(engine, "load_checkpoint()")
+    tag = tag or read_latest(load_dir)
+    if tag is None:
+        logger.warning(f"no `latest` file in {load_dir}; nothing loaded")
+        return None, {}
+    ckpt_dir = os.path.join(load_dir, str(tag))
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"checkpoint tag dir not found: {ckpt_dir}")
+    if engine.config.resilience.verify_on_load:
+        verify_checkpoint_dir(ckpt_dir)
+    opt = load_optimizer_states and not load_module_only
+    target = engine_state_dict(engine, rest=not load_module_only, optimizer=opt)
+    DCPCheckpointEngine().load(os.path.join(ckpt_dir, STATE_DIR), target)
+    state = engine.state
+    kw = {"params": restore_state(state.params, "params", target),
+          "master_params": restore_state(state.master_params, "master_params",
+                                         target)}
+    if not load_module_only:
+        kw["step"] = restore_state(state.step, "step", target)
+        kw["scaler"] = restore_state(state.scaler, "scaler", target)
+        engine.generator.set_state(target["rng/dropout"])
+    if opt:
+        kw["opt_state"] = restore_state(state.opt_state, "opt_state", target)
+    engine.state = dataclasses.replace(state, **kw)
+
+    meta = {}
+    meta_path = os.path.join(ckpt_dir, "client_state.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        engine.global_steps = meta.get("global_steps", engine.global_steps)
+        engine.skipped_steps = meta.get("skipped_steps", engine.skipped_steps)
+        engine.micro_steps = meta.get("micro_steps", engine.micro_steps)
+    log_dist(f"loaded checkpoint {tag} from {ckpt_dir}", ranks=[0])
+    return ckpt_dir, meta.get("client_state", {})
+
+
+def save_16bit_model(engine, save_dir: str, filename: str = "pytree_model") -> str:
+    """The compute-precision weights alone (reference save_16bit_model,
+    engine.py:3354), as DCP files under ``save_dir/filename``."""
+    os.makedirs(save_dir, exist_ok=True)
+    flat: Dict[str, torch.Tensor] = {}
+    flatten_state(engine.state.params, "params", flat)
+    path = os.path.join(save_dir, filename)
+    DCPCheckpointEngine().save(flat, path)
+    return path

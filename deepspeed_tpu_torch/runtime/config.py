@@ -129,6 +129,29 @@ class DataTypesConfig:
         return torch.float32
 
 
+@dataclasses.dataclass
+class CheckpointConfig:
+    """``checkpoint`` block.  ``async_save``: ``save_checkpoint`` returns
+    after the device->host snapshot; the write runs on a background thread
+    and ``latest`` moves only once it is durable.  The other keys parse in
+    the JAX package and do nothing there, so any but their default is
+    refused here."""
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """``resilience`` block: ``verify_on_load`` checks a tag against its
+    manifest before anything is restored.  The hang watchdog is not
+    ported (ROADMAP queue 1, item 12)."""
+    verify_on_load: bool = True
+    watchdog: Optional[Dict[str, Any]] = None
+
+
 class DeepSpeedConfigError(Exception):
     pass
 
@@ -182,6 +205,12 @@ class DeepSpeedConfig:
         self.activation_checkpointing = config_from_dict(
             ActivationCheckpointingConfig, config.get("activation_checkpointing", {}))
         self.data_types = config_from_dict(DataTypesConfig, config.get("data_types", {}))
+        self.wall_clock_breakdown = bool(config.get(C.WALL_CLOCK_BREAKDOWN, False))
+        self.memory_breakdown = bool(config.get(C.MEMORY_BREAKDOWN, False))
+        self.checkpoint_config = config_from_dict(CheckpointConfig,
+                                                  config.get("checkpoint", {}))
+        self.resilience = config_from_dict(ResilienceConfig,
+                                           config.get("resilience", {}))
 
         self.gradient_accumulation_steps: Optional[int] = config.get(
             C.GRADIENT_ACCUMULATION_STEPS)
@@ -231,8 +260,13 @@ class DeepSpeedConfig:
                 "config enables features the PyTorch port does not have yet: "
                 + "; ".join(todo))
 
-        bad: List[str] = [knob for knob in ("sparse_gradients", C.WALL_CLOCK_BREAKDOWN,
-                                            C.MEMORY_BREAKDOWN) if cfg.get(knob, False)]
+        bad: List[str] = ["sparse_gradients"] if cfg.get("sparse_gradients") else []
+        ck = self.checkpoint_config
+        bad += [f"checkpoint.{knob}" for knob in (
+            "load_universal", "use_node_local_storage", "parallel_write_pipeline")
+            if getattr(ck, knob)]
+        if ck.tag_validation != "Warn":
+            bad.append("checkpoint.tag_validation")
         ac = self.activation_checkpointing
         bad += [f"activation_checkpointing.{knob}" for knob in (
             "cpu_checkpointing", "contiguous_memory_optimization",

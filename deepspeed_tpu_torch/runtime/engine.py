@@ -12,16 +12,25 @@ them eagerly on one device:
     respect to the compute-precision tree (its leaves are the bf16 params
     themselves), as the JAX engine differentiates its bf16 tree;
   - ``gradient_accumulation_steps`` micro-batches accumulate at
-    ``data_types.grad_accum_dtype``;
+    ``data_types.grad_accum_dtype``, in one ``train_batch`` call or through
+    ``forward``/``backward``/``step`` (the same arithmetic, bit for bit);
   - the update: unscale by ``loss_scale * gas`` -> finiteness check (fp16)
     -> global norm -> the optimizer chain on the fp32 masters -> skip on
-    overflow -> recast the compute params.
+    overflow -> recast the compute params;
+  - frozen parameters (``model.frozen_spec()``, a tree of bools): not
+    differentiated (a zero gradient, so no share of the norm, the
+    clipping or the overflow check), no update, no weight decay, no moment
+    change; still in the state and in checkpoints;
+  - checkpoints (``save_checkpoint``/``load_checkpoint``) hold the whole
+    state, the dropout generator's included, so a resumed run continues
+    bit for bit (``checkpoint_engine/dcp_engine.py``).
 
-World size is 1: ZeRO stages 0-3 are one computation here.  Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: a mesh over
-more than one device and ZeRO sharding (queue 1 item 4), the
-``forward``/``backward``/``step`` loop (item 3), checkpointing (item 5),
-offload, 1-bit and ZeRO++ (item 10), frozen parameters (item 3).
+Masters are fp32, or the parameters' own dtype when it is wider (an fp64
+model keeps fp64 masters, as the JAX engine does under x64).  World size
+is 1: ZeRO stages 0-3 are one computation here.  Not ported yet, each
+raising ``NotImplementedError`` with its ROADMAP item: a mesh over more
+than one device and ZeRO sharding (queue 1 item 4), offload, 1-bit and
+ZeRO++ (item 10).
 """
 from __future__ import annotations
 
@@ -33,15 +42,16 @@ import torch
 
 from ..accelerator import resolve_device
 from ..utils.logging import log_dist
-from ..utils.timer import ThroughputTimer
-from ..utils.tree import tree_leaves, tree_map, tree_unflatten_like
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
+from ..utils.tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                          tree_unflatten_like)
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import (LossScaleState, dynamic_loss_scale_state,
                                grads_finite, no_loss_scale_state, scale_loss,
                                static_loss_scale_state, update_scale)
 from .lr_schedules import constant_lr, get_lr_scheduler
-from .optimizer import (GradientTransformation, apply_updates, create_optimizer,
-                        global_norm)
+from .optimizer import (GradientTransformation, apply_updates, chain,
+                        create_optimizer, global_norm, zero_frozen_updates)
 
 
 @dataclasses.dataclass
@@ -50,7 +60,7 @@ class TrainState:
 
     step: int                         # global step
     params: Any                       # compute-precision params (fwd/bwd view)
-    master_params: Any                # fp32 masters (None when compute is fp32)
+    master_params: Any                # fp32 masters (None when compute is fp32/fp64)
     opt_state: Any
     scaler: LossScaleState
 
@@ -59,9 +69,10 @@ def _cast_tree(tree, dtype: torch.dtype):
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+def _master_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32, or the leaf's own dtype when it is wider."""
+    return torch.promote_types(x.dtype, torch.float32) if x.is_floating_point() \
+        else x.dtype
 
 
 class DeepSpeedEngine:
@@ -84,8 +95,6 @@ class DeepSpeedEngine:
         if init_fn is None and params is None:
             raise ValueError("engine needs init_fn(generator)->params or "
                              "explicit params")
-        if getattr(getattr(model, "config", None), "frozen_keywords", ()):
-            raise _unported("frozen parameters (config.frozen_keywords)", 3)
         self.loss_fn = loss_fn
         self._eval_fn = self._eval_fn or loss_fn
 
@@ -115,15 +124,26 @@ class DeepSpeedEngine:
                   if self.config.optimizer else 1e-3)
             self.lr_schedule = constant_lr(lr)
 
+        # -- frozen parameters (reference requires_grad=False): the model
+        #    exposes frozen_spec() -> a tree of bools (True = frozen) --
+        frozen_spec = getattr(model, "frozen_spec", None)
+        self._frozen_mask = frozen_spec() if callable(frozen_spec) else frozen_spec
+        if self._frozen_mask is not None and not any(tree_leaves(self._frozen_mask)):
+            self._frozen_mask = None    # nothing frozen: skip the masking
+
         # -- optimizer --
         if optimizer is not None:
+            if self._frozen_mask is not None:
+                # whatever the client chain emits (weight decay included),
+                # frozen leaves get a zero update
+                optimizer = chain(optimizer, zero_frozen_updates(self._frozen_mask))
             self.optimizer = optimizer
         else:
             opt_cfg = self.config.optimizer
             self.optimizer = create_optimizer(
                 opt_cfg.type if opt_cfg else "adamw",
                 dict(opt_cfg.params) if opt_cfg else {}, self.lr_schedule,
-                self.config.gradient_clipping)
+                self.config.gradient_clipping, frozen_mask=self._frozen_mask)
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
@@ -134,9 +154,23 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.skipped_steps = 0
         self.micro_steps = 0
+        # named timers, held for callers as in the JAX engine (which times
+        # nothing with them itself)
+        self.timers = SynchronizedWallClockTimer(self.device)
         self.tput_timer = ThroughputTimer(batch_size=self.train_batch_size,
                                           steps_per_output=self.config.steps_per_print)
         self._last_grad_norm: Optional[float] = None
+        # the forward/backward/step window: the differentiated tree, the
+        # banked gradients, their count, the pending loss, the losses
+        self._work = None
+        self._accum_grads = None
+        self._accum_count = 0
+        self._pending_loss = None
+        self._window_losses: list = []
+        # checkpointing: an in-flight async save and its error
+        self._async_ckpt_engine = None
+        self._pending_ckpt_thread = None
+        self._async_ckpt_error = None
         self._data_iterator = None
         self.training_dataloader = self._build_dataloader(training_data)
         log_dist(
@@ -152,9 +186,22 @@ class DeepSpeedEngine:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(self.config.seed)
             params = init_fn(init_gen)
-        # masters are fresh fp32 copies: the caller's tree is never aliased
-        master = tree_map(lambda x: x.detach().to(self.device, torch.float32,
+        # masters are fresh fp32 (or wider) copies: the caller's tree is
+        # never aliased
+        master = tree_map(lambda x: x.detach().to(self.device, _master_dtype(x),
                                                   copy=True), params)
+        if self._frozen_mask is not None:
+            mask_paths = [p for p, _ in tree_flatten_with_path(self._frozen_mask)]
+            param_paths = [p for p, _ in tree_flatten_with_path(master)]
+            if mask_paths != param_paths:
+                raise ValueError(
+                    "model.frozen_spec() structure does not match the param "
+                    f"tree: mask {mask_paths} vs params {param_paths}")
+            n_frozen = sum(x.numel() for x, m in zip(tree_leaves(master),
+                                                     tree_leaves(self._frozen_mask))
+                           if m)
+            log_dist(f"frozen parameters: {n_frozen:,} excluded from "
+                     "updates/grad-norm (model.frozen_spec)", ranks=[0])
         if self.use_master_weights:
             params0 = _cast_tree(master, self.compute_dtype)
         else:
@@ -182,16 +229,42 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # The step
     # ------------------------------------------------------------------
-    def _grad_of_batch(self, work, one_batch):
-        """(scaled grads of ``loss * loss_scale`` w.r.t. the leaves of
-        ``work``, unscaled loss)."""
-        leaves = tree_leaves(work)
+    def _work_tree(self):
+        """The tree a step differentiates: detached views of the compute
+        params (so every backward matmul reads the bf16 weights), the
+        frozen leaves not requiring a gradient."""
+        mask = (self._frozen_mask if self._frozen_mask is not None
+                else tree_map(lambda _: False, self.state.params))
+        return tree_map(lambda p, m: p.detach() if m else p.detach().requires_grad_(),
+                        self.state.params, mask)
+
+    def _micro_loss(self, work, one_batch):
+        """The micro-batch's loss on ``work``, recording the graph."""
         loss = self.loss_fn(work, one_batch, self.generator)
-        loss = loss[0] if isinstance(loss, tuple) else loss
-        grads = torch.autograd.grad(scale_loss(loss, self.state.scaler), leaves)
-        if self.config.prescale_gradients:
-            grads = [g / self.config.gradient_predivide_factor for g in grads]
-        return grads, loss.detach()
+        return loss[0] if isinstance(loss, tuple) else loss
+
+    def _micro_grads(self, work, loss):
+        """Scaled gradients of ``loss`` w.r.t. the leaves of ``work``, zeros
+        for the frozen ones (the reference's frozen parameters have no
+        ``.grad`` at all)."""
+        leaves = tree_leaves(work)
+        live = [x for x in leaves if x.requires_grad]
+        grads = iter(torch.autograd.grad(scale_loss(loss, self.state.scaler), live))
+        out = []
+        for x in leaves:
+            g = next(grads) if x.requires_grad else torch.zeros_like(x)
+            if self.config.prescale_gradients:
+                g = g / self.config.gradient_predivide_factor
+            out.append(g)
+        return out
+
+    def _bank(self, grads) -> None:
+        """Add one micro-batch's gradients to the window's sums."""
+        if self._accum_grads is None:
+            self._accum_grads = [g.to(self.accum_dtype) for g in grads]
+        else:
+            self._accum_grads = [a + g.to(self.accum_dtype)
+                                 for a, g in zip(self._accum_grads, grads)]
 
     def _apply_update(self, grads, eff_gas: int):
         """Unscale, overflow check, optimizer on the masters, skip on
@@ -200,9 +273,10 @@ class DeepSpeedEngine:
         inv = 1.0 / (state.scaler.loss_scale * eff_gas)
         if self.config.prescale_gradients:
             inv = inv * self.config.gradient_predivide_factor
-        # the unscaled gradient is fp32 whatever the accumulation dtype, as
-        # bf16 * fp32-scalar promotes in the JAX step
-        grads = tree_map(lambda g: g.float() * inv, grads)
+        # the unscaled gradient is fp32 (fp64 for fp64 leaves) whatever the
+        # accumulation dtype, as bf16 * fp32-scalar promotes in the JAX step
+        grads = tree_map(
+            lambda g: g.to(torch.promote_types(g.dtype, torch.float32)) * inv, grads)
         finite = grads_finite(grads) if self.fp16_enabled else True
         grad_norm = global_norm(grads)
         masters = state.master_params if self.use_master_weights else state.params
@@ -224,24 +298,24 @@ class DeepSpeedEngine:
         return {"grad_norm": grad_norm, "loss_scale": state.scaler.loss_scale,
                 "step_applied": finite}
 
-    def _train_step(self, global_batch):
-        # differentiate w.r.t. the compute tree itself: detached views of the
-        # bf16 params, so every backward matmul reads bf16 weights
-        work = tree_map(lambda p: p.detach().requires_grad_(), self.state.params)
-        acc, losses = None, []
-        for i in range(self.gas):
-            grads, loss = self._grad_of_batch(
-                work, tree_map(lambda x: x[i], global_batch))
-            losses.append(loss)
-            if acc is None:
-                acc = [g.to(self.accum_dtype) for g in grads]
-            else:
-                acc = [a + g.to(self.accum_dtype) for a, g in zip(acc, grads)]
-            del grads
-        del work
-        metrics = self._apply_update(tree_unflatten_like(self.state.params, acc),
+    def _finish_step(self, grads, losses) -> dict:
+        """Apply the window's gradients and do the step's bookkeeping (one
+        path for ``train_batch`` and ``step``)."""
+        metrics = self._apply_update(tree_unflatten_like(self.state.params, grads),
                                      self.gas)
         metrics["loss"] = torch.stack(losses).mean()
+        self.global_steps += 1
+        self._last_grad_norm = float(metrics["grad_norm"])
+        if self.fp16_enabled and not metrics["step_applied"]:
+            self.skipped_steps += 1
+            log_dist(f"step {self.global_steps}: grad overflow, step skipped; "
+                     f"loss scale -> {self.state.scaler.loss_scale}", ranks=[0])
+        self.tput_timer.stop()
+        if self.global_steps % self.config.steps_per_print == 0:
+            log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
+                     f"lr={self.get_current_lr():.3e}, "
+                     f"loss={float(metrics['loss']):.4f}, "
+                     f"grad_norm={self._last_grad_norm:.3f}", ranks=[0])
         return metrics
 
     # ------------------------------------------------------------------
@@ -285,22 +359,21 @@ class DeepSpeedEngine:
                 data_iter = self._data_iterator
             batch = data_iter
         global_batch = self._collect_global_batch(batch)
+        if self._accum_count or self._pending_loss is not None:
+            raise RuntimeError("train_batch() inside an open forward/backward "
+                               "window: call step() first")
         self.tput_timer.start()
-        metrics = self._train_step(global_batch)
-        self.global_steps += 1
+        work = self._work_tree()
+        losses = []
+        for i in range(self.gas):
+            loss = self._micro_loss(work, tree_map(lambda x: x[i], global_batch))
+            self._bank(self._micro_grads(work, loss))
+            losses.append(loss.detach())
+            del loss
+        del work
+        grads, self._accum_grads = self._accum_grads, None
         self.micro_steps += self.gas
-        self._last_grad_norm = float(metrics["grad_norm"])
-        if self.fp16_enabled and not metrics["step_applied"]:
-            self.skipped_steps += 1
-            log_dist(f"step {self.global_steps}: grad overflow, step skipped; "
-                     f"loss scale -> {self.state.scaler.loss_scale}", ranks=[0])
-        self.tput_timer.stop()
-        if self.global_steps % self.config.steps_per_print == 0:
-            log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
-                     f"lr={self.get_current_lr():.3e}, "
-                     f"loss={float(metrics['loss']):.4f}, "
-                     f"grad_norm={self._last_grad_norm:.3f}", ranks=[0])
-        return metrics["loss"]
+        return self._finish_step(grads, losses)["loss"]
 
     def eval_batch(self, batch) -> torch.Tensor:
         """Loss of one micro-batch with dropout off, no gradient."""
@@ -310,13 +383,53 @@ class DeepSpeedEngine:
         return out[0] if isinstance(out, tuple) else out
 
     def forward(self, batch):
-        raise _unported("the forward/backward/step loop (use train_batch)", 3)
+        """The micro-batch's loss (one micro-batch: ``[micro_batch, ...]``),
+        recording the graph its ``backward()`` differentiates."""
+        if self._pending_loss is not None:
+            raise RuntimeError("forward() twice without a backward() between")
+        if self._accum_count >= self.gas:
+            raise RuntimeError(
+                f"forward() beyond the accumulation window: {self._accum_count} "
+                f"micro-batches already banked with gas={self.gas}; call step()")
+        if self._accum_count == 0:
+            self.tput_timer.start()
+            self._work = self._work_tree()
+        loss = self._micro_loss(self._work, tree_map(self._to_device, batch))
+        self._pending_loss = loss
+        return loss
 
     def backward(self, loss=None):
-        raise _unported("the forward/backward/step loop (use train_batch)", 3)
+        """Bank the gradients of the matching ``forward()``'s loss (``loss``
+        is accepted for the reference's signature; the engine scales and
+        differentiates the loss its forward returned)."""
+        if self._pending_loss is None:
+            raise RuntimeError("backward() without a preceding forward()")
+        pending, self._pending_loss = self._pending_loss, None
+        self._bank(self._micro_grads(self._work, pending))
+        self._window_losses.append(pending.detach())
+        self._accum_count += 1
+        self.micro_steps += 1
+        return loss
 
     def step(self):
-        raise _unported("the forward/backward/step loop (use train_batch)", 3)
+        """Apply the update at the gradient-accumulation boundary; a
+        mid-window ``step()`` is a no-op returning None (the reference skips
+        until the boundary).  Returns the step's metrics."""
+        if self._pending_loss is not None:
+            raise RuntimeError("step() with a forward() missing its backward()")
+        if self._accum_count == 0:
+            raise RuntimeError("step() with no accumulated gradients")
+        if self._accum_count < self.gas:
+            return None
+        grads, losses = self._accum_grads, self._window_losses
+        self._accum_grads, self._window_losses, self._work = None, [], None
+        self._accum_count = 0
+        return self._finish_step(grads, losses)
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        """True while the banked micro-batches fill the window, i.e. the
+        next ``step()`` applies the update."""
+        return self._accum_count > 0 and self._accum_count % self.gas == 0
 
     def get_lr(self) -> list:
         """Current learning rate(s), one per param group (one group here)."""
@@ -343,10 +456,39 @@ class DeepSpeedEngine:
             return self.state.master_params
         return self.state.params
 
+    # ------------------------------------------------------------------
+    # Checkpointing (reference engine.py:2593-3365): checkpoint_engine/
+    # ------------------------------------------------------------------
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
-        raise _unported("checkpointing", 5)
+        """Save the whole training state under ``save_dir/<tag>`` (default
+        tag ``global_step{N}``) and point ``save_dir/latest`` at it.  With
+        ``checkpoint.async_save`` the call returns after the device->host
+        snapshot and ``latest`` moves once the write is durable
+        (``wait_for_checkpoint``).  Returns the tag's directory."""
+        from .checkpoint_engine.dcp_engine import save_engine_checkpoint
+
+        return save_engine_checkpoint(self, save_dir, tag=tag,
+                                      client_state=client_state,
+                                      save_latest=save_latest)
+
+    def wait_for_checkpoint(self):
+        """Block until an in-flight async save is durable and ``latest`` is
+        published; re-raises a failed save.  No-op otherwise."""
+        from .checkpoint_engine.async_engine import wait_for_pending_checkpoint
+
+        return wait_for_pending_checkpoint(self)
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True, load_module_only=False):
-        raise _unported("checkpointing", 5)
+        """Restore a tag (default: the one ``latest`` names) into this
+        engine's state, in place.  ``load_module_only`` restores the weights
+        only; ``load_optimizer_states=False`` keeps this engine's optimizer
+        state.  Returns ``(tag_dir, client_state)``, or ``(None, {})`` when
+        there is no ``latest``.  (The schedule is a function of the step,
+        so ``load_lr_scheduler_states`` has nothing of its own to load.)"""
+        from .checkpoint_engine.dcp_engine import load_engine_checkpoint
+
+        return load_engine_checkpoint(
+            self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+            load_module_only=load_module_only)

@@ -40,7 +40,8 @@ _UNPORTED = {
     ADAGRAD_OPTIMIZER: 11, LION_OPTIMIZER: 11, RMSPROP_OPTIMIZER: 11,
 }
 
-_DTYPES = {None: None, "float32": torch.float32, "fp32": torch.float32,
+_DTYPES = {None: None, "float64": torch.float64, "fp64": torch.float64,
+           "float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "fp16": torch.float16}
 
@@ -71,11 +72,16 @@ def _dtype(name):
     return _DTYPES[name]
 
 
+def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (optax.global_norm)."""
+    """sqrt of the sum of squares of every leaf, in fp32 (fp64 for fp64
+    leaves, as optax.global_norm under x64)."""
     total = None
     for x in tree_leaves(tree):
-        s = x.float().square().sum()
+        s = _at_least_fp32(x).square().sum()
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -118,10 +124,13 @@ def _weak(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype)) if dtype.itemsize < 4 else x
 
 
-def _bias_correction(decay: float, count: int) -> torch.Tensor:
-    # 1 - decay**count in fp32, as optax evaluates it: XLA's power is the
-    # correctly rounded fp32 one (torch's fp32 pow can be an ulp off, which
-    # 1 - 0.999**3 magnifies to 2e-5)
+def _bias_correction(decay: float, count: int,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    # 1 - decay**count in fp32 (fp64 for fp64 moments, as optax evaluates
+    # it under x64): XLA's power is the correctly rounded one (torch's fp32
+    # pow can be an ulp off, which 1 - 0.999**3 magnifies to 2e-5)
+    if dtype == torch.float64:
+        return 1.0 - torch.tensor(decay ** count, dtype=torch.float64)
     power = float(torch.tensor(decay, dtype=torch.float32)) ** count
     return 1.0 - torch.tensor(power, dtype=torch.float32)
 
@@ -144,7 +153,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                       updates, state.mu)
         nu = tree_map(lambda g, t: (_weak(1 - b2, g.dtype) * g.square()
                                     + _weak(b2, t.dtype) * t), updates, state.nu)
-        bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+        wide = any(m.dtype == torch.float64 for m in tree_leaves(mu))
+        dt = torch.float64 if wide else torch.float32
+        bc1, bc2 = _bias_correction(b1, count, dt), _bias_correction(b2, count, dt)
         out = tree_map(lambda m, v: (m / bc1.to(m.dtype))
                        / (torch.sqrt(v / bc2.to(v.dtype)) + eps), mu, nu)
         if mu_dtype is not None:
@@ -241,10 +252,28 @@ def _base_transform(name: str, params: Dict[str, Any]) -> GradientTransformation
     return chain(*links)
 
 
+def zero_frozen_updates(frozen_mask) -> GradientTransformation:
+    """Final-link masking for frozen parameters (the reference's
+    ``requires_grad=False`` contract: a frozen parameter receives NO update,
+    not even the weight decay an earlier link adds).  ``frozen_mask`` is a
+    tree of Python bools shaped like the parameters (True = frozen);
+    frozen leaves get a zero update, the others pass through untouched
+    (optax.masked(set_to_zero(), mask))."""
+    def update(updates, state, params=None):
+        return tree_map(lambda u, m: torch.zeros_like(u) if m else u,
+                        updates, frozen_mask), state
+
+    return GradientTransformation(lambda params: (), update)
+
+
 def create_optimizer(opt_type: str, opt_params: Optional[Dict[str, Any]] = None,
                      lr_schedule: Optional[Callable[[int], float]] = None,
-                     gradient_clipping: float = 0.0) -> GradientTransformation:
-    """The full update chain: clip -> optimizer math -> -lr(step) * update."""
+                     gradient_clipping: float = 0.0,
+                     frozen_mask: Any = None) -> GradientTransformation:
+    """The full update chain: clip -> optimizer math -> -lr(step) * update
+    (-> zero for the leaves ``frozen_mask`` marks; the engine also zeroes
+    their incoming gradients, so clipping and the norm leave them out, as
+    the reference's frozen parameters produce no ``.grad`` at all)."""
     opt_params = dict(opt_params or {})
     links = []
     if gradient_clipping and gradient_clipping > 0:
@@ -252,4 +281,6 @@ def create_optimizer(opt_type: str, opt_params: Optional[Dict[str, Any]] = None,
     links.append(_base_transform(opt_type, opt_params))
     links.append(scale_by_learning_rate(
         lr_schedule if lr_schedule is not None else opt_params.get("lr", 1e-3)))
+    if frozen_mask is not None:
+        links.append(zero_frozen_updates(frozen_mask))
     return chain(*links)

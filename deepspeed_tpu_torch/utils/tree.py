@@ -29,6 +29,26 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` over the leaves, ``path`` the keys (and list
+    indices) joined by '/' as the JAX package's ``path_str`` spells them
+    ('layers/wq', 'embed')."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], f"{prefix}{k}/")
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, x, f"{prefix}{i}/")
+                          for i, x in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+def tree_flatten_with_path(tree: Any) -> List[tuple]:
+    """``[(path, leaf), ...]`` in :func:`tree_leaves` order."""
+    out: List[tuple] = []
+    tree_map_with_path(lambda path, x: out.append((path, x)), tree)
+    return out
+
+
 def tree_unflatten_like(tree: Any, leaves: List[Any]) -> Any:
     """A tree of ``tree``'s structure holding ``leaves`` (in
     :func:`tree_leaves` order)."""
@@ -39,4 +59,5 @@ def tree_unflatten_like(tree: Any, leaves: List[Any]) -> Any:
     return out
 
 
-__all__ = ["tree_map", "tree_leaves", "tree_unflatten_like"]
+__all__ = ["tree_map", "tree_leaves", "tree_unflatten_like", "tree_map_with_path",
+           "tree_flatten_with_path"]

@@ -37,7 +37,14 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.runtime.optimizer, "
             "deepspeed_tpu_torch.runtime.lr_schedules, "
             "deepspeed_tpu_torch.runtime.fp16.loss_scaler, "
-            "deepspeed_tpu_torch.runtime.dataloader, deepspeed_tpu_torch.utils.timer\n"
+            "deepspeed_tpu_torch.runtime.dataloader, deepspeed_tpu_torch.utils.timer, "
+            "deepspeed_tpu_torch.utils.memory, "
+            "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine, "
+            "deepspeed_tpu_torch.runtime.checkpoint_engine.dcp_engine, "
+            "deepspeed_tpu_torch.runtime.checkpoint_engine.async_engine, "
+            "deepspeed_tpu_torch.resilience, deepspeed_tpu_torch.resilience.integrity, "
+            "deepspeed_tpu_torch.checkpoint, deepspeed_tpu_torch.checkpoint.zero_to_fp32, "
+            "deepspeed_tpu_torch.checkpoint.universal\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),

@@ -34,7 +34,7 @@ from deepspeed_tpu_torch.runtime import lr_schedules as port_lr
 from deepspeed_tpu_torch.runtime import optimizer as port_opt
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as port_ls
-from deepspeed_tpu_torch.utils.tree import tree_leaves
+from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path, tree_leaves
 
 TRAJ_RTOL = 1e-5
 PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -389,8 +389,8 @@ def test_unported_options_raise(option):
 
 @pytest.mark.parametrize("option", [
     {"sparse_gradients": True},
-    {"wall_clock_breakdown": True},
-    {"memory_breakdown": True},
+    {"checkpoint": {"load_universal": True}},
+    {"checkpoint": {"use_node_local_storage": True}},
     {"activation_checkpointing": {"cpu_checkpointing": True}},
 ], ids=lambda o: "-".join(str(k) for k in o))
 def test_inert_knobs_raise(option):
@@ -402,33 +402,25 @@ def test_inert_knobs_raise(option):
 
 
 def test_unported_entry_points_raise():
-    engine = _port_engine("tiny", _jax_params("tiny"), {"train_batch_size": 2})
-    for call in (lambda: engine.forward({}), lambda: engine.backward(),
-                 engine.step, lambda: engine.save_checkpoint("x"),
-                 lambda: engine.load_checkpoint("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            call()
+    """What the one-device trainer still refuses, each naming its ROADMAP
+    item: a mesh (item 4), random-LTD and progressive layer drop (item 11)."""
     with pytest.raises(NotImplementedError, match="item 4"):
         ds.initialize(model=CausalLM("tiny"), config={"train_batch_size": 2},
                       mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="frozen"):
-        ds.initialize(model=CausalLM("tiny", frozen_keywords=("embed",)),
-                      config={"train_batch_size": 2}, device="cpu")
     batch = {"input_ids": torch.zeros((1, 8), dtype=torch.long)}
-    for policy in ("save_attn", "save_qkv", "save_matmuls", "dots_saveable"):
-        model = CausalLM("tiny", dtype=torch.float32, remat=True,
-                         remat_policy=policy)
-        params = model.init_fn(device="cpu")
-        with pytest.raises(NotImplementedError, match="remat_policy"):
-            model.loss_fn({k: v for k, v in params.items()}, batch)
-        with torch.no_grad():   # inference does not remat
-            assert torch.isfinite(model.eval_fn(params, batch))
     with pytest.raises(NotImplementedError, match="random-LTD"):
         model = CausalLM("tiny", random_ltd=True, random_ltd_keep=4)
         model.loss_fn(model.init_fn(device="cpu"), batch)
     with pytest.raises(NotImplementedError, match="progressive layer drop"):
         model = CausalLM("tiny")
         model.loss_fn(model.init_fn(device="cpu"), {**batch, "pld_theta": 0.5})
+    for policy in ("save_attn", "save_qkv", "save_matmuls", "dots_saveable"):
+        model = CausalLM("tiny", dtype=torch.float32, remat=True,
+                         remat_policy=policy)
+        params = model.init_fn(device="cpu")
+        assert torch.isfinite(model.loss_fn(params, batch))
+        with torch.no_grad():   # inference does not remat
+            assert torch.isfinite(model.eval_fn(params, batch))
 
 
 def test_config_batch_triad_and_precision():
@@ -443,3 +435,195 @@ def test_config_batch_triad_and_precision():
                          "gradient_accumulation_steps": 2}, dp_world_size=1)
     with pytest.raises(Exception, match="both"):
         DeepSpeedConfig({"fp16": {"enabled": True}, "bf16": {"enabled": True}})
+
+
+# ---------------------------------------------------------------------------
+# forward/backward/step, frozen parameters, timers
+# ---------------------------------------------------------------------------
+
+def _jax_engine(name, np_params, config, **model_kw):
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=JaxCausalLM(name, dtype=jnp.float32, **model_kw), config=config,
+        params=jax.tree_util.tree_map(jnp.asarray, np_params))
+    return jeng
+
+
+def test_forward_backward_step_equals_train_batch():
+    """Two steps of gas 2 through forward/backward/step and through
+    train_batch, dropout on (the loop draws the same seeds in the same
+    order): losses and every parameter bit for bit."""
+    np_params = _jax_params("tiny", seed=30)
+    batches = _batches(256, 2, seed=31)
+    cfg = _config()
+    a = _port_engine("tiny", np_params, cfg, dropout=0.1)
+    b = _port_engine("tiny", np_params, cfg, dropout=0.1)
+    for batch in batches:
+        la = a.train_batch(batch=batch)
+        micro = batch["input_ids"].reshape(2, 8, S)
+        for i in range(2):
+            b.backward(b.forward({"input_ids": micro[i]}))
+        metrics = b.step()
+        assert torch.equal(metrics["loss"], la)
+    assert a.global_steps == b.global_steps == 2
+    assert a.micro_steps == b.micro_steps == 4
+    assert a.get_global_grad_norm() == b.get_global_grad_norm()
+    for x, y in zip(tree_leaves(a.state.master_params or a.state.params),
+                    tree_leaves(b.state.master_params or b.state.params)):
+        assert torch.equal(x, y)
+
+
+def test_forward_backward_step_contracts_match_jax():
+    """The boundary flag after each call, the mid-window no-op and the four
+    misuse errors, side by side with the JAX engine (which asserts where the
+    port raises RuntimeError for two of them)."""
+    np_params = _jax_params("tiny", seed=32)
+    batch = _batches(256, 1, B=8, seed=33)[0]
+    teng = _port_engine("tiny", np_params, _config())
+    jeng = _jax_engine("tiny", np_params, _config(train_micro_batch_size_per_gpu=1))
+    errors = (AssertionError, RuntimeError)
+
+    def trace(eng):
+        flags = []
+        with pytest.raises(errors, match="no accumulated gradients"):
+            eng.step()
+        with pytest.raises(errors, match="without a preceding forward"):
+            eng.backward()
+        eng.forward(batch)
+        with pytest.raises(errors, match="missing its backward"):
+            eng.step()
+        eng.backward()
+        flags.append(eng.is_gradient_accumulation_boundary())
+        mid = eng.step()
+        flags.append(mid is None)
+        eng.backward(eng.forward(batch))
+        flags.append(eng.is_gradient_accumulation_boundary())
+        with pytest.raises(errors, match="beyond the accumulation window"):
+            eng.forward(batch)
+        flags.append(eng.step() is not None)
+        flags.append(eng.is_gradient_accumulation_boundary())
+        return flags, eng.global_steps
+
+    got, want = trace(teng), trace(jeng)
+    assert got == want == ([False, True, True, True, False], 1)
+    with pytest.raises(RuntimeError):
+        teng.backward()
+
+
+@pytest.mark.parametrize("name,keywords", [
+    ("tiny-gpt2", ("embed",)),
+    ("tiny-gpt2", "embed"),
+    ("tiny", ("layers/wq", "lm_head")),
+    ("tiny-gqa", ("wk", "final_norm_scale")),
+])
+def test_frozen_spec_equals_jax(name, keywords):
+    """Exact-segment matching: 'embed' freezes ``embed`` and not
+    ``pos_embed``; a string keyword is one keyword, not its characters."""
+    from deepspeed_tpu.utils.debug import path_str
+
+    jmask = jax.tree_util.tree_flatten_with_path(
+        JaxCausalLM(name, frozen_keywords=keywords).frozen_spec())[0]
+    tmask = tree_flatten_with_path(CausalLM(name, frozen_keywords=keywords)
+                                   .frozen_spec())
+    assert tmask == [(path_str(p), m) for p, m in jmask]
+    assert any(m for _, m in tmask) and not all(m for _, m in tmask)
+    for cls in (CausalLM, JaxCausalLM):
+        with pytest.raises(ValueError, match="matched no parameter"):
+            cls(name, frozen_keywords=("emb",)).frozen_spec()
+        assert cls(name).frozen_spec() is None
+
+
+def test_frozen_trajectory_matches_jax_engine():
+    """frozen_keywords=("embed", "wq"), AdamW with weight decay, clipping,
+    gas 2: the 4-step trajectory and the final parameters agree with the
+    JAX engine's (the tolerances of test_engine_matches_jax_engine); the
+    frozen leaves do not move a bit and their Adam moments stay zero."""
+    name, keywords = "tiny", ("embed", "wq")
+    np_params = _jax_params(name, seed=34)
+    jeng = _jax_engine(name, np_params, _config(train_micro_batch_size_per_gpu=1),
+                       frozen_keywords=keywords)
+    teng = _port_engine(name, np_params, _config(), frozen_keywords=keywords)
+    batches = _batches(256, 2, seed=35) * 2
+    jl = [float(jeng.train_batch(batch=b)) for b in batches]
+    tl = [float(teng.train_batch(batch=b)) for b in batches]
+    np.testing.assert_allclose(tl, jl, rtol=TRAJ_RTOL)
+    np.testing.assert_allclose(teng.get_global_grad_norm(),
+                               jeng.get_global_grad_norm(), rtol=1e-4)
+    start = params_from_jax(np_params, device="cpu")
+    assert torch.equal(teng.state.params["embed"], start["embed"])
+    assert torch.equal(teng.state.params["layers"]["wq"], start["layers"]["wq"])
+    assert not torch.equal(teng.state.params["layers"]["wk"], start["layers"]["wk"])
+    adam = teng.state.opt_state[1][0]
+    for moments in (adam.mu, adam.nu):
+        assert not moments["embed"].any() and not moments["layers"]["wq"].any()
+        assert moments["layers"]["wk"].any()
+    jp = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray,
+                                                          jeng.get_params()))
+    for a, b in zip(tree_leaves(params_to_numpy(teng.get_params())), jp):
+        np.testing.assert_allclose(a, b, **PARAM_TOL_EVERY)
+        assert (~np.isclose(a, b, **PARAM_TOL)).mean() <= PARAM_OFF_SHARE
+
+
+def test_grad_norm_excludes_frozen():
+    """The reported norm is the trainable leaves' norm (the frozen ones have
+    no gradient, as with requires_grad=False)."""
+    name = "tiny"
+    np_params = _jax_params(name, seed=36)
+    batch = _batches(256, 1, seed=37)[0]
+    cfg = {"train_batch_size": 16, "optimizer": {"type": "adam",
+                                                 "params": {"lr": 1e-3}}}
+    engine = _port_engine(name, np_params, cfg, frozen_keywords=("embed",))
+    engine.train_batch(batch=batch)
+    model = CausalLM(name, dtype=torch.float32)
+    params = params_from_jax(np_params, device="cpu")
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    grads = torch.autograd.grad(
+        model.loss_fn(params, {"input_ids": torch.from_numpy(batch["input_ids"])}),
+        leaves)
+    mask = tree_leaves(CausalLM(name, frozen_keywords=("embed",)).frozen_spec())
+    live = torch.sqrt(sum(g.square().sum() for g, m in zip(grads, mask) if not m))
+    full = torch.sqrt(sum(g.square().sum() for g in grads))
+    np.testing.assert_allclose(engine.get_global_grad_norm(), live.item(), rtol=1e-5)
+    assert abs(live.item() - full.item()) > 1e-3 * full.item()
+
+
+def test_client_optimizer_is_masked_too():
+    """A client chain (weight decay included) gets the frozen masking."""
+    np_params = _jax_params("tiny", seed=38)
+    tx = port_opt.chain(port_opt.scale_by_adam(), port_opt.add_decayed_weights(0.5),
+                        port_opt.scale_by_learning_rate(1e-2))
+    model = CausalLM("tiny", dtype=torch.float32, frozen_keywords=("lm_head",))
+    engine, *_ = ds.initialize(model=model, optimizer=tx, device="cpu",
+                               config={"train_batch_size": 16},
+                               params=params_from_jax(np_params, device="cpu"))
+    before = engine.state.params["lm_head"].clone()
+    engine.train_batch(batch=_batches(256, 1, seed=39)[0])
+    assert torch.equal(engine.state.params["lm_head"], before)
+    assert not torch.equal(engine.state.params["embed"],
+                           params_from_jax(np_params, device="cpu")["embed"])
+
+
+def test_breakdown_knobs_and_timers():
+    """wall_clock_breakdown and memory_breakdown are accepted and the
+    engine holds named timers (as the JAX engine does, which times nothing
+    with them itself)."""
+    from deepspeed_tpu_torch.utils.memory import memory_status, see_memory_usage
+
+    cfg = {"train_batch_size": 2, "wall_clock_breakdown": True,
+           "memory_breakdown": True}
+    engine = _port_engine("tiny", _jax_params("tiny", seed=40), cfg)
+    assert engine.config.wall_clock_breakdown and engine.config.memory_breakdown
+    timer = engine.timers("fwd")
+    for _ in range(2):
+        timer.start()
+        sum(range(1000))
+        timer.stop()
+    assert engine.timers.has("fwd") and not engine.timers.has("bwd")
+    mean = engine.timers.get_mean(["fwd"])["fwd"]
+    line = engine.timers.log(["fwd"], memory_breakdown=True)
+    assert mean > 0 and line.startswith("time (ms) | fwd: ")
+    assert engine.timers("fwd").elapsed() == 0.0   # log reset it
+    with pytest.raises(RuntimeError, match="not started"):
+        timer.stop()
+    assert see_memory_usage("x") is None
+    report = memory_status("x", reset_max=True)
+    assert report["device"] is None and report["host_peak_rss_gb"] > 0
