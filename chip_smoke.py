@@ -57,7 +57,14 @@ one JSON line each; any failure exits non-zero with no result line:
    2 steps of gas 2 through ``forward``/``backward``/``step`` equal 2
    steps of ``train_batch``, losses and masters bit for bit; ``frozen``: 2
    steps with ``frozen_keywords=("embed",)`` leave the embedding and its
-   Adam moments untouched; ``checkpoint`` (S=16384, full width, in a
+   Adam moments untouched; ``train_zero`` (the train cell under ZeRO
+   stages 0-3 over NCCL at world size = the card count, one process per
+   card when there are more, with MiCS at 4+ cards: at one card each
+   stage's losses and masters bit-equal to the one-device engine's and
+   stage 3's peak within ZERO_PEAK_EXCESS_GB of its; steps, memory and
+   collectives a step by kind; ``comm_bench`` at world > 1; a probe of
+   two ranks sharing card 0 over NCCL and over gloo, recorded);
+   ``checkpoint`` (S=16384, full width, in a
    temporary directory outside the checkout, removed after): train 2
    steps, ``save_checkpoint``, train 2; a fresh engine
    ``load_checkpoint``s and trains the same 2 (losses and every master bit
@@ -1567,6 +1574,267 @@ def phase_train_loop(seed: int):
     free_memory()
 
 
+# train_zero: ZeRO stages over NCCL at the card count's world size (one
+# process per card): steps per stage, the stage-3 peak's allowance over the
+# one-device engine's, the time limits of its child processes
+ZERO_STEPS = 3
+ZERO_PEAK_EXCESS_GB = 0.5
+TRAIN_ZERO_TIMEOUT_S = 600
+SHARED_CARD_TIMEOUT_S = 90
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _zero_steps(engine, batch, per_step):
+    """ZERO_STEPS of ``train_batch``: losses, step seconds and, per step,
+    the comms logger's calls and bytes by kind (K1-K3 launches checked)."""
+    from deepspeed_tpu_torch import comm
+
+    log = comm.get_comms_logger()
+    losses, step_s, comms = [], [], []
+    for _ in range(ZERO_STEPS):
+        if log is not None:
+            log.reset()
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        got = tuple(a - b for a, b in zip(kernel_counts(), before))
+        check(got == per_step, f"a ZeRO step launched K1/K2/K3 {got} times, "
+                               f"expected {per_step}")
+        comms.append(log.totals() if log is not None else {})
+    return losses, step_s, comms
+
+
+def run_train_zero(seed: int, world: int, rank: int, ref=None) -> None:
+    """Stages 0-3 of llama-740m at S=16384 (the ``train`` cell) on this
+    rank of a ``world``-rank NCCL job; ``ref`` is the one-device engine's
+    run (world 1), which every stage must equal bit for bit."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import get_config
+
+    S = TRAIN_SHAPE[1]
+    cfg = get_config(TRAIN_MODEL)
+    L = cfg.num_layers
+    per_step = (2 * L, L, L)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (world, S), generator=gen,
+                                        device="cuda")}
+    comm.configure({"enabled": True})
+    flops_per_token = 6.0 * cfg.param_count + 12.0 * L * cfg.hidden_size * S
+    param_gb = 2 * cfg.param_count / 1e9
+    layer_gb = 2 * (cfg.param_count - 2 * cfg.vocab_size * cfg.hidden_size
+                    - cfg.hidden_size) / L / 1e9
+    cases = [{"stage": stage} for stage in range(4)]
+    if world >= 4 and world % 2 == 0:   # MiCS: shards within halves of the world
+        cases.append({"stage": 3, "mics_shard_size": world // 2})
+    first_losses = []
+    for zero in cases:
+        stage = zero["stage"]
+        model, engine = _train_engine(seed, S, config_extra={"zero_optimization": zero})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, comms = _zero_steps(engine, batch, per_step)
+        launches = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        med = statistics.median(step_s[1:])
+        tflops = world * S / med * flops_per_token / 1e12
+        first_losses.append(losses[0])
+        rec = {"phase": "train_zero", "stage": stage, "world_size": world,
+               "mics_shard_size": zero.get("mics_shard_size", -1),
+               "backend": torch.distributed.get_backend(), "model": TRAIN_MODEL,
+               "S": S, "rows_per_rank": 1, "remat_policy": cfg.remat_policy,
+               "step_s": step_s, "median_step_s": med,
+               "tokens_per_s": world * S / med, "model_tflops": tflops,
+               "mfu": tflops * 1e12 / world / PEAK_FLOPS[torch.bfloat16],
+               "peak_memory_gb": peak_gb, "held_memory_gb": held_gb,
+               "losses": losses, "collectives_per_step": comms[-1],
+               "launches": dict(zip(("K1", "K2", "K3"), launches)),
+               "launches_per_step": dict(zip(("K1", "K2", "K3"), per_step)),
+               "dims_sharded": sum(d is not None for d in engine.partition.mdims),
+               "leaves": len(engine.partition.mdims)}
+        if stage == 3:
+            rec["reckoning"] = {
+                "forward_gather_gb": param_gb, "recompute_gather_gb": L * layer_gb,
+                "layer_gb": layer_gb,
+                "grad_reduce_scatter_dtype": str(engine.accum_dtype)}
+        if ref is not None:   # (no name outlives the engine: the next peak)
+            same = losses == ref["losses"] and all(
+                torch.equal(m.cpu(), r) for m, r in
+                zip(_leaves(engine.state.master_params), ref["masters"]))
+            rec.update(one_device={"losses": ref["losses"],
+                                   "median_step_s": ref["median_step_s"],
+                                   "peak_memory_gb": ref["peak_gb"]},
+                       bit_equal=same, step_overhead=med / ref["median_step_s"] - 1,
+                       peak_excess_gb=peak_gb - ref["peak_gb"])
+        if rank == 0:
+            emit(rec)
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss: {rec}")
+        # the same weights and rows: every stage's first forward is the same
+        check(losses[0] == first_losses[0],
+              f"stage {stage}'s first loss {losses[0]} != stage 0's {first_losses[0]}")
+        if ref is not None:
+            check(rec["bit_equal"], f"stage {stage} at world 1 differs from the "
+                                    f"one-device engine: {rec}")
+            if stage == 3:
+                check(rec["peak_excess_gb"] <= ZERO_PEAK_EXCESS_GB,
+                      f"stage 3's peak exceeds the one-device engine's by "
+                      f"{rec['peak_excess_gb']:.3f} GB")
+        del engine, model
+        free_memory()
+    if world > 1:
+        from deepspeed_tpu_torch.comm.benchmark import run_sweep
+
+        rows = run_sweep(["all_gather", "reduce_scatter", "all_reduce"], 20, 29,
+                         trials=10, print_table=False)
+        if rank == 0:
+            emit({"phase": "comm_bench", "world_size": world, "rows": rows})
+    elif rank == 0:
+        emit({"phase": "comm_bench", "world_size": 1,
+              "skipped": "one rank: a collective is a copy, so no bandwidth to "
+                         "measure (comm/benchmark.py runs under torchrun on N cards)"})
+
+
+def _one_device_reference(seed: int) -> dict:
+    """The ``train`` cell's engine without a process group, ZERO_STEPS steps:
+    the reference every world-1 stage must equal."""
+    S = TRAIN_SHAPE[1]
+    model, engine = _train_engine(seed, S)
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                                        device="cuda")}
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, _ = _zero_steps(engine, batch, (2 * L, L, L))
+    ref = {"losses": losses, "median_step_s": statistics.median(step_s[1:]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "masters": [m.detach().cpu() for m in _leaves(engine.state.master_params)]}
+    del engine, model, batch
+    free_memory()
+    return ref
+
+
+def probe_shared_card() -> dict:
+    """Two ranks on the one card, NCCL and gloo (CUDA tensors), each pair
+    in its own child processes killed after SHARED_CARD_TIMEOUT_S: does an
+    all-reduce and a reduce-scatter go through?  Recorded, not worked
+    around."""
+    import subprocess as sp
+
+    procs = {}
+    for backend in ("nccl", "gloo"):
+        port = _free_port()
+        procs[backend] = [sp.Popen(
+            [sys.executable, os.path.abspath(__file__), "--probe-shared-card",
+             backend, str(port), str(r)], stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+            for r in (0, 1)]
+    deadline = time.monotonic() + SHARED_CARD_TIMEOUT_S
+    out = {}
+    for backend, pair in procs.items():
+        ranks = []
+        for p in pair:
+            try:
+                text, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1))
+                rc = p.returncode
+            except sp.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                rc = "timeout"
+            lines = [ln for ln in text.splitlines() if ln.strip()]
+            ranks.append({"rc": rc, "tail": lines[-3:]})
+        out[backend] = {"ok": all(r["rc"] == 0 for r in ranks), "ranks": ranks}
+    rec = {"phase": "shared_card_probe", **out}
+    emit(rec)
+    return rec
+
+
+def shared_card_child(backend: str, port: int, rank: int) -> int:
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=SHARED_CARD_TIMEOUT_S // 2))
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    out = torch.empty(2, device="cuda")
+    dist.reduce_scatter_tensor(out, x)
+    torch.cuda.synchronize()
+    print(json.dumps({"rank": rank, "all_reduce": x.tolist(),
+                      "reduce_scatter": out.tolist()}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_train_zero(seed: int) -> None:
+    """ZeRO stages 0-3 over NCCL at world size = the card count: in this
+    process at one card (after the one-device reference run, which each
+    stage must equal bit for bit), one child process per card otherwise;
+    then the shared-card probe."""
+    t0 = time.perf_counter()
+    probe_shared_card()
+    world = torch.cuda.device_count()
+    if world == 1:
+        from deepspeed_tpu_torch import comm
+
+        ref = _one_device_reference(seed)
+        comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                              world_size=1, verbose=False)
+        try:
+            run_train_zero(seed, 1, 0, ref=ref)
+        finally:
+            comm.destroy_process_group()
+    else:
+        import subprocess as sp
+
+        env = {**os.environ, "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())}
+        procs = [sp.Popen([sys.executable, os.path.abspath(__file__), "--seed",
+                           str(seed), "--train-zero-rank"],
+                          env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+                 for r in range(world)]
+        deadline = time.monotonic() + TRAIN_ZERO_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"train_zero ranks exited {[p.returncode for p in procs]}")
+    emit({"phase": "train_zero_done", "seconds": time.perf_counter() - t0})
+
+
+def train_zero_rank(seed: int) -> int:
+    """One rank of phase ``train_zero`` (``--train-zero-rank``, started by
+    the parent with RANK/WORLD_SIZE/LOCAL_RANK/MASTER_ADDR/MASTER_PORT)."""
+    from deepspeed_tpu_torch import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(verbose=False)
+    try:
+        run_train_zero(seed, comm.get_world_size(), comm.get_rank())
+    finally:
+        comm.destroy_process_group()
+    return 0
+
+
 def _leaves(tree):
     from deepspeed_tpu_torch.utils.tree import tree_leaves
 
@@ -2606,6 +2874,10 @@ def main() -> int:
                          "(diagnostic copies that skip work on purpose)")
     ap.add_argument("--ab-check", nargs="+", metavar="ARG",
                     help=argparse.SUPPRESS)   # NAME SPEC...: --ab's child
+    ap.add_argument("--train-zero-rank", action="store_true",
+                    help=argparse.SUPPRESS)   # one rank of phase train_zero
+    ap.add_argument("--probe-shared-card", nargs=3, metavar="ARG",
+                    help=argparse.SUPPRESS)   # BACKEND PORT RANK: the probe's child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -2614,6 +2886,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.first_launch:
         return first_launches()
+    if args.probe_shared_card:
+        backend, port, rank = args.probe_shared_card
+        return shared_card_child(backend, int(port), int(rank))
+    if args.train_zero_rank:
+        return train_zero_rank(args.seed)
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
     if args.ab:
@@ -2642,6 +2919,7 @@ def main() -> int:
     remat = phase_train_remat(args.seed, base)
     phase_train_parity(args.seed)
     phase_train_loop(args.seed)
+    phase_train_zero(args.seed)
     phase_frozen(args.seed)
     phase_checkpoint(args.seed)
     serve_launches, k4_launches = phase_serving(args.seed, args.profile)

@@ -11,7 +11,9 @@ Ported so far: the inference path, ``init_inference(model)`` ->
 training path on one device, ``initialize(model=...)`` ->
 ``DeepSpeedEngine.train_batch`` (or ``forward``/``backward``/``step``) ->
 ``save_checkpoint``/``load_checkpoint``, with the flash-attention forward
-and backward kernels; and the paged serving path, ``engine.serving()`` ->
+and backward kernels, also data-parallel over ``torch.distributed`` with
+ZeRO stages 0-3 and MiCS (``comm``, ``parallel``, ``runtime/zero``,
+``zero``); and the paged serving path, ``engine.serving()`` ->
 ``ServingEngine.run``, with the paged decode-attention kernel.  ROADMAP.md
 lists what comes next.
 """
@@ -39,18 +41,36 @@ def initialize(args=None, model: Any = None, optimizer=None, model_parameters=No
     ``device`` defaults to CUDA.  ``args``, ``model_parameters``,
     ``dist_init_required`` and ``collate_fn`` are accepted for signature
     parity and unused, as in the JAX package.
+
+    Data parallelism: with a process group (``comm.init_distributed()``,
+    one process per device, e.g. under ``torchrun --nproc-per-node N``)
+    the engine is one rank of a ZeRO stage 0-3 / MiCS job; ``mesh`` is a
+    ``parallel.mesh.MeshLayout`` or a mesh from ``parallel.mesh.build_mesh``
+    (default: the config's ``mesh`` block over the world).  ``param_specs``
+    (PartitionSpec-like tuples the ZeRO axes compose onto) and ``mpu`` are
+    accepted where the model axis is 1: tensor parallelism is not ported.
     """
+    from .parallel.mesh import MeshLayout, layout_of
     from .runtime.engine import DeepSpeedEngine
 
-    if mpu is not None or param_specs is not None or mesh is not None:
+    tp = 1
+    if mesh is not None:
+        if not (isinstance(mesh, MeshLayout) or hasattr(mesh, "mesh_dim_names")):
+            raise TypeError(f"mesh={type(mesh).__name__}: pass a MeshLayout or a "
+                            "mesh built by deepspeed_tpu_torch.parallel.mesh")
+        tp = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
+    if mpu is not None:
+        tp = max(tp, int(mpu.get_model_parallel_world_size()))
+    if tp > 1:
         raise NotImplementedError(
-            "mpu=/param_specs=/mesh= (model parallelism over several devices) "
-            "is not ported yet (ROADMAP queue 1, item 4)")
+            f"a model-parallel degree of {tp} (mesh=/mpu=/param_specs=) is not "
+            "ported yet (ROADMAP queue 1, item 4 (tensor parallelism))")
     cfg = config if config is not None else config_params
     engine = DeepSpeedEngine(model=model, loss_fn=loss_fn, init_fn=init_fn,
                              params=params, config=cfg, optimizer=optimizer,
                              lr_scheduler=lr_scheduler,
-                             training_data=training_data, device=device)
+                             training_data=training_data, device=device,
+                             mesh=mesh, param_specs=param_specs)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_schedule
 
 
@@ -67,8 +87,8 @@ def init_inference(model: Any = None, config=None, device=None, **kwargs):
 
     if "mesh" in kwargs:
         raise NotImplementedError(
-            "mesh= (multi-device inference) is not ported yet (ROADMAP queue 1, "
-            "item 4)")
+            "mesh= (multi-device inference, auto-TP) is not ported yet (ROADMAP "
+            "queue 1, item 4 (tensor parallelism))")
     engine_kwargs = {k: kwargs.pop(k) for k in ("apply_fn", "params")
                      if k in kwargs}
     if isinstance(model, str) or (model is not None

@@ -2,10 +2,12 @@
 (counterpart of ``deepspeed_tpu/checkpoint/zero_to_fp32.py``; reference
 ``deepspeed/utils/zero_to_fp32.py``).
 
-The state's DCP files hold every tensor whole, so consolidation is: read
-the masters (the compute params when training ran without masters) from
-the checkpoint onto the host, with no engine and no card, and write them as
-a flat ``{'a/b/c': fp32}`` dict, the names the JAX package's export uses:
+Consolidation reads the masters (the compute params when training ran
+without masters) from the checkpoint onto the host, with no engine, no
+card and no process group: DCP assembles a data-parallel run's shards
+(each rank's DTensor chunks) into whole tensors by their global offsets.
+They are written as a flat ``{'a/b/c': fp32}`` dict, the names the JAX
+package's export uses:
 
   - ``.npz``: numpy's archive (what the JAX package writes by default);
   - ``.pt``/``.bin``: ``torch.save`` of the same dict of tensors.

@@ -19,13 +19,13 @@ from torch import nn
 
 from ..utils.tree import tree_leaves, tree_map_with_path
 from .transformer import (CONFIGS, PAGE_SIZE, TransformerConfig,
-                          cross_entropy_loss, forward, forward_cached,
+                          cross_entropy_loss, cross_entropy_terms, forward, forward_cached,
                           forward_paged, get_config, init_cache,
                           init_paged_cache, init_params)
 
 __all__ = ["CausalLM", "TransformerConfig", "CONFIGS", "get_config", "forward",
            "forward_cached", "forward_paged", "init_cache", "init_paged_cache",
-           "init_params", "cross_entropy_loss"]
+           "init_params", "cross_entropy_loss", "cross_entropy_terms"]
 
 
 class CausalLM(nn.Module):
@@ -98,12 +98,21 @@ class CausalLM(nn.Module):
                                dim=1)
         return tokens, labels, positions, pld_theta
 
-    def _loss(self, params, batch, rng, deterministic):
+    def loss_terms(self, params, batch, rng: Optional[torch.Generator] = None,
+                   deterministic: bool = False):
+        """(sum of the token NLL, count of labelled tokens) of a batch: the
+        data-parallel engine's loss contract, so that the loss and its
+        gradient are the global batch's mean whatever each rank's share of
+        ignored labels."""
         tokens, labels, positions, pld_theta = self._split(batch)
         logits = self.apply_fn(params, tokens, positions=positions, rng=rng,
                                deterministic=deterministic,
                                pld_theta=None if deterministic else pld_theta)
-        return cross_entropy_loss(logits, labels)
+        return cross_entropy_terms(logits, labels)
+
+    def _loss(self, params, batch, rng, deterministic):
+        total, count = self.loss_terms(params, batch, rng, deterministic)
+        return total / count.clamp(min=1)
 
     def loss_fn(self, params, batch, rng: Optional[torch.Generator] = None):
         """Training loss (dropout on, drawn from ``rng``)."""

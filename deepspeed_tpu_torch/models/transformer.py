@@ -24,6 +24,7 @@ bf16-activation model over fp32 weights computes those products in fp32.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -484,16 +485,44 @@ def _out_proj(cfg, lp, attn, B, S):
 _SITE_ATTN, _SITE_MLP = 0, 1
 
 
-def _dropout(cfg: TransformerConfig, x, seed: Optional[int], site: int):
+# The global index of the first batch row this process holds: a
+# data-parallel rank holds rows [r*mb, (r+1)*mb) of each global micro-batch
+# (``row_offset``, set by the engine around each micro-batch).
+_ROW_OFFSET = [0]
+
+
+@contextlib.contextmanager
+def row_offset(offset: int):
+    """Run a forward whose first batch row is row ``offset`` of the global
+    batch, so dropout draws that row's masks (a rank of a data-parallel run
+    draws what the same rows draw in a one-process run)."""
+    prev, _ROW_OFFSET[0] = _ROW_OFFSET[0], int(offset)
+    try:
+        yield
+    finally:
+        _ROW_OFFSET[0] = prev
+
+
+def _row_seed(seed: int, site: int, row: int) -> int:
+    # seeds are < 2**62; the row is mixed in with an odd 64-bit multiplier
+    return (seed + site * 2 ** 62 + row * 0x9E3779B97F4A7C15) % 2 ** 64
+
+
+def _dropout(cfg: TransformerConfig, x, seed, site: int):
     """Inverted dropout at ``cfg.dropout`` from site ``site`` of the layer
-    seeded ``seed`` (identity when ``seed`` is None: no training)."""
+    seeded ``seed`` = (layer seed, global index of x's first row): each
+    row's mask comes from its own generator, keyed by its global row
+    (identity when ``seed`` is None: no training)."""
     if seed is None or not cfg.dropout:
         return x
+    seed, row0 = seed
     gen = torch.Generator(device=x.device)
-    gen.manual_seed(seed + site * 2 ** 62)   # seeds are < 2**62
     keep = 1.0 - cfg.dropout
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return x * mask / keep
+    rows = []
+    for b in range(x.shape[0]):
+        gen.manual_seed(_row_seed(seed, site, row0 + b))
+        rows.append(torch.rand(x.shape[1:], generator=gen, device=x.device) < keep)
+    return x * torch.stack(rows) / keep
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +579,7 @@ def _postln_out(cfg, lp, y):
 
 def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
                   attn_impl: str, custom_positions: bool = False, window=None,
-                  seed: Optional[int] = None):
+                  seed: Optional[tuple] = None):
     """Post-layernorm encoder block (BERT): x = LN(x + attn(x));
     x = LN(x + mlp(x))."""
     x1 = _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions,
@@ -561,8 +590,9 @@ def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
 
 def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
            attn_impl: str, custom_positions: bool = False, window=None,
-           seed: Optional[int] = None):
-    """One pre-norm layer.  ``seed`` (training only) seeds its dropout."""
+           seed: Optional[tuple] = None):
+    """One pre-norm layer.  ``seed`` (training only) seeds its dropout:
+    (layer seed, global index of the first batch row)."""
     if cfg.post_layernorm:
         return _block_postln(cfg, lp, x, positions, attn_impl,
                              custom_positions, window=window, seed=seed)
@@ -700,6 +730,8 @@ def _layers(params: Dict[str, Any]):
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
         raise NotImplementedError(_MOE_ROW)
+    if hasattr(layers, "unstack"):   # ZeRO-3: per-layer shard slices
+        return layers.unstack()
     names = list(layers)
     return [dict(zip(names, views))
             for views in zip(*(layers[n].unbind(0) for n in names))]
@@ -760,8 +792,11 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
         if rng is None:
             rng = torch.Generator(device=tokens.device)
             rng.manual_seed(0)
-        seeds = torch.randint(0, 2 ** 62, (cfg.num_layers,), generator=rng,
-                              device=rng.device).tolist()
+        seeds = [(s, _ROW_OFFSET[0]) for s in torch.randint(
+            0, 2 ** 62, (cfg.num_layers,), generator=rng, device=rng.device).tolist()]
+    if cfg.tie_embeddings and hasattr(params, "pin"):
+        # a ZeRO-3 tree: one gather serves both uses of the tied embedding
+        params = params.pin("embed")
     x = _embed(cfg, params, tokens, positions, token_type_ids)
     windows = layer_windows(cfg) or [None] * cfg.num_layers
     block = _build_block(cfg, attn_impl, custom_positions)
@@ -1068,13 +1103,22 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
     return _head(cfg, params, x), cache
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = -100) -> torch.Tensor:
-    """Mean next-token NLL; positions with ``labels == ignore_index`` masked."""
+def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                        ignore_index: int = -100) -> tuple:
+    """(sum of the next-token NLL over the labelled positions, their
+    count): a data-parallel engine divides the sum by the count summed over
+    its ranks, the mean over the global batch."""
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     lg = logits.float()
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp(min=1)
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean next-token NLL; positions with ``labels == ignore_index`` masked."""
+    total, count = cross_entropy_terms(logits, labels, ignore_index)
+    return total / count.clamp(min=1)

@@ -166,9 +166,9 @@ class DeepSpeedTransformerLayer:
                else deterministic)
         seed = None
         if not det:
-            seed = (max(self.config.seed, 0) if generator is None else int(
+            seed = ((max(self.config.seed, 0) if generator is None else int(
                 torch.randint(2 ** 62, (1,), generator=generator,
-                              device=generator.device)))
+                              device=generator.device))), 0)
         out = _block(self.native, params, hidden_states.to(self.native.dtype),
                      positions, "auto", seed=seed)
         return (out,) if self.config.return_tuple else out

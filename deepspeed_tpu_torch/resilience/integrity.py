@@ -12,8 +12,9 @@ A committed tag directory looks like::
 
 ``manifest.json`` records the saved state's keys (shape, dtype), the
 sha256 and size of the two JSON sidecars and of every payload file, and
-the writer's world size.  It is written after every other file and before
-the ``latest`` pointer, so its presence marks the commit.  A save drops
+the writers' world size.  It is written (by rank 0 of a data-parallel
+job, after every rank's shards are durable) after every other file and
+before the ``latest`` pointer, so its presence marks the commit.  A save drops
 ``.incomplete`` first and removes it with the manifest: a tag that still
 holds it is a torn save and is refused, while a tag with neither (a legacy,
 pre-manifest save) loads with a warning.  The JAX package lists its
@@ -91,12 +92,14 @@ def mark_incomplete(ckpt_dir: str) -> None:
                 "this tag from the restore path\n")
 
 
-def build_manifest(tag: str, global_steps: int, tree: Dict[str, Dict]) -> Dict:
-    """The save-time half: the tag, its step and the saved keys (``tree``:
-    key -> {shape, dtype}); checksums are added by :func:`write_manifest`
-    once the payload is durable."""
+def build_manifest(tag: str, global_steps: int, tree: Dict[str, Dict],
+                   world_size: int = 1) -> Dict:
+    """The save-time half: the tag, its step, the saved keys (``tree``:
+    key -> {shape, dtype}, global shapes) and the writers' world size;
+    checksums are added by :func:`write_manifest` once every rank's payload
+    is durable."""
     return {"manifest_version": MANIFEST_VERSION, "tag": str(tag),
-            "global_steps": int(global_steps), "writer_world_size": 1,
+            "global_steps": int(global_steps), "writer_world_size": int(world_size),
             "tree": tree}
 
 

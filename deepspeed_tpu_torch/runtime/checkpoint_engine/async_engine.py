@@ -8,7 +8,9 @@ card's tensors, kept for the next save), then the stream is synchronised,
 so training may overwrite the device state at once.  A commit thread then
 writes the snapshot with ``torch.distributed.checkpoint``, writes the
 manifest (the commit marker) and only then publishes ``latest``: a crash
-mid-write never leaves ``latest`` naming a torn tag.
+mid-write never leaves ``latest`` naming a torn tag.  A data-parallel
+engine's threads write their shards and meet at a barrier of the
+checkpoint's own gloo group before rank 0 commits.
 ``wait_for_pending_checkpoint`` joins that thread and re-raises its
 failure.
 """
@@ -20,8 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from .checkpoint_engine import CheckpointEngine
-from .dcp_engine import DCPCheckpointEngine, _publish_latest
-from ...resilience.integrity import write_manifest
+from .dcp_engine import DCPCheckpointEngine, commit_tag
 from ...utils.logging import log_dist, logger
 
 # upper bound on joining a wedged commit thread
@@ -33,13 +34,14 @@ class AsyncCheckpointEngine(CheckpointEngine):
     snapshots go to (reused while the state's shapes stay the same)."""
 
     def __init__(self, config_params=None,
-                 timeout_secs: float = DEFAULT_FINALIZE_TIMEOUT_S):
+                 timeout_secs: float = DEFAULT_FINALIZE_TIMEOUT_S,
+                 process_group=None):
         super().__init__(config_params)
         self.timeout_secs = timeout_secs
         self._host: Dict[str, torch.Tensor] = {}
         self._snapshot: Optional[Dict[str, torch.Tensor]] = None
         self._path: Optional[str] = None
-        self._sync = DCPCheckpointEngine()
+        self._sync = DCPCheckpointEngine(process_group=process_group)
 
     def _buffer(self, key: str, t: torch.Tensor) -> torch.Tensor:
         buf = self._host.get(key)
@@ -56,6 +58,11 @@ class AsyncCheckpointEngine(CheckpointEngine):
         if any(t.is_cuda for t in state_dict.values()):
             torch.cuda.current_stream().synchronize()
         self._snapshot, self._path = snap, path
+
+    def wrap(self, fn) -> None:
+        """Replace the snapshot by ``fn(snapshot)`` (the host shards as
+        DTensors of a data-parallel engine)."""
+        self._snapshot = fn(self._snapshot)
 
     def load(self, path: str, target=None):
         return self._sync.load(path, target)
@@ -77,9 +84,8 @@ def commit_in_background(engine, save_dir: str, ckpt_dir: str, tag: str,
     def finalize():
         try:
             ce.commit(tag)
-            write_manifest(ckpt_dir, manifest)
-            if save_latest:
-                _publish_latest(save_dir, tag)
+            commit_tag(engine, ce._sync.process_group, save_dir, ckpt_dir, tag,
+                       save_latest, manifest)
         except Exception as e:   # surfaced by the next wait; latest untouched
             # read and cleared only after the join proves this thread dead
             engine._async_ckpt_error = e

@@ -21,12 +21,17 @@ generator's ``get_state()``).  Python numbers are stored as 0-d tensors
 (float64, int64 or bool), so every value comes back exactly and a resumed
 run continues bit for bit.
 
-DCP stores sharded state dicts (DTensor) in the same format as whole ones,
-so the format carries over when the state is sharded (ROADMAP queue 1,
-item 4).  Here the world size is 1 and no process group is needed: only
-``dcp.save``/``dcp.load`` with ``FileSystemWriter``/``FileSystemReader``.
+A data-parallel engine (``runtime/zero``) saves its shards: every leaf
+of the params, the masters and the optimizer state goes in as a DTensor
+with the plan's placements over the engine's mesh, every rank writes its
+own shards (DCP writes a replicated value once), and rank 0 writes the
+sidecars, then, after a barrier, the manifest and ``latest``.  DCP's
+planning runs over a gloo group of its own (``_ckpt_group``), so an async
+commit thread never shares a group with the training step's collectives.
 A load restores in place into a state dict built from the live engine
-(JAX's "restore against target").  Left for later, each refused by name:
+(JAX's "restore against target"); DCP reshards by global offsets, so a
+checkpoint saved at world N loads at world M, and a one-device engine
+(no process group) reads a sharded checkpoint whole.  Left for later, each refused by name:
 offload state files (item 10), data-sampler and curriculum state (item
 11), fault-injection sites (item 12).
 """
@@ -59,17 +64,24 @@ def _dcp():
 
 
 class DCPCheckpointEngine(CheckpointEngine):
-    """``save`` writes a flat dict of tensors; ``load`` fills ``target``
-    (the same keys, tensors of the saved shapes and dtypes) in place."""
+    """``save`` writes a flat dict of tensors (DTensors for shards);
+    ``load`` fills ``target`` (the same keys, tensors of the saved global
+    shapes and dtypes) in place.  ``process_group``: the ranks that save
+    and load together (None: this process alone, or the default group)."""
+
+    def __init__(self, config_params=None, process_group=None):
+        super().__init__(config_params)
+        self.process_group = process_group
 
     def save(self, state_dict: Dict[str, torch.Tensor], path: str) -> None:
         dcp = _dcp()
         dcp.save(state_dict, storage_writer=dcp.FileSystemWriter(
-            path, thread_count=_WRITE_THREADS))
+            path, thread_count=_WRITE_THREADS), process_group=self.process_group)
 
     def load(self, path: str, target: Dict[str, torch.Tensor] = None):
         dcp = _dcp()
-        dcp.load(target, storage_reader=dcp.FileSystemReader(path))
+        dcp.load(target, storage_reader=dcp.FileSystemReader(path),
+                 process_group=self.process_group)
         return target
 
 
@@ -105,7 +117,8 @@ def restore_state(template: Any, prefix: str, flat: Dict[str, torch.Tensor]) -> 
     """``template``'s structure with its values from ``flat`` (the inverse
     of :func:`flatten_state`)."""
     if isinstance(template, torch.Tensor):
-        return flat[prefix]
+        value = flat[prefix]
+        return value.to_local() if hasattr(value, "to_local") else value
     if dataclasses.is_dataclass(template):
         return dataclasses.replace(template, **{
             f.name: restore_state(getattr(template, f.name), f"{prefix}/{f.name}", flat)
@@ -124,7 +137,8 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
                       optimizer: bool = True) -> Dict[str, torch.Tensor]:
     """The engine's state as a flat dict: the weights (``module``), the step,
     scaler and dropout generator (``rest``) and the optimizer state
-    (``optimizer``).  Tensors are the live ones."""
+    (``optimizer``).  Tensors are the live ones (this rank's shards for a
+    data-parallel engine: :func:`as_dtensors` wraps them)."""
     state, out = engine.state, {}
     if module:
         flatten_state(state.params, "params", out)
@@ -136,6 +150,65 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
     if optimizer:
         flatten_state(state.opt_state, "opt_state", out)
     return out
+
+
+def as_dtensors(engine, flat: Dict[str, torch.Tensor], mesh=None) -> Dict:
+    """``flat`` with every parameter-shaped value (params, masters, the
+    optimizer's per-parameter state) a DTensor of its plan placement over
+    ``mesh`` (default: the engine's); unchanged for a one-device engine."""
+    part = engine.partition
+    if part is None:
+        return flat
+    from torch.distributed.tensor import DTensor
+
+    mesh = mesh if mesh is not None else engine.mesh
+    out = {}
+    for key, t in flat.items():
+        hit = part.placements_for(key)
+        if hit is None or t.dim() == 0:
+            out[key] = t
+            continue
+        placements, shape = hit
+        stride = torch.empty(shape, device="meta").stride()
+        out[key] = DTensor.from_local(t, mesh, placements, run_check=False,
+                                      shape=torch.Size(shape), stride=stride)
+    return out
+
+
+def _ckpt_group(engine):
+    """The gloo group DCP plans over (None for a one-device engine)."""
+    if engine.partition is None:
+        return None
+    if getattr(engine, "_ckpt_pg", None) is None:
+        import torch.distributed as dist
+
+        engine._ckpt_pg = dist.new_group(backend="gloo")
+    return engine._ckpt_pg
+
+
+def _host_mesh(engine):
+    """A CPU mesh of the engine's shape, for the host snapshot's DTensors."""
+    if engine.mesh.device_type == "cpu":
+        return engine.mesh
+    if getattr(engine, "_ckpt_host_mesh", None) is None:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        engine._ckpt_host_mesh = init_device_mesh(
+            "cpu", tuple(engine.mesh.shape), mesh_dim_names=engine.mesh.mesh_dim_names)
+    return engine._ckpt_host_mesh
+
+
+def _rank0(engine) -> bool:
+    import torch.distributed as dist
+
+    return engine.partition is None or dist.get_rank() == 0
+
+
+def _barrier(group) -> None:
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=group)
 
 
 def tree_summary(flat: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
@@ -151,7 +224,8 @@ def _meta(engine, client_state) -> Dict[str, Any]:
             "micro_steps": engine.micro_steps,
             "param_count": engine.param_count,
             "zero_stage": engine.zero_stage,
-            "mesh_shape": {"data": engine.dp_world},
+            "mesh_shape": ({"data": engine.dp_world} if engine.mesh is None else
+                           dict(zip(engine.mesh.mesh_dim_names, engine.mesh.shape))),
             "client_state": client_state or {}}
 
 
@@ -185,34 +259,50 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     # one save in flight: the previous must be durable before this one
     # reuses its host buffers or moves `latest` after it
     wait_for_pending_checkpoint(engine)
+    group = _ckpt_group(engine)
     os.makedirs(ckpt_dir, exist_ok=True)
-    mark_incomplete(ckpt_dir)
     flat = engine_state_dict(engine)
-    manifest = build_manifest(tag, engine.global_steps, tree_summary(flat))
-    with open(os.path.join(ckpt_dir, "client_state.json"), "w") as f:
-        json.dump(_meta(engine, client_state), f, indent=2)
-    with open(os.path.join(ckpt_dir, "ds_config.json"), "w") as f:
-        json.dump(engine.config.to_dict(), f, indent=2, default=str)
+    manifest = build_manifest(tag, engine.global_steps,
+                              tree_summary(as_dtensors(engine, flat)),
+                              world_size=engine.dp_world)
+    if _rank0(engine):
+        mark_incomplete(ckpt_dir)
+        with open(os.path.join(ckpt_dir, "client_state.json"), "w") as f:
+            json.dump(_meta(engine, client_state), f, indent=2)
+        with open(os.path.join(ckpt_dir, "ds_config.json"), "w") as f:
+            json.dump(engine.config.to_dict(), f, indent=2, default=str)
     state_path = os.path.join(ckpt_dir, STATE_DIR)
     if async_save:
         if engine._async_ckpt_engine is None:
-            engine._async_ckpt_engine = AsyncCheckpointEngine()
+            engine._async_ckpt_engine = AsyncCheckpointEngine(process_group=group)
         engine._async_ckpt_engine.save(flat, state_path)
+        if engine.partition is not None:
+            engine._async_ckpt_engine.wrap(
+                lambda snap: as_dtensors(engine, snap, _host_mesh(engine)))
         del flat
         commit_in_background(engine, save_dir, ckpt_dir, tag, save_latest, manifest)
         log_dist(f"async checkpoint {tag} snapshotted; committing in "
                  f"background -> {ckpt_dir}", ranks=[0])
         return ckpt_dir
-    DCPCheckpointEngine().save(flat, state_path)
+    DCPCheckpointEngine(process_group=group).save(as_dtensors(engine, flat), state_path)
     del flat
-    # manifest last (the commit), then `latest`: a crash between any two
-    # writes leaves an uncommitted tag or a committed one `latest` does not
-    # name, never a published torn tag
-    write_manifest(ckpt_dir, manifest)
-    if save_latest:
-        _publish_latest(save_dir, tag)
+    commit_tag(engine, group, save_dir, ckpt_dir, tag, save_latest, manifest)
     log_dist(f"saved checkpoint {tag} -> {ckpt_dir}", ranks=[0])
     return ckpt_dir
+
+
+def commit_tag(engine, group, save_dir: str, ckpt_dir: str, tag: str,
+               save_latest: bool, manifest: Dict) -> None:
+    """After every rank's shards are written: rank 0 writes the manifest
+    (the commit), then ``latest``; a crash between any two writes leaves an
+    uncommitted tag or a committed one `latest` does not name, never a
+    published torn tag.  Every rank returns once ``latest`` moved."""
+    _barrier(group)
+    if _rank0(engine):
+        write_manifest(ckpt_dir, manifest)
+        if save_latest:
+            _publish_latest(save_dir, tag)
+    _barrier(group)
 
 
 def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
@@ -235,11 +325,14 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     ckpt_dir = os.path.join(load_dir, str(tag))
     if not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"checkpoint tag dir not found: {ckpt_dir}")
+    group = _ckpt_group(engine)
     if engine.config.resilience.verify_on_load:
-        verify_checkpoint_dir(ckpt_dir)
+        _verify_on_rank0(engine, ckpt_dir)
     opt = load_optimizer_states and not load_module_only
-    target = engine_state_dict(engine, rest=not load_module_only, optimizer=opt)
-    DCPCheckpointEngine().load(os.path.join(ckpt_dir, STATE_DIR), target)
+    target = as_dtensors(engine, engine_state_dict(
+        engine, rest=not load_module_only, optimizer=opt))
+    DCPCheckpointEngine(process_group=group).load(os.path.join(ckpt_dir, STATE_DIR),
+                                                  target)
     state = engine.state
     kw = {"params": restore_state(state.params, "params", target),
           "master_params": restore_state(state.master_params, "master_params",
@@ -264,6 +357,25 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     return ckpt_dir, meta.get("client_state", {})
 
 
+def _verify_on_rank0(engine, ckpt_dir: str) -> None:
+    """Rank 0 checks the tag against its manifest; every rank raises its
+    verdict (a one-device engine checks it itself)."""
+    if engine.partition is None:
+        verify_checkpoint_dir(ckpt_dir)
+        return
+    from ... import comm
+
+    err = None
+    if _rank0(engine):
+        try:
+            verify_checkpoint_dir(ckpt_dir)
+        except Exception as e:   # raised on every rank below
+            err = e
+    err = comm.broadcast_object(err)
+    if err is not None:
+        raise err
+
+
 def save_16bit_model(engine, save_dir: str, filename: str = "pytree_model") -> str:
     """The compute-precision weights alone (reference save_16bit_model,
     engine.py:3354), as DCP files under ``save_dir/filename``."""
@@ -271,5 +383,6 @@ def save_16bit_model(engine, save_dir: str, filename: str = "pytree_model") -> s
     flat: Dict[str, torch.Tensor] = {}
     flatten_state(engine.state.params, "params", flat)
     path = os.path.join(save_dir, filename)
-    DCPCheckpointEngine().save(flat, path)
+    DCPCheckpointEngine(process_group=_ckpt_group(engine)).save(
+        as_dtensors(engine, flat), path)
     return path

@@ -2,7 +2,8 @@
 ``DeepSpeedConfig``), on the dataclasses of ``config_utils``.
 
 Same JSON keys and the same batch triad (train_batch = micro_batch x
-gradient_accumulation_steps x dp_world, here with dp_world = 1).  A config
+gradient_accumulation_steps x dp_world; the engine resolves it over its
+data-parallel world).  A config
 that turns on a feature the port does not have yet fails at once, naming
 the ROADMAP item that ports it: a knob that parses but does nothing would
 be a silent lie.
@@ -60,9 +61,10 @@ class SchedulerConfig:
 
 @dataclasses.dataclass
 class ZeroConfig:
-    """zero_optimization block.  At world size 1 every stage is the same
-    computation (nothing to shard), so stages 0-3 are accepted; offload and
-    ZeRO++ are not ported."""
+    """zero_optimization block: stages 0-3 and MiCS (``mics_shard_size``)
+    over the data-parallel ranks (``runtime/zero``); offload and ZeRO++
+    are not ported.  The bucket and prefetch knobs parse and, as in the
+    JAX package, change nothing (collectives are per leaf)."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -91,11 +93,13 @@ class ZeroConfig:
     def __post_init__(self):
         if not 0 <= self.stage <= 3:
             raise ValueError(f"zero_optimization.stage={self.stage} not in 0..3")
+        if self.mics_shard_size > 0 and self.stage != 3:
+            raise ValueError("mics_shard_size (MiCS) requires ZeRO stage 3")
 
 
 @dataclasses.dataclass
 class MeshConfig:
-    dp: int = 0     # 0 => infer (one device here)
+    dp: int = 0     # 0 => infer from the world size
     tp: int = 1
     pp: int = 1
     ep: int = 1
@@ -144,6 +148,17 @@ class CheckpointConfig:
 
 
 @dataclasses.dataclass
+class CommsLoggerConfig:
+    """``comms_logger`` block: the comm facade's per-op counts and bytes
+    (``comm.configure``)."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class ResilienceConfig:
     """``resilience`` block: ``verify_on_load`` checks a tag against its
     manifest before anything is restored.  The hang watchdog is not
@@ -171,7 +186,7 @@ def _offloads(block: Optional[Dict[str, Any]]) -> bool:
 
 class DeepSpeedConfig:
     """Master config: a dict, a JSON file path, or None; resolves the
-    batch-size triad against the data-parallel world size (1 here)."""
+    batch-size triad against the data-parallel world size."""
 
     def __init__(self, config: Union[None, str, Path, Dict[str, Any]] = None,
                  dp_world_size: Optional[int] = None):
@@ -211,6 +226,8 @@ class DeepSpeedConfig:
                                                   config.get("checkpoint", {}))
         self.resilience = config_from_dict(ResilienceConfig,
                                            config.get("resilience", {}))
+        self.comms_logger = config_from_dict(CommsLoggerConfig,
+                                             config.get("comms_logger", {}))
 
         self.gradient_accumulation_steps: Optional[int] = config.get(
             C.GRADIENT_ACCUMULATION_STEPS)
@@ -237,8 +254,9 @@ class DeepSpeedConfig:
         need(zc.zero_quantized_weights or zc.zero_quantized_gradients
              or zc.zero_hpz_partition_size > 1 or zc.zero_hierarchical_dp_size > 1,
              "ZeRO++ (qwZ/qgZ/hpZ)", 10)
-        need(zc.mics_shard_size > 0, "MiCS (mics_shard_size)", 4)
-        need(mesh.dp > 1 or mesh.tp > 1, "a mesh over more than one device", 4)
+        need(zc.mics_hierarchical_params_gather,
+             "MiCS hierarchical parameter gather", 10)
+        need(mesh.tp > 1, "tensor parallelism (mesh.tp)", 4)
         need(mesh.pp > 1, "pipeline parallelism (mesh.pp)", 9)
         need(mesh.ep > 1, "expert parallelism (mesh.ep)", 9)
         need(mesh.sp > 1, "sequence parallelism (mesh.sp)", 8)

@@ -26,20 +26,36 @@ them eagerly on one device:
     bit for bit (``checkpoint_engine/dcp_engine.py``).
 
 Masters are fp32, or the parameters' own dtype when it is wider (an fp64
-model keeps fp64 masters, as the JAX engine does under x64).  World size
-is 1: ZeRO stages 0-3 are one computation here.  Not ported yet, each
-raising ``NotImplementedError`` with its ROADMAP item: a mesh over more
-than one device and ZeRO sharding (queue 1 item 4), offload, 1-bit and
-ZeRO++ (item 10).
+model keeps fp64 masters, as the JAX engine does under x64).
+
+Data parallelism: whenever ``torch.distributed`` is initialised (world
+size 1 included) the engine runs one rank of a data-parallel job over the
+mesh of ``parallel/mesh.py``.  Every rank materialises the same global
+batch and takes its rows (``_local_rows``, as the JAX engine's multi-host
+``_shard_batch``); ``zero_optimization.stage`` and ``mics_shard_size``
+pick the plan (``runtime/zero/planner.py``) that ``runtime/zero/
+partition.py`` executes: the masters and the optimizer state live as this
+rank's shards, the gradient reductions follow the stage, the overflow
+check and the global norm are all-reduced, and checkpoints hold DTensors
+(``checkpoint_engine/dcp_engine.py``).  A model with ``loss_terms``
+(``models.CausalLM``) reports its loss as (sum, count) and the engine
+divides by the count summed over the ranks, JAX's global mean; a bare
+``loss_fn`` gives the mean of the ranks' means.  Without a process group
+the engine is the one-device trainer of before.  Not ported yet, each
+raising ``NotImplementedError`` with its ROADMAP item: tensor parallelism
+(queue 1 item 4), offload, 1-bit and ZeRO++ (item 10).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import resolve_device
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
@@ -51,7 +67,8 @@ from .fp16.loss_scaler import (LossScaleState, dynamic_loss_scale_state,
                                static_loss_scale_state, update_scale)
 from .lr_schedules import constant_lr, get_lr_scheduler
 from .optimizer import (GradientTransformation, apply_updates, chain,
-                        create_optimizer, global_norm, zero_frozen_updates)
+                        create_optimizer, global_norm, sharded_norm,
+                        zero_frozen_updates)
 
 
 @dataclasses.dataclass
@@ -81,12 +98,15 @@ class DeepSpeedEngine:
                  config: Any = None,
                  optimizer: Optional[GradientTransformation] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None,
-                 training_data: Any = None, device=None):
+                 training_data: Any = None, device=None, mesh=None,
+                 param_specs: Any = None):
         # -- model contract resolution --
         self.model = model
-        self._eval_fn = None
+        self._eval_fn = self._loss_terms = None
         if model is not None and loss_fn is None:
             loss_fn = getattr(model, "loss_fn", None)
+            # the (sum, count) loss contract, when the loss is the model's own
+            self._loss_terms = getattr(model, "loss_terms", None)
             init_fn = init_fn or getattr(model, "init_fn", None)
             self._eval_fn = getattr(model, "eval_fn", None)
         if loss_fn is None:
@@ -98,12 +118,12 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn
         self._eval_fn = self._eval_fn or loss_fn
 
-        # -- config: one device, so dp_world = 1 --
+        # -- config and the data-parallel world --
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config))
-        self.dp_world = 1
-        self.config.resolve_batch_triad(self.dp_world)
         self.device = resolve_device(device)
+        self._resolve_world(mesh)
+        self.config.resolve_batch_triad(self.dp_world)
         self.compute_dtype = self.config.precision
         self.use_master_weights = self.compute_dtype != torch.float32
         self.fp16_enabled = self.config.fp16.enabled
@@ -147,8 +167,11 @@ class DeepSpeedEngine:
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
-        self.state = self._init_state(init_fn, params)
-        self.param_count = sum(x.numel() for x in tree_leaves(self.state.params))
+        self.plan = self.partition = None
+        self.state = self._init_state(init_fn, params, param_specs)
+        self.param_count = (sum(math.prod(s) for s in self.partition.shapes)
+                            if self.partition is not None else
+                            sum(x.numel() for x in tree_leaves(self.state.params)))
 
         # -- bookkeeping --
         self.global_steps = 0
@@ -165,7 +188,7 @@ class DeepSpeedEngine:
         self._work = None
         self._accum_grads = None
         self._accum_count = 0
-        self._pending_loss = None
+        self._pending_loss = self._pending_report = None
         self._window_losses: list = []
         # checkpointing: an in-flight async save and its error
         self._async_ckpt_engine = None
@@ -179,9 +202,50 @@ class DeepSpeedEngine:
             f"batch={self.train_batch_size} (micro={self.micro_batch_size} "
             f"gas={self.gas} dp={self.dp_world})", ranks=[0])
 
-    def _init_state(self, init_fn, params) -> TrainState:
+    def _resolve_world(self, mesh) -> None:
+        """The data-parallel world: the process group's mesh when
+        ``torch.distributed`` is initialised, else one device."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import (BATCH_AXES, MeshLayout, layout_of,
+                                     resolve_engine_mesh)
+
+        self.distributed = dist.is_available() and dist.is_initialized()
+        zc = self.config.zero_config
+        if not self.distributed:
+            layout = (mesh if isinstance(mesh, MeshLayout) or mesh is None
+                      else layout_of(mesh))
+            if ((layout is not None and layout.world_size > 1)
+                    or self.config.mesh.dp > 1 or zc.mics_shard_size > 1):
+                raise RuntimeError(
+                    "a data-parallel mesh needs a process group: call "
+                    "deepspeed_tpu_torch.comm.init_distributed() (or run "
+                    "under torchrun) before initialize()")
+            self.mesh, self.dp_world, self.dp_rank = None, 1, 0
+            return
+        backend = dist.get_backend()
+        if (self.device.type == "cuda") != ("nccl" in backend):
+            raise RuntimeError(
+                f"the engine runs on {self.device} but the process group's "
+                f"backend is {backend!r}: NCCL serves the card, gloo the CPU")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = resolve_engine_mesh(self.config.mesh, zc, mesh)
+        layout = layout_of(self.mesh)
+        if layout.tp > 1 or layout.pp > 1 or layout.ep > 1 or layout.sp > 1:
+            raise NotImplementedError(
+                f"mesh {layout}: only data parallelism is ported (tensor "
+                "parallelism: ROADMAP queue 1, item 4; pipeline and experts: "
+                "item 9; sequence: item 8)")
+        self.dp_world = layout.dp_world_size
+        self.dp_rank = comm.axis_index(BATCH_AXES)
+        comm.configure(self.config.comms_logger)
+
+    def _init_state(self, init_fn, params, param_specs=None) -> TrainState:
         """fp32 masters from ``params`` or ``init_fn(generator)``, the
-        compute-precision view, the optimizer state and the loss scaler."""
+        compute-precision view, the optimizer state and the loss scaler.
+        Data-parallel: every rank draws the same full tree and keeps its
+        shards of it (the plan's placements)."""
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(self.config.seed)
@@ -202,8 +266,13 @@ class DeepSpeedEngine:
                            if m)
             log_dist(f"frozen parameters: {n_frozen:,} excluded from "
                      "updates/grad-norm (model.frozen_spec)", ranks=[0])
+        if self.distributed:
+            master = self._shard_state(master, param_specs)
         if self.use_master_weights:
-            params0 = _cast_tree(master, self.compute_dtype)
+            params0 = (_cast_tree(master, self.compute_dtype)
+                       if self.partition is None else tree_unflatten_like(
+                           master, self.partition.compute_params(
+                               tree_leaves(master), self.compute_dtype)))
         else:
             params0, master = master, None
         opt_state = self.optimizer.init(master if master is not None else params0)
@@ -217,6 +286,24 @@ class DeepSpeedEngine:
             scaler = no_loss_scale_state()
         return TrainState(step=0, params=params0, master_params=master,
                           opt_state=opt_state, scaler=scaler)
+
+    def _shard_state(self, master, param_specs):
+        """Plan the ZeRO placements of the full fp32 tree and keep this
+        rank's master shards."""
+        from .zero.partition import ZeroPartition
+        from .zero.planner import plan_sharding
+
+        zc = self.config.zero_config
+        self.plan = plan_sharding(master, self.zero_stage, self.mesh,
+                                  tp_specs=param_specs,
+                                  persistence_threshold=zc.stage3_param_persistence_threshold)
+        template = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                  device="meta"), master)
+        frozen = (None if self._frozen_mask is None
+                  else [bool(m) for m in tree_leaves(self._frozen_mask)])
+        self.partition = ZeroPartition(self.plan, template, self.use_master_weights,
+                                       self.accum_dtype, frozen=frozen)
+        return self.partition.shard_tree(master, "master")
 
     def _build_dataloader(self, training_data):
         if training_data is None:
@@ -233,15 +320,60 @@ class DeepSpeedEngine:
         """The tree a step differentiates: detached views of the compute
         params (so every backward matmul reads the bf16 weights), the
         frozen leaves not requiring a gradient."""
-        mask = (self._frozen_mask if self._frozen_mask is not None
-                else tree_map(lambda _: False, self.state.params))
-        return tree_map(lambda p, m: p.detach() if m else p.detach().requires_grad_(),
-                        self.state.params, mask)
+        leaves = tree_leaves(self.state.params)
+        if self.partition is not None:
+            leaves = self.partition.work_leaves(leaves)
+        mask = (tree_leaves(self._frozen_mask) if self._frozen_mask is not None
+                else [False] * len(leaves))
+        return tree_unflatten_like(self.state.params, [
+            p.detach() if m else p.detach().requires_grad_()
+            for p, m in zip(leaves, mask)])
 
-    def _micro_loss(self, work, one_batch):
-        """The micro-batch's loss on ``work``, recording the graph."""
-        loss = self.loss_fn(work, one_batch, self.generator)
-        return loss[0] if isinstance(loss, tuple) else loss
+    def _view(self, work):
+        """What the model reads: ``work`` itself, or at ZeRO-3 a tree that
+        gathers each sharded leaf where it is read."""
+        if self.partition is None or all(p is None for p in self.partition.pdims):
+            return work
+        return self.partition.view(work, "param")
+
+    def _local_rows(self, batch):
+        """This rank's rows of a global (micro-)batch: rows
+        ``[r*n, (r+1)*n)`` of each leaf, n = rows / dp_world."""
+        if self.dp_world == 1:
+            return batch, 0
+        lead = tree_leaves(batch)[0].shape[0]
+        if lead % self.dp_world:
+            raise ValueError(f"a batch of {lead} rows does not split over "
+                             f"{self.dp_world} data-parallel ranks")
+        n = lead // self.dp_world
+        lo = self.dp_rank * n
+        return tree_map(lambda x: x[lo:lo + n], batch), lo
+
+    def _micro_loss(self, work, one_batch, deterministic: bool = False):
+        """(the objective this rank differentiates, the micro-batch's global
+        loss), recording the graph.  One device: both are the loss.  Data-
+        parallel: the objective is this rank's share of the global loss
+        (its NLL sum over the global count of labelled tokens, or its mean
+        over dp_world for a bare ``loss_fn``), so the gradients' sum over
+        the ranks is the global gradient; the loss is that sum of shares."""
+        from ..models.transformer import row_offset
+
+        local, lo = self._local_rows(one_batch)
+        fn = self._eval_fn if deterministic else self.loss_fn
+        with row_offset(lo):
+            if self.distributed and self._loss_terms is not None:
+                total, count = self._loss_terms(self._view(work), local, self.generator,
+                                                deterministic=deterministic)
+                count = comm.all_reduce(count.detach(), comm.SUM)
+                obj = total / count.clamp(min=1)
+            else:
+                out = fn(self._view(work), local, self.generator)
+                obj = out[0] if isinstance(out, tuple) else out
+                if self.distributed:
+                    obj = obj / self.dp_world
+        if not self.distributed:
+            return obj, obj.detach()
+        return obj, comm.all_reduce(obj.detach(), comm.SUM)
 
     def _micro_grads(self, work, loss):
         """Scaled gradients of ``loss`` w.r.t. the leaves of ``work``, zeros
@@ -256,7 +388,7 @@ class DeepSpeedEngine:
             if self.config.prescale_gradients:
                 g = g / self.config.gradient_predivide_factor
             out.append(g)
-        return out
+        return self.partition.reduce_micro(out) if self.partition is not None else out
 
     def _bank(self, grads) -> None:
         """Add one micro-batch's gradients to the window's sums."""
@@ -269,7 +401,9 @@ class DeepSpeedEngine:
     def _apply_update(self, grads, eff_gas: int):
         """Unscale, overflow check, optimizer on the masters, skip on
         overflow, scaler update, master -> compute cast."""
-        state = self.state
+        state, part = self.state, self.partition
+        if part is not None:   # the global sums, at the masters' placement
+            grads = tree_unflatten_like(grads, part.reduce_window(tree_leaves(grads)))
         inv = 1.0 / (state.scaler.loss_scale * eff_gas)
         if self.config.prescale_gradients:
             inv = inv * self.config.gradient_predivide_factor
@@ -277,19 +411,29 @@ class DeepSpeedEngine:
         # accumulation dtype, as bf16 * fp32-scalar promotes in the JAX step
         grads = tree_map(
             lambda g: g.to(torch.promote_types(g.dtype, torch.float32)) * inv, grads)
-        finite = grads_finite(grads) if self.fp16_enabled else True
-        grad_norm = global_norm(grads)
+        if not self.fp16_enabled:
+            finite = True
+        else:   # every rank skips together
+            finite = (grads_finite(grads) if part is None
+                      else part.all_finite(tree_leaves(grads)))
+        norm = global_norm if part is None else part.global_norm
+        grad_norm = norm(grads)
         masters = state.master_params if self.use_master_weights else state.params
         if finite:
-            updates, new_opt = self.optimizer.update(grads, state.opt_state, masters)
+            with (contextlib.nullcontext() if part is None
+                  else sharded_norm(part.global_norm)):
+                updates, new_opt = self.optimizer.update(grads, state.opt_state,
+                                                         masters)
             del grads
             new_masters = apply_updates(masters, updates)
             del updates
         else:   # overflow: skip (reference DynamicLossScaler semantics)
             new_masters, new_opt = masters, state.opt_state
         if self.use_master_weights:
-            new_params, new_master_out = _cast_tree(new_masters,
-                                                    self.compute_dtype), new_masters
+            new_params = (_cast_tree(new_masters, self.compute_dtype) if part is None
+                          else tree_unflatten_like(new_masters, part.compute_params(
+                              tree_leaves(new_masters), self.compute_dtype)))
+            new_master_out = new_masters
         else:
             new_params, new_master_out = new_masters, None
         self.state = TrainState(step=state.step + 1, params=new_params,
@@ -366,9 +510,9 @@ class DeepSpeedEngine:
         work = self._work_tree()
         losses = []
         for i in range(self.gas):
-            loss = self._micro_loss(work, tree_map(lambda x: x[i], global_batch))
+            loss, report = self._micro_loss(work, tree_map(lambda x: x[i], global_batch))
             self._bank(self._micro_grads(work, loss))
-            losses.append(loss.detach())
+            losses.append(report)
             del loss
         del work
         grads, self._accum_grads = self._accum_grads, None
@@ -376,11 +520,14 @@ class DeepSpeedEngine:
         return self._finish_step(grads, losses)["loss"]
 
     def eval_batch(self, batch) -> torch.Tensor:
-        """Loss of one micro-batch with dropout off, no gradient."""
+        """Loss of one (global) micro-batch with dropout off, no gradient."""
         with torch.no_grad():
-            out = self._eval_fn(self.state.params, tree_map(self._to_device, batch),
-                                self.generator)
-        return out[0] if isinstance(out, tuple) else out
+            params = tree_leaves(self.state.params)
+            if self.partition is not None:
+                params = self.partition.work_leaves(params)
+            return self._micro_loss(tree_unflatten_like(self.state.params, params),
+                                    tree_map(self._to_device, batch),
+                                    deterministic=True)[1]
 
     def forward(self, batch):
         """The micro-batch's loss (one micro-batch: ``[micro_batch, ...]``),
@@ -394,9 +541,11 @@ class DeepSpeedEngine:
         if self._accum_count == 0:
             self.tput_timer.start()
             self._work = self._work_tree()
-        loss = self._micro_loss(self._work, tree_map(self._to_device, batch))
-        self._pending_loss = loss
-        return loss
+        loss, report = self._micro_loss(self._work, tree_map(self._to_device, batch))
+        self._pending_loss, self._pending_report = loss, report
+        # data-parallel: the micro-batch's global loss (backward()
+        # differentiates this rank's share of it)
+        return report if self.distributed else loss
 
     def backward(self, loss=None):
         """Bank the gradients of the matching ``forward()``'s loss (``loss``
@@ -406,7 +555,7 @@ class DeepSpeedEngine:
             raise RuntimeError("backward() without a preceding forward()")
         pending, self._pending_loss = self._pending_loss, None
         self._bank(self._micro_grads(self._work, pending))
-        self._window_losses.append(pending.detach())
+        self._window_losses.append(self._pending_report)
         self._accum_count += 1
         self.micro_steps += 1
         return loss
@@ -449,12 +598,19 @@ class DeepSpeedEngine:
 
     @property
     def module(self):
-        return self.state.params
+        return self.get_params()
 
     def get_params(self, fp32: bool = False):
+        """The compute params (``fp32``: the masters, when kept).  Data-
+        parallel: a ``ShardedParams`` over this rank's shards, whose leaves
+        are the full tensors, gathered when read (collective: every rank
+        reads them in the same order); ``zero.GatheredParameters`` takes
+        it as is."""
         if fp32 and self.state.master_params is not None:
-            return self.state.master_params
-        return self.state.params
+            tree, which = self.state.master_params, "master"
+        else:
+            tree, which = self.state.params, "rest"
+        return tree if self.partition is None else self.partition.view(tree, which)
 
     # ------------------------------------------------------------------
     # Checkpointing (reference engine.py:2593-3365): checkpoint_engine/

@@ -15,6 +15,8 @@ item.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -76,9 +78,30 @@ def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+# The norm of a tree whose leaves are ZeRO shards: set by the engine around
+# the optimizer's update, so clipping (this chain's or a client chain's)
+# clips by the norm of the whole gradient, not of this rank's shards.
+_TREE_NORM: contextvars.ContextVar = contextvars.ContextVar("tree_norm", default=None)
+
+
+@contextlib.contextmanager
+def sharded_norm(norm_fn: Callable[[Any], torch.Tensor]):
+    """Within the block, :func:`global_norm` is ``norm_fn`` (the sharding-
+    aware norm of ``runtime/zero/partition.py``)."""
+    token = _TREE_NORM.set(norm_fn)
+    try:
+        yield
+    finally:
+        _TREE_NORM.reset(token)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (fp64 for fp64
-    leaves, as optax.global_norm under x64)."""
+    leaves, as optax.global_norm under x64); under :func:`sharded_norm`,
+    the norm of the global tree the local shards belong to."""
+    norm_fn = _TREE_NORM.get()
+    if norm_fn is not None:
+        return norm_fn(tree)
     total = None
     for x in tree_leaves(tree):
         s = _at_least_fp32(x).square().sum()

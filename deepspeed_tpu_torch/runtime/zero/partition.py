@@ -1,0 +1,307 @@
+"""Execution of a ZeRO plan over ``torch.distributed``.
+
+Counterpart of ``deepspeed_tpu/runtime/zero/planner.py``'s plan as GSPMD
+runs it: the JAX package declares each leaf's sharding and XLA emits the
+collectives; here :class:`ZeroPartition` issues them, per leaf, through
+the ``comm`` facade:
+
+- stage 3: a sharded compute param is gathered where the forward reads it
+  (:class:`ShardedParams`, :func:`gather_param`), and its gradient is
+  reduce-scattered over the ZeRO axes by the gather's backward, at the
+  accumulation dtype;
+- stage 2: each micro-batch's gradient is reduce-scattered into the
+  sharded accumulator (:meth:`ZeroPartition.reduce_micro`);
+- stages 0/1, and leaves no stage shards: the window's summed gradient is
+  all-reduced over the data-parallel axes (:meth:`reduce_window`), then a
+  sharded master takes its slice; under MiCS the ZeRO-reduced shards are
+  all-reduced across the 'data_outer' replicas;
+- after the update on the master shards, the compute params are cast and
+  re-gathered where the plan keeps them replicated (stages 1/2,
+  :meth:`compute_params`); at stage 3 they stay sharded at rest.
+
+The global norm adds the squares of the sharded leaves over the ZeRO axes
+and counts a replicated leaf once (:meth:`global_norm`); the overflow check
+is all-reduced so every rank skips together (:meth:`all_finite`).
+Collectives are per leaf: bucketing and overlap are later work (ROADMAP
+queue 1, item 4).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ... import comm
+from ...parallel.mesh import BATCH_AXES, ZERO_AXES
+from ...utils.tree import tree_flatten_with_path, tree_leaves, tree_unflatten_like
+from .planner import ZeroShardingPlan, shard_dim, walk
+
+# the data-parallel axes a ZeRO shard is replicated over (MiCS's replicas)
+REPLICA_AXES = tuple(a for a in BATCH_AXES if a not in ZERO_AXES)
+
+
+class _GatherParam(torch.autograd.Function):
+    """All-gather a shard along ``dim`` over ``axes`` in the forward;
+    reduce-scatter the gradient back to the shard in the backward, at
+    ``grad_dtype``."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, axes, grad_dtype):
+        ctx.dim, ctx.axes, ctx.grad_dtype = dim, axes, grad_dtype
+        ctx.dtype = shard.dtype
+        full = comm.all_gather(shard, axes, gather_dim=dim)
+        return full.view_as(full) if full is shard else full
+
+    @staticmethod
+    def backward(ctx, g):
+        out = comm.reduce_scatter(g.to(ctx.grad_dtype), ctx.axes, scatter_dim=ctx.dim)
+        return out.to(ctx.dtype), None, None, None
+
+
+def gather_param(shard: torch.Tensor, dim: int, axes=ZERO_AXES,
+                 grad_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The full parameter of a ZeRO shard (autograd-aware)."""
+    return _GatherParam.apply(shard, dim, axes, grad_dtype)
+
+
+class ShardedParams(dict):
+    """A parameter tree whose ZeRO-sharded leaves are gathered when read.
+
+    ``params["wq"]`` returns the full tensor (one all-gather, whose
+    backward reduce-scatters the gradient), so model code written against
+    a plain tree runs unchanged at stage 3; every read gathers again, so a
+    checkpointed block re-gathers in its recompute and one layer's weights
+    are live at a time.  ``dims`` mirrors the tree: the shard dim of each
+    leaf, None for a full one.  ``raw``/``local`` give the shards."""
+
+    def __init__(self, local: Dict[str, Any], dims: Dict[str, Any],
+                 grad_dtype: torch.dtype = torch.float32, axes=ZERO_AXES):
+        super().__init__(local)
+        self.dims = dims
+        self.grad_dtype = grad_dtype
+        self.axes = axes
+
+    def _wrap(self, value, dim):
+        if isinstance(value, dict):
+            return ShardedParams(value, dim, self.grad_dtype, self.axes)
+        if isinstance(value, (list, tuple)):
+            return type(value)(self._wrap(v, d) for v, d in zip(value, dim))
+        if dim is None:
+            return value
+        return gather_param(value, dim, self.axes, self.grad_dtype)
+
+    def __getitem__(self, key):
+        return self._wrap(dict.__getitem__(self, key), self.dims[key])
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+    def values(self):
+        return [self[k] for k in self]
+
+    def raw(self, key):
+        """``(value, dim)`` without gathering."""
+        return dict.__getitem__(self, key), self.dims[key]
+
+    def local(self) -> Dict[str, Any]:
+        """The plain tree of shards (and full leaves)."""
+        out = {}
+        for k in self:
+            value, dim = self.raw(k)
+            out[k] = (ShardedParams(value, dim, self.grad_dtype, self.axes).local()
+                      if isinstance(value, dict) else value)
+        return out
+
+    def pin(self, *keys) -> "ShardedParams":
+        """A copy whose ``keys`` are gathered once now, so several reads
+        share one gather (a tied embedding: both uses' gradients sum before
+        the one reduce-scatter)."""
+        local, dims = dict(self), dict(self.dims)
+        for k in keys:
+            if k in self:
+                local[k], dims[k] = self[k], None
+        return ShardedParams(local, dims, self.grad_dtype, self.axes)
+
+    def unstack(self) -> List["ShardedParams"]:
+        """Per-layer trees of a tree of stacked ``[L, ...]`` leaves: each
+        layer's shard slice, gathered when the layer reads it; a leaf
+        sharded on the ``L`` dim itself is gathered whole once."""
+        names = list(self)
+        views, dims = [], []
+        for name in names:
+            value, dim = self.raw(name)
+            if dim == 0:
+                value, dim = self[name], None
+            views.append(value.unbind(0))
+            dims.append(None if dim is None else dim - 1)
+        return [ShardedParams(dict(zip(names, layer)), dict(zip(names, dims)),
+                              self.grad_dtype, self.axes)
+                for layer in zip(*views)]
+
+
+class ZeroPartition:
+    """The plan's collectives for one engine.  Leaves are addressed by
+    their position in ``tree_leaves`` order of the parameter tree."""
+
+    def __init__(self, plan: ZeroShardingPlan, template: Any,
+                 use_master_weights: bool, accum_dtype: torch.dtype,
+                 frozen: Optional[List[bool]] = None):
+        self.plan = plan
+        self.stage = plan.stage
+        self.template = template
+        self.paths = [p for p, _ in tree_flatten_with_path(template)]
+        self.shapes = [tuple(x.shape) for x in tree_leaves(template)]
+        self.pdims = [shard_dim(p) for p in _leaf_list(template, plan.param_specs)]
+        self.mdims = [shard_dim(p) for p in _leaf_list(template, plan.master_specs)]
+        self.use_master_weights = use_master_weights
+        # where the compute params rest: their own placement, or the
+        # masters' when they are the masters (fp32/fp64 compute)
+        self.rdims = self.pdims if use_master_weights else self.mdims
+        for p, m in zip(self.pdims, self.mdims):
+            if p is not None and p != m:
+                raise AssertionError(f"param shard dim {p} != master dim {m}")
+        self.accum_dtype = accum_dtype
+        self.frozen = frozen or [False] * len(self.paths)
+        self.zero_n = comm.get_axis_size(ZERO_AXES)
+        self.zero_i = comm.axis_index(ZERO_AXES)
+        self.replica_n = comm.get_axis_size(REPLICA_AXES)
+        self._dims = {"param": self.pdims, "master": self.mdims, "rest": self.rdims}
+
+    # -- placement helpers ------------------------------------------------
+    def dims_tree(self, which: str) -> Any:
+        return tree_unflatten_like(self.template, list(self._dims[which]))
+
+    def local_shape(self, i: int, dim: Optional[int]) -> tuple:
+        shape = list(self.shapes[i])
+        if dim is not None:
+            shape[dim] //= self.zero_n
+        return tuple(shape)
+
+    def local_slice(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        if dim is None:
+            return full
+        return full.chunk(self.zero_n, dim)[self.zero_i].contiguous()
+
+    def shard_tree(self, full_tree: Any, which: str) -> Any:
+        """This rank's shards of a full tree, at the ``which`` placement."""
+        return tree_unflatten_like(self.template, [
+            self.local_slice(x, d)
+            for x, d in zip(tree_leaves(full_tree), self._dims[which])])
+
+    def view(self, local_tree: Any, which: str = "rest") -> ShardedParams:
+        """``local_tree`` as a :class:`ShardedParams` at ``which``."""
+        return ShardedParams(local_tree, self.dims_tree(which), self.accum_dtype)
+
+    # -- the step -----------------------------------------------------------
+    def work_leaves(self, rest_leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The leaves the forward differentiates: stage-3 shards stay
+        shards (gathered at use); leaves resting sharded that the plan wants
+        full in the forward (the fp32 masters at stages 1/2) are gathered
+        now."""
+        return [x if (r is None or p is not None)
+                else comm.all_gather(x, ZERO_AXES, gather_dim=r)
+                for x, p, r in zip(rest_leaves, self.pdims, self.rdims)]
+
+    def reduce_micro(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Stage 2: reduce-scatter each micro-batch's full gradient of a
+        sharded leaf into its shard, at the accumulation dtype."""
+        if self.stage != 2:
+            return grads
+        grads = list(grads)
+        for i, (m, f) in enumerate(zip(self.mdims, self.frozen)):
+            if m is not None and not f:   # in place: one full gradient live at a time
+                grads[i] = comm.reduce_scatter(grads[i].to(self.accum_dtype),
+                                               ZERO_AXES, scatter_dim=m)
+        return grads
+
+    def _zero_reduced(self, i: int) -> bool:
+        return ((self.stage == 2 and self.mdims[i] is not None)
+                or (self.stage == 3 and self.pdims[i] is not None))
+
+    def reduce_window(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The window's summed local gradients -> the global sums at the
+        masters' placement."""
+        out = list(grads)
+        for i, g in enumerate(grads):
+            m = self.mdims[i]
+            if self.frozen[i]:
+                out[i] = g.new_zeros(self.local_shape(i, m))
+            elif self._zero_reduced(i):
+                if self.replica_n > 1:
+                    out[i] = comm.all_reduce(g, comm.SUM, REPLICA_AXES)
+            else:
+                out[i] = self.local_slice(comm.all_reduce(g, comm.SUM, BATCH_AXES), m)
+        return out
+
+    def global_norm(self, tree: Any) -> torch.Tensor:
+        """sqrt of the sum of squares over the whole (global) tree: a
+        sharded leaf's squares summed over the ZeRO axes, a replicated one
+        counted once; the leaves added in tree order."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != len(self.mdims):
+            raise ValueError(f"global_norm over {len(leaves)} leaves, the plan "
+                             f"has {len(self.mdims)}")
+        sq = [x.to(torch.promote_types(x.dtype, torch.float32)).square().sum()
+              for x in leaves]
+        sharded = [i for i, m in enumerate(self.mdims) if m is not None]
+        if sharded:
+            vec = torch.stack([sq[i].double() for i in sharded])
+            vec = comm.all_reduce(vec, comm.SUM, ZERO_AXES)
+            for j, i in enumerate(sharded):
+                sq[i] = vec[j].to(sq[i].dtype)
+        total = sq[0]
+        for s in sq[1:]:
+            total = total + s
+        return torch.sqrt(total)
+
+    def all_finite(self, grads: List[torch.Tensor]) -> bool:
+        """Every rank's gradients finite (one all-reduce over the world)."""
+        bad = torch.stack([(~torch.isfinite(g)).any() for g in grads]).any()
+        bad = comm.all_reduce(bad.to(torch.int32), comm.MAX, BATCH_AXES)
+        return not bool(bad)
+
+    def compute_params(self, masters: List[torch.Tensor],
+                       dtype: torch.dtype) -> List[torch.Tensor]:
+        """The compute params at rest from the updated master shards: cast,
+        then all-gathered where the plan keeps them replicated."""
+        out = []
+        for x, p, m in zip(masters, self.pdims, self.mdims):
+            x = x.to(dtype) if x.is_floating_point() else x
+            if m is not None and p is None:
+                x = comm.all_gather(x, ZERO_AXES, gather_dim=m)
+            out.append(x)
+        return out
+
+    # -- checkpoints ---------------------------------------------------------
+    def placements_for(self, key: str):
+        """``(placements, global shape)`` of a flat checkpoint key
+        (``params/...``, ``master_params/...``, ``opt_state/.../<param
+        path>``), or None for a value that is not a parameter's."""
+        best = None
+        for i, path in enumerate(self.paths):
+            if key.endswith("/" + path) and (best is None
+                                             or len(path) > len(self.paths[best])):
+                best = i
+        if best is None:
+            return None
+        which = (self.plan.param_specs
+                 if key.startswith("params/") and self.use_master_weights
+                 else self.plan.master_specs)
+        return _leaf(which, self.paths[best]), self.shapes[best]
+
+
+def _leaf_list(template: Any, tree: Any) -> list:
+    """The leaves of a plan tree (tuples of placements) in ``tree_leaves``
+    order of ``template``."""
+    out: list = []
+    walk(lambda _, s: out.append(s), template, tree)
+    return out
+
+
+def _leaf(tree: Any, path: str):
+    for part in path.split("/"):
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) else tree[part]
+    return tree

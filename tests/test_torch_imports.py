@@ -44,7 +44,12 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.runtime.checkpoint_engine.async_engine, "
             "deepspeed_tpu_torch.resilience, deepspeed_tpu_torch.resilience.integrity, "
             "deepspeed_tpu_torch.checkpoint, deepspeed_tpu_torch.checkpoint.zero_to_fp32, "
-            "deepspeed_tpu_torch.checkpoint.universal\n"
+            "deepspeed_tpu_torch.checkpoint.universal, deepspeed_tpu_torch.comm, "
+            "deepspeed_tpu_torch.comm.benchmark, deepspeed_tpu_torch.parallel.mesh, "
+            "deepspeed_tpu_torch.runtime.zero.planner, "
+            "deepspeed_tpu_torch.runtime.zero.partition, "
+            "deepspeed_tpu_torch.runtime.zero.tiling, deepspeed_tpu_torch.zero, "
+            "deepspeed_tpu_torch.utils.comms_logging\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),

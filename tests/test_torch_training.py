@@ -368,7 +368,7 @@ def test_dataloader_and_batch_forms():
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
-    {"mesh": {"dp": 2}},
+    {"mesh": {"tp": 2}},
     {"mesh": {"pp": 2}},
     {"compression_training": {}},
     {"progressive_layer_drop": {"enabled": True}},
@@ -401,12 +401,19 @@ def test_inert_knobs_raise(option):
                       device="cpu")
 
 
+class _TensorParallelMPU:
+    @staticmethod
+    def get_model_parallel_world_size():
+        return 2
+
+
 def test_unported_entry_points_raise():
-    """What the one-device trainer still refuses, each naming its ROADMAP
-    item: a mesh (item 4), random-LTD and progressive layer drop (item 11)."""
+    """What the trainer still refuses, each naming its ROADMAP item: a
+    model-parallel degree above 1 (item 4), random-LTD and progressive
+    layer drop (item 11)."""
     with pytest.raises(NotImplementedError, match="item 4"):
         ds.initialize(model=CausalLM("tiny"), config={"train_batch_size": 2},
-                      mesh=object(), device="cpu")
+                      mpu=_TensorParallelMPU(), device="cpu")
     batch = {"input_ids": torch.zeros((1, 8), dtype=torch.long)}
     with pytest.raises(NotImplementedError, match="random-LTD"):
         model = CausalLM("tiny", random_ltd=True, random_ltd_keep=4)
