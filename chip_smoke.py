@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--first-launch]
+    python3 chip_smoke.py [--seed N] [--profile] [--first-launch] [--tp-cards]
+    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -64,6 +65,13 @@ one JSON line each; any failure exits non-zero with no result line:
    stage 3's peak within ZERO_PEAK_EXCESS_GB of its; steps, memory and
    collectives a step by kind; ``comm_bench`` at world > 1; a probe of
    two ranks sharing card 0 over NCCL and over gloo, recorded);
+   ``train_tp`` (the same cell under tensor parallelism, stages 0 and 3,
+   ``initialize(mesh=MeshLayout(tp=n))``: at one card a model axis of 1,
+   every model-axis collective a copy, losses and masters bit-equal to the
+   one-device engine's; with more cards one process per card at the
+   largest model axis the card count and the model's heads allow, the
+   loss trajectory beside train_zero's data-parallel one; model-axis
+   collectives a step);
    ``checkpoint`` (S=16384, full width, in a
    temporary directory outside the checkout, removed after): train 2
    steps, ``save_checkpoint``, train 2; a fresh engine
@@ -86,6 +94,14 @@ one JSON line each; any failure exits non-zero with no result line:
    page accounting balances; served greedy tokens agree with an fp32
    teacher-forced ``forward`` on decisive positions; sampled lanes equal
    ``generate(sampling=...)`` (gated in fp32, reported in bf16);
+   ``serve_tp``: the same stream through ``initialize_serving_mesh(tp)`` ->
+   ``init_inference(mesh=)`` -> the paged engine (at one card tp=1 in
+   this process, else one process per card at tp = the card count),
+   token-exact with the unsharded run, one capture whose graph holds the
+   model-axis all-reduces (two a layer and the embedding's) and the logits
+   gather; ``--tp-cards`` (several cards) then runs TP_CARD_CONFIGS: llama2-7b
+   training at tp = the card count, llama2-70b paged serving, and
+   llama2-70b's widths at 8 layers sharded against one card;
 8. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
@@ -1365,7 +1381,7 @@ def reset_counts() -> None:
 
 
 def _train_engine(seed, S, attn_impl="auto", fp32=False, params=None,
-                  config_extra=None, **model_kw):
+                  config_extra=None, mesh=None, name=TRAIN_MODEL, **model_kw):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM
 
@@ -1373,10 +1389,10 @@ def _train_engine(seed, S, attn_impl="auto", fp32=False, params=None,
     if fp32:
         config["bf16"] = {"enabled": False}
         config["data_types"] = {"grad_accum_dtype": "fp32"}
-    model = CausalLM(TRAIN_MODEL, max_seq_len=S, attn_impl=attn_impl,
+    model = CausalLM(name, max_seq_len=S, attn_impl=attn_impl,
                      dtype=torch.float32 if fp32 else torch.bfloat16, **model_kw)
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
-                                                params=params)
+                                                params=params, mesh=mesh)
     return model, engine
 
 
@@ -1591,9 +1607,10 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _zero_steps(engine, batch, per_step):
+def _zero_steps(engine, batch, per_step, by_axis=False):
     """ZERO_STEPS of ``train_batch``: losses, step seconds and, per step,
-    the comms logger's calls and bytes by kind (K1-K3 launches checked)."""
+    the comms logger's calls and bytes by kind (``by_axis``: by kind and
+    mesh axes) (K1-K3 launches checked)."""
     from deepspeed_tpu_torch import comm
 
     log = comm.get_comms_logger()
@@ -1610,7 +1627,8 @@ def _zero_steps(engine, batch, per_step):
         got = tuple(a - b for a, b in zip(kernel_counts(), before))
         check(got == per_step, f"a ZeRO step launched K1/K2/K3 {got} times, "
                                f"expected {per_step}")
-        comms.append(log.totals() if log is not None else {})
+        comms.append({} if log is None else
+                     log.totals_by_axis() if by_axis else log.totals())
     return losses, step_s, comms
 
 
@@ -1637,6 +1655,7 @@ def run_train_zero(seed: int, world: int, rank: int, ref=None) -> None:
     if world >= 4 and world % 2 == 0:   # MiCS: shards within halves of the world
         cases.append({"stage": 3, "mics_shard_size": world // 2})
     first_losses = []
+    stage0_losses = None
     for zero in cases:
         stage = zero["stage"]
         model, engine = _train_engine(seed, S, config_extra={"zero_optimization": zero})
@@ -1650,6 +1669,8 @@ def run_train_zero(seed: int, world: int, rank: int, ref=None) -> None:
         med = statistics.median(step_s[1:])
         tflops = world * S / med * flops_per_token / 1e12
         first_losses.append(losses[0])
+        if stage == 0 and stage0_losses is None:
+            stage0_losses = losses
         rec = {"phase": "train_zero", "stage": stage, "world_size": world,
                "mics_shard_size": zero.get("mics_shard_size", -1),
                "backend": torch.distributed.get_backend(), "model": TRAIN_MODEL,
@@ -1699,10 +1720,12 @@ def run_train_zero(seed: int, world: int, rank: int, ref=None) -> None:
                          trials=10, print_table=False)
         if rank == 0:
             emit({"phase": "comm_bench", "world_size": world, "rows": rows})
+        return stage0_losses
     elif rank == 0:
         emit({"phase": "comm_bench", "world_size": 1,
               "skipped": "one rank: a collective is a copy, so no bandwidth to "
                          "measure (comm/benchmark.py runs under torchrun on N cards)"})
+    return stage0_losses
 
 
 def _one_device_reference(seed: int) -> dict:
@@ -1796,6 +1819,9 @@ def phase_train_zero(seed: int) -> None:
                               world_size=1, verbose=False)
         try:
             run_train_zero(seed, 1, 0, ref=ref)
+            t1 = time.perf_counter()
+            run_train_tp(seed, 1, 0, ref=ref)
+            emit({"phase": "train_tp_done", "seconds": time.perf_counter() - t1})
         finally:
             comm.destroy_process_group()
     else:
@@ -1829,10 +1855,525 @@ def train_zero_rank(seed: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     comm.init_distributed(verbose=False)
     try:
-        run_train_zero(seed, comm.get_world_size(), comm.get_rank())
+        world, rank = comm.get_world_size(), comm.get_rank()
+        dp_losses = run_train_zero(seed, world, rank)
+        run_train_tp(seed, world, rank, dp_losses=dp_losses)
     finally:
         comm.destroy_process_group()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: train_tp, serve_tp and the multi-card configurations
+# ---------------------------------------------------------------------------
+
+TP_STAGES = (0, 3)
+# the one-device engine's loss beside the tensor-parallel path's at a model
+# axis of 1: the vocab-parallel loss takes ATen logsumexp's steps in its
+# order, so they are expected bit-equal; this bound says how far they may
+# differ if a build rounds the max/sum-exp form differently
+TP_LOSS_RTOL = 1e-6
+# tp x dp beside dp = world (the same weights and global batch), each of
+# the steps: bf16 partial sums put them 2.9e-4 apart at step 3 on 4 H100s;
+# a planted fault (the all-reduce of a row-parallel forward or of a
+# column-parallel input's gradient skipped) moved them 4.6e-3 at step 1
+# and 0.11-0.18 by step 2 (llama-740m's widths at 2 layers, fp32, 4 gloo
+# ranks on the CPU)
+TP_DP_LOSS_RTOL = 2e-3
+SERVE_TP_TIMEOUT_S = 900
+
+
+def _tp_degree(world: int, cfg) -> int:
+    """The largest divisor of ``world`` that shards ``cfg`` evenly (the
+    model axis of a phase run one process per card)."""
+    from deepspeed_tpu_torch.models.transformer import check_tp_divisible
+
+    for n in range(world, 0, -1):
+        if world % n == 0:
+            try:
+                check_tp_divisible(cfg, n)
+                return n
+            except ValueError:
+                continue
+    return 1
+
+
+def run_train_tp(seed: int, world: int, rank: int, ref=None, dp_losses=None) -> None:
+    """Phase ``train_tp``: the train cell (llama-740m, S=16384,
+    ``nothing_saveable``, bf16 over fp32 masters) under tensor parallelism
+    over NCCL at stages 0 and 3: ``initialize(mesh=MeshLayout(tp=n,
+    dp=world/n))``, each replica ``n`` rows (the train_zero global batch).
+    At one card the model axis is 1 (every model-axis collective a copy)
+    and ``ref`` is the one-device engine's run, which both stages must
+    equal bit for bit; with more cards the loss trajectory is held to
+    train_zero's stage 0 at dp=world (``dp_losses``) within
+    TP_DP_LOSS_RTOL."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import get_config
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    S = TRAIN_SHAPE[1]
+    cfg = get_config(TRAIN_MODEL)
+    L = cfg.num_layers
+    tp = _tp_degree(world, cfg)
+    dp = world // tp
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (world, S), generator=gen,
+                                        device="cuda")}
+    comm.configure({"enabled": True})
+    flops_per_token = 6.0 * cfg.param_count + 12.0 * L * cfg.hidden_size * S
+    per_step = (2 * L, L, L)
+    for stage in TP_STAGES:
+        # above a model axis of 1 the engine would draw its shards of the
+        # layer-streamed init; the data-parallel run's weights are the
+        # default init's, so hand every rank that tree (it keeps its shards)
+        params = None if tp == 1 else _default_init(seed, S)
+        model, engine = _train_engine(
+            seed, S, mesh=MeshLayout(tp=tp, dp=dp), params=params,
+            config_extra={"zero_optimization": {"stage": stage},
+                          "train_micro_batch_size_per_gpu": world // dp})
+        del params
+        check(engine.tp == tp, f"the engine runs tp={engine.tp}, expected {tp}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, comms = _zero_steps(engine, batch, per_step, by_axis=True)
+        launches = kernel_counts()
+        med = statistics.median(step_s[1:])
+        tflops = world * S / med * flops_per_token / 1e12
+        model_axis = {op: by["model"] for op, by in comms[-1].items() if "model" in by}
+        rec = {"phase": "train_tp", "stage": stage, "world_size": world, "tp": tp,
+               "dp": dp, "backend": torch.distributed.get_backend(),
+               "model": TRAIN_MODEL, "S": S, "rows_per_replica": world // dp,
+               "remat_policy": cfg.remat_policy, "step_s": step_s,
+               "median_step_s": med, "tokens_per_s": world * S / med,
+               "model_tflops": tflops,
+               "mfu": tflops * 1e12 / world / PEAK_FLOPS[torch.bfloat16],
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+               "losses": losses, "collectives_per_step_by_axis": comms[-1],
+               "model_axis_collectives_per_step": model_axis,
+               "launches": dict(zip(("K1", "K2", "K3"), launches)),
+               "launches_per_step": dict(zip(("K1", "K2", "K3"), per_step)),
+               "nvidia_smi": nvidia_smi_line()}
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss: {rec}")
+        check(model_axis.get("all_reduce", {}).get("calls", 0) > 0,
+              f"no model-axis all-reduce in a step: {rec}")
+        if ref is not None:
+            same_masters = all(torch.equal(m.cpu(), r) for m, r in
+                               zip(_leaves(engine.state.master_params), ref["masters"]))
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+            rec.update(one_device={"losses": ref["losses"],
+                                   "median_step_s": ref["median_step_s"],
+                                   "peak_memory_gb": ref["peak_gb"]},
+                       masters_bit_equal=same_masters,
+                       losses_bit_equal=losses == ref["losses"],
+                       loss_max_rel_diff=loss_rel,
+                       step_overhead=med / ref["median_step_s"] - 1,
+                       peak_excess_gb=rec["peak_memory_gb"] - ref["peak_gb"])
+        if dp_losses is not None:
+            rec["dp_world_stage0_losses"] = dp_losses
+            rec["loss_max_rel_diff_vs_dp"] = max(
+                abs(a - b) / abs(b) for a, b in zip(losses, dp_losses))
+        if rank == 0:
+            emit(rec)
+        if dp_losses is not None:
+            check(rec["loss_max_rel_diff_vs_dp"] <= TP_DP_LOSS_RTOL,
+                  f"train_tp stage {stage}: tp={tp} x dp={dp} losses differ from "
+                  f"dp={world}'s beyond {TP_DP_LOSS_RTOL}: {rec}")
+        if ref is not None:
+            check(rec["masters_bit_equal"], f"train_tp stage {stage} at a model axis "
+                                            f"of 1: masters differ from the one-device "
+                                            f"engine's: {rec}")
+            check(rec["loss_max_rel_diff"] <= TP_LOSS_RTOL,
+                  f"train_tp stage {stage}: losses differ from the one-device "
+                  f"engine's beyond {TP_LOSS_RTOL}: {rec}")
+        del engine, model
+        free_memory()
+
+
+def _default_init(seed: int, S: int):
+    """The train cell's default init (what the engine draws from its seed
+    at a model axis of 1), whole, in fp32 on this rank's card."""
+    from deepspeed_tpu_torch.models import CausalLM
+
+    return CausalLM(TRAIN_MODEL, max_seq_len=S).init_fn(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+
+
+def _serve_tp_record(sv, rec, tp: int) -> dict:
+    h = sv.health()
+    rec.update(phase="serve_tp", tp=tp, mesh_devices=h["mesh_devices"],
+               mesh_axes=h["mesh_axes"],
+               kv_pool_bytes_per_device=h["kv_pool_bytes_per_device"],
+               kv_pool_bytes_total=h["kv_pool_bytes_total"],
+               graph_collectives_per_tick=sv._exec.graph_collectives,
+               nvidia_smi=nvidia_smi_line())
+    check(h["kv_pool_bytes_per_device"] * tp == h["kv_pool_bytes_total"],
+          f"per-device pool bytes x tp != total: {h}")
+    cfg = sv.model.config
+    got = sv._exec.graph_collectives.get("all_reduce", {}).get("model", 0)
+    check(got == 2 * cfg.num_layers + 1,
+          f"the decode graph holds {got} model-axis all-reduces, expected two per "
+          f"layer and the embedding's ({2 * cfg.num_layers + 1})")
+    return rec
+
+
+def phase_serve_tp(engine, params, seed: int, stream, first) -> None:
+    """Phase ``serve_tp``: llama2-7b through ``initialize_serving_mesh(tp)``
+    -> ``init_inference(mesh=)`` -> the paged ``ServingEngine`` on the
+    serving stream.  At one card: a model axis of 1 in this process (every
+    collective a copy), token-exact with phase ``serving``'s greedy and
+    sampled outputs (``first``), one capture, the model-axis all-reduces
+    and the logits gather inside the decode graph.  With more cards: one
+    process per card at tp = the card count (``--serve-tp-rank``): every
+    rank serves the same tokens, and rank 0's greedy tokens agree with an
+    fp32 engine on decisive positions as phase ``paged_serving``'s do (bf16
+    partial sums round differently above a model axis of 1, so they are
+    reported beside ``first``, not held to it)."""
+    import numpy as np
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    if world == 1:
+        comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                              world_size=1, verbose=False)
+        try:
+            comm.configure({"enabled": True})
+            tp_engine = _inference_engine(CausalLM("llama2-7b"), params,
+                                          initialize_serving_mesh(tp=1))
+            check(all(a is b for a, b in zip(_leaves(tp_engine.params),
+                                             _leaves(params))),
+                  "a model axis of 1 copied the weights")
+            reset_counts()
+            sv, outs, rec = _serve_once(tp_engine, stream, "tp1")
+            rec = _serve_tp_record(sv, rec, 1)
+            sv.close()
+            del sv, tp_engine
+            free_memory()
+        finally:
+            comm.destroy_process_group()
+    else:
+        import subprocess as sp
+        import tempfile
+
+        out = tempfile.mkdtemp(prefix="serve_tp_")
+        env = {**os.environ, "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())}
+        procs = [sp.Popen([sys.executable, os.path.abspath(__file__), "--seed",
+                           str(seed), "--serve-tp-rank", out],
+                          env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+                 for r in range(world)]
+        _join(procs, SERVE_TP_TIMEOUT_S, "serve_tp")
+        rec = _rank0_record(out, "serve_tp")
+        outs = {int(k): np.asarray(v) for k, v in rec.pop("outputs").items()}
+        f32 = fp32_serving_engine(params)
+        rec.update(greedy_vs_fp32(engine, f32, stream, outs))
+        del f32
+        free_memory()
+    same = {rid: bool(np.array_equal(outs[rid], first[rid])) for rid in first}
+
+    def diverge(a, b):
+        diff = np.flatnonzero(a != b)
+        return int(diff[0]) if len(diff) else None
+
+    rec.update(token_exact_vs_serving=all(same.values()),
+               differing_rids=[rid for rid, ok in same.items() if not ok],
+               first_divergence={rid: diverge(outs[rid], first[rid]) for rid in first},
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    # a model axis of 1 sums every row-parallel product whole, as the
+    # unsharded engine does: token-exact.  Above 1 the partial sums round
+    # differently in bf16, and random weights turn that into other tokens
+    # (llama2-70b's widths at 8 layers are held on decisive positions by
+    # --tp-cards; the CPU tests hold tp=2 token-exact in fp32)
+    if rec["tp"] == 1:
+        check(rec["token_exact_vs_serving"], f"serve_tp differs from phase serving: {rec}")
+    else:
+        check(rec["ranks_token_equal"], f"serve_tp's ranks served different tokens: {rec}")
+        check_greedy_vs_fp32(rec, f"serve_tp at tp={rec['tp']}")
+
+
+TEARDOWN_S = 60
+
+
+def _run_rank(body) -> int:
+    """One rank of a phase run one process per card: the process group,
+    ``body()``, then the teardown.  A rank whose teardown is still waiting
+    after TEARDOWN_S (NCCL work a CUDA graph captured can hold it) leaves
+    at once: with 0 when ``body`` returned (its record already written),
+    with 1 when it raised."""
+    import threading
+    import traceback
+
+    from deepspeed_tpu_torch import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(verbose=False)
+    ok = False
+    try:
+        body()
+        ok = True
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        t = threading.Thread(target=comm.destroy_process_group, daemon=True)
+        t.start()
+        t.join(TEARDOWN_S)
+        if t.is_alive():
+            print(f"rank teardown still waiting after {TEARDOWN_S} s: exiting",
+                  file=sys.stderr, flush=True)
+            sys.stdout.flush()
+            os._exit(0 if ok else 1)
+    return 0
+
+
+def _rank0_record(out: str, what: str) -> dict:
+    path = os.path.join(out, "rank0.json")
+    check(os.path.exists(path), f"{what}: rank 0 wrote no record")
+    with open(path) as f:
+        return json.load(f)
+
+
+def _join(procs, timeout_s: int, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"{what} ranks exited {[p.returncode for p in procs]}")
+
+
+def serve_tp_rank(seed: int, out: str) -> None:
+    """One rank of phase ``serve_tp`` on several cards: phase ``serving``'s
+    weights (the same seed; the engine keeps this rank's shards), the
+    stream, rank 0's record and outputs into ``out``."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    world, rank = comm.get_world_size(), comm.get_rank()
+    comm.configure({"enabled": True})
+    model = CausalLM("llama2-7b")
+    tp = _tp_degree(world, model.config)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mesh = initialize_serving_mesh(tp=tp)
+    # phase serving's weights (the default init of the seed), whole;
+    # init_inference keeps this rank's shards of them
+    params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16)
+    engine = _inference_engine(model, params, mesh)
+    del params
+    free_memory()
+    stream = serving_stream(seed, model.config.vocab_size)
+    reset_counts()
+    sv, outs, rec = _serve_once(engine, stream, f"tp{tp}")
+    rec = _serve_tp_record(sv, rec, tp)
+    digest = {rid: v.tolist() for rid, v in outs.items()}
+    every = [None] * world
+    torch.distributed.all_gather_object(every, digest)
+    rec["ranks_token_equal"] = all(d == digest for d in every)
+    sv.close()
+    del sv, engine
+    free_memory()
+    if rank == 0:
+        rec["outputs"] = {str(k): v.tolist() for k, v in outs.items()}
+        with open(os.path.join(out, "rank0.json"), "w") as f:
+            json.dump(rec, f)
+
+
+# The configurations that need tensor parallelism, one process per card
+# (``--tp-cards``, at 4 cards): llama2-7b training (≈94 GB of bf16 params,
+# fp32 masters, moments and bf16 gradients: no one card holds it), llama2-70b
+# paged serving (140 GB of bf16 weights), and llama2-70b's widths at 8 layers
+# sharded over the cards against one card (tp=1, bf16 and fp32).
+TP_CARD_CONFIGS = ("train_7b", "serve_70b", "cmp_70b8")
+TP_CARD_TIMEOUT_S = 900
+CMP_LAYERS, CMP_S = 8, 2048
+
+
+def phase_tp_cards(seed: int, configs=TP_CARD_CONFIGS) -> None:
+    """Each configuration one process per card; it passes when every rank
+    exits 0 and rank 0 wrote its record."""
+    import subprocess as sp
+    import tempfile
+
+    world = torch.cuda.device_count()
+    check(world >= 2, f"--tp-cards needs several cards, found {world}")
+    for config in configs:
+        t0 = time.perf_counter()
+        out = tempfile.mkdtemp(prefix=f"tp_cards_{config}_")
+        env = {**os.environ, "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())}
+        procs = [sp.Popen([sys.executable, os.path.abspath(__file__), "--seed",
+                           str(seed), "--tp-card-rank", config, out],
+                          env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+                 for r in range(world)]
+        _join(procs, TP_CARD_TIMEOUT_S, config)
+        emit(_rank0_record(out, config))
+        emit({"phase": f"tp_cards_{config}_done", "seconds": time.perf_counter() - t0})
+
+
+def _tp_card_train_7b(seed: int, world: int, rank: int) -> dict:
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    from deepspeed_tpu_torch import comm
+
+    comm.configure({"enabled": True})
+    name, S = "llama2-7b", 4096
+    model, engine = _train_engine(seed, S, name=name, mesh=MeshLayout(tp=world),
+                                  config_extra={"zero_optimization": {"stage": 0}})
+    cfg = model.config
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                                        device="cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s, comms = _zero_steps(engine, batch, (2 * L, L, L), by_axis=True)
+    med = statistics.median(step_s[1:])
+    flops_per_token = 6.0 * cfg.param_count + 12.0 * L * cfg.hidden_size * S
+    tflops = S / med * flops_per_token / 1e12
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return {"model": name, "S": S, "tp": world, "micro_batch": 1,
+            "remat_policy": cfg.remat_policy, "params": cfg.param_count,
+            "state_gb": cfg.param_count * (2 + 4 + 2 + 4 + 2) / 1e9,
+            "step_s": step_s, "median_step_s": med, "tokens_per_s": S / med,
+            "model_tflops": tflops, "mfu": tflops * 1e12 / world / PEAK_FLOPS[torch.bfloat16],
+            "losses": losses, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+            "collectives_per_step_by_axis": comms[-1],
+            "launches": dict(zip(("K1", "K2", "K3"), kernel_counts()))}
+
+
+def _tp_card_serve_70b(seed: int, world: int, rank: int) -> dict:
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    comm.configure({"enabled": True})
+    model = CausalLM("llama2-70b")
+    mesh = initialize_serving_mesh(tp=world)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16,
+                           tp=(comm.axis_index("model"), world))
+    engine = _inference_engine(model, params, mesh)
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    stream = serving_stream(seed, model.config.vocab_size)
+    reset_counts()
+    sv, outs, rec = _serve_once(engine, stream, f"llama2-70b tp{world}")
+    rec = _serve_tp_record(sv, rec, world)
+    digest = {rid: v.tolist() for rid, v in outs.items()}
+    every = [None] * world
+    torch.distributed.all_gather_object(every, digest)
+    rec.update(model="llama2-70b", init_s=init_s, weights_gb_per_card=weights_gb,
+               ranks_token_equal=all(d == digest for d in every))
+    check(rec["ranks_token_equal"], "the ranks served different tokens")
+    sv.close()
+    return rec
+
+
+def _inference_engine(model, params, mesh):
+    import deepspeed_tpu_torch
+
+    return deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
+                                              params=params, mesh=mesh)
+
+
+def _tp_card_cmp_70b8(seed: int, world: int, rank: int) -> dict:
+    """llama2-70b's widths at CMP_LAYERS layers: the tp=world forward on
+    every rank; on rank 0 the same weights whole on one card in bf16 and in
+    fp32: top-1 on decisive positions (fp32 margin above the bf16 one-card
+    run's own deviation from fp32) and max |dlogits|."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    model = CausalLM("llama2-70b", num_layers=CMP_LAYERS)
+    cfg = model.config
+    mesh = initialize_serving_mesh(tp=world)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16,
+                           tp=(comm.axis_index("model"), world))
+    tokens = torch.randint(0, cfg.vocab_size, (1, CMP_S),
+                           generator=torch.Generator(device="cuda").manual_seed(seed + 7),
+                           device="cuda")
+    engine = _inference_engine(model, params, mesh)
+    reset_counts()
+    got = engine.forward(tokens).float()
+    launches = kernel_counts()[0]
+    del engine, params
+    free_memory()
+    rec = {"model": "llama2-70b", "layers": CMP_LAYERS, "S": CMP_S, "tp": world,
+           "params": cfg.param_count, "k1_launches_per_rank": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if rank == 0:
+        import deepspeed_tpu_torch
+
+        outs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            whole = model.init_fn(torch.Generator(device="cuda").manual_seed(seed),
+                                  device="cuda", dtype=dtype, tp=(0, 1))
+            one = deepspeed_tpu_torch.init_inference(
+                CausalLM("llama2-70b", num_layers=CMP_LAYERS, dtype=dtype),
+                config={"dtype": "bf16" if dtype == torch.bfloat16 else "fp32"},
+                params=whole)
+            outs[dtype] = one.forward(tokens).float()
+            del one, whole
+            free_memory()
+        plain, ref = outs[torch.bfloat16], outs[torch.float32]
+        noise = (plain - ref).abs().max().item()
+        top2 = ref.topk(2, dim=-1)
+        decisive = (top2.values[..., 0] - top2.values[..., 1]) > noise
+        want = top2.indices[..., 0]
+        rec.update(noise_tp1_bf16_vs_fp32=noise, decisive_positions=int(decisive.sum()),
+                   top1_tp_vs_fp32_decisive=(got.argmax(-1) == want)[decisive]
+                   .float().mean().item(),
+                   top1_tp1_bf16_vs_fp32_decisive=(plain.argmax(-1) == want)[decisive]
+                   .float().mean().item(),
+                   top1_tp_vs_tp1_bf16=(got.argmax(-1) == plain.argmax(-1))
+                   .float().mean().item(),
+                   max_abs_dlogits_tp_vs_tp1_bf16=(got - plain).abs().max().item(),
+                   max_abs_dlogits_tp_vs_fp32=(got - ref).abs().max().item(),
+                   mean_abs_dlogits_tp_vs_fp32=(got - ref).abs().mean().item(),
+                   mean_abs_dlogits_tp1_bf16_vs_fp32=(plain - ref).abs().mean().item())
+        check(rec["decisive_positions"] >= 32, f"too few decisive positions: {rec}")
+        check(rec["top1_tp_vs_fp32_decisive"] >= 0.99,
+              f"tp={world} disagrees with fp32 on decisive positions: {rec}")
+    comm.barrier()
+    return rec
+
+
+def tp_card_rank(seed: int, config: str, out: str) -> None:
+    """One rank of a ``--tp-cards`` configuration; rank 0's record into
+    ``out``."""
+    from deepspeed_tpu_torch import comm
+
+    world, rank = comm.get_world_size(), comm.get_rank()
+    run = {"train_7b": _tp_card_train_7b, "serve_70b": _tp_card_serve_70b,
+           "cmp_70b8": _tp_card_cmp_70b8}[config]
+    rec = run(seed, world, rank)
+    rec.update(phase=f"tp_cards_{config}", world_size=world,
+               nvidia_smi=nvidia_smi_line())
+    every = [None] * world
+    torch.distributed.all_gather_object(
+        every, {k: rec.get(k) for k in ("peak_memory_gb", "held_memory_gb",
+                                        "weights_gb_per_card")})
+    rec["per_card"] = every
+    if rank == 0:
+        with open(os.path.join(out, "rank0.json"), "w") as f:
+            json.dump(rec, f)
 
 
 def _leaves(tree):
@@ -2072,12 +2613,7 @@ def phase_train_parity(seed: int):
 def fp32_reference_logits(params, tokens) -> torch.Tensor:
     """The same weights and tokens through an fp32 engine on the plain
     attention branch: the reference both bf16 paths are held to."""
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import CausalLM
-
-    ref_model = CausalLM("llama2-7b", attn_impl="xla", dtype=torch.float32)
-    engine = deepspeed_tpu_torch.init_inference(
-        ref_model, config={"dtype": "fp32"}, params=params)
+    engine = fp32_serving_engine(params)
     logits = engine.forward(tokens).float()
     del engine
     torch.cuda.empty_cache()
@@ -2269,7 +2805,8 @@ def phase_serving(seed: int, profile: bool):
                      lambda: engine.generate(ids128, max_new_tokens=2))
     del tokens
     free_memory()
-    paged = phase_paged_serving(engine, params, seed, profile)
+    paged, first, stream = phase_paged_serving(engine, params, seed, profile)
+    phase_serve_tp(engine, params, seed, stream, first)
     del engine, params
     free_memory()
     return launches, paged
@@ -2359,12 +2896,57 @@ def _positions_logits(engine, stream, outs, rids):
     return got
 
 
+def fp32_serving_engine(params):
+    """An fp32 llama2-7b engine on the plain attention branch over the
+    same weights: the reference served tokens are held to."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    return deepspeed_tpu_torch.init_inference(
+        CausalLM("llama2-7b", attn_impl="xla", dtype=torch.float32),
+        config={"dtype": "fp32"}, params=params)
+
+
+def greedy_vs_fp32(engine, f32, stream, outs) -> dict:
+    """The greedy requests' served tokens (``outs``) against the fp32
+    engine ``f32`` on the same weights, teacher-forced: top-1 at every
+    position and at the decisive ones, whose fp32 top-2 margin exceeds how
+    far ``engine``'s bf16 plain attention branch strays from fp32 there."""
+    rids = [r.rid for r in stream if r.rid not in SAMPLED_RIDS]
+    engine.model.attn_impl = "xla"
+    plain = _positions_logits(engine, stream, outs, rids)
+    engine.model.attn_impl = "auto"
+    ref = _positions_logits(f32, stream, outs, rids)
+    noise = max((plain[r] - ref[r]).abs().max().item() for r in rids)
+    n_dec = n_agree = n_all = n_all_agree = 0
+    for rid in rids:
+        top2 = ref[rid].topk(2, dim=-1)
+        served = torch.as_tensor(outs[rid], device="cuda").long()
+        ok = top2.indices[:, 0] == served
+        dec = (top2.values[:, 0] - top2.values[:, 1]) > noise
+        n_dec += int(dec.sum())
+        n_agree += int((ok & dec).sum())
+        n_all += len(served)
+        n_all_agree += int(ok.sum())
+    del plain, ref
+    free_memory()
+    return {"greedy_positions": n_all, "greedy_top1_vs_fp32": n_all_agree / n_all,
+            "noise_plain_bf16_vs_fp32": noise, "decisive_positions": n_dec,
+            "greedy_top1_vs_fp32_decisive": n_agree / max(n_dec, 1)}
+
+
+def check_greedy_vs_fp32(rec, what: str) -> None:
+    check(rec["decisive_positions"] >= 32, f"{what}: too few decisive positions "
+                                           f"to judge: {rec}")
+    check(rec["greedy_top1_vs_fp32_decisive"] >= 0.99,
+          f"{what}: served greedy tokens disagree with fp32 on decisive "
+          f"positions: {rec}")
+
+
 def phase_paged_serving(engine, params, seed: int, profile: bool):
     """The paged serving path on the llama2-7b engine.  Returns the K4
     launch record of the main path's run."""
     import numpy as np
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import CausalLM
     from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 
     cfg = engine.model.config
@@ -2402,29 +2984,9 @@ def phase_paged_serving(engine, params, seed: int, profile: bool):
         bf16_lanes[rid] = {"tokens": len(ref),
                            "first_divergence": int(diff[0]) if len(diff) else None}
 
-    # greedy lanes against fp32, on decisive positions: the bf16 plain
-    # branch's own deviation from fp32 sets the noise level
-    greedy = [r.rid for r in stream if r.rid not in SAMPLED_RIDS]
-    engine.model.attn_impl = "xla"
-    plain = _positions_logits(engine, stream, first, greedy)
-    engine.model.attn_impl = "auto"
-    ref_model = CausalLM("llama2-7b", attn_impl="xla", dtype=torch.float32)
-    f32 = deepspeed_tpu_torch.init_inference(ref_model, config={"dtype": "fp32"},
-                                             params=params)
-    ref = _positions_logits(f32, stream, first, greedy)
-    noise = max((plain[r] - ref[r]).abs().max().item() for r in greedy)
-    n_dec = n_agree = n_all = n_all_agree = 0
-    for rid in greedy:
-        top2 = ref[rid].topk(2, dim=-1)
-        served = torch.as_tensor(first[rid], device="cuda").long()
-        ok = top2.indices[:, 0] == served
-        dec = (top2.values[:, 0] - top2.values[:, 1]) > noise
-        n_dec += int(dec.sum())
-        n_agree += int((ok & dec).sum())
-        n_all += len(served)
-        n_all_agree += int(ok.sum())
-    del plain, ref
-    free_memory()
+    # greedy lanes against fp32, on decisive positions
+    f32 = fp32_serving_engine(params)
+    greedy = greedy_vs_fp32(engine, f32, stream, first)
 
     # sampled lanes in fp32: a serving engine and generate(sampling=...)
     sampled_reqs = [stream[r] for r in SAMPLED_RIDS]
@@ -2440,18 +3002,13 @@ def phase_paged_serving(engine, params, seed: int, profile: bool):
     del f32
     free_memory()
     rec = {"phase": "paged_serving_gates", "k4_launches": launches,
-           "rerun_identical": same,
-           "greedy_positions": n_all, "greedy_top1_vs_fp32": n_all_agree / n_all,
-           "noise_plain_bf16_vs_fp32": noise, "decisive_positions": n_dec,
-           "greedy_top1_vs_fp32_decisive": n_agree / max(n_dec, 1),
+           "rerun_identical": same, **greedy,
            "sampled_bf16_vs_generate_bf16": bf16_lanes,
            "sampled_fp32_serving_equals_generate_fp32": f32_exact}
     emit(rec)
-    check(n_dec >= 32, f"too few decisive positions to judge: {rec}")
-    check(n_agree / n_dec >= 0.99, f"served greedy tokens disagree with fp32 on "
-                                   f"decisive positions: {rec}")
+    check_greedy_vs_fp32(rec, "paged_serving")
     check(all(f32_exact.values()), f"sampled lanes differ from generate: {rec}")
-    return launches
+    return launches, first, stream
 
 
 def profile_serving(sv, stream) -> None:
@@ -2878,6 +3435,17 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # one rank of phase train_zero
     ap.add_argument("--probe-shared-card", nargs=3, metavar="ARG",
                     help=argparse.SUPPRESS)   # BACKEND PORT RANK: the probe's child
+    ap.add_argument("--serve-tp-rank", metavar="DIR",
+                    help=argparse.SUPPRESS)   # one rank of phase serve_tp
+    ap.add_argument("--tp-cards", action="store_true",
+                    help="after every phase, the configurations that need tensor "
+                         "parallelism, one process per card (several cards)")
+    ap.add_argument("--tp-cards-only", nargs="+", choices=TP_CARD_CONFIGS,
+                    metavar="CONFIG",
+                    help="only the build, then these --tp-cards configurations "
+                         f"(of {', '.join(TP_CARD_CONFIGS)})")
+    ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
+                    help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -2891,6 +3459,18 @@ def main() -> int:
         return shared_card_child(backend, int(port), int(rank))
     if args.train_zero_rank:
         return train_zero_rank(args.seed)
+    if args.serve_tp_rank:
+        return _run_rank(lambda: serve_tp_rank(args.seed, args.serve_tp_rank))
+    if args.tp_card_rank:
+        return _run_rank(lambda: tp_card_rank(args.seed, *args.tp_card_rank))
+    if (args.tp_cards or args.tp_cards_only) and torch.cuda.device_count() < 2:
+        print("chip_smoke: --tp-cards needs several cards", file=sys.stderr)
+        return 2
+    if args.tp_cards_only:
+        print(nvidia_smi_line(), flush=True)
+        phase_build()
+        phase_tp_cards(args.seed, args.tp_cards_only)
+        return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
     if args.ab:
@@ -2923,6 +3503,8 @@ def main() -> int:
     phase_frozen(args.seed)
     phase_checkpoint(args.seed)
     serve_launches, k4_launches = phase_serving(args.seed, args.profile)
+    if args.tp_cards:
+        phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     src = "deepspeed_tpu_torch/ops/csrc/"
     jax_src = "deepspeed_tpu/ops/pallas/flash_attention.py"

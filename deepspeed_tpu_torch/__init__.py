@@ -13,9 +13,12 @@ training path on one device, ``initialize(model=...)`` ->
 ``save_checkpoint``/``load_checkpoint``, with the flash-attention forward
 and backward kernels, also data-parallel over ``torch.distributed`` with
 ZeRO stages 0-3 and MiCS (``comm``, ``parallel``, ``runtime/zero``,
-``zero``); and the paged serving path, ``engine.serving()`` ->
-``ServingEngine.run``, with the paged decode-attention kernel.  ROADMAP.md
-lists what comes next.
+``zero``) and tensor-parallel over the mesh's 'model' axis
+(``parallel/tensor_parallel.py``, Megatron layout from ``param_specs``);
+and the paged serving path, ``engine.serving()`` -> ``ServingEngine.run``,
+with the paged decode-attention kernel, on one device or on a
+tensor-parallel serving mesh (``parallel.mesh.initialize_serving_mesh`` ->
+``init_inference(mesh=)``).  ROADMAP.md lists what comes next.
 """
 from __future__ import annotations
 
@@ -46,31 +49,32 @@ def initialize(args=None, model: Any = None, optimizer=None, model_parameters=No
     one process per device, e.g. under ``torchrun --nproc-per-node N``)
     the engine is one rank of a ZeRO stage 0-3 / MiCS job; ``mesh`` is a
     ``parallel.mesh.MeshLayout`` or a mesh from ``parallel.mesh.build_mesh``
-    (default: the config's ``mesh`` block over the world).  ``param_specs``
-    (PartitionSpec-like tuples the ZeRO axes compose onto) and ``mpu`` are
-    accepted where the model axis is 1: tensor parallelism is not ported.
+    (default: the config's ``mesh`` block over the world).
+
+    Tensor parallelism: the mesh's 'model' axis (``mesh=``, the config's
+    ``mesh.tp``, or ``mpu.get_model_parallel_world_size()``) shards a
+    ``models.CausalLM`` Megatron-style by its ``param_specs`` (passing
+    ``param_specs`` names the model's own), composed with the ZeRO stage;
+    naming a model axis of 1 runs the same path with copies for
+    collectives.  Above a model axis of 1 the config's seed draws each
+    rank's shards of the layer-streamed init, not the default init's
+    weights: pass ``params=`` for the same weights at every topology.  A
+    model without ``param_specs`` under a model axis above
+    1 raises ``NotImplementedError`` (ROADMAP queue 1, item 4).
     """
-    from .parallel.mesh import MeshLayout, layout_of
+    from .parallel.mesh import MeshLayout
     from .runtime.engine import DeepSpeedEngine
 
-    tp = 1
-    if mesh is not None:
-        if not (isinstance(mesh, MeshLayout) or hasattr(mesh, "mesh_dim_names")):
-            raise TypeError(f"mesh={type(mesh).__name__}: pass a MeshLayout or a "
-                            "mesh built by deepspeed_tpu_torch.parallel.mesh")
-        tp = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
-    if mpu is not None:
-        tp = max(tp, int(mpu.get_model_parallel_world_size()))
-    if tp > 1:
-        raise NotImplementedError(
-            f"a model-parallel degree of {tp} (mesh=/mpu=/param_specs=) is not "
-            "ported yet (ROADMAP queue 1, item 4 (tensor parallelism))")
+    if mesh is not None and not (isinstance(mesh, MeshLayout)
+                                 or hasattr(mesh, "mesh_dim_names")):
+        raise TypeError(f"mesh={type(mesh).__name__}: pass a MeshLayout or a "
+                        "mesh built by deepspeed_tpu_torch.parallel.mesh")
     cfg = config if config is not None else config_params
     engine = DeepSpeedEngine(model=model, loss_fn=loss_fn, init_fn=init_fn,
                              params=params, config=cfg, optimizer=optimizer,
                              lr_scheduler=lr_scheduler,
                              training_data=training_data, device=device,
-                             mesh=mesh, param_specs=param_specs)
+                             mesh=mesh, param_specs=param_specs, mpu=mpu)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_schedule
 
 
@@ -81,15 +85,14 @@ def init_inference(model: Any = None, config=None, device=None, **kwargs):
     come from ``params=`` or from ``model.load_params``.  ``config`` is a
     dict or :class:`~.inference.config.DeepSpeedInferenceConfig`; extra
     keyword arguments are config keys.  ``device`` defaults to CUDA.
+    ``mesh=`` (``parallel.mesh.initialize_serving_mesh``) or
+    ``tensor_parallel.tp_size`` shards the model over the mesh's 'model'
+    axis, one rank per device (auto-TP, see ``inference/engine.py``).
     """
     from .inference.config import DeepSpeedInferenceConfig
     from .inference.engine import InferenceEngine
 
-    if "mesh" in kwargs:
-        raise NotImplementedError(
-            "mesh= (multi-device inference, auto-TP) is not ported yet (ROADMAP "
-            "queue 1, item 4 (tensor parallelism))")
-    engine_kwargs = {k: kwargs.pop(k) for k in ("apply_fn", "params")
+    engine_kwargs = {k: kwargs.pop(k) for k in ("apply_fn", "params", "mesh")
                      if k in kwargs}
     if isinstance(model, str) or (model is not None
                                   and hasattr(model, "state_dict")

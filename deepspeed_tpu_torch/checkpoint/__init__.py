@@ -1,10 +1,11 @@
 """Checkpoint tooling (counterpart of ``deepspeed_tpu/checkpoint/``;
 reference ``deepspeed/checkpoint/`` and ``deepspeed/utils/zero_to_fp32.py``):
-offline fp32 consolidation, inspection and restore-compatibility checks.
-Resharding a checkpoint across tensor-parallel layouts (``reshard.py``)
-comes after ROADMAP queue 1, item 4."""
+offline fp32 consolidation (tensor- and ZeRO-sharded checkpoints alike),
+inspection, restore-compatibility checks, and offline model-parallel
+resharding into per-rank shard files (``reshard.py``)."""
 from .universal import (CHECKPOINT_VERSION, checkpoint_info,
                         inspect_checkpoint, validate_checkpoint)
+from .reshard import load_mp_shard, reshard_checkpoint
 from .zero_to_fp32 import (convert_zero_checkpoint_to_fp32_state_dict,
                            get_fp32_state_dict_from_zero_checkpoint,
                            load_fp32_state_dict,
@@ -14,4 +15,5 @@ from .zero_to_fp32 import (convert_zero_checkpoint_to_fp32_state_dict,
 __all__ = ["CHECKPOINT_VERSION", "checkpoint_info", "inspect_checkpoint",
            "validate_checkpoint", "convert_zero_checkpoint_to_fp32_state_dict",
            "get_fp32_state_dict_from_zero_checkpoint", "load_fp32_state_dict",
-           "load_state_dict_from_zero_checkpoint", "state_dict_to_params"]
+           "load_state_dict_from_zero_checkpoint", "state_dict_to_params",
+           "reshard_checkpoint", "load_mp_shard"]

@@ -14,19 +14,25 @@ The same two halves as the JAX package:
   ``barrier``, ``broadcast_object``.
 
 Every data-plane op is wrapped by :func:`timed_op`, which feeds the comms
-logger (``configure``, ``get_comms_logger``, ``log_summary``): the op kind
-and the bytes of the tensor handed in, per call.
+logger (``configure``, ``get_comms_logger``, ``log_summary``): the op kind,
+the mesh axes it ran over and the bytes of the tensor handed in, per call.
+The model-axis collectives of tensor parallelism
+(``parallel/tensor_parallel.py``) go through the same ops, so they can run
+inside autograd and inside a CUDA graph's capture (after a warm-up that
+creates the NCCL communicators); a captured call is logged once, when it
+is captured.
 """
 from __future__ import annotations
 
 import datetime
 import functools
+import inspect
 import os
 from typing import Any, Optional
 
 import torch
 
-from ..parallel.mesh import BATCH_AXES, AxisName, reset_mesh
+from ..parallel.mesh import BATCH_AXES, AxisName, canonical_axes, reset_mesh
 from ..utils.logging import log_dist
 from .backend import TorchBackend
 
@@ -72,12 +78,19 @@ def _nbytes(tensor: Any) -> int:
 
 
 def timed_op(fn):
-    """Record the op's name and message size (reference comm.py:100)."""
+    """Record the op's name, mesh axes and message size (reference
+    comm.py:100)."""
+    sig = inspect.signature(fn)
 
     @functools.wraps(fn)
     def wrapper(tensor, *args, **kwargs):
         if _comms_logger is not None:
-            _comms_logger.append(fn.__name__, _nbytes(tensor))
+            bound = sig.bind(tensor, *args, **kwargs)
+            bound.apply_defaults()
+            axis = bound.arguments.get("axis")
+            _comms_logger.append(fn.__name__, _nbytes(tensor),
+                                 axis=None if axis is None else
+                                 "/".join(canonical_axes(axis)))
         return fn(tensor, *args, **kwargs)
 
     return wrapper

@@ -11,10 +11,22 @@ runs the same steps as a Python loop under ``torch.inference_mode()``.
 ``serving()`` builds the paged continuous-batching
 :class:`~.serving.ServingEngine` over the engine's params and device.
 
+Tensor parallelism (``mesh=`` from ``parallel.mesh.initialize_serving_mesh``,
+or ``tensor_parallel.tp_size``): one process per device, each holding its
+model-axis shards.  Auto-TP for a ``models.CausalLM`` takes the model's
+``param_specs``, the Megatron layout of the same function: the JAX
+package's ``auto_tp_specs`` instead shards each weight's largest dim and
+lets GSPMD insert whatever collectives that layout needs, which torch,
+with no GSPMD, cannot do for an arbitrary tree; so a bare ``apply_fn`` or
+another model under a model axis above 1 raises ``NotImplementedError``
+(ROADMAP queue 1, item 4).  ``forward`` and ``generate`` run the model's
+tensor-parallel path (``parallel.tensor_parallel.region``): the KV cache
+holds the rank's KV heads, the logits are gathered before sampling, so
+every rank picks the same tokens.
+
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP row): the
-supervised and fleet serving engines, tensor-parallel auto-TP, weight
-quantization and the full-recompute ``generate`` fallback for models
-without a KV cache.
+supervised and fleet serving engines, weight quantization and the
+full-recompute ``generate`` fallback for models without a KV cache.
 """
 from __future__ import annotations
 
@@ -24,10 +36,82 @@ import numpy as np
 import torch
 
 from ..accelerator.real_accelerator import resolve_device
+from ..parallel import tensor_parallel
 from ..utils.logging import log_dist, logger
 from .config import DeepSpeedInferenceConfig
 from .sampling import SamplingParams, position_generator, sample_tokens
 
+
+
+def place_params(model, params, mesh, dtype=None, device=None):
+    """``params`` as this rank's model-axis shards of ``model.param_specs``
+    on ``mesh`` (the JAX package's ``place_params``): a tree already of the
+    shards' shapes passes through, a whole tree is cut (before any cast or
+    move, so the whole tree is never cast on the device).  ``mesh=None`` or
+    a model axis of 1 keeps the tree whole.  Then cast to ``dtype`` and
+    moved to ``device`` when given."""
+    if mesh is not None and params is not None:
+        from ..parallel.mesh import MeshLayout, layout_of
+        from ..utils.tree import tree_leaves
+
+        n = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
+        # the shards' shapes: the whole tree's on the meta device, cut
+        shards = model.shard_params(model.init_fn(torch.Generator(), device="meta"), 0, n)
+        if any(tuple(x.shape) != tuple(w.shape) for x, w in zip(
+                tree_leaves(params), tree_leaves(shards))):
+            from .. import comm
+
+            params = model.shard_params(params, comm.axis_index("model"), n)
+    if dtype is not None:
+        params = _cast_tree(params, dtype, device)
+    return params
+
+
+def check_mesh_model(model, mesh) -> int:
+    """The mesh's model-axis size, after checking that ``model`` can be
+    sharded over it (a ``CausalLM`` whose heads, KV heads, vocabulary and
+    FFN width it divides)."""
+    from ..parallel.mesh import MeshLayout, layout_of
+
+    n = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
+    if getattr(model, "param_specs", None) is None:
+        if n > 1:
+            raise NotImplementedError(
+                f"a model axis of {n} for a model without param_specs (a bare "
+                "apply_fn or a model other than models.CausalLM): auto-TP of "
+                "generic models (DTensor sharding propagation) is not ported "
+                "yet (ROADMAP queue 1, item 4: generic user models under TP)")
+        return n
+    from ..models.transformer import check_tp_divisible
+
+    check_tp_divisible(model.config, n)
+    return n
+
+
+def install_mesh(mesh, tp: int = 1):
+    """``mesh`` (a ``parallel.mesh.MeshLayout`` or a mesh built by
+    ``parallel.mesh``; None: the world with a model axis of ``tp``)
+    installed as the global mesh over the process group, which must exist
+    (one rank per device)."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh as mesh_mod
+
+    if mesh is not None and not (isinstance(mesh, mesh_mod.MeshLayout)
+                                 or hasattr(mesh, "mesh_dim_names")):
+        raise TypeError(f"mesh={type(mesh).__name__}: pass a mesh from "
+                        "parallel.mesh.initialize_serving_mesh or a MeshLayout")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("tensor-parallel inference (mesh=, tp_size > 1) needs a "
+                           "process group, one rank per device: call "
+                           "deepspeed_tpu_torch.comm.init_distributed() (or run "
+                           "under torchrun) first")
+    if mesh is None:
+        mesh = mesh_mod.MeshLayout.from_world(dist.get_world_size(), tp=tp)
+    if isinstance(mesh, mesh_mod.MeshLayout):
+        return mesh_mod.initialize_mesh(mesh)
+    mesh_mod.set_mesh(mesh)
+    return mesh
 
 
 def _cast_tree(tree, dtype: torch.dtype, device: torch.device):
@@ -45,17 +129,13 @@ class InferenceEngine:
     def __init__(self, model: Any = None,
                  config: Optional[DeepSpeedInferenceConfig] = None,
                  apply_fn: Optional[Callable] = None, params: Any = None,
-                 device=None):
+                 device=None, mesh=None):
         self._config = config or DeepSpeedInferenceConfig()
         if self._config.use_flash_decode:
             logger.warning("use_flash_decode is a retired knob, accepted for "
                            "config compatibility and ignored")
         tp = (self._config.tensor_parallel.tp_size
               if self._config.tensor_parallel.enabled else 1)
-        if tp != 1:
-            raise NotImplementedError(
-                "tensor-parallel inference (tp_size > 1, auto-TP) is not ported "
-                "yet (ROADMAP queue 1, item 4)")
         dtype = self._config.torch_dtype   # raises for weight quantization
         self.device = resolve_device(device)
         self._model = model if hasattr(model, "apply_cached") else None
@@ -66,10 +146,30 @@ class InferenceEngine:
             raise ValueError("InferenceEngine needs apply_fn(params, *args) "
                              "(directly or via a model adapter)")
         self.apply_fn = apply_fn
-        self.params = None if params is None else _cast_tree(params, dtype,
-                                                             self.device)
+        self.mesh = self._resolve_mesh(mesh, tp, model)
+        self.params = place_params(model, params, self.mesh, dtype, self.device)
         log_dist(f"inference engine ready: device={self.device} "
-                 f"dtype={self._config.dtype}", ranks=[0])
+                 f"dtype={self._config.dtype} tp={self.tp}", ranks=[0])
+
+    def _resolve_mesh(self, mesh, tp: int, model):
+        """The serving mesh (``mesh=``, else one built for ``tp_size`` > 1
+        over the process group), installed as the global mesh; None for one
+        device."""
+        self.tp = 1
+        if mesh is None and tp == 1:
+            return None
+        mesh = install_mesh(mesh, tp)
+        n = check_mesh_model(model, mesh)
+        if tp not in (1, n):
+            raise ValueError(f"tensor_parallel.tp_size={tp} != the mesh's model "
+                             f"axis ({n})")
+        self.tp = n
+        return mesh
+
+    def _region(self):
+        """The model's tensor-parallel path on a mesh (copies for
+        collectives at a model axis of 1), its plain path otherwise."""
+        return tensor_parallel.region(self.mesh is not None)
 
     @property
     def model(self):
@@ -90,6 +190,7 @@ class InferenceEngine:
         from .serving import ServingEngine
 
         kwargs.setdefault("device", self.device)
+        kwargs.setdefault("mesh", self.mesh)
         return ServingEngine(self._model, self.params, **kwargs)
 
     def supervised_serving(self, max_restarts: int = 5, **kwargs):
@@ -106,7 +207,7 @@ class InferenceEngine:
         return t.to(device=self.device, dtype=dtype or t.dtype)
 
     def forward(self, input_ids, *args, **kwargs):
-        with torch.inference_mode():
+        with torch.inference_mode(), self._region():
             tokens = self._tensor(input_ids, torch.long)
             if self.params is not None:
                 return self.apply_fn(self.params, tokens, *args, **kwargs)
@@ -156,7 +257,7 @@ class InferenceEngine:
                                                           attention_mask)
         T_cache = -(-(S_pad + max_new) // 128) * 128
         params = self.params if params is None else params
-        with torch.inference_mode():
+        with torch.inference_mode(), self._region():
             mask_t = self._tensor(mpad)
             cache = model.init_cache(B, T_cache, dtype=model.config.dtype,
                                      device=self.device)

@@ -24,10 +24,20 @@ port runs:
   bucket (the bucket set is the program inventory);
 - **COW** as one in-place page copy across layers.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): ``mesh=``
-(tensor-parallel serving, item 4), the host tier (item 7), per-slot
-adapters (item 7), live weight updates (item 11) and per-program
-accounting (item 12).
+On a mesh (``mesh=``, the JAX executor's layout): one process per device,
+every rank running this executor and the same scheduler.  The params are
+the rank's model-axis shards (:func:`place_params`), the KV pool is
+``[L, P, page, Hkv/tp, hd]`` (the rank's KV heads; ``kv_heads % tp`` is
+checked first), pages and the host arrays are the same on every rank.
+The model runs its tensor-parallel path (``parallel.tensor_parallel``):
+each layer's two all-reduces and the logits' all-gather run inside the
+decode step, so they are captured in its one CUDA graph (the eager
+warm-up runs on the capture stream create the NCCL communicators first),
+and every rank samples the same token from the same gathered logits.
+
+Not ported (``NotImplementedError`` naming the ROADMAP item): the host
+tier (item 7), per-slot adapters (item 7), live weight updates (item 11)
+and per-program accounting (item 12).
 """
 from __future__ import annotations
 
@@ -37,19 +47,22 @@ import numpy as np
 import torch
 
 from ..accelerator import resolve_device
+from ..parallel import tensor_parallel
 from ..models.transformer import cow_copy_pool, paged_pool_cache, paged_pool_tuple
 from ..ops.kernels.decode_attention import decode_attention
+from .engine import check_mesh_model, install_mesh, place_params
 from .sampling import position_generator, sample_tokens
 
-__all__ = ["MeshExecutor", "pool_bytes"]
+__all__ = ["MeshExecutor", "pool_bytes", "place_params"]
 
 _GRAPH_WARMUP = 2   # eager runs on the capture stream before capture
 
 
-def pool_bytes(*pools) -> Dict[str, int]:
-    """Total and per-device bytes of the pool tensors (one device: equal)."""
-    total = sum(a.numel() * a.element_size() for a in pools)
-    return {"total": total, "per_device": total}
+def pool_bytes(*pools, tp: int = 1) -> Dict[str, int]:
+    """Total and per-device bytes of the pool tensors: this rank holds
+    ``1/tp`` of the heads, so the pool over the mesh is ``tp`` times its."""
+    per = sum(a.numel() * a.element_size() for a in pools)
+    return {"total": per * tp, "per_device": per}
 
 
 class MeshExecutor:
@@ -59,25 +72,29 @@ class MeshExecutor:
                  b_slots: int, pages_per_slot: int, dtype=None, kv_dtype=None,
                  mesh=None, prefix_cache: bool = True, host_tier: bool = False,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (tensor-parallel serving over several devices) is not "
-                "ported yet (ROADMAP queue 1, item 4)")
+        self.mesh, self.tp, self.ranks = self._install_mesh(model, mesh), 1, 1
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            self.tp = check_mesh_model(model, self.mesh)
+            self.ranks = dist.get_world_size()
         if host_tier:
             raise NotImplementedError(
                 "the host-RAM KV tier (host_tier_pages) is not ported yet "
                 "(ROADMAP queue 1, item 7)")
         self.model = model
-        self.params = params
+        # the rank's model-axis shards (a whole tree is cut here)
+        self.params = place_params(model, params, self.mesh)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.b_slots = int(b_slots)
         self.device = resolve_device(device)
-        cache = model.init_paged_cache(self.num_pages, self.page_size,
-                                       dtype=dtype, kv_dtype=kv_dtype,
-                                       device=self.device)
+        with self._region():
+            cache = model.init_paged_cache(self.num_pages, self.page_size,
+                                           dtype=dtype, kv_dtype=kv_dtype,
+                                           device=self.device)
         self.pools = paged_pool_tuple(cache)
-        self.pool_bytes = pool_bytes(*self.pools)
+        self.pool_bytes = pool_bytes(*self.pools, tp=self.tp)
         self._prefill_buckets: Dict[int, int] = {}   # bucket -> calls
         self._cow_prog = cow_copy_pool if prefix_cache else None
         self._lanes_device = None
@@ -85,9 +102,57 @@ class MeshExecutor:
         self.captures = 0
         self.replays = 0
         self.graph_k4_launches = 0   # K4 launches recorded in the graph
+        # collectives recorded in the graph, {op: {axes: calls}} (read from
+        # the comms logger during the capture; {} without one)
+        self.graph_collectives: Dict[str, Dict[str, int]] = {}
         self._graph = None
         if self.device.type == "cuda":
             self._capture_decode(int(pages_per_slot))
+
+    @staticmethod
+    def _install_mesh(model, mesh):
+        """``mesh`` (a ``MeshLayout`` or a mesh from ``parallel.mesh``)
+        checked against the model's KV heads, then installed as the global
+        mesh; None without one."""
+        if mesh is None:
+            return None
+        from ..parallel import mesh as mesh_mod
+
+        layout = (mesh if isinstance(mesh, mesh_mod.MeshLayout)
+                  else mesh_mod.layout_of(mesh) if hasattr(mesh, "mesh_dim_names")
+                  else None)
+        if layout is None:
+            raise TypeError(f"mesh={type(mesh).__name__}: pass a mesh from "
+                            "parallel.mesh.initialize_serving_mesh or a MeshLayout")
+        kv = model.config.kv_heads
+        if layout.tp > 1 and kv % layout.tp:
+            raise ValueError(
+                f"kv_heads={kv} not divisible by the mesh's model axis "
+                f"({layout.tp}): the paged KV pool shards its head dim over "
+                "'model' — pick tp dividing kv_heads or replicate with tp=1")
+        check_mesh_model(model, layout)
+        return install_mesh(mesh)
+
+    def _region(self):
+        return tensor_parallel.region(self.mesh is not None)
+
+    def mesh_info(self) -> Dict[str, Any]:
+        """Static mesh facts for health(): device count and the non-trivial
+        axis sizes (``{}`` / 1 device without a mesh)."""
+        if self.mesh is None:
+            return {"mesh_devices": 1, "mesh_axes": {}}
+        return {"mesh_devices": int(self.mesh.size()),
+                "mesh_axes": {a: int(n) for a, n in zip(self.mesh.mesh_dim_names,
+                                                        self.mesh.shape) if n > 1}}
+
+    def agree(self, value):
+        """Rank 0's ``value`` on every rank (the scheduler's clock: every
+        host decision must match across the ranks of the mesh)."""
+        if self.ranks == 1:
+            return value
+        from .. import comm
+
+        return comm.broadcast_object(value)
 
     # ------------------------------------------------------------ decode
 
@@ -95,9 +160,10 @@ class MeshExecutor:
         """Every slot's next-token logits [B, 1, V]: write each slot's last
         token at position ``lengths`` (inactive slots write to the trash
         page) and attend through the page table."""
-        logits, _ = self.model.apply_paged(
-            self.params, last_tok[:, None], paged_pool_cache(self.pools),
-            page_table, lengths, active[:, None])
+        with self._region():
+            logits, _ = self.model.apply_paged(
+                self.params, last_tok[:, None], paged_pool_cache(self.pools),
+                page_table, lengths, active[:, None])
         return logits
 
     def _capture_decode(self, maxp: int) -> None:
@@ -117,10 +183,21 @@ class MeshExecutor:
                 self._decode_forward(*args)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        from ..comm import get_comms_logger
+
+        log = get_comms_logger()
+        logged = log.totals_by_axis() if log is not None else {}
         before = decode_attention.launches
-        with torch.no_grad(), torch.cuda.graph(graph):
+        # captured on the warm-up stream: the model axis's NCCL collectives
+        # were first issued there
+        with torch.no_grad(), torch.cuda.graph(graph, stream=side):
             self._g_logits = self._decode_forward(*args)
         self.graph_k4_launches = decode_attention.launches - before
+        if log is not None:
+            self.graph_collectives = {
+                op: {axes: rec["calls"] - logged.get(op, {}).get(axes, {}).get("calls", 0)
+                     for axes, rec in by_axes.items()}
+                for op, by_axes in log.totals_by_axis().items()}
         self._graph = graph
         self.captures += 1
 
@@ -168,7 +245,7 @@ class MeshExecutor:
         which sits at stream position ``start + n_real``."""
         self._prefill_buckets[s_pad] = self._prefill_buckets.get(s_pad, 0) + 1
         dev = self.device
-        with torch.no_grad():
+        with torch.no_grad(), self._region():
             seq_mask = (torch.arange(s_pad, device=dev) < n_real)[None, :]
             logits, _ = self.model.apply_paged(
                 self.params, torch.from_numpy(tokens).to(dev).long(),
@@ -206,6 +283,16 @@ class MeshExecutor:
 
     def invalidate_lanes(self) -> None:
         self._lanes_device = None
+
+    def close(self) -> None:
+        """Release the decode graph and the pool.  On a mesh of several
+        ranks, call it before ``comm.destroy_process_group()``: a live graph
+        holding NCCL collectives keeps the group's teardown waiting (seen on
+        4 H100s, NCCL 2.28.9)."""
+        if self._graph is not None:
+            torch.cuda.synchronize(self.device)
+        self._graph = self._g_logits = None
+        self.pools = ()
 
     def program_inventory(self) -> Dict[str, Any]:
         inv = {"decode": 1, "prefill_buckets": sorted(self._prefill_buckets)}

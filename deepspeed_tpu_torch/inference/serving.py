@@ -25,12 +25,23 @@ with counter-based generators (``sampling.position_generator``), so a
 served stream equals ``InferenceEngine.generate(sampling=...)`` on the same
 logits.
 
+Tensor-parallel serving (``mesh=``, from
+``parallel.mesh.initialize_serving_mesh``): one process per device, each
+running this engine on the same request stream; the executor holds the
+rank's model-axis shards and KV heads.  Every host decision must then
+agree across the ranks, or a collective of the decode step waits forever:
+admission, page accounting, sampling (the same gathered logits and lane
+seeds) and shedding follow from the shared stream, and the one wall-clock
+input, the scheduler's ``now`` (arrivals, deadlines), is rank 0's,
+broadcast on each tick that reads it (or the caller's ``step(now=)``,
+which every rank passes alike).
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
 ROADMAP item (queue 1): the host-RAM KV tier, speculative decoding,
 per-request adapters, int8 pages and the serving supervisor's probe (item
-7); ``mesh=`` (item 4); live weight updates (item 11); the monitor,
-watchdog, SLO rules, per-program statistics and fault-injection sites
-(item 12).  Trace ids stay None.
+7); live weight updates (item 11); the monitor, watchdog, SLO rules,
+per-program statistics and fault-injection sites (item 12).  Trace ids
+stay None.
 """
 from __future__ import annotations
 
@@ -188,7 +199,7 @@ class ServingEngine:
             raise ValueError(
                 "ServingEngine needs a model with the paged decode contract "
                 "(init_paged_cache/apply_paged); see models.CausalLM")
-        self.model, self.params = model, params
+        self.model = model
         self.b_slots = int(b_slots)
         self.page_size = int(page_size)
         self.max_model_len = int(max_model_len or model.config.max_seq_len)
@@ -217,6 +228,7 @@ class ServingEngine:
                                   self.pages_per_slot, dtype=dtype,
                                   kv_dtype=kv_dtype, mesh=mesh,
                                   prefix_cache=prefix_cache, device=device)
+        self.params = self._exec.params   # the rank's shards on a mesh
         self._free_pages: List[int] = list(range(self.num_pages - 1, 0, -1))
         # per-page refcounts (page 0, the trash page, is never counted)
         self._refcount = np.zeros((self.num_pages,), np.int64)
@@ -274,6 +286,12 @@ class ServingEngine:
         inv = self._exec.program_inventory()
         inv["captures"] = self._exec.captures
         return inv
+
+    def close(self) -> None:
+        """Release the device half (the decode graph, the pool); the
+        engine serves no more.  On a mesh of several ranks every rank calls
+        it before ``comm.destroy_process_group()``."""
+        self._exec.close()
 
     def update_params(self, params, draft_params=None, epoch=None):
         raise _refused("update_params", 11, "live weight updates (weight epochs)")
@@ -707,14 +725,24 @@ class ServingEngine:
 
     # ------------------------------------------------------------ the loop
 
+    def _reads_clock(self) -> bool:
+        """Whether this tick's decisions read ``now``: a request waits for
+        its arrival time or carries a deadline (the same answer on every
+        rank, whose scheduler states are equal)."""
+        return bool(self._pending) or self._waiting_deadlines > 0 or any(
+            self._slots[s].request.deadline_s is not None
+            for s in np.flatnonzero(self._active))
+
     def step(self, now: Optional[float] = None) -> int:
         """One scheduler tick: expire dead deadlines, admit into free
         slots, ONE decode step over all slots, then refill the slots that
         step retired.  Returns the number of requests still in flight or
-        queued."""
+        queued.  On a mesh of several ranks the clock is rank 0's."""
         self._tick += 1
         if now is None:
             now = time.monotonic() - self._t0
+            if self._exec.ranks > 1 and self._reads_clock():
+                now = self._exec.agree(now)
         self._expire(now)
         if not self._draining:
             self._admit(now)
@@ -798,9 +826,11 @@ class ServingEngine:
         now = time.monotonic()
         acct = self.page_accounting()
         pb = self._exec.pool_bytes
+        info = self._exec.mesh_info()
         return {
             "tick": self._tick,
-            "mesh_devices": 1,
+            "mesh_devices": info["mesh_devices"],
+            "mesh_axes": info["mesh_axes"],
             "kv_pool_bytes_total": pb["total"],
             "kv_pool_bytes_per_device": pb["per_device"],
             "kv_dtype": None,

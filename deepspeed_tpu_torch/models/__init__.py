@@ -8,7 +8,11 @@ the training engine's model contract, ``init_cache``/``apply_cached`` drive
 KV-cached decoding and ``init_paged_cache``/``apply_paged`` the paged
 serving engine.
 ``load_params`` attaches a tree so that ``model(tokens)`` works as a module
-call and ``init_inference(model)`` finds the weights.
+call and ``init_inference(model)`` finds the weights.  ``param_specs`` is
+the Megatron layout of the tree over the mesh's 'model' axis; inside
+``parallel.tensor_parallel.region()`` (or with a global layout whose model
+axis is above 1) every contract above runs on this rank's shards, the
+loss vocab-parallel and the logits gathered.
 """
 from __future__ import annotations
 
@@ -17,15 +21,18 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel import tensor_parallel
 from ..utils.tree import tree_leaves, tree_map_with_path
 from .transformer import (CONFIGS, PAGE_SIZE, TransformerConfig,
                           cross_entropy_loss, cross_entropy_terms, forward, forward_cached,
                           forward_paged, get_config, init_cache,
-                          init_paged_cache, init_params)
+                          init_paged_cache, init_params, param_specs,
+                          shard_params)
 
 __all__ = ["CausalLM", "TransformerConfig", "CONFIGS", "get_config", "forward",
            "forward_cached", "forward_paged", "init_cache", "init_paged_cache",
-           "init_params", "cross_entropy_loss", "cross_entropy_terms"]
+           "init_params", "param_specs", "shard_params", "cross_entropy_loss",
+           "cross_entropy_terms"]
 
 
 class CausalLM(nn.Module):
@@ -38,9 +45,21 @@ class CausalLM(nn.Module):
         self.params: Optional[Dict[str, Any]] = None
 
     def init_fn(self, generator: Optional[torch.Generator] = None, device=None,
-                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-        """Random weights drawn from ``generator`` on ``device``."""
-        return init_params(self.config, generator, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, tp=None) -> Dict[str, Any]:
+        """Random weights drawn from ``generator`` on ``device``;
+        ``tp=(index, n)``: model-axis shard ``index`` of ``n`` of the
+        layer-streamed init (``transformer.init_params``)."""
+        return init_params(self.config, generator, device=device, dtype=dtype, tp=tp)
+
+    @property
+    def param_specs(self) -> Dict[str, Any]:
+        """The tensor-parallel layout (PartitionSpec-like tuples over the
+        'model' axis), the JAX model's ``param_specs``."""
+        return param_specs(self.config)
+
+    def shard_params(self, params: Dict[str, Any], index: int, n: int):
+        """Model-axis shard ``index`` of ``n`` of a full tree."""
+        return shard_params(self.config, params, index, n)
 
     def frozen_spec(self) -> Optional[Dict[str, Any]]:
         """The engine's frozen-parameter contract (``requires_grad=False``
@@ -75,10 +94,12 @@ class CausalLM(nn.Module):
         return self
 
     def apply_fn(self, params, tokens, positions=None, rng=None,
-                 deterministic=True, return_aux=False, pld_theta=None):
+                 deterministic=True, return_aux=False, pld_theta=None,
+                 gather_logits=True):
         return forward(self.config, params, tokens, positions=positions, rng=rng,
                        attn_impl=self.attn_impl, deterministic=deterministic,
-                       return_aux=return_aux, pld_theta=pld_theta)
+                       return_aux=return_aux, pld_theta=pld_theta,
+                       gather_logits=gather_logits)
 
     def _split(self, batch):
         """(tokens, labels, positions, pld_theta) of a batch: a dict with
@@ -105,9 +126,13 @@ class CausalLM(nn.Module):
         gradient are the global batch's mean whatever each rank's share of
         ignored labels."""
         tokens, labels, positions, pld_theta = self._split(batch)
+        sharded = tensor_parallel.active()
         logits = self.apply_fn(params, tokens, positions=positions, rng=rng,
                                deterministic=deterministic,
-                               pld_theta=None if deterministic else pld_theta)
+                               pld_theta=None if deterministic else pld_theta,
+                               gather_logits=not sharded)
+        if sharded:
+            return tensor_parallel.vocab_parallel_cross_entropy_terms(logits, labels)
         return cross_entropy_terms(logits, labels)
 
     def _loss(self, params, batch, rng, deterministic):

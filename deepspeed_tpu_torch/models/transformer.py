@@ -21,6 +21,16 @@ adapters of the paged path.
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
+
+Tensor parallelism (Megatron, the JAX package's ``param_specs``): inside
+``parallel.tensor_parallel.region()`` each rank holds its model-axis
+shards (``shard_params``, or ``init_params(..., tp=(rank, n))``) and the
+same code runs on them: head counts come from the weights' shapes, so
+attention (K1-K4 included) sees the rank's local heads; the column-parallel
+products read their input through ``copy_to_model``, the row-parallel ones
+sum through ``reduce_from_model``, the embedding and the head are
+vocab-parallel, and the logits are gathered where a caller reads them
+whole (``forward``'s default, the cached and paged paths).
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -39,6 +50,7 @@ from ..accelerator import resolve_device
 from ..ops.kernels.common import NEG_INF
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
+from ..parallel import tensor_parallel as _tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,87 +242,200 @@ def _check_supported(cfg: TransformerConfig) -> None:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Megatron-style tensor-parallel specs over the 'model' axis, entry for
+    entry the JAX package's (``deepspeed_tpu/models/transformer.py``
+    ``param_specs``), as PartitionSpec-like tuples: columns for wq/wk/wv,
+    w_gate/w_up/w_in and their biases, rows for wo/w_down, a vocab-parallel
+    ``embed`` and ``lm_head``, norms and the other biases replicated.  The
+    ZeRO planner composes ('data', 'expert') onto them."""
+    _check_supported(cfg)
+    col, row, rep = (None, None, "model"), (None, "model", None), (None, None)
+    layers: Dict[str, Any] = {"attn_norm_scale": rep, "wq": col, "wk": col,
+                              "wv": col, "wo": row}
+    if not cfg.shared_layernorm:
+        layers["mlp_norm_scale"] = rep
+    if cfg.norm == "layernorm":
+        layers["attn_norm_bias"] = rep
+        if not cfg.shared_layernorm:
+            layers["mlp_norm_bias"] = rep
+    if cfg.activation == "swiglu":
+        layers.update(w_gate=col, w_up=col, w_down=row)
+    else:
+        layers.update(w_in=col, w_down=row)
+    if cfg.attn_bias:
+        layers.update(bq=(None, "model"), bk=(None, "model"), bv=(None, "model"),
+                      bo=(None, None))
+    if cfg.mlp_bias:
+        if cfg.activation == "swiglu":
+            layers.update(b_gate=(None, "model"), b_up=(None, "model"))
+        else:
+            layers["b_in"] = (None, "model")
+        layers["b_down"] = (None, None)
+    specs: Dict[str, Any] = {"embed": ("model", None), "layers": layers}
+    if cfg.final_norm:
+        specs["final_norm_scale"] = ()
+        if cfg.norm == "layernorm":
+            specs["final_norm_bias"] = ()
+    if cfg.position == "learned":
+        specs["pos_embed"] = (None, None)
+    if cfg.embed_layernorm:
+        specs["embed_norm_scale"] = ()
+        if cfg.norm == "layernorm":
+            specs["embed_norm_bias"] = ()
+    if cfg.type_vocab_size:
+        specs["type_embed"] = (None, None)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+        if cfg.lm_head_bias:
+            specs["lm_head_bias"] = ("model",)
+    return specs
+
+
+def check_tp_divisible(cfg: TransformerConfig, n: int) -> None:
+    """Raise ``ValueError`` naming the first dimension a model axis of ``n``
+    does not divide (uneven shards are not ported: ROADMAP queue 1, item 4)."""
+    if n <= 1:
+        return
+    ffn = cfg.intermediate_size
+    for name, extent in (("num_heads", cfg.num_heads), ("kv_heads", cfg.kv_heads),
+                         ("vocab_size", cfg.vocab_size), ("intermediate_size", ffn)):
+        if extent % n:
+            raise ValueError(
+                f"{name}={extent} is not divisible by the model axis ({n}): "
+                "tensor parallelism shards it evenly (uneven shards are not "
+                "ported yet, ROADMAP queue 1, item 4)")
+
+
+def shard_params(cfg: TransformerConfig, params: Dict[str, Any], index: int,
+                 n: int) -> Dict[str, Any]:
+    """Model-axis shard ``index`` of ``n`` of a full parameter tree (the
+    contiguous chunk of each leaf's ``param_specs`` dim)."""
+    check_tp_divisible(cfg, n)
+    return _tp.slice_tree(params, param_specs(cfg), index, n)
+
+
+def _leaf_seed(base: int, name: str, layer: int) -> int:
+    # one stream per (leaf, layer), independent of which other leaves exist
+    return (base + zlib.crc32(name.encode()) * 0x9E3779B97F4A7C15
+            + layer * 0xBF58476D1CE4E5B9) % 2 ** 63
+
+
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
-                device=None, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                device=None, dtype: torch.dtype = torch.float32,
+                tp: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Random parameters with the JAX package's keys, shapes and scales
     (normal * initializer_range; residual projections / sqrt(2L); norms 1,
     biases 0).  Each leaf is drawn in fp32 from ``generator`` and cast to
-    ``dtype`` at once, so peak memory is the tree in ``dtype`` plus one fp32
-    leaf.  The values differ from ``jax.random``'s: load a JAX tree through
-    ``models/convert.py`` to compare the two packages.  The device is
-    ``device``, else the generator's, else the accelerator's (CUDA; raises
-    without a card)."""
+    ``dtype`` at once, so peak memory is the tree in ``dtype`` plus one
+    fp32 leaf.
+
+    ``tp=(index, n)`` draws model-axis shard ``index`` of ``n`` of the
+    layer-streamed init instead: ``generator`` gives one base seed, and
+    each layer of each leaf is drawn whole from its own stream, seeded from
+    it, the leaf's name and the layer, then cut to the shard, so no device
+    holds a full stacked leaf (llama2-70b's ``w_gate`` is 80 x 8192 x
+    28672).  ``tp=(0, 1)`` is that init whole, and every shard equals
+    :func:`shard_params` of it.  The values differ from ``jax.random``'s:
+    load a JAX tree through ``models/convert.py`` to compare the two
+    packages.  The device is ``device``, else the generator's, else the
+    accelerator's (CUDA; raises without a card)."""
     _check_supported(cfg)
     d, f = cfg.hidden_size, cfg.intermediate_size
     hd, nh, nkv, L = cfg.dims_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
     std = cfg.initializer_range
+    streamed = tp is not None
+    index, n = tp if streamed else (0, 1)
+    check_tp_divisible(cfg, n)
+    specs = param_specs(cfg)
     device = resolve_device(device if device is not None or generator is None
                             else generator.device)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
+    base = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                              device=generator.device)) if streamed else 0)
 
-    def dense(*shape, scale=std):
-        x = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return x.mul_(scale).to(dtype)
+    def local(shape, spec):
+        return _tp.local_shape(shape, spec, n)
 
-    def ones(*shape):
-        return torch.ones(shape, device=device, dtype=dtype)
+    def dense(name, shape, spec, scale=std, stacked=False):
+        if not streamed:
+            x = torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32)
+            return x.mul_(scale).to(dtype)
+        dim = _tp.spec_dim(spec)
+        out = []
+        for layer in range(shape[0] if stacked else 1):
+            g = torch.Generator(device=device)
+            g.manual_seed(_leaf_seed(base, name, layer))
+            x = torch.randn(shape[1:] if stacked else shape, generator=g,
+                            device=device, dtype=torch.float32)
+            if dim is not None and n > 1:
+                x = x.chunk(n, dim - stacked)[index]
+            out.append(x.mul_(scale).to(dtype))
+        return torch.stack(out) if stacked else out[0]
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device, dtype=dtype)
+    def stacked(name, *shape, scale=std):
+        return dense(name, (L,) + shape, specs["layers"][name], scale, stacked=True)
+
+    def const(fill, shape, spec):
+        return torch.full(local(shape, spec), fill, device=device, dtype=dtype)
+
+    def lconst(fill, name, *shape):
+        return const(fill, (L,) + shape, specs["layers"][name])
 
     resid = std / math.sqrt(2 * L)
     layers: Dict[str, Any] = {
-        "attn_norm_scale": ones(L, d),
-        "wq": dense(L, d, nh * hd),
-        "wk": dense(L, d, nkv * hd),
-        "wv": dense(L, d, nkv * hd),
-        "wo": dense(L, nh * hd, d, scale=resid),
+        "attn_norm_scale": lconst(1.0, "attn_norm_scale", d),
+        "wq": stacked("wq", d, nh * hd),
+        "wk": stacked("wk", d, nkv * hd),
+        "wv": stacked("wv", d, nkv * hd),
+        "wo": stacked("wo", nh * hd, d, scale=resid),
     }
     if not cfg.shared_layernorm:
-        layers["mlp_norm_scale"] = ones(L, d)
+        layers["mlp_norm_scale"] = lconst(1.0, "mlp_norm_scale", d)
     if cfg.norm == "layernorm":
-        layers["attn_norm_bias"] = zeros(L, d)
+        layers["attn_norm_bias"] = lconst(0.0, "attn_norm_bias", d)
         if not cfg.shared_layernorm:
-            layers["mlp_norm_bias"] = zeros(L, d)
+            layers["mlp_norm_bias"] = lconst(0.0, "mlp_norm_bias", d)
     if cfg.activation == "swiglu":
-        layers["w_gate"] = dense(L, d, f)
-        layers["w_up"] = dense(L, d, f)
+        layers["w_gate"] = stacked("w_gate", d, f)
+        layers["w_up"] = stacked("w_up", d, f)
     else:
-        layers["w_in"] = dense(L, d, f)
-    layers["w_down"] = dense(L, f, d, scale=resid)
+        layers["w_in"] = stacked("w_in", d, f)
+    layers["w_down"] = stacked("w_down", f, d, scale=resid)
     if cfg.attn_bias:
-        layers["bq"] = zeros(L, nh * hd)
-        layers["bk"] = zeros(L, nkv * hd)
-        layers["bv"] = zeros(L, nkv * hd)
-        layers["bo"] = zeros(L, d)
+        layers["bq"] = lconst(0.0, "bq", nh * hd)
+        layers["bk"] = lconst(0.0, "bk", nkv * hd)
+        layers["bv"] = lconst(0.0, "bv", nkv * hd)
+        layers["bo"] = lconst(0.0, "bo", d)
     if cfg.mlp_bias:
         if cfg.activation == "swiglu":
-            layers["b_gate"] = zeros(L, f)
-            layers["b_up"] = zeros(L, f)
+            layers["b_gate"] = lconst(0.0, "b_gate", f)
+            layers["b_up"] = lconst(0.0, "b_up", f)
         else:
-            layers["b_in"] = zeros(L, f)
-        layers["b_down"] = zeros(L, d)
+            layers["b_in"] = lconst(0.0, "b_in", f)
+        layers["b_down"] = lconst(0.0, "b_down", d)
 
-    params: Dict[str, Any] = {"embed": dense(cfg.vocab_size, d), "layers": layers}
+    params: Dict[str, Any] = {"embed": dense("embed", (cfg.vocab_size, d), specs["embed"]),
+                              "layers": layers}
     if cfg.final_norm:
-        params["final_norm_scale"] = ones(d)
+        params["final_norm_scale"] = const(1.0, (d,), ())
         if cfg.norm == "layernorm":
-            params["final_norm_bias"] = zeros(d)
+            params["final_norm_bias"] = const(0.0, (d,), ())
     if cfg.position == "learned":
-        params["pos_embed"] = dense(cfg.max_seq_len, d)
+        params["pos_embed"] = dense("pos_embed", (cfg.max_seq_len, d), (None, None))
     if cfg.embed_layernorm:
-        params["embed_norm_scale"] = ones(d)
+        params["embed_norm_scale"] = const(1.0, (d,), ())
         if cfg.norm == "layernorm":
-            params["embed_norm_bias"] = zeros(d)
+            params["embed_norm_bias"] = const(0.0, (d,), ())
     if cfg.type_vocab_size:
-        params["type_embed"] = dense(cfg.type_vocab_size, d)
+        params["type_embed"] = dense("type_embed", (cfg.type_vocab_size, d), (None, None))
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(d, cfg.vocab_size)
+        params["lm_head"] = dense("lm_head", (d, cfg.vocab_size), specs["lm_head"])
         if cfg.lm_head_bias:
-            params["lm_head_bias"] = zeros(cfg.vocab_size)
+            params["lm_head_bias"] = const(0.0, (cfg.vocab_size,), ("model",))
     return params
 
 
@@ -373,8 +498,18 @@ def _alibi_slopes(num_heads: int) -> np.ndarray:
     return np.asarray(slopes, dtype=np.float32)
 
 
+def _head_slopes(cfg, num_heads: int, device) -> torch.Tensor:
+    """The ALiBi slopes of this rank's ``num_heads`` heads: all of the
+    config's, or under tensor parallelism this rank's contiguous slice."""
+    slopes = _alibi_slopes(cfg.num_heads)
+    if num_heads != cfg.num_heads:
+        i = _tp.rank()
+        slopes = slopes[i * num_heads:(i + 1) * num_heads]
+    return torch.from_numpy(np.ascontiguousarray(slopes)).to(device)
+
+
 def _alibi_bias(cfg, positions, num_heads, S, dtype):
-    slopes = torch.from_numpy(_alibi_slopes(num_heads)).to(positions.device)
+    slopes = _head_slopes(cfg, num_heads, positions.device)
     rel = (positions[:, None, :] - positions[:, :, None]).float()   # [B,q,k]
     return (-rel.abs()[:, None, :, :] * slopes[None, :, None, None]).to(dtype)
 
@@ -429,6 +564,7 @@ def _mlp_in(cfg: TransformerConfig, lp: Dict[str, Any], h) -> tuple:
     ``mlp_up``."""
     if "router" in lp:
         raise NotImplementedError(_MOE_ROW)
+    h = _tp.copy_to_model(h)
     if cfg.activation == "swiglu":
         return _mm(h, lp["w_gate"]), _mm(h, lp["w_up"])
     return (_mm(h, lp["w_in"]),)
@@ -436,7 +572,8 @@ def _mlp_in(cfg: TransformerConfig, lp: Dict[str, Any], h) -> tuple:
 
 def _mlp_out(cfg: TransformerConfig, lp: Dict[str, Any], acts: tuple):
     """The rest of the dense MLP from :func:`_mlp_in`'s outputs: biases,
-    activation, down projection."""
+    activation, down projection (summed over the model axis, then its
+    bias)."""
     if cfg.activation == "swiglu":
         g, u = acts
         if cfg.mlp_bias:
@@ -455,6 +592,7 @@ def _mlp_out(cfg: TransformerConfig, lp: Dict[str, Any], acts: tuple):
         else:                                  # jax.nn.gelu default: tanh form
             m = F.gelu(m, approximate="tanh")
         m = _mm(m, lp["w_down"])
+    m = _tp.reduce_from_model(m)
     if cfg.mlp_bias:
         m = m + lp["b_down"]
     return m
@@ -466,16 +604,19 @@ def _mlp(cfg: TransformerConfig, lp: Dict[str, Any], h):
 
 
 def _qkv(cfg, lp, h, B, S):
-    hd, nh, nkv = cfg.dims_per_head, cfg.num_heads, cfg.kv_heads
+    """q [B,S,Hq,hd], k and v [B,S,Hkv,hd]: the head counts are the
+    weights' (a rank's local heads under tensor parallelism)."""
+    hd = cfg.dims_per_head
+    h = _tp.copy_to_model(h)
     q, k, v = _mm(h, lp["wq"]), _mm(h, lp["wk"]), _mm(h, lp["wv"])
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    return (q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd),
-            v.reshape(B, S, nkv, hd))
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
 
 
 def _out_proj(cfg, lp, attn, B, S):
-    attn = _mm(attn.reshape(B, S, cfg.num_heads * cfg.dims_per_head), lp["wo"])
+    attn = _tp.reduce_from_model(_mm(attn.reshape(B, S, -1), lp["wo"]))
     return attn + lp["bo"] if cfg.attn_bias else attn
 
 
@@ -738,7 +879,7 @@ def _layers(params: Dict[str, Any]):
 
 
 def _embed(cfg, params, tokens, positions, token_type_ids=None):
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _tp.vocab_parallel_embed(params["embed"], tokens).to(cfg.dtype)
     if cfg.position == "learned":
         x = x + params["pos_embed"][positions].to(cfg.dtype)
     if "type_embed" in params:   # BERT segment embeddings
@@ -752,6 +893,9 @@ def _embed(cfg, params, tokens, positions, token_type_ids=None):
 
 
 def _head(cfg, params, x):
+    """The logits: this rank's vocabulary columns under tensor
+    parallelism (:func:`_tp.gather_from_model` makes them whole)."""
+    x = _tp.copy_to_model(x)
     if cfg.tie_embeddings:
         return _mm(x, params["embed"].to(cfg.dtype).T)
     logits = _mm(x, params["lm_head"].to(cfg.dtype))
@@ -765,8 +909,12 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
             rng: Optional[torch.Generator] = None,
             attn_impl: str = "xla", deterministic: bool = True,
             seq_sharded: bool = True, return_aux: bool = False,
-            pld_theta=None, token_type_ids: Optional[torch.Tensor] = None):
+            pld_theta=None, token_type_ids: Optional[torch.Tensor] = None,
+            gather_logits: bool = True):
     """tokens [B, S] -> logits [B, S, V] (+ aux dict if return_aux).
+    Under tensor parallelism ``gather_logits=False`` returns this rank's
+    vocabulary columns ``[B, S, V/tp]`` (the vocab-parallel loss reads
+    them).
 
     ``deterministic=False`` turns on dropout (``cfg.dropout``) drawn from
     ``rng``, a ``torch.Generator`` (seed 0 on the tokens' device when None):
@@ -805,6 +953,8 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
     if cfg.final_norm:
         x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     logits = _head(cfg, params, x)
+    if gather_logits:
+        logits = _tp.gather_from_model(logits)
     if return_aux:
         return logits, {"moe_aux_loss": torch.zeros((), device=logits.device)}
     return logits
@@ -822,11 +972,11 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
                dtype=None, device=None) -> Dict[str, Any]:
     """A static-shape KV cache for ``batch_size`` rows of up to ``max_len``
     total tokens (prompt + generated), on ``device`` (default: the
-    accelerator's)."""
+    accelerator's); this rank's KV heads under tensor parallelism."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     L, B, T = cfg.num_layers, batch_size, max_len
-    kv = (L, B, T, cfg.kv_heads, cfg.dims_per_head)
+    kv = (L, B, T, cfg.kv_heads // _tp.size(), cfg.dims_per_head)
     return {
         "k": torch.zeros(kv, dtype=dtype, device=device),
         "v": torch.zeros(kv, dtype=dtype, device=device),
@@ -848,7 +998,7 @@ def _attention_cached(cfg, q, ck, cv, q_pos, q_slot, valid, kpos, window=None):
     scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float()
     scores = scores * _sm_scale(cfg, hd)
     if cfg.position == "alibi":
-        slopes = torch.from_numpy(_alibi_slopes(Hq)).to(q.device).reshape(Hkv, G)
+        slopes = _head_slopes(cfg, Hq, q.device).reshape(Hkv, G)
         rel = (q_pos[:, :, None] - kpos[:, None, :]).float()            # [B,S,T]
         scores = scores - (rel.abs()[:, None, None, :, :]
                            * slopes[None, :, :, None, None])
@@ -917,7 +1067,7 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
                           None if windows is None else windows[i])
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     cache["next_slot"] = ns + S
-    return _head(cfg, params, x), cache
+    return _tp.gather_from_model(_head(cfg, params, x)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -966,7 +1116,8 @@ def init_paged_cache(cfg: TransformerConfig, num_pages: int,
                      page_size: int = PAGE_SIZE, dtype=None, kv_dtype=None,
                      device=None) -> Dict[str, Any]:
     """Allocate the physical page pool: ``k``/``v`` are ``[L, num_pages,
-    page_size, Hkv, hd]`` zeros on ``device`` (default: the accelerator's).
+    page_size, Hkv, hd]`` zeros on ``device`` (default: the accelerator's),
+    ``Hkv/tp`` heads under tensor parallelism.
     Page 0 is reserved as the trash page; the serving engine hands out
     pages 1..num_pages-1.  Full pages are immutable once written (a slot
     only writes at its own advancing position), which is what lets several
@@ -975,7 +1126,8 @@ def init_paged_cache(cfg: TransformerConfig, num_pages: int,
     _check_kv_dtype(kv_dtype)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    kv = (cfg.num_layers, num_pages, page_size, cfg.kv_heads, cfg.dims_per_head)
+    kv = (cfg.num_layers, num_pages, page_size, cfg.kv_heads // _tp.size(),
+          cfg.dims_per_head)
     return {"k": torch.zeros(kv, dtype=dtype, device=device),
             "v": torch.zeros(kv, dtype=dtype, device=device)}
 
@@ -1001,7 +1153,7 @@ def _attention_paged(cfg, q, ck, cv, q_pos):
     scores = scores * _sm_scale(cfg, hd)
     t = torch.arange(T, dtype=torch.int32, device=q.device)
     if cfg.position == "alibi":
-        slopes = torch.from_numpy(_alibi_slopes(Hq)).to(q.device).reshape(Hkv, G)
+        slopes = _head_slopes(cfg, Hq, q.device).reshape(Hkv, G)
         rel = (q_pos[:, :, None] - t[None, None, :]).float()
         scores = scores - (rel.abs()[:, None, None, :, :]
                            * slopes[None, :, :, None, None])
@@ -1100,7 +1252,7 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
         x = _block_paged(cfg, lp, x, cache["k"][i], cache["v"][i], positions,
                          write_idx, page_table, maxp * ps)
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
-    return _head(cfg, params, x), cache
+    return _tp.gather_from_model(_head(cfg, params, x)), cache
 
 
 def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,

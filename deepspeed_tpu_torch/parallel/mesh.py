@@ -19,8 +19,11 @@ row-major over the axes
   coordinates differ only on those axes, ranked row-major over them.
 
 A mesh needs an initialised process group (``comm.init_distributed``).
-Tensor, pipeline, expert and sequence parallelism are not ported: their
-axes stay 1 in the engine (ROADMAP queue 1, items 4, 9, 8).
+'model' is the innermost axis, so the ranks of one tensor-parallel group
+are adjacent ranks (on a multi-card node, NVLink peers);
+``parallel/tensor_parallel.py`` runs the model over it.  Pipeline, expert
+and sequence parallelism are not ported: their axes stay 1 in the engine
+(ROADMAP queue 1, items 9 and 8).
 """
 from __future__ import annotations
 
@@ -153,9 +156,29 @@ def set_mesh(mesh) -> None:
 
 def initialize_serving_mesh(tp: int = 1, n_devices: Optional[int] = None,
                             dp: Optional[int] = None):
-    raise NotImplementedError(
-        "initialize_serving_mesh (multi-device serving) is not ported yet "
-        "(ROADMAP queue 1, item 4 (tensor parallelism))")
+    """The multi-card serving recipe (the JAX package's
+    ``initialize_serving_mesh``): install a global mesh whose 'model' axis
+    is ``tp`` and whose 'data' axis takes the rest, and return it (pass it
+    to ``init_inference(mesh=...)`` / ``ServingEngine(mesh=...)``).  Where
+    the JAX package lays one process's devices out, the port's mesh is the
+    process group's world: one rank per card (``torchrun --nproc-per-node
+    N``, or ``comm.init_distributed``), every rank running the same serving
+    loop.  ``n_devices`` is checked against the world: it may not exceed
+    it, and a smaller mesh is a smaller launch (each rank of the group
+    belongs to the mesh)."""
+    dist = _dist()
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("initialize_serving_mesh needs a process group (one "
+                           "rank per device): call deepspeed_tpu_torch.comm."
+                           "init_distributed() first")
+    world = dist.get_world_size()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(
+            f"n_devices={n_devices} but the process group has {world} rank(s): "
+            f"the serving mesh spans the group, so launch {n_devices} "
+            "process(es), one per device" if n_devices < world else
+            f"n_devices={n_devices} exceeds the {world} rank(s) of the process group")
+    return initialize_mesh(MeshLayout.from_world(world, tp=tp, dp=dp))
 
 
 def get_mesh():

@@ -1,0 +1,277 @@
+"""Megatron-style tensor parallelism over the mesh's ``'model'`` axis.
+
+The JAX package declares ``param_specs`` (``models/transformer.py``) and
+lets GSPMD insert the collectives a column- or row-parallel product needs.
+Torch has no GSPMD, so this module spells them out, each through the
+``comm`` facade on the model-axis group (NCCL on the card, gloo on the
+CPU; an all-reduce, an all-gather, nothing else):
+
+- :func:`copy_to_model`: identity forward, all-reduce backward; it feeds
+  a column-parallel product (``wq``/``wk``/``wv``, ``w_gate``/``w_up``/
+  ``w_in``, the LM head) the replicated activation, and sums the input's
+  gradient over the ranks' column shards;
+- :func:`reduce_from_model`: all-reduce forward, identity backward; it
+  sums a row-parallel product's partial outputs (``wo``, ``w_down``);
+- :func:`gather_from_model`: all-gather forward along the last dim (the
+  vocab-parallel logits of inference), this rank's slice backward;
+- :func:`vocab_parallel_embed`: look up the ids this rank's rows of the
+  embedding own, zero the rest, all-reduce;
+- :func:`vocab_parallel_cross_entropy_terms`: the ``(NLL sum, count)`` of
+  ``models/transformer.py`` ``cross_entropy_terms`` over vocab-sharded
+  logits: fp32, the max and the sum of exponentials all-reduced, the gold
+  logit taken on the rank that owns it.  At one rank it computes what
+  ``torch.logsumexp`` computes, in the same order (max, shifted exps,
+  sum, log, add), and its gradient is the one autograd takes through the
+  plain loss, so the one-rank path is bit-equal to the unsharded one.
+
+The sharded path runs inside :func:`region` (the training engine, the
+inference engine and the serving executor enter it around the model) or
+whenever the global layout's model axis is above 1.  Outside it every
+function here is the identity or the plain operation, so the model code
+reads the same in both.  Every collective is a plain ``torch.distributed``
+call, so the forward can run inside autograd and inside CUDA-graph
+capture (after eager warm-up runs, which create the NCCL communicators).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Optional
+
+import torch
+
+MODEL_AXIS = "model"
+
+# None: follow the global layout; True/False: forced by region().  Process-
+# wide, not per thread: the autograd engine runs a backward's remat
+# recompute on its own device threads, and it must take the path the
+# forward took.
+_FORCED: list = [None]
+
+
+@contextlib.contextmanager
+def region(active: bool = True):
+    """Run the model's tensor-parallel path (``active``) or its plain path
+    inside this block, whatever the global layout says."""
+    prev, _FORCED[0] = _FORCED[0], bool(active)
+    try:
+        yield
+    finally:
+        _FORCED[0] = prev
+
+
+def active() -> bool:
+    """Whether the model runs its tensor-parallel path here."""
+    if _FORCED[0] is not None:
+        return _FORCED[0]
+    from . import mesh
+
+    layout = mesh._GLOBAL_LAYOUT
+    return layout is not None and layout.tp > 1
+
+
+def size() -> int:
+    """Ranks on the model axis (1 outside the tensor-parallel path)."""
+    if not active():
+        return 1
+    from .. import comm
+
+    return comm.get_axis_size(MODEL_AXIS)
+
+
+def rank() -> int:
+    """This rank's index on the model axis (0 outside the path)."""
+    if not active():
+        return 0
+    from .. import comm
+
+    return comm.axis_index(MODEL_AXIS)
+
+
+def _comm():
+    from .. import comm
+
+    return comm
+
+
+def _same(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    # a Function must not hand its input back as its output
+    return out.view_as(out) if out is x else out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _comm().all_reduce(g, "sum", MODEL_AXIS)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _same(_comm().all_reduce(x, "sum", MODEL_AXIS), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n, ctx.i = _comm().get_axis_size(MODEL_AXIS), _comm().axis_index(MODEL_AXIS)
+        return _same(_comm().all_gather(x, MODEL_AXIS, gather_dim=x.dim() - 1), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, -1)[ctx.i].contiguous()
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel product (identity outside the path)."""
+    return _CopyToModel.apply(x) if active() else x
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a row-parallel product's partial outputs."""
+    return _ReduceFromModel.apply(x) if active() else x
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Vocab-sharded ``[..., V/tp]`` logits -> ``[..., V]`` on every rank."""
+    return _GatherFromModel.apply(x) if active() else x
+
+
+def vocab_parallel_embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a table holding this rank's rows of the vocabulary
+    (rows ``[rank*V/tp, (rank+1)*V/tp)``): the owned ids looked up, the
+    others zero, the sum over the model axis."""
+    if not active():
+        return table[ids]
+    n = table.shape[0]
+    local = ids - rank() * n
+    owned = (local >= 0) & (local < n)
+    rows = table[torch.where(owned, local, torch.zeros_like(local))]
+    return reduce_from_model(rows.masked_fill(~owned[..., None], 0))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-position NLL of vocab-sharded logits: ``(logz - gold) * mask``,
+    ``logz`` the log-sum-exp over the whole vocabulary."""
+
+    @staticmethod
+    def forward(ctx, logits, target, mask):
+        comm = _comm()
+        lg = logits.float()
+        n = lg.shape[-1]
+        # the steps of ATen's logsumexp: max (0 where infinite), shifted
+        # exponentials, their sum, log, plus the max
+        m = lg.amax(dim=-1, keepdim=True)
+        m = _same(comm.all_reduce(m, "max", MODEL_AXIS), m)
+        m.masked_fill_(m.abs() == float("inf"), 0)
+        sumexp = torch.sum(torch.exp(lg - m), dim=-1)
+        sumexp = _same(comm.all_reduce(sumexp, "sum", MODEL_AXIS), sumexp)
+        logz = sumexp.log_().add_(m[..., 0])
+        local = target - comm.axis_index(MODEL_AXIS) * n
+        owned = (local >= 0) & (local < n)
+        safe = torch.where(owned, local, torch.zeros_like(local))
+        gold = torch.gather(lg, -1, safe[..., None])[..., 0] * owned
+        gold = _same(comm.all_reduce(gold, "sum", MODEL_AXIS), gold)
+        ctx.save_for_backward(lg, logz, safe, owned, mask)
+        ctx.in_dtype = logits.dtype
+        return (logz - gold) * mask
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, logz, safe, owned, mask = ctx.saved_tensors
+        gm = g * mask
+        # logsumexp's backward, then gather's (a scatter-add into zeros)
+        soft = gm[..., None] * (lg - logz[..., None]).exp()
+        gold = torch.zeros_like(lg).scatter_add_(-1, safe[..., None],
+                                                 (-gm * owned)[..., None])
+        return (soft + gold).to(ctx.in_dtype), None, None
+
+
+def vocab_parallel_cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                                       ignore_index: int = -100) -> tuple:
+    """``(NLL sum, labelled count)`` of ``logits [..., V/tp]`` holding this
+    rank's vocabulary columns, equal on every rank of the model axis."""
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    nll = _VocabParallelNLL.apply(logits, safe, mask)
+    return nll.sum(), mask.sum()
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+def spec_dim(spec, axis: str = MODEL_AXIS) -> Optional[int]:
+    """The tensor dim a PartitionSpec-like tuple shards over ``axis``."""
+    for d, entry in enumerate(spec or ()):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if axis in names:
+            return d
+    return None
+
+
+def _walk(fn, tree: Any, specs: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _walk(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, torch.Size):
+        return type(tree)(_walk(fn, x, s) for x, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def spec_paths(specs: Any, prefix: str = "") -> dict:
+    """``{'a/b': spec}`` of a tree of PartitionSpec-like tuples (the paths
+    ``utils.tree.tree_flatten_with_path`` gives the parameter tree)."""
+    if isinstance(specs, dict):
+        out: dict = {}
+        for k in sorted(specs):
+            out.update(spec_paths(specs[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: specs}
+
+
+def local_shape(shape, spec, n: int) -> tuple:
+    """The shape of one of ``n`` model-axis shards of a leaf."""
+    shape = list(shape)
+    d = spec_dim(spec)
+    if d is not None:
+        shape[d] //= n
+    return tuple(shape)
+
+
+def slice_tree(tree: Any, specs: Any, index: int, n: int) -> Any:
+    """Shard ``index`` of ``n`` of every leaf along its model-axis dim
+    (contiguous chunks, rank order); replicated leaves as they are."""
+    def cut(x, spec):
+        d = spec_dim(spec)
+        if d is None or n == 1:
+            return x
+        return x.chunk(n, d)[index].contiguous()
+
+    return _walk(cut, tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any) -> Any:
+    """The full leaves of a tree of model-axis shards (collective: every
+    rank of the axis calls it, in the same order)."""
+    comm = _comm()
+
+    def gather(x, spec):
+        d = spec_dim(spec)
+        if d is None:
+            return x
+        return comm.all_gather(x.contiguous(), MODEL_AXIS, gather_dim=d)
+
+    return _walk(gather, tree, specs)
+
+
+__all__ = ["MODEL_AXIS", "region", "active", "size", "rank", "copy_to_model",
+           "reduce_from_model", "gather_from_model", "vocab_parallel_embed",
+           "vocab_parallel_cross_entropy_terms", "spec_dim", "spec_paths", "local_shape",
+           "slice_tree", "gather_tree"]

@@ -23,9 +23,15 @@ run continues bit for bit.
 
 A data-parallel engine (``runtime/zero``) saves its shards: every leaf
 of the params, the masters and the optimizer state goes in as a DTensor
-with the plan's placements over the engine's mesh, every rank writes its
+with the plan's placements over the engine's ranks, every rank writes its
 own shards (DCP writes a replicated value once), and rank 0 writes the
-sidecars, then, after a barrier, the manifest and ``latest``.  DCP's
+sidecars, then, after a barrier, the manifest and ``latest``.  Where ZeRO
+and tensor parallelism shard one dim, a rank holds a ZeRO piece within
+its model-axis shard (model-major, JAX's ``('model', 'data')``), while
+DTensor cuts a dim sharded over several mesh dims in mesh-dim order; so
+the DTensors live on a mesh of the same ranks whose dims put 'model'
+ahead of the ZeRO axes (``CKPT_AXES``, :func:`_ckpt_mesh`), and the
+chunks' global offsets describe the bytes each rank holds.  DCP's
 planning runs over a gloo group of its own (``_ckpt_group``), so an async
 commit thread never shares a group with the training step's collectives.
 A load restores in place into a state dict built from the live engine
@@ -152,16 +158,46 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
     return out
 
 
-def as_dtensors(engine, flat: Dict[str, torch.Tensor], mesh=None) -> Dict:
+# the checkpoint mesh's dims: MESH_AXES with 'model' ahead of the ZeRO axes
+CKPT_AXES = ("pipe", "data_outer", "model", "data", "expert", "seq")
+
+
+def _ckpt_mesh(engine, device_type: Optional[str] = None):
+    """The engine's ranks as a ``DeviceMesh`` over ``CKPT_AXES`` on
+    ``device_type`` (default: the engine's); it only places chunks, so it
+    makes no process groups."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ...parallel.mesh import MESH_AXES
+
+    device_type = device_type or engine.mesh.device_type
+    cache = engine.__dict__.setdefault("_ckpt_meshes", {})
+    if device_type not in cache:
+        ranks = engine.mesh.mesh.permute([MESH_AXES.index(a) for a in CKPT_AXES])
+        try:
+            cache[device_type] = DeviceMesh(device_type, ranks.contiguous(),
+                                            mesh_dim_names=CKPT_AXES,
+                                            _init_backend=False)
+        except TypeError:   # a torch without _init_backend: make its groups
+            cache[device_type] = DeviceMesh(device_type, ranks.contiguous(),
+                                            mesh_dim_names=CKPT_AXES)
+    return cache[device_type]
+
+
+def as_dtensors(engine, flat: Dict[str, torch.Tensor],
+                device_type: Optional[str] = None) -> Dict:
     """``flat`` with every parameter-shaped value (params, masters, the
     optimizer's per-parameter state) a DTensor of its plan placement over
-    ``mesh`` (default: the engine's); unchanged for a one-device engine."""
+    the checkpoint mesh on ``device_type`` (default: the engine's);
+    unchanged for a one-device engine."""
     part = engine.partition
     if part is None:
         return flat
     from torch.distributed.tensor import DTensor
 
-    mesh = mesh if mesh is not None else engine.mesh
+    from ...parallel.mesh import MESH_AXES
+
+    mesh = _ckpt_mesh(engine, device_type)
     out = {}
     for key, t in flat.items():
         hit = part.placements_for(key)
@@ -169,6 +205,7 @@ def as_dtensors(engine, flat: Dict[str, torch.Tensor], mesh=None) -> Dict:
             out[key] = t
             continue
         placements, shape = hit
+        placements = tuple(placements[MESH_AXES.index(a)] for a in CKPT_AXES)
         stride = torch.empty(shape, device="meta").stride()
         out[key] = DTensor.from_local(t, mesh, placements, run_check=False,
                                       shape=torch.Size(shape), stride=stride)
@@ -184,18 +221,6 @@ def _ckpt_group(engine):
 
         engine._ckpt_pg = dist.new_group(backend="gloo")
     return engine._ckpt_pg
-
-
-def _host_mesh(engine):
-    """A CPU mesh of the engine's shape, for the host snapshot's DTensors."""
-    if engine.mesh.device_type == "cpu":
-        return engine.mesh
-    if getattr(engine, "_ckpt_host_mesh", None) is None:
-        from torch.distributed.device_mesh import init_device_mesh
-
-        engine._ckpt_host_mesh = init_device_mesh(
-            "cpu", tuple(engine.mesh.shape), mesh_dim_names=engine.mesh.mesh_dim_names)
-    return engine._ckpt_host_mesh
 
 
 def _rank0(engine) -> bool:
@@ -264,7 +289,7 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     flat = engine_state_dict(engine)
     manifest = build_manifest(tag, engine.global_steps,
                               tree_summary(as_dtensors(engine, flat)),
-                              world_size=engine.dp_world)
+                              world_size=engine.dp_world * max(engine.tp, 1))
     if _rank0(engine):
         mark_incomplete(ckpt_dir)
         with open(os.path.join(ckpt_dir, "client_state.json"), "w") as f:
@@ -278,7 +303,7 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         engine._async_ckpt_engine.save(flat, state_path)
         if engine.partition is not None:
             engine._async_ckpt_engine.wrap(
-                lambda snap: as_dtensors(engine, snap, _host_mesh(engine)))
+                lambda snap: as_dtensors(engine, snap, "cpu"))
         del flat
         commit_in_background(engine, save_dir, ckpt_dir, tag, save_latest, manifest)
         log_dist(f"async checkpoint {tag} snapshotted; committing in "

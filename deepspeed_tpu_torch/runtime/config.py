@@ -256,7 +256,6 @@ class DeepSpeedConfig:
              "ZeRO++ (qwZ/qgZ/hpZ)", 10)
         need(zc.mics_hierarchical_params_gather,
              "MiCS hierarchical parameter gather", 10)
-        need(mesh.tp > 1, "tensor parallelism (mesh.tp)", 4)
         need(mesh.pp > 1, "pipeline parallelism (mesh.pp)", 9)
         need(mesh.ep > 1, "expert parallelism (mesh.ep)", 9)
         need(mesh.sp > 1, "sequence parallelism (mesh.sp)", 8)

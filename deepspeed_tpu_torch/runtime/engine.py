@@ -41,9 +41,19 @@ check and the global norm are all-reduced, and checkpoints hold DTensors
 (``models.CausalLM``) reports its loss as (sum, count) and the engine
 divides by the count summed over the ranks, JAX's global mean; a bare
 ``loss_fn`` gives the mean of the ranks' means.  Without a process group
-the engine is the one-device trainer of before.  Not ported yet, each
-raising ``NotImplementedError`` with its ROADMAP item: tensor parallelism
-(queue 1 item 4), offload, 1-bit and ZeRO++ (item 10).
+the engine is the one-device trainer of before.
+
+Tensor parallelism: a ``CausalLM`` trains Megatron-style over the mesh's
+'model' axis when that axis is above 1, or when the caller names a model
+axis (``mesh=``, ``mpu=`` or ``param_specs=``; at size 1 every model-axis
+collective is then a copy).  Each rank holds its model-axis shards of
+``model.param_specs`` (drawn sharded, or cut from ``params=``), ZeRO
+shards within them, the ranks of one data-parallel replica read the same
+rows, and the model runs inside ``parallel.tensor_parallel.region()``.
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: tensor parallelism of a model without ``param_specs`` (queue 1 item
+4), pipeline and expert parallelism (item 9), sequence parallelism (item
+8), offload, 1-bit and ZeRO++ (item 10).
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ import torch
 
 from .. import comm
 from ..accelerator import resolve_device
+from ..parallel import tensor_parallel
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import (tree_flatten_with_path, tree_leaves, tree_map,
@@ -86,6 +97,15 @@ def _cast_tree(tree, dtype: torch.dtype):
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
+def _whole_shape(shape, spec, n: int) -> tuple:
+    """The whole leaf of a model-axis shard of ``shape``."""
+    shape = list(shape)
+    d = tensor_parallel.spec_dim(spec)
+    if d is not None:
+        shape[d] *= n
+    return tuple(shape)
+
+
 def _master_dtype(x: torch.Tensor) -> torch.dtype:
     """fp32, or the leaf's own dtype when it is wider."""
     return torch.promote_types(x.dtype, torch.float32) if x.is_floating_point() \
@@ -99,7 +119,7 @@ class DeepSpeedEngine:
                  optimizer: Optional[GradientTransformation] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None,
                  training_data: Any = None, device=None, mesh=None,
-                 param_specs: Any = None):
+                 param_specs: Any = None, mpu=None):
         # -- model contract resolution --
         self.model = model
         self._eval_fn = self._loss_terms = None
@@ -122,7 +142,11 @@ class DeepSpeedEngine:
         self.config = (config if isinstance(config, DeepSpeedConfig)
                        else DeepSpeedConfig(config))
         self.device = resolve_device(device)
+        self._mpu_tp = (int(mpu.get_model_parallel_world_size())
+                        if mpu is not None else None)
         self._resolve_world(mesh)
+        self._resolve_tp(model, mesh is not None or mpu is not None
+                         or param_specs is not None, param_specs)
         self.config.resolve_batch_triad(self.dp_world)
         self.compute_dtype = self.config.precision
         self.use_master_weights = self.compute_dtype != torch.float32
@@ -169,7 +193,7 @@ class DeepSpeedEngine:
         self.generator.manual_seed(self.config.seed)
         self.plan = self.partition = None
         self.state = self._init_state(init_fn, params, param_specs)
-        self.param_count = (sum(math.prod(s) for s in self.partition.shapes)
+        self.param_count = (sum(math.prod(s) for s in self.partition.global_shapes)
                             if self.partition is not None else
                             sum(x.numel() for x in tree_leaves(self.state.params)))
 
@@ -200,7 +224,7 @@ class DeepSpeedEngine:
             f"engine ready: params={self.param_count:,} zero_stage={self.zero_stage} "
             f"dtype={self.compute_dtype} device={self.device} "
             f"batch={self.train_batch_size} (micro={self.micro_batch_size} "
-            f"gas={self.gas} dp={self.dp_world})", ranks=[0])
+            f"gas={self.gas} dp={self.dp_world} tp={self.tp or 1})", ranks=[0])
 
     def _resolve_world(self, mesh) -> None:
         """The data-parallel world: the process group's mesh when
@@ -212,13 +236,16 @@ class DeepSpeedEngine:
 
         self.distributed = dist.is_available() and dist.is_initialized()
         zc = self.config.zero_config
+        mc = self.config.mesh
+        if self._mpu_tp is not None:
+            mc = dataclasses.replace(mc, tp=self._mpu_tp)
         if not self.distributed:
             layout = (mesh if isinstance(mesh, MeshLayout) or mesh is None
                       else layout_of(mesh))
             if ((layout is not None and layout.world_size > 1)
-                    or self.config.mesh.dp > 1 or zc.mics_shard_size > 1):
+                    or mc.dp > 1 or mc.tp > 1 or zc.mics_shard_size > 1):
                 raise RuntimeError(
-                    "a data-parallel mesh needs a process group: call "
+                    "a data- or tensor-parallel mesh needs a process group: call "
                     "deepspeed_tpu_torch.comm.init_distributed() (or run "
                     "under torchrun) before initialize()")
             self.mesh, self.dp_world, self.dp_rank = None, 1, 0
@@ -230,26 +257,69 @@ class DeepSpeedEngine:
                 f"backend is {backend!r}: NCCL serves the card, gloo the CPU")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.mesh = resolve_engine_mesh(self.config.mesh, zc, mesh)
+        self.mesh = resolve_engine_mesh(mc, zc, mesh)
         layout = layout_of(self.mesh)
-        if layout.tp > 1 or layout.pp > 1 or layout.ep > 1 or layout.sp > 1:
+        if layout.pp > 1 or layout.ep > 1 or layout.sp > 1:
             raise NotImplementedError(
-                f"mesh {layout}: only data parallelism is ported (tensor "
-                "parallelism: ROADMAP queue 1, item 4; pipeline and experts: "
-                "item 9; sequence: item 8)")
+                f"mesh {layout}: data and tensor parallelism are ported "
+                "(pipeline and experts: ROADMAP queue 1, item 9; sequence: "
+                "item 8)")
+        if self._mpu_tp is not None and self._mpu_tp != layout.tp:
+            raise ValueError(f"mpu's model-parallel world size {self._mpu_tp} "
+                             f"!= the mesh's model axis {layout.tp}")
         self.dp_world = layout.dp_world_size
         self.dp_rank = comm.axis_index(BATCH_AXES)
         comm.configure(self.config.comms_logger)
+
+    def _resolve_tp(self, model, explicit: bool, param_specs) -> None:
+        """Whether the model runs tensor-parallel (``self.tp``: the model
+        axis's size, 0 when it does not) and its specs."""
+        self.tp, self.tp_rank, self._tp_specs = 0, 0, None
+        if not self.distributed:
+            return
+        from ..models.transformer import check_tp_divisible
+        from ..parallel.mesh import layout_of
+
+        n = layout_of(self.mesh).tp
+        specs = getattr(model, "param_specs", None)
+        if n > 1 and specs is None:
+            raise NotImplementedError(
+                f"a model axis of {n} for a model without param_specs (a bare "
+                "loss_fn or a model other than models.CausalLM): tensor "
+                "parallelism of generic user models (DTensor sharding "
+                "propagation) is not ported yet (ROADMAP queue 1, item 4: "
+                "generic user models under TP)")
+        if specs is None or not (n > 1 or explicit):
+            return
+        if param_specs is not None and param_specs != specs:
+            raise ValueError(
+                "param_specs differ from the model's: the CausalLM's "
+                "tensor-parallel forward is laid out for model.param_specs")
+        check_tp_divisible(model.config, n)
+        self.tp, self.tp_rank, self._tp_specs = n, comm.axis_index("model"), specs
+
+    def _tp_region(self):
+        return tensor_parallel.region(bool(self.tp))
 
     def _init_state(self, init_fn, params, param_specs=None) -> TrainState:
         """fp32 masters from ``params`` or ``init_fn(generator)``, the
         compute-precision view, the optimizer state and the loss scaler.
         Data-parallel: every rank draws the same full tree and keeps its
-        shards of it (the plan's placements)."""
+        shards of it (the plan's placements).  Above a model axis of 1 the
+        seed draws this rank's shards of the layer-streamed init
+        (``init_params(tp=)``), so one seed names other weights than at a
+        model axis of 1: pass ``params=`` (the whole tree; each rank keeps
+        its shards) to train the same weights at every topology."""
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(self.config.seed)
-            params = init_fn(init_gen)
+            # a model axis above 1: this rank's shards only, drawn as slices
+            # of the layer-streamed init (no device holds a whole leaf)
+            params = (init_fn(init_gen) if self.tp <= 1 else
+                      self.model.init_fn(init_gen, tp=(self.tp_rank, self.tp)))
+        elif self.tp:
+            params = tensor_parallel.slice_tree(params, self._tp_specs,
+                                                self.tp_rank, self.tp)
         # masters are fresh fp32 (or wider) copies: the caller's tree is
         # never aliased
         master = tree_map(lambda x: x.detach().to(self.device, _master_dtype(x),
@@ -267,7 +337,8 @@ class DeepSpeedEngine:
             log_dist(f"frozen parameters: {n_frozen:,} excluded from "
                      "updates/grad-norm (model.frozen_spec)", ranks=[0])
         if self.distributed:
-            master = self._shard_state(master, param_specs)
+            master = self._shard_state(master, self._tp_specs if self.tp
+                                       else param_specs)
         if self.use_master_weights:
             params0 = (_cast_tree(master, self.compute_dtype)
                        if self.partition is None else tree_unflatten_like(
@@ -294,15 +365,23 @@ class DeepSpeedEngine:
         from .zero.planner import plan_sharding
 
         zc = self.config.zero_config
-        self.plan = plan_sharding(master, self.zero_stage, self.mesh,
-                                  tp_specs=param_specs,
-                                  persistence_threshold=zc.stage3_param_persistence_threshold)
         template = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                                   device="meta"), master)
+        # plan over the whole leaves; under tensor parallelism ``master``
+        # holds this rank's model-axis shards of them
+        shapes = template
+        if self.tp:
+            shapes = tree_map(lambda x, spec: torch.empty(
+                _whole_shape(x.shape, spec, self.tp), device="meta"),
+                template, self._tp_specs)
+        self.plan = plan_sharding(shapes, self.zero_stage, self.mesh,
+                                  tp_specs=param_specs,
+                                  persistence_threshold=zc.stage3_param_persistence_threshold)
         frozen = (None if self._frozen_mask is None
                   else [bool(m) for m in tree_leaves(self._frozen_mask)])
-        self.partition = ZeroPartition(self.plan, template, self.use_master_weights,
-                                       self.accum_dtype, frozen=frozen)
+        self.partition = ZeroPartition(
+            self.plan, template, self.use_master_weights, self.accum_dtype,
+            frozen=frozen, global_shapes=[tuple(x.shape) for x in tree_leaves(shapes)])
         return self.partition.shard_tree(master, "master")
 
     def _build_dataloader(self, training_data):
@@ -360,7 +439,7 @@ class DeepSpeedEngine:
 
         local, lo = self._local_rows(one_batch)
         fn = self._eval_fn if deterministic else self.loss_fn
-        with row_offset(lo):
+        with row_offset(lo), self._tp_region():
             if self.distributed and self._loss_terms is not None:
                 total, count = self._loss_terms(self._view(work), local, self.generator,
                                                 deterministic=deterministic)
@@ -381,7 +460,10 @@ class DeepSpeedEngine:
         ``.grad`` at all)."""
         leaves = tree_leaves(work)
         live = [x for x in leaves if x.requires_grad]
-        grads = iter(torch.autograd.grad(scale_loss(loss, self.state.scaler), live))
+        # the backward's remat recomputes run the model again: on its
+        # tensor-parallel path, as the forward did
+        with self._tp_region():
+            grads = iter(torch.autograd.grad(scale_loss(loss, self.state.scaler), live))
         out = []
         for x in leaves:
             g = next(grads) if x.requires_grad else torch.zeros_like(x)

@@ -19,9 +19,17 @@ the ``comm`` facade:
   re-gathered where the plan keeps them replicated (stages 1/2,
   :meth:`compute_params`); at stage 3 they stay sharded at rest.
 
-The global norm adds the squares of the sharded leaves over the ZeRO axes
-and counts a replicated leaf once (:meth:`global_norm`); the overflow check
-is all-reduced so every rank skips together (:meth:`all_finite`).
+Under tensor parallelism (a 'model' axis in the plan's placements) the
+tree this class sees is the rank's model-axis shards, its "full" leaves
+(``template``): ZeRO cuts each within it (the model-major order JAX
+writes as ``('model', 'data')``), so a gather over the ZeRO axes rebuilds
+the rank's contiguous tensor-parallel shard; ``global_shapes`` are the
+whole leaves a checkpoint describes.
+
+The global norm adds the squares of a leaf's shards over the axes that
+shard it (the ZeRO axes, 'model') and counts a replicated leaf once
+(:meth:`global_norm`); the overflow check is all-reduced over the whole
+world so every rank skips together (:meth:`all_finite`).
 Collectives are per leaf: bucketing and overlap are later work (ROADMAP
 queue 1, item 4).
 """
@@ -32,7 +40,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ... import comm
-from ...parallel.mesh import BATCH_AXES, ZERO_AXES
+from ...parallel.mesh import BATCH_AXES, MESH_AXES, ZERO_AXES
 from ...utils.tree import tree_flatten_with_path, tree_leaves, tree_unflatten_like
 from .planner import ZeroShardingPlan, shard_dim, walk
 
@@ -148,12 +156,19 @@ class ZeroPartition:
 
     def __init__(self, plan: ZeroShardingPlan, template: Any,
                  use_master_weights: bool, accum_dtype: torch.dtype,
-                 frozen: Optional[List[bool]] = None):
+                 frozen: Optional[List[bool]] = None,
+                 global_shapes: Optional[List[tuple]] = None):
         self.plan = plan
         self.stage = plan.stage
         self.template = template
         self.paths = [p for p, _ in tree_flatten_with_path(template)]
         self.shapes = [tuple(x.shape) for x in tree_leaves(template)]
+        self.global_shapes = ([tuple(s) for s in global_shapes]
+                              if global_shapes is not None else self.shapes)
+        # the model-axis dim of each leaf (None: replicated over 'model')
+        self.tdims = [shard_dim(p, ("model",))
+                      for p in _leaf_list(template, plan.master_specs)]
+        self.tp_n = comm.get_axis_size("model")
         self.pdims = [shard_dim(p) for p in _leaf_list(template, plan.param_specs)]
         self.mdims = [shard_dim(p) for p in _leaf_list(template, plan.master_specs)]
         self.use_master_weights = use_master_weights
@@ -236,21 +251,34 @@ class ZeroPartition:
                 out[i] = self.local_slice(comm.all_reduce(g, comm.SUM, BATCH_AXES), m)
         return out
 
+    def _norm_axes(self, i: int) -> tuple:
+        """The axes whose ranks hold disjoint pieces of leaf ``i``'s masters
+        (the ZeRO axes, 'model'); a leaf is replicated over the others."""
+        axes = ZERO_AXES if self.mdims[i] is not None else ()
+        if self.tp_n > 1 and self.tdims[i] is not None:
+            axes = axes + ("model",)
+        return axes
+
     def global_norm(self, tree: Any) -> torch.Tensor:
         """sqrt of the sum of squares over the whole (global) tree: a
-        sharded leaf's squares summed over the ZeRO axes, a replicated one
-        counted once; the leaves added in tree order."""
+        sharded leaf's squares summed over the axes that shard it, a
+        replicated one counted once (its gradients are equal on every rank
+        of the model axis); the leaves added in tree order."""
         leaves = tree_leaves(tree)
         if len(leaves) != len(self.mdims):
             raise ValueError(f"global_norm over {len(leaves)} leaves, the plan "
                              f"has {len(self.mdims)}")
         sq = [x.to(torch.promote_types(x.dtype, torch.float32)).square().sum()
               for x in leaves]
-        sharded = [i for i, m in enumerate(self.mdims) if m is not None]
-        if sharded:
-            vec = torch.stack([sq[i].double() for i in sharded])
-            vec = comm.all_reduce(vec, comm.SUM, ZERO_AXES)
-            for j, i in enumerate(sharded):
+        groups: Dict[tuple, List[int]] = {}
+        for i in range(len(leaves)):
+            axes = self._norm_axes(i)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            vec = torch.stack([sq[i].double() for i in idx])
+            vec = comm.all_reduce(vec, comm.SUM, axes)
+            for j, i in enumerate(idx):
                 sq[i] = vec[j].to(sq[i].dtype)
         total = sq[0]
         for s in sq[1:]:
@@ -260,7 +288,7 @@ class ZeroPartition:
     def all_finite(self, grads: List[torch.Tensor]) -> bool:
         """Every rank's gradients finite (one all-reduce over the world)."""
         bad = torch.stack([(~torch.isfinite(g)).any() for g in grads]).any()
-        bad = comm.all_reduce(bad.to(torch.int32), comm.MAX, BATCH_AXES)
+        bad = comm.all_reduce(bad.to(torch.int32), comm.MAX, MESH_AXES)
         return not bool(bad)
 
     def compute_params(self, masters: List[torch.Tensor],
@@ -290,7 +318,7 @@ class ZeroPartition:
         which = (self.plan.param_specs
                  if key.startswith("params/") and self.use_master_weights
                  else self.plan.master_specs)
-        return _leaf(which, self.paths[best]), self.shapes[best]
+        return _leaf(which, self.paths[best]), self.global_shapes[best]
 
 
 def _leaf_list(template: Any, tree: Any) -> list:

@@ -25,8 +25,13 @@ size-1 axis costs nothing under GSPMD), the port keeps the ``Shard`` over
 the size-1 axis: the data are the same, and a world of one runs the same
 gather and reduce-scatter code as a larger one.  ``tp_specs`` are
 PartitionSpec-like tuples (an entry per dim: None, an axis name or a
-tuple of names); tensor parallelism itself is not ported (ROADMAP queue
-1, item 4), so their axes have size 1.
+tuple of names): a ``CausalLM``'s ``param_specs`` under tensor
+parallelism.  Where the ZeRO axes land on the model axis's dim, JAX's
+spec reads ``('model', 'data')``: each ZeRO piece lies within the rank's
+model-axis shard.  The placements keep one ``Shard`` per mesh dim, which
+DTensor would order by mesh dim ('data' before 'model'); the engine cuts
+the pieces model-major itself (``partition.py``) and its checkpoints put
+'model' first (``checkpoint_engine/dcp_engine.py`` ``CKPT_AXES``).
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ bytes of the tensor the caller hands in: the shard for an all-gather, the
 whole tensor for a reduce-scatter or an all-reduce.  ``log_all`` prints the
 reference's summary table; ``show_bandwidth`` re-times each (op, size) as a
 standalone collective over the world (``comm.benchmark.run_op``) for the
-algbw/busbw columns.  ``totals`` gives calls and bytes per kind.
+algbw/busbw columns.  ``totals`` gives calls and bytes per kind,
+``totals_by_axis`` the same per kind and mesh axes (``'model'`` for the
+tensor-parallel collectives, ``'data/expert'`` for ZeRO's).
 """
 from __future__ import annotations
 
@@ -41,14 +43,19 @@ class CommsLogger:
         # op name -> msg size -> [count, total_bytes]
         self.comms_dict: Dict[str, Dict[int, list]] = defaultdict(
             lambda: defaultdict(lambda: [0, 0]))
+        # (op name, axes) -> [count, total_bytes]
+        self.axis_dict: Dict[tuple, list] = defaultdict(lambda: [0, 0])
 
     def _should_log(self, op_name: str) -> bool:
         return self.enabled and (self.prof_all or op_name in self.prof_ops)
 
-    def append(self, op_name: str, msg_size: int) -> None:
+    def append(self, op_name: str, msg_size: int, axis: str = None) -> None:
         if not self._should_log(op_name):
             return
         rec = self.comms_dict[op_name][msg_size]
+        rec[0] += 1
+        rec[1] += msg_size
+        rec = self.axis_dict[(op_name, axis)]
         rec[0] += 1
         rec[1] += msg_size
         if self.verbose:
@@ -59,6 +66,14 @@ class CommsLogger:
         return {op: {"calls": sum(c for c, _ in sizes.values()),
                      "bytes": sum(b for _, b in sizes.values())}
                 for op, sizes in sorted(self.comms_dict.items())}
+
+    def totals_by_axis(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """``{op: {axes: {"calls": n, "bytes": b}}}``."""
+        out: Dict[str, Dict[str, Dict[str, int]]] = {}
+        for (op, axis), (count, total) in sorted(self.axis_dict.items(),
+                                                 key=lambda kv: (kv[0][0], str(kv[0][1]))):
+            out.setdefault(op, {})[str(axis)] = {"calls": count, "bytes": total}
+        return out
 
     def log_all(self, print_log: bool = True, show_bandwidth: bool = False) -> str:
         header = (f"{'Comm. Op':<25}{'Message Size':<20}{'Count':<10}"
@@ -97,3 +112,4 @@ class CommsLogger:
 
     def reset(self) -> None:
         self.comms_dict.clear()
+        self.axis_dict.clear()

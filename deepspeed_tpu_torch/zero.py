@@ -4,8 +4,9 @@
 ``:1894``).
 
 - ``Init`` is an honest no-op context: the engine shards the parameters
-  itself at initialization (every rank draws the full tree from the seed
-  and keeps its shards of the plan), so no module patching is needed.
+  itself at initialization (every rank draws the tree from the seed, only
+  its model-axis shards under tensor parallelism, and keeps its ZeRO
+  shards of the plan), so no module patching is needed.
   It exists so that reference training scripts run unchanged.
 - ``GatheredParameters`` yields the full values of a parameter tree:
   host numpy arrays by default (safe for a model bigger than one card),

@@ -209,9 +209,28 @@ def _engine(case: dict, params_np):
             # are planted
             inf = torch.where(batch["plant"].any(), float("inf"), 0.0)
             return loss + p["embed"][0, 0].float() * inf
+    mesh = None
+    if case.get("mesh"):
+        from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+        mesh = MeshLayout(**case["mesh"])
     engine, *_ = ds.initialize(model=model, loss_fn=loss_fn, config=case["config"],
-                               device="cpu", params=params)
+                               device="cpu", params=params, mesh=mesh)
     return engine
+
+
+def _full(engine, fp32: bool = True) -> dict:
+    """The whole parameter tree (ZeRO and model-axis shards gathered), on
+    the host, by path (collective)."""
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.parallel.tensor_parallel import gather_tree
+
+    with zero.GatheredParameters(engine.get_params(fp32=fp32), to_device=True) as g:
+        tree = g.values
+    if engine.tp:
+        tree = gather_tree(tree, engine._tp_specs)
+    return {k: v.detach().float().numpy() if v.dtype == torch.bfloat16
+            else v.detach().numpy() for k, v in _flat(tree).items()}
 
 
 def _shapes(tree) -> dict:
@@ -254,8 +273,7 @@ def _run_case(case: dict, params_np, batches):
         masters = (engine.state.master_params if engine.state.master_params is not None
                    else engine.state.params)
         sums.append([float(x.double().sum()) for x in _flat(masters).values()])
-    with zero.GatheredParameters(engine.get_params(fp32=True)) as g:
-        masters = _flat(g.values)
+    masters = _full(engine)
     with zero.GatheredParameters(engine.get_params(), to_device=True) as g:
         params_full = {k: v.clone() for k, v in _flat(g.values).items()}
     local_master = {k: v.detach().clone()
@@ -271,6 +289,7 @@ def _run_case(case: dict, params_np, batches):
            "moment_shapes": _moments(engine),
            "skipped": engine.skipped_steps, "dp_world": engine.dp_world,
            "rank": comm.get_rank(), "axis_data": comm.axis_index("data"),
+           "tp": engine.tp, "axis_model": comm.axis_index("model"),
            "axis_data_outer": comm.axis_index("data_outer")}
     del engine
     return out
@@ -283,33 +302,31 @@ def prog_train(cases: list, params_np, batches):
 
 
 def prog_checkpoint(config: dict, params_np, batches, ckpt_dir: str, mode: str,
-                    async_save: bool = False, dtype: str = "bfloat16"):
+                    async_save: bool = False, dtype: str = "bfloat16",
+                    mesh: dict = None, model: str = "tiny"):
     """``save``: 2 steps, a save, 2 more steps (the run that never stopped);
     ``resume``: a fresh engine loads and runs the last 2 steps; ``load``: a
-    fresh engine loads; each returns losses and gathered masters."""
-    from deepspeed_tpu_torch import zero
-
+    fresh engine loads; each returns losses and gathered masters (``mesh``:
+    the engine's ``MeshLayout`` keywords, a model axis included)."""
     cfg = {**config, "checkpoint": {"async_save": async_save}}
-    engine = _engine({"config": cfg, "dtype": dtype}, params_np)
+    engine = _engine({"config": cfg, "dtype": dtype, "mesh": mesh, "model": model},
+                     params_np)
     losses = []
     if mode == "save":
         for b in batches[:2]:
             losses.append(float(engine.train_batch(batch=b)))
         engine.save_checkpoint(ckpt_dir)
         engine.wait_for_checkpoint()
-        with zero.GatheredParameters(engine.get_params(fp32=True)) as g:
-            saved = _flat(g.values)
+        saved = _full(engine)
         for b in batches[2:]:
             losses.append(float(engine.train_batch(batch=b)))
     else:
         engine.load_checkpoint(ckpt_dir)
-        with zero.GatheredParameters(engine.get_params(fp32=True)) as g:
-            saved = _flat(g.values)
+        saved = _full(engine)
         if mode == "resume":
             for b in batches[2:]:
                 losses.append(float(engine.train_batch(batch=b)))
-    with zero.GatheredParameters(engine.get_params(fp32=True)) as g:
-        final = _flat(g.values)
+    final = _full(engine)
     return {"losses": losses, "saved": saved, "final": final,
             "steps": engine.global_steps}
 
@@ -342,8 +359,79 @@ def prog_tiling(seed: int, cases: list):
     return out
 
 
+def _requests(stream):
+    from deepspeed_tpu_torch.inference import Request
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+
+    return [Request(rid=r["rid"], input_ids=np.asarray(r["ids"], np.int32),
+                    max_new_tokens=r["max_new"], deadline_s=r.get("deadline_s"),
+                    arrival_time=r.get("arrival", 0.0),
+                    sampling=(SamplingParams(**r["sampling"]) if r.get("sampling")
+                              else None))
+            for r in stream]
+
+
+def prog_serve(model: str, params_np, tp: int, tokens, prompts, max_new: int,
+               stream, deadline_stream, serve_kw: dict, lanes: list):
+    """Tensor-parallel inference and paged serving on ``tp`` of the ranks'
+    model axis (``initialize_serving_mesh``): fp32 ``forward`` logits,
+    ``generate`` greedy and on sampled lanes, a serving run of ``stream``
+    (greedy and sampled requests), one of ``deadline_stream`` whose
+    deadlines expire mid-run, health and page accounting."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference.sampling import SamplingParams
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    m = CausalLM(model, dtype=torch.float32)
+    mesh = initialize_serving_mesh(tp=tp)
+    eng = ds.init_inference(m, config={"dtype": "float32"},
+                            params=params_from_jax(params_np, device="cpu"),
+                            mesh=mesh, device="cpu")
+    from deepspeed_tpu_torch import comm
+
+    comm.configure({"enabled": True})
+    logits = eng.forward(torch.as_tensor(tokens)).numpy()
+    out = {"local_shapes": _shapes(eng.params), "logits": logits,
+           "forward_collectives": comm.get_comms_logger().totals_by_axis(),
+           "greedy": eng.generate(prompts, max_new_tokens=max_new).numpy(),
+           "sampled": eng.generate(prompts, max_new_tokens=max_new,
+                                   sampling=[SamplingParams(**lp) for lp in lanes]
+                                   ).numpy()}
+    sv = eng.serving(**serve_kw)
+    res = sv.run(_requests(stream))
+    out["served"] = {r.rid: (r.output_ids, r.finish_reason) for r in res}
+    out["health"] = sv.health()
+    out["balanced"] = sv.page_accounting()["balanced"]
+    out["inventory"] = sv.program_inventory()
+    res = sv.run(_requests(deadline_stream))
+    out["deadline"] = {r.rid: (r.output_ids, r.finish_reason) for r in res}
+    out["balanced_after_deadlines"] = sv.page_accounting()["balanced"]
+    sv.close()   # every rank, before the group's teardown
+    out["refusals"] = {}
+    tree = params_from_jax(params_np, device="cpu")
+    for what, call in (
+            ("init_inference(apply_fn=)", lambda: ds.init_inference(
+                apply_fn=lambda p, x: x, params=tree, mesh=mesh, device="cpu")),
+            ("initialize(loss_fn=)", lambda: ds.initialize(
+                loss_fn=lambda p, b, g: p["embed"].sum(), params=tree, mesh=mesh,
+                config={"train_batch_size": 1}, device="cpu"))):
+        try:
+            call()
+            out["refusals"][what] = "accepted"
+        except NotImplementedError as e:
+            out["refusals"][what] = str(e)
+    try:   # the serving mesh spans the process group
+        initialize_serving_mesh(tp=1, n_devices=1)
+        out["n_devices_error"] = None
+    except ValueError as e:
+        out["n_devices_error"] = str(e)
+    return out
+
+
 PROGRAMS = {"comm": prog_comm, "train": prog_train, "checkpoint": prog_checkpoint,
-            "tiling": prog_tiling}
+            "tiling": prog_tiling, "serve": prog_serve}
 
 
 def main() -> int:

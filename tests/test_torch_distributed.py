@@ -11,8 +11,8 @@ planner, sharded checkpoints and the ZeRO APIs.
 - **Planner**: for every leaf of ``tiny`` and of
   ``tests/unit/test_zero_unbalanced.py``'s shapes, at stages 0-3, ZeRO
   worlds 2/4/8, with and without a persistence threshold (and with tensor-
-  parallel specs over a size-1 model axis), the mesh axes each tensor dim
-  carries equal the JAX ``PartitionSpec``'s.  No process group.
+  parallel specs over a model axis of 1 and of 2), the mesh axes each
+  tensor dim carries equal the JAX ``PartitionSpec``'s.  No process group.
 - **Checkpoints**: saved at 2 ranks, stage 3, bf16 over fp32 masters, with
   an async commit; resumed at 2 ranks bit-exact (losses and masters,
   ``array_equal``) against the run that never stopped; loaded at 4 ranks
@@ -132,6 +132,7 @@ def _both(fn_port, fn_jax):
 @pytest.mark.parametrize("world,kw", [
     (8, {}), (8, {"tp": 2}), (8, {"dp_outer": 2}), (8, {"pp": 2, "ep": 2}),
     (6, {"tp": 4}), (8, {"dp": 2}), (8, {"dp": 2, "dp_outer": 2, "tp": 2}),
+    (4, {"tp": 4}), (4, {"tp": 2, "dp": 2}), (8, {"tp": 8}), (8, {"tp": 2, "dp": 3}),
 ])
 def test_mesh_layout_matches_jax(world, kw):
     ours, theirs = _both(lambda: pmesh.MeshLayout.from_world(world, **kw),
@@ -234,8 +235,16 @@ def _axes_by_dim(entries):
 @pytest.mark.parametrize("threshold", [0, 1000])
 @pytest.mark.parametrize("with_tp", [False, True])
 def test_planner_dims_match_jax(world, threshold, with_tp):
+    """With tensor-parallel specs: over a model axis of 1, and of 2 where
+    the 8 virtual devices hold both axes (ZeRO worlds 2 and 4)."""
+    for tp in ([1, 2] if with_tp and world * 2 <= 8 else [1]):
+        _planner_dims_match_jax(world, threshold, with_tp, tp)
+
+
+def _planner_dims_match_jax(world, threshold, with_tp, tp):
     P = jax.sharding.PartitionSpec
-    mesh = jmesh.build_mesh(jmesh.MeshLayout(dp=world), devices=jax.devices()[:world])
+    mesh = jmesh.build_mesh(jmesh.MeshLayout(dp=world, tp=tp),
+                            devices=jax.devices()[:world * tp])
     for name, tree in _shapes().items():
         jshapes = jax.tree_util.tree_map(
             lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), tree)
@@ -247,7 +256,8 @@ def test_planner_dims_match_jax(world, threshold, with_tp):
         for stage in range(4):
             jplan = jplanner.plan_sharding(jshapes, stage, mesh, tp_specs=jtp,
                                            persistence_threshold=threshold)
-            tplan = pplanner.plan_sharding(tshapes, stage, pmesh.MeshLayout(dp=world),
+            tplan = pplanner.plan_sharding(tshapes, stage,
+                                           pmesh.MeshLayout(dp=world, tp=tp),
                                            tp_specs=ttp, persistence_threshold=threshold)
             for field in ("param_specs", "master_specs", "grad_specs", "opt_specs"):
                 jspecs = {_path(p): s for p, s in jax.tree_util.tree_flatten_with_path(
@@ -256,7 +266,7 @@ def test_planner_dims_match_jax(world, threshold, with_tp):
                     got = {a: pl.dim for a, pl in zip(
                         pmesh.MESH_AXES, _at(getattr(tplan, field), path)) if pl.is_shard()}
                     want = _axes_by_dim(tuple(jspecs[path]))
-                    assert got == want, (name, stage, field, path, got, want)
+                    assert got == want, (name, tp, stage, field, path, got, want)
 
 
 def test_planner_persistence_only_on_compute_params():

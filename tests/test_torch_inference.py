@@ -146,7 +146,8 @@ def test_config_and_unported_paths():
     with pytest.raises(NotImplementedError, match="quantiz"):
         deepspeed_tpu_torch.init_inference(model, config={"dtype": "int8"},
                                            params=params, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    # tensor parallelism runs one rank per device (tests/test_torch_tp.py)
+    with pytest.raises(RuntimeError, match="tensor-parallel inference .* process group"):
         deepspeed_tpu_torch.init_inference(
             model, config={"tensor_parallel": {"tp_size": 2}}, params=params,
             device="cpu")
@@ -154,7 +155,8 @@ def test_config_and_unported_paths():
         deepspeed_tpu_torch.init_inference("/some/hf/checkpoint", device="cpu")
     eng = deepspeed_tpu_torch.init_inference(model, params=params, device="cpu")
     assert eng.params["embed"].dtype == torch.bfloat16   # default dtype
-    for call in (eng.supervised_serving, eng.serving_fleet,
-                 lambda: eng.serving(mesh=object())):
+    for call in (eng.supervised_serving, eng.serving_fleet):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    with pytest.raises(TypeError, match="MeshLayout"):
+        eng.serving(mesh=object())

@@ -569,3 +569,53 @@ def test_decode_graph_replay_matches_eager_decode(cuda):
         np.testing.assert_array_equal(
             res.output_ids, base[0, len(req.input_ids):].cpu().numpy())
     assert sv.page_accounting()["balanced"]
+
+
+@pytest.mark.gpu
+def test_tp_decode_graph_at_world_one(cuda):
+    """The tensor-parallel serving path on one card (NCCL world 1, a model
+    axis of 1): the decode step is still one CUDA graph, now holding the
+    model axis's all-reduces (two a layer and the embedding's) and the
+    logits' all-gather; replays follow the changing lengths and page
+    tables, and the served fp32 streams equal the unsharded engine's."""
+    import socket
+
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import Request
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    base = _hd64_engine(torch.float32)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, input_ids=rng.integers(1, 250, n).astype(np.int32),
+                    max_new_tokens=m) for i, (n, m) in enumerate(
+                        ((5, 12), (40, 3), (17, 20), (70, 7), (9, 16)))]
+    ref = {r.rid: r.output_ids for r in
+           base.serving(b_slots=3, page_size=16, max_model_len=128).run(list(reqs))}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                          world_size=1, verbose=False)
+    try:
+        comm.configure({"enabled": True})
+        eng = deepspeed_tpu_torch.init_inference(
+            base.model, config={"dtype": "float32"}, params=base.params,
+            mesh=initialize_serving_mesh(tp=1))
+        sv = eng.serving(b_slots=3, page_size=16, max_model_len=128)
+        ex = sv._exec
+        L = eng.model.config.num_layers
+        assert ex.captures == 1 and ex.graph_k4_launches == L
+        assert ex.graph_collectives["all_reduce"]["model"] == 2 * L + 1
+        assert ex.graph_collectives["all_gather"]["model"] == 1
+        got = {r.rid: r.output_ids for r in sv.run(list(reqs))}
+        assert ex.captures == 1 and ex.replays > 0
+        for rid, ids in ref.items():
+            np.testing.assert_array_equal(got[rid], ids)
+        assert sv.page_accounting()["balanced"]
+        h = sv.health()
+        assert h["kv_pool_bytes_per_device"] == h["kv_pool_bytes_total"]
+        sv.close()
+    finally:
+        comm.destroy_process_group()

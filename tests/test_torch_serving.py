@@ -396,13 +396,15 @@ def test_refused_options_name_their_roadmap_item(tiny):
                          ({"adapters": object()}, "item 7"),
                          ({"kv_dtype": "int8"}, "item 7"),
                          ({"probe_after_ticks": 3}, "item 7"),
-                         ({"mesh": object()}, "item 4"),
                          ({"monitor": object()}, "item 12"),
                          ({"watchdog": object()}, "item 12"),
                          ({"slo_rules": [object()]}, "item 12"),
                          ({"program_stats_sample_every": 2}, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             teng.serving(**SERVE, **kwargs)
+    # mesh= is ported (tests/test_torch_tp.py): a non-mesh is a TypeError
+    with pytest.raises(TypeError, match="MeshLayout"):
+        teng.serving(**SERVE, mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         tserve.update_params(teng.params)
     with pytest.raises(NotImplementedError, match="item 7"):

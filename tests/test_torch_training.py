@@ -368,7 +368,7 @@ def test_dataloader_and_batch_forms():
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
-    {"mesh": {"tp": 2}},
+    {"mesh": {"sp": 2}},
     {"mesh": {"pp": 2}},
     {"compression_training": {}},
     {"progressive_layer_drop": {"enabled": True}},
@@ -408,10 +408,11 @@ class _TensorParallelMPU:
 
 
 def test_unported_entry_points_raise():
-    """What the trainer still refuses, each naming its ROADMAP item: a
-    model-parallel degree above 1 (item 4), random-LTD and progressive
-    layer drop (item 11)."""
-    with pytest.raises(NotImplementedError, match="item 4"):
+    """What the trainer still refuses: a model-parallel degree above 1
+    without a process group (tensor parallelism runs one rank per device,
+    ``tests/test_torch_tp.py``), random-LTD and progressive layer drop
+    (item 11, named)."""
+    with pytest.raises(RuntimeError, match="process group"):
         ds.initialize(model=CausalLM("tiny"), config={"train_batch_size": 2},
                       mpu=_TensorParallelMPU(), device="cpu")
     batch = {"input_ids": torch.zeros((1, 8), dtype=torch.long)}
