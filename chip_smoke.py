@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--profile] [--first-launch] [--tp-cards]
-    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards
+    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp and sp)
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -33,7 +33,16 @@ one JSON line each; any failure exits non-zero with no result line:
    the same kernels unmasked, the plain versions, SDPA with the mask as a
    bool attn_mask and the bound over the live pairs.  Then
    ``DeepSpeedTransformerLayer`` (BERT-large width, pre-LN and post-LN,
-   bf16): bidirectional, so no kernel launches;
+   bf16): bidirectional, so no kernel launches.  Then ``ring_attention``:
+   the ring of ``ops/ring_attention.py`` run as ``sp`` virtual ranks in
+   one process (the same schedule as the P2P ring, each rotation a list
+   index) at RING_CASES (llama-740m's attention at S=16384 over sp=4, GQA,
+   sp=2): its output and gradients against the plain version on the
+   first heads and against K1-K3 causal over the whole sequence, K1/K2/K3
+   launches (each sp causal + sp(sp-1)/2 non-causal, the future blocks
+   skipped), its time against the one-device kernels', and one ring
+   block's K1 (non-causal, with lse) and K2/K3 (with dlse) against their
+   plain versions, SDPA and the bound;
 4. the training path: ``initialize`` -> ``train_batch`` on llama-740m at
    full width and depth, S=16384, micro batch 1, bf16 over fp32 masters,
    AdamW (bf16 mu), full-layer remat; 2 warm and 5 timed steps on one
@@ -71,7 +80,11 @@ one JSON line each; any failure exits non-zero with no result line:
    one-device engine's; with more cards one process per card at the
    largest model axis the card count and the model's heads allow, the
    loss trajectory beside train_zero's data-parallel one; model-axis
-   collectives a step);
+   collectives a step; with no ``params=`` at a model axis of 1 the
+   masters equal the default init's); ``train_sp`` (the same cell through
+   ``initialize(mesh=MeshLayout(sp=1))`` at one card: losses and masters
+   bit-equal to the one-device engine's, the 'seq' plumbing costing
+   nothing);
    ``checkpoint`` (S=16384, full width, in a
    temporary directory outside the checkout, removed after): train 2
    steps, ``save_checkpoint``, train 2; a fresh engine
@@ -96,12 +109,17 @@ one JSON line each; any failure exits non-zero with no result line:
    ``generate(sampling=...)`` (gated in fp32, reported in bf16);
    ``serve_tp``: the same stream through ``initialize_serving_mesh(tp)`` ->
    ``init_inference(mesh=)`` -> the paged engine (at one card tp=1 in
-   this process, else one process per card at tp = the card count),
-   token-exact with the unsharded run, one capture whose graph holds the
+   this process, else one process per card at tp = the card count, each
+   rank failing if its teardown outlasts TEARDOWN_S), token-exact with the unsharded run, one capture whose graph holds the
    model-axis all-reduces (two a layer and the embedding's) and the logits
    gather; ``--tp-cards`` (several cards) then runs TP_CARD_CONFIGS: llama2-7b
    training at tp = the card count, llama2-70b paged serving, and
    llama2-70b's widths at 8 layers sharded against one card;
+   ``--tp-cards-only`` also takes SP_CARD_CONFIGS (4 cards):
+   ``sp4_740m`` (llama-740m at S=65536 over sp=4, ring, against one card's
+   run of the same tokens), ``uly_7b`` (llama2-7b's widths at 8 layers,
+   S=32768, Ulysses over sp=4, against one card), ``tp4_740m`` (llama-740m
+   at tp=4, 14 heads padded to 16, against dp=4);
 8. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
@@ -141,9 +159,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # (one per layer of engine.forward at llama2-7b, S=4096).
 TRAIN_SHAPE = (1, 16384, 14, 14, 128, torch.bfloat16, True)
 SERVE_SHAPE = (1, 4096, 32, 32, 128, torch.bfloat16, True)
+# uly_7b's (4 cards): llama2-7b's 32 heads over sp=4 after Ulysses'
+# all-to-all, the whole S=32768 causal on each card's 8 heads
+ULY_SHAPE = (1, 32768, 8, 8, 128, torch.bfloat16, True)
 FWD_SHAPES = [
     TRAIN_SHAPE,
     SERVE_SHAPE,
+    ULY_SHAPE,
     (2, 2048, 32, 8, 128, torch.bfloat16, True),
     (2, 2048, 12, 12, 64, torch.bfloat16, True),
     (1, 2048, 16, 16, 128, torch.bfloat16, False),
@@ -153,6 +175,7 @@ FWD_SHAPES = [
 # K2/K3: the tensor-core kernels (bf16/fp16), then the CUDA-core fp32 ones
 BWD_SHAPES = [
     TRAIN_SHAPE,
+    ULY_SHAPE,
     (2, 2048, 32, 8, 128, torch.bfloat16, True),
     (2, 2048, 12, 12, 64, torch.bfloat16, True),
     (1, 2048, 16, 16, 128, torch.bfloat16, False),
@@ -161,7 +184,7 @@ BWD_SHAPES = [
     (1, 2048, 8, 2, 128, torch.float32, True),
     (1, 2048, 8, 2, 128, torch.float32, False),
 ]
-FP32_BWD_SHAPE = BWD_SHAPES[6]   # the fp32 record of the kernels line
+FP32_BWD_SHAPE = BWD_SHAPES[7]   # the fp32 record of the kernels line
 # From this length on, one fp32 [S, S] score plane per head is over 0.27 GB
 # and the plain versions run on slices of PLAIN_HEADS heads: compared on the
 # first slice, timed over all of them.
@@ -201,6 +224,22 @@ AGREE_TOL = {
     },
 }
 LSE_ATOL = 1e-5   # lse is fp32 always: 1.9e-6 at most on the H100
+# K1 bf16, causal, past 16384 rows (the longest length the limits above
+# were set at): rms(ref), the per-element unit, keeps falling with S (0.0375
+# at 16384 rows, 0.0279 at 32768) while the rounding of a short row's few
+# dominant products does not (max |err| 0.0156 at every length), so the
+# same elements need more units.  At uly_7b's (1, 32768, 8x128) K1 needed
+# 0.134 and the lower-precision yardstick 0.269 (H100, PERF.md): the limit
+# there lies between; the tile limit is AGREE_TOL's.
+LONG_ROWS, LONG_ROWS_FWD_ELEM_ATOL_RMS = 16384, 0.2
+
+
+def fwd_tol(dtype, S: int, causal: bool) -> dict:
+    """K1's AGREE_TOL entry at this length."""
+    tol = AGREE_TOL["fwd"][dtype]
+    if dtype == torch.bfloat16 and causal and S > LONG_ROWS:
+        tol = {**tol, "elem_atol_rms": LONG_ROWS_FWD_ELEM_ATOL_RMS}
+    return tol
 
 # bench.py's training defaults, on the port
 TRAIN_MODEL = "llama-740m"
@@ -745,7 +784,7 @@ def phase_fwd_kernel(gen: torch.Generator):
             if slices is not None:
                 lo, hi = slices[0]
                 out, lse = _heads(out, lo, hi), _heads(lse, lo, hi, dim=1)
-            tol = AGREE_TOL["fwd"][dtype]
+            tol = fwd_tol(dtype, S, causal)
             agree = compare(out, ref, plain_low_precision(*parts[0], causal), tol)
             lse_err = (lse - ref_lse).abs().max().item()
             del out, lse, ref, ref_lse
@@ -1364,6 +1403,208 @@ def phase_transformer_layer(seed: int):
     free_memory()
 
 
+# (name, (B, S, Hq, Hkv, hd), sp): the ring's virtual ranks at llama-740m's
+# attention (the training cell's S over sp=4: 4096 rows a rank), GQA and sp=2
+RING_CASES = [("ring_740m", (1, 16384, 14, 14, 128), 4),
+              ("ring_gqa", (1, 8192, 16, 2, 128), 4),
+              ("ring_sp2", (1, 8192, 14, 14, 128), 2)]
+
+
+class _PlainVersions:
+    """Inside: the flash wrappers run K1-K3's plain versions on the card's
+    tensors (the ring's plain version: the same schedule, each block as
+    its plain version computes it), counting no launch."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+        self.saved = (fa._launch, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        fa._launch = lambda q, k, v, causal, sm, bm=None: fa.flash_attention_reference(
+            q, k, v, causal, sm, True, bm)
+        fa.flash_attention_bwd_dq = fa.flash_attention_bwd_dq_reference
+        fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_reference
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+        fa._launch, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = self.saved
+        return False
+
+
+def _ring_block(gen, B, Sl, H, hd, dtype) -> dict:
+    """One ring block at the shard length ``Sl``: K1 non-causal with lse,
+    and K2 and K3 fed ``delta - dlse``, against their plain versions (on
+    the first PLAIN_HEADS heads from CHUNK_FROM_S rows on, timed over every
+    slice, as phase ``kernel`` runs them), SDPA and the bound."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    shape = (B, Sl, H, H, hd, dtype, False)
+    slices = _slices(shape)
+    q, k, v, do = (torch.randn(B, Sl, H, hd, generator=gen, device="cuda", dtype=dtype)
+                   for _ in range(4))
+    dlse = torch.randn(B, H, Sl, generator=gen, device="cuda") * 0.1
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    delta = ((do.float() * out.float()).sum(-1).transpose(1, 2) - dlse).contiguous()
+    args = (q, k, v, do, lse, delta, False)
+    dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+    parts = _parts(slices, q, k, v, do, lse, delta)
+    if slices is not None:
+        lo, hi = slices[0]
+        out, lse, dq, dk, dv = (_heads(x, lo, hi, 2 if x.dim() == 4 else 1)
+                                for x in (out, lse, dq, dk, dv))
+    with torch.no_grad():
+        ref, ref_lse = fa.flash_attention_reference(*parts[0][:3], causal=False,
+                                                    return_lse=True)
+    dq_ref = fa.flash_attention_bwd_dq_reference(*parts[0], False)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_reference(*parts[0], False)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    o_s = F.scaled_dot_product_attention(qt, kt, vt)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(o_s, (qt, kt, vt), do.transpose(1, 2),
+                                                   retain_graph=True))
+    del o_s, qt, kt, vt
+    reps, warm = (20, 3) if slices is None else (5, 1)
+    plain = {"K1": lambda p: fa.flash_attention_reference(*p[:3], causal=False,
+                                                          return_lse=True),
+             "K2": lambda p: fa.flash_attention_bwd_dq_reference(*p, False),
+             "K3": lambda p: fa.flash_attention_bwd_dkv_reference(*p, False)}
+    recs = {}
+    for name, kind, got, want, fn, lib in (
+            ("K1", "fwd", out, ref, lambda: fa.flash_attention(q, k, v, causal=False,
+                                                               return_lse=True), sdpa_fwd),
+            ("K2", "dq", dq, dq_ref, lambda: fa.flash_attention_bwd_dq(*args), sdpa_bwd),
+            ("K3", "dkv", dk, dk_ref, lambda: fa.flash_attention_bwd_dkv(*args), sdpa_bwd)):
+        bound, by = attention_bound_ms(B, Sl, H, H, hd, dtype, False, kernel=kind)
+        tol = AGREE_TOL["fwd" if kind == "fwd" else "bwd"][dtype]
+        agree = agreement(got, want, tol)
+        if name == "K3":
+            agree_v = agreement(dv, dv_ref, tol)
+            agree["ok"] = agree["ok"] and agree_v["ok"]
+            agree["max_abs_err"] = max(agree["max_abs_err"], agree_v["max_abs_err"])
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: [plain[name](p) for p in parts], reps=reps,
+                               warmup=warm)
+        recs[name] = {"shape": _shape_dict(shape, slices), "causal": False,
+                      "dlse": name != "K1", "ms": time_ms(fn), "plain_ms": plain_ms,
+                      "library_ms": lib,
+                      "library": "scaled_dot_product_attention " + (
+                          "forward" if name == "K1" else "backward (dq, dk, dv together)"),
+                      "bound_ms": bound, "bound_by": by, **agree}
+        check(agree["ok"], f"ring block {name} differs from its plain version: "
+                           f"{recs[name]}")
+    lse_err = (lse - ref_lse).abs().max().item()
+    recs["K1"]["lse_max_abs_err"] = lse_err
+    check(lse_err <= LSE_ATOL, f"ring block lse differs by {lse_err}")
+    return recs
+
+
+def phase_ring_attention(gen: torch.Generator) -> dict:
+    """Ring attention (``ops/ring_attention.py``) as ``sp`` virtual ranks
+    in one process at each RING_CASES entry, bf16: forward, then the
+    backward of the sum of squares linearised at the one-device kernels'
+    output (one dO = 2·out for every path, so each is held as a kernel is);
+    counts K1/K2/K3 launches (sp causal + sp(sp-1)/2 non-causal each, the
+    future blocks skipped; 4 + 12 without skipping at sp=4).  The ring's
+    output is held within the ``kernel`` phase's bf16 tolerance of the
+    ring's plain version (the same schedule through K1-K3's plain
+    versions, on the first heads); its output and gradients against K1-K3
+    causal over the whole sequence within twice those tolerances plus how
+    far the two plain versions lie apart; its time against those
+    kernels'.  Then one block, the kernels' new launch pattern, at the
+    main case's shard length and at ``sp4_740m``'s (SP_S / 4 rows), each
+    kernel held against its plain version on the same residuals."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from deepspeed_tpu_torch.ops.ring_attention import ring_attention_virtual
+
+    dtype = torch.bfloat16
+    out = {}
+    for name, (B, S, Hq, Hkv, hd), sp in RING_CASES:
+        q, k, v = (torch.randn(B, S, h, hd, generator=gen, device="cuda", dtype=dtype)
+                   for h in (Hq, Hkv, Hkv))
+
+        def ring(q, k, v):
+            return torch.cat(ring_attention_virtual(
+                list(q.chunk(sp, 1)), list(k.chunk(sp, 1)), list(v.chunk(sp, 1)),
+                causal=True), 1)
+
+        def one(q, k, v):
+            return flash_attention(q, k, v, causal=True)
+
+        def run(fn, do):
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            o = fn(qq, kk, vv)
+            o.backward(do)
+            return o.detach(), qq.grad, kk.grad, vv.grad
+
+        with torch.no_grad():
+            do = one(q, k, v) * 2
+        reset_counts()
+        got = run(ring, do)
+        launches = kernel_counts()
+        want = sp + sp * (sp - 1) // 2
+        base = run(one, do)
+        # the plain versions on the first heads (whole GQA groups): the
+        # ring's schedule, and causal attention over the whole sequence
+        G = Hq // Hkv
+        hq = G * max(1, -(-PLAIN_HEADS // G))
+        full = (q, k, v, do)
+        q, k, v, do_h = q[:, :, :hq], k[:, :, :hq // G], v[:, :, :hq // G], do[:, :, :hq]
+        with _PlainVersions():
+            plain = run(ring, do_h)
+            plain_one = run(one, do_h)
+        q, k, v, do = full
+        rec = {"phase": "ring_attention", "case": name, "shape": [B, S, Hq, Hkv, hd],
+               "sp": sp, "rows_per_rank": S // sp, "dtype": "bf16",
+               "launches": dict(zip(("K1", "K2", "K3"), launches)),
+               "launches_predicted": {"K1": want, "K2": want, "K3": want},
+               "launches_without_skipping": sp * sp,
+               "plain_heads": hq}
+        check(launches == (want,) * 3, f"{name}: the ring launched K1/K2/K3 {launches} "
+                                       f"times, expected {want} each")
+        ok = True
+        for i, (part, kind) in enumerate((("out", "fwd"), ("dq", "bwd"), ("dk", "bwd"),
+                                          ("dv", "bwd"))):
+            tol = AGREE_TOL[kind][dtype]
+            h = hq if part in ("out", "dq") else hq // G
+            vs_plain = agreement(got[i][:, :, :h], plain[i], tol)
+            # the ring and the one-device attention differ, in their plain
+            # versions, by this much; each kernel path lies within ``tol``
+            # of its plain version
+            apart = agreement(plain[i], plain_one[i], tol)
+            limit = {**tol, "tile_rel": 2 * tol["tile_rel"] + apart["worst_tile_rel_l2"],
+                     "elem_atol_rms": 2 * tol["elem_atol_rms"]
+                     + apart["elem_atol_rms_needed"]}
+            vs_kernels = agreement(got[i], base[i], limit)
+            rec[part] = {"vs_plain": vs_plain, "vs_one_device_kernels": vs_kernels,
+                         "plain_ring_vs_plain_one_device": apart,
+                         "one_device_vs_its_plain_worst_tile": agreement(
+                             base[i][:, :, :h], plain_one[i], tol)["worst_tile_rel_l2"]}
+            # gradients: the plain ring's backward reads its own forward's
+            # out (delta = rowsum(dO o) cancels in the first rows), so only
+            # the output is held to it; each block's K2/K3 are held on the
+            # kernel's residuals in _ring_block, as phase kernel holds them
+            ok = ok and vs_kernels["ok"] and (vs_plain["ok"] or part != "out")
+        rec["max_abs_err"] = max(rec[p]["vs_plain"]["max_abs_err"]
+                                 for p in ("out", "dq", "dk", "dv"))
+        rec["ring_ms"] = time_ms(lambda: run(ring, do), reps=5, warmup=1)
+        rec["one_device_ms"] = time_ms(lambda: run(one, do), reps=5, warmup=1)
+        rec["ring_over_one_device"] = rec["ring_ms"] / rec["one_device_ms"]
+        emit(rec)
+        check(ok, f"{name}: the ring differs from the plain version or the kernels")
+        out[name] = rec
+        del q, k, v, got, base, plain
+        free_memory()
+    B, S, Hq, _, hd = RING_CASES[0][1]
+    for key, rows in (("block", S // RING_CASES[0][2]), ("block_sp4_740m", SP_S // 4)):
+        blocks = _ring_block(gen, B, rows, Hq, hd, dtype)
+        emit({"phase": "ring_block", "rows": rows, **blocks})
+        out[key] = blocks
+        free_memory()
+    return out
+
+
 def kernel_counts() -> tuple:
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -1822,6 +2063,9 @@ def phase_train_zero(seed: int) -> None:
             t1 = time.perf_counter()
             run_train_tp(seed, 1, 0, ref=ref)
             emit({"phase": "train_tp_done", "seconds": time.perf_counter() - t1})
+            t1 = time.perf_counter()
+            run_train_sp(seed, ref)
+            emit({"phase": "train_sp_done", "seconds": time.perf_counter() - t1})
         finally:
             comm.destroy_process_group()
     else:
@@ -1878,23 +2122,23 @@ TP_LOSS_RTOL = 1e-6
 # a planted fault (the all-reduce of a row-parallel forward or of a
 # column-parallel input's gradient skipped) moved them 4.6e-3 at step 1
 # and 0.11-0.18 by step 2 (llama-740m's widths at 2 layers, fp32, 4 gloo
-# ranks on the CPU)
+# ranks on the CPU).  sp4_740m and uly_7b against one card: planted
+# sequence-parallel faults (a past ring block dropped, the last cotangent
+# rotation skipped, gradients not summed over 'seq') moved the losses
+# 5.1e-2, 1.1e-2 and 0.31 at step 2 (tests/sp_gate_rehearsal.py, the same
+# widths and ranks, S=512; PERF.md)
 TP_DP_LOSS_RTOL = 2e-3
 SERVE_TP_TIMEOUT_S = 900
 
 
 def _tp_degree(world: int, cfg) -> int:
-    """The largest divisor of ``world`` that shards ``cfg`` evenly (the
-    model axis of a phase run one process per card)."""
-    from deepspeed_tpu_torch.models.transformer import check_tp_divisible
-
+    """The largest divisor of ``world`` that shards ``cfg`` evenly, with no
+    padded heads, vocabulary or FFN columns (the model axis of a phase run
+    one process per card; ``tp4_740m`` runs the padded one)."""
     for n in range(world, 0, -1):
-        if world % n == 0:
-            try:
-                check_tp_divisible(cfg, n)
-                return n
-            except ValueError:
-                continue
+        if world % n == 0 and all(x % n == 0 for x in (
+                cfg.num_heads, cfg.kv_heads, cfg.vocab_size, cfg.intermediate_size)):
+            return n
     return 1
 
 
@@ -1924,16 +2168,22 @@ def run_train_tp(seed: int, world: int, rank: int, ref=None, dp_losses=None) -> 
     flops_per_token = 6.0 * cfg.param_count + 12.0 * L * cfg.hidden_size * S
     per_step = (2 * L, L, L)
     for stage in TP_STAGES:
-        # above a model axis of 1 the engine would draw its shards of the
-        # layer-streamed init; the data-parallel run's weights are the
-        # default init's, so hand every rank that tree (it keeps its shards)
-        params = None if tp == 1 else _default_init(seed, S)
+        # no params=: every rank draws the default init's leaves and keeps
+        # its shards, the data-parallel run's weights at any model axis
         model, engine = _train_engine(
-            seed, S, mesh=MeshLayout(tp=tp, dp=dp), params=params,
+            seed, S, mesh=MeshLayout(tp=tp, dp=dp),
             config_extra={"zero_optimization": {"stage": stage},
                           "train_micro_batch_size_per_gpu": world // dp})
-        del params
         check(engine.tp == tp, f"the engine runs tp={engine.tp}, expected {tp}")
+        if tp == 1 and stage == TP_STAGES[0]:   # the seed names the default init
+            init = _leaves(_default_init(seed, S))
+            seed_equal = all(torch.equal(m, w) for m, w in zip(
+                _leaves(engine.state.master_params), init))
+            del init
+            emit({"phase": "train_tp_seed", "tp": tp,
+                  "masters_equal_default_init": seed_equal})
+            check(seed_equal, "train_tp without params=: the masters are not the "
+                              "default init's")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1990,6 +2240,48 @@ def run_train_tp(seed: int, world: int, rank: int, ref=None, dp_losses=None) -> 
                   f"engine's beyond {TP_LOSS_RTOL}: {rec}")
         del engine, model
         free_memory()
+
+
+def run_train_sp(seed: int, ref: dict) -> None:
+    """Phase ``train_sp`` at one card: the train cell through
+    ``initialize(mesh=MeshLayout(sp=1))`` at NCCL world 1 (the 'seq' axis
+    named, of size 1): losses and masters bit-equal to the one-device
+    engine's ``ref``, K1-K3 launched as there, the step's overhead."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import get_config
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    S = TRAIN_SHAPE[1]
+    cfg = get_config(TRAIN_MODEL)
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                                        device="cuda")}
+    comm.configure({"enabled": True})
+    model, engine = _train_engine(seed, S, mesh=MeshLayout(sp=1),
+                                  config_extra={"zero_optimization": {"stage": 0}})
+    check(engine.sp == 1, f"the engine runs sp={engine.sp}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s, comms = _zero_steps(engine, batch, (2 * L, L, L), by_axis=True)
+    med = statistics.median(step_s[1:])
+    same = losses == ref["losses"] and all(
+        torch.equal(m.cpu(), r) for m, r in zip(_leaves(engine.state.master_params),
+                                                ref["masters"]))
+    rec = {"phase": "train_sp", "sp": 1, "world_size": 1, "model": TRAIN_MODEL, "S": S,
+           "remat_policy": cfg.remat_policy, "losses": losses, "step_s": step_s,
+           "median_step_s": med, "one_device_median_step_s": ref["median_step_s"],
+           "step_overhead": med / ref["median_step_s"] - 1,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_excess_gb": torch.cuda.max_memory_allocated() / 1e9 - ref["peak_gb"],
+           "collectives_per_step_by_axis": comms[-1], "bit_equal": same,
+           "launches": dict(zip(("K1", "K2", "K3"), kernel_counts())),
+           "nvidia_smi": nvidia_smi_line()}
+    emit(rec)
+    check(same, f"train_sp at sp=1 differs from the one-device engine: {rec}")
+    del engine, model
+    free_memory()
 
 
 def _default_init(seed: int, S: int):
@@ -2103,9 +2395,8 @@ TEARDOWN_S = 60
 def _run_rank(body) -> int:
     """One rank of a phase run one process per card: the process group,
     ``body()``, then the teardown.  A rank whose teardown is still waiting
-    after TEARDOWN_S (NCCL work a CUDA graph captured can hold it) leaves
-    at once: with 0 when ``body`` returned (its record already written),
-    with 1 when it raised."""
+    after TEARDOWN_S (NCCL work a CUDA graph captured held it before
+    ``comm.destroy_process_group`` released the graphs) exits 1."""
     import threading
     import traceback
 
@@ -2113,10 +2404,8 @@ def _run_rank(body) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     comm.init_distributed(verbose=False)
-    ok = False
     try:
         body()
-        ok = True
     except BaseException:
         traceback.print_exc()
         raise
@@ -2125,10 +2414,10 @@ def _run_rank(body) -> int:
         t.start()
         t.join(TEARDOWN_S)
         if t.is_alive():
-            print(f"rank teardown still waiting after {TEARDOWN_S} s: exiting",
+            print(f"rank teardown still waiting after {TEARDOWN_S} s: exiting 1",
                   file=sys.stderr, flush=True)
             sys.stdout.flush()
-            os._exit(0 if ok else 1)
+            os._exit(1)
     return 0
 
 
@@ -2156,7 +2445,8 @@ def _join(procs, timeout_s: int, what: str) -> None:
 def serve_tp_rank(seed: int, out: str) -> None:
     """One rank of phase ``serve_tp`` on several cards: phase ``serving``'s
     weights (the same seed; the engine keeps this rank's shards), the
-    stream, rank 0's record and outputs into ``out``."""
+    stream, rank 0's record and outputs into ``out``; the serving engine is
+    closed before it returns."""
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models import CausalLM
     from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
@@ -2198,11 +2488,20 @@ def serve_tp_rank(seed: int, out: str) -> None:
 TP_CARD_CONFIGS = ("train_7b", "serve_70b", "cmp_70b8")
 TP_CARD_TIMEOUT_S = 900
 CMP_LAYERS, CMP_S = 8, 2048
+# Sequence parallelism and the padded model axis (``--tp-cards-only``, 4
+# cards): llama-740m at S=65536 over sp=4 (ring; one card's run of the
+# same tokens first, in the parent), llama2-7b's widths at ULY_LAYERS
+# layers, S=32768, Ulysses over sp=4 (32 heads; the same), llama-740m at
+# tp=4 (14 heads padded to 16) against dp=4 in the same ranks.
+SP_CARD_CONFIGS = ("sp4_740m", "uly_7b", "tp4_740m")
+SP_S, ULY_S, ULY_LAYERS = 65536, 32768, 8
 
 
 def phase_tp_cards(seed: int, configs=TP_CARD_CONFIGS) -> None:
     """Each configuration one process per card; it passes when every rank
-    exits 0 and rank 0 wrote its record."""
+    exits 0 and rank 0 wrote its record (and, for ``sp4_740m`` and
+    ``uly_7b``, its losses lie within TP_DP_LOSS_RTOL of one card's run of
+    the same tokens, made here first)."""
     import subprocess as sp
     import tempfile
 
@@ -2210,6 +2509,7 @@ def phase_tp_cards(seed: int, configs=TP_CARD_CONFIGS) -> None:
     check(world >= 2, f"--tp-cards needs several cards, found {world}")
     for config in configs:
         t0 = time.perf_counter()
+        ref = _sp_card_reference(seed, config)
         out = tempfile.mkdtemp(prefix=f"tp_cards_{config}_")
         env = {**os.environ, "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
                "MASTER_PORT": str(_free_port())}
@@ -2218,8 +2518,134 @@ def phase_tp_cards(seed: int, configs=TP_CARD_CONFIGS) -> None:
                           env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
                  for r in range(world)]
         _join(procs, TP_CARD_TIMEOUT_S, config)
-        emit(_rank0_record(out, config))
+        rec = _rank0_record(out, config)
+        if ref is not None:
+            rec["one_card"] = ref
+            rec["loss_max_rel_diff_vs_one_card"] = max(
+                abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref["losses"]))
+        emit(rec)
+        if ref is not None:
+            check(rec["loss_max_rel_diff_vs_one_card"] <= TP_DP_LOSS_RTOL,
+                  f"{config}: losses differ from one card's beyond {TP_DP_LOSS_RTOL}")
         emit({"phase": f"tp_cards_{config}_done", "seconds": time.perf_counter() - t0})
+
+
+def _sp_card(config: str) -> dict:
+    """(model name, S, model keywords) of a sequence-parallel configuration."""
+    return {"sp4_740m": (TRAIN_MODEL, SP_S, {}),
+            "uly_7b": ("llama2-7b", ULY_S, {"num_layers": ULY_LAYERS,
+                                            "attn_impl": "ulysses"})}[config]
+
+
+def _one_row(vocab: int, S: int, seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return {"input_ids": torch.randint(0, vocab, (1, S), generator=gen, device="cuda")}
+
+
+def _sp_card_reference(seed: int, config: str):
+    """One card's run (no process group) of a sequence-parallel
+    configuration's model and tokens, under ``nothing_saveable``: losses,
+    step time and peak memory; None for the other configurations."""
+    if config not in ("sp4_740m", "uly_7b"):
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, S, kw = _sp_card(config)
+    kw = {k: v for k, v in kw.items() if k != "attn_impl"}
+    model, engine = _train_engine(seed, S, name=name, **kw)
+    L = model.config.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, _ = _zero_steps(engine, _one_row(model.config.vocab_size, S, seed),
+                                    (2 * L, L, L))
+    ref = {"losses": losses, "step_s": step_s,
+           "median_step_s": statistics.median(step_s[1:]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine, model
+    free_memory()
+    return ref
+
+
+def _tp_card_sp(seed: int, world: int, rank: int, config: str) -> dict:
+    """``sp4_740m`` / ``uly_7b``: the model over a 'seq' axis of ``world``
+    (ring or Ulysses), one row of S tokens, each rank its S/world slice."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.ring_attention import ring_attention
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    comm.configure({"enabled": True})
+    name, S, kw = _sp_card(config)
+    model, engine = _train_engine(seed, S, name=name, mesh=MeshLayout(sp=world),
+                                  config_extra={"zero_optimization": {"stage": 0}}, **kw)
+    cfg = model.config
+    L = cfg.num_layers
+    r = comm.axis_index("seq")
+    # the ring: one causal block and r past ones a layer call on rank r;
+    # Ulysses: one full-sequence causal call on its heads
+    blocks = 1 + r if model.attn_impl != "ulysses" else 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ring_attention.rotations = 0
+    losses, step_s, comms = _zero_steps(engine, _one_row(cfg.vocab_size, S, seed),
+                                        (2 * L * blocks, L * blocks, L * blocks),
+                                        by_axis=True)
+    med = statistics.median(step_s[1:])
+    flops_per_token = 6.0 * cfg.param_count + 12.0 * L * cfg.hidden_size * S
+    tflops = S / med * flops_per_token / 1e12
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return {"model": name, "layers": L, "S": S, "sp": world, "attn_impl": model.attn_impl,
+            "rows": 1, "remat_policy": cfg.remat_policy, "losses": losses,
+            "step_s": step_s, "median_step_s": med, "tokens_per_s": S / med,
+            "model_tflops": tflops,
+            "mfu": tflops * 1e12 / world / PEAK_FLOPS[torch.bfloat16],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+            "rank0_launches_per_step": {"K1": 2 * L * blocks, "K2": L * blocks,
+                                        "K3": L * blocks},
+            "ring_rotations_per_step": ring_attention.rotations / ZERO_STEPS,
+            "collectives_per_step_by_axis": comms[-1]}
+
+
+def _tp_card_tp4_740m(seed: int, world: int, rank: int) -> dict:
+    """llama-740m at a model axis of ``world`` (14 heads padded to 16 at 4)
+    against dp=``world`` on the same weights (the seed's default init) and
+    global batch of ``world`` rows, stage 0: losses within
+    TP_DP_LOSS_RTOL at every step."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    comm.configure({"enabled": True})
+    S = TRAIN_SHAPE[1]
+    cfg = None
+    out = {}
+    for name, mesh, micro in (("dp", MeshLayout(dp=world), 1),
+                              ("tp", MeshLayout(tp=world), world)):
+        model, engine = _train_engine(
+            seed, S, mesh=mesh, config_extra={"zero_optimization": {"stage": 0},
+                                              "train_micro_batch_size_per_gpu": micro})
+        cfg = model.config
+        L = cfg.num_layers
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, cfg.vocab_size, (world, S), generator=gen,
+                                            device="cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, comms = _zero_steps(engine, batch, (2 * L, L, L), by_axis=True)
+        out[name] = {"losses": losses, "step_s": step_s,
+                     "median_step_s": statistics.median(step_s[1:]),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+                     "local_heads": (engine.state.params["layers"]["wq"].shape[-1]
+                                     // cfg.dims_per_head)}
+        del engine, model, batch
+        free_memory()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["tp"]["losses"], out["dp"]["losses"]))
+    check(rel <= TP_DP_LOSS_RTOL, f"tp4_740m: tp={world} losses differ from dp={world}'s "
+                                  f"by {rel}: {out}")
+    return {"model": TRAIN_MODEL, "S": S, "tp": world, "heads": cfg.num_heads,
+            "padded_heads": out["tp"]["local_heads"] * world, **out["tp"],
+            "dp_world": out["dp"], "loss_max_rel_diff_vs_dp": rel}
 
 
 def _tp_card_train_7b(seed: int, world: int, rank: int) -> dict:
@@ -2266,7 +2692,7 @@ def _tp_card_serve_70b(seed: int, world: int, rank: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16,
-                           tp=(comm.axis_index("model"), world))
+                           tp=(comm.axis_index("model"), world), streamed=True)
     engine = _inference_engine(model, params, mesh)
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
@@ -2305,7 +2731,7 @@ def _tp_card_cmp_70b8(seed: int, world: int, rank: int) -> dict:
     mesh = initialize_serving_mesh(tp=world)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16,
-                           tp=(comm.axis_index("model"), world))
+                           tp=(comm.axis_index("model"), world), streamed=True)
     tokens = torch.randint(0, cfg.vocab_size, (1, CMP_S),
                            generator=torch.Generator(device="cuda").manual_seed(seed + 7),
                            device="cuda")
@@ -2324,7 +2750,7 @@ def _tp_card_cmp_70b8(seed: int, world: int, rank: int) -> dict:
         outs = {}
         for dtype in (torch.bfloat16, torch.float32):
             whole = model.init_fn(torch.Generator(device="cuda").manual_seed(seed),
-                                  device="cuda", dtype=dtype, tp=(0, 1))
+                                  device="cuda", dtype=dtype, tp=(0, 1), streamed=True)
             one = deepspeed_tpu_torch.init_inference(
                 CausalLM("llama2-70b", num_layers=CMP_LAYERS, dtype=dtype),
                 config={"dtype": "bf16" if dtype == torch.bfloat16 else "fp32"},
@@ -2362,7 +2788,9 @@ def tp_card_rank(seed: int, config: str, out: str) -> None:
 
     world, rank = comm.get_world_size(), comm.get_rank()
     run = {"train_7b": _tp_card_train_7b, "serve_70b": _tp_card_serve_70b,
-           "cmp_70b8": _tp_card_cmp_70b8}[config]
+           "cmp_70b8": _tp_card_cmp_70b8, "tp4_740m": _tp_card_tp4_740m,
+           "sp4_740m": lambda *a: _tp_card_sp(*a, "sp4_740m"),
+           "uly_7b": lambda *a: _tp_card_sp(*a, "uly_7b")}[config]
     rec = run(seed, world, rank)
     rec.update(phase=f"tp_cards_{config}", world_size=world,
                nvidia_smi=nvidia_smi_line())
@@ -3440,10 +3868,10 @@ def main() -> int:
     ap.add_argument("--tp-cards", action="store_true",
                     help="after every phase, the configurations that need tensor "
                          "parallelism, one process per card (several cards)")
-    ap.add_argument("--tp-cards-only", nargs="+", choices=TP_CARD_CONFIGS,
-                    metavar="CONFIG",
-                    help="only the build, then these --tp-cards configurations "
-                         f"(of {', '.join(TP_CARD_CONFIGS)})")
+    ap.add_argument("--tp-cards-only", nargs="+",
+                    choices=TP_CARD_CONFIGS + SP_CARD_CONFIGS, metavar="CONFIG",
+                    help="only the build, then these configurations, one process "
+                         f"per card (of {', '.join(TP_CARD_CONFIGS + SP_CARD_CONFIGS)})")
     ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     args = ap.parse_args()
@@ -3493,6 +3921,7 @@ def main() -> int:
     dec = phase_decode_kernel(gen, args.seed)
     sparse = phase_sparse_attention(gen)
     phase_transformer_layer(args.seed)
+    ring = phase_ring_attention(gen)
     k1, (k2, k3) = fwd[TRAIN_SHAPE], bwd[TRAIN_SHAPE]
     train_launches, base = phase_train(
         args.seed, args.profile, {"fwd": k1["ms"], "dq": k2["ms"], "dkv": k3["ms"]})
@@ -3522,6 +3951,20 @@ def main() -> int:
                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "unmasked_ms", "ratio_to_unmasked")}}
 
+    def ring_record(name):
+        """The ring's launch pattern: one block (non-causal; K2/K3 with
+        dlse) at the virtual ring's shard and at sp4_740m's, and the
+        virtual sp=4 ring's launches at the main case."""
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        rec, sp4 = ring["block"][name], ring["block_sp4_740m"][name]
+        main = ring[RING_CASES[0][0]]
+        return {"block_shape": rec["shape"], "dlse": rec["dlse"],
+                "launches_virtual_ring": main["launches"][name],
+                "ring_case": main["case"], "ring_sp": main["sp"],
+                "ring_ms": main["ring_ms"], "one_device_ms": main["one_device_ms"],
+                **{key: rec[key] for key in keys},
+                "sp4_740m_block": {"shape": sp4["shape"], **{key: sp4[key] for key in keys}}}
+
     emit({"kernels": [
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",
                       jax_src + ":74", train_launches[0], k1,
@@ -3530,15 +3973,16 @@ def main() -> int:
                       launches_serving_forward=serve_launches,
                       launches_per_step_save_qkv=remat["save_qkv"]["launches_per_step"]["K1"],
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
-                      block_mask=block_mask("K1", ":88")),
+                      block_mask=block_mask("K1", ":88"),
+                      ring=ring_record("K1")),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
-                      block_mask=block_mask("K2", ":202")),
+                      block_mask=block_mask("K2", ":202"), ring=ring_record("K2")),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
-                      block_mask=block_mask("K3", ":254")),
+                      block_mask=block_mask("K3", ":254"), ring=ring_record("K3")),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], design=K4_DESIGN, l2="flushed",

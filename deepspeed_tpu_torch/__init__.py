@@ -56,11 +56,17 @@ def initialize(args=None, model: Any = None, optimizer=None, model_parameters=No
     ``models.CausalLM`` Megatron-style by its ``param_specs`` (passing
     ``param_specs`` names the model's own), composed with the ZeRO stage;
     naming a model axis of 1 runs the same path with copies for
-    collectives.  Above a model axis of 1 the config's seed draws each
-    rank's shards of the layer-streamed init, not the default init's
-    weights: pass ``params=`` for the same weights at every topology.  A
-    model without ``param_specs`` under a model axis above
-    1 raises ``NotImplementedError`` (ROADMAP queue 1, item 4).
+    collectives; a dim the axis does not divide is padded with zeros.  The
+    config's seed names the same weights at every model axis (each rank
+    draws the default init leaf by leaf and keeps its shard).  Any other
+    model runs under DTensor sharding propagation by its ``param_specs``
+    (replicated over the model axis without them).
+
+    Sequence parallelism: the mesh's 'seq' axis (``mesh=MeshLayout(sp=N)``
+    or the config's ``mesh.sp``) cuts each row's tokens over N ranks; a
+    ``models.CausalLM`` attends by ring attention over the axis
+    (``attn_impl`` "auto"/"ring") or by Ulysses' all-to-alls
+    (``attn_impl="ulysses"``).
     """
     from .parallel.mesh import MeshLayout
     from .runtime.engine import DeepSpeedEngine

@@ -10,7 +10,8 @@ tool is the offline half: rewrite a training checkpoint of the port as
 ``target_mp`` per-rank shard files of its fp32 weights, each the model-axis
 shard ``param_specs`` gives that rank, so a serving fleet loads rank-local
 files (:func:`load_mp_shard`) without reading the whole model on every
-rank.  One output rank's tensors are built at a time (peak host memory:
+rank.  A file holds the rank's true rows only (an uneven shard's padding
+is added back when it is loaded).  One output rank's tensors are built at a time (peak host memory:
 the consolidated weights plus one rank's shard).
 
 Hugging Face directories and DeepSpeed inference-checkpoint json files,
@@ -32,7 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..parallel.tensor_parallel import spec_dim, spec_paths
+from ..parallel.tensor_parallel import pad_to, shard_leaf, spec_dim, spec_paths, true_piece
 from ..utils.logging import logger
 from ..utils.tree import tree_map_with_path
 from .zero_to_fp32 import get_fp32_state_dict_from_zero_checkpoint
@@ -64,11 +65,11 @@ def reshard_checkpoint(checkpoint_dir: str, target_mp: int, out_dir: str, model,
             "inference-checkpoint json files load through module_inject, which "
             "is not ported yet (ROADMAP queue 1, item 6)")
     model = _model(model)
-    from ..models.transformer import check_tp_divisible
+    from ..models.transformer import tp_units
 
-    check_tp_divisible(model.config, target_mp)
     sd = get_fp32_state_dict_from_zero_checkpoint(checkpoint_dir, tag)
     specs = spec_paths(model.param_specs)
+    units = spec_paths(tp_units(model.config))
     missing = sorted(set(specs) - set(sd))
     if missing:
         raise ValueError(f"the checkpoint has no weights for {missing[:5]}: is it "
@@ -80,8 +81,11 @@ def reshard_checkpoint(checkpoint_dir: str, target_mp: int, out_dir: str, model,
         shard: Dict[str, torch.Tensor] = {}
         for name in sorted(specs):
             t, d = sd[name], spec_dim(specs[name])
-            if d is not None:
-                t = t.chunk(target_mp, d)[m]
+            if d is not None:   # the rank's shard, without the padding of
+                # an uneven one (load_mp_shard pads it back)
+                extent = t.shape[d]
+                t = true_piece(shard_leaf(t, specs[name], m, target_mp, units[name]),
+                               specs[name], m, target_mp, extent)
             shard[name] = (t.to(cast) if cast is not None else t).contiguous()
         torch.save(shard, os.path.join(out_dir, _shard_file(m)))
         files.append(_shard_file(m))
@@ -108,15 +112,19 @@ def load_mp_shard(out_dir: str, rank: int, model, device=None) -> Dict[str, Any]
                       map_location="cpu", weights_only=True)
     m = _model(model)
     template = m.shard_params(m.init_fn(torch.Generator(), device="meta"), rank, n)
+    specs = spec_paths(m.param_specs)
 
     def fill(path, leaf):
         if path not in flat:
             raise KeyError(f"shard file has no tensor for param '{path}'")
-        if tuple(flat[path].shape) != tuple(leaf.shape):
+        t, d = flat[path], spec_dim(specs[path])
+        if d is not None and t.shape[d] < leaf.shape[d]:   # an uneven shard
+            t = pad_to(t, d, leaf.shape[d])
+        if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for '{path}': file "
                              f"{tuple(flat[path].shape)} vs rank {rank}'s shard "
                              f"{tuple(leaf.shape)}")
-        return flat[path] if device is None else flat[path].to(device)
+        return t if device is None else t.to(device)
 
     return tree_map_with_path(fill, template)
 

@@ -28,6 +28,7 @@ import datetime
 import functools
 import inspect
 import os
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -249,10 +250,28 @@ def init_distributed(dist_backend: Optional[str] = None, auto_mpi_discovery: boo
     _initialized = True
 
 
+# Objects holding a CUDA graph that captured collectives (the serving
+# executor's decode step), held weakly: the group's teardown closes them
+# first, since a live graph with NCCL work keeps destroy_process_group
+# from returning (seen on 4 H100s).
+_CAPTURES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_capture(owner) -> None:
+    """Record ``owner`` (anything with ``close()``) as holding a CUDA graph
+    whose capture issued collectives; :func:`destroy_process_group` closes
+    it before the teardown."""
+    _CAPTURES.add(owner)
+
+
 def destroy_process_group() -> None:
-    """Tear the process group and the mesh's groups down."""
+    """Tear the process group and the mesh's groups down, after closing
+    every live owner of a captured graph (:func:`register_capture`)."""
     global _initialized
     dist = _dist()
+    for owner in list(_CAPTURES):
+        owner.close()
+    _CAPTURES.clear()
     reset_mesh()
     if dist.is_initialized():
         dist.destroy_process_group()

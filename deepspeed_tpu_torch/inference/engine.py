@@ -14,12 +14,13 @@ runs the same steps as a Python loop under ``torch.inference_mode()``.
 Tensor parallelism (``mesh=`` from ``parallel.mesh.initialize_serving_mesh``,
 or ``tensor_parallel.tp_size``): one process per device, each holding its
 model-axis shards.  Auto-TP for a ``models.CausalLM`` takes the model's
-``param_specs``, the Megatron layout of the same function: the JAX
-package's ``auto_tp_specs`` instead shards each weight's largest dim and
-lets GSPMD insert whatever collectives that layout needs, which torch,
-with no GSPMD, cannot do for an arbitrary tree; so a bare ``apply_fn`` or
-another model under a model axis above 1 raises ``NotImplementedError``
-(ROADMAP queue 1, item 4).  ``forward`` and ``generate`` run the model's
+``param_specs``, the Megatron layout of the same function (padded where
+the model axis does not divide a dim).  Any other tree (a bare
+``apply_fn``, another model) takes the JAX package's ``auto_tp_specs``
+(each leaf's largest dim, where the axis divides it) and runs under
+DTensor sharding propagation: each leaf a DTensor of its shard on the
+'model' sub-mesh, the inputs replicated, the output redistributed to
+``Replicate``.  ``forward`` and ``generate`` run the model's
 tensor-parallel path (``parallel.tensor_parallel.region``): the KV cache
 holds the rank's KV heads, the logits are gathered before sampling, so
 every rank picks the same tokens.
@@ -48,9 +49,20 @@ def place_params(model, params, mesh, dtype=None, device=None):
     on ``mesh`` (the JAX package's ``place_params``): a tree already of the
     shards' shapes passes through, a whole tree is cut (before any cast or
     move, so the whole tree is never cast on the device).  ``mesh=None`` or
-    a model axis of 1 keeps the tree whole.  Then cast to ``dtype`` and
-    moved to ``device`` when given."""
-    if mesh is not None and params is not None:
+    a model axis of 1 keeps the tree whole; a model without
+    ``shard_params`` is cut by :func:`~..parallel.tensor_parallel.
+    auto_tp_specs`.  Then cast to ``dtype`` and moved to ``device`` when
+    given."""
+    if mesh is not None and params is not None and not hasattr(model, "shard_params"):
+        from .. import comm
+        from ..parallel.mesh import MeshLayout, layout_of
+
+        n = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
+        if n > 1:
+            params = tensor_parallel.slice_tree(
+                params, tensor_parallel.auto_tp_specs(params, n),
+                comm.axis_index("model"), n)
+    elif mesh is not None and params is not None:
         from ..parallel.mesh import MeshLayout, layout_of
         from ..utils.tree import tree_leaves
 
@@ -68,24 +80,13 @@ def place_params(model, params, mesh, dtype=None, device=None):
 
 
 def check_mesh_model(model, mesh) -> int:
-    """The mesh's model-axis size, after checking that ``model`` can be
-    sharded over it (a ``CausalLM`` whose heads, KV heads, vocabulary and
-    FFN width it divides)."""
-    from ..parallel.mesh import MeshLayout, layout_of
+    """The mesh's model-axis size (a handle of a rank outside a serving
+    mesh raises, naming the rank)."""
+    from ..parallel.mesh import MeshLayout, OutsideMesh, layout_of
 
-    n = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
-    if getattr(model, "param_specs", None) is None:
-        if n > 1:
-            raise NotImplementedError(
-                f"a model axis of {n} for a model without param_specs (a bare "
-                "apply_fn or a model other than models.CausalLM): auto-TP of "
-                "generic models (DTensor sharding propagation) is not ported "
-                "yet (ROADMAP queue 1, item 4: generic user models under TP)")
-        return n
-    from ..models.transformer import check_tp_divisible
-
-    check_tp_divisible(model.config, n)
-    return n
+    if isinstance(mesh, OutsideMesh):
+        mesh.refuse()
+    return (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
 
 
 def install_mesh(mesh, tp: int = 1):
@@ -97,6 +98,8 @@ def install_mesh(mesh, tp: int = 1):
 
     from ..parallel import mesh as mesh_mod
 
+    if isinstance(mesh, mesh_mod.OutsideMesh):
+        mesh.refuse()
     if mesh is not None and not (isinstance(mesh, mesh_mod.MeshLayout)
                                  or hasattr(mesh, "mesh_dim_names")):
         raise TypeError(f"mesh={type(mesh).__name__}: pass a mesh from "
@@ -148,6 +151,10 @@ class InferenceEngine:
         self.apply_fn = apply_fn
         self.mesh = self._resolve_mesh(mesh, tp, model)
         self.params = place_params(model, params, self.mesh, dtype, self.device)
+        # a generic tree on a model axis above 1: DTensor sharding propagation
+        self._generic_specs = None
+        if self.tp > 1 and not hasattr(model, "shard_params") and params is not None:
+            self._generic_specs = tensor_parallel.auto_tp_specs(params, self.tp)
         log_dist(f"inference engine ready: device={self.device} "
                  f"dtype={self._config.dtype} tp={self.tp}", ranks=[0])
 
@@ -168,8 +175,10 @@ class InferenceEngine:
 
     def _region(self):
         """The model's tensor-parallel path on a mesh (copies for
-        collectives at a model axis of 1), its plain path otherwise."""
-        return tensor_parallel.region(self.mesh is not None)
+        collectives at a model axis of 1), its plain path otherwise (and
+        for a generic tree, which DTensor shards)."""
+        return tensor_parallel.region(self.mesh is not None
+                                      and self._generic_specs is None)
 
     @property
     def model(self):
@@ -209,6 +218,10 @@ class InferenceEngine:
     def forward(self, input_ids, *args, **kwargs):
         with torch.inference_mode(), self._region():
             tokens = self._tensor(input_ids, torch.long)
+            if self._generic_specs is not None:
+                return tensor_parallel.replicated(self.apply_fn(
+                    tensor_parallel.as_dtensors(self.params, self._generic_specs),
+                    *tensor_parallel.as_dtensors((tokens,) + args), **kwargs))
             if self.params is not None:
                 return self.apply_fn(self.params, tokens, *args, **kwargs)
             return self.apply_fn(tokens, *args, **kwargs)

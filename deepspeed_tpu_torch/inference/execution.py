@@ -118,6 +118,9 @@ class MeshExecutor:
             return None
         from ..parallel import mesh as mesh_mod
 
+        if isinstance(mesh, mesh_mod.OutsideMesh):
+            mesh.refuse()
+
         layout = (mesh if isinstance(mesh, mesh_mod.MeshLayout)
                   else mesh_mod.layout_of(mesh) if hasattr(mesh, "mesh_dim_names")
                   else None)
@@ -200,6 +203,10 @@ class MeshExecutor:
                 for op, by_axes in log.totals_by_axis().items()}
         self._graph = graph
         self.captures += 1
+        if self.ranks > 1:   # the group's teardown closes it first
+            from .. import comm
+
+            comm.register_capture(self)
 
     def decode(self, page_table: np.ndarray, lengths: np.ndarray,
                last_tok: np.ndarray, active: np.ndarray, lanes) -> np.ndarray:
@@ -285,12 +292,15 @@ class MeshExecutor:
         self._lanes_device = None
 
     def close(self) -> None:
-        """Release the decode graph and the pool.  On a mesh of several
-        ranks, call it before ``comm.destroy_process_group()``: a live graph
-        holding NCCL collectives keeps the group's teardown waiting (seen on
-        4 H100s, NCCL 2.28.9)."""
+        """Release the decode graph (``reset()``: its captured work goes
+        with it, whoever else holds the graph object) and the pool.  A live
+        graph holding NCCL collectives keeps the group's teardown waiting
+        (seen on 4 H100s, NCCL 2.28.9): ``comm.destroy_process_group()``
+        closes every registered executor first."""
         if self._graph is not None:
-            torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._graph.reset()
         self._graph = self._g_logits = None
         self.pools = ()
 

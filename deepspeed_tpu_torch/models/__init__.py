@@ -11,8 +11,9 @@ serving engine.
 call and ``init_inference(model)`` finds the weights.  ``param_specs`` is
 the Megatron layout of the tree over the mesh's 'model' axis; inside
 ``parallel.tensor_parallel.region()`` (or with a global layout whose model
-axis is above 1) every contract above runs on this rank's shards, the
-loss vocab-parallel and the logits gathered.
+axis is above 1) every contract above runs on this rank's shards (padded
+where uneven), the loss vocab-parallel and the logits gathered.
+``shard_sequence`` cuts a batch to a rank's slice of the 'seq' axis.
 """
 from __future__ import annotations
 
@@ -45,11 +46,15 @@ class CausalLM(nn.Module):
         self.params: Optional[Dict[str, Any]] = None
 
     def init_fn(self, generator: Optional[torch.Generator] = None, device=None,
-                dtype: torch.dtype = torch.float32, tp=None) -> Dict[str, Any]:
+                dtype: torch.dtype = torch.float32, tp=None,
+                streamed: bool = False) -> Dict[str, Any]:
         """Random weights drawn from ``generator`` on ``device``;
-        ``tp=(index, n)``: model-axis shard ``index`` of ``n`` of the
-        layer-streamed init (``transformer.init_params``)."""
-        return init_params(self.config, generator, device=device, dtype=dtype, tp=tp)
+        ``tp=(index, n)``: model-axis shard ``index`` of ``n`` of the same
+        weights, each leaf drawn whole and cut; ``streamed=True``: the
+        layer-streamed init, whose shards are drawn a layer at a time and
+        whose values differ (``transformer.init_params``)."""
+        return init_params(self.config, generator, device=device, dtype=dtype, tp=tp,
+                           streamed=streamed)
 
     @property
     def param_specs(self) -> Dict[str, Any]:
@@ -58,9 +63,29 @@ class CausalLM(nn.Module):
         return param_specs(self.config)
 
     def shard_params(self, params: Dict[str, Any], index: int, n: int):
-        """Model-axis shard ``index`` of ``n`` of a full tree."""
+        """Model-axis shard ``index`` of ``n`` of a full tree (padded where
+        ``n`` does not divide a dim)."""
         return shard_params(self.config, params, index, n)
 
+    def shard_sequence(self, batch, index: int, n: int) -> Dict[str, Any]:
+        """Rank ``index``'s contiguous slice of ``n`` of each row of a
+        batch, for a 'seq' axis of ``n``: tokens, the labels (the default
+        next-token shift taken on the whole row first, so no boundary
+        token is lost) and any given positions, with the slice's offset
+        and the whole length (default positions start there)."""
+        tokens, labels, positions, pld_theta = self._split(batch)
+        S = tokens.shape[1]
+        if S % n:
+            raise ValueError(f"a sequence of {S} tokens does not split over a "
+                             f"'seq' axis of {n}")
+        lo, hi = index * (S // n), (index + 1) * (S // n)
+        out = {"input_ids": tokens[:, lo:hi], "labels": labels[:, lo:hi],
+               "seq_offset": lo, "seq_len": S}
+        if positions is not None:
+            out["positions"] = positions[:, lo:hi]
+        if pld_theta is not None:
+            out["pld_theta"] = pld_theta
+        return out
     def frozen_spec(self) -> Optional[Dict[str, Any]]:
         """The engine's frozen-parameter contract (``requires_grad=False``
         semantics): a tree of bools (True = frozen) shaped like the
@@ -95,17 +120,19 @@ class CausalLM(nn.Module):
 
     def apply_fn(self, params, tokens, positions=None, rng=None,
                  deterministic=True, return_aux=False, pld_theta=None,
-                 gather_logits=True):
+                 gather_logits=True, seq_offset=0, seq_len=None):
         return forward(self.config, params, tokens, positions=positions, rng=rng,
                        attn_impl=self.attn_impl, deterministic=deterministic,
                        return_aux=return_aux, pld_theta=pld_theta,
-                       gather_logits=gather_logits)
+                       gather_logits=gather_logits, seq_offset=seq_offset,
+                       seq_len=seq_len)
 
     def _split(self, batch):
         """(tokens, labels, positions, pld_theta) of a batch: a dict with
         ``input_ids`` (``labels``, ``positions``, ``pld_theta`` optional) or
         the token tensor alone.  Labels default to the tokens shifted by one,
-        with -100 (ignored) at the end."""
+        with -100 (ignored) at the end (of the whole row: a slice from
+        :meth:`shard_sequence` carries its labels)."""
         pld_theta = None
         if isinstance(batch, dict):
             tokens = batch["input_ids"]
@@ -126,13 +153,16 @@ class CausalLM(nn.Module):
         gradient are the global batch's mean whatever each rank's share of
         ignored labels."""
         tokens, labels, positions, pld_theta = self._split(batch)
+        seq = {k: batch[k] for k in ("seq_offset", "seq_len")
+               if isinstance(batch, dict) and k in batch}
         sharded = tensor_parallel.active()
         logits = self.apply_fn(params, tokens, positions=positions, rng=rng,
                                deterministic=deterministic,
                                pld_theta=None if deterministic else pld_theta,
-                               gather_logits=not sharded)
+                               gather_logits=not sharded, **seq)
         if sharded:
-            return tensor_parallel.vocab_parallel_cross_entropy_terms(logits, labels)
+            return tensor_parallel.vocab_parallel_cross_entropy_terms(
+                logits, labels, vocab_size=self.config.vocab_size)
         return cross_entropy_terms(logits, labels)
 
     def _loss(self, params, batch, rng, deterministic):

@@ -16,8 +16,7 @@ path (``init_cache``/``forward_cached``), the paged serving path
 attention through the K4 kernel) and ``cross_entropy_loss``.  Raising
 ``NotImplementedError`` until their slices land (ROADMAP queue 1): MoE
 layers, pipeline stages, random-LTD, progressive layer drop, activation
-fake-quant, ring/Ulysses attention, and the int8 pages and per-slot
-adapters of the paged path.
+fake-quant, and the int8 pages and per-slot adapters of the paged path.
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
@@ -30,7 +29,19 @@ attention (K1-K4 included) sees the rank's local heads; the column-parallel
 products read their input through ``copy_to_model``, the row-parallel ones
 sum through ``reduce_from_model``, the embedding and the head are
 vocab-parallel, and the logits are gathered where a caller reads them
-whole (``forward``'s default, the cached and paged paths).
+whole (``forward``'s default, the cached and paged paths).  A dim the
+model axis does not divide is padded with zero weights (``shard_params``):
+padded heads attend to nothing and write nothing, padded vocabulary
+columns are cut from the logits and left out of the loss, padded FFN
+columns are zero; grouped KV heads a model axis splits from their query
+heads are gathered (``kv_gathered``).
+
+Sequence parallelism (a global mesh whose 'seq' axis is above 1): each
+rank runs its slice of every row, its positions offset by the slice's
+start (``forward(seq_offset=)``), and ``_attention`` routes as the JAX
+package does: ring attention over 'seq' (``ops/ring_attention.py``),
+Ulysses on ``attn_impl="ulysses"``, and otherwise attention against the
+whole sequence's keys gathered over 'seq'.
 """
 from __future__ import annotations
 
@@ -292,27 +303,45 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     return specs
 
 
-def check_tp_divisible(cfg: TransformerConfig, n: int) -> None:
-    """Raise ``ValueError`` naming the first dimension a model axis of ``n``
-    does not divide (uneven shards are not ported: ROADMAP queue 1, item 4)."""
-    if n <= 1:
-        return
-    ffn = cfg.intermediate_size
-    for name, extent in (("num_heads", cfg.num_heads), ("kv_heads", cfg.kv_heads),
-                         ("vocab_size", cfg.vocab_size), ("intermediate_size", ffn)):
-        if extent % n:
-            raise ValueError(
-                f"{name}={extent} is not divisible by the model axis ({n}): "
-                "tensor parallelism shards it evenly (uneven shards are not "
-                "ported yet, ROADMAP queue 1, item 4)")
+_HEAD_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv"})
+
+
+def tp_units(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The unit of each leaf's model-axis dim, shaped like
+    :func:`param_specs`: a head-sharded leaf pads and cuts whole heads
+    (the head dim), every other leaf single rows or columns."""
+    specs = param_specs(cfg)
+    hd = cfg.dims_per_head
+    units: Dict[str, Any] = {k: 1 for k in specs if k != "layers"}
+    units["layers"] = {k: hd if k in _HEAD_LEAVES else 1 for k in specs["layers"]}
+    return units
+
+
+def kv_gathered(cfg: TransformerConfig, n: int) -> bool:
+    """Whether a model axis of ``n`` splits grouped KV heads apart from
+    the query heads that read them (GQA with ``kv_heads % n != 0``): each
+    rank then gathers the KV heads and keeps, for each of its query heads,
+    the one that head reads (``i // G``)."""
+    return n > 1 and cfg.kv_heads != cfg.num_heads and cfg.kv_heads % n != 0
+
+
+def local_heads(cfg: TransformerConfig, n: int) -> Tuple[int, int]:
+    """(query heads, KV heads) of one rank at a model axis of ``n``: the
+    padded head counts over ``n`` (the rank's gathered KV heads, one per
+    query head, under :func:`kv_gathered`)."""
+    hq = _tp.padded(cfg.num_heads, n) // n
+    if kv_gathered(cfg, n):
+        return hq, hq
+    return hq, _tp.padded(cfg.kv_heads, n) // n
 
 
 def shard_params(cfg: TransformerConfig, params: Dict[str, Any], index: int,
                  n: int) -> Dict[str, Any]:
     """Model-axis shard ``index`` of ``n`` of a full parameter tree (the
-    contiguous chunk of each leaf's ``param_specs`` dim)."""
-    check_tp_divisible(cfg, n)
-    return _tp.slice_tree(params, param_specs(cfg), index, n)
+    contiguous chunk of each leaf's ``param_specs`` dim, padded with zeros
+    where ``n`` does not divide it: whole heads, vocabulary rows, FFN
+    columns)."""
+    return _tp.slice_tree(params, param_specs(cfg), index, n, tp_units(cfg))
 
 
 def _leaf_seed(base: int, name: str, layer: int) -> int:
@@ -323,31 +352,37 @@ def _leaf_seed(base: int, name: str, layer: int) -> int:
 
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
                 device=None, dtype: torch.dtype = torch.float32,
-                tp: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+                tp: Optional[Tuple[int, int]] = None,
+                streamed: bool = False) -> Dict[str, Any]:
     """Random parameters with the JAX package's keys, shapes and scales
     (normal * initializer_range; residual projections / sqrt(2L); norms 1,
     biases 0).  Each leaf is drawn in fp32 from ``generator`` and cast to
     ``dtype`` at once, so peak memory is the tree in ``dtype`` plus one
     fp32 leaf.
 
-    ``tp=(index, n)`` draws model-axis shard ``index`` of ``n`` of the
-    layer-streamed init instead: ``generator`` gives one base seed, and
-    each layer of each leaf is drawn whole from its own stream, seeded from
-    it, the leaf's name and the layer, then cut to the shard, so no device
-    holds a full stacked leaf (llama2-70b's ``w_gate`` is 80 x 8192 x
-    28672).  ``tp=(0, 1)`` is that init whole, and every shard equals
-    :func:`shard_params` of it.  The values differ from ``jax.random``'s:
-    load a JAX tree through ``models/convert.py`` to compare the two
-    packages.  The device is ``device``, else the generator's, else the
-    accelerator's (CUDA; raises without a card)."""
+    ``tp=(index, n)`` keeps model-axis shard ``index`` of ``n`` of each
+    leaf (:func:`shard_params`: padded where ``n`` does not divide it): the
+    same draws, in the same order, as the whole tree, each leaf cut and
+    freed before the next is drawn, so one seed names the same weights at
+    every model axis and peak memory is the shards plus one fp32 leaf.
+
+    ``streamed=True`` draws the layer-streamed init instead, for a model
+    whose largest leaf does not fit one device: ``generator`` gives one
+    base seed, and each layer of each leaf is drawn whole from its own
+    stream, seeded from it, the leaf's name and the layer, then cut to the
+    shard (llama2-70b's ``w_gate`` is 80 x 8192 x 28672).  Its values
+    differ from the default init's; with ``tp=(0, 1)`` it is whole, and
+    every shard equals :func:`shard_params` of it.  The values differ from
+    ``jax.random``'s: load a JAX tree through ``models/convert.py`` to
+    compare the two packages.  The device is ``device``, else the
+    generator's, else the accelerator's (CUDA; raises without a card)."""
     _check_supported(cfg)
     d, f = cfg.hidden_size, cfg.intermediate_size
     hd, nh, nkv, L = cfg.dims_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
     std = cfg.initializer_range
-    streamed = tp is not None
-    index, n = tp if streamed else (0, 1)
-    check_tp_divisible(cfg, n)
+    index, n = tp if tp is not None else (0, 1)
     specs = param_specs(cfg)
+    units = tp_units(cfg)
     device = resolve_device(device if device is not None or generator is None
                             else generator.device)
     if generator is None:
@@ -356,34 +391,36 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     base = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                               device=generator.device)) if streamed else 0)
 
-    def local(shape, spec):
-        return _tp.local_shape(shape, spec, n)
+    def unit_of(name):
+        return units["layers"][name] if name in units["layers"] else units.get(name, 1)
 
     def dense(name, shape, spec, scale=std, stacked=False):
+        u = unit_of(name) if stacked else units.get(name, 1)
         if not streamed:
             x = torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32)
+            x = _tp.shard_leaf(x, spec, index, n, u)   # a copy: frees the whole
             return x.mul_(scale).to(dtype)
-        dim = _tp.spec_dim(spec)
         out = []
+        layer_spec = spec[1:] if stacked else spec
         for layer in range(shape[0] if stacked else 1):
             g = torch.Generator(device=device)
             g.manual_seed(_leaf_seed(base, name, layer))
             x = torch.randn(shape[1:] if stacked else shape, generator=g,
                             device=device, dtype=torch.float32)
-            if dim is not None and n > 1:
-                x = x.chunk(n, dim - stacked)[index]
+            x = _tp.shard_leaf(x, layer_spec, index, n, u)
             out.append(x.mul_(scale).to(dtype))
         return torch.stack(out) if stacked else out[0]
 
     def stacked(name, *shape, scale=std):
         return dense(name, (L,) + shape, specs["layers"][name], scale, stacked=True)
 
-    def const(fill, shape, spec):
-        return torch.full(local(shape, spec), fill, device=device, dtype=dtype)
+    def const(fill, shape, spec, unit=1):
+        return torch.full(_tp.local_shape(shape, spec, n, unit), fill, device=device,
+                          dtype=dtype)
 
     def lconst(fill, name, *shape):
-        return const(fill, (L,) + shape, specs["layers"][name])
+        return const(fill, (L,) + shape, specs["layers"][name], unit_of(name))
 
     resid = std / math.sqrt(2 * L)
     layers: Dict[str, Any] = {
@@ -504,58 +541,155 @@ def _head_slopes(cfg, num_heads: int, device) -> torch.Tensor:
     slopes = _alibi_slopes(cfg.num_heads)
     if num_heads != cfg.num_heads:
         i = _tp.rank()
+        # padded heads (uneven shards) get slope 0: their weights are zero
+        slopes = np.pad(slopes, (0, max(0, (i + 1) * num_heads - len(slopes))))
         slopes = slopes[i * num_heads:(i + 1) * num_heads]
     return torch.from_numpy(np.ascontiguousarray(slopes)).to(device)
 
 
-def _alibi_bias(cfg, positions, num_heads, S, dtype):
-    slopes = _head_slopes(cfg, num_heads, positions.device)
-    rel = (positions[:, None, :] - positions[:, :, None]).float()   # [B,q,k]
+def _alibi_bias(cfg, q_pos, k_pos, num_heads, dtype):
+    slopes = _head_slopes(cfg, num_heads, q_pos.device)
+    rel = (k_pos[:, None, :] - q_pos[:, :, None]).float()          # [B,q,k]
     return (-rel.abs()[:, None, :, :] * slopes[None, :, None, None]).to(dtype)
 
 
+def _global_layout():
+    from ..parallel import mesh as mesh_mod
+
+    return mesh_mod._GLOBAL_LAYOUT
+
+
+def _seq_layout():
+    """The global mesh layout when its 'seq' axis is above 1 (the model's
+    tokens are then a rank's slice of each row), else None."""
+    layout = _global_layout()
+    return layout if layout is not None and layout.sp > 1 else None
+
+
+def _mesh_desc(layout) -> str:
+    if layout is None:
+        return "none"
+    from ..parallel.mesh import MESH_AXES
+
+    return str(dict(zip(MESH_AXES, layout.axis_sizes())))
+
+
 def _takes_flash(cfg, S, attn_impl, custom_positions, window) -> bool:
-    """Whether ``_attention`` takes the flash kernel at these arguments."""
+    """Whether ``_attention`` takes the one-device flash kernel at these
+    arguments (a sequence-parallel mesh routes elsewhere)."""
     if attn_impl == "auto":
         attn_impl = "pallas" if S >= 2048 else "xla"
     return (attn_impl == "pallas" and cfg.position != "alibi" and cfg.causal
-            and not custom_positions and window is None and S % 128 == 0)
+            and not custom_positions and window is None and S % 128 == 0
+            and _seq_layout() is None)
 
 
-def _attention(cfg: TransformerConfig, q, k, v, positions, attn_impl: str = "xla",
-               custom_positions: bool = False, window=None):
-    """q:[B,S,Hq,hd] k,v:[B,S,Hkv,hd] -> [B,S,Hq,hd].
-
-    Dispatch follows the JAX package exactly: ``"auto"`` takes the flash
-    kernel once S >= 2048; ``"pallas"`` (the JAX package's name for it,
-    kept so configs read the same) takes it when attention is causal,
-    non-alibi, at default positions, without a window and S % 128 == 0;
-    everything else takes the plain branch (``"xla"`` in JAX)."""
-    B, S, Hq, hd = q.shape
-    Hkv = k.shape[2]
-    if attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"{attn_impl} attention (sequence parallelism) is not ported yet "
-            "(ROADMAP queue 1, item 8)")
-    if _takes_flash(cfg, S, attn_impl, custom_positions, window):
-        # GQA is handled in-kernel (KV-head indexing), no repeat
-        return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg, hd))
+def _plain_attention(cfg, q, k, v, q_pos, k_pos, window=None):
+    """The plain branch (``"xla"`` in JAX): q [B,Sq,Hq,hd] against k/v
+    [B,Sk,Hkv,hd] at positions ``q_pos`` [B,Sq] and ``k_pos`` [B,Sk]."""
+    Hq, hd, Hkv = q.shape[2], q.shape[3], k.shape[2]
     if Hkv != Hq:  # GQA: repeat KV groups
         rep = Hq // Hkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     scores = (torch.einsum("bqhd,bkhd->bhqk", q, k) * _sm_scale(cfg, hd)).float()
     if cfg.position == "alibi":
-        scores = scores + _alibi_bias(cfg, positions, Hq, S, torch.float32)
+        scores = scores + _alibi_bias(cfg, q_pos, k_pos, Hq, torch.float32)
     if cfg.causal:
-        causal = positions[:, None, :, None] >= positions[:, None, None, :]
+        causal = q_pos[:, None, :, None] >= k_pos[:, None, None, :]
         scores = scores.masked_fill(~causal, NEG_INF)
     if window is not None:
-        rel = positions[:, None, :, None] - positions[:, None, None, :]
+        rel = q_pos[:, None, :, None] - k_pos[:, None, None, :]
         local_ok = (rel < window) | (window <= 0)
         scores = scores.masked_fill(~local_ok, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _seq_attention(cfg, q, k, v, positions, attn_impl, custom_positions, window,
+                   layout):
+    """Attention of this rank's slice of the sequence on a 'seq' axis above
+    1: the JAX package's routing and messages
+    (``deepspeed_tpu/models/transformer.py`` ``_attention``), S, B and the
+    head counts read as the whole model's (S the whole sequence)."""
+    from ..ops import ring_attention as ra
+
+    B, S_l, _, hd = q.shape
+    sp, tp = layout.sp, layout.tp
+    S, B_g, dp = S_l * sp, B * layout.dp_world_size, layout.dp_world_size
+    Hq, Hkv = cfg.num_heads, cfg.kv_heads
+    sm = _sm_scale(cfg, hd)
+    if attn_impl in ("auto", "ring", "pallas") and cfg.position != "alibi" \
+            and cfg.causal and not custom_positions and window is None:
+        failed = [c for c, ok in [
+            (f"S={S} % sp={sp}", S % sp == 0),
+            (f"Hq={Hq} % tp={tp}", Hq % tp == 0),
+            (f"Hkv={Hkv} % tp={tp}", Hkv % tp == 0),
+            (f"B={B_g} % dp={dp}", B_g % dp == 0)] if not ok]
+        if not failed:
+            return ra.ring_attention_sharded(q, k, v, causal=True, sm_scale=sm)
+        if attn_impl == "ring":
+            raise ValueError(f"ring attention requested but unsatisfiable: {failed}")
+    elif attn_impl == "ring":
+        raise ValueError("ring attention requires a mesh with seq > 1, "
+                         "default positions, and non-alibi attention")
+    if attn_impl == "ulysses":
+        failed = [c for c, ok in [
+            (f"Hq={Hq} % sp*tp={sp * tp}", Hq % (sp * tp) == 0),
+            (f"Hkv={Hkv} % sp*tp={sp * tp}", Hkv % (sp * tp) == 0),
+            (f"S={S} % 128", S % 128 == 0),
+            (f"B={B_g} % dp={dp}", B_g % dp == 0),
+            ("pipe=1", layout.pp == 1),
+            ("causal", bool(cfg.causal)),
+            ("non-alibi", cfg.position != "alibi"),
+            ("default positions", not custom_positions),
+            ("no window", window is None)] if not ok]
+        if failed:
+            raise ValueError(f"ulysses attention unsatisfiable: {failed}")
+        return ra.ulysses_attention(q, k, v, lambda q, k, v: flash_attention(
+            q, k, v, causal=True, sm_scale=sm).to(q.dtype))
+    # no ring: every rank attends to the whole sequence's keys (the JAX
+    # package lets GSPMD gather them into its plain branch)
+    from .. import comm
+
+    k_pos = comm.all_gather(positions.contiguous(), ra.SEQ_AXIS, gather_dim=1)
+    return _plain_attention(cfg, q, ra.gather_sequence(k), ra.gather_sequence(v),
+                            positions, k_pos, window)
+
+
+def _attention(cfg: TransformerConfig, q, k, v, positions, attn_impl: str = "xla",
+               custom_positions: bool = False, window=None):
+    """q:[B,S,Hq,hd] k,v:[B,S,Hkv,hd] -> [B,S,Hq,hd].
+
+    Dispatch follows the JAX package exactly: on a mesh whose 'seq' axis
+    is above 1, ring attention, Ulysses or the gathered plain branch
+    (:func:`_seq_attention`); ``"ring"``/``"ulysses"`` without one raise
+    JAX's errors.  Otherwise ``"auto"`` takes the flash kernel once S >=
+    2048; ``"pallas"`` (the JAX package's name for it, kept so configs
+    read the same) takes it when attention is causal, non-alibi, at
+    default positions, without a window and S % 128 == 0; everything else
+    takes the plain branch (``"xla"`` in JAX)."""
+    B, S, Hq, hd = q.shape
+    layout = _seq_layout()
+    if layout is not None:
+        return _seq_attention(cfg, q, k, v, positions, attn_impl, custom_positions,
+                              window, layout)
+    if attn_impl == "ring":
+        if cfg.position != "alibi" and cfg.causal and not custom_positions \
+                and window is None:
+            raise ValueError(
+                "ring attention requires an initialized mesh with a 'seq' "
+                f"axis > 1 (mesh={_mesh_desc(_global_layout())})")
+        raise ValueError("ring attention requires a mesh with seq > 1, "
+                         "default positions, and non-alibi attention")
+    if attn_impl == "ulysses":
+        raise ValueError(
+            "ulysses attention requires an initialized mesh with a "
+            f"'seq' axis > 1 (mesh={_mesh_desc(_global_layout())})")
+    if _takes_flash(cfg, S, attn_impl, custom_positions, window):
+        # GQA is handled in-kernel (KV-head indexing), no repeat
+        return flash_attention(q, k, v, causal=True, sm_scale=_sm_scale(cfg, hd))
+    return _plain_attention(cfg, q, k, v, positions, positions, window)
 
 
 def _mlp_in(cfg: TransformerConfig, lp: Dict[str, Any], h) -> tuple:
@@ -605,14 +739,26 @@ def _mlp(cfg: TransformerConfig, lp: Dict[str, Any], h):
 
 def _qkv(cfg, lp, h, B, S):
     """q [B,S,Hq,hd], k and v [B,S,Hkv,hd]: the head counts are the
-    weights' (a rank's local heads under tensor parallelism)."""
+    weights' (a rank's local heads under tensor parallelism; under
+    :func:`kv_gathered`, one gathered KV head per local query head)."""
     hd = cfg.dims_per_head
     h = _tp.copy_to_model(h)
     q, k, v = _mm(h, lp["wq"]), _mm(h, lp["wk"]), _mm(h, lp["wv"])
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
-            v.reshape(B, S, -1, hd))
+    q, k, v = (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+               v.reshape(B, S, -1, hd))
+    n = _tp.size()
+    if kv_gathered(cfg, n):
+        # every KV head on every rank (pads cut), then the one each local
+        # query head i reads: i // G of the whole model's heads
+        G, hq = cfg.num_heads // cfg.kv_heads, q.shape[2]
+        first = _tp.rank() * hq
+        idx = torch.tensor([min((first + j) // G, cfg.kv_heads - 1) for j in range(hq)],
+                           device=k.device)
+        k = _tp.gather_shared(k, 2)[:, :, :cfg.kv_heads].index_select(2, idx)
+        v = _tp.gather_shared(v, 2)[:, :, :cfg.kv_heads].index_select(2, idx)
+    return q, k, v
 
 
 def _out_proj(cfg, lp, attn, B, S):
@@ -651,18 +797,26 @@ def _row_seed(seed: int, site: int, row: int) -> int:
 
 def _dropout(cfg: TransformerConfig, x, seed, site: int):
     """Inverted dropout at ``cfg.dropout`` from site ``site`` of the layer
-    seeded ``seed`` = (layer seed, global index of x's first row): each
-    row's mask comes from its own generator, keyed by its global row
-    (identity when ``seed`` is None: no training)."""
+    seeded ``seed`` = (layer seed, global index of x's first row, index of
+    its first position, the whole sequence's length or None): each row's
+    mask comes from its own generator, keyed by its global row and drawn
+    over the whole sequence, of which a rank of a 'seq' axis keeps its
+    slice (identity when ``seed`` is None: no training)."""
     if seed is None or not cfg.dropout:
         return x
-    seed, row0 = seed
+    seed, row0, pos0, seq_len = seed
     gen = torch.Generator(device=x.device)
     keep = 1.0 - cfg.dropout
+    S = x.shape[1]
     rows = []
     for b in range(x.shape[0]):
         gen.manual_seed(_row_seed(seed, site, row0 + b))
-        rows.append(torch.rand(x.shape[1:], generator=gen, device=x.device) < keep)
+        if seq_len is None:
+            rows.append(torch.rand(x.shape[1:], generator=gen, device=x.device) < keep)
+        else:
+            whole = torch.rand((seq_len,) + tuple(x.shape[2:]), generator=gen,
+                               device=x.device)
+            rows.append(whole[pos0:pos0 + S] < keep)
     return x * torch.stack(rows) / keep
 
 
@@ -910,11 +1064,14 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
             attn_impl: str = "xla", deterministic: bool = True,
             seq_sharded: bool = True, return_aux: bool = False,
             pld_theta=None, token_type_ids: Optional[torch.Tensor] = None,
-            gather_logits: bool = True):
+            gather_logits: bool = True, seq_offset: int = 0,
+            seq_len: Optional[int] = None):
     """tokens [B, S] -> logits [B, S, V] (+ aux dict if return_aux).
     Under tensor parallelism ``gather_logits=False`` returns this rank's
     vocabulary columns ``[B, S, V/tp]`` (the vocab-parallel loss reads
-    them).
+    them).  On a 'seq' axis, ``tokens`` are positions ``seq_offset ..``
+    of rows ``seq_len`` long: the default positions start there, and
+    dropout draws the whole row's masks and keeps this slice.
 
     ``deterministic=False`` turns on dropout (``cfg.dropout``) drawn from
     ``rng``, a ``torch.Generator`` (seed 0 on the tokens' device when None):
@@ -933,14 +1090,14 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
     tokens = tokens.long()
     custom_positions = positions is not None
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None, :].expand(B, S)
+        positions = (torch.arange(S, dtype=torch.int32, device=tokens.device)
+                     + seq_offset)[None, :].expand(B, S)
     seeds = [None] * cfg.num_layers
     if cfg.dropout and not deterministic:
         if rng is None:
             rng = torch.Generator(device=tokens.device)
             rng.manual_seed(0)
-        seeds = [(s, _ROW_OFFSET[0]) for s in torch.randint(
+        seeds = [(s, _ROW_OFFSET[0], seq_offset, seq_len) for s in torch.randint(
             0, 2 ** 62, (cfg.num_layers,), generator=rng, device=rng.device).tolist()]
     if cfg.tie_embeddings and hasattr(params, "pin"):
         # a ZeRO-3 tree: one gather serves both uses of the tied embedding
@@ -954,7 +1111,7 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
         x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     logits = _head(cfg, params, x)
     if gather_logits:
-        logits = _tp.gather_from_model(logits)
+        logits = _tp.gather_from_model(logits, cfg.vocab_size)
     if return_aux:
         return logits, {"moe_aux_loss": torch.zeros((), device=logits.device)}
     return logits
@@ -976,7 +1133,7 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     L, B, T = cfg.num_layers, batch_size, max_len
-    kv = (L, B, T, cfg.kv_heads // _tp.size(), cfg.dims_per_head)
+    kv = (L, B, T, local_heads(cfg, _tp.size())[1], cfg.dims_per_head)
     return {
         "k": torch.zeros(kv, dtype=dtype, device=device),
         "v": torch.zeros(kv, dtype=dtype, device=device),
@@ -1067,7 +1224,7 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
                           None if windows is None else windows[i])
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
     cache["next_slot"] = ns + S
-    return _tp.gather_from_model(_head(cfg, params, x)), cache
+    return _tp.gather_from_model(_head(cfg, params, x), cfg.vocab_size), cache
 
 
 # ---------------------------------------------------------------------------
@@ -1126,7 +1283,7 @@ def init_paged_cache(cfg: TransformerConfig, num_pages: int,
     _check_kv_dtype(kv_dtype)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    kv = (cfg.num_layers, num_pages, page_size, cfg.kv_heads // _tp.size(),
+    kv = (cfg.num_layers, num_pages, page_size, local_heads(cfg, _tp.size())[1],
           cfg.dims_per_head)
     return {"k": torch.zeros(kv, dtype=dtype, device=device),
             "v": torch.zeros(kv, dtype=dtype, device=device)}
@@ -1252,7 +1409,7 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
         x = _block_paged(cfg, lp, x, cache["k"][i], cache["v"][i], positions,
                          write_idx, page_table, maxp * ps)
     x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
-    return _tp.gather_from_model(_head(cfg, params, x)), cache
+    return _tp.gather_from_model(_head(cfg, params, x), cfg.vocab_size), cache
 
 
 def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,

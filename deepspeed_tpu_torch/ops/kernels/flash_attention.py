@@ -245,16 +245,17 @@ def _repeat_kv(q, k, v):
 def flash_attention_reference(q, k, v, causal: bool = True,
                               sm_scale: Optional[float] = None,
                               return_lse: bool = False, block_mask=None):
-    """The plain version of K1: einsum + mask + softmax in fp32, GQA by
-    repeat, the same finite ``NEG_INF``, and P cast to the input dtype
-    before P.V.  With ``block_mask`` (its grid divides S) a row with no
+    """The plain version of K1: einsum + mask + softmax in fp32 (fp64 for
+    fp64 inputs), GQA by repeat, the same finite ``NEG_INF``, and P cast to
+    the input dtype before P.V.  With ``block_mask`` (its grid divides S) a row with no
     live key gives out 0 and lse ``NEG_INF``, as the kernels do, not the
     uniform row a softmax over ``NEG_INF`` would give."""
     S, hd = q.shape[1], q.shape[3]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     k, v = _repeat_kv(q, k, v)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    wide = _wide(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), k.to(wide)) * sm_scale
     keep = attended(S, causal, block_mask, q.device)
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
@@ -269,22 +270,28 @@ def flash_attention_reference(q, k, v, causal: bool = True,
     return (out, lse) if return_lse else out
 
 
+def _wide(q) -> torch.dtype:
+    """The plain versions' arithmetic: fp32, or fp64 for fp64 inputs."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def _bwd_scores(q, k, v, do, lse, delta, causal, sm_scale, block_mask=None):
-    """The ``_bwd`` formulas in fp32 over [B,Hq,S,S] (GQA by repeat):
+    """The ``_bwd`` formulas in fp32 (fp64 for fp64) over [B,Hq,S,S] (GQA by repeat):
     ``p = exp(s*scale - lse)`` and ``ds = p (dp - delta) scale``.  With a
     block mask every masked pair's p is set to 0: a dead row's lse is
     ``NEG_INF``, where ``exp(s - lse)`` would be 1."""
     S = q.shape[1]
     k, v = _repeat_kv(q, k, v)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    wide = _wide(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), k.to(wide)) * sm_scale
     keep = attended(S, causal, block_mask, q.device)
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
-    p = torch.exp(s - lse.float()[..., None])
+    p = torch.exp(s - lse.to(wide)[..., None])
     if block_mask is not None:
         p = p.masked_fill(~keep, 0.0)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta.float()[..., None]) * sm_scale
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(wide), v.to(wide))
+    ds = p * (dp - delta.to(wide)[..., None]) * sm_scale
     return k, p, ds
 
 
@@ -296,8 +303,9 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = Tru
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     kr, _, ds = _bwd_scores(q, k, v, do, lse, delta, causal, sm_scale, block_mask)
-    ds = ds.to(k.dtype).float()
-    return torch.einsum("bhqk,bkhd->bqhd", ds, kr.float()).to(q.dtype)
+    wide = _wide(q)
+    ds = ds.to(k.dtype).to(wide)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kr.to(wide)).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
@@ -311,8 +319,9 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = Tr
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     _, p, ds = _bwd_scores(q, k, v, do, lse, delta, causal, sm_scale, block_mask)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    wide = _wide(q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(wide), do.to(wide))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(wide), q.to(wide))
     dk = dk.reshape(B, S, Hkv, Hq // Hkv, hd).sum(3)
     dv = dv.reshape(B, S, Hkv, Hq // Hkv, hd).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -472,10 +481,11 @@ def _backward(ctx, do, dlse=None):
     differentiable), then K2 and K3.  Returns (dq, dk, dv)."""
     q, k, v, out, lse = ctx.saved_tensors
     do = do.contiguous()
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    wide = _wide(q)
+    delta = (do.to(wide) * out.to(wide)).sum(-1).transpose(1, 2).contiguous()
     if dlse is not None:
         # d s_ij = p_ij (dp_ij - delta_i) + p_ij dlse_i: a shifted delta
-        delta = delta - dlse.float()
+        delta = delta - dlse.to(wide)
     args = (q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale, ctx.block_mask)
     dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)
@@ -534,6 +544,11 @@ def flash_attention(q, k, v, causal: bool = True,
     """
     if bias is not None:
         raise NotImplementedError("bias is handled by the plain attention path")
+    if any(hasattr(t, "placements") for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention on DTensors (a generic model under a model axis "
+            "above 1) runs per shard through local_map, which is not ported yet "
+            "(ROADMAP queue 1, item 4)")
     _check(q, k, v)
     S = q.shape[1]
     if block_mask is not None:

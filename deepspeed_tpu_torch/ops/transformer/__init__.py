@@ -168,7 +168,7 @@ class DeepSpeedTransformerLayer:
         if not det:
             seed = ((max(self.config.seed, 0) if generator is None else int(
                 torch.randint(2 ** 62, (1,), generator=generator,
-                              device=generator.device))), 0)
+                              device=generator.device))), 0, 0, None)
         out = _block(self.native, params, hidden_states.to(self.native.dtype),
                      positions, "auto", seed=seed)
         return (out,) if self.config.return_tuple else out

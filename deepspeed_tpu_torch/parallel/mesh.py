@@ -21,9 +21,12 @@ row-major over the axes
 A mesh needs an initialised process group (``comm.init_distributed``).
 'model' is the innermost axis, so the ranks of one tensor-parallel group
 are adjacent ranks (on a multi-card node, NVLink peers);
-``parallel/tensor_parallel.py`` runs the model over it.  Pipeline, expert
-and sequence parallelism are not ported: their axes stay 1 in the engine
-(ROADMAP queue 1, items 9 and 8).
+``parallel/tensor_parallel.py`` runs the model over it, and
+``ops/ring_attention.py`` the sequence over 'seq'.  Pipeline and expert
+parallelism are not ported: their axes stay 1 in the engine (ROADMAP
+queue 1, item 9).  A serving mesh may cover the first ``n`` ranks of a
+larger world (``initialize_serving_mesh(n_devices=)``): every rank makes
+the groups, the others get an :class:`OutsideMesh` handle.
 """
 from __future__ import annotations
 
@@ -98,22 +101,49 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def build_mesh(layout: MeshLayout, device_type: Optional[str] = None):
+def build_mesh(layout: MeshLayout, device_type: Optional[str] = None,
+               first_ranks: bool = False):
     """The ``DeviceMesh`` of ``layout`` over the process group's world (one
-    rank per device, row-major over ``MESH_AXES``)."""
+    rank per device, row-major over ``MESH_AXES``); ``first_ranks``: over
+    the first ``layout.world_size`` ranks of a larger world (every rank
+    calls it; the mesh makes no groups, :func:`axis_group` does)."""
     dist = _dist()
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("build_mesh needs a process group: call "
                            "deepspeed_tpu_torch.comm.init_distributed() first")
-    if layout.world_size != dist.get_world_size():
+    world = dist.get_world_size()
+    if layout.world_size != world and not (first_ranks and layout.world_size < world):
         raise ValueError(f"layout needs {layout.world_size} ranks, the process "
-                         f"group has {dist.get_world_size()}")
-    from torch.distributed.device_mesh import init_device_mesh
+                         f"group has {world}")
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     from ..accelerator import get_accelerator
 
     device_type = device_type or get_accelerator().device_name()
-    return init_device_mesh(device_type, layout.axis_sizes(), mesh_dim_names=MESH_AXES)
+    if layout.world_size == world:
+        return init_device_mesh(device_type, layout.axis_sizes(),
+                                mesh_dim_names=MESH_AXES)
+    import torch
+
+    ranks = torch.arange(layout.world_size).reshape(layout.axis_sizes())
+    return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES,
+                      _init_backend=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class OutsideMesh:
+    """What ``initialize_serving_mesh(n_devices=)`` returns on a rank past
+    the first ``n_devices``: the mesh does not hold it."""
+
+    rank: int
+    n_devices: int
+    world_size: int
+
+    def refuse(self):
+        raise ValueError(
+            f"rank {self.rank} is outside the serving mesh, which holds the first "
+            f"{self.n_devices} of the {self.world_size} ranks: serve on ranks "
+            f"0..{self.n_devices - 1}")
 
 
 def layout_of(mesh) -> MeshLayout:
@@ -163,22 +193,33 @@ def initialize_serving_mesh(tp: int = 1, n_devices: Optional[int] = None,
     the JAX package lays one process's devices out, the port's mesh is the
     process group's world: one rank per card (``torchrun --nproc-per-node
     N``, or ``comm.init_distributed``), every rank running the same serving
-    loop.  ``n_devices`` is checked against the world: it may not exceed
-    it, and a smaller mesh is a smaller launch (each rank of the group
-    belongs to the mesh)."""
+    loop.  ``n_devices`` (at most the world) takes the first
+    ``n_devices`` ranks, as JAX takes the first devices: every rank must
+    call this, in the same order (it makes the mesh's groups), and a rank
+    past them gets an :class:`OutsideMesh` handle, which
+    ``init_inference(mesh=)`` refuses naming the rank."""
     dist = _dist()
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("initialize_serving_mesh needs a process group (one "
                            "rank per device): call deepspeed_tpu_torch.comm."
                            "init_distributed() first")
     world = dist.get_world_size()
-    if n_devices is not None and n_devices != world:
-        raise ValueError(
-            f"n_devices={n_devices} but the process group has {world} rank(s): "
-            f"the serving mesh spans the group, so launch {n_devices} "
-            "process(es), one per device" if n_devices < world else
-            f"n_devices={n_devices} exceeds the {world} rank(s) of the process group")
-    return initialize_mesh(MeshLayout.from_world(world, tp=tp, dp=dp))
+    n = world if n_devices is None else int(n_devices)
+    if n > world:
+        raise ValueError(f"n_devices={n} exceeds the {world} rank(s) of the process group")
+    if n == world:
+        return initialize_mesh(MeshLayout.from_world(world, tp=tp, dp=dp))
+    global _GLOBAL_MESH, _GLOBAL_LAYOUT
+    layout = MeshLayout.from_world(n, tp=tp, dp=dp)
+    mesh = build_mesh(layout, first_ranks=True)
+    reset_mesh()
+    _GLOBAL_LAYOUT, _GLOBAL_MESH = layout, mesh
+    for axis in MESH_AXES:   # every rank makes every group, in one order
+        axis_group(axis)
+    axis_group(MESH_AXES)
+    if dist.get_rank() >= n:
+        return OutsideMesh(dist.get_rank(), n, world)
+    return mesh
 
 
 def get_mesh():
@@ -201,7 +242,7 @@ def reset_mesh() -> None:
     """Forget the global mesh and destroy the axis groups made for it."""
     global _GLOBAL_MESH, _GLOBAL_LAYOUT
     dist = _dist()
-    for group, _ in _GROUPS.values():
+    for group in {id(g): g for g, _ in _GROUPS.values()}.values():
         if group is not None and group is not dist.group.WORLD \
                 and dist.is_initialized():
             dist.destroy_process_group(group)
@@ -246,6 +287,12 @@ def axis_group(axis: AxisName):
         return None, 1
     layout = get_layout()
     size = axis_size(layout, axes)
+    sizes = dict(zip(MESH_AXES, layout.axis_sizes()))
+    # axes of size 1 add no rank: the group of the others is the same one
+    key = tuple(a for a in axes if sizes[a] > 1)
+    if key != axes and key in _GROUPS:
+        _GROUPS[axes] = _GROUPS[key]
+        return _GROUPS[key]
     if size == dist.get_world_size():
         hit = (dist.group.WORLD, size)
     elif size == 1:
@@ -258,7 +305,7 @@ def axis_group(axis: AxisName):
             if me in ranks:
                 mine = group
         hit = (mine, size)
-    _GROUPS[axes] = hit
+    _GROUPS[axes] = _GROUPS[key] = hit
     return hit
 
 

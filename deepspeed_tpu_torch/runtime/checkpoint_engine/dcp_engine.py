@@ -31,7 +31,11 @@ its model-axis shard (model-major, JAX's ``('model', 'data')``), while
 DTensor cuts a dim sharded over several mesh dims in mesh-dim order; so
 the DTensors live on a mesh of the same ranks whose dims put 'model'
 ahead of the ZeRO axes (``CKPT_AXES``, :func:`_ckpt_mesh`), and the
-chunks' global offsets describe the bytes each rank holds.  DCP's
+chunks' global offsets describe the bytes each rank holds.  A leaf whose
+model-axis shards are padded (uneven) is saved whole at its true shape,
+gathered on every rank when the state is flattened and written once,
+and cut back to each rank's padded piece on load, so the padding never
+reaches the files.  DCP's
 planning runs over a gloo group of its own (``_ckpt_group``), so an async
 commit thread never shares a group with the training step's collectives.
 A load restores in place into a state dict built from the live engine
@@ -155,6 +159,12 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
         out["rng/dropout"] = engine.generator.get_state()
     if optimizer:
         flatten_state(state.opt_state, "opt_state", out)
+    part = engine.partition
+    if part is not None and any(part.uneven(i) for i in range(len(part.paths))):
+        for key in sorted(out):   # collective: the same order on every rank
+            hit = part.leaf_for(key)
+            if hit is not None and out[key].dim() and part.uneven(hit[0]):
+                out[key] = part.whole_true(hit[0], hit[1], out[key])
     return out
 
 
@@ -200,12 +210,17 @@ def as_dtensors(engine, flat: Dict[str, torch.Tensor],
     mesh = _ckpt_mesh(engine, device_type)
     out = {}
     for key, t in flat.items():
-        hit = part.placements_for(key)
+        hit = part.leaf_for(key)
         if hit is None or t.dim() == 0:
             out[key] = t
             continue
-        placements, shape = hit
+        i, placements = hit
+        shape = part.global_shapes[i]
         placements = tuple(placements[MESH_AXES.index(a)] for a in CKPT_AXES)
+        if part.uneven(i):   # whole at its true shape (engine_state_dict)
+            from torch.distributed.tensor import Replicate
+
+            placements, shape = (Replicate(),) * len(CKPT_AXES), part.true_shapes[i]
         stride = torch.empty(shape, device="meta").stride()
         out[key] = DTensor.from_local(t, mesh, placements, run_check=False,
                                       shape=torch.Size(shape), stride=stride)
@@ -358,6 +373,11 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         engine, rest=not load_module_only, optimizer=opt))
     DCPCheckpointEngine(process_group=group).load(os.path.join(ckpt_dir, STATE_DIR),
                                                   target)
+    part = engine.partition
+    for key in list(target):   # uneven leaves: whole -> this rank's piece
+        hit = part.leaf_for(key) if part is not None else None
+        if hit is not None and target[key].dim() and part.uneven(hit[0]):
+            target[key] = part.piece_of_true(hit[0], hit[1], target[key].to_local())
     state = engine.state
     kw = {"params": restore_state(state.params, "params", target),
           "master_params": restore_state(state.master_params, "master_params",

@@ -258,7 +258,6 @@ class DeepSpeedConfig:
              "MiCS hierarchical parameter gather", 10)
         need(mesh.pp > 1, "pipeline parallelism (mesh.pp)", 9)
         need(mesh.ep > 1, "expert parallelism (mesh.ep)", 9)
-        need(mesh.sp > 1, "sequence parallelism (mesh.sp)", 8)
         need("compression_training" in cfg, "compression_training", 11)
         need(_enabled(cfg, "curriculum_learning")
              or _enabled(cfg, "data_efficiency", "data_sampling"),

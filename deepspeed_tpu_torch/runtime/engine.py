@@ -47,13 +47,27 @@ Tensor parallelism: a ``CausalLM`` trains Megatron-style over the mesh's
 'model' axis when that axis is above 1, or when the caller names a model
 axis (``mesh=``, ``mpu=`` or ``param_specs=``; at size 1 every model-axis
 collective is then a copy).  Each rank holds its model-axis shards of
-``model.param_specs`` (drawn sharded, or cut from ``params=``), ZeRO
-shards within them, the ranks of one data-parallel replica read the same
-rows, and the model runs inside ``parallel.tensor_parallel.region()``.
+``model.param_specs`` (padded with zeros where the axis does not divide a
+dim: ``models/transformer.py`` ``shard_params``), ZeRO shards within
+them, the ranks of one data-parallel replica read the same rows, and the
+model runs inside ``parallel.tensor_parallel.region()``.  Without
+``params=`` every rank draws the default init leaf by leaf and keeps its
+shards, so one seed names the same weights at every model axis.  Any other
+model with ``param_specs`` (given, or the model's) runs under DTensor
+sharding propagation: each leaf a DTensor of its ``Shard`` on the 'model'
+sub-mesh, the batch replicated, the loss redistributed to ``Replicate``;
+a model without specs is replicated over the model axis, as GSPMD runs it.
+
+Sequence parallelism (the mesh's 'seq' axis, a ``CausalLM``): the ranks
+of one replica read the same rows, each its contiguous slice of the
+sequence (labels and positions derived on the whole sequence first:
+``CausalLM.shard_sequence``); attention runs as ring attention over the
+axis (``ops/ring_attention.py``) or, with ``attn_impl="ulysses"``, as the
+head/sequence all-to-all; the loss is the masked mean over the data axes
+and 'seq', and the gradients are summed over both.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: tensor parallelism of a model without ``param_specs`` (queue 1 item
-4), pipeline and expert parallelism (item 9), sequence parallelism (item
-8), offload, 1-bit and ZeRO++ (item 10).
+item: pipeline and expert parallelism (item 9), offload, 1-bit and ZeRO++
+(item 10).
 """
 from __future__ import annotations
 
@@ -68,6 +82,7 @@ import torch
 from .. import comm
 from ..accelerator import resolve_device
 from ..parallel import tensor_parallel
+from ..parallel.mesh import BATCH_AXES
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import (tree_flatten_with_path, tree_leaves, tree_map,
@@ -80,6 +95,9 @@ from .lr_schedules import constant_lr, get_lr_scheduler
 from .optimizer import (GradientTransformation, apply_updates, chain,
                         create_optimizer, global_norm, sharded_norm,
                         zero_frozen_updates)
+
+# the axes a micro-batch's loss and labelled-token count are summed over
+LOSS_AXES = BATCH_AXES + ("seq",)
 
 
 @dataclasses.dataclass
@@ -243,12 +261,14 @@ class DeepSpeedEngine:
             layout = (mesh if isinstance(mesh, MeshLayout) or mesh is None
                       else layout_of(mesh))
             if ((layout is not None and layout.world_size > 1)
-                    or mc.dp > 1 or mc.tp > 1 or zc.mics_shard_size > 1):
+                    or mc.dp > 1 or mc.tp > 1 or mc.sp > 1 or zc.mics_shard_size > 1):
                 raise RuntimeError(
-                    "a data- or tensor-parallel mesh needs a process group: call "
+                    "a data-, tensor- or sequence-parallel mesh needs a process "
+                    "group: call "
                     "deepspeed_tpu_torch.comm.init_distributed() (or run "
                     "under torchrun) before initialize()")
             self.mesh, self.dp_world, self.dp_rank = None, 1, 0
+            self.sp, self.sp_rank = 1, 0
             return
         backend = dist.get_backend()
         if (self.device.type == "cuda") != ("nccl" in backend):
@@ -259,11 +279,16 @@ class DeepSpeedEngine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.mesh = resolve_engine_mesh(mc, zc, mesh)
         layout = layout_of(self.mesh)
-        if layout.pp > 1 or layout.ep > 1 or layout.sp > 1:
+        if layout.pp > 1 or layout.ep > 1:
             raise NotImplementedError(
-                f"mesh {layout}: data and tensor parallelism are ported "
-                "(pipeline and experts: ROADMAP queue 1, item 9; sequence: "
-                "item 8)")
+                f"mesh {layout}: data, tensor and sequence parallelism are "
+                "ported (pipeline and experts: ROADMAP queue 1, item 9)")
+        self.sp, self.sp_rank = layout.sp, comm.axis_index("seq")
+        if self.sp > 1 and not hasattr(self.model, "shard_sequence"):
+            raise NotImplementedError(
+                f"a 'seq' axis of {self.sp} for a model that cannot cut its "
+                "sequence (a bare loss_fn): sequence parallelism runs "
+                "models.CausalLM (shard_sequence)")
         if self._mpu_tp is not None and self._mpu_tp != layout.tp:
             raise ValueError(f"mpu's model-parallel world size {self._mpu_tp} "
                              f"!= the mesh's model axis {layout.tp}")
@@ -273,53 +298,78 @@ class DeepSpeedEngine:
 
     def _resolve_tp(self, model, explicit: bool, param_specs) -> None:
         """Whether the model runs tensor-parallel (``self.tp``: the model
-        axis's size, 0 when it does not) and its specs."""
+        axis's size, 0 when it does not), its specs, and how: its own
+        Megatron path (a model with ``shard_params``, ``models.CausalLM``)
+        or DTensor sharding propagation (``self._generic_tp``)."""
         self.tp, self.tp_rank, self._tp_specs = 0, 0, None
+        self._tp_shapes = None
+        self._generic_tp = False
         if not self.distributed:
             return
-        from ..models.transformer import check_tp_divisible
         from ..parallel.mesh import layout_of
 
         n = layout_of(self.mesh).tp
-        specs = getattr(model, "param_specs", None)
-        if n > 1 and specs is None:
-            raise NotImplementedError(
-                f"a model axis of {n} for a model without param_specs (a bare "
-                "loss_fn or a model other than models.CausalLM): tensor "
-                "parallelism of generic user models (DTensor sharding "
-                "propagation) is not ported yet (ROADMAP queue 1, item 4: "
-                "generic user models under TP)")
-        if specs is None or not (n > 1 or explicit):
+        own = getattr(model, "param_specs", None)
+        if hasattr(model, "shard_params") and own is not None:
+            if param_specs is not None and param_specs != own:
+                raise ValueError(
+                    "param_specs differ from the model's: the CausalLM's "
+                    "tensor-parallel forward is laid out for model.param_specs")
+            if n > 1 or explicit:
+                self.tp, self.tp_rank, self._tp_specs = n, comm.axis_index("model"), own
+                # the whole leaves' true shapes (meta tensors)
+                self._tp_shapes = model.init_fn(torch.Generator(), device="meta")
             return
-        if param_specs is not None and param_specs != specs:
-            raise ValueError(
-                "param_specs differ from the model's: the CausalLM's "
-                "tensor-parallel forward is laid out for model.param_specs")
-        check_tp_divisible(model.config, n)
-        self.tp, self.tp_rank, self._tp_specs = n, comm.axis_index("model"), specs
+        specs = param_specs if param_specs is not None else own
+        if n > 1 and specs is not None:   # replicated over 'model' without specs
+            self.tp, self.tp_rank, self._tp_specs = n, comm.axis_index("model"), specs
+            self._generic_tp = True
 
     def _tp_region(self):
-        return tensor_parallel.region(bool(self.tp))
+        return tensor_parallel.region(bool(self.tp) and not self._generic_tp)
+
+    def _tp_cut(self, params):
+        """This rank's model-axis shards of a whole tree."""
+        if not self._generic_tp:
+            return self.model.shard_params(params, self.tp_rank, self.tp)
+        return tensor_parallel.slice_tree(
+            tensor_parallel.check_even(params, self._tp_specs, self.tp),
+            self._tp_specs, self.tp_rank, self.tp)
+
+    def _check_init_fits(self) -> None:
+        """The default init draws each whole leaf in fp32 before keeping
+        this rank's shard: raise when the largest does not fit the card."""
+        if self.device.type != "cuda":
+            return
+        largest = max(x.numel() for x in tree_leaves(self._tp_shapes)) * 4
+        free, _ = torch.cuda.mem_get_info(self.device)
+        if largest > free:
+            raise ValueError(
+                f"the default init draws each whole leaf in fp32 before keeping "
+                f"this rank's shard; the largest takes {largest / 1e9:.2f} GB and "
+                f"the card has {free / 1e9:.2f} GB free: pass params= (a whole "
+                "tree, or init_fn(..., tp=, streamed=True)'s shards)")
 
     def _init_state(self, init_fn, params, param_specs=None) -> TrainState:
         """fp32 masters from ``params`` or ``init_fn(generator)``, the
         compute-precision view, the optimizer state and the loss scaler.
         Data-parallel: every rank draws the same full tree and keeps its
-        shards of it (the plan's placements).  Above a model axis of 1 the
-        seed draws this rank's shards of the layer-streamed init
-        (``init_params(tp=)``), so one seed names other weights than at a
-        model axis of 1: pass ``params=`` (the whole tree; each rank keeps
-        its shards) to train the same weights at every topology."""
+        shards of it (the plan's placements).  Above a model axis of 1 each
+        rank draws the default init's leaves in order and keeps its shard
+        of each (``init_fn(tp=)``), so one seed names the same weights at
+        every model axis; ``params=`` (a whole tree) is cut the same way."""
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(self.config.seed)
-            # a model axis above 1: this rank's shards only, drawn as slices
-            # of the layer-streamed init (no device holds a whole leaf)
-            params = (init_fn(init_gen) if self.tp <= 1 else
-                      self.model.init_fn(init_gen, tp=(self.tp_rank, self.tp)))
+            if self.tp > 1 and not self._generic_tp:
+                self._check_init_fits()
+                params = self.model.init_fn(init_gen, tp=(self.tp_rank, self.tp))
+            else:
+                params = init_fn(init_gen)
+                if self.tp:
+                    params = self._tp_cut(params)
         elif self.tp:
-            params = tensor_parallel.slice_tree(params, self._tp_specs,
-                                                self.tp_rank, self.tp)
+            params = self._tp_cut(params)
         # masters are fresh fp32 (or wider) copies: the caller's tree is
         # never aliased
         master = tree_map(lambda x: x.detach().to(self.device, _master_dtype(x),
@@ -379,9 +429,13 @@ class DeepSpeedEngine:
                                   persistence_threshold=zc.stage3_param_persistence_threshold)
         frozen = (None if self._frozen_mask is None
                   else [bool(m) for m in tree_leaves(self._frozen_mask)])
+        true_shapes = None
+        if self._tp_shapes is not None:
+            true_shapes = [tuple(x.shape) for x in tree_leaves(self._tp_shapes)]
         self.partition = ZeroPartition(
             self.plan, template, self.use_master_weights, self.accum_dtype,
-            frozen=frozen, global_shapes=[tuple(x.shape) for x in tree_leaves(shapes)])
+            frozen=frozen, global_shapes=[tuple(x.shape) for x in tree_leaves(shapes)],
+            true_shapes=true_shapes)
         return self.partition.shard_tree(master, "master")
 
     def _build_dataloader(self, training_data):
@@ -411,9 +465,13 @@ class DeepSpeedEngine:
     def _view(self, work):
         """What the model reads: ``work`` itself, or at ZeRO-3 a tree that
         gathers each sharded leaf where it is read."""
-        if self.partition is None or all(p is None for p in self.partition.pdims):
-            return work
-        return self.partition.view(work, "param")
+        if self.partition is not None and any(p is not None
+                                              for p in self.partition.pdims):
+            work = self.partition.view(work, "param")
+        if self._generic_tp:   # every leaf read now (gathered at stage 3)
+            work = tensor_parallel.as_dtensors(
+                tree_map(lambda x: x, work), self._tp_specs)
+        return work
 
     def _local_rows(self, batch):
         """This rank's rows of a global (micro-)batch: rows
@@ -434,25 +492,33 @@ class DeepSpeedEngine:
         parallel: the objective is this rank's share of the global loss
         (its NLL sum over the global count of labelled tokens, or its mean
         over dp_world for a bare ``loss_fn``), so the gradients' sum over
-        the ranks is the global gradient; the loss is that sum of shares."""
+        the ranks is the global gradient; the loss is that sum of shares.
+        A rank of a 'seq' axis holds its slice of each row's tokens, and
+        its NLL sum counts over the data axes and 'seq' alike."""
         from ..models.transformer import row_offset
 
         local, lo = self._local_rows(one_batch)
+        if self.sp > 1:
+            local = self.model.shard_sequence(local, self.sp_rank, self.sp)
         fn = self._eval_fn if deterministic else self.loss_fn
         with row_offset(lo), self._tp_region():
             if self.distributed and self._loss_terms is not None:
                 total, count = self._loss_terms(self._view(work), local, self.generator,
                                                 deterministic=deterministic)
-                count = comm.all_reduce(count.detach(), comm.SUM)
+                count = comm.all_reduce(count.detach(), comm.SUM, LOSS_AXES)
                 obj = total / count.clamp(min=1)
             else:
+                if self._generic_tp:
+                    local = tensor_parallel.as_dtensors(local)
                 out = fn(self._view(work), local, self.generator)
                 obj = out[0] if isinstance(out, tuple) else out
+                if self._generic_tp:   # the loss, whole on every rank
+                    obj = tensor_parallel.replicated(obj)
                 if self.distributed:
                     obj = obj / self.dp_world
         if not self.distributed:
             return obj, obj.detach()
-        return obj, comm.all_reduce(obj.detach(), comm.SUM)
+        return obj, comm.all_reduce(obj.detach(), comm.SUM, LOSS_AXES)
 
     def _micro_grads(self, work, loss):
         """Scaled gradients of ``loss`` w.r.t. the leaves of ``work``, zeros
@@ -687,12 +753,28 @@ class DeepSpeedEngine:
         parallel: a ``ShardedParams`` over this rank's shards, whose leaves
         are the full tensors, gathered when read (collective: every rank
         reads them in the same order); ``zero.GatheredParameters`` takes
-        it as is."""
+        it as is.  Under tensor parallelism the leaves are this rank's
+        model-axis shards (padded where uneven): :meth:`full_params` gives
+        the whole tree."""
         if fp32 and self.state.master_params is not None:
             tree, which = self.state.master_params, "master"
         else:
             tree, which = self.state.params, "rest"
         return tree if self.partition is None else self.partition.view(tree, which)
+
+    def full_params(self, fp32: bool = False):
+        """The whole parameter tree at its true shapes on every rank: the
+        ZeRO shards and the model-axis shards gathered, padding cut
+        (collective: every rank calls it)."""
+        from ..zero import GatheredParameters
+
+        tree = self.get_params(fp32)
+        if self.partition is not None:
+            with GatheredParameters(tree, to_device=True) as g:
+                tree = g.values
+        if self.tp:
+            tree = tensor_parallel.gather_tree(tree, self._tp_specs, self._tp_shapes)
+        return tree
 
     # ------------------------------------------------------------------
     # Checkpointing (reference engine.py:2593-3365): checkpoint_engine/

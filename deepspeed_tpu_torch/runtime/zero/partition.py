@@ -24,7 +24,15 @@ tree this class sees is the rank's model-axis shards, its "full" leaves
 (``template``): ZeRO cuts each within it (the model-major order JAX
 writes as ``('model', 'data')``), so a gather over the ZeRO axes rebuilds
 the rank's contiguous tensor-parallel shard; ``global_shapes`` are the
-whole leaves a checkpoint describes.
+whole leaves a checkpoint describes.  A leaf whose model-axis shards
+are padded (uneven) has ``true_shapes`` smaller than its global shape: a
+checkpoint holds it whole at its true shape (:meth:`whole_true`,
+:meth:`piece_of_true`).
+
+Sequence parallelism adds 'seq' to the axes the gradients are summed over
+(``GRAD_AXES``): its ranks read other tokens of the same rows, and hold
+the same ZeRO pieces, so 'seq' joins MiCS's 'data_outer' in
+``REPLICA_AXES``.
 
 The global norm adds the squares of a leaf's shards over the axes that
 shard it (the ZeRO axes, 'model') and counts a replicated leaf once
@@ -44,8 +52,11 @@ from ...parallel.mesh import BATCH_AXES, MESH_AXES, ZERO_AXES
 from ...utils.tree import tree_flatten_with_path, tree_leaves, tree_unflatten_like
 from .planner import ZeroShardingPlan, shard_dim, walk
 
-# the data-parallel axes a ZeRO shard is replicated over (MiCS's replicas)
-REPLICA_AXES = tuple(a for a in BATCH_AXES if a not in ZERO_AXES)
+# the axes a gradient is summed over: the data-parallel ones and 'seq' (its
+# ranks hold other tokens of the same rows)
+GRAD_AXES = BATCH_AXES + ("seq",)
+# the axes of GRAD_AXES a ZeRO shard is replicated over (MiCS's replicas, 'seq')
+REPLICA_AXES = tuple(a for a in GRAD_AXES if a not in ZERO_AXES)
 
 
 class _GatherParam(torch.autograd.Function):
@@ -157,7 +168,8 @@ class ZeroPartition:
     def __init__(self, plan: ZeroShardingPlan, template: Any,
                  use_master_weights: bool, accum_dtype: torch.dtype,
                  frozen: Optional[List[bool]] = None,
-                 global_shapes: Optional[List[tuple]] = None):
+                 global_shapes: Optional[List[tuple]] = None,
+                 true_shapes: Optional[List[tuple]] = None):
         self.plan = plan
         self.stage = plan.stage
         self.template = template
@@ -165,6 +177,8 @@ class ZeroPartition:
         self.shapes = [tuple(x.shape) for x in tree_leaves(template)]
         self.global_shapes = ([tuple(s) for s in global_shapes]
                               if global_shapes is not None else self.shapes)
+        self.true_shapes = ([tuple(s) for s in true_shapes]
+                            if true_shapes is not None else self.global_shapes)
         # the model-axis dim of each leaf (None: replicated over 'model')
         self.tdims = [shard_dim(p, ("model",))
                       for p in _leaf_list(template, plan.master_specs)]
@@ -248,7 +262,7 @@ class ZeroPartition:
                 if self.replica_n > 1:
                     out[i] = comm.all_reduce(g, comm.SUM, REPLICA_AXES)
             else:
-                out[i] = self.local_slice(comm.all_reduce(g, comm.SUM, BATCH_AXES), m)
+                out[i] = self.local_slice(comm.all_reduce(g, comm.SUM, GRAD_AXES), m)
         return out
 
     def _norm_axes(self, i: int) -> tuple:
@@ -304,8 +318,8 @@ class ZeroPartition:
         return out
 
     # -- checkpoints ---------------------------------------------------------
-    def placements_for(self, key: str):
-        """``(placements, global shape)`` of a flat checkpoint key
+    def leaf_for(self, key: str):
+        """``(leaf index, placements)`` of a flat checkpoint key
         (``params/...``, ``master_params/...``, ``opt_state/.../<param
         path>``), or None for a value that is not a parameter's."""
         best = None
@@ -318,7 +332,32 @@ class ZeroPartition:
         which = (self.plan.param_specs
                  if key.startswith("params/") and self.use_master_weights
                  else self.plan.master_specs)
-        return _leaf(which, self.paths[best]), self.global_shapes[best]
+        return best, _leaf(which, self.paths[best])
+
+    def uneven(self, i: int) -> bool:
+        """Whether leaf ``i``'s model-axis shards carry padding."""
+        return self.true_shapes[i] != self.global_shapes[i]
+
+    def whole_true(self, i: int, placements, x: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole at its true shape from this rank's piece ``x``
+        at ``placements`` (collective over the ZeRO and model axes)."""
+        z = shard_dim(placements)
+        if z is not None:
+            x = comm.all_gather(x.contiguous(), ZERO_AXES, gather_dim=z)
+        t = self.tdims[i]
+        x = comm.all_gather(x.contiguous(), "model", gather_dim=t)
+        return x.narrow(t, 0, self.true_shapes[i][t]).contiguous()
+
+    def piece_of_true(self, i: int, placements, whole: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`whole_true`: this rank's (padded) piece."""
+        t = self.tdims[i]
+        extent = self.global_shapes[i][t]
+        pad = list(whole.shape)
+        pad[t] = extent - whole.shape[t]
+        x = torch.cat([whole, whole.new_zeros(pad)], t)
+        x = x.chunk(self.tp_n, t)[comm.axis_index("model")]
+        z = shard_dim(placements)
+        return (x if z is None else x.chunk(self.zero_n, z)[self.zero_i]).contiguous()
 
 
 def _leaf_list(template: Any, tree: Any) -> list:

@@ -82,20 +82,21 @@ def _tails(tmp: Path, world: int) -> str:
 # Data shared by the parent and the ranks
 # ---------------------------------------------------------------------------
 
-def make_batches(n: int, rows: int, seed: int = 1, ignore: bool = True):
-    """``n`` global batches of ``rows`` rows: tokens, and labels (the
-    next-token shift) with -100 at a different count of positions in each
-    row, so that the ranks of a data-parallel run hold unequal counts of
-    labelled tokens."""
+def make_batches(n: int, rows: int, seed: int = 1, ignore: bool = True,
+                 seq: int = S, vocab: int = VOCAB):
+    """``n`` global batches of ``rows`` rows of ``seq`` tokens: tokens, and
+    labels (the next-token shift) with -100 at a different count of
+    positions in each row, so that the ranks of a data-parallel run hold
+    unequal counts of labelled tokens."""
     rs = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        ids = rs.randint(0, VOCAB, (rows, S)).astype(np.int64)
+        ids = rs.randint(0, vocab, (rows, seq)).astype(np.int64)
         labels = np.concatenate([ids[:, 1:], np.full((rows, 1), -100)], 1)
         if ignore:
             for r in range(rows):
-                k = (3 * r + rs.randint(0, 3)) % (S - 2)
-                labels[r, rs.choice(S - 1, k, replace=False)] = -100
+                k = (3 * r + rs.randint(0, 3)) % (min(seq, S) - 2)
+                labels[r, rs.choice(seq - 1, k, replace=False)] = -100
         out.append({"input_ids": ids, "labels": labels})
     return out
 
@@ -187,14 +188,69 @@ def _flat(tree, prefix=""):
     return {p: x for p, x in tree_flatten_with_path(tree)}
 
 
+class SimpleTPModel:
+    """The JAX tests' ``SimpleTPModel`` (``tests/unit/simple_model.py``):
+    an MLP of ``nlayers`` tanh layers and a scalar head, MSE loss, its
+    even layers column-parallel and odd ones row-parallel over 'model'."""
+
+    def __init__(self, hidden_dim: int = 16, nlayers: int = 2, specs: bool = True):
+        self.hidden_dim, self.nlayers = hidden_dim, nlayers
+        if specs:
+            self.param_specs = {
+                **{f"linear_{i}": ({"kernel": (None, "model"), "bias": ("model",)}
+                                   if i % 2 == 0 else
+                                   {"kernel": ("model", None), "bias": ()})
+                   for i in range(nlayers)},
+                "head": {"kernel": ()}}
+
+    def init_fn(self, gen):
+        d = self.hidden_dim
+        p = {f"linear_{i}": {"kernel": torch.randn(d, d, generator=gen,
+                                                   dtype=torch.float64) * 0.1,
+                             "bias": torch.zeros(d, dtype=torch.float64)}
+             for i in range(self.nlayers)}
+        p["head"] = {"kernel": torch.randn(d, 1, generator=gen, dtype=torch.float64) * 0.1}
+        return p
+
+    def loss_fn(self, params, batch, gen):
+        h = batch["x"]
+        for i in range(self.nlayers):
+            layer = params[f"linear_{i}"]
+            h = torch.tanh(h @ layer["kernel"] + layer["bias"])
+        pred = (h @ params["head"]["kernel"]).squeeze(-1)
+        return ((pred - batch["y"]) ** 2).mean()
+
+
+def simple_batch(rows: int, hidden: int, seed: int) -> dict:
+    """The JAX tests' ``random_batch``: x, and y from fixed teacher weights."""
+    x = np.random.RandomState(seed).randn(rows, hidden)
+    w = np.random.RandomState(1234).randn(hidden)
+    return {"x": x, "y": x @ w * 0.1}
+
+
 def _engine(case: dict, params_np):
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import CausalLM
     from deepspeed_tpu_torch.models.convert import params_from_jax
 
+    mesh = None
+    if case.get("mesh"):
+        from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+        mesh = MeshLayout(**case["mesh"])
+    if case.get("generic"):   # a bare loss_fn tree (SimpleTPModel)
+        model = SimpleTPModel(specs=case["generic"] == "specs")
+        gen = torch.Generator().manual_seed(case.get("seed", 0))
+        engine, *_ = ds.initialize(model=model, config=case["config"], device="cpu",
+                                   mesh=mesh, params=model.init_fn(gen))
+        return engine
     dtype = getattr(torch, case.get("dtype", "float64"))
     model = CausalLM(case.get("model", "tiny"), dtype=dtype, **case.get("model_kw", {}))
-    params = params_from_jax(params_np, device="cpu")
+    if case.get("no_params"):   # the engine draws the seed's weights
+        engine, *_ = ds.initialize(model=model, config=case["config"], device="cpu",
+                                   mesh=mesh)
+        return engine
+    params = params_from_jax(case.get("params_np", params_np), device="cpu")
     if dtype == torch.float64:
         from deepspeed_tpu_torch.utils.tree import tree_map
 
@@ -209,32 +265,38 @@ def _engine(case: dict, params_np):
             # are planted
             inf = torch.where(batch["plant"].any(), float("inf"), 0.0)
             return loss + p["embed"][0, 0].float() * inf
-    mesh = None
-    if case.get("mesh"):
-        from deepspeed_tpu_torch.parallel.mesh import MeshLayout
-
-        mesh = MeshLayout(**case["mesh"])
     engine, *_ = ds.initialize(model=model, loss_fn=loss_fn, config=case["config"],
                                device="cpu", params=params, mesh=mesh)
     return engine
 
 
 def _full(engine, fp32: bool = True) -> dict:
-    """The whole parameter tree (ZeRO and model-axis shards gathered), on
-    the host, by path (collective)."""
-    from deepspeed_tpu_torch import zero
-    from deepspeed_tpu_torch.parallel.tensor_parallel import gather_tree
-
-    with zero.GatheredParameters(engine.get_params(fp32=fp32), to_device=True) as g:
-        tree = g.values
-    if engine.tp:
-        tree = gather_tree(tree, engine._tp_specs)
+    """The whole parameter tree (ZeRO and model-axis shards gathered, the
+    padding of uneven ones cut), on the host, by path (collective)."""
+    tree = engine.full_params(fp32=fp32)
     return {k: v.detach().float().numpy() if v.dtype == torch.bfloat16
             else v.detach().numpy() for k, v in _flat(tree).items()}
 
 
 def _shapes(tree) -> dict:
     return {p: tuple(x.shape) for p, x in _flat(tree).items()}
+
+
+def _adam(engine):
+    """The Adam state (``mu``, ``nu``) of the engine's optimizer chain."""
+    from deepspeed_tpu_torch.runtime.optimizer import ScaleByAdamState
+
+    def find(state):
+        if isinstance(state, ScaleByAdamState):
+            return state
+        if isinstance(state, tuple):
+            for s in state:
+                hit = find(s)
+                if hit is not None:
+                    return hit
+        return None
+
+    return find(engine.state.opt_state)
 
 
 def _moments(engine) -> dict:
@@ -256,8 +318,12 @@ def _moments(engine) -> dict:
 
 def _run_case(case: dict, params_np, batches):
     from deepspeed_tpu_torch import comm, zero
+    from deepspeed_tpu_torch.ops.ring_attention import ring_attention
 
     engine = _engine(case, params_np)
+    batches = case.get("batches", batches)
+    init_masters = _full(engine) if case.get("no_params") else None
+    ring_attention.rotations = 0
     losses, norms, scales, sums = [], [], [], []
     for b in batches:
         if case.get("loop"):   # forward/backward/step over the gas micro-batches
@@ -276,6 +342,14 @@ def _run_case(case: dict, params_np, batches):
     masters = _full(engine)
     with zero.GatheredParameters(engine.get_params(), to_device=True) as g:
         params_full = {k: v.clone() for k, v in _flat(g.values).items()}
+    tp_shards = moments = None
+    if engine.tp and not engine._generic_tp:   # padded model-axis shards
+        with zero.GatheredParameters(engine.get_params(fp32=True), to_device=True) as g:
+            tp_shards = {k: v.detach().numpy() for k, v in _flat(g.values).items()}
+        if engine.partition is None or engine.zero_stage == 0:
+            mu_nu = _adam(engine)
+            moments = {w: {k: v.detach().numpy() for k, v in _flat(getattr(mu_nu, w)).items()}
+                       for w in ("mu", "nu")}
     local_master = {k: v.detach().clone()
                     for k, v in _flat(engine.state.master_params
                                       if engine.state.master_params is not None
@@ -290,7 +364,10 @@ def _run_case(case: dict, params_np, batches):
            "skipped": engine.skipped_steps, "dp_world": engine.dp_world,
            "rank": comm.get_rank(), "axis_data": comm.axis_index("data"),
            "tp": engine.tp, "axis_model": comm.axis_index("model"),
-           "axis_data_outer": comm.axis_index("data_outer")}
+           "axis_data_outer": comm.axis_index("data_outer"),
+           "sp": engine.sp, "axis_seq": comm.axis_index("seq"),
+           "ring_rotations": ring_attention.rotations, "init_masters": init_masters,
+           "tp_shards": tp_shards, "moments": moments}
     del engine
     return out
 
@@ -303,14 +380,14 @@ def prog_train(cases: list, params_np, batches):
 
 def prog_checkpoint(config: dict, params_np, batches, ckpt_dir: str, mode: str,
                     async_save: bool = False, dtype: str = "bfloat16",
-                    mesh: dict = None, model: str = "tiny"):
+                    mesh: dict = None, model: str = "tiny", model_kw: dict = None):
     """``save``: 2 steps, a save, 2 more steps (the run that never stopped);
     ``resume``: a fresh engine loads and runs the last 2 steps; ``load``: a
     fresh engine loads; each returns losses and gathered masters (``mesh``:
     the engine's ``MeshLayout`` keywords, a model axis included)."""
     cfg = {**config, "checkpoint": {"async_save": async_save}}
-    engine = _engine({"config": cfg, "dtype": dtype, "mesh": mesh, "model": model},
-                     params_np)
+    engine = _engine({"config": cfg, "dtype": dtype, "mesh": mesh, "model": model,
+                      "model_kw": model_kw or {}}, params_np)
     losses = []
     if mode == "save":
         for b in batches[:2]:
@@ -409,29 +486,214 @@ def prog_serve(model: str, params_np, tp: int, tokens, prompts, max_new: int,
     out["deadline"] = {r.rid: (r.output_ids, r.finish_reason) for r in res}
     out["balanced_after_deadlines"] = sv.page_accounting()["balanced"]
     sv.close()   # every rank, before the group's teardown
-    out["refusals"] = {}
-    tree = params_from_jax(params_np, device="cpu")
-    for what, call in (
-            ("init_inference(apply_fn=)", lambda: ds.init_inference(
-                apply_fn=lambda p, x: x, params=tree, mesh=mesh, device="cpu")),
-            ("initialize(loss_fn=)", lambda: ds.initialize(
-                loss_fn=lambda p, b, g: p["embed"].sum(), params=tree, mesh=mesh,
-                config={"train_batch_size": 1}, device="cpu"))):
+    return out
+
+
+def prog_ring(cases: list, q, k, v):
+    """Ring attention on this rank's rows and sequence slice of the global
+    q/k/v (fp64): each case ``{"sp", "causal", "impl"[, "qkv"]}`` on a mesh of
+    ``world/sp`` data x ``sp`` seq ranks; returns the local output, the
+    gradients of the global sum of squares, and the slices."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.ring_attention import ring_attention
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout, initialize_mesh
+
+    out = []
+    for case in cases:
+        q, k, v = case.get("qkv", (q, k, v))
+        sp = case["sp"]
+        initialize_mesh(MeshLayout(dp=comm.get_world_size() // sp, sp=sp))
+        dp, d = comm.get_axis_size(("data", "expert")), comm.axis_index(("data", "expert"))
+        n, i = comm.get_axis_size("seq"), comm.axis_index("seq")
+        B, Sg = q.shape[:2]
+        rows = slice(d * B // dp, (d + 1) * B // dp)
+        cols = slice(i * Sg // n, (i + 1) * Sg // n)
+        qt, kt, vt = (torch.from_numpy(np.ascontiguousarray(x[rows, cols])).requires_grad_()
+                      for x in (q, k, v))
+        before = ring_attention.rotations
+        o = ring_attention(qt, kt, vt, causal=case["causal"], impl=case["impl"])
+        (o ** 2).sum().backward()
+        out.append({"rows": (rows.start, rows.stop), "cols": (cols.start, cols.stop),
+                    "out": o.detach().numpy(), "dq": qt.grad.numpy(),
+                    "dk": kt.grad.numpy(), "dv": vt.grad.numpy(),
+                    "rotations": ring_attention.rotations - before})
+    return out
+
+
+def prog_routing(model: str, seq: int):
+    """``_attention``'s routing errors on meshes of this world (JAX's
+    conditions and messages), by case name."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout, initialize_mesh, reset_mesh
+
+    world = comm.get_world_size()
+    errs = {}
+
+    def attempt(name, layout, impl, **kw):
+        initialize_mesh(layout)
+        cfg = ttf.get_config(model, dtype=torch.float64, **kw.pop("cfg", {}))
+        hq, hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        x = torch.zeros(1, seq // layout.sp, hq // layout.tp, hd, dtype=torch.float64)
+        kv = torch.zeros(1, seq // layout.sp, max(hkv // layout.tp, 1), hd,
+                         dtype=torch.float64)
+        pos = torch.arange(seq // layout.sp)[None]
         try:
-            call()
-            out["refusals"][what] = "accepted"
-        except NotImplementedError as e:
-            out["refusals"][what] = str(e)
-    try:   # the serving mesh spans the process group
-        initialize_serving_mesh(tp=1, n_devices=1)
-        out["n_devices_error"] = None
+            ttf._attention(cfg, x, kv, kv, pos, impl, **kw)
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+        reset_mesh()
+
+    attempt("ulysses_heads", MeshLayout(sp=world), "ulysses", cfg={"num_kv_heads": 2,
+                                                                   "num_heads": 8})
+    attempt("ulysses_pipe", MeshLayout(pp=2, sp=world // 2), "ulysses")
+    attempt("ulysses_positions", MeshLayout(sp=world), "ulysses", custom_positions=True)
+    attempt("ring_heads", MeshLayout(tp=2, sp=world // 2), "ring",
+            cfg={"num_heads": 3, "num_kv_heads": 3, "hidden_size": 48})
+    attempt("ring_alibi", MeshLayout(sp=world), "ring", cfg={"position": "alibi"})
+    attempt("ring_ok", MeshLayout(sp=world), "ring")
+    attempt("ulysses_ok", MeshLayout(sp=world), "ulysses")
+    return errs
+
+
+def prog_generate(cases: list):
+    """Tensor-parallel ``forward`` logits and greedy ``generate`` tokens
+    (fp32, ``initialize_serving_mesh``) for each case ``{"model",
+    "model_kw", "params_np", "tp", "tokens", "prompts", "max_new"}``, with
+    the local shapes the engine holds."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    out = []
+    for case in cases:
+        m = CausalLM(case["model"], dtype=torch.float32, **case.get("model_kw", {}))
+        mesh = initialize_serving_mesh(tp=case["tp"])
+        eng = ds.init_inference(m, config={"dtype": "float32"},
+                                params=params_from_jax(case["params_np"], device="cpu"),
+                                mesh=mesh, device="cpu")
+        out.append({"logits": eng.forward(torch.as_tensor(case["tokens"])).numpy(),
+                    "greedy": eng.generate(case["prompts"],
+                                           max_new_tokens=case["max_new"]).numpy(),
+                    "local_shapes": _shapes(eng.params)})
+    return out
+
+
+def tiny_lm_params(vocab: int = 32, dim: int = 16, seed: int = 0) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {"embed": torch.randn(vocab, dim, generator=g, dtype=torch.float64) * 0.1,
+            "out": torch.randn(dim, vocab, generator=g, dtype=torch.float64) * 0.1}
+
+
+def tiny_lm_apply(p, ids):
+    """The JAX tests' ``tiny_lm``: an embedding and an output matrix."""
+    return p["embed"][ids] @ p["out"]
+
+
+def prog_generic(config: dict, steps: int, rows: int, hidden: int, tp: int):
+    """A bare ``apply_fn``/``loss_fn`` tree at a model axis of ``tp``: the
+    JAX contracts (a column-parallel ``linear_0`` of local shape
+    ``[.., n/tp]`` and a falling loss over ``steps`` steps; the tp=2
+    forward of ``tiny_lm``), the losses and gathered masters for the
+    parent's one-process run, and a flash call on DTensors refused."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from deepspeed_tpu_torch.parallel import tensor_parallel
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout, initialize_serving_mesh
+
+    model = SimpleTPModel(hidden)
+    eng, *_ = ds.initialize(model=model, config=config, device="cpu",
+                            mesh=MeshLayout(tp=tp))
+    out = {"local_kernel": tuple(eng.state.params["linear_0"]["kernel"].shape),
+           "local_row": tuple(eng.state.params["linear_1"]["kernel"].shape),
+           "losses": [float(eng.train_batch(batch=simple_batch(rows, hidden, s)))
+                      for s in range(steps)]}
+    out["masters"] = {k: v.numpy() for k, v in _flat(eng.full_params()).items()}
+    mesh = initialize_serving_mesh(tp=tp)
+    ie = ds.init_inference(apply_fn=tiny_lm_apply, params=tiny_lm_params(),
+                           config={"dtype": "float32"}, mesh=mesh, device="cpu")
+    out["logits"] = ie(np.array([[1, 2, 3]])).numpy()
+    out["lm_local"] = _shapes(ie.params)
+    x = tensor_parallel.as_dtensors(torch.zeros(1, 128, 2, 16))
+    try:
+        flash_attention(x, x, x)
+        out["flash_dtensor"] = None
+    except NotImplementedError as e:
+        out["flash_dtensor"] = str(e)
+    return out
+
+
+def prog_subset(model: str, params_np, prompts, max_new: int):
+    """``initialize_serving_mesh(n_devices=1)`` in a world of more: rank 0
+    serves alone on its mesh, every other rank gets a handle that
+    ``init_inference(mesh=)`` refuses naming it."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.parallel.mesh import OutsideMesh, initialize_serving_mesh
+
+    mesh = initialize_serving_mesh(tp=1, n_devices=1)
+    m = CausalLM(model, dtype=torch.float32)
+    params = params_from_jax(params_np, device="cpu")
+    out = {"outside": isinstance(mesh, OutsideMesh), "rank": comm.get_rank()}
+    try:
+        eng = ds.init_inference(m, config={"dtype": "float32"}, params=params,
+                                mesh=mesh, device="cpu")
+        out["greedy"] = eng.generate(prompts, max_new_tokens=max_new).numpy()
+        out["mesh_size"] = int(eng.mesh.size())
     except ValueError as e:
-        out["n_devices_error"] = str(e)
+        out["error"] = str(e)
+    comm.barrier()
+    return out
+
+
+def prog_sp_gate(model: str, layers: int, seq: int, steps: int, seed: int):
+    """``chip_smoke.py``'s sequence-parallel configurations at CPU size: the
+    model at ``layers`` layers and fp32, remat ``nothing_saveable``, the
+    seed's own weights, one row of ``seq`` tokens from ``seed + 1``, ZeRO
+    stage 0, on a 'seq' axis of the world (none at a world of one); its
+    losses and global gradient norms over ``steps`` steps."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    world = comm.get_world_size()
+    lm = CausalLM(model, dtype=torch.float32, num_layers=layers,
+                  max_seq_len=seq, remat=True, remat_policy="nothing_saveable")
+    config = {"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+              "zero_optimization": {"stage": 0}, "seed": seed,
+              "steps_per_print": 10 ** 9}
+    engine, *_ = ds.initialize(model=lm, config=config, device="cpu",
+                               mesh=MeshLayout(sp=world) if world > 1 else None)
+    gen = torch.Generator().manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, lm.config.vocab_size, (1, seq), generator=gen)}
+    losses, norms = [], []
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(batch=batch)))
+        norms.append(float(engine.get_global_grad_norm()))
+    return {"losses": losses, "grad_norms": norms}
+
+
+def prog_multi(parts: list):
+    """Several programs in one spawn, in order: ``[(name, kwargs), ...]``."""
+    from deepspeed_tpu_torch.parallel.mesh import reset_mesh
+
+    out = []
+    for name, kwargs in parts:
+        out.append(PROGRAMS[name](**kwargs))
+        reset_mesh()
     return out
 
 
 PROGRAMS = {"comm": prog_comm, "train": prog_train, "checkpoint": prog_checkpoint,
-            "tiling": prog_tiling, "serve": prog_serve}
+            "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,
+            "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,
+            "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate}
 
 
 def main() -> int:

@@ -30,6 +30,9 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.inference.prefix_cache, "
             "deepspeed_tpu_torch.ops.kernels.flash_attention, "
             "deepspeed_tpu_torch.ops.kernels.decode_attention, "
+            "deepspeed_tpu_torch.ops.ring_attention, "
+            "deepspeed_tpu_torch.parallel.tensor_parallel, "
+            "deepspeed_tpu_torch.checkpoint.reshard, "
             "deepspeed_tpu_torch.ops.sparse_attention, "
             "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config, "
             "deepspeed_tpu_torch.ops.transformer, "

@@ -131,9 +131,13 @@ def test_attention_dispatch_follows_jax_conditions(monkeypatch):
     assert run(128, "pallas", custom=True) == 0
     assert run(128, "pallas", window=16) == 0
     assert run(128, "pallas", cfg=ttf.get_config("tiny", position="alibi")) == 0
+    # without a 'seq' axis above 1, JAX's errors (the routing on a mesh is
+    # tests/test_torch_sp.py's)
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="'seq' axis > 1"):
             run(128, impl)
+    with pytest.raises(ValueError, match="default positions, and non-alibi"):
+        run(128, "ring", custom=True)
 
 
 def test_params_round_trip_and_unported_configs_raise():

@@ -368,7 +368,7 @@ def test_dataloader_and_batch_forms():
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
     {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
-    {"mesh": {"sp": 2}},
+    {"mesh": {"ep": 2}},
     {"mesh": {"pp": 2}},
     {"compression_training": {}},
     {"progressive_layer_drop": {"enabled": True}},
