@@ -120,6 +120,18 @@ one JSON line each; any failure exits non-zero with no result line:
    run of the same tokens), ``uly_7b`` (llama2-7b's widths at 8 layers,
    S=32768, Ulysses over sp=4, against one card), ``tp4_740m`` (llama-740m
    at tp=4, 14 heads padded to 16, against dp=4);
+   then, on the same weights and stream: ``hf_load`` (the weights written
+   as an HF Llama directory of bf16 safetensors shards, by a writer of
+   this script, then ``init_inference(<dir>)``: every leaf, the S=4096
+   logits (K1 once per layer) and the served tokens bit-equal to the
+   native engine's; load GB/s, host anonymous memory, device peak),
+   ``quantized`` (int8 and int4 engines: bytes at rest under JAX's bars,
+   int8 logits bit-equal to a bf16 engine over the dequantized tree and
+   its serving token-equal, 32 K4 a tick in one capture; |dlogits| and
+   top-1 against bf16, forward and tick times beside the dequantized
+   engine's) and ``generate_fallback`` (an engine over ``apply_fn``
+   alone: a 2048-token prompt, 4 new tokens, K1 once per layer in each
+   bucketed forward, tokens reported against the cached ``generate``);
 8. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
@@ -3235,9 +3247,12 @@ def phase_serving(seed: int, profile: bool):
     free_memory()
     paged, first, stream = phase_paged_serving(engine, params, seed, profile)
     phase_serve_tp(engine, params, seed, stream, first)
+    item6 = {"hf_load": phase_hf_load(engine, params, seed, stream, first),
+             "quantized": phase_quantized(engine, params, seed, stream),
+             "generate_fallback": phase_generate_fallback(engine, params, seed)}
     del engine, params
     free_memory()
-    return launches, paged
+    return launches, paged, item6
 
 
 def _percentile(xs, q):
@@ -3437,6 +3452,445 @@ def phase_paged_serving(engine, params, seed: int, profile: bool):
     check_greedy_vs_fp32(rec, "paged_serving")
     check(all(f32_exact.values()), f"sampled lanes differ from generate: {rec}")
     return launches, first, stream
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face loading, weight quantization and the full-recompute generate,
+# on phase_serving's llama2-7b weights and serving stream
+# ---------------------------------------------------------------------------
+
+HF_SHARD_BYTES = 5 * 10 ** 9          # at most 5 GB a safetensors shard
+HF_DISK_MARGIN = 1.1                  # free disk needed over the checkpoint
+QUANT_BYTES_BAR = {8: 0.62, 4: 0.40}  # JAX's bars against the bf16 tree
+FALLBACK_PROMPT, FALLBACK_NEW = 2048, 4
+
+
+def _hf_llama_tensors(cfg, layers: int):
+    """(HF name, native leaf path, layer or None, transposed) of a llama
+    checkpoint: the inverse of the llama policy, written out by hand
+    (``nn.Linear`` weights are stored ``[out, in]``, the native ``[in, out]``)."""
+    per_layer = [("input_layernorm.weight", "attn_norm_scale", False),
+                 ("self_attn.q_proj.weight", "wq", True),
+                 ("self_attn.k_proj.weight", "wk", True),
+                 ("self_attn.v_proj.weight", "wv", True),
+                 ("self_attn.o_proj.weight", "wo", True),
+                 ("post_attention_layernorm.weight", "mlp_norm_scale", False),
+                 ("mlp.gate_proj.weight", "w_gate", True),
+                 ("mlp.up_proj.weight", "w_up", True),
+                 ("mlp.down_proj.weight", "w_down", True)]
+    out = [("model.embed_tokens.weight", ("embed",), None, False)]
+    for i in range(layers):
+        out += [(f"model.layers.{i}.{name}", ("layers", leaf), i, t)
+                for name, leaf, t in per_layer]
+    return out + [("model.norm.weight", ("final_norm_scale",), None, False),
+                  ("lm_head.weight", ("lm_head",), None, True)]
+
+
+def _write_safetensors(path: str, named) -> None:
+    """A ``.safetensors`` file (8-byte little-endian header length, JSON
+    header, raw bytes) of ``named`` = [(name, shape, dtype name, fetch)]:
+    each tensor fetched to the host and written in turn."""
+    header, offset = {}, 0
+    for name, shape, dtype, _ in named:
+        nbytes = math.prod(shape) * 2
+        header[name] = {"dtype": dtype, "shape": list(shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for _, _, _, fetch in named:
+            f.write(fetch().reshape(-1).view(torch.uint8).numpy().data)
+
+
+def write_hf_llama(root: str, params, cfg, layers: int) -> dict:
+    """llama2-7b's bf16 weights as an HF Llama directory: config.json,
+    model.safetensors.index.json and shards of at most HF_SHARD_BYTES."""
+    def leaf(path):
+        node = params
+        for k in path:
+            node = node[k]
+        return node
+
+    def fetch(path, i, t):
+        x = leaf(path) if i is None else leaf(path)[i]
+        return (x.T if t else x).contiguous().cpu()
+
+    tensors = []
+    for name, path, i, t in _hf_llama_tensors(cfg, layers):
+        x = leaf(path) if i is None else leaf(path)[i]
+        check(x.dtype == torch.bfloat16, f"{name}: {x.dtype}")
+        shape = tuple(reversed(x.shape)) if t else tuple(x.shape)
+        tensors.append((name, shape, "BF16",
+                        (lambda p=path, i=i, t=t: fetch(p, i, t))))
+    shards, size = [[]], 0
+    for item in tensors:
+        nbytes = math.prod(item[1]) * 2
+        if shards[-1] and size + nbytes > HF_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(item)
+        size += nbytes
+    weight_map = {}
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        _write_safetensors(os.path.join(root, fname), shard)
+        weight_map.update({name: fname for name, *_ in shard})
+    total = sum(math.prod(shape) * 2 for _, shape, _, _ in tensors)
+    with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                   "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": layers, "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.kv_heads,
+                   "max_position_embeddings": cfg.max_seq_len,
+                   "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+                   "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, f)
+    return {"shards": len(shards), "tensors": len(tensors), "gb": total / 1e9}
+
+
+def rss_anon() -> int:
+    """Host anonymous memory of this process (mmap'd file pages, which RSS
+    counts, are not in it): ``RssAnon`` of /proc/self/status, or where the
+    kernel does not report it, resident minus shared (file-backed and
+    shmem) pages of /proc/self/statm."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon:"):
+                return int(line.split()[1]) * 1024
+    with open("/proc/self/statm") as f:
+        _, resident, shared = (int(x) for x in f.read().split()[:3])
+    return (resident - shared) * os.sysconf("SC_PAGE_SIZE")
+
+
+def rss_anon_source() -> str:
+    with open("/proc/self/status") as f:
+        return ("status RssAnon" if any(line.startswith("RssAnon:") for line in f)
+                else "statm resident - shared")
+
+
+def heap_in_use() -> int:
+    """Bytes the C heap has handed out and not taken back (glibc
+    ``mallinfo2``: ``uordblks + hblkhd``), where torch's CPU allocator
+    takes host tensors: anonymous memory by nature, whatever the kernel
+    reports of mapped file pages."""
+    import ctypes
+
+    class MallInfo2(ctypes.Structure):
+        _fields_ = [(name, ctypes.c_size_t) for name in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks",
+            "uordblks", "fordblks", "keepcost")]
+
+    libc = ctypes.CDLL("libc.so.6")
+    libc.mallinfo2.restype = MallInfo2
+    info = libc.mallinfo2()
+    return info.uordblks + info.hblkhd
+
+
+class _PeakHost:
+    """The peaks of :func:`rss_anon` and :func:`heap_in_use` while the
+    ``with`` block runs (sampled every 2 ms by a thread)."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = rss_anon()
+        self.heap_base = self.heap_peak = heap_in_use()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, rss_anon())
+            self.heap_peak = max(self.heap_peak, heap_in_use())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_anon())
+        self.heap_peak = max(self.heap_peak, heap_in_use())
+
+
+def _forward_tokens(cfg, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    return torch.randint(0, cfg.vocab_size, (1, SERVE_SHAPE[1]), generator=gen,
+                         device="cuda")
+
+
+def _same_outputs(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return sorted(a) == sorted(b) and all(np.array_equal(a[r], b[r]) for r in a)
+
+
+def phase_hf_load(engine, params, seed: int, stream, served) -> dict:
+    """llama2-7b written as an HF Llama directory (bf16 safetensors shards),
+    then ``init_inference(<dir>)``: every leaf bit-equal to the weights it
+    was written from, the S=4096 ``forward`` (K1 once per layer) bit-equal
+    to the native engine's, the serving stream token-equal to its serving
+    (``served``).  Load seconds, GB/s, host anonymous-memory growth and the
+    device's peak are reported.  The depth is cut (never the width) if the
+    disk cannot hold the checkpoint."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    cfg = engine.model.config
+    root = tempfile.mkdtemp(prefix="ds_port_hf_")
+    try:
+        free = shutil.disk_usage(root).free
+        per_layer = sum(x[0].numel() * 2 for x in params["layers"].values())
+        top = sum(x.numel() * 2 for k, x in params.items() if k != "layers")
+        layers = cfg.num_layers
+        while layers > 1 and HF_DISK_MARGIN * (top + layers * per_layer) > free:
+            layers -= 1
+        native = engine
+        if layers < cfg.num_layers:   # the same weights, cut to the layers written
+            native = deepspeed_tpu_torch.init_inference(
+                CausalLM(dataclasses.replace(cfg, num_layers=layers)),
+                config={"dtype": "bf16"},
+                params={**params, "layers": {k: v[:layers]
+                                             for k, v in params["layers"].items()}})
+        t0 = time.perf_counter()
+        written = write_hf_llama(root, params, cfg, layers)
+        write_s = time.perf_counter() - t0
+        emit({"phase": "hf_write", "dir": root, "free_gb": free / 1e9, "layers": layers,
+              "depth_cut": layers < cfg.num_layers, "write_s": write_s, **written})
+
+        free_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev0 = torch.cuda.memory_allocated()
+        with _PeakHost() as host:
+            t0 = time.perf_counter()
+            hf = deepspeed_tpu_torch.init_inference(root, config={"dtype": "bf16"})
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        loaded_gb = sum(x.numel() * x.element_size() for x in _leaves(hf.params)) / 1e9
+        def spelled(c):   # num_kv_heads None means num_heads
+            return dataclasses.replace(c, num_kv_heads=c.kv_heads)
+
+        check(spelled(hf.model.config) == spelled(native.model.config),
+              f"loaded config {hf.model.config} != {native.model.config}")
+        from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path
+
+        want = dict(tree_flatten_with_path(native.params))
+        got = dict(tree_flatten_with_path(hf.params))
+        check(sorted(got) == sorted(want), f"loaded leaves {sorted(got)}")
+        differ = [p for p in got if not (
+            got[p].dtype == want[p].dtype and got[p].shape == want[p].shape
+            and got[p].is_contiguous() and torch.equal(got[p], want[p]))]
+        check(not differ, f"loaded leaves differ from the written weights: {differ}")
+        rec = {"phase": "hf_load", "layers": layers, "leaves": len(got),
+               "load_s": load_s, "gb": loaded_gb, "gb_per_s": loaded_gb / load_s,
+               "host_anon_growth_gb": (host.peak - host.base) / 1e9,
+               "host_anon_source": rss_anon_source(),
+               "host_heap_growth_gb": (host.heap_peak - host.heap_base) / 1e9,
+               "device_peak_gb": (torch.cuda.max_memory_allocated() - dev0) / 1e9,
+               "leaves_bit_equal": True}
+
+        tokens = _forward_tokens(cfg, seed)
+        want_logits = native.forward(tokens)
+        reset_counts()
+        logits = hf.forward(tokens)
+        torch.cuda.synchronize()
+        k1 = flash_attention.launches
+        check(k1 == layers, f"HF engine forward launched K1 {k1} times, expected {layers}")
+        check(torch.equal(logits, want_logits),
+              "HF engine logits differ from the native engine's: max |d| "
+              f"{(logits.float() - want_logits.float()).abs().max().item()}")
+        rec.update(forward_k1_launches=k1, logits_bit_equal=True)
+        del logits, want_logits
+        free_memory()
+
+        if native is not engine:
+            _, served, _ = _serve_once(native, stream, "hf_load_native_cut")
+        reset_counts()
+        sv, outs, srec = _serve_once(hf, stream, "hf_load")
+        k4 = {"counter": decode_attention.launches, "per_tick": sv._exec.graph_k4_launches,
+              "ticks": sv._exec.replays}
+        check(_same_outputs(outs, served),
+              "HF engine served other tokens than the native engine")
+        rec.update(serving_tokens_equal=True, k4_launches=k4,
+                   mean_decode_tick_ms=srec["mean_decode_tick_ms"],
+                   output_tok_per_s=srec["output_tok_per_s"],
+                   serving_peak_gb=srec["peak_memory_gb"])
+        emit(rec)
+        del sv, hf, native
+        free_memory()
+        return {"k1": k1, "k4": k4}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_quantized(engine, params, seed: int, stream) -> dict:
+    """Weight-only int8 and int4 engines over llama2-7b's bf16 weights:
+    bytes at rest under JAX's bars, the int8 ``forward`` at S=4096 (K1 once
+    per layer) bit-equal to a bf16 engine over ``dequantize_params(q)``
+    (the per-layer dequantization is elementwise), and the serving stream
+    token-equal to that engine's serving; |dlogits| and top-1 against the
+    bf16 weights, forward and tick times beside the dequantized engine's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.quantization import (dequantize_params,
+                                                            tree_nbytes)
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    model, cfg = engine.model, engine.model.config
+    bf16_bytes = tree_nbytes(params)
+    rec = {"phase": "quantized", "bf16_gb": bf16_bytes / 1e9}
+    engines = {}
+    for bits, config in ((8, {"dtype": "int8"}),
+                         (4, {"dtype": "bf16", "quant": {"enabled": True, "num_bits": 4}})):
+        free_memory()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = deepspeed_tpu_torch.init_inference(model, params=params, config=config)
+        torch.cuda.synchronize()
+        nbytes = tree_nbytes(eng.params)
+        rec[f"int{bits}"] = {"build_s": time.perf_counter() - t0, "gb": nbytes / 1e9,
+                             "ratio_to_bf16": nbytes / bf16_bytes,
+                             "allocated_gb_after_build": torch.cuda.memory_allocated() / 1e9,
+                             "allocated_gb_added": (torch.cuda.memory_allocated()
+                                                    - before) / 1e9}
+        check(nbytes / bf16_bytes < QUANT_BYTES_BAR[bits],
+              f"int{bits} tree is {nbytes / bf16_bytes:.3f} of bf16's "
+              f"(bar {QUANT_BYTES_BAR[bits]})")
+        engines[bits] = eng
+    del engines[4]
+    q8 = engines.pop(8)
+    free_memory()
+    ref = deepspeed_tpu_torch.init_inference(model, params=dequantize_params(q8.params),
+                                             config={"dtype": "bf16"})
+
+    tokens = _forward_tokens(cfg, seed)
+    reset_counts()
+    logits = q8.forward(tokens)
+    torch.cuda.synchronize()
+    k1 = flash_attention.launches
+    check(k1 == cfg.num_layers,
+          f"int8 forward launched K1 {k1} times, expected {cfg.num_layers}")
+    want = ref.forward(tokens)
+    check(torch.equal(logits, want),
+          "int8 logits differ from the dequantized bf16 engine's: max |d| "
+          f"{(logits.float() - want.float()).abs().max().item()}")
+    bf16 = engine.forward(tokens).float()
+    d = (logits.float() - bf16).abs()
+    top2 = bf16.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > torch.quantile(d.flatten()[::97], 0.99)
+    same = logits.argmax(-1) == bf16.argmax(-1)
+    rec["forward"] = {
+        "k1_launches": k1, "bit_equal_to_dequantized": True,
+        "max_abs_dlogits_vs_bf16": d.max().item(),
+        "mean_abs_dlogits_vs_bf16": d.mean().item(),
+        "top1_vs_bf16": same.float().mean().item(),
+        "decisive_positions": int(decisive.sum()),
+        "top1_vs_bf16_decisive": same[decisive].float().mean().item(),
+        # in turns: dequantized, int8, int8, dequantized
+        "ms": None, "dequantized_bf16_ms": None}
+    del logits, want, bf16, d, top2
+    free_memory()
+    times = {"q": [], "ref": []}
+    for name in ("ref", "q", "q", "ref"):
+        eng = q8 if name == "q" else ref
+        times[name].append(time_ms(lambda: eng.forward(tokens), reps=5, warmup=1))
+    rec["forward"]["ms"] = statistics.mean(times["q"])
+    rec["forward"]["dequantized_bf16_ms"] = statistics.mean(times["ref"])
+    free_memory()
+
+    runs = {}
+    for name, eng in (("int8", q8), ("dequantized_bf16", ref)):
+        free_memory()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        sv, outs, srec = _serve_once(eng, stream, f"quantized_{name}")
+        runs[name] = {"outs": outs, "k4": {"counter": decode_attention.launches,
+                                           "per_tick": sv._exec.graph_k4_launches,
+                                           "ticks": sv._exec.replays},
+                      "mean_decode_tick_ms": srec["mean_decode_tick_ms"],
+                      "median_decode_tick_ms": srec["median_decode_tick_ms"],
+                      "output_tok_per_s": srec["output_tok_per_s"],
+                      "peak_gb": srec["peak_memory_gb"],
+                      "serving_added_peak_gb": srec["peak_memory_gb"] - base / 1e9}
+        del sv
+    check(_same_outputs(runs["int8"]["outs"], runs["dequantized_bf16"]["outs"]),
+          "int8 serving differs from the dequantized bf16 engine's serving")
+    rec["serving"] = {name: {k: v for k, v in r.items() if k != "outs"}
+                      for name, r in runs.items()}
+    rec["serving"]["tokens_equal"] = True
+    emit(rec)
+    del q8, ref, runs
+    free_memory()
+    return {"k1": k1, "k4": rec["serving"]["int8"]["k4"]}
+
+
+def phase_generate_fallback(engine, params, seed: int) -> dict:
+    """``generate`` through the full-recompute fallback: an engine over
+    llama2-7b's ``apply_fn`` alone (no KV cache), a 2048-token prompt and 4
+    new tokens, so every bucketed forward (S 2048, then 4096, and the
+    causality probe's second 4096) takes K1 once per layer.  Tokens
+    against the cached ``generate``'s are reported (the two paths round
+    attention differently in bf16)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    model, cfg = engine.model, engine.model.config
+    runs = [0]
+
+    def apply_fn(p, tokens, *args, **kwargs):
+        runs[0] += 1
+        return model.apply_fn(p, tokens, *args, **kwargs)
+
+    fb = deepspeed_tpu_torch.init_inference(apply_fn=apply_fn, params=params,
+                                            config={"dtype": "bf16"})
+    check(fb.model is None, "the fallback engine has a KV-cache model")
+    prompt = np.random.default_rng(seed + 61).integers(
+        0, cfg.vocab_size, (1, FALLBACK_PROMPT)).astype(np.int32)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fb.generate(prompt, max_new_tokens=FALLBACK_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    k1 = flash_attention.launches
+    check(runs[0] >= FALLBACK_NEW and k1 == cfg.num_layers * runs[0],
+          f"fallback: K1 launched {k1} times over {runs[0]} forwards, expected "
+          f"{cfg.num_layers} per forward")
+    check(fb._uncached_causal is True, "the causality probe judged llama2-7b non-causal")
+    check(tuple(out.shape) == (1, FALLBACK_PROMPT + FALLBACK_NEW), f"shape {out.shape}")
+    # the first forward is the native engine's forward of the prompt, bit
+    # for bit (S=2048 is its own bucket)
+    first = int(engine.forward(prompt)[0, -1].argmax())
+    check(int(out[0, FALLBACK_PROMPT]) == first,
+          f"fallback's first token {int(out[0, FALLBACK_PROMPT])} != the argmax of "
+          f"the engine's forward ({first})")
+    cached = engine.generate(prompt, max_new_tokens=FALLBACK_NEW)
+    new, ref = out[0, FALLBACK_PROMPT:].cpu(), cached[0, FALLBACK_PROMPT:].cpu()
+    rec = {"phase": "generate_fallback", "prompt": FALLBACK_PROMPT,
+           "new_tokens": FALLBACK_NEW, "forward_runs": runs[0], "k1_launches": k1,
+           "k1_per_forward": k1 / runs[0], "probe_causal": True, "seconds": gen_s,
+           "seconds_per_token": gen_s / FALLBACK_NEW,
+           "first_token_equal_to_forward_argmax": True,
+           "tokens_equal_to_cached": int((new == ref).sum()),
+           "first_token_equal_to_cached": bool(new[0] == ref[0])}
+    emit(rec)
+    del fb
+    free_memory()
+    return {"k1": k1, "forward_runs": runs[0]}
 
 
 def profile_serving(sv, stream) -> None:
@@ -3931,7 +4385,7 @@ def main() -> int:
     phase_train_zero(args.seed)
     phase_frozen(args.seed)
     phase_checkpoint(args.seed)
-    serve_launches, k4_launches = phase_serving(args.seed, args.profile)
+    serve_launches, k4_launches, item6 = phase_serving(args.seed, args.profile)
     if args.tp_cards:
         phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -3971,6 +4425,10 @@ def main() -> int:
                       design=K1_DESIGN, tflops=k1["tflops"],
                       serving_shape_tflops=fwd[SERVE_SHAPE]["tflops"],
                       launches_serving_forward=serve_launches,
+                      launches_hf_load_forward=item6["hf_load"]["k1"],
+                      launches_quantized_forward=item6["quantized"]["k1"],
+                      launches_generate_fallback=item6["generate_fallback"]["k1"],
+                      generate_fallback_forwards=item6["generate_fallback"]["forward_runs"],
                       launches_per_step_save_qkv=remat["save_qkv"]["launches_per_step"]["K1"],
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
@@ -3993,6 +4451,8 @@ def main() -> int:
                       launches_per_decode_tick=k4_launches["per_tick"],
                       decode_ticks=k4_launches["ticks"],
                       launches_replayed=k4_launches["replayed"],
+                      launches_hf_load_serving=item6["hf_load"]["k4"],
+                      launches_quantized_serving=item6["quantized"]["k4"],
                       launches_counted="wrapper calls on the paged serving path: "
                                        "2 warm-up runs and the capture of the decode "
                                        "graph; each tick replays the captured ones")]})

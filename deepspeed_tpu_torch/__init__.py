@@ -18,7 +18,9 @@ ZeRO stages 0-3 and MiCS (``comm``, ``parallel``, ``runtime/zero``,
 and the paged serving path, ``engine.serving()`` -> ``ServingEngine.run``,
 with the paged decode-attention kernel, on one device or on a
 tensor-parallel serving mesh (``parallel.mesh.initialize_serving_mesh`` ->
-``init_inference(mesh=)``).  ROADMAP.md lists what comes next.
+``init_inference(mesh=)``); Hugging Face checkpoints and modules
+(``module_inject``: ``init_inference(<directory or module>)``) and
+weight-only int8/int4 inference.  ROADMAP.md lists what comes next.
 """
 from __future__ import annotations
 
@@ -87,25 +89,25 @@ def initialize(args=None, model: Any = None, optimizer=None, model_parameters=No
 def init_inference(model: Any = None, config=None, device=None, **kwargs):
     """Build the inference engine (reference deepspeed/__init__.py:269).
 
-    ``model`` is a native model adapter (``models.CausalLM``); its weights
-    come from ``params=`` or from ``model.load_params``.  ``config`` is a
-    dict or :class:`~.inference.config.DeepSpeedInferenceConfig`; extra
-    keyword arguments are config keys.  ``device`` defaults to CUDA.
-    ``mesh=`` (``parallel.mesh.initialize_serving_mesh``) or
+    ``model`` is a native model adapter (``models.CausalLM``), whose weights
+    come from ``params=`` or from ``model.load_params``, or a Hugging Face
+    source: a ``save_pretrained`` directory (streamed leaf by leaf; its
+    ``config.json`` read as a dict, so neither ``transformers`` nor
+    ``safetensors`` is needed) or a live ``transformers`` module, converted
+    through the ``module_inject`` policies.  ``config`` is a dict or
+    :class:`~.inference.config.DeepSpeedInferenceConfig`; extra keyword
+    arguments are config keys.  ``device`` defaults to CUDA.  ``mesh=``
+    (``parallel.mesh.initialize_serving_mesh``) or
     ``tensor_parallel.tp_size`` shards the model over the mesh's 'model'
-    axis, one rank per device (auto-TP, see ``inference/engine.py``).
+    axis, one rank per device (auto-TP, see ``inference/engine.py``); a
+    directory then loads each rank's shards only.  ``dtype="int8"`` or
+    the ``quant`` block quantizes the weights (``inference/quantization.py``).
     """
     from .inference.config import DeepSpeedInferenceConfig
-    from .inference.engine import InferenceEngine
+    from .inference.engine import InferenceEngine, install_mesh
 
     engine_kwargs = {k: kwargs.pop(k) for k in ("apply_fn", "params", "mesh")
                      if k in kwargs}
-    if isinstance(model, str) or (model is not None
-                                  and hasattr(model, "state_dict")
-                                  and not hasattr(model, "apply_fn")):
-        raise NotImplementedError(
-            "Hugging Face checkpoints and modules load through module_inject, "
-            "which is not ported yet (ROADMAP queue 1, item 6)")
     if isinstance(config, DeepSpeedInferenceConfig):
         if kwargs:
             raise ValueError("pass config keys either in config= or as keyword "
@@ -113,6 +115,22 @@ def init_inference(model: Any = None, config=None, device=None, **kwargs):
         cfg = config
     else:
         cfg = DeepSpeedInferenceConfig.from_dict({**dict(config or {}), **kwargs})
+    if isinstance(model, str) or (model is not None
+                                  and hasattr(model, "state_dict")
+                                  and not hasattr(model, "apply_fn")):
+        from .models import CausalLM
+
+        # weight quantization loads in the compute dtype (the engine
+        # quantizes blockwise on the device; a cast to int8 would truncate)
+        dtype = cfg.compute_torch_dtype
+        # the mesh first, so that a directory streams each rank's shards
+        tp = cfg.tensor_parallel.tp_size if cfg.tensor_parallel.enabled else 1
+        mesh = engine_kwargs.get("mesh")
+        if mesh is not None or tp > 1:
+            mesh = engine_kwargs["mesh"] = install_mesh(mesh, tp)
+        model, params = CausalLM.from_hf(model, dtype=dtype, mesh=mesh,
+                                         checkpoint=cfg.checkpoint, device=device)
+        engine_kwargs.setdefault("params", params)
     return InferenceEngine(model, config=cfg, device=device, **engine_kwargs)
 
 

@@ -83,8 +83,12 @@ class DeepSpeedInferenceConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        if self.weights_quantized:
-            raise NotImplementedError(
-                "weight-quantized inference (dtype int8 / quant.enabled) is "
-                "not ported yet (ROADMAP queue 1, item 6)")
-        return _DTYPES[str(self.dtype)]
+        return torch.int8 if str(self.dtype) == "int8" else _DTYPES[str(self.dtype)]
+
+    @property
+    def compute_torch_dtype(self) -> torch.dtype:
+        """Activation and dequant dtype: int8 storage computes in bf16; any
+        other configured dtype is honoured (quant.enabled with fp32 runs
+        fp32)."""
+        d = self.torch_dtype
+        return torch.bfloat16 if d == torch.int8 else d

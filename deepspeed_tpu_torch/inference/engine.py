@@ -25,9 +25,16 @@ tensor-parallel path (``parallel.tensor_parallel.region``): the KV cache
 holds the rank's KV heads, the logits are gathered before sampling, so
 every rank picks the same tokens.
 
+Weight-only quantization (``dtype="int8"`` or the ``quant`` block,
+reference ZeRO-Inference): the engine quantizes the tree leaf by leaf on
+its device (``inference/quantization.py``), one shard (tp=1) as in the JAX
+package; ``forward``, ``generate`` and ``serving()`` read the quantized
+tree, which ``models/transformer.py`` dequantizes a layer at a time.  A
+model without a KV cache (a bare ``apply_fn``) generates by the
+full-recompute fallback (``_generate_uncached``).
+
 Not ported yet (raise ``NotImplementedError`` naming the ROADMAP row): the
-supervised and fleet serving engines, weight quantization and the
-full-recompute ``generate`` fallback for models without a KV cache.
+supervised and fleet serving engines.
 """
 from __future__ import annotations
 
@@ -40,8 +47,8 @@ from ..accelerator.real_accelerator import resolve_device
 from ..parallel import tensor_parallel
 from ..utils.logging import log_dist, logger
 from .config import DeepSpeedInferenceConfig
+from .quantization import dequantize_params, quantize_params
 from .sampling import SamplingParams, position_generator, sample_tokens
-
 
 
 def place_params(model, params, mesh, dtype=None, device=None):
@@ -128,7 +135,24 @@ def _cast_tree(tree, dtype: torch.dtype, device: torch.device):
     return tree.to(device=device)
 
 
+class _DequantizingModel:
+    """A model that cannot read ``QuantizedWeight`` leaves, its cached and
+    paged contracts (those it has) called on the tree dequantized whole
+    (the JAX engine's shim)."""
+
+    def __init__(self, model):
+        self._inner = model
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if name in ("apply_cached", "apply_paged"):
+            return lambda params, *a, **k: attr(dequantize_params(params), *a, **k)
+        return attr
+
+
 class InferenceEngine:
+    _warned_uncached = False   # one-time fallback warning (class-wide)
+
     def __init__(self, model: Any = None,
                  config: Optional[DeepSpeedInferenceConfig] = None,
                  apply_fn: Optional[Callable] = None, params: Any = None,
@@ -139,7 +163,6 @@ class InferenceEngine:
                            "config compatibility and ignored")
         tp = (self._config.tensor_parallel.tp_size
               if self._config.tensor_parallel.enabled else 1)
-        dtype = self._config.torch_dtype   # raises for weight quantization
         self.device = resolve_device(device)
         self._model = model if hasattr(model, "apply_cached") else None
         if model is not None:
@@ -148,15 +171,40 @@ class InferenceEngine:
         if apply_fn is None:
             raise ValueError("InferenceEngine needs apply_fn(params, *args) "
                              "(directly or via a model adapter)")
+        # weight-only quantization (reference ZeRO-Inference int8): weights
+        # int8/int4 at rest, dequantized at use
+        self._quant = self._config.weights_quantized
+        if self._quant and params is None:
+            raise ValueError(
+                "weight quantization (dtype int8 / quant.enabled) needs a param "
+                "tree: a bare apply_fn engine has no weights to quantize")
         self.apply_fn = apply_fn
         self.mesh = self._resolve_mesh(mesh, tp, model)
-        self.params = place_params(model, params, self.mesh, dtype, self.device)
+        if self._quant:
+            if self.tp != 1:
+                raise NotImplementedError(
+                    "quantized inference is single-shard (tp=1) for now: blockwise "
+                    "scales do not carry TP specs")
+            self.params = quantize_params(
+                place_params(model, params, self.mesh), bits=self._config.quant.num_bits,
+                compute_dtype=self._config.compute_torch_dtype, device=self.device)
+            if not getattr(model, "reads_quantized", False):
+                # a model that reads plain tensors gets the tree dequantized
+                # whole at each call, as the JAX engine does for every model
+                self.apply_fn = lambda p, *a, **k: apply_fn(dequantize_params(p), *a, **k)
+                if self._model is not None:
+                    self._model = _DequantizingModel(self._model)
+        else:
+            self.params = place_params(model, params, self.mesh,
+                                       self._config.torch_dtype, self.device)
         # a generic tree on a model axis above 1: DTensor sharding propagation
         self._generic_specs = None
         if self.tp > 1 and not hasattr(model, "shard_params") and params is not None:
             self._generic_specs = tensor_parallel.auto_tp_specs(params, self.tp)
         log_dist(f"inference engine ready: device={self.device} "
-                 f"dtype={self._config.dtype} tp={self.tp}", ranks=[0])
+                 f"dtype={self._config.dtype} tp={self.tp}"
+                 + (f" quant=int{self._config.quant.num_bits}" if self._quant else ""),
+                 ranks=[0])
 
     def _resolve_mesh(self, mesh, tp: int, model):
         """The serving mesh (``mesh=``, else one built for ``tp_size`` > 1
@@ -200,6 +248,18 @@ class InferenceEngine:
 
         kwargs.setdefault("device", self.device)
         kwargs.setdefault("mesh", self.mesh)
+        if self._quant and kwargs.get("dtype") is None:
+            # the KV pool computes in the compute dtype, never in the
+            # weights' storage dtype (also over an explicit dtype=None)
+            kwargs["dtype"] = self._config.compute_torch_dtype
+            act = getattr(getattr(self._model, "config", None), "dtype", kwargs["dtype"])
+            if act != kwargs["dtype"]:
+                raise ValueError(
+                    f"serving() on a quantized engine keeps its KV pool in the "
+                    f"compute dtype {kwargs['dtype']}, but the model computes in "
+                    f"{act}; the paged decode kernel reads queries and pages in "
+                    f"one dtype: build the model with dtype={kwargs['dtype']} "
+                    "(CausalLM.from_hf does)")
         return ServingEngine(self._model, self.params, **kwargs)
 
     def supervised_serving(self, max_restarts: int = 5, **kwargs):
@@ -312,14 +372,16 @@ class InferenceEngine:
         with counter-based generators (deterministic per seed and
         position); it excludes the legacy ``greedy``/``rng``/
         ``temperature``/``top_k``/``top_p`` knobs, where ``rng`` is one
-        ``torch.Generator`` drawn from in order.
+        ``torch.Generator`` drawn from in order.  A model without a KV
+        cache takes the full-recompute fallback (:meth:`_generate_uncached`).
         """
-        model = model or self._model
-        if model is None or not hasattr(model, "apply_cached"):
+        if (model is not None and model is not self._model
+                and self._quant and params is None):
             raise NotImplementedError(
-                "generate() needs a KV-cache model (apply_cached); the "
-                "full-recompute fallback is not ported yet (ROADMAP queue 1, "
-                "item 6)")
+                "generate(model=...) on a quantized engine needs explicit "
+                "params (the JAX engine's rule): self.params is a "
+                "QuantizedWeight tree quantized for the engine's own model")
+        model = model or self._model
         if sampling is not None:
             if rng is not None:
                 raise ValueError(
@@ -329,9 +391,26 @@ class InferenceEngine:
                 raise ValueError(
                     "generate(sampling=...) is mutually exclusive with the "
                     "legacy greedy/temperature/top_k/top_p knobs")
+            if model is None or not hasattr(model, "apply_cached"):
+                raise NotImplementedError(
+                    "generate(sampling=...) requires a KV-cache-capable model "
+                    "(apply_cached); the full-recompute fallback has no lane path")
             return self._generate_lanes(model, input_ids, max_new_tokens,
                                         eos_token_id, sampling,
                                         attention_mask, params)
+        if model is None or not hasattr(model, "apply_cached"):
+            if attention_mask is not None:
+                raise NotImplementedError(
+                    "attention_mask requires a KV-cache-capable model "
+                    "(apply_cached); the full-recompute fallback would "
+                    "silently attend to pad tokens")
+            if top_k or top_p < 1.0:
+                raise NotImplementedError(
+                    "top_k/top_p require a KV-cache-capable model "
+                    "(apply_cached); the fallback would silently sample the "
+                    "full distribution")
+            return self._generate_uncached(input_ids, max_new_tokens, eos_token_id,
+                                           greedy, rng, temperature, params=params)
         if greedy:
             def choose(lg, pos):
                 return torch.argmax(lg, dim=-1)
@@ -374,3 +453,82 @@ class InferenceEngine:
 
         return self._decode(model, params, input_ids, attention_mask,
                             max_new_tokens, eos_token_id, choose)
+
+    def _generate_uncached(self, input_ids, max_new_tokens: int = 32,
+                           eos_token_id: Optional[int] = None, greedy: bool = True,
+                           rng: Optional[torch.Generator] = None,
+                           temperature: float = 1.0, params=None):
+        """Full-recompute fallback for any logits-returning ``apply_fn``
+        (the JAX engine's ``_generate_uncached``): one full forward per new
+        token, on the sequence right-padded to its :meth:`_bucket`, the
+        logits read at the last real position, so the forward sees O(log)
+        shapes; rows stop early once every row's last token is
+        ``eos_token_id``.
+
+        Bucketing needs a causal ``apply_fn`` (tail pads must not change
+        earlier positions' logits).  The first padded step probes it once:
+        the JAX engine compares the padded forward with the unpadded one at
+        fp32 tolerances; here the two lengths may take different attention
+        paths (the flash kernel at a multiple of 128, the plain branch
+        otherwise) that round differently in bf16, so the probe runs the
+        padded forward a second time with other pad tokens (copies of the
+        prompt's), which a causal ``apply_fn`` leaves bit-identical at any
+        precision.  A non-causal one latches the exact, unpadded path (one
+        shape per length), with a warning."""
+        if not InferenceEngine._warned_uncached:
+            InferenceEngine._warned_uncached = True
+            logger.warning(
+                "generate() is using the full-recompute fallback (O(S) forward "
+                "per token).  Give the model a KV cache (apply_cached, see "
+                "models.CausalLM) for the cached decode path.")
+        ids = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor)
+                         else input_ids)
+        if ids.ndim == 1:
+            ids = ids[None, :]
+        B = ids.shape[0]
+        if not greedy and temperature > 0 and rng is None:
+            rng = torch.Generator(device=self.device)
+            rng.manual_seed(0)
+
+        def fwd(tokens):
+            if params is not None:
+                with torch.inference_mode(), self._region():
+                    logits = self.apply_fn(params, self._tensor(tokens, torch.long))
+            else:
+                logits = self.forward(tokens)
+            return logits[0] if isinstance(logits, tuple) else logits
+
+        for _ in range(max_new_tokens):
+            n = ids.shape[1]
+            causal = getattr(self, "_uncached_causal", None)
+            if causal is False:
+                next_logits = fwd(ids)[:, n - 1]
+            else:
+                padded = np.zeros((B, self._bucket(n)), ids.dtype)
+                padded[:, :n] = ids
+                next_logits = fwd(padded)[:, n - 1]
+                if causal is None and padded.shape[1] > n:
+                    other = padded.copy()
+                    other[:, n:] = np.resize(ids, (B, padded.shape[1] - n))
+                    # pads equal to zeros would compare a forward with itself
+                    if (other[:, n:] != 0).any():
+                        self._uncached_causal = bool(torch.equal(
+                            fwd(other)[:, n - 1], next_logits))
+                        if not self._uncached_causal:
+                            logger.warning(
+                                "uncached generate: apply_fn is not causal (pad "
+                                "tokens leak into earlier logits); using the exact "
+                                "per-step path, one forward shape per length")
+                            next_logits = fwd(ids)[:, n - 1]
+            if greedy or temperature <= 0:
+                # temperature <= 0 folds to greedy (dividing by it would be
+                # a silent NaN factory), as the sampling subsystem does
+                nxt = torch.argmax(next_logits, dim=-1)
+            else:
+                probs = torch.softmax(next_logits.float() / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=rng)[:, 0]
+            nxt = nxt.cpu().numpy()
+            ids = np.concatenate([ids, nxt[:, None].astype(ids.dtype)], axis=1)
+            if eos_token_id is not None and bool((nxt == eos_token_id).all()):
+                break
+        return self._tensor(ids)

@@ -39,11 +39,49 @@ __all__ = ["CausalLM", "TransformerConfig", "CONFIGS", "get_config", "forward",
 class CausalLM(nn.Module):
     """Causal-LM adapter over the transformer family."""
 
+    # the transformer dequantizes QuantizedWeight leaves at use, a layer at
+    # a time (a quantized inference engine passes its tree as it is)
+    reads_quantized = True
+
     def __init__(self, config="tiny", attn_impl: str = "auto", **overrides):
         super().__init__()
         self.config = get_config(config, **overrides)
         self.attn_impl = attn_impl
         self.params: Optional[Dict[str, Any]] = None
+
+    @classmethod
+    def from_hf(cls, model_or_path, dtype: Optional[torch.dtype] = None,
+                attn_impl: str = "auto", checkpoint: Optional[str] = None,
+                mesh=None, device=None, **overrides):
+        """``(model, params)`` from an HF checkpoint (the JAX package's
+        ``CausalLM.from_hf``; module_inject policies): a ``save_pretrained``
+        directory, a live ``transformers`` module, or ``(config,
+        state_dict)``.
+
+        A directory streams leaf by leaf onto ``device`` (the accelerator's
+        when None), each rank taking its model-axis shard on ``mesh``;
+        ``checkpoint`` names another weight source (a DeepSpeed checkpoint
+        json of per-mp-rank files, say) while ``model_or_path`` supplies the
+        config.  A module or a pair converts densely.  ``dtype`` is the
+        leaves' and the compute dtype (float32 leaves when None)."""
+        from ..module_inject import load_hf_checkpoint, load_hf_checkpoint_sharded
+        from ..module_inject.sharded_load import read_hf_config
+
+        if checkpoint is not None:
+            hf_config = (read_hf_config(model_or_path) if isinstance(model_or_path, str)
+                         else getattr(model_or_path, "config", None))
+            cfg, params = load_hf_checkpoint_sharded(
+                checkpoint, dtype=dtype, mesh=mesh, hf_config=hf_config, device=device)
+        elif isinstance(model_or_path, str):
+            cfg, params = load_hf_checkpoint_sharded(model_or_path, dtype=dtype,
+                                                     mesh=mesh, device=device)
+        else:
+            cfg, params = load_hf_checkpoint(model_or_path, dtype=dtype, device=device)
+        if dtype is not None:
+            # the compute dtype follows the leaves', or the decode loop
+            # would mix precisions
+            overrides = {"dtype": dtype, **overrides}
+        return cls(cfg, attn_impl=attn_impl, **overrides), params
 
     def init_fn(self, generator: Optional[torch.Generator] = None, device=None,
                 dtype: torch.dtype = torch.float32, tp=None,

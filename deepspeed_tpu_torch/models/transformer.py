@@ -21,6 +21,13 @@ fake-quant, and the int8 pages and per-slot adapters of the paged path.
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
 
+Weight-quantized trees (``inference/quantization.py``): a leaf may be a
+``QuantizedWeight``; every path dequantizes it at use, a layer at a time
+(``_layer``/``_layers``) and the top-level leaves where they are read, so at
+most one layer's compute-dtype copy is live (inside the decode CUDA graph
+too).  Dequantization is elementwise, so the outputs are bit-equal to those
+of the whole tree dequantized first.
+
 Tensor parallelism (Megatron, the JAX package's ``param_specs``): inside
 ``parallel.tensor_parallel.region()`` each rank holds its model-axis
 shards (``shard_params``, or ``init_params(..., tp=(rank, n))``) and the
@@ -61,6 +68,7 @@ from ..accelerator import resolve_device
 from ..ops.kernels.common import NEG_INF
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
+from ..ops.quantizer import QuantizedWeight
 from ..parallel import tensor_parallel as _tp
 
 
@@ -1011,12 +1019,19 @@ def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool)
     return named_block
 
 
+def _dq(x):
+    """A leaf as the model reads it: a ``QuantizedWeight`` dequantized."""
+    return x.dequantize() if isinstance(x, QuantizedWeight) else x
+
+
 def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s weights: views into the stacked [L, ...] leaves."""
+    """Layer ``i``'s weights: views into the stacked [L, ...] leaves (a
+    quantized leaf's row ``i`` dequantized)."""
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
         raise NotImplementedError(_MOE_ROW)
-    return {name: leaf[i] for name, leaf in layers.items()}
+    return {name: leaf.layer(i) if isinstance(leaf, QuantizedWeight) else leaf[i]
+            for name, leaf in layers.items()}
 
 
 def _layers(params: Dict[str, Any]):
@@ -1027,23 +1042,32 @@ def _layers(params: Dict[str, Any]):
         raise NotImplementedError(_MOE_ROW)
     if hasattr(layers, "unstack"):   # ZeRO-3: per-layer shard slices
         return layers.unstack()
+    if any(isinstance(leaf, QuantizedWeight) for leaf in layers.values()):
+        # inference only: each layer dequantized when the loop reaches it
+        L = next(iter(layers.values())).shape[0]
+        return (_layer(params, i) for i in range(L))
     names = list(layers)
     return [dict(zip(names, views))
             for views in zip(*(layers[n].unbind(0) for n in names))]
 
 
 def _embed(cfg, params, tokens, positions, token_type_ids=None):
-    x = _tp.vocab_parallel_embed(params["embed"], tokens).to(cfg.dtype)
+    x = _tp.vocab_parallel_embed(_dq(params["embed"]), tokens).to(cfg.dtype)
     if cfg.position == "learned":
-        x = x + params["pos_embed"][positions].to(cfg.dtype)
+        x = x + _dq(params["pos_embed"])[positions].to(cfg.dtype)
     if "type_embed" in params:   # BERT segment embeddings
         tt = (token_type_ids if token_type_ids is not None
               else torch.zeros_like(tokens))
-        x = x + params["type_embed"][tt].to(cfg.dtype)
+        x = x + _dq(params["type_embed"])[tt].to(cfg.dtype)
     if cfg.embed_layernorm:      # Bloom / BERT embedding LayerNorm
-        x = _norm(cfg, x, params["embed_norm_scale"],
-                  params.get("embed_norm_bias"))
+        x = _norm(cfg, x, _dq(params["embed_norm_scale"]),
+                  _dq(params.get("embed_norm_bias")))
     return x
+
+
+def _final_norm(cfg, params, x):
+    return _norm(cfg, x, _dq(params["final_norm_scale"]),
+                 _dq(params.get("final_norm_bias")))
 
 
 def _head(cfg, params, x):
@@ -1051,10 +1075,10 @@ def _head(cfg, params, x):
     parallelism (:func:`_tp.gather_from_model` makes them whole)."""
     x = _tp.copy_to_model(x)
     if cfg.tie_embeddings:
-        return _mm(x, params["embed"].to(cfg.dtype).T)
-    logits = _mm(x, params["lm_head"].to(cfg.dtype))
+        return _mm(x, _dq(params["embed"]).to(cfg.dtype).T)
+    logits = _mm(x, _dq(params["lm_head"]).to(cfg.dtype))
     if "lm_head_bias" in params:   # GPT-J ties a bias to the LM head
-        logits = logits + params["lm_head_bias"].to(cfg.dtype)
+        logits = logits + _dq(params["lm_head_bias"]).to(cfg.dtype)
     return logits
 
 
@@ -1107,8 +1131,9 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
     block = _build_block(cfg, attn_impl, custom_positions)
     for lp, window, seed in zip(_layers(params), windows, seeds):
         x = block(lp, x, positions, window, seed)
+        del lp   # a dequantized layer is freed before the next is made
     if cfg.final_norm:
-        x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
+        x = _final_norm(cfg, params, x)
     logits = _head(cfg, params, x)
     if gather_logits:
         logits = _tp.gather_from_model(logits, cfg.vocab_size)
@@ -1222,7 +1247,7 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
         x = _block_cached(cfg, _layer(params, i), x, cache["k"][i], cache["v"][i],
                           positions, q_slot, cache["valid"], cache["pos"], ns,
                           None if windows is None else windows[i])
-    x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
+    x = _final_norm(cfg, params, x)
     cache["next_slot"] = ns + S
     return _tp.gather_from_model(_head(cfg, params, x), cfg.vocab_size), cache
 
@@ -1408,7 +1433,8 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
     for i, lp in enumerate(_layers(params)):
         x = _block_paged(cfg, lp, x, cache["k"][i], cache["v"][i], positions,
                          write_idx, page_table, maxp * ps)
-    x = _norm(cfg, x, params["final_norm_scale"], params.get("final_norm_bias"))
+        del lp   # a dequantized layer is freed before the next is made
+    x = _final_norm(cfg, params, x)
     return _tp.gather_from_model(_head(cfg, params, x), cfg.vocab_size), cache
 
 

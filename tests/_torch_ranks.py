@@ -679,6 +679,41 @@ def prog_sp_gate(model: str, layers: int, seq: int, steps: int, seed: int):
     return {"losses": losses, "grad_norms": norms}
 
 
+def prog_hf_load(path: str, tp: int, tokens, prompts, max_new: int):
+    """``init_inference(<HF directory>, mesh=initialize_serving_mesh(tp))``:
+    the rank's tree as loaded (it streams its own shards only), fp32
+    logits and greedy tokens."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+    from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path
+
+    eng = ds.init_inference(path, config={"dtype": "float32"},
+                            mesh=initialize_serving_mesh(tp=tp), device="cpu")
+    return {"params": dict(tree_flatten_with_path(eng.params)),
+            "logits": eng.forward(torch.as_tensor(tokens)).numpy(),
+            "greedy": eng.generate(prompts, max_new_tokens=max_new).numpy()}
+
+
+def prog_quant_tp(model: str, tp: int):
+    """Weight quantization on a model axis above 1 is refused (the JAX
+    engine's tp=1 rule), through ``mesh=`` and through ``tp_size``."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+
+    m = CausalLM(model, dtype=torch.float32)
+    params = m.init_fn(torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for how, kw in (("mesh", {"mesh": initialize_serving_mesh(tp=tp)}),
+                    ("tp_size", {"tensor_parallel": {"tp_size": tp}})):
+        try:
+            ds.init_inference(m, config={"dtype": "int8"}, params=params, device="cpu",
+                              **kw)
+        except NotImplementedError as e:
+            out[how] = str(e)
+    return out
+
+
 def prog_multi(parts: list):
     """Several programs in one spawn, in order: ``[(name, kwargs), ...]``."""
     from deepspeed_tpu_torch.parallel.mesh import reset_mesh
@@ -693,7 +728,8 @@ def prog_multi(parts: list):
 PROGRAMS = {"comm": prog_comm, "train": prog_train, "checkpoint": prog_checkpoint,
             "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,
             "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,
-            "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate}
+            "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate,
+            "hf_load": prog_hf_load, "quant_tp": prog_quant_tp}
 
 
 def main() -> int:

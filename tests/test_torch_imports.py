@@ -52,9 +52,51 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.runtime.zero.planner, "
             "deepspeed_tpu_torch.runtime.zero.partition, "
             "deepspeed_tpu_torch.runtime.zero.tiling, deepspeed_tpu_torch.zero, "
-            "deepspeed_tpu_torch.utils.comms_logging\n"
+            "deepspeed_tpu_torch.utils.comms_logging, "
+            "deepspeed_tpu_torch.module_inject, deepspeed_tpu_torch.module_inject.load, "
+            "deepspeed_tpu_torch.module_inject.policies, "
+            "deepspeed_tpu_torch.module_inject.sharded_load, "
+            "deepspeed_tpu_torch.ops.quantizer, deepspeed_tpu_torch.ops.quantizer.quantizer, "
+            "deepspeed_tpu_torch.inference.quantization\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_directory_load_imports_no_optional_packages(tmp_path):
+    """``init_inference(<HF directory>)`` reads config.json as a dict and
+    safetensors through the port's own reader: neither ``transformers``,
+    ``safetensors`` nor ``ml_dtypes`` is imported (all are present here)."""
+    d, L, f, V = 16, 2, 32, 64
+    code = (
+        "import json, os, sys, torch\n"
+        "from deepspeed_tpu_torch.module_inject.sharded_load import save_safetensors\n"
+        "import deepspeed_tpu_torch as ds\n"
+        f"d, L, f, V, out = {d}, {L}, {f}, {V}, {str(tmp_path)!r}\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "t = lambda *s: torch.randn(s, generator=g).to(torch.bfloat16)\n"
+        "sd = {'model.embed_tokens.weight': t(V, d), 'model.norm.weight': t(d),\n"
+        "      'lm_head.weight': t(V, d)}\n"
+        "for i in range(L):\n"
+        "    p = f'model.layers.{i}.'\n"
+        "    sd.update({p + 'input_layernorm.weight': t(d),\n"
+        "               p + 'post_attention_layernorm.weight': t(d),\n"
+        "               **{p + f'self_attn.{n}_proj.weight': t(d, d) for n in 'qkvo'},\n"
+        "               p + 'mlp.gate_proj.weight': t(f, d), p + 'mlp.up_proj.weight': t(f, d),\n"
+        "               p + 'mlp.down_proj.weight': t(d, f)})\n"
+        "save_safetensors(sd, os.path.join(out, 'model.safetensors'))\n"
+        "json.dump({'model_type': 'llama', 'vocab_size': V, 'hidden_size': d,\n"
+        "           'intermediate_size': f, 'num_hidden_layers': L,\n"
+        "           'num_attention_heads': 4}, open(os.path.join(out, 'config.json'), 'w'))\n"
+        "eng = ds.init_inference(out, config={'dtype': 'bf16'}, device='cpu')\n"
+        "assert torch.equal(eng.params['layers']['wq'][1], sd['model.layers.1.self_attn.q_proj.weight'].T)\n"
+        "eng.forward(torch.zeros((1, 4), dtype=torch.long))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        f"       {FORBIDDEN + ('transformers', 'safetensors', 'ml_dtypes')!r}]\n"
+        "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)

@@ -20,6 +20,8 @@ from deepspeed_tpu.inference import sampling as jsampling
 from deepspeed_tpu.models import CausalLM as JaxCausalLM
 from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, SamplingParams
 from deepspeed_tpu_torch.inference import sampling as tsampling
+from deepspeed_tpu_torch.inference.engine import InferenceEngine
+from deepspeed_tpu_torch.inference.quantization import QuantizedWeight
 from deepspeed_tpu_torch.models import CausalLM
 from deepspeed_tpu_torch.models.convert import params_from_jax
 
@@ -143,15 +145,20 @@ def test_config_and_unported_paths():
         DeepSpeedInferenceConfig.from_dict({"tensor_parallel": {"tp_size": 0}})
     model = CausalLM("tiny", dtype=torch.float32)
     params = model.init_fn(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="quantiz"):
-        deepspeed_tpu_torch.init_inference(model, config={"dtype": "int8"},
+    # dtype "int8": weight-only quantization (tests/test_torch_quantization.py)
+    q = deepspeed_tpu_torch.init_inference(model, config={"dtype": "int8"},
                                            params=params, device="cpu")
+    assert isinstance(q.params["embed"], QuantizedWeight)
+    assert q.params["embed"].dtype == torch.bfloat16 and q.params["embed"].bits == 8
+    assert DeepSpeedInferenceConfig(dtype="int8").compute_torch_dtype == torch.bfloat16
     # tensor parallelism runs one rank per device (tests/test_torch_tp.py)
     with pytest.raises(RuntimeError, match="tensor-parallel inference .* process group"):
         deepspeed_tpu_torch.init_inference(
             model, config={"tensor_parallel": {"tp_size": 2}}, params=params,
             device="cpu")
-    with pytest.raises(NotImplementedError, match="module_inject"):
+    # an HF directory loads through module_inject (tests/test_torch_sharded_load.py);
+    # one without a config.json says so
+    with pytest.raises(FileNotFoundError, match="config.json"):
         deepspeed_tpu_torch.init_inference("/some/hf/checkpoint", device="cpu")
     eng = deepspeed_tpu_torch.init_inference(model, params=params, device="cpu")
     assert eng.params["embed"].dtype == torch.bfloat16   # default dtype
@@ -160,3 +167,110 @@ def test_config_and_unported_paths():
             call()
     with pytest.raises(TypeError, match="MeshLayout"):
         eng.serving(mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# The full-recompute fallback (a bare apply_fn: no KV cache)
+# ---------------------------------------------------------------------------
+
+def _uncached_engines(name="tiny", seed=11, head_scale=1.0, wrap=None):
+    """JAX and port engines over ``apply_fn`` alone (no model, so no
+    ``apply_cached``), on the same weights; ``wrap(apply_fn, onehot)``
+    builds a variant apply_fn in both packages."""
+    jmodel = JaxCausalLM(name, dtype=jnp.float32, attn_impl="xla")
+    jparams = jmodel.init_fn(jax.random.PRNGKey(seed))
+    jparams = dict(jparams, lm_head=jparams["lm_head"] * head_scale)
+    tmodel = CausalLM(name, dtype=torch.float32, attn_impl="xla")
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    japply = lambda p, t: jmodel.apply_fn(p, t)  # noqa: E731
+    tapply = lambda p, t: tmodel.apply_fn(p, t)  # noqa: E731
+    if wrap is not None:
+        V = tmodel.config.vocab_size
+        japply = wrap(japply, lambda t: jax.nn.one_hot(t, V))
+        tapply = wrap(tapply, lambda t: torch.nn.functional.one_hot(t.long(), V).float())
+    jeng = deepspeed_tpu.init_inference(apply_fn=japply, params=jparams,
+                                        config={"dtype": "float32"})
+    teng = deepspeed_tpu_torch.init_inference(apply_fn=tapply, params=tparams,
+                                              config={"dtype": "float32"}, device="cpu")
+    assert teng.model is None
+    return jeng, teng
+
+
+def test_uncached_generate_greedy_token_exact_vs_jax():
+    jeng, teng = _uncached_engines()
+    ids = np.random.RandomState(3).randint(0, 256, (3, 13)).astype(np.int32)
+    ref = np.asarray(jeng.generate(ids, max_new_tokens=9))   # crosses bucket 16 -> 32
+    out = teng.generate(ids, max_new_tokens=9)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert teng._uncached_causal is True and InferenceEngine._warned_uncached
+    # early exit once every row's last token is eos (one row: its 2nd token)
+    one = ids[:1]
+    eos = int(out[0, 14])
+    ref = np.asarray(jeng.generate(one, max_new_tokens=9, eos_token_id=eos))
+    got = teng.generate(one, max_new_tokens=9, eos_token_id=eos).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.shape == (1, 15)
+
+
+def test_uncached_generate_probe_takes_the_exact_path_for_non_causal_apply_fn():
+    """An apply_fn whose logits read the sequence's last token (a pad, once
+    bucketed) is not causal: the probe latches the exact, unpadded path in
+    both packages, and the tokens agree."""
+    def wrap(apply, onehot):
+        return lambda p, t: apply(p, t) + 30.0 * onehot(t[:, -1])[:, None, :]
+
+    jeng, teng = _uncached_engines(seed=12, wrap=wrap)
+    ids = np.random.RandomState(4).randint(1, 256, (2, 10)).astype(np.int32)
+    ref = np.asarray(jeng.generate(ids, max_new_tokens=5))
+    out = teng.generate(ids, max_new_tokens=5).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert teng._uncached_causal is False and jeng._uncached_causal is False
+    # the exact path repeats the last token (the wrap's bias wins)
+    assert (out[:, 10:] == ids[:, -1:]).all()
+
+
+def test_uncached_generate_sampled_follows_jax_distribution():
+    """Temperature sampling draws from the same distribution as JAX's
+    ``jax.random.categorical`` (the generators differ, so the tokens are
+    compared in law): the frequencies of the likeliest first tokens over
+    2000 rows lie within 4 sigma of JAX's probabilities, as JAX's own
+    samples do; the port's draws are fixed by its generator."""
+    jeng, teng = _uncached_engines(seed=13, head_scale=40.0)
+    T, n = 0.8, 2000
+    prompt = np.random.RandomState(5).randint(0, 256, (1, 6)).astype(np.int32)
+    rows = np.repeat(prompt, n, axis=0)
+    logits = np.asarray(jeng(jnp.asarray(prompt)))[0, -1].astype(np.float64) / T
+    p = np.exp(logits - logits.max())
+    p /= p.sum()
+    top = np.argsort(-p)[:4]
+    assert p[top[0]] < 0.9 and p[top].sum() > 0.5     # peaked, not degenerate
+    gen = torch.Generator().manual_seed(0)
+    ours = teng.generate(rows, max_new_tokens=1, greedy=False, temperature=T,
+                         rng=gen).numpy()[:, -1]
+    theirs = np.asarray(jeng.generate(rows, max_new_tokens=1, greedy=False,
+                                      temperature=T, rng=jax.random.PRNGKey(0)))[:, -1]
+    for draws in (ours, theirs):
+        for tok in top:
+            freq = (draws == tok).mean()
+            assert abs(freq - p[tok]) < 4 * np.sqrt(p[tok] * (1 - p[tok]) / n), (tok, freq)
+    again = teng.generate(rows[:8], max_new_tokens=3, greedy=False, temperature=T,
+                          rng=torch.Generator().manual_seed(1)).numpy()
+    np.testing.assert_array_equal(
+        again, teng.generate(rows[:8], max_new_tokens=3, greedy=False, temperature=T,
+                             rng=torch.Generator().manual_seed(1)).numpy())
+    # temperature <= 0 folds to greedy
+    np.testing.assert_array_equal(
+        teng.generate(prompt, max_new_tokens=3, greedy=False, temperature=0.0).numpy(),
+        np.asarray(jeng.generate(prompt, max_new_tokens=3)))
+
+
+def test_uncached_generate_refusals():
+    _, teng = _uncached_engines()
+    ids = np.zeros((1, 4), np.int32)
+    with pytest.raises(NotImplementedError, match="attention_mask"):
+        teng.generate(ids, attention_mask=np.ones((1, 4), bool))
+    for kw in ({"top_k": 5}, {"top_p": 0.9}):
+        with pytest.raises(NotImplementedError, match="top_k/top_p"):
+            teng.generate(ids, greedy=False, **kw)
+    with pytest.raises(NotImplementedError, match="lane path"):
+        teng.generate(ids, sampling=SamplingParams(temperature=1.0, seed=1))

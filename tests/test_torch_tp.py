@@ -388,10 +388,22 @@ def test_tp_zero_to_fp32_and_reshard(tp_ckpt, tmp_path):
         for (p, a), (_, b) in zip(tree_flatten_with_path(got),
                                   tree_flatten_with_path(want)):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=p)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        (tmp_path / "hf").mkdir()
-        (tmp_path / "hf" / "config.json").write_text("{}")
-        reshard_checkpoint(str(tmp_path / "hf"), 2, str(out), MODEL)
+    # an HF directory is resharded by the inference tool (per-rank
+    # safetensors of the checkpoint's own names) and merges back whole
+    from deepspeed_tpu_torch.module_inject import load_hf_checkpoint_sharded
+    from tests.unit.test_sharded_load import (TINY_LLAMA, _llama_state_dict,
+                                              _write_sharded_ckpt)
+
+    (tmp_path / "hf").mkdir()
+    hf_dir = _write_sharded_ckpt(tmp_path / "hf", TINY_LLAMA,
+                                 _llama_state_dict(TINY_LLAMA), n_shards=2)
+    meta = reshard_checkpoint(hf_dir, 2, str(tmp_path / "hf_mp2"), MODEL)
+    assert meta.endswith("ds_inference_config.json")
+    _, merged = load_hf_checkpoint_sharded(meta, hf_config=TINY_LLAMA, device="cpu")
+    _, direct = load_hf_checkpoint_sharded(hf_dir, device="cpu")
+    for (p, a), (_, b) in zip(tree_flatten_with_path(merged),
+                              tree_flatten_with_path(direct)):
+        assert torch.equal(a, b), p
 
 
 def _unflatten(flat: dict) -> dict:
