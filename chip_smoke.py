@@ -22,7 +22,10 @@ one JSON line each; any failure exits non-zero with no result line:
    the serving stream's decode shape, GQA, hd 64, page 16, a contiguous
    cache, fp16, fp32, a slot at length 0, a page shared by two slots,
    every slot full and one full slot beside seven short ones; timed with
-   the L2 flushed before each call, as a decode tick finds it);
+   the L2 flushed before each call, as a decode tick finds it), then K4's
+   int8 mode (int8 pages and their scale rows read in place) at
+   DECODE_INT8_CASES, beside the full-precision mode and SDPA over the
+   dequantized cache;
 3. block-sparse attention (``SparseSelfAttention`` -> the ``block_mask``
    mode of K1, K2, K3) at SPARSE_CASES: llama-740m's attention at S=16384
    under the "fixed" layout (the main case), llama2-7b's width under
@@ -132,6 +135,14 @@ one JSON line each; any failure exits non-zero with no result line:
    engine's) and ``generate_fallback`` (an engine over ``apply_fn``
    alone: a 2048-token prompt, 4 new tokens, K1 once per layer in each
    bucketed forward, tokens reported against the cached ``generate``);
+   then ``serving_extras`` (``phase_serving_extras``): the stream with
+   int8 pages, a shared-prefix stream through a host tier (tokens equal
+   to the tier-off run), speculative decoding (a perturbed draft, k =
+   SPEC_K; the draft step and the verify block captured, the verify block
+   K4 over B*(k+1) rows), per-slot LoRA adapters and ``fuse_adapter``,
+   and the supervisor's warm restart after a planted fault; each run
+   with no new capture in steady state and the page accounting balanced,
+   the greedy streams held to fp32 on decisive positions;
 8. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
@@ -144,6 +155,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -318,6 +330,11 @@ DECODE_CASES = [
     ("full", 8, 32, 32, 128, torch.bfloat16, 128, 32),
     ("skew", 8, 32, 32, 128, torch.bfloat16, 128, 32),
 ]
+# K4's int8 mode (kv_dtype="int8" pages: int8 codes and one fp32 scale per
+# pool row, read in place): the cases of DECODE_CASES it runs at, the pools
+# made by quantizing the case's bf16/fp32 pools row by row
+# (``kv_quantize_rows``), held to the same DECODE_TOL as the case's dtype.
+DECODE_INT8_CASES = ("serve", "gqa", "hd64", "page16", "fp32")
 # K4 against its plain version, per (slot, head) output row: the worst
 # row's relative error and a per-element bound (``agreement`` with one row
 # per tile).  The kernel keeps the scores in fp32 and rounds the
@@ -537,6 +554,9 @@ FIRST_LAUNCH_SHAPES = [
     TRAIN_SHAPE,
 ]
 FIRST_LAUNCH_DECODE = ("serve", "len0", "page16", "fp32")
+# K4's int8 mode: its first launches (a verify block's B*(k+1) rows too)
+FIRST_LAUNCH_DECODE_INT8 = ("serve", "page16", "fp32", "verify")
+SPEC_K = 4   # draft tokens a speculative tick (phase serving_extras)
 FIRST_LAUNCH_TIMEOUT_S = 180
 K1_DESIGN = ("wgmma+TMA, warp-specialised: a producer warpgroup (setmaxnreg 24) "
              "feeds a 2-3 stage K/V ring by TMA; two consumer warpgroups "
@@ -629,6 +649,27 @@ def first_launches() -> int:
                                                  DECODE_TOL[case[5]], tile=1)}
         out.append(rec)
         del q, k, v, mask, table, o, ref
+        free_memory()
+    for label in FIRST_LAUNCH_DECODE_INT8:
+        verify = label == "verify"
+        case = next(c for c in DECODE_CASES if c[0] == ("serve" if verify else label))
+        q, k, v, mask, table = _decode_case(gen, case, decode_lengths(case, 0))
+        k, v, ks, vs = quantize_pools(k, v)
+        if verify:   # each slot's k+1 rows, as forward_paged(verify=True) sends them
+            q, table, mask = verify_rows(gen, q, table, mask, decode_lengths(case, 0))
+        rec = {"case": label, "int8": True}
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            o = da.decode_attention(q, k, v, mask, table, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            rec["K4_s"] = time.perf_counter() - t0
+            emit({"first_launch": "K4 int8", **rec})
+            ref = da.decode_attention_reference(q, k, v, mask, table, k_scale=ks,
+                                                v_scale=vs)
+            rec["agreement"] = {"out": agreement(o[:, :, None], ref[:, :, None],
+                                                 DECODE_TOL[case[5]], tile=1)}
+        out.append(rec)
+        del q, k, v, ks, vs, mask, table, o, ref
         free_memory()
     emit({"first_launches": out})
     return 0 if all(a["ok"] for r in out for a in r.get("agreement", {}).values()) else 1
@@ -980,6 +1021,32 @@ def _decode_case(gen, case, lengths):
     return q, k, v, mask, table
 
 
+def quantize_pools(k, v):
+    """A case's pools as int8 pages: each pool row quantized as the serving
+    store does (``kv_quantize_rows``) -> (k8, v8, k_scale, v_scale), the
+    scale planes [P, page] ([B, T] for a contiguous cache)."""
+    from deepspeed_tpu_torch.models.transformer import kv_quantize_rows
+
+    out = []
+    for x in (k, v):
+        q, s = kv_quantize_rows(x.reshape(-1, x.shape[2], x.shape[3]))
+        out.append((q.reshape(x.shape), s.reshape(x.shape[:2])))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def verify_rows(gen, q, table, mask, lengths, k=SPEC_K):
+    """A speculative verify block's K4 inputs: each slot's k+1 query rows
+    (fresh queries), its page-table row repeated k+1 times, row j of slot b
+    masked ``t <= lengths[b] + j`` (as ``forward_paged(verify=True)``)."""
+    B, Hq, hd = q.shape
+    T = mask.shape[1]
+    qv = torch.randn((B * (k + 1), Hq, hd), generator=gen, device="cuda").to(q.dtype)
+    pos = (torch.tensor(lengths, device="cuda")[:, None]
+           + torch.arange(k + 1, device="cuda")[None]).reshape(-1)
+    mv = (torch.arange(T, device="cuda")[None] <= pos[:, None]).to(torch.int32)
+    return qv, table.repeat_interleave(k + 1, dim=0).contiguous(), mv
+
+
 def decode_low_precision(q, k, v, mask, table):
     """The yardstick the K4 gate must reject: the plain version with the
     scores rounded to the input dtype (to bf16 for fp32 inputs)."""
@@ -1019,15 +1086,17 @@ def decode_compare(got, ref, low, G, tol) -> dict:
     return out
 
 
-def decode_bound_ms(case, lengths) -> tuple:
+def decode_bound_ms(case, lengths, int8: bool = False) -> tuple:
     """Least time for K4's work on these inputs: the K/V bytes of the
-    attended rows plus q, out and the mask (and the page table), against
-    4 * attended * Hq * hd operations (q.k and p.v) at the dtype's peak."""
+    attended rows (int8: one byte an element plus the two fp32 scales of
+    each row) plus q, out and the mask (and the page table), against 4 *
+    attended * Hq * hd operations (q.k and p.v) at the dtype's peak."""
     label, B, Hq, Hkv, hd, dtype, page, maxp = case
     esize = torch.tensor([], dtype=dtype).element_size()
     attended = sum(n + 1 for n in lengths)
-    nbytes = (2 * attended * Hkv * hd * esize + 2 * B * Hq * hd * esize
-              + 4 * B * page * maxp + 4 * B * maxp)
+    kv = (2 * attended * (Hkv * hd + 4) if int8
+          else 2 * attended * Hkv * hd * esize)
+    nbytes = (kv + 2 * B * Hq * hd * esize + 4 * B * page * maxp + 4 * B * maxp)
     return _bound(4.0 * attended * Hq * hd, nbytes, dtype)
 
 
@@ -1076,11 +1145,19 @@ K4_DESIGN = ("TMA page ring + cluster split + DSMEM merge: grid (Hkv, B, NSPLIT)
              "barrier, each owner merges in rank order")
 
 
+K4_INT8_DESIGN = ("the same kernel with int8 pools: TMA moves the int8 tiles as bytes "
+                  "(64-row tiles, 4 or 8 KB of K), each consumer lane widens its "
+                  "codes as round(code * row scale) in the compute dtype, the "
+                  "tile's K and V scale rows bulk-copied into the same ring stage "
+                  "on the tile's mbarrier")
+
+
 def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
-    """K4 vs its plain version at DECODE_CASES; library: SDPA with query
+    """K4 vs its plain version at DECODE_CASES, then its int8 mode at
+    DECODE_INT8_CASES (records ``<label>-int8``); library: SDPA with query
     length 1 and a bool mask on the same keys gathered contiguous (the
-    gather is not timed).  Every timing finds the L2 cold (``l2_flush``).
-    Returns {label: record}."""
+    gather, and for int8 the dequantization, not timed).  Every timing
+    finds the L2 cold (``l2_flush``).  Returns {label: record}."""
     from deepspeed_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_reference, split_plan)
 
@@ -1126,6 +1203,58 @@ def phase_decode_kernel(gen: torch.Generator, seed: int, gate: bool = True):
                   f"the decode_attention gate passed a yardstick at {label}: {agree}")
         records[label] = rec
         del q, k, v, mask, table
+        free_memory()
+    # the int8 mode at DECODE_INT8_CASES: the case's pools quantized row by
+    # row, against its plain version (gather, kv_dequantize, the same
+    # arithmetic) within the case dtype's bounds; the library reading is
+    # SDPA over the pre-dequantized cache (the dequantization not timed)
+    for label in DECODE_INT8_CASES:
+        case = next(c for c in DECODE_CASES if c[0] == label)
+        _, B, Hq, Hkv, hd, dtype, page, maxp = case
+        lengths = decode_lengths(case, seed)
+        q, k, v, mask, table = _decode_case(gen, case, lengths)
+        k8, v8, ks, vs = quantize_pools(k, v)
+        del k, v
+        tol = DECODE_TOL[dtype]
+        with torch.inference_mode():
+            before = decode_attention.launches
+            out = decode_attention(q, k8, v8, mask, table, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            check(decode_attention.launches == before + 1, "K4 did not count its launch")
+            ref = decode_attention_reference(q, k8, v8, mask, table, k_scale=ks,
+                                             v_scale=vs)
+            kd = (k8.float() * ks[..., None, None]).to(dtype)
+            vd = (v8.float() * vs[..., None, None]).to(dtype)
+            agree = decode_compare(out, ref, decode_low_precision(q, kd, vd, mask, table),
+                                   Hq // Hkv, tol)
+            kernel_ms = time_ms(lambda: decode_attention(q, k8, v8, mask, table,
+                                                         k_scale=ks, v_scale=vs),
+                                flush=flush)
+            plain_ms = time_ms(lambda: decode_attention_reference(
+                q, k8, v8, mask, table, k_scale=ks, v_scale=vs), flush=flush)
+            library_ms = decode_sdpa_ms(q, kd, vd, mask, table, flush)
+        bound, bound_by = decode_bound_ms(case, lengths, int8=True)
+        nsplit, rows = split_plan(page * maxp, page, hd, torch.int8)
+        rec = {"phase": "kernel", "name": "decode_attention", "case": label,
+               "mode": "int8", "shape": records[label]["shape"],
+               "nsplit": nsplit, "tile_rows": rows,
+               "max_abs_err": agree["max_abs_err"], "out": agree, "tol": tol,
+               "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_what": "scaled_dot_product_attention over the cache "
+                               "dequantized to the case dtype and gathered "
+                               "contiguous (neither timed), query length 1",
+               "full_precision_ms": records[label]["ms"],
+               "l2": "flushed", "bound_ms": bound, "bound_by": bound_by,
+               "bound_share": bound / kernel_ms}
+        emit(rec)
+        if gate:
+            check(agree["ok"], f"decode_attention int8 disagrees with its plain "
+                               f"version at {label}: {agree}")
+            check(agree["yardsticks_rejected"],
+                  f"the decode_attention int8 gate passed a yardstick at {label}: "
+                  f"{agree}")
+        records[f"{label}-int8"] = rec
+        del q, k8, v8, ks, vs, kd, vd, mask, table
         free_memory()
     # what the kernel does not take raises, never runs the plain version
     x = torch.zeros((1, 3, 128), device="cuda", dtype=torch.bfloat16)
@@ -3250,6 +3379,8 @@ def phase_serving(seed: int, profile: bool):
     item6 = {"hf_load": phase_hf_load(engine, params, seed, stream, first),
              "quantized": phase_quantized(engine, params, seed, stream),
              "generate_fallback": phase_generate_fallback(engine, params, seed)}
+    item6["serving_extras"] = phase_serving_extras(engine, params, seed, stream,
+                                                   first, paged)
     del engine, params
     free_memory()
     return launches, paged, item6
@@ -3260,25 +3391,26 @@ def _percentile(xs, q):
     return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
 
 
-def _serve_once(engine, stream, label):
-    """One fresh ServingEngine over the stream; per-tick times by wrapping
-    its decode tick (the tick ends in a host fetch of the tokens, so the
-    host clock around it is the tick's time)."""
+def _serve_once(engine, stream, label, shared=True, **serve_kw):
+    """One fresh ServingEngine over the stream (``serve_kw``: the serving
+    extras); per-tick times by wrapping its decode tick (the tick ends in a
+    host fetch of the tokens, so the host clock around it is the tick's
+    time).  ``shared``: the stream's shared prefix must be shared."""
     from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sv = engine.serving(b_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
-                        max_model_len=SERVE_MAX_LEN)
+    sv = engine.serving(**{"b_slots": SERVE_SLOTS, "page_size": SERVE_PAGE,
+                           "max_model_len": SERVE_MAX_LEN, **serve_kw})
     build_s = time.perf_counter() - t0
     inv0 = sv.program_inventory()
     tick_s = []
     tick = sv._decode_tick
 
-    def timed_tick():
+    def timed_tick(*args):
         t = time.perf_counter()
-        tick()
+        tick(*args)
         tick_s.append(time.perf_counter() - t)
 
     sv._decode_tick = timed_tick
@@ -3308,34 +3440,54 @@ def _serve_once(engine, stream, label):
            "prefix_shared_tokens": sv.prefix_shared_tokens,
            "page_accounting": acct}
     cfg = engine.model.config
+    spec = sv._spec
+    captures = 1 + (spec.captures if spec is not None else 0)
+    ticks = spec.verify_replays if spec is not None else ex.replays
+    if spec is not None:
+        rec.update({"decode_ticks": ticks, "decode_ticks_per_s": ticks / run_s,
+                    "draft_replays": spec.draft_replays,
+                    "k4_launches_in_draft_graph": spec.draft_k4_launches,
+                    "k4_launches_in_verify_graph": spec.verify_k4_launches,
+                    "k4_launches_per_tick": (spec.k * spec.draft_k4_launches
+                                             + spec.verify_k4_launches),
+                    "mean_accepted_len": spec.mean_accepted_len()})
     check(len(results) == len(stream), f"{len(results)} of {len(stream)} served")
     check(ex.graph_k4_launches == cfg.num_layers,
           f"the decode graph holds {ex.graph_k4_launches} K4 launches, "
           f"expected one per layer ({cfg.num_layers})")
-    check(ex.captures == 1 and inv0["captures"] == inv1["captures"] == 1
-          and ex.replays == len(tick_s),
-          f"new captures in steady state: {inv0} -> {inv1}, replays {ex.replays} "
+    check(ex.captures == 1 and inv0["captures"] == inv1["captures"] == captures
+          and ticks == len(tick_s)
+          and (spec is None or spec.draft_replays == spec.k * ticks),
+          f"new captures in steady state: {inv0} -> {inv1}, {ticks} graph ticks "
           f"for {len(tick_s)} ticks")
     check(acct["balanced"] and acct["referenced"] == acct["cached"],
           f"page accounting after the run: {acct}")
-    check(sv.prefix_hits >= len(SHARED_RIDS) - 1 and sv.cow_copies >= 1,
-          f"the shared prefix was not shared: {sv.health()}")
+    if shared:
+        check(sv.prefix_hits >= len(SHARED_RIDS) - 1 and sv.cow_copies >= 1,
+              f"the shared prefix was not shared: {sv.health()}")
     for r in results:
         ids = r.output_ids
-        check(len(ids) == stream[r.rid].max_new_tokens and r.finish_reason == "length"
+        want = next(q for q in stream if q.rid == r.rid).max_new_tokens
+        check(len(ids) == want and r.finish_reason == "length"
               and bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
               f"request {r.rid}: {r.finish_reason}, {len(ids)} tokens")
     return sv, {r.rid: r.output_ids for r in results}, rec
 
 
-def _positions_logits(engine, stream, outs, rids):
+def _positions_logits(engine, stream, outs, rids, params=None):
     """Teacher-forced logits over prompt + served output at the positions
-    that predicted each served token ([n_out, V] fp32 per request)."""
+    that predicted each served token ([n_out, V] fp32 per request), through
+    ``engine``'s forward over its weights or over ``params``."""
     got = {}
     for rid in rids:
         prompt = stream[rid].input_ids
         seq = torch.tensor(list(prompt) + list(outs[rid][:-1]), device="cuda")[None]
-        got[rid] = engine.forward(seq)[0, len(prompt) - 1:].float().clone()
+        if params is None:
+            logits = engine.forward(seq)
+        else:
+            with torch.inference_mode():
+                logits = engine.apply_fn(params, seq)
+        got[rid] = logits[0, len(prompt) - 1:].float().clone()
     return got
 
 
@@ -3401,6 +3553,8 @@ def phase_paged_serving(engine, params, seed: int, profile: bool):
                 "per_tick": sv._exec.graph_k4_launches,
                 "ticks": sv._exec.replays,
                 "replayed": sv._exec.graph_k4_launches * sv._exec.replays}
+    bf16_run = {key: rec[key] for key in ("mean_decode_tick_ms", "median_decode_tick_ms",
+                                          "output_tok_per_s", "kv_pool_gb")}
     emit(rec)
     del sv
     free_memory()
@@ -3451,7 +3605,379 @@ def phase_paged_serving(engine, params, seed: int, profile: bool):
     emit(rec)
     check_greedy_vs_fp32(rec, "paged_serving")
     check(all(f32_exact.values()), f"sampled lanes differ from generate: {rec}")
+    # what phase serving_extras holds its runs beside (the same call)
+    launches["bf16_run"] = {**bf16_run, "noise_plain_bf16_vs_fp32":
+                            greedy["noise_plain_bf16_vs_fp32"]}
     return launches, first, stream
+
+
+# ---------------------------------------------------------------------------
+# The paged serving extras (ROADMAP item 7) on the llama2-7b engine and its
+# serving stream: int8 pages, the host-RAM tier, speculative decoding,
+# per-slot adapters, the supervisor's warm restart
+# ---------------------------------------------------------------------------
+
+TIER_SYSTEMS, TIER_SYSTEM_LEN, TIER_REQUESTS = 3, 1024, 12   # 8 full pages each
+TIER_SLOTS, TIER_MAX_LEN, TIER_HOST_PAGES = 2, 1280, 64
+ADAPTER_TENANTS, ADAPTER_RANK = 4, 16
+SUPERVISOR_FAULT_TICK = 40
+
+
+def tier_stream(seed: int, vocab: int):
+    """Three 1024-token system prompts (8 full pages, no boundary page) in
+    rotation with 16-100-token tails, 64 new tokens each: over a pool of 20
+    pages every admission needs room, so system pages demote and come back
+    as promotions."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import Request
+
+    rng = np.random.default_rng(seed + 7)
+    systems = [rng.integers(0, vocab, TIER_SYSTEM_LEN) for _ in range(TIER_SYSTEMS)]
+    return [Request(rid=1000 + i, input_ids=np.concatenate(
+        [systems[i % TIER_SYSTEMS], rng.integers(0, vocab, int(rng.integers(16, 100)))]
+    ).astype(np.int32), max_new_tokens=64) for i in range(TIER_REQUESTS)]
+
+
+def tier_move_rates(sv, reps: int = 8) -> dict:
+    """One page's demote and promote moves (every layer's K and V slabs,
+    pinned host memory) timed alone, synchronised: ms a page and GB/s."""
+    ex = sv._exec
+    page_bytes = sum(a[:, 1].numel() * a.element_size() for a in ex.pools)
+    slabs, event = ex.extract(1)
+    event.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        slabs, event = ex.extract(1)
+        event.synchronize()
+    demote = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ex.inject(slabs, 0)          # the trash page: nothing reads it
+    torch.cuda.synchronize()
+    promote = (time.perf_counter() - t0) / reps
+    return {"page_mb": page_bytes / 1e6, "pinned": bool(slabs[0].is_pinned()),
+            "demote_ms_per_page": 1e3 * demote, "promote_ms_per_page": 1e3 * promote,
+            "demote_gb_per_s": page_bytes / demote / 1e9,
+            "promote_gb_per_s": page_bytes / promote / 1e9}
+
+
+def tenant_lora(cfg, seed: int, tenant: int) -> dict:
+    """Seeded random LoRA factors of one tenant at ADAPTER_RANK on the
+    DEFAULT_TARGETS (both A and B non-zero, so the delta is real)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed * 100 + tenant)
+    L, d, hq = cfg.num_layers, cfg.hidden_size, cfg.num_heads * cfg.dims_per_head
+    hkv = cfg.kv_heads * cfg.dims_per_head
+    shapes = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d)}
+    r = ADAPTER_RANK
+    return {t: {"A": (rng.standard_normal((L, i, r)) / np.sqrt(i)).astype(np.float32),
+                "B": (rng.standard_normal((L, r, o)) * 0.5 / np.sqrt(r)).astype(np.float32)}
+            for t, (i, o) in shapes.items()}
+
+
+def _tokens_agree(a: dict, b: dict) -> float:
+    n = same = 0
+    for rid, x in a.items():
+        y = b[rid]
+        m = min(len(x), len(y))
+        n += m
+        same += int((x[:m] == y[:m]).sum())
+    return same / max(n, 1)
+
+
+def _decisive_top1(engine, params, stream, outs, rids, noise: float) -> dict:
+    """``engine``'s forward over ``params`` teacher-forced over prompt +
+    served tokens: top-1 against the served tokens, everywhere and where
+    the forward's top-2 margin exceeds ``noise`` (the paged_serving bf16
+    noise level)."""
+    got = _positions_logits(engine, stream, outs, rids, params)
+    n_dec = n_agree = n_all = n_all_agree = 0
+    for rid in rids:
+        top2 = got[rid].topk(2, dim=-1)
+        served = torch.as_tensor(outs[rid], device="cuda").long()
+        ok = top2.indices[:, 0] == served
+        dec = (top2.values[:, 0] - top2.values[:, 1]) > noise
+        n_dec += int(dec.sum())
+        n_agree += int((ok & dec).sum())
+        n_all += len(served)
+        n_all_agree += int(ok.sum())
+    return {"positions": n_all, "top1": n_all_agree / max(n_all, 1),
+            "decisive_positions": n_dec,
+            "top1_decisive": n_agree / max(n_dec, 1), "noise": noise}
+
+
+def phase_serving_extras(engine, params, seed: int, stream, first, paged) -> dict:
+    """Item 7 on the llama2-7b engine and the 24-request stream.  Each run
+    is a fresh engine whose decode path takes no new capture in steady
+    state, with its page accounting balanced and every request finished:
+
+    - ``int8``: ``kv_dtype="int8"``; K4's int8 mode, 32 launches a tick in
+      the one graph; tick ms beside bf16's (phase paged_serving, this
+      call); pages and tokens the int8 pool holds in the bf16 pool's GB;
+    - ``tier``: ``tier_stream`` through 20 pages and a host tier of 64,
+      against a big pool with the tier off (tokens equal: the bytes round
+      trip); demotions, promotions, a page's move ms and GB/s;
+    - ``speculative``: ``perturbed_draft(scale=1e-3)``, k = SPEC_K; K4
+      launches a tick (k draft replays of 32 + the verify block's 32 over
+      B*(k+1) rows), mean accepted length, tick ms, token agreement with
+      the plain stream;
+    - ``adapters``: ADAPTER_TENANTS tenants at rank ADAPTER_RANK on the
+      default targets, the stream's requests spread over them and the base
+      model; tick ms beside bf16's; each tenant's greedy requests again
+      under ``fuse_adapter`` (and the per-slot streams teacher-forced
+      through the serving engine's fused weights: top-1 on decisive
+      positions), the first fuse moving the server onto its own weights
+      (one recapture) and the engine's weights never written, then
+      ``fuse_adapter(None)`` restoring the base bit for bit;
+    - ``supervisor``: a raise at serve.decode on tick SUPERVISOR_FAULT_TICK;
+      one restart, every request finished, the restart's seconds and its
+      graph captures.
+
+    The greedy streams of int8, speculative and supervisor are held to an
+    fp32 engine (teacher-forced) with paged_serving's decisive-position
+    gate."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import (AdapterRegistry, SpeculativeConfig,
+                                               perturbed_draft)
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from deepspeed_tpu_torch.resilience import (FaultInjector, clear_injector,
+                                                install_injector)
+    from deepspeed_tpu_torch.resilience.fault_injection import SITE_SERVE_DECODE
+    from deepspeed_tpu_torch.runtime.lora import LoRAConfig
+
+    cfg = engine.model.config
+    bf16 = paged["bf16_run"]
+    out = {"phase": "serving_extras", "bf16": bf16}
+    launches = {}
+
+    def k4(sv):
+        spec = sv._spec
+        per_tick = (sv._exec.graph_k4_launches if spec is None else
+                    spec.k * spec.draft_k4_launches + spec.verify_k4_launches)
+        return {"counter": decode_attention.launches, "per_tick": per_tick,
+                "in_graph": sv._exec.graph_k4_launches}
+
+    # --- int8 pages
+    reset_counts()
+    sv, int8_outs, rec = _serve_once(engine, stream, "int8", kv_dtype="int8")
+    check(sv._exec.graph_k4_launches == cfg.num_layers and sv.kv_dtype == "int8",
+          f"int8: {sv._exec.graph_k4_launches} K4 launches in the graph")
+    launches["int8"] = k4(sv)
+    check(launches["int8"]["counter"] > 0, "int8: K4 not launched")
+    pool = sv.health()["kv_pool_bytes_total"]
+    page_int8 = pool / sv.num_pages
+    page_bf16 = bf16["kv_pool_gb"] * 1e9 / sv.num_pages
+    pages_equal_gb = int(bf16["kv_pool_gb"] * 1e9 // page_int8)
+    out["int8"] = {**{k: rec[k] for k in ("mean_decode_tick_ms", "median_decode_tick_ms",
+                                          "output_tok_per_s", "kv_pool_gb",
+                                          "peak_memory_gb", "graph_captures")},
+                   "bf16_mean_decode_tick_ms": bf16["mean_decode_tick_ms"],
+                   "tick_ratio_to_bf16": rec["mean_decode_tick_ms"]
+                   / bf16["mean_decode_tick_ms"],
+                   "page_bytes": page_int8, "bf16_page_bytes": page_bf16,
+                   "pages_in_bf16_pool_gb": pages_equal_gb,
+                   "tokens_in_bf16_pool_gb": pages_equal_gb * SERVE_PAGE,
+                   "bf16_pool_pages": sv.num_pages,
+                   "tokens_equal_to_bf16": _tokens_agree(int8_outs, first),
+                   "k4": launches["int8"]}
+    emit({"phase": "serving_extras", "run": "int8", **out["int8"]})
+    del sv
+    free_memory()
+
+    # --- the host tier
+    tstream = tier_stream(seed, cfg.vocab_size)
+    kw = {"b_slots": TIER_SLOTS, "page_size": SERVE_PAGE, "max_model_len": TIER_MAX_LEN}
+    reset_counts()
+    sv, tier_outs, rec = _serve_once(engine, tstream, "tier", shared=False,
+                                     num_pages=1 + TIER_SLOTS * (TIER_MAX_LEN // SERVE_PAGE),
+                                     host_tier_pages=TIER_HOST_PAGES, **kw)
+    launches["tier"] = k4(sv)
+    h = sv.health()
+    moves = tier_move_rates(sv)
+    lat = sv.tier_latencies()
+    del sv
+    free_memory()
+    _, ref_outs, _ = _serve_once(engine, tstream, "tier_off", shared=False,
+                                 num_pages=1 + TIER_SYSTEMS * 9 + TIER_SLOTS * 10, **kw)
+    same = all(np.array_equal(tier_outs[r], ref_outs[r]) for r in ref_outs)
+    out["tier"] = {"demotions": h["demotions_total"], "promotions": h["promotions_total"],
+                   "demoted_pages_hwm": h["demoted_pages_hwm"],
+                   "host_tier_gb": h["host_tier_bytes"] / 1e9,
+                   "prefix_hits": h["prefix_hits_total"],
+                   "tokens_equal_to_tier_off": same,
+                   "mean_decode_tick_ms": rec["mean_decode_tick_ms"],
+                   "engine_promote_ms": 1e3 * statistics.median(lat["promote_s"])
+                   if lat["promote_s"] else None,
+                   "engine_demote_issue_ms": 1e3 * statistics.median(lat["demote_s"])
+                   if lat["demote_s"] else None,
+                   **moves, "k4": launches["tier"]}
+    emit({"phase": "serving_extras", "run": "tier", **out["tier"]})
+    check(h["demotions_total"] > 0 and h["promotions_total"] > 0,
+          f"tier: no demote/promote cycle: {out['tier']}")
+    check(same, "tier: tokens differ from the tier-off run")
+    del ref_outs
+    free_memory()
+
+    # --- speculative decoding
+    draft, dparams = perturbed_draft(engine.model, params, scale=1e-3, seed=seed)
+    reset_counts()
+    sv, spec_outs, rec = _serve_once(
+        engine, stream, "speculative",
+        speculative=SpeculativeConfig(draft, dparams, k=SPEC_K))
+    launches["speculative"] = k4(sv)
+    spec = sv._spec
+    out["speculative"] = {
+        **{k: rec[k] for k in ("mean_decode_tick_ms", "median_decode_tick_ms",
+                               "output_tok_per_s", "decode_ticks", "mean_accepted_len",
+                               "k4_launches_in_draft_graph", "k4_launches_in_verify_graph",
+                               "k4_launches_per_tick", "peak_memory_gb")},
+        "k": spec.k, "bf16_mean_decode_tick_ms": bf16["mean_decode_tick_ms"],
+        "tokens_equal_to_plain": _tokens_agree(spec_outs, first),
+        "draft_pool_gb": spec.pool_bytes["total"] / 1e9, "k4": launches["speculative"]}
+    emit({"phase": "serving_extras", "run": "speculative", **out["speculative"]})
+    check(spec.draft_k4_launches == cfg.num_layers
+          and spec.verify_k4_launches == cfg.num_layers,
+          f"speculative: K4 {spec.draft_k4_launches} in the draft graph, "
+          f"{spec.verify_k4_launches} in the verify graph")
+    check(rec["mean_accepted_len"] > 1.0, f"speculative: no token accepted: {rec}")
+    del sv, draft, dparams, spec
+    free_memory()
+
+    # --- adapters
+    reg = AdapterRegistry(params["layers"])
+    tenants = [f"tenant{i}" for i in range(ADAPTER_TENANTS)]
+    for i, aid in enumerate(tenants):
+        reg.register(aid, tenant_lora(cfg, seed, i),
+                     LoRAConfig(rank=ADAPTER_RANK, alpha=2.0 * ADAPTER_RANK))
+    astream = [dataclasses.replace(r, adapter_id=(None if i % (ADAPTER_TENANTS + 1) == 0
+                                                  else tenants[i % (ADAPTER_TENANTS + 1) - 1]))
+               for i, r in enumerate(stream)]
+    reset_counts()
+    sv, ad_outs, rec = _serve_once(engine, astream, "adapters", shared=False, adapters=reg)
+    launches["adapters"] = k4(sv)
+    stats = sv.adapter_stats()
+    base_copy = {k: v.clone() for k, v in params["layers"].items() if k in ("wq", "wo")}
+    # each tenant in turn from fused weights: its greedy requests served
+    # again, and its per-slot stream teacher-forced through the serving
+    # engine's fused weights (sv.params: its own since the first fuse)
+    fuse_s, per_slot, fused_outs, rids_all = [], {}, {}, []
+    for aid in tenants:
+        rids = [r.rid for r in astream if r.adapter_id == aid and r.sampling is None]
+        t0 = time.perf_counter()
+        sv.fuse_adapter(aid)
+        fuse_s.append(time.perf_counter() - t0)
+        got = sv.run([dataclasses.replace(r, rid=f"f{r.rid}") for r in astream
+                      if r.rid in rids])
+        fused_outs.update({int(r.rid[1:]): r.output_ids for r in got})
+        per_slot.update({rid: ad_outs[rid] for rid in rids})
+        rec_t = _decisive_top1(engine, sv.params, astream, ad_outs, rids,
+                               bf16["noise_plain_bf16_vs_fp32"])
+        for key in ("positions", "decisive_positions"):
+            rec_t[f"{key}_agree"] = rec_t[key] * rec_t["top1" if key == "positions"
+                                                       else "top1_decisive"]
+        rids_all.append(rec_t)
+    sv.fuse_adapter(None)
+    captures_after_fuse = sv.program_inventory()["captures"]
+    restored = all(torch.equal(sv.params["layers"][k], params["layers"][k])
+                   for k in params["layers"])
+    engine_untouched = all(torch.equal(params["layers"][k], v) for k, v in base_copy.items())
+    n_pos = sum(r["positions"] for r in rids_all)
+    n_dec = sum(r["decisive_positions"] for r in rids_all)
+    fused_top1 = {"positions": n_pos,
+                  "top1": sum(r["positions_agree"] for r in rids_all) / max(n_pos, 1),
+                  "decisive_positions": n_dec,
+                  "top1_decisive": sum(r["decisive_positions_agree"] for r in rids_all)
+                  / max(n_dec, 1), "noise": bf16["noise_plain_bf16_vs_fp32"]}
+    out["adapters"] = {
+        **{k: rec[k] for k in ("mean_decode_tick_ms", "median_decode_tick_ms",
+                               "output_tok_per_s", "peak_memory_gb")},
+        "bf16_mean_decode_tick_ms": bf16["mean_decode_tick_ms"],
+        "tick_ratio_to_no_adapters": rec["mean_decode_tick_ms"]
+        / bf16["mean_decode_tick_ms"],
+        "tenants": ADAPTER_TENANTS, "rank": ADAPTER_RANK, "stats": stats,
+        "fuse_s": fuse_s, "fused_tokens_equal_to_per_slot":
+        _tokens_agree(fused_outs, per_slot),
+        "per_slot_stream_under_fused_weights": fused_top1,
+        "base_restored_bit_exact": restored,
+        "engine_weights_untouched": engine_untouched,
+        "graph_captures_after_fuse": captures_after_fuse, "k4": launches["adapters"]}
+    emit({"phase": "serving_extras", "run": "adapters", **out["adapters"]})
+    check(all(s["admissions"] > 0 for s in stats.values()), f"adapters: {stats}")
+    check(restored, "adapters: fuse_adapter(None) did not restore the base weights")
+    check(engine_untouched, "adapters: fuse_adapter wrote the InferenceEngine's weights")
+    check(captures_after_fuse == 2, f"adapters: {captures_after_fuse} captures after "
+                                    "the fuses (the first fuse recaptures once)")
+    check(fused_top1["decisive_positions"] >= 32
+          and fused_top1["top1_decisive"] >= 0.99,
+          f"adapters: the fused weights disagree with the per-slot stream: {fused_top1}")
+    del sv, reg
+    free_memory()
+
+    # --- the supervisor: counts from before its first engine's build (its
+    # capture, the run, the restart's recapture)
+    reset_counts()
+    sup = engine.supervised_serving(b_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                                    max_model_len=SERVE_MAX_LEN)
+    restart_s = []
+    body = sup._restart_body
+
+    def timed_restart(*a, **k):
+        t = time.perf_counter()
+        body(*a, **k)
+        torch.cuda.synchronize()
+        restart_s.append(time.perf_counter() - t)
+
+    sup._restart_body = timed_restart
+    inj = FaultInjector()
+    inj.add(site=SITE_SERVE_DECODE, kind="raise", at_call=SUPERVISOR_FAULT_TICK)
+    install_injector(inj)
+    try:
+        t0 = time.perf_counter()
+        results = sup.run(list(stream))
+        run_s = time.perf_counter() - t0
+    finally:
+        clear_injector()
+    launches["supervisor"] = {"counter": decode_attention.launches,
+                              "per_tick": sup.engine._exec.graph_k4_launches}
+    sup_outs = {r.rid: r.output_ids for r in results}
+    entry = sup.restart_log[-1] if sup.restart_log else {}
+    out["supervisor"] = {"restarts": sup.restarts, "run_s": run_s,
+                         "restart_s": restart_s, "replayed_inflight":
+                         entry.get("replayed_inflight"),
+                         "graph_captures_after_restart":
+                         entry.get("graph_captures_after_restart"),
+                         "programs_reused": entry.get("programs_reused"),
+                         "finished": len(results),
+                         "tokens_equal_to_fault_free": _tokens_agree(sup_outs, first),
+                         "replays": {r.rid: r.replays for r in results if r.replays},
+                         "page_accounting": sup.engine.page_accounting(),
+                         "k4": launches["supervisor"]}
+    emit({"phase": "serving_extras", "run": "supervisor", **out["supervisor"]})
+    check(sup.restarts == 1 and len(results) == len(stream)
+          and all(len(r.output_ids) == stream[r.rid].max_new_tokens for r in results),
+          f"supervisor: {out['supervisor']}")
+    check(out["supervisor"]["graph_captures_after_restart"] == 1
+          and sup.engine.program_inventory()["captures"] == 1,
+          f"supervisor: captures after the restart: {entry}")
+    check(out["supervisor"]["page_accounting"]["balanced"], "supervisor: accounting")
+    sup.engine.close()
+    del sup, results
+    free_memory()
+
+    # --- greedy streams against fp32, on decisive positions
+    f32 = fp32_serving_engine(params)
+    for name, outs in (("int8", int8_outs), ("speculative", spec_outs),
+                       ("supervisor", sup_outs)):
+        g = greedy_vs_fp32(engine, f32, stream, outs)
+        out[name]["greedy_vs_fp32"] = g
+        emit({"phase": "serving_extras", "run": name, "greedy_vs_fp32": g})
+        check_greedy_vs_fp32(g, f"serving_extras {name}")
+    del f32
+    free_memory()
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4081,66 +4607,91 @@ def ab_check(specs, name) -> int:
     return 0 if ok else 1
 
 
+def _ab_decode_cases():
+    """(label, case, int8) of the K4 A/B: every DECODE_CASES entry, then the
+    int8 mode at DECODE_INT8_CASES."""
+    out = [(c[0], c, False) for c in DECODE_CASES]
+    return out + [(f"{c[0]}-int8", c, True) for c in DECODE_CASES
+                  if c[0] in DECODE_INT8_CASES]
+
+
+def _ab_decode_inputs(gen, case, int8):
+    """One case's K4 inputs: ``(q, k, v, mask, table, scales, kd, vd)``,
+    the pools quantized as the int8 store does with ``int8`` (``kd``/``vd``
+    their dequantized copies, for the yardstick and the library)."""
+    q, k, v, mask, table = _decode_case(gen, case, decode_lengths(case, 0))
+    if not int8:
+        return q, k, v, mask, table, {}, k, v
+    k8, v8, ks, vs = quantize_pools(k, v)
+    kd = (k8.float() * ks[..., None, None]).to(q.dtype)
+    vd = (v8.float() * vs[..., None, None]).to(q.dtype)
+    return q, k8, v8, mask, table, {"k_scale": ks, "v_scale": vs}, kd, vd
+
+
 def _ab_check_decode(name) -> int:
     """A K4 variant against the plain version at every DECODE_CASES entry
-    (the gate of phase ``kernel``, yardsticks included)."""
+    and, in its int8 mode, at DECODE_INT8_CASES (the gate of phase
+    ``kernel``, yardsticks included)."""
     from deepspeed_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
-    for case in DECODE_CASES:
-        label, B, Hq, Hkv, hd, dtype, page, maxp = case
-        q, k, v, mask, table = _decode_case(gen, case, decode_lengths(case, 0))
+    for label, case, int8 in _ab_decode_cases():
+        _, B, Hq, Hkv, hd, dtype, page, maxp = case
+        q, k, v, mask, table, sc, kd, vd = _ab_decode_inputs(gen, case, int8)
         with torch.inference_mode():
-            out = decode_attention(q, k, v, mask, table)
+            out = decode_attention(q, k, v, mask, table, **sc)
             torch.cuda.synchronize()
-            agree = decode_compare(out, decode_attention_reference(q, k, v, mask, table),
-                                   decode_low_precision(q, k, v, mask, table), Hq // Hkv,
+            agree = decode_compare(out, decode_attention_reference(q, k, v, mask, table,
+                                                                   **sc),
+                                   decode_low_precision(q, kd, vd, mask, table), Hq // Hkv,
                                    DECODE_TOL[dtype])
         good = agree["ok"] and agree["yardsticks_rejected"]
         ok &= good
         emit({"ab_check": name, "case": label, "ok": good,
               "worst_row_rel_l2": agree["worst_tile_rel_l2"],
               "max_abs_err": agree["max_abs_err"]})
-        del q, k, v, mask, table, out
+        del q, k, v, mask, table, out, sc, kd, vd
         free_memory()
     return 0 if ok else 1
 
 
 def _ab_time_decode(builders, gen) -> None:
-    """K4 variants in turns (A B .. B A) at every DECODE_CASES entry, the L2
-    flushed before each call, SDPA beside them."""
+    """K4 variants in turns (A B .. B A) at every DECODE_CASES entry and, in
+    the int8 mode, at DECODE_INT8_CASES, the L2 flushed before each call,
+    SDPA beside them (over the dequantized cache for int8)."""
     import numpy as np
     from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 
     flush = l2_flush()
     order = list(builders) + list(builders)[::-1]
-    for case in DECODE_CASES:
+    for label, case, int8 in _ab_decode_cases():
         lengths = decode_lengths(case, 0)
-        q, k, v, mask, table = _decode_case(gen, case, lengths)
+        q, k, v, mask, table, sc, kd, vd = _ab_decode_inputs(gen, case, int8)
         ms = {n: [] for n in builders}
         with torch.inference_mode():
             for name in order:
                 _ab_use("decode", builders[name])
-                ms[name].append(time_ms(lambda: decode_attention(q, k, v, mask, table),
-                                        flush=flush))
-            library_ms = decode_sdpa_ms(q, k, v, mask, table, flush)
-        bound, bound_by = decode_bound_ms(case, lengths)
-        emit({"phase": "ab_time_decode", "case": case[0], "l2": "flushed", "ms": ms,
+                ms[name].append(time_ms(lambda: decode_attention(q, k, v, mask, table,
+                                                                 **sc), flush=flush))
+            library_ms = decode_sdpa_ms(q, kd, vd, mask, table, flush)
+        bound, bound_by = decode_bound_ms(case, lengths, int8=int8)
+        emit({"phase": "ab_time_decode", "case": label, "l2": "flushed", "ms": ms,
               "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
               "bound_share": {n: bound / float(np.mean(t)) for n, t in ms.items()},
               "ratio_to_library": {n: float(np.mean(t)) / library_ms
                                    for n, t in ms.items()}})
-        del q, k, v, mask, table
+        del q, k, v, mask, table, sc, kd, vd
         free_memory()
 
 
 def _ab_serve_decode(builders, seed: int) -> None:
     """The paged serving stream on llama2-7b (random bf16 weights from the
-    seed) with each K4 variant in turns (A B .. B A): each run's fresh
-    ServingEngine captures its decode graph with that variant; the records
-    and checks of phase ``paged_serving``."""
+    seed) with each K4 variant in turns (A B .. B A), with bf16 pages and
+    with int8 pages: each run's fresh ServingEngine captures its decode
+    graph with that variant; the records and checks of phase
+    ``paged_serving``."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM
 
@@ -4150,16 +4701,18 @@ def _ab_serve_decode(builders, seed: int) -> None:
     engine = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
                                                 params=params)
     stream = serving_stream(seed, model.config.vocab_size)
-    runs = {n: [] for n in builders}
-    for name in list(builders) + list(builders)[::-1]:
-        _ab_use("decode", builders[name])
-        sv, _, rec = _serve_once(engine, stream, name)
-        runs[name].append({key: rec[key] for key in (
-            "median_decode_tick_ms", "mean_decode_tick_ms", "output_tok_per_s",
-            "decode_ticks", "ttft_p50_s")})
-        del sv
-        free_memory()
-    emit({"phase": "ab_serve_decode", "model": "llama2-7b", "runs": runs})
+    for kv_dtype in (None, "int8"):
+        runs = {n: [] for n in builders}
+        for name in list(builders) + list(builders)[::-1]:
+            _ab_use("decode", builders[name])
+            sv, _, rec = _serve_once(engine, stream, name, kv_dtype=kv_dtype)
+            runs[name].append({key: rec[key] for key in (
+                "median_decode_tick_ms", "mean_decode_tick_ms", "output_tok_per_s",
+                "decode_ticks", "ttft_p50_s")})
+            del sv
+            free_memory()
+        emit({"phase": "ab_serve_decode", "model": "llama2-7b",
+              "kv_dtype": kv_dtype or "bf16", "runs": runs})
 
 
 def _ab_time_fwd(builders, gen, sa, shape):
@@ -4447,12 +5000,25 @@ def main() -> int:
                       bound_share=dec["serve"]["bound_share"],
                       cases={label: {key: rec[key] for key in (
                           "ms", "plain_ms", "library_ms", "bound_ms", "bound_share")}
-                          for label, rec in dec.items()},
+                          for label, rec in dec.items() if not label.endswith("-int8")},
                       launches_per_decode_tick=k4_launches["per_tick"],
                       decode_ticks=k4_launches["ticks"],
                       launches_replayed=k4_launches["replayed"],
                       launches_hf_load_serving=item6["hf_load"]["k4"],
                       launches_quantized_serving=item6["quantized"]["k4"],
+                      launches_serving_extras=item6["serving_extras"]["launches"],
+                      int8={"case": "serve", "design": K4_INT8_DESIGN,
+                            **{key: dec["serve-int8"][key] for key in (
+                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "bound_share", "library_ms", "library_what",
+                                "full_precision_ms", "tile_rows", "nsplit")},
+                            "launches": item6["serving_extras"]["launches"]["int8"]["counter"],
+                            "launches_per_decode_tick":
+                                item6["serving_extras"]["launches"]["int8"]["per_tick"],
+                            "cases": {label[:-5]: {key: rec[key] for key in (
+                                "ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
+                                "full_precision_ms", "max_abs_err")}
+                                for label, rec in dec.items() if label.endswith("-int8")}},
                       launches_counted="wrapper calls on the paged serving path: "
                                        "2 warm-up runs and the capture of the decode "
                                        "graph; each tick replays the captured ones")]})

@@ -9,7 +9,12 @@ eagerly, so where the JAX engine compiles one program per shape the port
 runs the same steps as a Python loop under ``torch.inference_mode()``.
 
 ``serving()`` builds the paged continuous-batching
-:class:`~.serving.ServingEngine` over the engine's params and device.
+:class:`~.serving.ServingEngine` over the engine's params and device
+(with its extras: ``kv_dtype="int8"``, ``host_tier_pages``,
+``speculative``, ``adapters``, ``probe_after_ticks``);
+``supervised_serving()`` wraps it in a
+:class:`~.serving_supervisor.ServingSupervisor` (warm restarts with an
+exact replay).
 
 Tensor parallelism (``mesh=`` from ``parallel.mesh.initialize_serving_mesh``,
 or ``tensor_parallel.tp_size``): one process per device, each holding its
@@ -33,8 +38,8 @@ tree, which ``models/transformer.py`` dequantizes a layer at a time.  A
 model without a KV cache (a bare ``apply_fn``) generates by the
 full-recompute fallback (``_generate_uncached``).
 
-Not ported yet (raise ``NotImplementedError`` naming the ROADMAP row): the
-supervised and fleet serving engines.
+Not ported yet (raises ``NotImplementedError`` naming the ROADMAP row):
+the serving fleet.
 """
 from __future__ import annotations
 
@@ -239,7 +244,11 @@ class InferenceEngine:
         :meth:`generate`'s (greedy token-exact in fp32; in bf16 the paged
         decode attention rounds differently).  Keyword arguments are the
         ServingEngine's (``b_slots``, ``page_size``, ``max_model_len``,
-        ``num_pages``, ``prefix_cache``, ...)."""
+        ``num_pages``, ``prefix_cache``, ``kv_dtype``, ``host_tier_pages``,
+        ``speculative``, ``adapters``, ``probe_after_ticks``, ...).  The
+        serving engine never writes these shared tensors: its first
+        ``update_params``/``fuse_adapter`` moves it onto its own copy, so
+        this engine and its other servers keep their weights."""
         if self._model is None or not hasattr(self._model, "apply_paged"):
             raise ValueError(
                 "serving() needs a model with the paged decode contract "
@@ -263,9 +272,15 @@ class InferenceEngine:
         return ServingEngine(self._model, self.params, **kwargs)
 
     def supervised_serving(self, max_restarts: int = 5, **kwargs):
-        raise NotImplementedError(
-            "the serving supervisor (warm restarts) is not ported yet "
-            "(ROADMAP queue 1, item 7)")
+        """A :class:`~.serving_supervisor.ServingSupervisor` whose engine
+        factory is :meth:`serving` with these kwargs: a failed tick
+        warm-restarts a fresh KV pool (its graphs recaptured) and replays
+        queue and in-flight requests token-exactly."""
+        from .serving_supervisor import ServingSupervisor
+
+        return ServingSupervisor(lambda: self.serving(**kwargs),
+                                 max_restarts=max_restarts,
+                                 monitor=kwargs.get("monitor"))
 
     def serving_fleet(self, *args, **kwargs):
         raise NotImplementedError(

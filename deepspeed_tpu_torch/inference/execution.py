@@ -2,10 +2,11 @@
 ``deepspeed_tpu/inference/execution.py`` ``MeshExecutor``).
 
 :class:`~.serving.ServingEngine` keeps the host scheduling (admission, page
-tables, the prefix index, deadlines: pure Python over numpy) and calls four
+tables, the prefix index, deadlines: pure Python over numpy) and calls the
 entry points here: :meth:`MeshExecutor.decode`, :meth:`MeshExecutor.prefill`,
-:meth:`MeshExecutor.cow` and the lane cache.  This class owns the paged KV
-pool and runs the model over it.
+:meth:`MeshExecutor.cow`, the tier movers (:meth:`~MeshExecutor.extract`,
+:meth:`~MeshExecutor.inject`), the adapter slots, the weight swap and the
+lane cache.  This class owns the paged KV pool and runs the model over it.
 
 Where the JAX executor compiles one fixed-shape program per step kind, the
 port runs:
@@ -18,51 +19,133 @@ port runs:
   active flags into the graph's static inputs and replays it.  Sampling
   runs eagerly on the logits afterwards (per-row ``torch.Generator``s and
   a host check are not graph-safe).  "Zero recompiles" becomes "zero new
-  captures": :attr:`captures` stays 1.  On the CPU the same forward runs
+  captures": :attr:`captures` stays 1 (2 after the first weight swap;
+  speculative decoding's draft step and verify block are two more,
+  captured by ``SpeculativeDecoder``).  On the CPU the same forward runs
   eagerly, as the caller asked;
 - **prefill** eagerly, one ``[1, s_pad]`` bucket shape per prompt-length
   bucket (the bucket set is the program inventory);
-- **COW** as one in-place page copy across layers.
+- **COW** as one in-place page copy across layers (all four planes of an
+  int8 pool, as raw bytes);
+- **the tier moves** as page copies to and from pinned host memory
+  (``kv_tiering``);
+- **the weight swap** (``update_params``) local to this engine, as the
+  JAX executor's is: the executor starts on the tensors the caller passed
+  (an ``InferenceEngine``'s, through :meth:`InferenceEngine.serving`, which
+  that engine and its other servers read too) and never writes into them.
+  The first swap moves it onto its own copy of the new tree and recaptures
+  the decode graph over it (``captures`` 2); every later swap is an
+  in-place ``copy_`` into that copy, so the graph keeps its addresses.
+
+``kv_dtype="int8"`` pools are int8 pages plus fp32 scale planes; the decode
+graph reads them through K4's int8 mode.  With an adapter registry the
+per-slot LoRA stacks (``{"scale": [B], "factors": {target: {"A": [L, B,
+d_in, R], "B": [L, B, R, d_out]}}}`` at ``R = max(rank_buckets)``) are
+allocated once on the device and a slot's rows are written in place at
+admission, so the captured graph never sees a new address; the prefill
+reads one slot's views of them.
 
 On a mesh (``mesh=``, the JAX executor's layout): one process per device,
 every rank running this executor and the same scheduler.  The params are
 the rank's model-axis shards (:func:`place_params`), the KV pool is
 ``[L, P, page, Hkv/tp, hd]`` (the rank's KV heads; ``kv_heads % tp`` is
-checked first), pages and the host arrays are the same on every rank.
-The model runs its tensor-parallel path (``parallel.tensor_parallel``):
-each layer's two all-reduces and the logits' all-gather run inside the
-decode step, so they are captured in its one CUDA graph (the eager
-warm-up runs on the capture stream create the NCCL communicators first),
-and every rank samples the same token from the same gathered logits.
+checked first), pages and the host arrays are the same on every rank; an
+int8 pool's scale planes are whole on every rank (the row amax is reduced
+over the model axis before rounding).  Adapter factors are cut like the
+weights they adapt: ``B``'s output columns to the rank's heads for
+``wq``/``wk``/``wv``, ``A``'s input rows for ``wo``.  The model runs its
+tensor-parallel path (``parallel.tensor_parallel``): each layer's two
+all-reduces and the logits' all-gather run inside the decode step, so they
+are captured in its one CUDA graph (the eager warm-up runs on the capture
+stream create the NCCL communicators first), and every rank samples the
+same token from the same gathered logits.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): the host
-tier (item 7), per-slot adapters (item 7), live weight updates (item 11)
-and per-program accounting (item 12).
+Not ported (``NotImplementedError`` naming the ROADMAP item): per-program
+accounting (item 12).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..accelerator import resolve_device
 from ..parallel import tensor_parallel
-from ..models.transformer import cow_copy_pool, paged_pool_cache, paged_pool_tuple
+from ..models.transformer import (ADAPTER_TARGETS, cow_copy_pool, normalize_kv_dtype,
+                                  paged_pool_cache, paged_pool_tuple)
 from ..ops.kernels.decode_attention import decode_attention
+from ..utils.tree import tree_leaves, tree_map
 from .engine import check_mesh_model, install_mesh, place_params
+from .kv_tiering import extract_pool_page, inject_pool_page
 from .sampling import position_generator, sample_tokens
 
-__all__ = ["MeshExecutor", "pool_bytes", "place_params"]
+__all__ = ["MeshExecutor", "pool_bytes", "place_params", "capture_graph", "swap_tree",
+           "copy_tree"]
 
 _GRAPH_WARMUP = 2   # eager runs on the capture stream before capture
 
 
 def pool_bytes(*pools, tp: int = 1) -> Dict[str, int]:
     """Total and per-device bytes of the pool tensors: this rank holds
-    ``1/tp`` of the heads, so the pool over the mesh is ``tp`` times its."""
+    ``1/tp`` of the heads, so the pool over the mesh is ``tp`` times its
+    (an int8 pool's scale planes, whole on every rank, are counted once a
+    rank as well: the JAX package's replicated planes)."""
     per = sum(a.numel() * a.element_size() for a in pools)
     return {"total": per * tp, "per_device": per}
+
+
+def swap_tree(model, live, params, mesh):
+    """``params`` placed as this rank's shards and checked against the
+    ``live`` tree: the same leaves, shapes and dtypes, every leaf a plain
+    tensor (a quantized tree's codes are not swapped)."""
+    placed = place_params(model, params, mesh)
+    old, new = tree_leaves(live), tree_leaves(placed)
+    if len(old) != len(new):
+        raise ValueError(f"update_params: the new tree has {len(new)} leaves, "
+                         f"the live one {len(old)}")
+    for i, (a, b) in enumerate(zip(old, new)):
+        if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+            raise ValueError(
+                f"update_params: leaf {i} is a {type(a).__name__}/"
+                f"{type(b).__name__}; only plain tensor trees swap in place "
+                "(a quantized engine's tree does not)")
+        if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+            raise ValueError(
+                f"update_params: leaf {i} is {b.dtype} {tuple(b.shape)}, the "
+                f"live one {a.dtype} {tuple(a.shape)}: the swap must be "
+                "shape- and dtype-identical")
+    return placed
+
+
+def copy_tree(live, new) -> None:
+    """Every leaf of ``new`` copied into ``live``'s, in place."""
+    for a, b in zip(tree_leaves(live), tree_leaves(new)):
+        if a.data_ptr() != b.data_ptr():
+            a.copy_(b)
+
+
+def capture_graph(fn, device, region, before_capture=None):
+    """``fn()`` run ``_GRAPH_WARMUP`` times eagerly on a side stream (which
+    builds the kernels and, on a mesh, the NCCL communicators), then
+    captured once on that stream (``before_capture()`` runs between the
+    two).  Returns ``(graph, outputs, k4)``: the outputs are the graph's
+    static result tensors, ``k4`` the K4 launches recorded in it."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.no_grad(), torch.cuda.stream(side), region():
+        for _ in range(_GRAPH_WARMUP):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if before_capture is not None:
+        before_capture()
+    graph = torch.cuda.CUDAGraph()
+    before = decode_attention.launches
+    # captured on the warm-up stream: the model axis's NCCL collectives
+    # were first issued there
+    with torch.no_grad(), region(), torch.cuda.graph(graph, stream=side):
+        out = fn()
+    return graph, out, decode_attention.launches - before
 
 
 class MeshExecutor:
@@ -71,33 +154,37 @@ class MeshExecutor:
     def __init__(self, model, params, num_pages: int, page_size: int,
                  b_slots: int, pages_per_slot: int, dtype=None, kv_dtype=None,
                  mesh=None, prefix_cache: bool = True, host_tier: bool = False,
-                 device=None):
+                 adapters=None, device=None):
         self.mesh, self.tp, self.ranks = self._install_mesh(model, mesh), 1, 1
         if self.mesh is not None:
             import torch.distributed as dist
 
             self.tp = check_mesh_model(model, self.mesh)
             self.ranks = dist.get_world_size()
-        if host_tier:
-            raise NotImplementedError(
-                "the host-RAM KV tier (host_tier_pages) is not ported yet "
-                "(ROADMAP queue 1, item 7)")
         self.model = model
-        # the rank's model-axis shards (a whole tree is cut here)
+        # the rank's model-axis shards (a whole tree is cut here); the
+        # caller's tensors until the first weight swap (owns_params)
         self.params = place_params(model, params, self.mesh)
+        self.owns_params = False
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.b_slots = int(b_slots)
+        self.pages_per_slot = int(pages_per_slot)
         self.device = resolve_device(device)
+        self.kv_dtype = normalize_kv_dtype(kv_dtype)
         with self._region():
             cache = model.init_paged_cache(self.num_pages, self.page_size,
                                            dtype=dtype, kv_dtype=kv_dtype,
                                            device=self.device)
         self.pools = paged_pool_tuple(cache)
+        self.quantized = "k_scale" in cache
         self.pool_bytes = pool_bytes(*self.pools, tp=self.tp)
         self._prefill_buckets: Dict[int, int] = {}   # bucket -> calls
         self._cow_prog = cow_copy_pool if prefix_cache else None
+        self.host_tier = bool(host_tier)
         self._lanes_device = None
+        self.adapters = adapters
+        self._ad = self._alloc_adapter_stacks() if adapters is not None else None
         # the CUDA graph of the decode step (None on the CPU)
         self.captures = 0
         self.replays = 0
@@ -107,7 +194,7 @@ class MeshExecutor:
         self.graph_collectives: Dict[str, Dict[str, int]] = {}
         self._graph = None
         if self.device.type == "cuda":
-            self._capture_decode(int(pages_per_slot))
+            self._capture_decode()
 
     @staticmethod
     def _install_mesh(model, mesh):
@@ -157,6 +244,71 @@ class MeshExecutor:
 
         return comm.broadcast_object(value)
 
+    def tp_rank(self) -> int:
+        """This rank's index on the model axis (0 without a mesh)."""
+        if self.tp == 1:
+            return 0
+        from .. import comm
+
+        return comm.axis_index("model")
+
+    # ----------------------------------------------------------- adapters
+
+    def _alloc_adapter_stacks(self):
+        """The per-slot factor stacks on the device, allocated once at the
+        registry's ``max_rank`` (the projections the paged block adapts,
+        cut to this rank's heads on a mesh)."""
+        reg, B, R, n = self.adapters, self.b_slots, self.adapters.max_rank, self.tp
+        factors = {}
+        for k, (L, d_in, d_out) in reg.shapes.items():
+            if k not in ADAPTER_TARGETS:
+                continue
+            if k == "wo":
+                d_in //= n
+            else:
+                d_out //= n
+            factors[k] = {"A": torch.zeros((L, B, d_in, R), device=self.device),
+                          "B": torch.zeros((L, B, R, d_out), device=self.device)}
+        return {"scale": torch.zeros((B,), device=self.device), "factors": factors}
+
+    def write_adapter_slot(self, host_stacks, slot: int) -> None:
+        """Copy slot ``slot``'s rows of the registry's host stacks
+        (``AdapterRegistry.make_slot_stacks``/``write_slot``) into the
+        device stacks, in place (this rank's cut on a mesh)."""
+        s, r, n = int(slot), self.tp_rank(), self.tp
+        with torch.no_grad():
+            self._ad["scale"][s] = float(host_stacks["scale"][s])
+            for k, ab in self._ad["factors"].items():
+                A = torch.from_numpy(host_stacks["factors"][k]["A"][:, s])
+                B = torch.from_numpy(host_stacks["factors"][k]["B"][:, s])
+                if n > 1 and k == "wo":
+                    A = A.chunk(n, dim=1)[r]
+                elif n > 1:
+                    B = B.chunk(n, dim=2)[r]
+                ab["A"][:, s].copy_(A)
+                ab["B"][:, s].copy_(B)
+
+    def adapter_operand(self, slot: Optional[int] = None):
+        """The device stacks (every slot: the decode step's operand) or one
+        slot's views of them (``[.., 1, ..]``: a prefill's); None without
+        a registry."""
+        if self._ad is None:
+            return None
+        if slot is None:
+            return self._ad
+        s = slice(int(slot), int(slot) + 1)
+        return {"scale": self._ad["scale"][s],
+                "factors": {k: {"A": ab["A"][:, s], "B": ab["B"][:, s]}
+                            for k, ab in self._ad["factors"].items()}}
+
+    def fuse_shard(self, name: str, delta: torch.Tensor) -> torch.Tensor:
+        """A whole ``[L, d_in, d_out]`` fused delta of layer leaf ``name``
+        cut to this rank's model-axis shard (whole without a mesh)."""
+        if self.tp == 1:
+            return delta
+        spec = self.model.param_specs["layers"][name]
+        return tensor_parallel.shard_leaf(delta, spec, self.tp_rank(), self.tp)
+
     # ------------------------------------------------------------ decode
 
     def _decode_forward(self, page_table, lengths, last_tok, active):
@@ -166,42 +318,36 @@ class MeshExecutor:
         with self._region():
             logits, _ = self.model.apply_paged(
                 self.params, last_tok[:, None], paged_pool_cache(self.pools),
-                page_table, lengths, active[:, None])
+                page_table, lengths, active[:, None],
+                adapters=self.adapter_operand())
         return logits
 
-    def _capture_decode(self, maxp: int) -> None:
+    def _capture_decode(self) -> None:
         """Capture the decode forward once, on static input buffers with
         every slot inactive (so the warm-up runs, which build K4 and warm
         the GEMM libraries, write only to the trash page)."""
         B, dev = self.b_slots, self.device
-        self._g_pt = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
+        self._g_pt = torch.zeros((B, self.pages_per_slot), dtype=torch.int32, device=dev)
         self._g_len = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._g_tok = torch.zeros((B,), dtype=torch.long, device=dev)
         self._g_active = torch.zeros((B,), dtype=torch.bool, device=dev)
         args = (self._g_pt, self._g_len, self._g_tok, self._g_active)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(_GRAPH_WARMUP):
-                self._decode_forward(*args)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         from ..comm import get_comms_logger
 
         log = get_comms_logger()
-        logged = log.totals_by_axis() if log is not None else {}
-        before = decode_attention.launches
-        # captured on the warm-up stream: the model axis's NCCL collectives
-        # were first issued there
-        with torch.no_grad(), torch.cuda.graph(graph, stream=side):
-            self._g_logits = self._decode_forward(*args)
-        self.graph_k4_launches = decode_attention.launches - before
+        logged = {}   # the logger's totals after the warm-up runs
+
+        def snapshot():
+            if log is not None:
+                logged.update(log.totals_by_axis())
+
+        self._graph, self._g_logits, self.graph_k4_launches = capture_graph(
+            lambda: self._decode_forward(*args), dev, self._region, snapshot)
         if log is not None:
             self.graph_collectives = {
                 op: {axes: rec["calls"] - logged.get(op, {}).get(axes, {}).get("calls", 0)
                      for axes, rec in by_axes.items()}
                 for op, by_axes in log.totals_by_axis().items()}
-        self._graph = graph
         self.captures += 1
         if self.ranks > 1:   # the group's teardown closes it first
             from .. import comm
@@ -246,18 +392,26 @@ class MeshExecutor:
 
     def prefill(self, s_pad: int, pt_row: np.ndarray, tokens: np.ndarray,
                 n_real: int, start: int, lane_t: float, lane_k: int,
-                lane_p: float, lane_s: int) -> int:
+                lane_p: float, lane_s: int, slot: Optional[int] = None) -> int:
         """One bucketed prefill (``tokens [1, s_pad]``, the first ``n_real``
         real, at slot position ``start``); returns the first sampled token,
-        which sits at stream position ``start + n_real``."""
+        which sits at stream position ``start + n_real``.  ``slot`` names
+        the adapter row the prefill reads (the registry's; zeros when
+        None)."""
         self._prefill_buckets[s_pad] = self._prefill_buckets.get(s_pad, 0) + 1
         dev = self.device
+        ad = None
+        if self._ad is not None:
+            ad = self.adapter_operand(0 if slot is None else slot)
+            if slot is None:   # a probe: the base model
+                ad = {"scale": torch.zeros_like(ad["scale"]), "factors": ad["factors"]}
         with torch.no_grad(), self._region():
             seq_mask = (torch.arange(s_pad, device=dev) < n_real)[None, :]
             logits, _ = self.model.apply_paged(
                 self.params, torch.from_numpy(tokens).to(dev).long(),
                 paged_pool_cache(self.pools), torch.from_numpy(pt_row).to(dev),
-                torch.tensor([start], dtype=torch.int32, device=dev), seq_mask)
+                torch.tensor([start], dtype=torch.int32, device=dev), seq_mask,
+                adapters=ad)
             lg = logits[0, n_real - 1][None]
             nxt = sample_tokens(
                 lg, torch.tensor([lane_t], device=dev),
@@ -273,6 +427,47 @@ class MeshExecutor:
         (the copy-on-write boundary page), in place."""
         with torch.no_grad():
             self._cow_prog(self.pools, int(src), int(dst))
+
+    # --------------------------------------------------------- tier moves
+
+    def extract(self, src: int):
+        """Demote half of the tier move: physical page ``src`` copied to
+        host slabs in canonical pool order (pinned, asynchronous on a
+        card).  Returns ``(slabs, event)``; the pool is only read."""
+        with torch.no_grad():
+            return extract_pool_page(self.pools, int(src),
+                                     pin=self.device.type == "cuda")
+
+    def inject(self, slabs, dst: int) -> None:
+        """Promote half: the host slabs written into physical page ``dst``
+        on the current stream (the one the decode graph replays on)."""
+        with torch.no_grad():
+            inject_pool_page(self.pools, slabs, int(dst))
+
+    # ----------------------------------------------------- weight swap
+
+    def update_params(self, params, adopt: bool = False) -> bool:
+        """Swap in a new parameter tree (cut to this rank's shards first;
+        its structure, shapes and dtypes must equal the live tree's, and a
+        quantized tree is refused).  While the live tensors are the
+        caller's, the swap moves this executor onto a copy of the new tree
+        (``adopt``: onto the new tree's own tensors, which the caller gives
+        up) and recaptures the decode graph over it; afterwards it copies
+        into them in place.  Returns whether the tensors moved."""
+        placed = swap_tree(self.model, self.params, params, self.mesh)
+        moved = not self.owns_params
+        with torch.no_grad():
+            if moved:
+                self.params = placed if adopt else tree_map(
+                    lambda x: x.detach().clone(), placed)
+                self.owns_params = True
+            else:
+                copy_tree(self.params, placed)
+        if moved and self._graph is not None:
+            torch.cuda.synchronize(self.device)
+            self._graph.reset()
+            self._capture_decode()
+        return moved
 
     # ------------------------------------------------------------- lanes
 
@@ -291,6 +486,10 @@ class MeshExecutor:
     def invalidate_lanes(self) -> None:
         self._lanes_device = None
 
+    def pool_alive(self) -> bool:
+        """False once :meth:`close` released the pool."""
+        return bool(self.pools)
+
     def close(self) -> None:
         """Release the decode graph (``reset()``: its captured work goes
         with it, whoever else holds the graph object) and the pool.  A live
@@ -303,9 +502,19 @@ class MeshExecutor:
             self._graph.reset()
         self._graph = self._g_logits = None
         self.pools = ()
+        self._ad = None
 
     def program_inventory(self) -> Dict[str, Any]:
         inv = {"decode": 1, "prefill_buckets": sorted(self._prefill_buckets)}
         if self._cow_prog is not None:
             inv["cow"] = 1
+        if self.host_tier:
+            inv["tier"] = {"extract": 1, "inject": 1}
         return inv
+
+    def adopt_programs(self, old: "MeshExecutor") -> None:
+        """Warm-restart carry: the dead executor's prefill bucket record.
+        Its CUDA graph is bound to the dead pool's addresses, so this
+        executor captured its own at build (``captures`` counts it)."""
+        for b, n in old._prefill_buckets.items():
+            self._prefill_buckets.setdefault(b, 0)

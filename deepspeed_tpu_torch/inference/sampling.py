@@ -11,7 +11,13 @@
   on CUDA).  No state carries from token to token, so a stream replayed or
   resumed at any position re-derives the same draws.  The bits differ from
   the JAX package's ``fold_in`` keys: sampled streams are deterministic
-  within the port, not equal to JAX's.
+  within the port, not equal to JAX's.  A ``salt`` gives each role of
+  speculative decoding (draft proposal, accept test, correction) its own
+  independent stream at the same position (``SALT_*``); salt 0 is the
+  plain sampler's.
+- :func:`sampling_probs` — the filtered distribution as explicit ``[B, V]``
+  probabilities (greedy rows one-hot), both sides of the speculative
+  accept test.
 """
 from __future__ import annotations
 
@@ -19,9 +25,18 @@ import dataclasses
 from typing import Callable, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["SamplingParams", "GREEDY", "as_lanes", "filter_logits",
-           "position_generator", "sample_tokens"]
+           "position_generator", "position_uniforms", "sample_tokens",
+           "sampling_probs", "SALT_DRAFT", "SALT_ACCEPT", "SALT_RESAMPLE"]
+
+# role salts of speculative decoding: the draft proposal, the accept-test
+# uniform and the correction draw at one stream position draw independent
+# randomness, and none collides with the plain sampler's (salt 0)
+SALT_DRAFT = 1
+SALT_ACCEPT = 2
+SALT_RESAMPLE = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,12 +86,26 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def position_generator(seed: int, position: int, device) -> torch.Generator:
+def position_generator(seed: int, position: int, device,
+                       salt: int = 0) -> torch.Generator:
     """The generator for the token at absolute ``position`` of lane
-    ``seed``: a pure function of the pair (and the device type)."""
+    ``seed`` (and role ``salt``): a pure function of the triple (and the
+    device type)."""
+    x = _splitmix64(int(seed))
+    if salt:
+        x = _splitmix64(x ^ ((0xD1B54A32D192ED03 * int(salt)) & _MASK64))
     g = torch.Generator(device=device)
-    g.manual_seed(_splitmix64(_splitmix64(int(seed)) ^ int(position)) >> 1)
+    g.manual_seed(_splitmix64(x ^ int(position)) >> 1)
     return g
+
+
+def position_uniforms(seeds, positions, salt: int) -> torch.Tensor:
+    """One uniform in [0, 1) per ``(seed, position)`` pair, each drawn from
+    its CPU :func:`position_generator` under ``salt`` -> float32 ``[N]`` on
+    the CPU (the caller moves it).  What speculative decoding's draws read:
+    a function of the stream position, never of the tick it lands in."""
+    return torch.stack([torch.rand((), generator=position_generator(s, p, "cpu", salt))
+                        for s, p in zip(seeds, positions)]).float()
 
 
 def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
@@ -124,3 +153,14 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     sampled = torch.stack([torch.multinomial(probs[b], 1, generator=gens[b])[0]
                            for b in range(probs.shape[0])])
     return torch.where(temperature <= 0.0, greedy_tok, sampled)
+
+
+def sampling_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """The normalized distribution :func:`sample_tokens` draws from, as
+    explicit ``[B, V]`` float32 probabilities; greedy rows are one-hot at
+    the raw argmax.  Speculative decoding reads it on both sides of the
+    accept test (draft ``q``, target ``p``).  No host synchronisation."""
+    probs = torch.softmax(filter_logits(logits, temperature, top_k, top_p), dim=-1)
+    onehot = F.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1]).float()
+    return torch.where((temperature <= 0.0)[:, None], onehot, probs)

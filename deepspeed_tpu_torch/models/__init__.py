@@ -239,6 +239,6 @@ class CausalLM(nn.Module):
                                 kv_dtype=kv_dtype, device=device)
 
     def apply_paged(self, params, tokens, cache, page_table, start, seq_mask,
-                    adapters=None):
+                    adapters=None, verify=False):
         return forward_paged(self.config, params, tokens, cache, page_table,
-                             start, seq_mask, adapters=adapters)
+                             start, seq_mask, adapters=adapters, verify=verify)

@@ -52,15 +52,17 @@ def layer_params_from_jax(np_params: Dict[str, Any], device="cuda",
 def pool_from_jax(np_cache: Dict[str, Any], device="cuda",
                   dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """A JAX paged cache (``init_paged_cache``/``forward_paged``: ``k``/``v``
-    ``[L, P, page, Hkv, hd]`` as numpy) -> the port's cache dict on
-    ``device``; ``params_to_numpy`` takes it back."""
-    if "k_scale" in np_cache:
-        raise NotImplementedError(
-            "int8 KV pages are not ported yet (ROADMAP queue 1, item 7)")
+    ``[L, P, page, Hkv, hd]`` as numpy, plus an int8 pool's ``k_scale``/
+    ``v_scale`` ``[L, P, page]``) -> the port's cache dict on ``device``;
+    ``params_to_numpy`` takes it back.  ``dtype`` casts floating k/v only
+    (int8 codes and fp32 scales keep theirs)."""
     out = {}
-    for key in ("k", "v"):
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key not in np_cache:
+            continue
         t = torch.from_numpy(np.array(np_cache[key]))
-        out[key] = t.to(device=device, dtype=dtype or t.dtype)
+        cast = dtype if key in ("k", "v") and t.is_floating_point() else None
+        out[key] = t.to(device=device, dtype=cast or t.dtype)
     return out
 
 

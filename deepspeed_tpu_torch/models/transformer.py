@@ -1253,9 +1253,9 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
 
 
 # ---------------------------------------------------------------------------
-# Block-paged KV cache (serving).  One physical pool [L, P, page, Hkv, hd]
-# is shared by every decode slot through per-slot page tables; physical page
-# 0 is the trash page (masked writes and unallocated table entries).
+# Block-paged KV cache (serving).  One physical pool [L, P, page, Hkv, hd] is
+# shared by every decode slot through per-slot page tables; physical page 0
+# is the trash page (masked writes and unallocated table entries).
 # Slot-local token index == position, so the causal mask is the validity
 # mask.  Unlike the JAX package's functional update, the port writes the
 # pool IN PLACE (``index_copy_`` on a flat view of each layer), so the pool
@@ -1265,16 +1265,18 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
 
 PAGE_SIZE = 128   # tokens per KV page (the JAX package's lane-aligned size)
 
-# canonical leaf order of a paged cache dict (k/v; the int8 scale planes are
-# not ported)
-PAGED_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+# quantized pool storage dtypes accepted by ``init_paged_cache(kv_dtype=)``:
+# int8 codes with one symmetric-absmax fp32 scale per token row per layer
 KV_QUANT_DTYPES = ("int8",)
-_KV_INT8_ROW = ("int8 KV pages (kv_dtype='int8') are not ported yet (ROADMAP "
-                "queue 1, item 7)")
+
+# canonical leaf order of a paged cache dict: k/v always, the scale planes
+# of an int8 pool after them
+PAGED_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 
 
 def paged_pool_tuple(cache: Dict[str, Any]) -> tuple:
-    """The cache dict's pool tensors in canonical order."""
+    """The cache dict's pool tensors in canonical order (2 of them full
+    precision, 4 with an int8 pool's scale planes)."""
     return tuple(cache[k] for k in PAGED_POOL_KEYS if k in cache)
 
 
@@ -1283,15 +1285,16 @@ def paged_pool_cache(pools) -> Dict[str, Any]:
     return dict(zip(PAGED_POOL_KEYS, pools))
 
 
-def _check_kv_dtype(kv_dtype) -> None:
+def normalize_kv_dtype(kv_dtype) -> Optional[str]:
+    """None (full precision) or the canonical string "int8"."""
     if kv_dtype is None:
-        return
+        return None
     name = str(kv_dtype).replace("torch.", "")
-    if name in KV_QUANT_DTYPES:
-        raise NotImplementedError(_KV_INT8_ROW)
-    raise ValueError(
-        f"kv_dtype={kv_dtype!r} is not a quantized KV storage dtype; "
-        f"supported: {KV_QUANT_DTYPES} (None = full precision)")
+    if name not in KV_QUANT_DTYPES:
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} is not a quantized KV storage dtype; "
+            f"supported: {KV_QUANT_DTYPES} (None = full precision)")
+    return name
 
 
 def init_paged_cache(cfg: TransformerConfig, num_pages: int,
@@ -1304,23 +1307,61 @@ def init_paged_cache(cfg: TransformerConfig, num_pages: int,
     pages 1..num_pages-1.  Full pages are immutable once written (a slot
     only writes at its own advancing position), which is what lets several
     slots map one page; a partial boundary page is shared by value instead
-    (:func:`cow_copy_pool`)."""
-    _check_kv_dtype(kv_dtype)
+    (:func:`cow_copy_pool`).
+
+    ``kv_dtype="int8"`` allocates ``k``/``v`` in int8 plus the scale planes
+    ``k_scale``/``v_scale`` ``[L, num_pages, page_size]`` (float32): one
+    symmetric-absmax scale per token row per layer, written by the same
+    store that writes the row (:func:`kv_quantize_rows`).  Sharing, COW and
+    tiering are dtype-blind: a page is still a page."""
+    kvq = normalize_kv_dtype(kv_dtype)
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     kv = (cfg.num_layers, num_pages, page_size, local_heads(cfg, _tp.size())[1],
           cfg.dims_per_head)
-    return {"k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device)}
+    if kvq is None:
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device)}
+    sc = (cfg.num_layers, num_pages, page_size)
+    return {"k": torch.zeros(kv, dtype=torch.int8, device=device),
+            "v": torch.zeros(kv, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sc, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(sc, dtype=torch.float32, device=device)}
 
 
 def cow_copy_pool(pools, src: int, dst: int):
     """Copy-on-write: snapshot physical page ``src`` onto ``dst`` across
-    every layer of each ``[L, P, page, Hkv, hd]`` pool, in place.  ``dst ==
-    src`` is a harmless self-copy."""
+    every layer of each pool tensor (``[L, P, page, Hkv, hd]`` payloads
+    and an int8 pool's ``[L, P, page]`` scale planes), in place: raw bytes,
+    so an int8 page never round-trips through float.  ``dst == src`` is a
+    harmless self-copy."""
     for a in pools:
         a[:, dst].copy_(a[:, src])
     return tuple(pools)
+
+
+def kv_quantize_rows(x: torch.Tensor):
+    """Symmetric absmax int8 quantization of one write slice: ``x`` ``[N,
+    Hkv, hd]`` -> (int8 rows, float32 per-row scales ``[N]``).
+
+    One scale per token row, over the row's whole ``Hkv*hd`` vector (under
+    tensor parallelism the row's amax is taken over every rank's KV heads,
+    so each rank stores the scale the whole row has).  A row is written once
+    and never rescaled, so a full page's bytes are a function of the tokens
+    that produced it.  An all-zero row stores scale 1 (dequantizes to exact
+    zero)."""
+    xf = x.float()
+    amax = _tp.max_over_model(xf.abs().amax(dim=(1, 2)))
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[:, None, None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Invert :func:`kv_quantize_rows` on a gathered ``[B, T, Hkv, hd]``
+    block with its ``[B, T]`` scale rows: multiply in float32, then cast to
+    the compute dtype."""
+    return (q.float() * scale[..., None, None]).to(dtype)
 
 
 def _attention_paged(cfg, q, ck, cv, q_pos):
@@ -1346,33 +1387,107 @@ def _attention_paged(cfg, q, ck, cv, q_pos):
     return out.reshape(B, S, Hq, hd)
 
 
-def _block_paged(cfg, lp, x, ck, cv, positions, write_idx, page_table, T):
+ADAPTER_TARGETS = ("wq", "wk", "wv", "wo")   # projections the paged block adapts
+
+
+def _adapter_delta(h: torch.Tensor, ab: Dict[str, torch.Tensor],
+                   scale: torch.Tensor) -> torch.Tensor:
+    """Per-slot batched LoRA delta ``((h @ A_b) @ B_b) * scale_b`` in fp32:
+    ``h`` [B, S, d_in], ``ab["A"]`` [B, d_in, R], ``ab["B"]`` [B, R, d_out]
+    (rank-padded with zeros, which add exactly zero), ``scale`` [B]."""
+    t = torch.einsum("bsd,bdr->bsr", h.float(), ab["A"].float())
+    d = torch.einsum("bsr,bro->bso", t, ab["B"].float())
+    return d * scale.float()[:, None, None]
+
+
+def _adapted(y, name, hin, ad, ad_scale):
+    if ad is not None and name in ad:
+        y = y + _adapter_delta(hin, ad[name], ad_scale).to(y.dtype)
+    return y
+
+
+def _qkv_paged(cfg, lp, h, B, S, ad=None, ad_scale=None):
+    """:func:`_qkv` with each slot's LoRA delta added to its q/k/v
+    projection before the bias (the JAX package's ``proj``).  Under tensor
+    parallelism the factors' output columns are this rank's heads (the
+    executor cuts ``B``), like the column-parallel weights."""
+    if ad is None:
+        return _qkv(cfg, lp, h, B, S)
+    hd = cfg.dims_per_head
+    h = _tp.copy_to_model(h)
+    q = _adapted(_mm(h, lp["wq"]), "wq", h, ad, ad_scale)
+    k = _adapted(_mm(h, lp["wk"]), "wk", h, ad, ad_scale)
+    v = _adapted(_mm(h, lp["wv"]), "wv", h, ad, ad_scale)
+    if cfg.attn_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    return (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+            v.reshape(B, S, -1, hd))
+
+
+def _out_proj_paged(cfg, lp, attn, B, S, ad=None, ad_scale=None):
+    """:func:`_out_proj` with each slot's ``wo`` delta added to this rank's
+    partial product, before the model-axis sum (the factors' input rows are
+    this rank's heads), so the delta is summed once."""
+    if ad is None:
+        return _out_proj(cfg, lp, attn, B, S)
+    a2d = attn.reshape(B, S, -1)
+    y = _tp.reduce_from_model(_adapted(_mm(a2d, lp["wo"]), "wo", a2d, ad, ad_scale))
+    return y + lp["bo"] if cfg.attn_bias else y
+
+
+def _block_paged(cfg, lp, x, ck, cv, positions, write_idx, page_table, T,
+                 cks=None, cvs=None, ad=None, ad_scale=None, verify=False):
     """One block against layer pools ``ck``/``cv`` [P, page, Hkv, hd]:
     write this step's K/V at ``write_idx`` (flat rows, in place), then
-    attend.  Decode (S == 1) of a non-alibi config goes to K4 over the pool
-    and the page table (no gather); prefill and alibi gather each slot's
-    pages and take the einsum, as the JAX package computes them outside any
-    kernel (alibi is dispatched by config, as ``_attention`` sends it to
-    the plain branch)."""
+    attend.  ``cks``/``cvs`` (both or neither) are an int8 pool's scale
+    planes [P, page]: the store quantizes each row (:func:`kv_quantize_rows`)
+    and writes its scale through the same ``write_idx``.
+
+    Decode (S == 1), and a speculative verify block (``verify``: S > 1
+    tokens of one slot, each row its own query), go to K4 over the pool
+    and the page table, in its int8 mode for an int8 pool: no gathered or
+    dequantized copy of the cache.  A verify block runs as B*S rows, the
+    page table's rows repeated S times, row r masked ``t <= pos_r`` over T
+    (a position past the table attends all T, as the JAX mask does).
+    Prefill and alibi gather each slot's pages (dequantized for an int8
+    pool) and take the einsum, as the JAX package computes them outside
+    any kernel.  ``ad``/``ad_scale`` are this layer's per-slot LoRA
+    factors and scales (multi-tenant adapter serving)."""
     B, S, _ = x.shape
     P, ps, nkv, hd = ck.shape
     ckf, cvf = ck.view(P * ps, nkv, hd), cv.view(P * ps, nkv, hd)
     h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
-    q, k, v = _qkv(cfg, lp, h, B, S)
+    q, k, v = _qkv_paged(cfg, lp, h, B, S, ad, ad_scale)
     if cfg.position == "rope":
         q, k = _rope(q, k, positions, cfg.rope_theta, hd,
                      rotary_dim=cfg.rotary_dim, interleaved=cfg.rope_interleaved)
-    ckf.index_copy_(0, write_idx, k.reshape(B * S, nkv, hd).to(ckf.dtype))
-    cvf.index_copy_(0, write_idx, v.reshape(B * S, nkv, hd).to(cvf.dtype))
+    k, v = k.reshape(B * S, nkv, hd), v.reshape(B * S, nkv, hd)
+    if cks is not None:
+        kq, ks = kv_quantize_rows(k)
+        vq, vs = kv_quantize_rows(v)
+        ckf.index_copy_(0, write_idx, kq)
+        cvf.index_copy_(0, write_idx, vq)
+        cks.view(P * ps).index_copy_(0, write_idx, ks)
+        cvs.view(P * ps).index_copy_(0, write_idx, vs)
+    else:
+        ckf.index_copy_(0, write_idx, k.to(ckf.dtype))
+        cvf.index_copy_(0, write_idx, v.to(cvf.dtype))
     t = torch.arange(T, device=x.device)
-    if S == 1 and cfg.position != "alibi":
-        mask = (t[None, :] <= positions).to(torch.int32)            # [B, T]
-        attn = decode_attention(q[:, 0], ck, cv, mask, page_table,
-                                _sm_scale(cfg, hd))[:, None]
+    if (S == 1 or verify) and cfg.position != "alibi":
+        pos_r = positions.reshape(B * S)
+        mask = (t[None, :] <= pos_r[:, None]).to(torch.int32)        # [B*S, T]
+        pt = page_table if S == 1 else page_table.repeat_interleave(S, dim=0)
+        attn = decode_attention(q.reshape(B * S, -1, hd), ck, cv, mask, pt,
+                                _sm_scale(cfg, hd), k_scale=cks, v_scale=cvs)
+        attn = attn.reshape(B, S, -1, hd)
     else:
         rows = page_table.long()[:, t // ps] * ps + t % ps          # [B, T]
-        attn = _attention_paged(cfg, q, ckf[rows], cvf[rows], positions)
-    attn = _out_proj(cfg, lp, attn, B, S)
+        gk, gv = ckf[rows], cvf[rows]
+        if cks is not None:
+            gk = kv_dequantize(gk, cks.reshape(P * ps)[rows], cfg.dtype)
+            gv = kv_dequantize(gv, cvs.reshape(P * ps)[rows], cfg.dtype)
+        attn = _attention_paged(cfg, q, gk, gv, positions)
+    attn = _out_proj_paged(cfg, lp, attn, B, S, ad, ad_scale)
     if cfg.parallel_residual:
         h2 = h if cfg.shared_layernorm else _norm(
             cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
@@ -1385,7 +1500,7 @@ def _block_paged(cfg, lp, x, ck, cv, positions, write_idx, page_table, T):
 def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
                   tokens: torch.Tensor, cache: Dict[str, Any],
                   page_table: torch.Tensor, start: torch.Tensor,
-                  seq_mask: torch.Tensor, adapters=None):
+                  seq_mask: torch.Tensor, adapters=None, verify: bool = False):
     """Run ``tokens [B,S]`` against the paged pool, writing each real
     token's K/V at its slot position (in place) and attending each query to
     its own slot's pages only.
@@ -1395,11 +1510,22 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
     position of ``tokens[:, 0]`` (0 for a cold prefill, the shared-prefix
     length for a tail prefill, the current length for decode).
     ``seq_mask [B,S]``: True for real tokens; masked tokens and positions
-    past the page table write to the trash page, and their logits are
-    garbage the caller never reads.  Everything is tensor arithmetic with no
-    host synchronisation, so the decode step ``[B_slots, 1]`` can be
-    captured in a CUDA graph.  Returns ``(logits [B,S,V], cache)``, the same
-    cache dict."""
+    past the page table write to the trash page (so a verify block
+    straddling the table's end never wraps into a live page), and their
+    logits are garbage the caller never reads.  Everything is tensor
+    arithmetic with no host synchronisation, so the decode step ``[B_slots,
+    1]`` and the verify block ``[B_slots, k+1]`` can be captured in CUDA
+    graphs.
+
+    An int8 cache (``init_paged_cache(kv_dtype="int8")``) quantizes on
+    store and is read by K4's int8 mode (decode, verify) or dequantized in
+    the gather (prefill).  ``verify=True`` marks ``[B, k+1]`` tokens as a
+    speculative verify block (each position a decode row of K4) rather than
+    a prefill.  ``adapters`` is the per-slot LoRA operand ``{"scale": [B],
+    "factors": {target: {"A": [L, B, d_in, R], "B": [L, B, R, d_out]}}}``
+    (targets among ``wq``/``wk``/``wv``/``wo``, the JAX paged block's;
+    all-zero factors reproduce the adapter-free forward exactly).  Returns
+    ``(logits [B,S,V], cache)``, the same cache dict."""
     _check_supported(cfg)
     if not cfg.causal:
         raise NotImplementedError(
@@ -1411,12 +1537,6 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
         raise NotImplementedError(
             "paged decode does not support per-layer attention windows "
             "(attention_layers); use the contiguous cache path")
-    if adapters is not None:
-        raise NotImplementedError(
-            "per-slot LoRA adapters in the paged path are not ported yet "
-            "(ROADMAP queue 1, item 7)")
-    if "k_scale" in cache:
-        raise NotImplementedError(_KV_INT8_ROW)
     B, S = tokens.shape
     ps = cache["k"].shape[2]
     maxp = page_table.shape[1]
@@ -1429,10 +1549,20 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
     write_idx = torch.where(seq_mask & (raw_idx < maxp), flat,
                             torch.zeros_like(flat)).reshape(B * S)
     safe_pos = positions.clamp(max=cfg.max_seq_len - 1)
+    quantized = "k_scale" in cache
+    ad_scale = factors = None
+    if adapters is not None:
+        ad_scale, factors = adapters["scale"], adapters["factors"]
     x = _embed(cfg, params, tokens.long(), safe_pos)
     for i, lp in enumerate(_layers(params)):
+        ad = (None if factors is None else
+              {n: {"A": ab["A"][i], "B": ab["B"][i]} for n, ab in factors.items()
+               if n in ADAPTER_TARGETS})
         x = _block_paged(cfg, lp, x, cache["k"][i], cache["v"][i], positions,
-                         write_idx, page_table, maxp * ps)
+                         write_idx, page_table, maxp * ps,
+                         cks=cache["k_scale"][i] if quantized else None,
+                         cvs=cache["v_scale"][i] if quantized else None,
+                         ad=ad or None, ad_scale=ad_scale, verify=verify)
         del lp   # a dequantized layer is freed before the next is made
     x = _final_norm(cfg, params, x)
     return _tp.gather_from_model(_head(cfg, params, x), cfg.vocab_size), cache

@@ -59,6 +59,18 @@
 //    none waits for another before leaving.  One launch, no workspace, no
 //    atomics: reruns are bit-identical.
 //
+// The int8 mode (ds_decode_attention_q8): the pools hold int8 codes
+// (kv_dtype="int8" pages) and two fp32 scale planes [P, page], one scale a
+// pool row.  The TMA ring carries the int8 tiles as bytes (a tile is 64 rows
+// at hd 64 and 128: 4 or 8 KB of K, 8-byte or 4-byte lane loads), and beside
+// each tile the tile's K and V scale rows (up to 256 bytes each, one 1-D bulk
+// copy each, completing on the tile's barrier: page % 4 == 0 keeps them
+// 16-byte aligned).  A consumer widens each element as
+// round_T(float(code) * scale), the scale read from the ring stage: exactly
+// the compute-dtype value kv_dequantize makes, so the rest is the same
+// online softmax.  No dequantized copy of the cache exists: the narrow pages
+// are what crosses HBM (1 byte an element plus 4 bytes a row for K and V).
+//
 // A rank without a live tile still pushes (NEG_INF, 0, 0), which weighs
 // nothing.  A row with no attendable key is outside the contract (the
 // caller always has the token it just wrote): the kernel writes zeros
@@ -121,6 +133,12 @@ template <> struct Num<float> {
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
+// The pools' element type as TMA moves it (int8 codes as bytes).
+template <typename KV> struct Tma { static constexpr CUtensorMapDataType TYPE = Num<KV>::TMA; };
+template <> struct Tma<int8_t> {
+  static constexpr CUtensorMapDataType TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
 // VEC consecutive elements (8 or 16 bytes, aligned) at p, widened to fp32.
 template <typename T, int VEC>
 __device__ __forceinline__ void widen(const T* p, float (&x)[VEC]) {
@@ -150,6 +168,39 @@ __device__ __forceinline__ void widen(const T* p, float (&x)[VEC]) {
       x[2 * i] = f.x;
       x[2 * i + 1] = f.y;
     }
+  }
+}
+
+// VEC int8 codes at p (2, 4 or 8 bytes, aligned), each widened to the
+// compute dtype's value of code * scale (the product in fp32, rounded to T,
+// as kv_dequantize does) and held in fp32.
+template <typename T, int VEC>
+__device__ __forceinline__ void widen_q8(const int8_t* p, float scale, float (&x)[VEC]) {
+  uint32_t w[(VEC + 3) / 4];
+  if constexpr (VEC == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x; w[1] = r.y;
+  } else if constexpr (VEC == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    static_assert(VEC == 2, "2, 4 or 8 codes a lane");
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int code = static_cast<int8_t>(static_cast<uint8_t>(w[j / 4] >> (8 * (j % 4))));
+    x[j] = Num<T>::round(__fmul_rn(static_cast<float>(code), scale));
+  }
+}
+
+// One key or value row's VEC elements of this lane, widened to fp32: as
+// they lie (KV == T), or dequantized from int8 codes with the row's scale.
+template <typename T, typename KV, int VEC>
+__device__ __forceinline__ void load_row(const KV* p, float scale, float (&x)[VEC]) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    widen_q8<T, VEC>(p, scale, x);
+  } else {
+    widen<T, VEC>(p, x);
   }
 }
 
@@ -183,20 +234,25 @@ struct DecodeArgs {
   void* out;
   const int* page_table;   // [B, maxp]
   const int* mask;         // [B, T]
+  const float* k_scale;    // int8 mode: the layer's scale planes [P, page]
+  const float* v_scale;
   int Hkv, T, page, maxp;
   int rows;                // R
   int tiles_per_page;
   int ntiles;              // tiles holding a key below T
   int stages;
   float scale_log2;        // sm_scale * log2(e)
+  int off_scales;          // int8 mode: [stages][2][rows] fp32 scale rows
   int off_bars, off_list, off_count, off_inbox;   // shared-memory byte offsets
 };
 
-template <typename T, int HD, int G>
+// T: q's and out's dtype (the compute dtype); KV: the pools' (T, or int8).
+template <typename T, typename KV, int HD, int G>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const DecodeArgs a) {
   using C = Cfg<T, HD, G>;
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   constexpr int VEC = C::VEC, TPK = C::TPK, NS = C::NS, U = C::U;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.off_bars);
@@ -211,7 +267,7 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
   const int cols = HD / nsplit;   // output columns a rank merges and writes
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int Hq = a.Hkv * G;
-  const uint32_t tile_bytes = (uint32_t)a.rows * HD * sizeof(T);
+  const uint32_t tile_bytes = (uint32_t)a.rows * HD * sizeof(KV);
 
   hopper::cluster_arrive_relaxed();   // waited on before the first store to a peer
   if (threadIdx.x == 0) {
@@ -286,11 +342,19 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
       for (int t = 0; t < nlive; ++t) {
         const int s = t % a.stages;
         hopper::mbar_wait(empty + s, ((t / a.stages) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(full + s, 2 * tile_bytes);
-        unsigned char* dst = smem + (size_t)s * 2 * tile_bytes;
         const int pg = list[t].page, row0 = list[t].row0;
+        // int8 mode: the tile's rows inside its page (a multiple of 4)
+        const uint32_t scale_bytes = Q8 ? (uint32_t)min(a.rows, a.page - row0) * 4u : 0u;
+        hopper::mbar_arrive_expect_tx(full + s, 2 * tile_bytes + 2 * scale_bytes);
+        unsigned char* dst = smem + (size_t)s * 2 * tile_bytes;
         hopper::tma_load_4d(dst, &tm_k, full + s, 0, hk, row0, pg);
         hopper::tma_load_4d(dst + tile_bytes, &tm_v, full + s, 0, hk, row0, pg);
+        if constexpr (Q8) {
+          float* sdst = reinterpret_cast<float*>(smem + a.off_scales) + s * 2 * a.rows;
+          const int64_t srow = (int64_t)pg * a.page + row0;
+          hopper::bulk_load(sdst, a.k_scale + srow, scale_bytes, full + s);
+          hopper::bulk_load(sdst + a.rows, a.v_scale + srow, scale_bytes, full + s);
+        }
       }
     }
     __syncwarp();
@@ -322,8 +386,11 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
       hopper::mbar_wait(full + s, (t / a.stages) & 1);
       const int nkeys = list[t].nkeys;
       const unsigned long long live = list[t].live;
-      const T* kt = reinterpret_cast<const T*>(smem + (size_t)s * 2 * tile_bytes) + li * VEC;
-      const T* vt = kt + a.rows * HD;
+      const KV* kt = reinterpret_cast<const KV*>(smem + (size_t)s * 2 * tile_bytes) + li * VEC;
+      const KV* vt = kt + a.rows * HD;
+      // int8 mode: the tile's K and V scale rows, in the ring stage
+      const float* ks = reinterpret_cast<const float*>(smem + a.off_scales) + s * 2 * a.rows;
+      const float* vs = ks + a.rows;
       for (int r0 = st; r0 < nkeys; r0 += NS * U) {   // uniform within the stream
         bool ok[U];
         float sc[U][G];
@@ -333,7 +400,7 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
           ok[u] = r < nkeys && ((live >> r) & 1ull);
           float kx[VEC];
           if (r < nkeys) {
-            widen<T, VEC>(kt + r * HD, kx);
+            load_row<T, KV, VEC>(kt + r * HD, Q8 ? ks[r] : 1.f, kx);
           } else {
 #pragma unroll
             for (int j = 0; j < VEC; ++j) kx[j] = 0.f;
@@ -373,7 +440,8 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
         for (int u = 0; u < U; ++u) {
           if (!ok[u]) continue;   // a dead row's V (any bits) is never read into acc
           float vx[VEC];
-          widen<T, VEC>(vt + (r0 + u * NS) * HD, vx);
+          const int r = r0 + u * NS;
+          load_row<T, KV, VEC>(vt + r * HD, Q8 ? vs[r] : 1.f, vx);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             l[g] += sc[u][g];
@@ -455,6 +523,7 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tm_k,
 
 struct LaunchIn {
   const void *q, *k, *v;
+  const float *k_scale, *v_scale;   // int8 mode only
   const int *page_table, *mask;
   void* o;
   int B, Hkv, T, page, maxp;
@@ -464,19 +533,19 @@ struct LaunchIn {
 // The pool [P, page, Hkv, hd] as the 4-D (hd, Hkv, page, P), box (hd, 1,
 // rows, 1), no swizzle (rows of up to 512 bytes); rows past the page's end
 // read as zeros (they hold keys of no tile).
-template <typename T>
+template <typename KV>
 int encode_pool_map(CUtensorMap* map, const void* base, int Hkv, int HD, int page,
                     int rows) {
   const hopper::EncodeTiledFn enc = hopper::encode_tiled();
   if (enc == nullptr) return hopper::kEncodeMissing;
-  const cuuint64_t es = sizeof(T);
+  const cuuint64_t es = sizeof(KV);
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)Hkv, (cuuint64_t)page,
                               (cuuint64_t)INT32_MAX};
   const cuuint64_t strides[3] = {HD * es, (cuuint64_t)Hkv * HD * es,
                                  (cuuint64_t)page * Hkv * HD * es};
   const cuuint32_t box[4] = {(cuuint32_t)HD, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, Num<T>::TMA, 4, const_cast<void*>(base), dims, strides, box,
+  const CUresult r = enc(map, Tma<KV>::TYPE, 4, const_cast<void*>(base), dims, strides, box,
                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -494,21 +563,22 @@ struct Settled {
 constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
 // Tile rows: a tile holds at most TILE_BYTES of K, MAX_ROWS keys, and keys
-// of one page.
+// of one page.  With int8 pools (1-byte rows) MAX_ROWS decides at hd 64 and
+// 128: 64 rows, 4 or 8 KB of K a tile, a ring of 4 or 2 stages.
 int tile_rows(int hd, int esize, int page) {
   return std::max(1, std::min(std::min(TILE_BYTES / (hd * esize), MAX_ROWS), page));
 }
 
-template <typename T, int HD, int G>
+template <typename T, typename KV, int HD, int G>
 int launch(const LaunchIn& in, cudaStream_t stream) {
   using C = Cfg<T, HD, G>;
-  const int R = tile_rows(HD, C::ES, in.page);
+  const int R = tile_rows(HD, (int)sizeof(KV), in.page);
   const int tpp = (in.page + R - 1) / R;
   const int ntiles = (in.T / in.page) * tpp + (in.T % in.page + R - 1) / R;
   // The cluster: the largest of 1, 2, 4, 8 not above the tile count.
   int nsplit = 1;
   while (nsplit * 2 <= std::min(MAX_SPLIT, ntiles)) nsplit *= 2;
-  const int tile_bytes = R * HD * (int)sizeof(T);
+  const int tile_bytes = R * HD * (int)sizeof(KV);
   const int stages = std::max(2, std::min(MAX_STAGES, RING_BYTES / (2 * tile_bytes)));
 
   DecodeArgs a{};
@@ -516,6 +586,8 @@ int launch(const LaunchIn& in, cudaStream_t stream) {
   a.out = in.o;
   a.page_table = in.page_table;
   a.mask = in.mask;
+  a.k_scale = in.k_scale;
+  a.v_scale = in.v_scale;
   a.Hkv = in.Hkv;
   a.T = in.T;
   a.page = in.page;
@@ -526,6 +598,8 @@ int launch(const LaunchIn& in, cudaStream_t stream) {
   a.stages = stages;
   a.scale_log2 = in.sm_scale * hopper::LOG2E;
   int off = round_up(std::max(stages * 2 * tile_bytes, C::SCRATCH), 128);
+  a.off_scales = off;
+  if (std::is_same<KV, int8_t>::value) off += round_up(stages * 2 * R * (int)sizeof(float), 128);
   a.off_bars = off;
   off += 2 * stages * (int)sizeof(uint64_t);
   a.off_list = off;
@@ -536,11 +610,11 @@ int launch(const LaunchIn& in, cudaStream_t stream) {
   const int smem = off + nsplit * G * (2 + HD / nsplit) * (int)sizeof(float);
 
   CUtensorMap tm_k, tm_v;
-  int err = encode_pool_map<T>(&tm_k, in.k, in.Hkv, HD, in.page, R);
-  if (err == 0) err = encode_pool_map<T>(&tm_v, in.v, in.Hkv, HD, in.page, R);
+  int err = encode_pool_map<KV>(&tm_k, in.k, in.Hkv, HD, in.page, R);
+  if (err == 0) err = encode_pool_map<KV>(&tm_v, in.v, in.Hkv, HD, in.page, R);
   if (err != 0) return err;
 
-  auto kern = decode_attention_kernel<T, HD, G>;
+  auto kern = decode_attention_kernel<T, KV, HD, G>;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -578,25 +652,34 @@ int launch(const LaunchIn& in, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, bool Q8, int HD>
 int dispatch_group(int G, const LaunchIn& in, cudaStream_t st) {
+  using KV = typename std::conditional<Q8, int8_t, T>::type;
   switch (G) {
-    case 1: return launch<T, HD, 1>(in, st);
-    case 2: return launch<T, HD, 2>(in, st);
-    case 4: return launch<T, HD, 4>(in, st);
-    case 8: return launch<T, HD, 8>(in, st);
+    case 1: return launch<T, KV, HD, 1>(in, st);
+    case 2: return launch<T, KV, HD, 2>(in, st);
+    case 4: return launch<T, KV, HD, 4>(in, st);
+    case 8: return launch<T, KV, HD, 8>(in, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int HD>
+template <bool Q8, int HD>
 int dispatch_dtype(int dtype, int G, const LaunchIn& in, cudaStream_t st) {
   switch (dtype) {
-    case 0: return dispatch_group<float, HD>(G, in, st);
-    case 1: return dispatch_group<__half, HD>(G, in, st);
-    case 2: return dispatch_group<__nv_bfloat16, HD>(G, in, st);
+    case 0: return dispatch_group<float, Q8, HD>(G, in, st);
+    case 1: return dispatch_group<__half, Q8, HD>(G, in, st);
+    case 2: return dispatch_group<__nv_bfloat16, Q8, HD>(G, in, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool Q8>
+int dispatch(const LaunchIn& in, int Hq, int hd, int dtype, cudaStream_t st) {
+  const int G = Hq / in.Hkv;
+  if (hd == 64) return dispatch_dtype<Q8, 64>(dtype, G, in, st);
+  if (hd == 128) return dispatch_dtype<Q8, 128>(dtype, G, in, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -616,12 +699,31 @@ int ds_decode_attention(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv != 0 || page <= 0 || T_len < 0 || T_len > maxp * page)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const LaunchIn in{q, k, v, page_table, mask, o, B, Hkv, T_len, page, maxp, sm_scale};
-  const int G = Hq / Hkv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return dispatch_dtype<64>(dtype, G, in, st);
-  if (hd == 128) return dispatch_dtype<128>(dtype, G, in, st);
-  return cudaErrorInvalidValue;
+  const LaunchIn in{q, k, v, nullptr, nullptr, page_table, mask, o,
+                    B, Hkv, T_len, page, maxp, sm_scale};
+  return dispatch<false>(in, Hq, hd, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 mode: k and v are int8 pools [P, page, Hkv, hd] with fp32 scale
+// planes k_scale, v_scale [P, page] (one scale a pool row, page % 4 == 0,
+// 16-byte aligned); q, out and the arithmetic in dtype, as above.  The
+// wrapper has checked the planes' shapes, dtypes and alignment.
+int ds_decode_attention_q8(const void* q, const void* k, const void* v,
+                           const float* k_scale, const float* v_scale,
+                           const int* page_table, const int* mask, void* o, int B,
+                           int Hq, int Hkv, int hd, int T_len, int page, int maxp,
+                           int dtype, float sm_scale, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || page <= 0 || T_len < 0 || T_len > maxp * page ||
+      k_scale == nullptr || v_scale == nullptr)
+    return cudaErrorInvalidValue;
+  // a tile's scale rows are one bulk copy: 16-byte aligned, whole 16 bytes
+  if (page % 4 != 0 || reinterpret_cast<uintptr_t>(k_scale) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v_scale) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  if (B == 0) return cudaSuccess;
+  const LaunchIn in{q, k, v, k_scale, v_scale, page_table, mask, o,
+                    B, Hkv, T_len, page, maxp, sm_scale};
+  return dispatch<true>(in, Hq, hd, dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* ds_cuda_error_string(int err) {

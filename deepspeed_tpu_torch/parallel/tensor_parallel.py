@@ -172,6 +172,14 @@ def gather_from_model(x: torch.Tensor, size: Optional[int] = None) -> torch.Tens
     return x if size is None or x.shape[-1] == size else x[..., :size]
 
 
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the model axis (no gradient:
+    the int8 KV store's row amax, taken over every rank's KV heads)."""
+    if not active() or size() == 1:
+        return x
+    return _comm().all_reduce(x, "max", MODEL_AXIS)
+
+
 def gather_shared(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every rank's piece of ``x`` along ``dim``, for a use that reads all
     of them (the gradient is summed over the ranks and cut back)."""

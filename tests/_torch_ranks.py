@@ -489,6 +489,57 @@ def prog_serve(model: str, params_np, tp: int, tokens, prompts, max_new: int,
     return out
 
 
+def prog_serve_extras(model: str, params_np, draft_np, loras: dict, tp: int,
+                      stream, serve_kw: dict, fuse: str):
+    """The paged serving extras together on ``tp`` ranks of a serving mesh
+    (``tp=1``: one process, no mesh): int8 pages, a host tier, speculative
+    decoding and per-slot adapters in one engine over ``stream``
+    (``{"rid", "ids", "max_new", "adapter"}``), then ``fuse`` served from
+    fused weights.  Returns the served tokens, the tier's movements, the
+    speculative acceptance, the int8 scale planes and the accounting."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference import (AdapterRegistry, Request,
+                                               SpeculativeConfig)
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.parallel.mesh import initialize_serving_mesh
+    from deepspeed_tpu_torch.runtime.lora import LoRAConfig
+
+    m = CausalLM(model, dtype=torch.float32, attn_impl="xla")
+    params = params_from_jax(params_np, device="cpu")
+    mesh = initialize_serving_mesh(tp=tp) if tp > 1 else None
+    eng = ds.init_inference(m, config={"dtype": "float32"}, params=params,
+                            mesh=mesh, device="cpu")
+    reg = AdapterRegistry(params["layers"])
+    for aid, (rank, lora) in sorted(loras.items()):
+        reg.register(aid, lora, LoRAConfig(rank=rank, alpha=2.0 * rank))
+    spec = SpeculativeConfig(CausalLM(model, dtype=torch.float32, attn_impl="xla"),
+                             params_from_jax(draft_np, device="cpu"), k=3)
+    sv = eng.serving(kv_dtype="int8", host_tier_pages=16, speculative=spec,
+                     adapters=reg, **serve_kw)
+
+    def reqs(items, tag=""):
+        return [Request(rid=f"{tag}{r['rid']}", input_ids=np.asarray(r["ids"], np.int32),
+                        max_new_tokens=r["max_new"], adapter_id=r["adapter"])
+                for r in items]
+
+    served = {r.rid: r.output_ids for r in sv.run(reqs(stream))}
+    h = sv.health()
+    out = {"served": served, "balanced": sv.page_accounting()["balanced"],
+           "k_scale": sv._exec.pools[2].clone(), "v_scale": sv._exec.pools[3].clone(),
+           "draft_k_scale": sv._spec.dpools[2].clone(),
+           **{k: h[k] for k in ("demotions_total", "promotions_total",
+                                "spec_emitted_tokens_total", "spec_verify_slot_ticks_total",
+                                "adapter_admissions_total", "prefix_hits_total")}}
+    sv.fuse_adapter(fuse)
+    mine = [r for r in stream if r["adapter"] == fuse]
+    out["fused"] = {r.rid: r.output_ids for r in sv.run(reqs(mine, tag="f"))}
+    sv.fuse_adapter(None)
+    out["balanced_after_fuse"] = sv.page_accounting()["balanced"]
+    sv.close()   # every rank, before the group's teardown
+    return out
+
+
 def prog_ring(cases: list, q, k, v):
     """Ring attention on this rank's rows and sequence slice of the global
     q/k/v (fp64): each case ``{"sp", "causal", "impl"[, "qkv"]}`` on a mesh of
@@ -729,7 +780,8 @@ PROGRAMS = {"comm": prog_comm, "train": prog_train, "checkpoint": prog_checkpoin
             "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,
             "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,
             "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate,
-            "hf_load": prog_hf_load, "quant_tp": prog_quant_tp}
+            "hf_load": prog_hf_load, "quant_tp": prog_quant_tp,
+            "serve_extras": prog_serve_extras}
 
 
 def main() -> int:

@@ -57,7 +57,14 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.module_inject.policies, "
             "deepspeed_tpu_torch.module_inject.sharded_load, "
             "deepspeed_tpu_torch.ops.quantizer, deepspeed_tpu_torch.ops.quantizer.quantizer, "
-            "deepspeed_tpu_torch.inference.quantization\n"
+            "deepspeed_tpu_torch.inference.quantization, "
+            "deepspeed_tpu_torch.inference.kv_tiering, deepspeed_tpu_torch.inference.adapters, "
+            "deepspeed_tpu_torch.inference.speculative, "
+            "deepspeed_tpu_torch.inference.serving_supervisor, deepspeed_tpu_torch.runtime.lora, "
+            "deepspeed_tpu_torch.resilience.fault_injection, deepspeed_tpu_torch.observability, "
+            "deepspeed_tpu_torch.observability.trace, "
+            "deepspeed_tpu_torch.observability.flight_recorder, "
+            "deepspeed_tpu_torch.observability.slo\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),

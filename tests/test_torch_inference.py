@@ -162,9 +162,11 @@ def test_config_and_unported_paths():
         deepspeed_tpu_torch.init_inference("/some/hf/checkpoint", device="cpu")
     eng = deepspeed_tpu_torch.init_inference(model, params=params, device="cpu")
     assert eng.params["embed"].dtype == torch.bfloat16   # default dtype
-    for call in (eng.supervised_serving, eng.serving_fleet):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.serving_fleet()
+    # the supervisor is ported (tests/test_torch_serving_supervisor.py)
+    sup = eng.supervised_serving(b_slots=1, page_size=8, max_model_len=32)
+    assert type(sup).__name__ == "ServingSupervisor" and sup.restarts == 0
     with pytest.raises(TypeError, match="MeshLayout"):
         eng.serving(mesh=object())
 

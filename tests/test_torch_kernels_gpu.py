@@ -15,8 +15,9 @@ import json
 import pytest
 import torch
 
-from chip_smoke import (AGREE_TOL, DECODE_CASES, DECODE_TOL, LSE_ATOL, _decode_case,
-                        agreement, decode_compare, decode_lengths, decode_low_precision)
+from chip_smoke import (AGREE_TOL, DECODE_CASES, DECODE_INT8_CASES, DECODE_TOL, LSE_ATOL,
+                        _decode_case, agreement, decode_compare, decode_lengths,
+                        decode_low_precision, quantize_pools, verify_rows)
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
@@ -619,3 +620,60 @@ def test_tp_decode_graph_at_world_one(cuda):
         sv.close()
     finally:
         comm.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# K4's int8 mode (kv_dtype="int8" pages), at chip_smoke.py's int8 cases
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DECODE_INT8_CASES) + ["verify"])
+def test_decode_attention_int8_matches_plain_version(cuda, case):
+    """The int8 pages and their scale rows read in place, each element
+    round(code * scale) in the compute dtype: within the case dtype's K4
+    bounds of the plain version (gather, kv_dequantize, attend), and
+    rejecting the yardsticks; a verify block's B*(k+1) rows too."""
+    spec = next(c for c in DECODE_CASES if c[0] == ("serve" if case == "verify" else case))
+    lengths = [17, 300, 2047, 1000, 129, 64, 555, 1500]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, mask, table = _decode_case(g, spec, lengths)
+    k8, v8, ks, vs = quantize_pools(k, v)
+    if case == "verify":
+        q, table, mask = verify_rows(g, q, table, mask, lengths)
+    with torch.inference_mode():
+        before = decode_attention.launches
+        out = decode_attention(q, k8, v8, mask, table, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        ref = decode_attention_reference(q, k8, v8, mask, table, k_scale=ks, v_scale=vs)
+        kd = (k8.float() * ks[..., None, None]).to(q.dtype)
+        vd = (v8.float() * vs[..., None, None]).to(q.dtype)
+        assert torch.equal(ref, decode_attention_reference(q, kd, vd, mask, table))
+        low = decode_low_precision(q, kd, vd, mask, table)
+        again = decode_attention(q, k8, v8, mask, table, k_scale=ks, v_scale=vs)
+    reading = decode_compare(out, ref, low, spec[2] // spec[3], DECODE_TOL[spec[5]])
+    print(json.dumps(reading))
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert reading["ok"] and reading["yardsticks_rejected"], reading
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+def test_decode_attention_int8_refuses_mismatched_inputs(cuda):
+    q = torch.zeros((1, 4, 128), device="cuda", dtype=torch.bfloat16)
+    pool = torch.zeros((2, 8, 4, 128), device="cuda", dtype=torch.int8)
+    scale = torch.ones((2, 8), device="cuda")
+    mask = torch.ones((1, 8), device="cuda", dtype=torch.int32)
+    table = torch.ones((1, 1), device="cuda", dtype=torch.int32)
+    for bad in (lambda: decode_attention(q, pool, pool, mask, table),           # no scales
+                lambda: decode_attention(q, pool, pool, mask, table, k_scale=scale),
+                lambda: decode_attention(q, pool, pool, mask, table,
+                                         k_scale=scale[:1], v_scale=scale),
+                lambda: decode_attention(q, pool.to(torch.bfloat16), pool, mask, table,
+                                         k_scale=scale, v_scale=scale),
+                # a page of 6 rows: a tile's scale rows are not whole 16 bytes
+                lambda: decode_attention(q, pool[:, :6].contiguous(), pool[:, :6].contiguous(),
+                                         mask[:, :6], table, k_scale=scale[:, :6].contiguous(),
+                                         v_scale=scale[:, :6].contiguous())):
+        with pytest.raises((ValueError, TypeError, NotImplementedError)):
+            bad()

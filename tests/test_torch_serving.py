@@ -390,32 +390,35 @@ def test_deadline_shed_and_drain(tiny):
 
 
 def test_refused_options_name_their_roadmap_item(tiny):
+    """What is still refused names its ROADMAP item (the monitor, the
+    watchdog, SLO rules and per-program statistics: item 12; the fleet:
+    item 14); the serving extras of item 7 and ``update_params`` build
+    (tests/test_torch_{kv_quant,kv_tiering,speculative,adapters,
+    serving_supervisor}.py hold them against JAX)."""
     _, _, teng, tserve = tiny
-    for kwargs, item in (({"host_tier_pages": 4}, "item 7"),
-                         ({"speculative": object()}, "item 7"),
-                         ({"adapters": object()}, "item 7"),
-                         ({"kv_dtype": "int8"}, "item 7"),
-                         ({"probe_after_ticks": 3}, "item 7"),
-                         ({"monitor": object()}, "item 12"),
+    for kwargs, item in (({"monitor": object()}, "item 12"),
                          ({"watchdog": object()}, "item 12"),
                          ({"slo_rules": [object()]}, "item 12"),
                          ({"program_stats_sample_every": 2}, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             teng.serving(**SERVE, **kwargs)
+    for kwargs in ({"host_tier_pages": 4}, {"kv_dtype": "int8"},
+                   {"probe_after_ticks": 3}):
+        assert teng.serving(**SERVE, **kwargs).page_accounting()["balanced"]
     # mesh= is ported (tests/test_torch_tp.py): a non-mesh is a TypeError
     with pytest.raises(TypeError, match="MeshLayout"):
         teng.serving(**SERVE, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserve.update_params(teng.params)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    assert tserve.update_params(teng.params)["balanced"]
+    with pytest.raises(RuntimeError, match="AdapterRegistry"):
         tserve.fuse_adapter("a")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="AdapterRegistry"):
         tserve.submit(Request(rid="t", input_ids=np.array([1], np.int32),
                               adapter_id="tenant"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        teng.supervised_serving()
+    assert teng.supervised_serving(**SERVE).restarts == 0
     with pytest.raises(NotImplementedError, match="item 14"):
         teng.serving_fleet()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        params_to_numpy(pool_from_jax({"k": np.zeros(1), "v": np.zeros(1),
-                                       "k_scale": np.zeros(1)}, "cpu"))
+    pool = {"k": np.zeros((1, 2, 8, 4, 16), np.int8), "v": np.ones((1, 2, 8, 4, 16), np.int8),
+            "k_scale": np.full((1, 2, 8), 0.5, np.float32)}
+    back = params_to_numpy(pool_from_jax(pool, "cpu"))
+    for key, x in pool.items():
+        np.testing.assert_array_equal(back[key], x)
