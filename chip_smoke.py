@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--profile] [--first-launch] [--tp-cards]
-    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp and sp)
+    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp, sp, ep, pp)
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -143,12 +143,31 @@ one JSON line each; any failure exits non-zero with no result line:
    and the supervisor's warm restart after a planted fault; each run
    with no new capture in steady state and the page accounting balanced,
    the greedy streams held to fp32 on decisive positions;
-8. with ``--profile`` only: ``torch.profiler`` device time by kernel for
+8. MoE and pipeline parallelism (ROADMAP queue 1, item 9): ``moe_serving``
+   (Mixtral-8x7B's widths, MOE_SERVE_LAYERS of 32 layers, bf16, no-drop:
+   ``forward`` at S=4096 with K1 once a layer, the 24-request stream with
+   K4 once a layer in the one captured decode graph and no new capture,
+   tick, tok/s, TTFT and the expert FFN's share of the tick; first, at
+   MOE_FP32_LAYERS layers, the served greedy tokens against an fp32 engine
+   on decisive positions), ``moe_train`` (MOE_TRAIN_LAYERS layers, S=4096,
+   the capacity and the no-drop paths, 3 steps each: K1 2L, K2/K3 L a
+   step, the loss with its aux term finite and falling; the capacity run
+   again through ``initialize(mesh=MeshLayout(ep=1))`` at NCCL world 1,
+   bit-equal; a PR-MoE pyramid at llama-740m's widths through forward and
+   backward) and ``pipeline`` (llama-740m, 4 virtual stages x 4 layers, 8
+   microbatches, GPipe and 1F1B, against the un-pipelined engine at gas=8:
+   loss and gradient norm within PIPE_*_RTOL, launches, step times);
+   ``--tp-cards-only`` also takes ITEM9_CARD_CONFIGS (4 cards):
+   ``ep4_mixtral8`` (Mixtral's widths at 8 layers over ep=4, the capacity
+   path, against ZeRO-3 dp=4) and ``pp4_7b`` (llama2-7b over pp=4, GPipe
+   and 1F1B, M=4, against ZeRO-3 dp=4), losses within TP_DP_LOSS_RTOL;
+9. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
-9. the ``kernels`` line: per kernel its launches on its main path, error
-   against the plain version, times and the bound from this run's shapes
-   (K1-K3 with a ``block_mask`` record from the sparse main case).
+10. the ``kernels`` line: per kernel its launches on its main path (and on
+   the MoE and pipeline paths), error against the plain version, times
+   and the bound from this run's shapes (K1-K3 with a ``block_mask``
+   record from the sparse main case).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2635,6 +2654,8 @@ CMP_LAYERS, CMP_S = 8, 2048
 # layers, S=32768, Ulysses over sp=4 (32 heads; the same), llama-740m at
 # tp=4 (14 heads padded to 16) against dp=4 in the same ranks.
 SP_CARD_CONFIGS = ("sp4_740m", "uly_7b", "tp4_740m")
+# MoE and pipeline over 4 cards (``--tp-cards-only``): see MOE_CARD_LAYERS
+ITEM9_CARD_CONFIGS = ("ep4_mixtral8", "pp4_7b")
 SP_S, ULY_S, ULY_LAYERS = 65536, 32768, 8
 
 
@@ -2930,6 +2951,7 @@ def tp_card_rank(seed: int, config: str, out: str) -> None:
     world, rank = comm.get_world_size(), comm.get_rank()
     run = {"train_7b": _tp_card_train_7b, "serve_70b": _tp_card_serve_70b,
            "cmp_70b8": _tp_card_cmp_70b8, "tp4_740m": _tp_card_tp4_740m,
+           "ep4_mixtral8": _tp_card_ep4_mixtral8, "pp4_7b": _tp_card_pp4_7b,
            "sp4_740m": lambda *a: _tp_card_sp(*a, "sp4_740m"),
            "uly_7b": lambda *a: _tp_card_sp(*a, "uly_7b")}[config]
     rec = run(seed, world, rank)
@@ -3502,32 +3524,89 @@ def fp32_serving_engine(params):
         config={"dtype": "fp32"}, params=params)
 
 
-def greedy_vs_fp32(engine, f32, stream, outs) -> dict:
+class _RouterLogits:
+    """Records the router logits of every MoE layer a forward runs (in
+    call order), while active."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import sharded_moe
+
+        self.mod, self.calls = sharded_moe, []
+        self.orig = sharded_moe._router_logits
+
+        def record(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.calls.append(out.detach().float()[0])
+            return out
+
+        sharded_moe._router_logits = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._router_logits = self.orig
+
+
+def _routing_decisive(plain_calls, ref_calls, layers: int, rids, lengths) -> dict:
+    """Per request, the positions whose fp32 routing is decided beyond bf16
+    noise in every MoE layer: the gap between the 2nd and 3rd router logit
+    exceeds twice how far the bf16 plain branch's router logits stray from
+    fp32's there (a near tie flips a bf16 token to another expert)."""
+    out, k = {}, 0
+    for rid, n in zip(rids, lengths):
+        ok = None
+        for _ in range(layers):
+            r32, r16 = ref_calls[k], plain_calls[k]
+            k += 1
+            top3 = r32.topk(3, dim=-1).values
+            good = (top3[:, 1] - top3[:, 2]) > 2 * (r16 - r32).abs().max(-1).values
+            ok = good if ok is None else ok & good
+        out[rid] = ok[-n:]     # the positions that predicted the served tokens
+    return out
+
+
+def greedy_vs_fp32(engine, f32, stream, outs, moe_layers: int = 0) -> dict:
     """The greedy requests' served tokens (``outs``) against the fp32
     engine ``f32`` on the same weights, teacher-forced: top-1 at every
     position and at the decisive ones, whose fp32 top-2 margin exceeds how
-    far ``engine``'s bf16 plain attention branch strays from fp32 there."""
+    far ``engine``'s bf16 plain attention branch strays from fp32 there
+    (its largest stray over every position).  An MoE model (``moe_layers``)
+    holds each position to its own stray instead, and only where its fp32
+    routing is decided beyond bf16 noise in every layer
+    (:func:`_routing_decisive`): a near tie of two gates sends a bf16 token
+    to another expert and moves its logits by whole units."""
     rids = [r.rid for r in stream if r.rid not in SAMPLED_RIDS]
     engine.model.attn_impl = "xla"
-    plain = _positions_logits(engine, stream, outs, rids)
+    with _RouterLogits() as rp:
+        plain = _positions_logits(engine, stream, outs, rids)
     engine.model.attn_impl = "auto"
-    ref = _positions_logits(f32, stream, outs, rids)
-    noise = max((plain[r] - ref[r]).abs().max().item() for r in rids)
+    with _RouterLogits() as rr:
+        ref = _positions_logits(f32, stream, outs, rids)
+    stray = {r: (plain[r] - ref[r]).abs().max(-1).values for r in rids}
+    noise = max(stray[r].max().item() for r in rids)
+    routed = (_routing_decisive(rp.calls, rr.calls, moe_layers, rids,
+                                [len(outs[r]) for r in rids]) if moe_layers else None)
     n_dec = n_agree = n_all = n_all_agree = 0
     for rid in rids:
         top2 = ref[rid].topk(2, dim=-1)
         served = torch.as_tensor(outs[rid], device="cuda").long()
         ok = top2.indices[:, 0] == served
-        dec = (top2.values[:, 0] - top2.values[:, 1]) > noise
+        margin = top2.values[:, 0] - top2.values[:, 1]
+        dec = (margin > noise) if routed is None else (margin > stray[rid]) & routed[rid]
         n_dec += int(dec.sum())
         n_agree += int((ok & dec).sum())
         n_all += len(served)
         n_all_agree += int(ok.sum())
     del plain, ref
     free_memory()
-    return {"greedy_positions": n_all, "greedy_top1_vs_fp32": n_all_agree / n_all,
-            "noise_plain_bf16_vs_fp32": noise, "decisive_positions": n_dec,
-            "greedy_top1_vs_fp32_decisive": n_agree / max(n_dec, 1)}
+    rec = {"greedy_positions": n_all, "greedy_top1_vs_fp32": n_all_agree / n_all,
+           "noise_plain_bf16_vs_fp32": noise, "decisive_positions": n_dec,
+           "greedy_top1_vs_fp32_decisive": n_agree / max(n_dec, 1)}
+    if routed is not None:
+        rec["decisive_by"] = ("each position's own bf16 stray, routing decided in "
+                              "every layer")
+        rec["median_stray"] = float(torch.cat(list(stray.values())).median())
+        rec["routing_decided_positions"] = int(sum(int(v.sum()) for v in routed.values()))
+    return rec
 
 
 def check_greedy_vs_fp32(rec, what: str) -> None:
@@ -4838,6 +4917,454 @@ def ab(specs, unchecked: bool = False) -> int:
     return 1 if failed else 0
 
 
+# ---------------------------------------------------------------------------
+# MoE and pipeline parallelism (ROADMAP queue 1, item 9)
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "mixtral-8x7b"      # Mixtral-8x7B's published widths (32 layers)
+# Depth is cut, never width: 16 of 32 layers in bf16 is ~47 GB; the fp32
+# reference the served tokens are held to runs at MOE_FP32_LAYERS (fp32
+# ~24 GB beside the bf16 engine's ~12 GB), as cmp_70b8 did for llama2-70b
+MOE_SERVE_LAYERS, MOE_FP32_LAYERS = 16, 4
+MOE_TRAIN_LAYERS, MOE_TRAIN_S = 2, 4096
+# a PR-MoE pyramid at llama-740m's widths: dense, 4-expert, 8-expert layers
+PRMOE_EXPERTS = (1,) * 8 + (4,) * 4 + (8,) * 4
+# llama-740m over 4 virtual stages of 4 layers, 8 microbatches, in one
+# process, against the un-pipelined engine at gas=8 on the same 8 rows.
+# The same kernels run on the same rows in both; a microbatch's objective
+# is the un-pipelined one over 8 (a power of two: exact in bf16), and each
+# backward's gradients are banked at the same dtype in the same order, so
+# the two differ only where fp32 sums of the loss run in another order:
+# a loss and a gradient norm within these of the un-pipelined run's
+PIPE_STAGES, PIPE_MICRO, PIPE_S, PIPE_STEPS = 4, 8, 4096, 2
+PIPE_LOSS_RTOL, PIPE_NORM_RTOL = 1e-5, 1e-4
+# the 4-card configurations (``--tp-cards-only``): Mixtral's widths at 8
+# layers over ep=4 (the capacity path: the buffers exchanged over
+# 'expert') against ZeRO-3 dp=4, and llama2-7b over pp=4 (GPipe and 1F1B,
+# M=4) against ZeRO-3 dp=4, on the same cards, rows and weights
+MOE_CARD_LAYERS = 8
+PP_CARD_MODEL, PP_CARD_S = "llama2-7b", 4096
+
+
+def _moe_params(layers: int, seed: int, device="cuda"):
+    """Mixtral's widths at ``layers`` layers: the model and its bf16
+    weights, the layer-streamed init of the seed (each layer of each leaf
+    drawn on its own; ``w_gate`` is layers x 8 x 4096 x 14336)."""
+    from deepspeed_tpu_torch.models import CausalLM
+
+    model = CausalLM(MOE_MODEL, num_layers=layers, max_seq_len=SERVE_MAX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16, tp=(0, 1),
+                           streamed=True)
+    if device != "cuda":
+        from deepspeed_tpu_torch.utils.tree import tree_map
+
+        params = tree_map(lambda x: x.to(device), params)
+        free_memory()
+    return model, params
+
+
+def _moe_engine(model, params):
+    import deepspeed_tpu_torch
+
+    return deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
+                                              params=params)
+
+
+def phase_moe_serving(seed: int) -> dict:
+    """Mixtral's widths through ``init_inference`` -> ``forward`` (S=4096,
+    K1 once a layer) and the paged stream of phase ``paged_serving`` (24
+    requests, 8 slots, 128-token pages; the no-drop MoE of the decode tick
+    in its static form inside the one captured graph, K4 once a layer),
+    at MOE_SERVE_LAYERS layers; first the served greedy tokens at
+    MOE_FP32_LAYERS layers against an fp32 engine on the same weights
+    (decisive positions).  Returns the launches for the kernels line."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    from deepspeed_tpu_torch.models import get_config
+
+    t0 = time.perf_counter()
+    stream = serving_stream(seed, get_config(MOE_MODEL).vocab_size)
+    model, params = _moe_params(MOE_FP32_LAYERS, seed)
+    engine = _moe_engine(model, params)
+    sv, outs, rec4 = _serve_once(engine, stream, f"moe_{MOE_FP32_LAYERS}_layers")
+    sv.close()
+    del sv
+    f32 = deepspeed_tpu_torch.init_inference(
+        CausalLM(MOE_MODEL, num_layers=MOE_FP32_LAYERS, max_seq_len=SERVE_MAX_LEN,
+                 attn_impl="xla", dtype=torch.float32),
+        config={"dtype": "fp32"}, params=params)
+    cmp = greedy_vs_fp32(engine, f32, stream, outs, moe_layers=MOE_FP32_LAYERS)
+    emit({"phase": "moe_serving_fp32", "model": MOE_MODEL, "layers": MOE_FP32_LAYERS,
+          **cmp, "median_decode_tick_ms": rec4["median_decode_tick_ms"],
+          "nvidia_smi": nvidia_smi_line()})
+    check_greedy_vs_fp32(cmp, "moe_serving")
+    del f32, engine, params, model, outs
+    free_memory()
+
+    t1 = time.perf_counter()
+    model, params = _moe_params(MOE_SERVE_LAYERS, seed)
+    engine = _moe_engine(model, params)
+    cfg = model.config
+    L = cfg.num_layers
+    init_s = time.perf_counter() - t1
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    S = SERVE_SHAPE[1]
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
+    # the forward: counts to 0 just before, read just after
+    reset_counts()
+    logits = engine.forward(tokens)
+    torch.cuda.synchronize()
+    k1_forward = flash_attention.launches
+    check(k1_forward == L, f"the MoE forward launched K1 {k1_forward} times, "
+                           f"expected one per layer ({L})")
+    check(tuple(logits.shape) == (1, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "MoE forward logits")
+    del logits
+    t2 = time.perf_counter()
+    engine.forward(tokens)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t2
+    # the serving stream: counts to 0 just before, read just after
+    reset_counts()
+    sv, outs, rec = _serve_once(engine, stream, "moe_serving")
+    k4 = {"counter": decode_attention.launches, "per_tick": sv._exec.graph_k4_launches,
+          "ticks": sv._exec.replays, "replayed": sv._exec.graph_k4_launches * sv._exec.replays}
+    check(k4["counter"] > 0 and k4["per_tick"] == L,
+          f"the MoE serving path's K4 launches: {k4}")
+    sv.close()
+    del sv
+    # the expert FFN's share of a tick: one layer's MoE MLP at the tick's
+    # shape captured in a CUDA graph as the tick captures it, its replay
+    # timed alone (CUDA events), times the layers, over the tick
+    lp = ttf._layer(params, 0)
+    h = torch.randn(SERVE_SLOTS, 1, cfg.hidden_size, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ttf._moe_mlp(cfg, lp, h, None)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            ttf._moe_mlp(cfg, lp, h, None)
+        moe_ms = time_ms(graph.replay, reps=10)
+    del graph
+    expert_bytes = 3 * cfg.hidden_size * cfg.intermediate_size * cfg.num_experts * 2
+    out = {"phase": "moe_serving", "model": MOE_MODEL, "layers": L,
+           "layers_published": 32, "params": cfg.param_count, "weights_gb": weights_gb,
+           "init_s": init_s, "moe_drop_tokens": cfg.moe_drop_tokens,
+           "forward_S": S, "forward_s": forward_s, "prefill_tok_per_s": S / forward_s,
+           "k1_launches_forward": k1_forward,
+           "median_decode_tick_ms": rec["median_decode_tick_ms"],
+           "mean_decode_tick_ms": rec["mean_decode_tick_ms"],
+           "output_tok_per_s": rec["output_tok_per_s"], "ttft_p50_s": rec["ttft_p50_s"],
+           "ttft_p99_s": rec["ttft_p99_s"], "decode_ticks": rec["decode_ticks"],
+           "graph_captures": rec["graph_captures"], "k4": k4,
+           "moe_mlp_ms_per_layer_at_tick_shape": moe_ms,
+           "expert_ffn_share_of_tick": L * moe_ms / rec["median_decode_tick_ms"],
+           "expert_bytes_per_layer_gb": expert_bytes / 1e9,
+           "expert_read_bound_ms_per_tick": L * expert_bytes / PEAK_BYTES_PER_S * 1e3,
+           "peak_memory_gb": rec["peak_memory_gb"], "fp32_check": cmp,
+           "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi_line()}
+    emit(out)
+    del engine, params, model, tokens, lp, h
+    free_memory()
+    return {"k1_forward": k1_forward, "k4": k4}
+
+
+def _moe_train_step_record(engine, batch, per_step, label) -> dict:
+    """MOE train steps with K1-K3 launches checked: losses, step times,
+    gradient norms."""
+    losses, step_s, norms = [], [], []
+    for _ in range(ZERO_STEPS):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        norms.append(engine.get_global_grad_norm())
+        got = tuple(a - b for a, b in zip(kernel_counts(), before))
+        check(got == per_step, f"{label}: a step launched K1/K2/K3 {got} times, "
+                               f"expected {per_step}")
+    return {"losses": losses, "step_s": step_s, "grad_norms": norms,
+            "median_step_s": statistics.median(step_s[1:])}
+
+
+def phase_moe_train(seed: int) -> dict:
+    """Mixtral's widths at MOE_TRAIN_LAYERS layers through ``initialize`` ->
+    ``train_batch`` (S=4096, micro batch 1, bf16 over fp32 masters, AdamW;
+    the one-device engine's update a leaf at a time keeps its 3.2B
+    parameters' step within the card),
+    on the capacity path (factor 1.25) and the no-drop path: K1 2L, K2/K3
+    L a step, the loss carrying the aux term, finite and falling; the
+    capacity run again under a mesh whose expert axis is 1 at NCCL world 1,
+    bit-equal; then a PR-MoE pyramid at llama-740m's widths through forward
+    and backward.  Returns the launches for the kernels line."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    S, Lm = MOE_TRAIN_S, MOE_TRAIN_LAYERS
+    per_step = (2 * Lm, Lm, Lm)
+    out, ref = {}, None
+    for path, drop in (("capacity", True), ("nodrop", False)):
+        t1 = time.perf_counter()
+        model, engine = _train_engine(seed, S, name=MOE_MODEL, num_layers=Lm,
+                                      moe_drop_tokens=drop)
+        cfg = model.config
+        init_s = time.perf_counter() - t1
+        batch = _train_batch(cfg, S, seed + 1)
+        with torch.no_grad():
+            total, count, aux = model.loss_terms(engine.get_params(), batch)
+        # the path: counts to 0 just before, read just after
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec = _moe_train_step_record(engine, batch, per_step, f"moe_train {path}")
+        rec.update(path=path, init_s=init_s, params=cfg.param_count,
+                   launches=dict(zip(("K1", "K2", "K3"), kernel_counts())),
+                   aux_term_first=float(aux), ce_first=float(total / count),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   tokens_per_s=S / rec["median_step_s"])
+        check(all(math.isfinite(x) for x in rec["losses"]), f"non-finite MoE loss: {rec}")
+        check(rec["losses"][-1] < rec["losses"][0], f"MoE loss did not fall: {rec}")
+        check(float(aux) > 0 and abs(rec["losses"][0] - float(total / count) - float(aux))
+              <= 1e-3 * rec["losses"][0], f"the MoE loss lacks its aux term: {rec}")
+        if drop:
+            ref = {"losses": rec["losses"], "norms": rec["grad_norms"],
+                   "masters": [m.detach().cpu() for m in tree_leaves(
+                       engine.state.master_params)]}
+        out[path] = rec
+        del engine, model, batch
+        free_memory()
+    # the capacity run under a mesh (expert axis 1) at NCCL world 1
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                          world_size=1, verbose=False)
+    try:
+        model, engine = _train_engine(seed, S, name=MOE_MODEL, num_layers=Lm,
+                                      moe_drop_tokens=True, mesh=MeshLayout(ep=1))
+        check(engine.ep == 1 and engine.partition is not None,
+              "the mesh engine is not data-parallel")
+        batch = _train_batch(model.config, S, seed + 1)
+        rec = _moe_train_step_record(engine, batch, per_step, "moe_train ep=1")
+        same = (rec["losses"] == ref["losses"] and rec["grad_norms"] == ref["norms"]
+                and all(torch.equal(m.cpu(), r) for m, r in zip(
+                    tree_leaves(engine.state.master_params), ref["masters"])))
+        out["ep1_mesh"] = {**rec, "bit_equal": same,
+                           "expert_leaf_zero_axes": sorted({
+                               z for z, e in zip(engine.partition.zaxes,
+                                                 engine.partition.edims)
+                               if e is not None})}
+        check(same, f"the expert-axis-1 mesh run differs from one device: {rec}")
+        del engine, model, batch
+    finally:
+        comm.destroy_process_group()
+    del ref
+    free_memory()
+    # the PR-MoE pyramid: forward and backward
+    model = CausalLM(TRAIN_MODEL, num_experts=PRMOE_EXPERTS, moe_use_residual=True,
+                     scan_layers=False, max_seq_len=S)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16)
+    work = tree_map(lambda x: x.requires_grad_(), params)
+    batch = _train_batch(model.config, S, seed + 1)
+    L = model.config.num_layers
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = model.loss_fn(work, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    pyramid_s = time.perf_counter() - t1
+    pyramid = dict(zip(("K1", "K2", "K3"), kernel_counts()))
+    check(tuple(pyramid.values()) == (2 * L, L, L),
+          f"the PR-MoE pyramid launched K1/K2/K3 {pyramid}")
+    grads_ok = all(bool(torch.isfinite(work["layers"][i][k].grad).all())
+                   and float(work["layers"][i][k].grad.abs().sum()) > 0
+                   for i, k in ((0, "w_gate"), (8, "router"), (15, "router"),
+                                (15, "coefficient"), (15, "res_w_down")))
+    check(math.isfinite(float(loss.detach())) and grads_ok, "PR-MoE pyramid loss or gradients")
+    out["prmoe"] = {"model": TRAIN_MODEL, "num_experts": list(PRMOE_EXPERTS),
+                    "use_residual": True, "params": model.config.param_count, "S": S,
+                    "loss": float(loss.detach()), "fwd_bwd_s": pyramid_s, "launches": pyramid}
+    del work, params, model, loss, batch
+    free_memory()
+    emit({"phase": "moe_train", "model": MOE_MODEL, "layers": Lm, "S": S,
+          **out, "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi_line()})
+    return {"train_per_step": per_step, "capacity": out["capacity"]["launches"],
+            "nodrop": out["nodrop"]["launches"], "prmoe": pyramid}
+
+
+def phase_pipeline(seed: int) -> dict:
+    """llama-740m at full width and depth through 4 virtual stages of 4
+    layers, 8 microbatches, in this process (GPipe and 1F1B), against the
+    un-pipelined engine at gas=8 on the same rows and weights: the loss
+    and gradient norm at every step within PIPE_*_RTOL, K1-K3 launches a
+    step, step times.  Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    S, M, P = PIPE_S, PIPE_MICRO, PIPE_STAGES
+    runs = {}
+    for label, kw in (("unpipelined", {}),
+                      ("gpipe", dict(pipeline_stages=P, pipeline_microbatches=M,
+                                     pipeline_schedule="gpipe")),
+                      ("1f1b", dict(pipeline_stages=P, pipeline_microbatches=M,
+                                    pipeline_schedule="1f1b"))):
+        model, engine = _train_engine(seed, S, config_extra={
+            "gradient_accumulation_steps": M}, **kw)
+        cfg = model.config
+        L = cfg.num_layers
+        check(engine.pipelined == bool(kw), f"{label}: pipelined={engine.pipelined}")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, cfg.vocab_size, (M, S), generator=gen,
+                                            device="cuda")}
+        per_step = (2 * L * M, L * M, L * M)
+        torch.cuda.reset_peak_memory_stats()
+        # the path: counts to 0 just before, read just after
+        reset_counts()
+        losses, step_s, norms = [], [], []
+        for _ in range(PIPE_STEPS):
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(batch=batch)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            norms.append(engine.get_global_grad_norm())
+            got = tuple(a - b for a, b in zip(kernel_counts(), before))
+            check(got == per_step, f"pipeline {label}: a step launched K1/K2/K3 {got}, "
+                                   f"expected {per_step}")
+        runs[label] = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+                       "tokens_per_s": M * S / step_s[-1],
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches_per_step": dict(zip(("K1", "K2", "K3"), per_step))}
+        del engine, model, batch
+        free_memory()
+    ref = runs["unpipelined"]
+    for label in ("gpipe", "1f1b"):
+        r = runs[label]
+        r["loss_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                     for a, b in zip(r["losses"], ref["losses"]))
+        r["grad_norm_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                          for a, b in zip(r["grad_norms"], ref["grad_norms"]))
+        r["step_time_vs_unpipelined"] = r["step_s"][-1] / ref["step_s"][-1]
+    rec = {"phase": "pipeline", "model": TRAIN_MODEL, "S": S, "stages": P,
+           "layers_per_stage": L // P, "microbatches": M, "virtual": True,
+           "loss_rtol": PIPE_LOSS_RTOL, "grad_norm_rtol": PIPE_NORM_RTOL, **runs,
+           "bubble_share_model": (P - 1) / (M + P - 1),
+           "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi_line()}
+    emit(rec)
+    for label in ("gpipe", "1f1b"):
+        check(runs[label]["loss_max_rel_diff"] <= PIPE_LOSS_RTOL
+              and runs[label]["grad_norm_max_rel_diff"] <= PIPE_NORM_RTOL,
+              f"pipeline {label} strays from the un-pipelined engine: {runs[label]}")
+    return {"per_step": runs["gpipe"]["launches_per_step"]}
+
+
+def _tp_card_ep4_mixtral8(seed: int, world: int, rank: int) -> dict:
+    """Mixtral's widths at MOE_CARD_LAYERS layers, the capacity path, over
+    an expert axis of ``world`` (each card 8/world experts of every layer,
+    the buffers exchanged over 'expert') against ZeRO-3 over dp=``world``,
+    the same weights (the seed's streamed init, on the host) and ``world``
+    rows: losses within TP_DP_LOSS_RTOL at each step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    comm.configure({"enabled": True})
+    model, params = _moe_params(MOE_CARD_LAYERS, seed, device="cpu")
+    S = MOE_TRAIN_S
+    cfg = dataclasses.replace(model.config, moe_drop_tokens=True, max_seq_len=S)
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (world, S), generator=gen,
+                                        device="cuda")}
+    out = {}
+    for name, mesh, stage in (("dp", MeshLayout(dp=world), 3),
+                              ("ep", MeshLayout(ep=world), 1)):
+        from deepspeed_tpu_torch.models import CausalLM
+
+        config = {**TRAIN_CONFIG, "seed": seed, "zero_optimization": {"stage": stage}}
+        engine, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=config,
+                                                    params=params, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, comms = _zero_steps(engine, batch, (2 * L, L, L), by_axis=True)
+        out[name] = {"losses": losses, "step_s": step_s,
+                     "median_step_s": statistics.median(step_s[1:]),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+                     "collectives_per_step_by_axis": comms[-1],
+                     "local_experts": int(engine.state.params["layers"]["w_gate"].shape[1])}
+        del engine
+        free_memory()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["ep"]["losses"], out["dp"]["losses"]))
+    check(rel <= TP_DP_LOSS_RTOL, f"ep4_mixtral8: ep={world} losses differ from ZeRO-3 "
+                                  f"dp={world}'s by {rel}: {out}")
+    return {"model": MOE_MODEL, "layers": L, "S": S, "ep": world, "path": "capacity",
+            **out["ep"], "zero3_dp": out["dp"], "loss_max_rel_diff_vs_dp": rel}
+
+
+def _tp_card_pp4_7b(seed: int, world: int, rank: int) -> dict:
+    """llama2-7b over a 'pipe' axis of ``world`` (each card 32/world
+    layers), GPipe and 1F1B, M=``world`` microbatches of one row, against
+    ZeRO-3 over dp=``world`` on the same ``world`` rows and default init:
+    losses within TP_DP_LOSS_RTOL at each step."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout
+
+    comm.configure({"enabled": True})
+    name, S = PP_CARD_MODEL, PP_CARD_S
+    out = {}
+    for label, mesh, stage, kw, gas in (
+            ("dp", MeshLayout(dp=world), 3, {}, 1),
+            ("gpipe", MeshLayout(pp=world), 0,
+             dict(pipeline_stages=world, pipeline_microbatches=world,
+                  pipeline_schedule="gpipe"), world),
+            ("1f1b", MeshLayout(pp=world), 0,
+             dict(pipeline_stages=world, pipeline_microbatches=world,
+                  pipeline_schedule="1f1b"), world)):
+        model, engine = _train_engine(
+            seed, S, name=name, mesh=mesh, config_extra={
+                "zero_optimization": {"stage": stage},
+                "gradient_accumulation_steps": gas}, **kw)
+        cfg = model.config
+        L = cfg.num_layers
+        per_rank = (2 * L, L, L) if not kw else (2 * (L // world) * world,
+                                                 (L // world) * world, (L // world) * world)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, cfg.vocab_size, (world, S), generator=gen,
+                                            device="cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, comms = _zero_steps(engine, batch, per_rank, by_axis=True)
+        out[label] = {"losses": losses, "step_s": step_s,
+                      "median_step_s": statistics.median(step_s[1:]),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+                      "launches_per_step_rank": dict(zip(("K1", "K2", "K3"), per_rank)),
+                      "collectives_per_step_by_axis": comms[-1]}
+        del engine, model, batch
+        free_memory()
+    rels = {label: max(abs(a - b) / abs(b) for a, b in zip(out[label]["losses"],
+                                                           out["dp"]["losses"]))
+            for label in ("gpipe", "1f1b")}
+    check(max(rels.values()) <= TP_DP_LOSS_RTOL,
+          f"pp4_7b: pipelined losses differ from ZeRO-3 dp={world}'s: {rels} {out}")
+    return {"model": name, "S": S, "pp": world, "microbatches": world, **out,
+            "loss_max_rel_diff_vs_dp": rels}
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -4876,9 +5403,11 @@ def main() -> int:
                     help="after every phase, the configurations that need tensor "
                          "parallelism, one process per card (several cards)")
     ap.add_argument("--tp-cards-only", nargs="+",
-                    choices=TP_CARD_CONFIGS + SP_CARD_CONFIGS, metavar="CONFIG",
+                    choices=TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS,
+                    metavar="CONFIG",
                     help="only the build, then these configurations, one process "
-                         f"per card (of {', '.join(TP_CARD_CONFIGS + SP_CARD_CONFIGS)})")
+                         "per card (of " + ", ".join(
+                             TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS) + ")")
     ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     args = ap.parse_args()
@@ -4939,6 +5468,9 @@ def main() -> int:
     phase_frozen(args.seed)
     phase_checkpoint(args.seed)
     serve_launches, k4_launches, item6 = phase_serving(args.seed, args.profile)
+    moe_serve = phase_moe_serving(args.seed)
+    moe_train = phase_moe_train(args.seed)
+    pipe = phase_pipeline(args.seed)
     if args.tp_cards:
         phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -4957,6 +5489,17 @@ def main() -> int:
                 **{key: rec[key] for key in (
                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "unmasked_ms", "ratio_to_unmasked")}}
+
+    def item9_launches(i):
+        """The MoE and pipeline paths' launches of K1 (i=0), K2, K3."""
+        key = ("K1", "K2", "K3")[i]
+        rec = {"launches_moe_train_per_step": moe_train["train_per_step"][i],
+               "launches_moe_train": {p: moe_train[p][key] for p in ("capacity", "nodrop")},
+               "launches_prmoe_fwd_bwd": moe_train["prmoe"][key],
+               "launches_pipeline_per_step": pipe["per_step"][key]}
+        if i == 0:
+            rec["launches_moe_forward"] = moe_serve["k1_forward"]
+        return rec
 
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
@@ -4985,15 +5528,17 @@ def main() -> int:
                       launches_per_step_save_qkv=remat["save_qkv"]["launches_per_step"]["K1"],
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
-                      ring=ring_record("K1")),
+                      ring=ring_record("K1"), **item9_launches(0)),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
-                      block_mask=block_mask("K2", ":202"), ring=ring_record("K2")),
+                      block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
+                      **item9_launches(1)),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
-                      block_mask=block_mask("K3", ":254"), ring=ring_record("K3")),
+                      block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
+                      **item9_launches(2)),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], design=K4_DESIGN, l2="flushed",
@@ -5007,6 +5552,9 @@ def main() -> int:
                       launches_hf_load_serving=item6["hf_load"]["k4"],
                       launches_quantized_serving=item6["quantized"]["k4"],
                       launches_serving_extras=item6["serving_extras"]["launches"],
+                      launches_moe_serving=moe_serve["k4"]["counter"],
+                      launches_moe_serving_per_tick=moe_serve["k4"]["per_tick"],
+                      moe_serving_ticks=moe_serve["k4"]["ticks"],
                       int8={"case": "serve", "design": K4_INT8_DESIGN,
                             **{key: dec["serve-int8"][key] for key in (
                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -38,6 +38,11 @@ tree, which ``models/transformer.py`` dequantizes a layer at a time.  A
 model without a KV cache (a bare ``apply_fn``) generates by the
 full-recompute fallback (``_generate_uncached``).
 
+Expert parallelism (``moe.ep_size``, as the JAX engine): the mesh gets
+an 'expert' axis and each rank holds its experts of every MoE leaf; the
+capacity path exchanges its buffers over the axis.  Paged serving keeps
+the JAX package's ('data', 'model') serving mesh with the experts whole.
+
 Not ported yet (raises ``NotImplementedError`` naming the ROADMAP row):
 the serving fleet.
 """
@@ -75,17 +80,27 @@ def place_params(model, params, mesh, dtype=None, device=None):
                 params, tensor_parallel.auto_tp_specs(params, n),
                 comm.axis_index("model"), n)
     elif mesh is not None and params is not None:
+        from .. import comm
         from ..parallel.mesh import MeshLayout, layout_of
         from ..utils.tree import tree_leaves
 
-        n = (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
+        layout = mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)
+        n = layout.tp
         # the shards' shapes: the whole tree's on the meta device, cut
-        shards = model.shard_params(model.init_fn(torch.Generator(), device="meta"), 0, n)
-        if any(tuple(x.shape) != tuple(w.shape) for x, w in zip(
-                tree_leaves(params), tree_leaves(shards))):
-            from .. import comm
-
-            params = model.shard_params(params, comm.axis_index("model"), n)
+        whole = model.init_fn(torch.Generator(), device="meta")
+        if layout.ep > 1:   # experts cut over 'expert' (moe.ep_size)
+            cuts = {"model": (0, n), "expert": (0, layout.ep)}
+            shards = model.cut_params(whole, cuts)
+            if any(tuple(x.shape) != tuple(w.shape) for x, w in zip(
+                    tree_leaves(params), tree_leaves(shards))):
+                params = model.cut_params(params, {
+                    "model": (comm.axis_index("model"), n),
+                    "expert": (comm.axis_index("expert"), layout.ep)})
+        else:
+            shards = model.shard_params(whole, 0, n)
+            if any(tuple(x.shape) != tuple(w.shape) for x, w in zip(
+                    tree_leaves(params), tree_leaves(shards))):
+                params = model.shard_params(params, comm.axis_index("model"), n)
     if dtype is not None:
         params = _cast_tree(params, dtype, device)
     return params
@@ -101,11 +116,11 @@ def check_mesh_model(model, mesh) -> int:
     return (mesh if isinstance(mesh, MeshLayout) else layout_of(mesh)).tp
 
 
-def install_mesh(mesh, tp: int = 1):
+def install_mesh(mesh, tp: int = 1, ep: int = 1):
     """``mesh`` (a ``parallel.mesh.MeshLayout`` or a mesh built by
-    ``parallel.mesh``; None: the world with a model axis of ``tp``)
-    installed as the global mesh over the process group, which must exist
-    (one rank per device)."""
+    ``parallel.mesh``; None: the world with a model axis of ``tp`` and an
+    expert axis of ``ep``) installed as the global mesh over the process
+    group, which must exist (one rank per device)."""
     import torch.distributed as dist
 
     from ..parallel import mesh as mesh_mod
@@ -122,7 +137,7 @@ def install_mesh(mesh, tp: int = 1):
                            "deepspeed_tpu_torch.comm.init_distributed() (or run "
                            "under torchrun) first")
     if mesh is None:
-        mesh = mesh_mod.MeshLayout.from_world(dist.get_world_size(), tp=tp)
+        mesh = mesh_mod.MeshLayout.from_world(dist.get_world_size(), tp=tp, ep=ep)
     if isinstance(mesh, mesh_mod.MeshLayout):
         return mesh_mod.initialize_mesh(mesh)
     mesh_mod.set_mesh(mesh)
@@ -135,6 +150,8 @@ def _cast_tree(tree, dtype: torch.dtype, device: torch.device):
     stays near one copy of the tree plus one leaf."""
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):   # a PR-MoE pyramid's layer list
+        return type(tree)(_cast_tree(v, dtype, device) for v in tree)
     if tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device=device)
@@ -216,9 +233,10 @@ class InferenceEngine:
         over the process group), installed as the global mesh; None for one
         device."""
         self.tp = 1
-        if mesh is None and tp == 1:
+        ep = self._config.moe.ep_size   # JAX inference/engine.py:79-82
+        if mesh is None and tp == 1 and ep == 1:
             return None
-        mesh = install_mesh(mesh, tp)
+        mesh = install_mesh(mesh, tp, ep)
         n = check_mesh_model(model, mesh)
         if tp not in (1, n):
             raise ValueError(f"tensor_parallel.tp_size={tp} != the mesh's model "
@@ -253,6 +271,14 @@ class InferenceEngine:
             raise ValueError(
                 "serving() needs a model with the paged decode contract "
                 "(apply_paged); see models.CausalLM")
+        from ..parallel.mesh import MeshLayout, layout_of
+
+        if self.mesh is not None and (self.mesh if isinstance(self.mesh, MeshLayout)
+                                      else layout_of(self.mesh)).ep > 1:
+            raise ValueError(
+                "paged serving runs on a ('data', 'model') serving mesh with the "
+                "experts whole, as in the JAX package: build the engine without "
+                "moe.ep_size (initialize_serving_mesh(tp=...))")
         from .serving import ServingEngine
 
         kwargs.setdefault("device", self.device)

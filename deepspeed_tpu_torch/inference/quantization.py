@@ -34,6 +34,8 @@ MIN_QUANT_SIZE = 4096
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
     return fn(tree)
 
 

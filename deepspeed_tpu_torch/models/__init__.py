@@ -24,16 +24,16 @@ from torch import nn
 
 from ..parallel import tensor_parallel
 from ..utils.tree import tree_leaves, tree_map_with_path
-from .transformer import (CONFIGS, PAGE_SIZE, TransformerConfig,
-                          cross_entropy_loss, cross_entropy_terms, forward, forward_cached,
-                          forward_paged, get_config, init_cache,
-                          init_paged_cache, init_params, param_specs,
-                          shard_params)
+from .transformer import (CONFIGS, PAGE_SIZE, TransformerConfig, cross_entropy_loss,
+                          cross_entropy_terms, cut_params, forward, forward_cached,
+                          forward_paged, get_config, has_moe, init_cache,
+                          init_paged_cache, init_params, moe_layer_experts,
+                          param_specs, pipeline_loss_and_backward, shard_params)
 
 __all__ = ["CausalLM", "TransformerConfig", "CONFIGS", "get_config", "forward",
            "forward_cached", "forward_paged", "init_cache", "init_paged_cache",
-           "init_params", "param_specs", "shard_params", "cross_entropy_loss",
-           "cross_entropy_terms"]
+           "init_params", "param_specs", "shard_params", "cut_params", "has_moe",
+           "moe_layer_experts", "cross_entropy_loss", "cross_entropy_terms"]
 
 
 class CausalLM(nn.Module):
@@ -85,14 +85,15 @@ class CausalLM(nn.Module):
 
     def init_fn(self, generator: Optional[torch.Generator] = None, device=None,
                 dtype: torch.dtype = torch.float32, tp=None,
-                streamed: bool = False) -> Dict[str, Any]:
+                streamed: bool = False, cuts=None) -> Dict[str, Any]:
         """Random weights drawn from ``generator`` on ``device``;
         ``tp=(index, n)``: model-axis shard ``index`` of ``n`` of the same
-        weights, each leaf drawn whole and cut; ``streamed=True``: the
-        layer-streamed init, whose shards are drawn a layer at a time and
-        whose values differ (``transformer.init_params``)."""
+        weights, each leaf drawn whole and cut (``cuts``: the 'expert' and
+        'pipe' axes too); ``streamed=True``: the layer-streamed init, whose
+        shards are drawn a layer at a time and whose values differ
+        (``transformer.init_params``)."""
         return init_params(self.config, generator, device=device, dtype=dtype, tp=tp,
-                           streamed=streamed)
+                           streamed=streamed, cuts=cuts)
 
     @property
     def param_specs(self) -> Dict[str, Any]:
@@ -104,6 +105,11 @@ class CausalLM(nn.Module):
         """Model-axis shard ``index`` of ``n`` of a full tree (padded where
         ``n`` does not divide a dim)."""
         return shard_params(self.config, params, index, n)
+
+    def cut_params(self, params: Dict[str, Any], cuts):
+        """This rank's pieces of a full tree over the 'model', 'expert' and
+        'pipe' axes (``cuts``: axis -> (index, n))."""
+        return cut_params(self.config, params, cuts)
 
     def shard_sequence(self, batch, index: int, n: int) -> Dict[str, Any]:
         """Rank ``index``'s contiguous slice of ``n`` of each row of a
@@ -189,23 +195,34 @@ class CausalLM(nn.Module):
         """(sum of the token NLL, count of labelled tokens) of a batch: the
         data-parallel engine's loss contract, so that the loss and its
         gradient are the global batch's mean whatever each rank's share of
-        ignored labels."""
+        ignored labels.  An MoE model adds a third term, the scaled aux
+        loss of this rank's rows."""
         tokens, labels, positions, pld_theta = self._split(batch)
         seq = {k: batch[k] for k in ("seq_offset", "seq_len")
                if isinstance(batch, dict) and k in batch}
         sharded = tensor_parallel.active()
-        logits = self.apply_fn(params, tokens, positions=positions, rng=rng,
-                               deterministic=deterministic,
-                               pld_theta=None if deterministic else pld_theta,
-                               gather_logits=not sharded, **seq)
+        moe = has_moe(self.config)
+        out = self.apply_fn(params, tokens, positions=positions, rng=rng,
+                            deterministic=deterministic,
+                            pld_theta=None if deterministic else pld_theta,
+                            gather_logits=not sharded, return_aux=moe, **seq)
+        logits = out[0] if moe else out
         if sharded:
-            return tensor_parallel.vocab_parallel_cross_entropy_terms(
+            terms = tensor_parallel.vocab_parallel_cross_entropy_terms(
                 logits, labels, vocab_size=self.config.vocab_size)
-        return cross_entropy_terms(logits, labels)
+        else:
+            terms = cross_entropy_terms(logits, labels)
+        if moe:
+            # the MoE load-balancing term, JAX's moe_aux_loss_coef * aux
+            # (models/__init__.py:147-155): a third term, this rank's mean
+            # over its groups (the engine averages it over the data ranks)
+            return terms + (self.config.moe_aux_loss_coef * out[1]["moe_aux_loss"],)
+        return terms
 
     def _loss(self, params, batch, rng, deterministic):
-        total, count = self.loss_terms(params, batch, rng, deterministic)
-        return total / count.clamp(min=1)
+        total, count, *aux = self.loss_terms(params, batch, rng, deterministic)
+        loss = total / count.clamp(min=1)
+        return loss + aux[0] if aux else loss
 
     def loss_fn(self, params, batch, rng: Optional[torch.Generator] = None):
         """Training loss (dropout on, drawn from ``rng``)."""
@@ -213,6 +230,29 @@ class CausalLM(nn.Module):
 
     def eval_fn(self, params, batch, rng: Optional[torch.Generator] = None):
         return self._loss(params, batch, rng, deterministic=True)
+
+    def pipeline_backward(self, params, batch, rng: Optional[torch.Generator] = None,
+                          loss_scale: float = 1.0, transport=None, stages=None,
+                          reduce_count=None, aux_ranks: int = 1, row0: int = 0):
+        """A pipelined training step's forward and backward over ``batch``
+        (the engine's whole window of this rank's rows), through
+        ``config.pipeline_stages`` stages on ``config.pipeline_schedule``
+        ('gpipe' or '1f1b'): gradients of ``loss_scale`` x the loss
+        accumulate into the ``.grad`` of ``params``'s leaves.
+        ``reduce_count`` sums the labelled-token count over the data ranks.
+        Returns (the last stage's objective per microbatch, the MoE aux
+        terms summed or None) (``transformer.pipeline_loss_and_backward``)."""
+        tokens, labels, positions, _ = self._split(batch)
+        if positions is not None:
+            raise NotImplementedError("pipeline path requires default positions")
+        count = (labels != -100).sum()
+        if reduce_count is not None:
+            count = reduce_count(count)
+        return pipeline_loss_and_backward(
+            self.config, params, tokens, labels, rng=rng, attn_impl=self.attn_impl,
+            loss_scale=loss_scale, transport=transport, stages=stages, count=count,
+            aux_ranks=aux_ranks, row0=row0)
+
 
     @property
     def param_count(self) -> int:

@@ -1,8 +1,10 @@
 """Weights carried across packages: the JAX parameter tree (as numpy
 arrays, stacked ``[L, ...]`` leaves under JAX's key names) to the port's
 tree and back, and a JAX paged KV pool to the port's.  The layouts are the
-same (``x @ W``; pools ``[L, P, page, Hkv, hd]``), so leaves map one to one
-without transposes."""
+same (``x @ W``; pools ``[L, P, page, Hkv, hd]``; MoE experts ``[L, E, d,
+f]``; a PR-MoE pyramid's list of per-layer dicts), so leaves map one to
+one without transposes; only a pipelined tree's layer stacks are
+reshaped (JAX ``[P, L/P, ...]``, the port ``[L, ...]``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -12,24 +14,29 @@ import torch
 
 
 def params_from_jax(np_tree: Dict[str, Any], device="cuda",
-                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                    dtype: Optional[torch.dtype] = None,
+                    pipeline_stages: int = 1) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``.
     Floating leaves are cast to ``dtype`` when given; integer leaves keep
-    theirs.  Pass the result to ``CausalLM.load_params`` or to
-    ``init_inference(params=...)``."""
+    theirs.  A PR-MoE pyramid's ``layers`` list of per-layer dicts stays a
+    list.  ``pipeline_stages > 1``: the JAX tree's ``[P, L/P, ...]`` layer
+    stacks become the port's ``[L, ...]``.  Pass the result to
+    ``CausalLM.load_params`` or to ``init_inference(params=...)``."""
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            raise NotImplementedError(
-                "per-layer parameter lists (PR-MoE pyramid) are not ported yet "
-                "(ROADMAP queue 1, item 9)")
+            return [conv(v) for v in x]
         t = torch.from_numpy(np.array(x))   # a writable copy
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
 
-    return conv(np_tree)
+    out = conv(np_tree)
+    if pipeline_stages > 1:
+        out["layers"] = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                         for k, v in out["layers"].items()}
+    return out
 
 
 LAYER_KEYS = ("attn_norm_scale", "attn_norm_bias", "mlp_norm_scale",
@@ -66,15 +73,23 @@ def pool_from_jax(np_cache: Dict[str, Any], device="cuda",
     return out
 
 
-def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+def params_to_numpy(tree: Dict[str, Any], pipeline_stages: int = 1) -> Dict[str, Any]:
     """The inverse: nested dict of tensors -> nested dict of numpy arrays
-    (bf16/fp16 leaves widen to float32, which numpy can hold exactly)."""
+    (bf16/fp16 leaves widen to float32, which numpy can hold exactly; a
+    pyramid's list of layers stays a list; ``pipeline_stages > 1`` gives
+    the JAX pipeline tree's ``[P, L/P, ...]`` layer stacks)."""
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         t = x.detach().cpu()
         if t.dtype in (torch.bfloat16, torch.float16):
             t = t.float()
         return t.numpy()
 
-    return conv(tree)
+    out = conv(tree)
+    if pipeline_stages > 1:
+        out["layers"] = {k: v.reshape((pipeline_stages, -1) + v.shape[1:])
+                         for k, v in out["layers"].items()}
+    return out

@@ -13,10 +13,13 @@ the JAX package's ``_build_block``: ``nothing_saveable``, ``save_attn``,
 ``save_qkv``, ``save_matmuls``, ``dots_saveable``), the KV-cached decode
 path (``init_cache``/``forward_cached``), the paged serving path
 (``init_paged_cache``/``forward_paged``/``cow_copy_pool``, decode
-attention through the K4 kernel) and ``cross_entropy_loss``.  Raising
-``NotImplementedError`` until their slices land (ROADMAP queue 1): MoE
-layers, pipeline stages, random-LTD, progressive layer drop, activation
-fake-quant, and the int8 pages and per-slot adapters of the paged path.
+attention through the K4 kernel) and ``cross_entropy_loss``.  MoE layers
+(``num_experts`` > 1, or a PR-MoE pyramid's tuple: ``moe/sharded_moe.py``,
+the aux loss summed over the layers and returned by ``forward(...,
+return_aux=True)``) run on every path; a pipelined config
+(``pipeline_stages`` > 1) trains through ``pipeline_loss_and_backward``.
+Raising ``NotImplementedError`` until their slices land (ROADMAP queue 1):
+random-LTD, progressive layer drop, activation fake-quant.
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
@@ -65,6 +68,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device
+from ..moe.sharded_moe import MoEConfig, moe_ffn
 from ..ops.kernels.common import NEG_INF
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import flash_attention
@@ -138,7 +142,8 @@ class TransformerConfig:
 
     @property
     def param_count(self) -> int:
-        """Parameters of the dense tree (MoE layers are not ported)."""
+        """Parameters of the tree (experts, routers and residual branches
+        of MoE layers counted)."""
         d, f, v, L = self.hidden_size, self.intermediate_size, self.vocab_size, self.num_layers
         hd, nh, nkv = self.dims_per_head, self.num_heads, self.kv_heads
         attn = d * hd * nh + 2 * d * hd * nkv + hd * nh * d
@@ -147,6 +152,17 @@ class TransformerConfig:
         mlp = 3 * d * f if self.activation == "swiglu" else 2 * d * f
         if self.mlp_bias:
             mlp += (2 * f if self.activation == "swiglu" else f) + d
+        experts = (tuple(self.num_experts)
+                   if isinstance(self.num_experts, (tuple, list))
+                   else (self.num_experts,) * L)
+        total_mlp = 0
+        for E in experts:
+            m = mlp
+            if E > 1:
+                m = mlp * E + d * E  # experts + router
+                if self.moe_use_residual:
+                    m += mlp + 2 * d  # dense residual branch + coefficient
+            total_mlp += m
         n_norms = 1 if self.shared_layernorm else 2
         norms = n_norms * d * (2 if self.norm == "layernorm" else 1)
         embed = v * d * (1 if self.tie_embeddings else 2)
@@ -160,7 +176,7 @@ class TransformerConfig:
             extra += self.type_vocab_size * d
         final_norm = (d * (2 if self.norm == "layernorm" else 1)
                       if self.final_norm else 0)
-        return L * (attn + norms + mlp) + embed + pos + extra + final_norm
+        return L * (attn + norms) + total_mlp + embed + pos + extra + final_norm
 
 
 # -- named configs (sizes from the public model cards) --
@@ -221,12 +237,41 @@ CONFIGS: Dict[str, TransformerConfig] = {
         moe_use_residual=True, scan_layers=False, remat=False),
 }
 
-_MOE_ROW = "MoE layers are not ported yet (ROADMAP queue 1, item 9)"
+# Mixtral-8x7B's published widths (``mistralai/Mixtral-8x7B-v0.1``
+# config.json): every token kept (no capacity drops) and the router aux
+# coefficient 0.02; not in the JAX package's table, made of its fields
+CONFIGS["mixtral-8x7b"] = TransformerConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+    num_heads=32, num_kv_heads=8, max_seq_len=32768, rope_theta=1e6,
+    norm_eps=1e-5, num_experts=8, moe_top_k=2, moe_drop_tokens=False,
+    moe_aux_loss_coef=0.02)
 
 
 def get_config(name_or_cfg, **overrides) -> TransformerConfig:
     cfg = CONFIGS[name_or_cfg] if isinstance(name_or_cfg, str) else name_or_cfg
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def moe_layer_experts(cfg: TransformerConfig) -> Tuple[int, ...]:
+    """Per-layer expert counts; a scalar broadcasts (PR-MoE pyramids give
+    one count a layer, 1 = a dense layer)."""
+    if isinstance(cfg.num_experts, (tuple, list)):
+        if len(cfg.num_experts) != cfg.num_layers:
+            raise ValueError(
+                f"num_experts tuple has {len(cfg.num_experts)} entries for "
+                f"{cfg.num_layers} layers")
+        return tuple(int(e) for e in cfg.num_experts)
+    return (int(cfg.num_experts),) * cfg.num_layers
+
+
+def has_moe(cfg: TransformerConfig) -> bool:
+    return max(moe_layer_experts(cfg)) > 1
+
+
+def _het(cfg: TransformerConfig) -> bool:
+    """A PR-MoE pyramid: per-layer expert counts, ``params['layers']`` a
+    list of per-layer dicts."""
+    return isinstance(cfg.num_experts, (tuple, list))
 
 
 def layer_windows(cfg: TransformerConfig) -> Optional[list]:
@@ -247,11 +292,26 @@ def _sm_scale(cfg: TransformerConfig, hd: int) -> float:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if isinstance(cfg.num_experts, (tuple, list)) or cfg.num_experts > 1:
-        raise NotImplementedError(_MOE_ROW)
+    if _het(cfg):
+        moe_layer_experts(cfg)
+        if cfg.pipeline_stages > 1:
+            raise NotImplementedError(
+                "per-layer num_experts (PR-MoE pyramid) + pipeline parallelism "
+                "is not supported (stages need uniform layer stacks)")
+        if cfg.mlp_bias or cfg.attn_bias:
+            raise NotImplementedError(
+                "PR-MoE pyramid configs do not support attn/mlp biases")
+    if has_moe(cfg) and cfg.mlp_bias and cfg.activation == "swiglu":
+        raise ValueError("swiglu MoE experts do not support mlp_bias")
     if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            "pipeline parallelism is not ported yet (ROADMAP queue 1, item 9)")
+        if cfg.num_layers % cfg.pipeline_stages:
+            raise ValueError(
+                f"num_layers={cfg.num_layers} not divisible by pipeline "
+                f"stages={cfg.pipeline_stages}")
+        if cfg.attention_layers is not None:
+            raise NotImplementedError(
+                "pipeline parallelism with per-layer attention types "
+                "(attention_layers) is not supported")
     if cfg.act_quant_bits:
         raise NotImplementedError(
             "activation fake-quant is not ported yet (ROADMAP queue 1, item 11)")
@@ -267,9 +327,31 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     ``param_specs``), as PartitionSpec-like tuples: columns for wq/wk/wv,
     w_gate/w_up/w_in and their biases, rows for wo/w_down, a vocab-parallel
     ``embed`` and ``lm_head``, norms and the other biases replicated.  The
-    ZeRO planner composes ('data', 'expert') onto them."""
+    ZeRO planner composes ('data', 'expert') onto them.
+
+    MoE layers (the JAX package's entries): experts on 'expert' with
+    expert-internal tensor parallelism on 'model' (``[L, E, d, f]`` is
+    ``(None, 'expert', None, 'model')``), the router and the residual
+    coefficient replicated, the residual branch Megatron-cut as a dense
+    MLP.  A PR-MoE pyramid gets a list of per-layer dicts.  Under
+    ``pipeline_stages > 1`` the layer dim of every stacked leaf rides
+    'pipe' (the port keeps ``[L, ...]`` stacks: a pipe rank holds its
+    stage's contiguous layers, where JAX reshapes to ``[P, L/P, ...]``)."""
     _check_supported(cfg)
-    col, row, rep = (None, None, "model"), (None, "model", None), (None, None)
+    if _het(cfg):
+        return _param_specs_het(cfg)
+    layers = _layer_specs(cfg, cfg.num_experts, stacked=True)
+    if cfg.pipeline_stages > 1:
+        layers = {k: ("pipe",) + tuple(v[1:]) for k, v in layers.items()}
+    return _top_specs(cfg, layers)
+
+
+def _layer_specs(cfg: TransformerConfig, E: int, stacked: bool) -> Dict[str, Any]:
+    """One layer's specs (with a leading None for the ``[L]`` dim when
+    ``stacked``)."""
+    lead = (None,) if stacked else ()
+    col, row = lead + (None, "model"), lead + ("model", None)
+    rep = lead + (None,)
     layers: Dict[str, Any] = {"attn_norm_scale": rep, "wq": col, "wk": col,
                               "wv": col, "wo": row}
     if not cfg.shared_layernorm:
@@ -278,19 +360,45 @@ def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
         layers["attn_norm_bias"] = rep
         if not cfg.shared_layernorm:
             layers["mlp_norm_bias"] = rep
-    if cfg.activation == "swiglu":
-        layers.update(w_gate=col, w_up=col, w_down=row)
+    if E > 1:
+        # the reference's expert-parallel groups (utils/groups.py:113)
+        mcol = lead + ("expert", None, "model")
+        mrow = lead + ("expert", "model", None)
+        layers["router"] = lead + (None, None)
     else:
-        layers.update(w_in=col, w_down=row)
+        mcol, mrow = col, row
+    if cfg.activation == "swiglu":
+        layers.update(w_gate=mcol, w_up=mcol, w_down=mrow)
+    else:
+        layers.update(w_in=mcol, w_down=mrow)
+    if E > 1 and cfg.moe_use_residual:
+        if cfg.activation == "swiglu":
+            layers.update(res_w_gate=col, res_w_up=col, res_w_down=row)
+        else:
+            layers.update(res_w_in=col, res_w_down=row)
+        layers["coefficient"] = lead + (None, None)
     if cfg.attn_bias:
-        layers.update(bq=(None, "model"), bk=(None, "model"), bv=(None, "model"),
-                      bo=(None, None))
+        layers.update(bq=lead + ("model",), bk=lead + ("model",),
+                      bv=lead + ("model",), bo=rep)
     if cfg.mlp_bias:
         if cfg.activation == "swiglu":
-            layers.update(b_gate=(None, "model"), b_up=(None, "model"))
+            layers.update(b_gate=lead + ("model",), b_up=lead + ("model",))
+        elif E > 1:      # per-expert biases [L, E, f]
+            layers["b_in"] = lead + ("expert", "model")
         else:
-            layers["b_in"] = (None, "model")
-        layers["b_down"] = (None, None)
+            layers["b_in"] = lead + ("model",)
+        layers["b_down"] = (lead + ("expert", None) if E > 1
+                            and cfg.activation != "swiglu" else rep)
+    return layers
+
+
+def _param_specs_het(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Per-layer spec dicts mirroring :func:`_init_params_het`."""
+    return _top_specs(cfg, [_layer_specs(cfg, E, stacked=False)
+                            for E in moe_layer_experts(cfg)])
+
+
+def _top_specs(cfg: TransformerConfig, layers) -> Dict[str, Any]:
     specs: Dict[str, Any] = {"embed": ("model", None), "layers": layers}
     if cfg.final_norm:
         specs["final_norm_scale"] = ()
@@ -321,7 +429,12 @@ def tp_units(cfg: TransformerConfig) -> Dict[str, Any]:
     specs = param_specs(cfg)
     hd = cfg.dims_per_head
     units: Dict[str, Any] = {k: 1 for k in specs if k != "layers"}
-    units["layers"] = {k: hd if k in _HEAD_LEAVES else 1 for k in specs["layers"]}
+
+    def layer(ls):
+        return {k: hd if k in _HEAD_LEAVES else 1 for k in ls}
+
+    units["layers"] = ([layer(ls) for ls in specs["layers"]] if _het(cfg)
+                       else layer(specs["layers"]))
     return units
 
 
@@ -361,7 +474,8 @@ def _leaf_seed(base: int, name: str, layer: int) -> int:
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
                 device=None, dtype: torch.dtype = torch.float32,
                 tp: Optional[Tuple[int, int]] = None,
-                streamed: bool = False) -> Dict[str, Any]:
+                streamed: bool = False,
+                cuts: Optional[Dict[str, Tuple[int, int]]] = None) -> Dict[str, Any]:
     """Random parameters with the JAX package's keys, shapes and scales
     (normal * initializer_range; residual projections / sqrt(2L); norms 1,
     biases 0).  Each leaf is drawn in fp32 from ``generator`` and cast to
@@ -373,6 +487,9 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     same draws, in the same order, as the whole tree, each leaf cut and
     freed before the next is drawn, so one seed names the same weights at
     every model axis and peak memory is the shards plus one fp32 leaf.
+    ``cuts`` (``{"expert": (i, n), "pipe": (i, n)}``, ``"model"`` as
+    ``tp``) cuts the other axes of ``param_specs`` the same way
+    (:func:`cut_params`).
 
     ``streamed=True`` draws the layer-streamed init instead, for a model
     whose largest leaf does not fit one device: ``generator`` gives one
@@ -383,14 +500,24 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     every shard equals :func:`shard_params` of it.  The values differ from
     ``jax.random``'s: load a JAX tree through ``models/convert.py`` to
     compare the two packages.  The device is ``device``, else the
-    generator's, else the accelerator's (CUDA; raises without a card)."""
+    generator's, else the accelerator's (CUDA; raises without a card).
+
+    MoE layers add the router ``[L, d, E]`` and ``[L, E, ...]`` expert
+    leaves (and the residual branch and ``coefficient`` under
+    ``moe_use_residual``); a PR-MoE pyramid (``num_experts`` a tuple)
+    gives ``params['layers']`` as a list of per-layer dicts, each layer's
+    leaves drawn in turn."""
     _check_supported(cfg)
     d, f = cfg.hidden_size, cfg.intermediate_size
     hd, nh, nkv, L = cfg.dims_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
     std = cfg.initializer_range
-    index, n = tp if tp is not None else (0, 1)
+    cuts = dict(cuts or {})
+    if tp is not None:
+        cuts["model"] = tp
+    index, n = cuts.get("model", (0, 1))
     specs = param_specs(cfg)
     units = tp_units(cfg)
+    het = _het(cfg)
     device = resolve_device(device if device is not None or generator is None
                             else generator.device)
     if generator is None:
@@ -399,89 +526,151 @@ def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = N
     base = (int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                               device=generator.device)) if streamed else 0)
 
-    def unit_of(name):
-        return units["layers"][name] if name in units["layers"] else units.get(name, 1)
+    def cut(x, spec, u):
+        x = _tp.shard_leaf(x, spec, index, n, u)   # a copy: frees the whole
+        return _cut_other(x, spec, cuts)
 
-    def dense(name, shape, spec, scale=std, stacked=False):
-        u = unit_of(name) if stacked else units.get(name, 1)
+    def dense(name, shape, spec, unit, scale=std, stacked=False):
         if not streamed:
             x = torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32)
-            x = _tp.shard_leaf(x, spec, index, n, u)   # a copy: frees the whole
-            return x.mul_(scale).to(dtype)
-        out = []
+            return cut(x, spec, unit).mul_(scale).to(dtype)
+        out = None
         layer_spec = spec[1:] if stacked else spec
         for layer in range(shape[0] if stacked else 1):
             g = torch.Generator(device=device)
             g.manual_seed(_leaf_seed(base, name, layer))
             x = torch.randn(shape[1:] if stacked else shape, generator=g,
                             device=device, dtype=torch.float32)
-            x = _tp.shard_leaf(x, layer_spec, index, n, u)
-            out.append(x.mul_(scale).to(dtype))
-        return torch.stack(out) if stacked else out[0]
-
-    def stacked(name, *shape, scale=std):
-        return dense(name, (L,) + shape, specs["layers"][name], scale, stacked=True)
+            x = _tp.shard_leaf(x, layer_spec, index, n, unit).mul_(scale).to(dtype)
+            if not stacked:
+                return x
+            if out is None:   # the stacked leaf, filled a layer at a time
+                out = torch.empty((shape[0],) + tuple(x.shape), dtype=dtype, device=device)
+            out[layer] = x
+        return _cut_other(out, spec, cuts)
 
     def const(fill, shape, spec, unit=1):
-        return torch.full(_tp.local_shape(shape, spec, n, unit), fill, device=device,
-                          dtype=dtype)
-
-    def lconst(fill, name, *shape):
-        return const(fill, (L,) + shape, specs["layers"][name], unit_of(name))
+        shape = _tp.local_shape(shape, spec, n, unit)
+        return _cut_other(torch.full(shape, fill, device=device, dtype=dtype), spec, cuts)
 
     resid = std / math.sqrt(2 * L)
-    layers: Dict[str, Any] = {
-        "attn_norm_scale": lconst(1.0, "attn_norm_scale", d),
-        "wq": stacked("wq", d, nh * hd),
-        "wk": stacked("wk", d, nkv * hd),
-        "wv": stacked("wv", d, nkv * hd),
-        "wo": stacked("wo", nh * hd, d, scale=resid),
-    }
-    if not cfg.shared_layernorm:
-        layers["mlp_norm_scale"] = lconst(1.0, "mlp_norm_scale", d)
-    if cfg.norm == "layernorm":
-        layers["attn_norm_bias"] = lconst(0.0, "attn_norm_bias", d)
-        if not cfg.shared_layernorm:
-            layers["mlp_norm_bias"] = lconst(0.0, "mlp_norm_bias", d)
-    if cfg.activation == "swiglu":
-        layers["w_gate"] = stacked("w_gate", d, f)
-        layers["w_up"] = stacked("w_up", d, f)
-    else:
-        layers["w_in"] = stacked("w_in", d, f)
-    layers["w_down"] = stacked("w_down", f, d, scale=resid)
-    if cfg.attn_bias:
-        layers["bq"] = lconst(0.0, "bq", nh * hd)
-        layers["bk"] = lconst(0.0, "bk", nkv * hd)
-        layers["bv"] = lconst(0.0, "bv", nkv * hd)
-        layers["bo"] = lconst(0.0, "bo", d)
-    if cfg.mlp_bias:
-        if cfg.activation == "swiglu":
-            layers["b_gate"] = lconst(0.0, "b_gate", f)
-            layers["b_up"] = lconst(0.0, "b_up", f)
-        else:
-            layers["b_in"] = lconst(0.0, "b_in", f)
-        layers["b_down"] = lconst(0.0, "b_down", d)
 
-    params: Dict[str, Any] = {"embed": dense("embed", (cfg.vocab_size, d), specs["embed"]),
+    def layer_leaves(lspecs, lunits, E, lead):
+        """One layer's leaves (``lead`` = (L,) for stacks, () for a
+        pyramid's layer)."""
+        stacked = bool(lead)
+
+        def w(name, *shape, scale=std):
+            return dense(name, lead + shape, lspecs[name], lunits[name], scale, stacked)
+
+        def c(fill, name, *shape):
+            return const(fill, lead + shape, lspecs[name], lunits[name])
+
+        lp: Dict[str, Any] = {
+            "attn_norm_scale": c(1.0, "attn_norm_scale", d),
+            "wq": w("wq", d, nh * hd),
+            "wk": w("wk", d, nkv * hd),
+            "wv": w("wv", d, nkv * hd),
+            "wo": w("wo", nh * hd, d, scale=resid),
+        }
+        if not cfg.shared_layernorm:
+            lp["mlp_norm_scale"] = c(1.0, "mlp_norm_scale", d)
+        if cfg.norm == "layernorm":
+            lp["attn_norm_bias"] = c(0.0, "attn_norm_bias", d)
+            if not cfg.shared_layernorm:
+                lp["mlp_norm_bias"] = c(0.0, "mlp_norm_bias", d)
+        ex = (E,) if E > 1 else ()
+        if E > 1:
+            lp["router"] = w("router", d, E)
+        if cfg.activation == "swiglu":
+            lp["w_gate"] = w("w_gate", *ex, d, f)
+            lp["w_up"] = w("w_up", *ex, d, f)
+        else:
+            lp["w_in"] = w("w_in", *ex, d, f)
+        lp["w_down"] = w("w_down", *ex, f, d, scale=resid)
+        if E > 1 and cfg.moe_use_residual:
+            if cfg.activation == "swiglu":
+                lp["res_w_gate"] = w("res_w_gate", d, f)
+                lp["res_w_up"] = w("res_w_up", d, f)
+            else:
+                lp["res_w_in"] = w("res_w_in", d, f)
+            lp["res_w_down"] = w("res_w_down", f, d, scale=resid)
+            lp["coefficient"] = w("coefficient", d, 2)
+        if cfg.attn_bias:
+            lp["bq"] = c(0.0, "bq", nh * hd)
+            lp["bk"] = c(0.0, "bk", nkv * hd)
+            lp["bv"] = c(0.0, "bv", nkv * hd)
+            lp["bo"] = c(0.0, "bo", d)
+        if cfg.mlp_bias:
+            if cfg.activation == "swiglu":
+                lp["b_gate"] = c(0.0, "b_gate", f)
+                lp["b_up"] = c(0.0, "b_up", f)
+            else:
+                lp["b_in"] = c(0.0, "b_in", *ex, f)
+            lp["b_down"] = c(0.0, "b_down", *(ex if cfg.activation != "swiglu" else ()), d)
+        return lp
+
+    if het:
+        layers: Any = [layer_leaves(ls, lu, E, ())
+                       for ls, lu, E in zip(specs["layers"], units["layers"],
+                                            moe_layer_experts(cfg))]
+    else:
+        layers = layer_leaves(specs["layers"], units["layers"], cfg.num_experts, (L,))
+
+    params: Dict[str, Any] = {"embed": dense("embed", (cfg.vocab_size, d), specs["embed"],
+                                             units["embed"]),
                               "layers": layers}
     if cfg.final_norm:
         params["final_norm_scale"] = const(1.0, (d,), ())
         if cfg.norm == "layernorm":
             params["final_norm_bias"] = const(0.0, (d,), ())
     if cfg.position == "learned":
-        params["pos_embed"] = dense("pos_embed", (cfg.max_seq_len, d), (None, None))
+        params["pos_embed"] = dense("pos_embed", (cfg.max_seq_len, d), (None, None), 1)
     if cfg.embed_layernorm:
         params["embed_norm_scale"] = const(1.0, (d,), ())
         if cfg.norm == "layernorm":
             params["embed_norm_bias"] = const(0.0, (d,), ())
     if cfg.type_vocab_size:
-        params["type_embed"] = dense("type_embed", (cfg.type_vocab_size, d), (None, None))
+        params["type_embed"] = dense("type_embed", (cfg.type_vocab_size, d), (None, None), 1)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense("lm_head", (d, cfg.vocab_size), specs["lm_head"])
+        params["lm_head"] = dense("lm_head", (d, cfg.vocab_size), specs["lm_head"],
+                                  units["lm_head"])
         if cfg.lm_head_bias:
             params["lm_head_bias"] = const(0.0, (cfg.vocab_size,), ("model",))
     return params
+
+
+CUT_AXES = ("expert", "pipe")   # the axes besides 'model' a rank holds a piece of
+
+
+def _cut_other(x: torch.Tensor, spec, cuts: Dict[str, Tuple[int, int]]) -> torch.Tensor:
+    """``x`` cut over the 'expert' and 'pipe' axes of ``cuts`` along the
+    dims ``spec`` names for them (contiguous, even chunks)."""
+    for axis in CUT_AXES:
+        i, n = cuts.get(axis, (0, 1))
+        dim = _tp.spec_dim(spec, axis)
+        if dim is None or n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over "
+                             f"an {axis!r} axis of {n}")
+        x = x.chunk(n, dim)[i].clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def cut_params(cfg: TransformerConfig, params: Dict[str, Any],
+               cuts: Dict[str, Tuple[int, int]]) -> Dict[str, Any]:
+    """This rank's pieces of a whole tree: ``cuts`` maps 'model', 'expert'
+    and 'pipe' to (index, n); the model axis as :func:`shard_params`
+    (padded where uneven), the expert and pipe axes in even chunks of the
+    dims ``param_specs`` names (the experts of MoE leaves, the layers of a
+    pipelined config)."""
+    specs = param_specs(cfg)
+    i, n = cuts.get("model", (0, 1))
+    if n > 1:
+        params = shard_params(cfg, params, i, n)
+    return _tp._walk(lambda x, spec: _cut_other(x, spec, cuts), params, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -703,19 +892,74 @@ def _attention(cfg: TransformerConfig, q, k, v, positions, attn_impl: str = "xla
 def _mlp_in(cfg: TransformerConfig, lp: Dict[str, Any], h) -> tuple:
     """The MLP's input projections, before their biases: (gate, up) for
     SwiGLU, (up,) otherwise: the tensors JAX names ``mlp_gate`` and
-    ``mlp_up``."""
+    ``mlp_up``.  An MoE layer names none: its input passes through, and
+    :func:`_mlp_out` runs the whole MoE."""
     if "router" in lp:
-        raise NotImplementedError(_MOE_ROW)
+        return (h,)
     h = _tp.copy_to_model(h)
     if cfg.activation == "swiglu":
         return _mm(h, lp["w_gate"]), _mm(h, lp["w_up"])
     return (_mm(h, lp["w_in"]),)
 
 
-def _mlp_out(cfg: TransformerConfig, lp: Dict[str, Any], acts: tuple):
-    """The rest of the dense MLP from :func:`_mlp_in`'s outputs: biases,
+def _moe_config(cfg: TransformerConfig, E: int) -> MoEConfig:
+    return MoEConfig(num_experts=E, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.capacity_factor,
+                     eval_capacity_factor=cfg.eval_capacity_factor,
+                     min_capacity=cfg.moe_min_capacity,
+                     noisy_gate_policy=cfg.noisy_gate_policy,
+                     drop_tokens=cfg.moe_drop_tokens)
+
+
+def _moe_mlp(cfg: TransformerConfig, lp: Dict[str, Any], h, seed):
+    """An MoE layer's MLP: (output, aux).  Training when ``seed`` is set
+    (the capacity factor, jitter); eval capacity otherwise.  Expert-
+    internal tensor parallelism: the experts' input enters the model axis
+    and their outputs are summed over it (the router is whole on every
+    rank, so every rank routes alike)."""
+    router = lp["router"]
+    mcfg = _moe_config(cfg, int(router.shape[-1]))
+    deterministic = seed is None
+    jitter = None
+    if cfg.noisy_gate_policy == "jitter" and not deterministic:
+        jitter = _draw(cfg, h, seed, _SITE_JITTER, lambda shape, gen: torch.empty(
+            shape, device=h.device).uniform_(1.0 - 1e-2, 1.0 + 1e-2, generator=gen))
+    experts = {n: lp[n] for n in ("w_gate", "w_up", "w_in", "w_down", "b_in", "b_down")
+               if n in lp}
+    if _tp.active():
+        m, aux = _tp_moe(cfg, h, router, experts, mcfg, deterministic, jitter)
+    else:
+        m, aux = moe_ffn(h, router, experts, mcfg, activation=cfg.activation,
+                         deterministic=deterministic, rng=jitter)
+    if "coefficient" in lp:
+        # residual MoE (reference moe/layer.py:16 use_residual): the dense
+        # branch mixed in by a learned 2-way softmax coefficient
+        # JAX's _dense_mlp(prefix="res_"): no biases on the residual branch
+        rcfg = dataclasses.replace(cfg, mlp_bias=False) if cfg.mlp_bias else cfg
+        rp = {k[4:]: v for k, v in lp.items() if k.startswith("res_")}
+        res = _mlp_out(rcfg, rp, _mlp_in(rcfg, rp, h))[0]
+        coef = torch.softmax(_mm(h, lp["coefficient"]).float(), dim=-1).to(m.dtype)
+        m = m * coef[..., 0:1] + res * coef[..., 1:2]
+    return m, aux
+
+
+def _tp_moe(cfg, h, router, experts, mcfg, deterministic, jitter):
+    """``moe_ffn`` on expert leaves cut over the model axis: biases added
+    once, after the down projection's sum over the axis."""
+    bias = {n: experts.pop(n) for n in ("b_down",) if n in experts}
+    m, aux = moe_ffn(_tp.copy_to_model(h), router, experts, mcfg,
+                     activation=cfg.activation, deterministic=deterministic,
+                     rng=jitter, reduce=_tp.reduce_from_model, bias=bias, router_x=h)
+    return m, aux
+
+
+def _mlp_out(cfg: TransformerConfig, lp: Dict[str, Any], acts: tuple, seed=None):
+    """The rest of the MLP from :func:`_mlp_in`'s outputs: biases,
     activation, down projection (summed over the model axis, then its
-    bias)."""
+    bias).  Returns (output, aux): the MoE aux loss of an MoE layer, None
+    for a dense one."""
+    if "router" in lp:
+        return _moe_mlp(cfg, lp, acts[0], seed)
     if cfg.activation == "swiglu":
         g, u = acts
         if cfg.mlp_bias:
@@ -737,12 +981,13 @@ def _mlp_out(cfg: TransformerConfig, lp: Dict[str, Any], acts: tuple):
     m = _tp.reduce_from_model(m)
     if cfg.mlp_bias:
         m = m + lp["b_down"]
-    return m
+    return m, None
 
 
 def _mlp(cfg: TransformerConfig, lp: Dict[str, Any], h):
-    """Post-norm MLP body shared by the block and the cached decode block."""
-    return _mlp_out(cfg, lp, _mlp_in(cfg, lp, h))
+    """Post-norm MLP body of the cached and paged decode blocks (eval: no
+    aux)."""
+    return _mlp_out(cfg, lp, _mlp_in(cfg, lp, h))[0]
 
 
 def _qkv(cfg, lp, h, B, S):
@@ -777,7 +1022,7 @@ def _out_proj(cfg, lp, attn, B, S):
 # Dropout sites of a layer: each draws from its own generator, seeded from
 # the layer's seed and the site, so a layer (or any part of one) recomputed
 # under remat draws the same masks again.
-_SITE_ATTN, _SITE_MLP = 0, 1
+_SITE_ATTN, _SITE_MLP, _SITE_JITTER = 0, 1, 2
 
 
 # The global index of the first batch row this process holds: a
@@ -812,20 +1057,27 @@ def _dropout(cfg: TransformerConfig, x, seed, site: int):
     slice (identity when ``seed`` is None: no training)."""
     if seed is None or not cfg.dropout:
         return x
+    keep = 1.0 - cfg.dropout
+    mask = _draw(cfg, x, seed, site, lambda shape, gen: torch.rand(
+        shape, generator=gen, device=x.device)) < keep
+    return x * mask / keep
+
+
+def _draw(cfg: TransformerConfig, x, seed, site: int, draw):
+    """``draw(shape, generator)`` for each row of ``x``, from the row's
+    generator keyed by (layer seed, site, global row), over the whole
+    sequence, of which this slice is kept (see :func:`_dropout`)."""
     seed, row0, pos0, seq_len = seed
     gen = torch.Generator(device=x.device)
-    keep = 1.0 - cfg.dropout
     S = x.shape[1]
     rows = []
     for b in range(x.shape[0]):
         gen.manual_seed(_row_seed(seed, site, row0 + b))
         if seq_len is None:
-            rows.append(torch.rand(x.shape[1:], generator=gen, device=x.device) < keep)
+            rows.append(draw(tuple(x.shape[1:]), gen))
         else:
-            whole = torch.rand((seq_len,) + tuple(x.shape[2:]), generator=gen,
-                               device=x.device)
-            rows.append(whole[pos0:pos0 + S] < keep)
-    return x * torch.stack(rows) / keep
+            rows.append(draw((seq_len,) + tuple(x.shape[2:]), gen)[pos0:pos0 + S])
+    return torch.stack(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -863,7 +1115,9 @@ def _attn_residual(cfg, lp, x, attn, seed):
 
 
 def _mlp_residual(cfg, lp, acts, seed):
-    return _dropout(cfg, _mlp_out(cfg, lp, acts), seed, _SITE_MLP)
+    """(dropout of the MLP's output, its aux)."""
+    m, aux = _mlp_out(cfg, lp, acts, seed)
+    return _dropout(cfg, m, seed, _SITE_MLP), aux
 
 
 def _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions, window, seed):
@@ -887,15 +1141,24 @@ def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
     x = LN(x + mlp(x))."""
     x1 = _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions,
                       window, seed)
-    m = _mlp_residual(cfg, lp, _mlp_in(cfg, lp, x1), seed)
-    return _postln_out(cfg, lp, x1 + m)
+    m, aux = _mlp_residual(cfg, lp, _mlp_in(cfg, lp, x1), seed)
+    return _postln_out(cfg, lp, x1 + m), aux
 
 
 def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
            attn_impl: str, custom_positions: bool = False, window=None,
            seed: Optional[tuple] = None):
-    """One pre-norm layer.  ``seed`` (training only) seeds its dropout:
-    (layer seed, global index of the first batch row)."""
+    """One layer's output (:func:`_block_aux` without the aux)."""
+    return _block_aux(cfg, lp, x, positions, attn_impl, custom_positions, window,
+                      seed)[0]
+
+
+def _block_aux(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
+               attn_impl: str, custom_positions: bool = False, window=None,
+               seed: Optional[tuple] = None):
+    """One pre-norm layer: (output, MoE aux or None).  ``seed`` (training
+    only) seeds its dropout and jitter: (layer seed, global index of the
+    first batch row, ...)."""
     if cfg.post_layernorm:
         return _block_postln(cfg, lp, x, positions, attn_impl,
                              custom_positions, window=window, seed=seed)
@@ -903,7 +1166,8 @@ def _block(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
     attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
                       window=window)
     x1, h = _attn_residual(cfg, lp, x, attn, seed)
-    return x1 + _mlp_residual(cfg, lp, _mlp_in(cfg, lp, h), seed)
+    m, aux = _mlp_residual(cfg, lp, _mlp_in(cfg, lp, h), seed)
+    return x1 + m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -948,16 +1212,19 @@ def _ckpt(fn, *args, **kwargs):
 
 
 def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool):
-    """One layer's apply fn ``block(lp, x, positions, window, seed)``, with
-    ``cfg.remat_policy`` applied while autograd records (see above)."""
+    """One layer's apply fn ``block(lp, x, positions, window, seed)`` ->
+    (output, MoE aux or None), with ``cfg.remat_policy`` applied while
+    autograd records (see above).  An MoE layer's ``_mlp_in`` passes its
+    input through, so ``save_matmuls`` keeps that input where a dense
+    layer keeps its gate/up products (JAX names none in an MoE layer)."""
     policy = cfg.remat_policy
     if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}; ported: "
                          f"{', '.join(REMAT_POLICIES)}")
 
     def block(lp, x, positions, window, seed):
-        return _block(cfg, lp, x, positions, attn_impl, custom_positions,
-                      window=window, seed=seed)
+        return _block_aux(cfg, lp, x, positions, attn_impl, custom_positions,
+                          window=window, seed=seed)
 
     if not (cfg.remat and torch.is_grad_enabled()):
         return block
@@ -990,15 +1257,16 @@ def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool)
                 return (x1, *_mlp_in(cfg, lp, x1))
 
             x1, *acts = _ckpt(first, lp, x, positions, window, seed)
-            y = x1 + _ckpt(mlp_part, lp, tuple(acts), seed)
+            m, aux = _ckpt(mlp_part, lp, tuple(acts), seed)
             # keeps the last norm's input y: one [B,S,d] more than JAX's names
-            return _ckpt(functools.partial(_postln_out, cfg), lp, y)
+            return _ckpt(functools.partial(_postln_out, cfg), lp, x1 + m), aux
 
         return postln_block
 
     def after_attention(lp, x, attn, seed):
         x1, *acts = mlp_in_part(lp, x, attn, seed)
-        return x1 + mlp_part(lp, tuple(acts), seed)
+        m, aux = mlp_part(lp, tuple(acts), seed)
+        return x1 + m, aux
 
     def named_block(lp, x, positions, window, seed):
         if policy == "save_attn":
@@ -1014,7 +1282,8 @@ def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool)
         if policy == "save_qkv":
             return _ckpt(after_attention, lp, x, attn, seed)
         x1, *acts = _ckpt(mlp_in_part, lp, x, attn, seed)
-        return x1 + _ckpt(mlp_part, lp, tuple(acts), seed)
+        m, aux = _ckpt(mlp_part, lp, tuple(acts), seed)
+        return x1 + m, aux
 
     return named_block
 
@@ -1028,8 +1297,8 @@ def _layer(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s weights: views into the stacked [L, ...] leaves (a
     quantized leaf's row ``i`` dequantized)."""
     layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
-        raise NotImplementedError(_MOE_ROW)
+    if isinstance(layers, (list, tuple)):   # a PR-MoE pyramid's own dicts
+        return layers[i]
     return {name: leaf.layer(i) if isinstance(leaf, QuantizedWeight) else leaf[i]
             for name, leaf in layers.items()}
 
@@ -1038,8 +1307,8 @@ def _layers(params: Dict[str, Any]):
     """Every layer's weights, unbound from the stacked leaves in one op per
     leaf (so the backward stacks each leaf's gradient once)."""
     layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
-        raise NotImplementedError(_MOE_ROW)
+    if isinstance(layers, (list, tuple)):   # a PR-MoE pyramid's own dicts
+        return list(layers)
     if hasattr(layers, "unstack"):   # ZeRO-3: per-layer shard slices
         return layers.unstack()
     if any(isinstance(leaf, QuantizedWeight) for leaf in layers.values()):
@@ -1116,30 +1385,185 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
     if positions is None:
         positions = (torch.arange(S, dtype=torch.int32, device=tokens.device)
                      + seq_offset)[None, :].expand(B, S)
-    seeds = [None] * cfg.num_layers
-    if cfg.dropout and not deterministic:
-        if rng is None:
-            rng = torch.Generator(device=tokens.device)
-            rng.manual_seed(0)
-        seeds = [(s, _ROW_OFFSET[0], seq_offset, seq_len) for s in torch.randint(
-            0, 2 ** 62, (cfg.num_layers,), generator=rng, device=rng.device).tolist()]
+    seeds = layer_seeds(cfg, deterministic, rng, tokens.device, seq_offset, seq_len)
     if cfg.tie_embeddings and hasattr(params, "pin"):
         # a ZeRO-3 tree: one gather serves both uses of the tied embedding
         params = params.pin("embed")
     x = _embed(cfg, params, tokens, positions, token_type_ids)
-    windows = layer_windows(cfg) or [None] * cfg.num_layers
-    block = _build_block(cfg, attn_impl, custom_positions)
-    for lp, window, seed in zip(_layers(params), windows, seeds):
-        x = block(lp, x, positions, window, seed)
+    x, aux_total = run_layers(cfg, _layers(params), x, positions, seeds,
+                              _build_block(cfg, attn_impl, custom_positions),
+                              layer_windows(cfg))
+    logits = _logits(cfg, params, x, gather_logits)
+    if return_aux:
+        if aux_total is None:
+            aux_total = torch.zeros((), device=logits.device)
+        return logits, {"moe_aux_loss": aux_total}
+    return logits
+
+
+def layer_seeds(cfg: TransformerConfig, deterministic: bool, rng, device,
+                seq_offset: int = 0, seq_len: Optional[int] = None) -> list:
+    """Each layer's training seed (None for every layer in eval): one draw
+    a layer from ``rng`` when the layers draw masks (dropout, router
+    jitter), as the JAX package splits one key a layer; an MoE model
+    without them gets seed 0 a layer, which marks training (its capacity
+    factor) and draws nothing."""
+    if deterministic:
+        return [None] * cfg.num_layers
+    if cfg.dropout or cfg.noisy_gate_policy == "jitter":
+        if rng is None:
+            rng = torch.Generator(device=device)
+            rng.manual_seed(0)
+        return [(s, _ROW_OFFSET[0], seq_offset, seq_len) for s in torch.randint(
+            0, 2 ** 62, (cfg.num_layers,), generator=rng, device=rng.device).tolist()]
+    if has_moe(cfg):
+        return [(0, _ROW_OFFSET[0], seq_offset, seq_len)] * cfg.num_layers
+    return [None] * cfg.num_layers
+
+
+def run_layers(cfg: TransformerConfig, layers, x, positions, seeds, block,
+               windows=None):
+    """``x`` through ``layers`` (an iterable of per-layer trees, one seed
+    each): (output, the layers' summed MoE aux or None)."""
+    windows = windows or [None] * len(seeds)
+    aux_total = None
+    for lp, window, seed in zip(layers, windows, seeds):
+        x, aux = block(lp, x, positions, window, seed)
         del lp   # a dequantized layer is freed before the next is made
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
+
+
+def _logits(cfg: TransformerConfig, params, x, gather_logits: bool = True):
+    """The final norm and the head (the logits gathered over the model
+    axis when ``gather_logits``)."""
     if cfg.final_norm:
         x = _final_norm(cfg, params, x)
     logits = _head(cfg, params, x)
     if gather_logits:
         logits = _tp.gather_from_model(logits, cfg.vocab_size)
-    if return_aux:
-        return logits, {"moe_aux_loss": torch.zeros((), device=logits.device)}
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (JAX forward :1079-1100 and
+# pipeline_1f1b_loss_and_grads :1176).  A pipelined config's ``forward`` is
+# the un-pipelined one: the stages compute the same function, and the JAX
+# package's aux (summed over layers, averaged over the microbatches) is the
+# whole batch's mean over its rows either way.  Training runs the stages
+# through ``runtime/pipe/executor.py``: stage 0 embeds, every stage runs its
+# L/P layers, the last stage takes the final norm, the head and its
+# microbatch's share of the loss.
+# ---------------------------------------------------------------------------
+
+def pipeline_loss_and_backward(cfg: TransformerConfig, params, tokens, labels,
+                               rng=None, attn_impl: str = "xla",
+                               loss_scale: float = 1.0, schedule: Optional[str] = None,
+                               transport=None, stages=None, count=None,
+                               aux_ranks: int = 1, row0: int = 0):
+    """Forward and backward of ``tokens``/``labels [B, S]`` through
+    ``cfg.pipeline_stages`` stages and ``cfg.pipeline_microbatches``
+    microbatches (default: the stage count); the gradients (of
+    ``loss_scale`` x the objective) accumulate into the ``.grad`` of the
+    leaves ``params`` hands out.
+
+    The objective is the NLL summed over the labelled tokens over
+    ``count`` (the labelled tokens of the whole batch: of every data rank,
+    when the caller sums it), plus ``moe_aux_loss_coef`` x the layers'
+    summed aux averaged over the microbatches and over ``aux_ranks`` data
+    ranks.  ``transport``/``stages``: this process's stages and how they
+    talk (all stages through a ``VirtualTransport`` by default; one stage
+    a rank of 'pipe' with ``AxisTransport``, whose ``params`` hold that
+    stage's layers only, and whose embedding/head leaves the caller sums
+    over 'pipe' afterwards: ReduceTiedGrads).  Returns (the last stage's
+    objective per microbatch, the aux terms summed), both detached."""
+    from ..runtime.pipe.executor import VirtualTransport, run_pipeline, stage_layer_count
+
+    P = cfg.pipeline_stages
+    M = cfg.pipeline_microbatches or P
+    schedule = schedule or cfg.pipeline_schedule
+    if schedule == "1f1b":
+        _refuse_1f1b(cfg)
+    B, S = tokens.shape
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by {M} pipeline microbatches")
+    mb = B // M
+    Lp = stage_layer_count(cfg.num_layers, P)
+    stages = list(range(P)) if stages is None else list(stages)
+    transport = transport or VirtualTransport()
+    tokens, labels = tokens.long(), labels.long()
+    if count is None:
+        count = (labels != -100).sum()
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(mb, S)
+    block = _build_block(cfg, attn_impl, False)
+    layers = list(_layers(params))
+    first = stages[0]
+    seeds = layer_seeds(cfg, False, rng, tokens.device)
+    if cfg.tie_embeddings and hasattr(params, "pin"):
+        params = params.pin("embed")
+    aux_sum = []
+
+    def forward(s, m, x):
+        rows = slice(m * mb, (m + 1) * mb)
+        if s == 0:
+            x = _embed(cfg, params, tokens[rows], positions)
+        lo = (s - first) * Lp
+        seed_m = [None if sd is None else (sd[0], row0 + m * mb) + tuple(sd[2:])
+                  for sd in seeds[s * Lp:(s + 1) * Lp]]
+        x, aux = run_layers(cfg, layers[lo:lo + Lp], x, positions, seed_m, block)
+        extra = None
+        if aux is not None:
+            extra = cfg.moe_aux_loss_coef * aux / (M * aux_ranks)
+            aux_sum.append(extra.detach())
+        if s < P - 1:
+            return x, extra
+        nll, _ = cross_entropy_terms(_logits(cfg, params, x), labels[rows])
+        return nll / count.clamp(min=1), extra
+
+    losses = run_pipeline(forward, P, M, stages, transport, (mb, S, cfg.hidden_size),
+                          cfg.dtype, schedule=schedule, loss_scale=loss_scale)
+    aux_total = torch.stack(aux_sum).sum() if aux_sum else None
+    return losses, aux_total
+
+
+def _refuse_1f1b(cfg: TransformerConfig) -> None:
+    """The JAX package's 1F1B refusals (transformer.py:1188-1197)."""
+    if has_moe(cfg):
+        raise NotImplementedError(
+            "pipeline_schedule='1f1b' with MoE layers: the manual backward "
+            "does not thread the aux loss; use the gpipe schedule")
+    if cfg.dropout:
+        raise NotImplementedError(
+            "pipeline_schedule='1f1b' with dropout: the stage rng chain "
+            "differs between the paired fwd/bwd stage calls under remat; "
+            "use the gpipe schedule")
+
+
+def pipeline_1f1b_loss_and_grads(cfg: TransformerConfig, params: Dict[str, Any],
+                                 tokens, labels, rng=None, attn_impl: str = "xla",
+                                 loss_scale=1.0):
+    """The JAX package's ``pipeline_1f1b_loss_and_grads``: (gradients of
+    ``loss_scale`` x the mean loss, each microbatch's unscaled mean loss)
+    for a whole tree in one process, the stages virtual.  The tied
+    embedding's two gradients (stage 0's and the head's) sum in its one
+    leaf."""
+    from ..utils.tree import tree_leaves, tree_map, tree_unflatten_like
+
+    _refuse_1f1b(cfg)
+    work = tree_map(lambda x: x.detach().requires_grad_(), params)
+    labels = labels.long()
+    count = (labels != -100).sum()
+    losses, _ = pipeline_loss_and_backward(cfg, work, tokens, labels, rng=rng,
+                                           attn_impl=attn_impl, loss_scale=loss_scale,
+                                           schedule="1f1b", count=count)
+    M = len(losses)
+    per = labels.reshape(M, -1)
+    out = torch.stack([losses[m] * count / (per[m] != -100).sum().clamp(min=1)
+                       for m in range(M)])
+    grads = tree_unflatten_like(work, [x.grad if x.grad is not None else torch.zeros_like(x)
+                                       for x in tree_leaves(work)])
+    return grads, out
 
 
 # ---------------------------------------------------------------------------
@@ -1531,8 +1955,6 @@ def forward_paged(cfg: TransformerConfig, params: Dict[str, Any],
         raise NotImplementedError(
             "paged decode is a causal-LM operation; encoder models "
             "(causal=False) have no autoregressive cache")
-    if isinstance(params["layers"], (list, tuple)):
-        raise NotImplementedError(_MOE_ROW)
     if cfg.attention_layers is not None:
         raise NotImplementedError(
             "paged decode does not support per-layer attention windows "

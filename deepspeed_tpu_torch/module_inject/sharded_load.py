@@ -287,6 +287,12 @@ def make_classifier(policy: ArchPolicy, cfg: TransformerConfig,
     for native, (tmpl, tf) in policy.layer.items():
         if tmpl is not None:     # a zero-filled slot has no on-disk tensor
             rule(tmpl, specs["layers"].get(native), tf, True)
+    if policy.moe_router is not None:   # JAX :258-260
+        rules.append((to_regex(policy.moe_router[0]), "replicated", None))
+        for native, (etmpl, etf) in (policy.moe_experts or {}).items():
+            spec = specs["layers"].get(native)
+            # a per-expert tensor on disk: the [L] and [E] dims dropped
+            rule(etmpl, None if spec is None else tuple(spec)[1:], etf, True)
     if policy.fused_qkv is not None:
         if policy.name in ("gpt_neox", "bloom", "megatron_gpt", "megatron_gpt_moe"):
             # per-head fused [H*3*hd, d]: heads are outermost, a contiguous
@@ -418,6 +424,19 @@ def _leaf_builders(policy: ArchPolicy, cfg: TransformerConfig, arch: str,
                 def fetch(i, _tmpl=tmpl, _j=j):
                     return _split_fused_qkv(source.get(_tmpl.format(i=i)), cfg, arch)[_j]
                 fetches["layers/" + native] = fetch
+
+    if policy.moe_router is not None:   # Megatron-DeepSpeed MoE (JAX :425-435)
+        E = int(cfg.num_experts)
+        fetches["layers/router"] = layer(*policy.moe_router)
+        for native, (etmpl, etf) in (policy.moe_experts or {}).items():
+            if native in _MLP_BIAS and not cfg.mlp_bias:
+                continue
+
+            def fetch_experts(i, _t=etmpl, _f=etf):   # [E, ...] of layer i
+                return torch.stack([_f(source.get(_t.format(i=i, e=e))) if _f is not None
+                                    else source.get(_t.format(i=i, e=e))
+                                    for e in range(E)])
+            fetches["layers/" + native] = fetch_experts
     return fetches
 
 
@@ -441,7 +460,7 @@ def build_params(source, policy: ArchPolicy, cfg: TransformerConfig, arch: str,
     dtype = dtype or torch.float32
     device = resolve_device(device)
     index, n = shard
-    # shapes only; raises the port's MoE refusal for an expert config
+    # shapes only
     shapes = init_params(cfg, torch.Generator(), device="meta")
     specs, units = _tp.spec_paths(param_specs(cfg)), _tp.spec_paths(tp_units(cfg))
     fetches = _leaf_builders(policy, cfg, arch, source)

@@ -22,9 +22,11 @@ A mesh needs an initialised process group (``comm.init_distributed``).
 'model' is the innermost axis, so the ranks of one tensor-parallel group
 are adjacent ranks (on a multi-card node, NVLink peers);
 ``parallel/tensor_parallel.py`` runs the model over it, and
-``ops/ring_attention.py`` the sequence over 'seq'.  Pipeline and expert
-parallelism are not ported: their axes stay 1 in the engine (ROADMAP
-queue 1, item 9).  A serving mesh may cover the first ``n`` ranks of a
+``ops/ring_attention.py`` the sequence over 'seq', ``moe/sharded_moe.py``
+exchanges the experts' capacity buffers over 'expert' (``comm.all_to_all``)
+and ``runtime/pipe/executor.py`` hands activations and gradients between
+the stages of 'pipe' (point to point, the pairs ``send_recv_next``/
+``send_recv_prev`` name).  A serving mesh may cover the first ``n`` ranks of a
 larger world (``initialize_serving_mesh(n_devices=)``): every rank makes
 the groups, the others get an :class:`OutsideMesh` handle.
 """

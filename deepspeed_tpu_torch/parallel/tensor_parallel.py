@@ -284,6 +284,11 @@ def spec_paths(specs: Any, prefix: str = "") -> dict:
         for k in sorted(specs):
             out.update(spec_paths(specs[k], f"{prefix}{k}/"))
         return out
+    if isinstance(specs, list):   # a list of subtrees (specs are tuples)
+        out = {}
+        for i, sub in enumerate(specs):
+            out.update(spec_paths(sub, f"{prefix}{i}/"))
+        return out
     return {prefix[:-1]: specs}
 
 
@@ -339,17 +344,19 @@ def slice_tree(tree: Any, specs: Any, index: int, n: int, units: Any = None) -> 
     return _walk(lambda x, spec, u: shard_leaf(x, spec, index, n, u), tree, specs, units)
 
 
-def gather_tree(tree: Any, specs: Any, shapes: Any = None) -> Any:
+def gather_tree(tree: Any, specs: Any, shapes: Any = None,
+                axis: str = MODEL_AXIS) -> Any:
     """The full leaves of a tree of model-axis shards (collective: every
     rank of the axis calls it, in the same order); ``shapes``, a tree of
-    the whole leaves' shapes, cuts the padding of uneven shards."""
+    the whole leaves' shapes, cuts the padding of uneven shards.  ``axis``
+    names another axis the specs cut ('expert', 'pipe')."""
     comm = _comm()
 
     def gather(x, spec, shape=None):
-        d = spec_dim(spec)
+        d = spec_dim(spec, axis)
         if d is None:
             return x
-        out = comm.all_gather(x.contiguous(), MODEL_AXIS, gather_dim=d)
+        out = comm.all_gather(x.contiguous(), axis, gather_dim=d)
         if shape is not None and out.shape[d] != shape.shape[d]:
             out = out.narrow(d, 0, shape.shape[d]).contiguous()
         return out

@@ -65,8 +65,24 @@ sequence (labels and positions derived on the whole sequence first:
 axis (``ops/ring_attention.py``) or, with ``attn_impl="ulysses"``, as the
 head/sequence all-to-all; the loss is the masked mean over the data axes
 and 'seq', and the gradients are summed over both.
+Expert parallelism (the mesh's 'expert' axis, a ``CausalLM`` with MoE
+layers): the 'expert' axis is a data axis for the batch rows, and each
+rank holds its ``E / ep`` experts of every MoE leaf (``param_specs``),
+cut by ZeRO over 'data' only, their gradients summed over the data axes
+only; the MoE layers exchange their capacity buffers over 'expert'
+(``moe/sharded_moe.py``).
+
+Pipeline parallelism (``config.pipeline_stages > 1``): ``train_batch``
+takes the whole gas window in one call and runs it through the model's
+stages (``pipeline_backward``, ``runtime/pipe/executor.py``): one stage a
+rank of the mesh's 'pipe' axis, each holding its stage's layers (cut by
+the specs' 'pipe' dim), or every stage in this process (virtual stages)
+at a 'pipe' axis of 1; the embedding, head and norms every pipe rank
+holds sum their gradients over 'pipe' (the reference's ReduceTiedGrads).
+``forward``/``backward``/``step`` are refused, as in the JAX engine.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: pipeline and expert parallelism (item 9), offload, 1-bit and ZeRO++
+item: a 'pipe' axis with tensor, sequence or expert axes or with ZeRO
+stage 3, MoE on a 'seq' axis (item 9, left), offload, 1-bit and ZeRO++
 (item 10).
 """
 from __future__ import annotations
@@ -100,6 +116,69 @@ from .optimizer import (GradientTransformation, apply_updates, chain,
 LOSS_AXES = BATCH_AXES + ("seq",)
 
 
+def _leaf_at(tree, path: str):
+    for part in path.split("/"):
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) else tree[part]
+    return tree
+
+
+def _set_leaf(tree, path: str, value) -> None:
+    *head, last = path.split("/")
+    for part in head:
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) else tree[part]
+    tree[int(last) if isinstance(tree, list) else last] = value
+
+
+class _ParamTrees:
+    """Which members of an optimizer state are shaped like the parameter
+    tree (``paths``), decided once a member."""
+
+    def __init__(self, paths):
+        self.paths, self.seen = paths, {}
+
+    def __call__(self, obj) -> bool:
+        if not isinstance(obj, (dict, list)):
+            return False
+        if id(obj) not in self.seen:
+            self.seen[id(obj)] = [p for p, _ in tree_flatten_with_path(obj)] == self.paths
+        return self.seen[id(obj)]
+
+
+def _state_leaf(obj, trees: _ParamTrees, i):
+    """The optimizer state of parameter ``i`` alone: every member shaped
+    like the parameter tree cut to ``{"x": its leaf i}``; the rest (step
+    counts) as it is."""
+    if trees(obj):
+        return {"x": _leaf_at(obj, trees.paths[i])}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _state_leaf(getattr(obj, f.name), trees, i)
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(_state_leaf(o, trees, i) for o in obj)
+    return obj
+
+
+def _put_state_leaf(obj, sub, trees: _ParamTrees, i):
+    """``obj`` with parameter ``i``'s state from ``sub`` written into its
+    tree members in place, and its other members (the step counts, equal
+    for every parameter) taken from ``sub``."""
+    if trees(obj):
+        _set_leaf(obj, trees.paths[i], sub["x"])
+        return obj
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _put_state_leaf(
+            getattr(obj, f.name), getattr(sub, f.name), trees, i)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(_put_state_leaf(o, n, trees, i) for o, n in zip(obj, sub))
+    return sub
+
+
+def _has_moe(mcfg) -> bool:
+    experts = getattr(mcfg, "num_experts", 1)
+    return max(experts) > 1 if isinstance(experts, (tuple, list)) else experts > 1
+
+
 @dataclasses.dataclass
 class TrainState:
     """Everything one step reads and writes."""
@@ -115,12 +194,14 @@ def _cast_tree(tree, dtype: torch.dtype):
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
-def _whole_shape(shape, spec, n: int) -> tuple:
-    """The whole leaf of a model-axis shard of ``shape``."""
+def _whole_shape(shape, spec, sizes: dict) -> tuple:
+    """The whole leaf of a shard of ``shape`` cut over the axes of
+    ``sizes`` (axis -> size: 'model', 'expert', 'pipe') its spec names."""
     shape = list(shape)
-    d = tensor_parallel.spec_dim(spec)
-    if d is not None:
-        shape[d] *= n
+    for axis, n in sizes.items():
+        d = tensor_parallel.spec_dim(spec, axis)
+        if d is not None:
+            shape[d] *= n
     return tuple(shape)
 
 
@@ -166,6 +247,7 @@ class DeepSpeedEngine:
         self._resolve_tp(model, mesh is not None or mpu is not None
                          or param_specs is not None, param_specs)
         self.config.resolve_batch_triad(self.dp_world)
+        self._check_pipeline(model)
         self.compute_dtype = self.config.precision
         self.use_master_weights = self.compute_dtype != torch.float32
         self.fp16_enabled = self.config.fp16.enabled
@@ -194,6 +276,9 @@ class DeepSpeedEngine:
             self._frozen_mask = None    # nothing frozen: skip the masking
 
         # -- optimizer --
+        # the engine's own chain on one device updates a leaf at a time
+        # (``_apply_update_leafwise``); a client chain sees whole trees
+        self._leafwise = False
         if optimizer is not None:
             if self._frozen_mask is not None:
                 # whatever the client chain emits (weight decay included),
@@ -211,6 +296,7 @@ class DeepSpeedEngine:
         self.generator.manual_seed(self.config.seed)
         self.plan = self.partition = None
         self.state = self._init_state(init_fn, params, param_specs)
+        self._leafwise = optimizer is None and self._frozen_mask is None
         self.param_count = (sum(math.prod(s) for s in self.partition.global_shapes)
                             if self.partition is not None else
                             sum(x.numel() for x in tree_leaves(self.state.params)))
@@ -257,14 +343,17 @@ class DeepSpeedEngine:
         mc = self.config.mesh
         if self._mpu_tp is not None:
             mc = dataclasses.replace(mc, tp=self._mpu_tp)
+        self.pp = self.ep = 1
+        self.pp_rank = 0
         if not self.distributed:
             layout = (mesh if isinstance(mesh, MeshLayout) or mesh is None
                       else layout_of(mesh))
             if ((layout is not None and layout.world_size > 1)
-                    or mc.dp > 1 or mc.tp > 1 or mc.sp > 1 or zc.mics_shard_size > 1):
+                    or mc.dp > 1 or mc.tp > 1 or mc.sp > 1 or mc.pp > 1 or mc.ep > 1
+                    or zc.mics_shard_size > 1):
                 raise RuntimeError(
-                    "a data-, tensor- or sequence-parallel mesh needs a process "
-                    "group: call "
+                    "a data-, tensor-, sequence-, pipeline- or expert-parallel "
+                    "mesh needs a process group: call "
                     "deepspeed_tpu_torch.comm.init_distributed() (or run "
                     "under torchrun) before initialize()")
             self.mesh, self.dp_world, self.dp_rank = None, 1, 0
@@ -279,10 +368,23 @@ class DeepSpeedEngine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.mesh = resolve_engine_mesh(mc, zc, mesh)
         layout = layout_of(self.mesh)
-        if layout.pp > 1 or layout.ep > 1:
+        self.pp, self.ep = layout.pp, layout.ep
+        self.pp_rank = comm.axis_index("pipe")
+        mcfg = getattr(self.model, "config", None)
+        if layout.pp > 1:
+            stages = getattr(mcfg, "pipeline_stages", 1)
+            if stages != layout.pp:
+                raise ValueError(
+                    f"mesh has pipe={layout.pp} but model.config.pipeline_stages={stages}")
+            if layout.tp > 1 or layout.sp > 1 or layout.ep > 1:
+                raise NotImplementedError(
+                    f"mesh {layout}: a 'pipe' axis composes with the data axes "
+                    "only in the port (tensor, sequence and expert axes with "
+                    "pipeline stages: ROADMAP queue 1, item 9, left)")
+        if layout.sp > 1 and mcfg is not None and _has_moe(mcfg):
             raise NotImplementedError(
-                f"mesh {layout}: data, tensor and sequence parallelism are "
-                "ported (pipeline and experts: ROADMAP queue 1, item 9)")
+                f"mesh {layout}: MoE layers route whole rows (their capacity "
+                "groups), which a 'seq' axis cuts (ROADMAP queue 1, item 9, left)")
         self.sp, self.sp_rank = layout.sp, comm.axis_index("seq")
         if self.sp > 1 and not hasattr(self.model, "shard_sequence"):
             raise NotImplementedError(
@@ -295,6 +397,33 @@ class DeepSpeedEngine:
         self.dp_world = layout.dp_world_size
         self.dp_rank = comm.axis_index(BATCH_AXES)
         comm.configure(self.config.comms_logger)
+
+    def _check_pipeline(self, model) -> None:
+        """``self.pipelined``: the model's config asks for pipeline stages
+        (on the mesh's 'pipe' axis, or virtual stages in this process at an
+        axis of 1).  The JAX engine's checks: microbatches are decoupled
+        from gas, and must divide the step's sample window."""
+        mcfg = getattr(model, "config", None)
+        stages = getattr(mcfg, "pipeline_stages", 1) or 1
+        self.pipelined = stages > 1 and hasattr(model, "pipeline_backward")
+        if not self.pipelined:
+            return
+        micro = getattr(mcfg, "pipeline_microbatches", None) or stages
+        window = (self.config.gradient_accumulation_steps
+                  * self.config.train_micro_batch_size_per_gpu * self.dp_world)
+        if window % micro or (window // self.dp_world) % micro:
+            raise ValueError(
+                f"pipeline microbatches ({micro}) must divide the "
+                f"per-step sample window gas*micro_batch*dp={window}")
+        if getattr(mcfg, "pipeline_schedule", "gpipe") == "1f1b" \
+                and self.config.prescale_gradients:
+            raise NotImplementedError(
+                "pipeline_schedule='1f1b' + prescale_gradients: unsupported")
+        if self.pp > 1 and self.config.zero_optimization_stage >= 3:
+            raise NotImplementedError(
+                "ZeRO stage 3 with a 'pipe' axis: each stage would gather its "
+                "layers over the data axes (ROADMAP queue 1, item 9, left); "
+                "use stages 0-2")
 
     def _resolve_tp(self, model, explicit: bool, param_specs) -> None:
         """Whether the model runs tensor-parallel (``self.tp``: the model
@@ -315,7 +444,9 @@ class DeepSpeedEngine:
                 raise ValueError(
                     "param_specs differ from the model's: the CausalLM's "
                     "tensor-parallel forward is laid out for model.param_specs")
-            if n > 1 or explicit:
+            # expert and pipe axes cut the experts and the layers by the same
+            # specs, so they take this path at a model axis of 1 too
+            if n > 1 or explicit or self.ep > 1 or self.pp > 1:
                 self.tp, self.tp_rank, self._tp_specs = n, comm.axis_index("model"), own
                 # the whole leaves' true shapes (meta tensors)
                 self._tp_shapes = model.init_fn(torch.Generator(), device="meta")
@@ -328,9 +459,23 @@ class DeepSpeedEngine:
     def _tp_region(self):
         return tensor_parallel.region(bool(self.tp) and not self._generic_tp)
 
+    def _cuts(self) -> dict:
+        """axis -> (this rank's index, size) of the axes besides 'model' a
+        rank holds a piece of a leaf over ('expert', 'pipe')."""
+        out = {}
+        if self.ep > 1:
+            out["expert"] = (comm.axis_index("expert"), self.ep)
+        if self.pp > 1:
+            out["pipe"] = (self.pp_rank, self.pp)
+        return out
+
     def _tp_cut(self, params):
-        """This rank's model-axis shards of a whole tree."""
+        """This rank's model-axis shards of a whole tree (and its experts
+        and stage layers on expert and pipe axes)."""
         if not self._generic_tp:
+            if self._cuts():
+                return self.model.cut_params(
+                    params, {"model": (self.tp_rank, self.tp), **self._cuts()})
             return self.model.shard_params(params, self.tp_rank, self.tp)
         return tensor_parallel.slice_tree(
             tensor_parallel.check_even(params, self._tp_specs, self.tp),
@@ -361,34 +506,38 @@ class DeepSpeedEngine:
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(self.config.seed)
-            if self.tp > 1 and not self._generic_tp:
+            if (self.tp > 1 or self._cuts()) and not self._generic_tp:
                 self._check_init_fits()
-                params = self.model.init_fn(init_gen, tp=(self.tp_rank, self.tp))
+                params = self.model.init_fn(init_gen, tp=(self.tp_rank, self.tp),
+                                            **({"cuts": self._cuts()} if self._cuts()
+                                               else {}))
             else:
                 params = init_fn(init_gen)
                 if self.tp:
                     params = self._tp_cut(params)
         elif self.tp:
             params = self._tp_cut(params)
-        # masters are fresh fp32 (or wider) copies: the caller's tree is
-        # never aliased
-        master = tree_map(lambda x: x.detach().to(self.device, _master_dtype(x),
-                                                  copy=True), params)
         if self._frozen_mask is not None:
             mask_paths = [p for p, _ in tree_flatten_with_path(self._frozen_mask)]
-            param_paths = [p for p, _ in tree_flatten_with_path(master)]
+            param_paths = [p for p, _ in tree_flatten_with_path(params)]
             if mask_paths != param_paths:
                 raise ValueError(
                     "model.frozen_spec() structure does not match the param "
                     f"tree: mask {mask_paths} vs params {param_paths}")
-            n_frozen = sum(x.numel() for x, m in zip(tree_leaves(master),
+            n_frozen = sum(x.numel() for x, m in zip(tree_leaves(params),
                                                      tree_leaves(self._frozen_mask))
                            if m)
             log_dist(f"frozen parameters: {n_frozen:,} excluded from "
                      "updates/grad-norm (model.frozen_spec)", ranks=[0])
+        # masters are fresh fp32 (or wider) copies: the caller's tree is
+        # never aliased; data-parallel, each leaf's copy is cut to this
+        # rank's shard before the next is made
         if self.distributed:
-            master = self._shard_state(master, self._tp_specs if self.tp
+            master = self._shard_state(params, self._tp_specs if self.tp
                                        else param_specs)
+        else:
+            master = tree_map(lambda x: x.detach().to(self.device, _master_dtype(x),
+                                                      copy=True), params)
         if self.use_master_weights:
             params0 = (_cast_tree(master, self.compute_dtype)
                        if self.partition is None else tree_unflatten_like(
@@ -408,21 +557,23 @@ class DeepSpeedEngine:
         return TrainState(step=0, params=params0, master_params=master,
                           opt_state=opt_state, scaler=scaler)
 
-    def _shard_state(self, master, param_specs):
-        """Plan the ZeRO placements of the full fp32 tree and keep this
-        rank's master shards."""
+    def _shard_state(self, params, param_specs):
+        """Plan the ZeRO placements of the full tree and keep this rank's
+        fp32 master shards of ``params``, one leaf at a time (peak: the
+        shards and one whole fp32 leaf)."""
         from .zero.partition import ZeroPartition
         from .zero.planner import plan_sharding
 
         zc = self.config.zero_config
-        template = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
-                                                  device="meta"), master)
+        template = tree_map(lambda x: torch.empty(x.shape, dtype=_master_dtype(x),
+                                                  device="meta"), params)
         # plan over the whole leaves; under tensor parallelism ``master``
         # holds this rank's model-axis shards of them
         shapes = template
         if self.tp:
+            sizes = {"model": self.tp, "expert": self.ep, "pipe": self.pp}
             shapes = tree_map(lambda x, spec: torch.empty(
-                _whole_shape(x.shape, spec, self.tp), device="meta"),
+                _whole_shape(x.shape, spec, sizes), device="meta"),
                 template, self._tp_specs)
         self.plan = plan_sharding(shapes, self.zero_stage, self.mesh,
                                   tp_specs=param_specs,
@@ -436,7 +587,12 @@ class DeepSpeedEngine:
             self.plan, template, self.use_master_weights, self.accum_dtype,
             frozen=frozen, global_shapes=[tuple(x.shape) for x in tree_leaves(shapes)],
             true_shapes=true_shapes)
-        return self.partition.shard_tree(master, "master")
+        part, shards = self.partition, []
+        for i, (x, d) in enumerate(zip(tree_leaves(params), part.mdims)):
+            full = x.detach().to(self.device, _master_dtype(x), copy=True)
+            shards.append(full if d is None else part.local_slice(full, d, i).clone())
+            del full
+        return tree_unflatten_like(template, shards)
 
     def _build_dataloader(self, training_data):
         if training_data is None:
@@ -503,10 +659,13 @@ class DeepSpeedEngine:
         fn = self._eval_fn if deterministic else self.loss_fn
         with row_offset(lo), self._tp_region():
             if self.distributed and self._loss_terms is not None:
-                total, count = self._loss_terms(self._view(work), local, self.generator,
-                                                deterministic=deterministic)
+                total, count, *aux = self._loss_terms(self._view(work), local,
+                                                      self.generator,
+                                                      deterministic=deterministic)
                 count = comm.all_reduce(count.detach(), comm.SUM, LOSS_AXES)
                 obj = total / count.clamp(min=1)
+                if aux:   # MoE: the mean of the data ranks' aux terms
+                    obj = obj + aux[0] / self.dp_world
             else:
                 if self._generic_tp:
                     local = tensor_parallel.as_dtensors(local)
@@ -549,6 +708,8 @@ class DeepSpeedEngine:
     def _apply_update(self, grads, eff_gas: int):
         """Unscale, overflow check, optimizer on the masters, skip on
         overflow, scaler update, master -> compute cast."""
+        if self._leafwise:
+            return self._apply_update_leafwise(grads, eff_gas)
         state, part = self.state, self.partition
         if part is not None:   # the global sums, at the masters' placement
             grads = tree_unflatten_like(grads, part.reduce_window(tree_leaves(grads)))
@@ -590,11 +751,75 @@ class DeepSpeedEngine:
         return {"grad_norm": grad_norm, "loss_scale": state.scaler.loss_scale,
                 "step_applied": finite}
 
-    def _finish_step(self, grads, losses) -> dict:
+    def _apply_update_leafwise(self, grads, eff_gas: int):
+        """``_apply_update`` with the engine's own optimizer, a leaf at a
+        time: every link of its chain is elementwise save clipping, which
+        reads the global norm (taken first, in the same order, and handed
+        to it through ``sharded_norm``), so the arithmetic is the tree-wide
+        update's, bit for bit.  Each new master, moment and compute leaf
+        replaces the old one as it is made, so the step holds one leaf's
+        temporaries instead of whole trees of them (a model of 3.2B
+        parameters otherwise outgrows an 80 GB card in its update)."""
+        state, part = self.state, self.partition
+        inv = 1.0 / (state.scaler.loss_scale * eff_gas)
+        if self.config.prescale_gradients:
+            inv = inv * self.config.gradient_predivide_factor
+        g_leaves = tree_leaves(grads)
+        del grads
+        if part is not None:   # the global sums, at the masters' placement
+            g_leaves = part.reduce_window(g_leaves)
+
+        def unscaled(g):
+            return g.to(torch.promote_types(g.dtype, torch.float32)) * inv
+
+        finite = True
+        if self.fp16_enabled:   # every rank skips together
+            bad = [(~torch.isfinite(unscaled(g))).any() for g in g_leaves]
+            finite = (not bool(torch.stack(bad).any()) if part is None
+                      else part.none_bad(bad))
+        sq = [unscaled(g).square().sum() for g in g_leaves]
+        if part is None:   # global_norm's order and arithmetic
+            total = sq[0]
+            for x in sq[1:]:
+                total = total + x
+            grad_norm = torch.sqrt(total)
+        else:
+            grad_norm = part.norm_of_squares(sq)
+        masters = state.master_params if self.use_master_weights else state.params
+        if finite:
+            paths = [p for p, _ in tree_flatten_with_path(masters)]
+            trees = _ParamTrees(paths)
+            opt_state = state.opt_state
+            new_state = opt_state
+            with sharded_norm(lambda _: grad_norm):
+                for i, path in enumerate(paths):
+                    m = _leaf_at(masters, path)
+                    upd, sub = self.optimizer.update(
+                        {"x": unscaled(g_leaves[i])}, _state_leaf(opt_state, trees, i),
+                        {"x": m})
+                    g_leaves[i] = None
+                    new_state = _put_state_leaf(new_state, sub, trees, i)
+                    _set_leaf(masters, path, (m + upd["x"]).to(m.dtype))
+                    if self.use_master_weights:
+                        new = _leaf_at(masters, path)
+                        _set_leaf(state.params, path,
+                                  _cast_tree(new, self.compute_dtype) if part is None
+                                  else part.compute_param(i, new, self.compute_dtype))
+                    del upd, sub, m
+            new_opt = new_state
+        else:   # overflow: skip (reference DynamicLossScaler semantics)
+            new_opt = state.opt_state
+        self.state = TrainState(step=state.step + 1, params=state.params,
+                                master_params=masters if self.use_master_weights else None,
+                                opt_state=new_opt, scaler=update_scale(state.scaler, finite))
+        return {"grad_norm": grad_norm, "loss_scale": state.scaler.loss_scale,
+                "step_applied": finite}
+
+    def _finish_step(self, grads, losses, eff_gas: Optional[int] = None) -> dict:
         """Apply the window's gradients and do the step's bookkeeping (one
         path for ``train_batch`` and ``step``)."""
         metrics = self._apply_update(tree_unflatten_like(self.state.params, grads),
-                                     self.gas)
+                                     eff_gas or self.gas)
         metrics["loss"] = torch.stack(losses).mean()
         self.global_steps += 1
         self._last_grad_norm = float(metrics["grad_norm"])
@@ -655,6 +880,8 @@ class DeepSpeedEngine:
             raise RuntimeError("train_batch() inside an open forward/backward "
                                "window: call step() first")
         self.tput_timer.start()
+        if self.pipelined:
+            return self._train_batch_pipelined(global_batch)
         work = self._work_tree()
         losses = []
         for i in range(self.gas):
@@ -667,6 +894,68 @@ class DeepSpeedEngine:
         self.micro_steps += self.gas
         return self._finish_step(grads, losses)["loss"]
 
+    def _train_batch_pipelined(self, global_batch) -> torch.Tensor:
+        """A pipeline engine's step: the whole gas window in one call (the
+        reference's ``PipelineEngine.train_batch``, pipe/engine.py:286),
+        split into the model's microbatches and run through its stages
+        (``runtime/pipe/executor.py``): every stage in this process at a
+        'pipe' axis of 1, this rank's stage above it.  The objective
+        already averages over the window, so the update divides by 1."""
+        from .pipe.executor import AxisTransport, VirtualTransport
+
+        flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), global_batch)
+        local, lo = self._local_rows(flat)
+        work = self._work_tree()
+        transport = (AxisTransport(self.device) if self.pp > 1 else VirtualTransport())
+        stages = [self.pp_rank] if self.pp > 1 else None
+
+        def reduce_count(count):
+            return comm.all_reduce(count, comm.SUM, BATCH_AXES) if self.distributed \
+                else count
+
+        # each backward's gradient of a leaf summed at the accumulation
+        # dtype, as the un-pipelined window banks each micro-batch's
+        leaves = tree_leaves(work)
+        acc: list = [None] * len(leaves)
+
+        def bank(i):
+            def hook(x):
+                g = x.grad.to(self.accum_dtype)
+                acc[i] = g if acc[i] is None else acc[i] + g
+                x.grad = None
+            return hook
+
+        handles = [x.register_post_accumulate_grad_hook(bank(i))
+                   for i, x in enumerate(leaves) if x.requires_grad]
+        try:
+            with self._tp_region():
+                losses, aux = self.model.pipeline_backward(
+                    self._view(work), local, self.generator,
+                    loss_scale=float(self.state.scaler.loss_scale), transport=transport,
+                    stages=stages, reduce_count=reduce_count, aux_ranks=self.dp_world,
+                    row0=lo)
+        finally:
+            for h in handles:
+                h.remove()
+        grads = []
+        for x, g in zip(leaves, acc):
+            g = g if g is not None else torch.zeros_like(x, dtype=self.accum_dtype)
+            if self.config.prescale_gradients:
+                g = g / self.config.gradient_predivide_factor
+            grads.append(g)
+        del work, leaves, acc
+        if self.partition is not None:
+            grads = self.partition.reduce_micro(grads)
+        self._bank(grads)
+        grads, self._accum_grads = self._accum_grads, None
+        report = sum(losses.values(), torch.zeros((), device=self.device, dtype=torch.float32))
+        if aux is not None:
+            report = report + aux
+        if self.distributed:
+            report = comm.all_reduce(report, comm.SUM, LOSS_AXES + ("pipe",))
+        self.micro_steps += self.gas
+        return self._finish_step(grads, [report], eff_gas=1)["loss"]
+
     def eval_batch(self, batch) -> torch.Tensor:
         """Loss of one (global) micro-batch with dropout off, no gradient."""
         with torch.no_grad():
@@ -677,9 +966,16 @@ class DeepSpeedEngine:
                                     tree_map(self._to_device, batch),
                                     deterministic=True)[1]
 
+    def _refuse_pipeline(self):
+        if self.pipelined:
+            raise RuntimeError("pipeline engines train with train_batch(); "
+                               "per-microbatch forward/backward is not exposed "
+                               "(reference PipelineEngine restriction)")
+
     def forward(self, batch):
         """The micro-batch's loss (one micro-batch: ``[micro_batch, ...]``),
         recording the graph its ``backward()`` differentiates."""
+        self._refuse_pipeline()
         if self._pending_loss is not None:
             raise RuntimeError("forward() twice without a backward() between")
         if self._accum_count >= self.gas:
@@ -699,6 +995,7 @@ class DeepSpeedEngine:
         """Bank the gradients of the matching ``forward()``'s loss (``loss``
         is accepted for the reference's signature; the engine scales and
         differentiates the loss its forward returned)."""
+        self._refuse_pipeline()
         if self._pending_loss is None:
             raise RuntimeError("backward() without a preceding forward()")
         pending, self._pending_loss = self._pending_loss, None
@@ -712,6 +1009,7 @@ class DeepSpeedEngine:
         """Apply the update at the gradient-accumulation boundary; a
         mid-window ``step()`` is a no-op returning None (the reference skips
         until the boundary).  Returns the step's metrics."""
+        self._refuse_pipeline()
         if self._pending_loss is not None:
             raise RuntimeError("step() with a forward() missing its backward()")
         if self._accum_count == 0:
@@ -774,6 +1072,8 @@ class DeepSpeedEngine:
                 tree = g.values
         if self.tp:
             tree = tensor_parallel.gather_tree(tree, self._tp_specs, self._tp_shapes)
+            for axis in self._cuts():
+                tree = tensor_parallel.gather_tree(tree, self._tp_specs, axis=axis)
         return tree
 
     # ------------------------------------------------------------------

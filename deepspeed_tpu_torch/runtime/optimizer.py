@@ -224,6 +224,9 @@ def _map3(fn, *trees):
     if isinstance(trees[0], dict):
         parts = {k: _map3(fn, *(t[k] for t in trees)) for k in sorted(trees[0])}
         return tuple({k: parts[k][i] for k in parts} for i in range(3))
+    if isinstance(trees[0], (list, tuple)):   # a PR-MoE pyramid's layer list
+        parts = [_map3(fn, *(t[j] for t in trees)) for j in range(len(trees[0]))]
+        return tuple(type(trees[0])(p[i] for p in parts) for i in range(3))
     return fn(*trees)
 
 

@@ -29,6 +29,12 @@ are padded (uneven) has ``true_shapes`` smaller than its global shape: a
 checkpoint holds it whole at its true shape (:meth:`whole_true`,
 :meth:`piece_of_true`).
 
+Expert and pipeline parallelism are per leaf: an expert leaf (its spec
+names 'expert') is cut by ZeRO over 'data' only and its gradient summed
+over the data axes without 'expert' (each rank of that axis holds other
+experts); a leaf every pipe rank holds whole (embedding, head, norms)
+sums its gradient over 'pipe' too, a layer leaf cut over 'pipe' does not.
+
 Sequence parallelism adds 'seq' to the axes the gradients are summed over
 (``GRAD_AXES``): its ranks read other tokens of the same rows, and hold
 the same ZeRO pieces, so 'seq' joins MiCS's 'data_outer' in
@@ -57,6 +63,8 @@ from .planner import ZeroShardingPlan, shard_dim, walk
 GRAD_AXES = BATCH_AXES + ("seq",)
 # the axes of GRAD_AXES a ZeRO shard is replicated over (MiCS's replicas, 'seq')
 REPLICA_AXES = tuple(a for a in GRAD_AXES if a not in ZERO_AXES)
+# the ZeRO axes of an expert leaf: its ranks on 'expert' hold other experts
+EXPERT_ZERO_AXES = ("data",)
 
 
 class _GatherParam(torch.autograd.Function):
@@ -98,19 +106,26 @@ class ShardedParams(dict):
         super().__init__(local)
         self.dims = dims
         self.grad_dtype = grad_dtype
+        # the ZeRO axes: one tuple for every leaf, or a tree like ``dims``
+        # (an expert leaf's are ('data',))
         self.axes = axes
 
-    def _wrap(self, value, dim):
+    def _axes_of(self, key):
+        return self.axes[key] if isinstance(self.axes, dict) else self.axes
+
+    def _wrap(self, value, dim, axes):
         if isinstance(value, dict):
-            return ShardedParams(value, dim, self.grad_dtype, self.axes)
+            return ShardedParams(value, dim, self.grad_dtype, axes)
         if isinstance(value, (list, tuple)):
-            return type(value)(self._wrap(v, d) for v, d in zip(value, dim))
+            per = axes if isinstance(axes, (list, tuple)) and not isinstance(
+                axes[0] if axes else None, str) else [axes] * len(value)
+            return type(value)(self._wrap(v, d, a) for v, d, a in zip(value, dim, per))
         if dim is None:
             return value
-        return gather_param(value, dim, self.axes, self.grad_dtype)
+        return gather_param(value, dim, axes, self.grad_dtype)
 
     def __getitem__(self, key):
-        return self._wrap(dict.__getitem__(self, key), self.dims[key])
+        return self._wrap(dict.__getitem__(self, key), self.dims[key], self._axes_of(key))
 
     def get(self, key, default=None):
         return self[key] if key in self else default
@@ -130,7 +145,7 @@ class ShardedParams(dict):
         out = {}
         for k in self:
             value, dim = self.raw(k)
-            out[k] = (ShardedParams(value, dim, self.grad_dtype, self.axes).local()
+            out[k] = (ShardedParams(value, dim, self.grad_dtype, self._axes_of(k)).local()
                       if isinstance(value, dict) else value)
         return out
 
@@ -156,8 +171,10 @@ class ShardedParams(dict):
                 value, dim = self[name], None
             views.append(value.unbind(0))
             dims.append(None if dim is None else dim - 1)
+        axes = ({n: self._axes_of(n) for n in names} if isinstance(self.axes, dict)
+                else self.axes)
         return [ShardedParams(dict(zip(names, layer)), dict(zip(names, dims)),
-                              self.grad_dtype, self.axes)
+                              self.grad_dtype, axes)
                 for layer in zip(*views)]
 
 
@@ -183,8 +200,24 @@ class ZeroPartition:
         self.tdims = [shard_dim(p, ("model",))
                       for p in _leaf_list(template, plan.master_specs)]
         self.tp_n = comm.get_axis_size("model")
-        self.pdims = [shard_dim(p) for p in _leaf_list(template, plan.param_specs)]
-        self.mdims = [shard_dim(p) for p in _leaf_list(template, plan.master_specs)]
+        # per leaf: an expert leaf (sharded over 'expert' by its spec) is cut
+        # by ZeRO over 'data' only and its gradient summed over the data
+        # axes only (its ranks on 'expert' hold other experts); a leaf a
+        # pipe rank holds whole (embedding, head, norms) sums its gradient
+        # over 'pipe' as well (the stages that read it; ReduceTiedGrads)
+        placements = _leaf_list(template, plan.master_specs)
+        self.edims = [_expert_dim(p) for p in placements]
+        self.pipe_dims = [shard_dim(p, ("pipe",)) for p in placements]
+        self.zaxes = [EXPERT_ZERO_AXES if e is not None else ZERO_AXES
+                      for e in self.edims]
+        self.gaxes = [tuple(a for a in GRAD_AXES if not (e is not None and a == "expert"))
+                      + (() if pd is not None else ("pipe",))
+                      for e, pd in zip(self.edims, self.pipe_dims)]
+        self.zn = [comm.get_axis_size(z) for z in self.zaxes]
+        self.zi = [comm.axis_index(z) for z in self.zaxes]
+        self.pdims = [shard_dim(p, z) for p, z in
+                      zip(_leaf_list(template, plan.param_specs), self.zaxes)]
+        self.mdims = [shard_dim(p, z) for p, z in zip(placements, self.zaxes)]
         self.use_master_weights = use_master_weights
         # where the compute params rest: their own placement, or the
         # masters' when they are the masters (fp32/fp64 compute)
@@ -194,9 +227,6 @@ class ZeroPartition:
                 raise AssertionError(f"param shard dim {p} != master dim {m}")
         self.accum_dtype = accum_dtype
         self.frozen = frozen or [False] * len(self.paths)
-        self.zero_n = comm.get_axis_size(ZERO_AXES)
-        self.zero_i = comm.axis_index(ZERO_AXES)
-        self.replica_n = comm.get_axis_size(REPLICA_AXES)
         self._dims = {"param": self.pdims, "master": self.mdims, "rest": self.rdims}
 
     # -- placement helpers ------------------------------------------------
@@ -206,23 +236,25 @@ class ZeroPartition:
     def local_shape(self, i: int, dim: Optional[int]) -> tuple:
         shape = list(self.shapes[i])
         if dim is not None:
-            shape[dim] //= self.zero_n
+            shape[dim] //= self.zn[i]
         return tuple(shape)
 
-    def local_slice(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    def local_slice(self, full: torch.Tensor, dim: Optional[int], i: int) -> torch.Tensor:
         if dim is None:
             return full
-        return full.chunk(self.zero_n, dim)[self.zero_i].contiguous()
+        return full.chunk(self.zn[i], dim)[self.zi[i]].contiguous()
 
     def shard_tree(self, full_tree: Any, which: str) -> Any:
         """This rank's shards of a full tree, at the ``which`` placement."""
         return tree_unflatten_like(self.template, [
-            self.local_slice(x, d)
-            for x, d in zip(tree_leaves(full_tree), self._dims[which])])
+            self.local_slice(x, d, i)
+            for i, (x, d) in enumerate(zip(tree_leaves(full_tree), self._dims[which]))])
 
     def view(self, local_tree: Any, which: str = "rest") -> ShardedParams:
         """``local_tree`` as a :class:`ShardedParams` at ``which``."""
-        return ShardedParams(local_tree, self.dims_tree(which), self.accum_dtype)
+        axes = (tree_unflatten_like(self.template, list(self.zaxes))
+                if any(e is not None for e in self.edims) else ZERO_AXES)
+        return ShardedParams(local_tree, self.dims_tree(which), self.accum_dtype, axes)
 
     # -- the step -----------------------------------------------------------
     def work_leaves(self, rest_leaves: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -231,8 +263,8 @@ class ZeroPartition:
         full in the forward (the fp32 masters at stages 1/2) are gathered
         now."""
         return [x if (r is None or p is not None)
-                else comm.all_gather(x, ZERO_AXES, gather_dim=r)
-                for x, p, r in zip(rest_leaves, self.pdims, self.rdims)]
+                else comm.all_gather(x, z, gather_dim=r)
+                for x, p, r, z in zip(rest_leaves, self.pdims, self.rdims, self.zaxes)]
 
     def reduce_micro(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """Stage 2: reduce-scatter each micro-batch's full gradient of a
@@ -243,7 +275,7 @@ class ZeroPartition:
         for i, (m, f) in enumerate(zip(self.mdims, self.frozen)):
             if m is not None and not f:   # in place: one full gradient live at a time
                 grads[i] = comm.reduce_scatter(grads[i].to(self.accum_dtype),
-                                               ZERO_AXES, scatter_dim=m)
+                                               self.zaxes[i], scatter_dim=m)
         return grads
 
     def _zero_reduced(self, i: int) -> bool:
@@ -259,18 +291,24 @@ class ZeroPartition:
             if self.frozen[i]:
                 out[i] = g.new_zeros(self.local_shape(i, m))
             elif self._zero_reduced(i):
-                if self.replica_n > 1:
-                    out[i] = comm.all_reduce(g, comm.SUM, REPLICA_AXES)
+                replicas = tuple(a for a in self.gaxes[i] if a not in self.zaxes[i])
+                if comm.get_axis_size(replicas) > 1:
+                    out[i] = comm.all_reduce(g, comm.SUM, replicas)
             else:
-                out[i] = self.local_slice(comm.all_reduce(g, comm.SUM, GRAD_AXES), m)
+                out[i] = self.local_slice(comm.all_reduce(g, comm.SUM, self.gaxes[i]), m, i)
         return out
 
     def _norm_axes(self, i: int) -> tuple:
         """The axes whose ranks hold disjoint pieces of leaf ``i``'s masters
-        (the ZeRO axes, 'model'); a leaf is replicated over the others."""
-        axes = ZERO_AXES if self.mdims[i] is not None else ()
+        (the ZeRO axes, 'model', 'expert' and 'pipe' where its spec cuts
+        it); a leaf is replicated over the others."""
+        axes = self.zaxes[i] if self.mdims[i] is not None else ()
         if self.tp_n > 1 and self.tdims[i] is not None:
             axes = axes + ("model",)
+        if self.edims[i] is not None:
+            axes = axes + ("expert",)
+        if self.pipe_dims[i] is not None:
+            axes = axes + ("pipe",)
         return axes
 
     def global_norm(self, tree: Any) -> torch.Tensor:
@@ -282,10 +320,15 @@ class ZeroPartition:
         if len(leaves) != len(self.mdims):
             raise ValueError(f"global_norm over {len(leaves)} leaves, the plan "
                              f"has {len(self.mdims)}")
-        sq = [x.to(torch.promote_types(x.dtype, torch.float32)).square().sum()
-              for x in leaves]
+        return self.norm_of_squares(
+            [x.to(torch.promote_types(x.dtype, torch.float32)).square().sum()
+             for x in leaves])
+
+    def norm_of_squares(self, sq: List[torch.Tensor]) -> torch.Tensor:
+        """:meth:`global_norm` from each leaf's local sum of squares."""
+        sq = list(sq)
         groups: Dict[tuple, List[int]] = {}
-        for i in range(len(leaves)):
+        for i in range(len(sq)):
             axes = self._norm_axes(i)
             if axes:
                 groups.setdefault(axes, []).append(i)
@@ -301,21 +344,26 @@ class ZeroPartition:
 
     def all_finite(self, grads: List[torch.Tensor]) -> bool:
         """Every rank's gradients finite (one all-reduce over the world)."""
-        bad = torch.stack([(~torch.isfinite(g)).any() for g in grads]).any()
+        return self.none_bad([(~torch.isfinite(g)).any() for g in grads])
+
+    def none_bad(self, bad: List[torch.Tensor]) -> bool:
+        """No rank flagged a leaf (``bad``: a bool tensor a leaf)."""
+        bad = torch.stack(bad).any()
         bad = comm.all_reduce(bad.to(torch.int32), comm.MAX, MESH_AXES)
         return not bool(bad)
 
+    def compute_param(self, i: int, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Leaf ``i``'s compute param at rest from its updated master shard:
+        cast, then all-gathered where the plan keeps it replicated."""
+        x = x.to(dtype) if x.is_floating_point() else x
+        if self.mdims[i] is not None and self.pdims[i] is None:
+            x = comm.all_gather(x, self.zaxes[i], gather_dim=self.mdims[i])
+        return x
+
     def compute_params(self, masters: List[torch.Tensor],
                        dtype: torch.dtype) -> List[torch.Tensor]:
-        """The compute params at rest from the updated master shards: cast,
-        then all-gathered where the plan keeps them replicated."""
-        out = []
-        for x, p, m in zip(masters, self.pdims, self.mdims):
-            x = x.to(dtype) if x.is_floating_point() else x
-            if m is not None and p is None:
-                x = comm.all_gather(x, ZERO_AXES, gather_dim=m)
-            out.append(x)
-        return out
+        """The compute params at rest from the updated master shards."""
+        return [self.compute_param(i, x, dtype) for i, x in enumerate(masters)]
 
     # -- checkpoints ---------------------------------------------------------
     def leaf_for(self, key: str):
@@ -341,9 +389,9 @@ class ZeroPartition:
     def whole_true(self, i: int, placements, x: torch.Tensor) -> torch.Tensor:
         """Leaf ``i`` whole at its true shape from this rank's piece ``x``
         at ``placements`` (collective over the ZeRO and model axes)."""
-        z = shard_dim(placements)
+        z = shard_dim(placements, self.zaxes[i])
         if z is not None:
-            x = comm.all_gather(x.contiguous(), ZERO_AXES, gather_dim=z)
+            x = comm.all_gather(x.contiguous(), self.zaxes[i], gather_dim=z)
         t = self.tdims[i]
         x = comm.all_gather(x.contiguous(), "model", gather_dim=t)
         return x.narrow(t, 0, self.true_shapes[i][t]).contiguous()
@@ -356,8 +404,15 @@ class ZeroPartition:
         pad[t] = extent - whole.shape[t]
         x = torch.cat([whole, whole.new_zeros(pad)], t)
         x = x.chunk(self.tp_n, t)[comm.axis_index("model")]
-        z = shard_dim(placements)
-        return (x if z is None else x.chunk(self.zero_n, z)[self.zero_i]).contiguous()
+        z = shard_dim(placements, self.zaxes[i])
+        return (x if z is None else x.chunk(self.zn[i], z)[self.zi[i]]).contiguous()
+
+
+def _expert_dim(placements) -> Optional[int]:
+    """The experts' dim of an expert leaf: sharded over 'expert' on a dim
+    'data' does not share (a ZeRO-sharded leaf has both on one dim)."""
+    e = shard_dim(placements, ("expert",))
+    return e if e is not None and shard_dim(placements, ("data",)) != e else None
 
 
 def _leaf_list(template: Any, tree: Any) -> list:

@@ -12,7 +12,11 @@ Per leaf, where each copy of a parameter lives:
 ``R`` = replicated over the data-parallel axes (still sharded over the
 model axis by any tensor-parallel spec the model supplies).  The dim rule
 is the JAX package's: the largest dimension whose per-TP-shard size
-divides the ZeRO world, never a dim that already carries a ZeRO axis;
+divides the ZeRO world, never a dim that already carries a ZeRO axis (nor
+the experts' or the layers' dim of a leaf its spec cuts over 'expert' or
+'pipe').  An expert leaf (its spec names 'expert') is cut over 'data'
+only, where the JAX planner leaves it whole: its ranks on 'expert' hold
+other experts, so ZeRO shares each expert among its data ranks;
 leaves no dim divides stay replicated; compute params smaller than
 ``stage3_param_persistence_threshold`` stay replicated at stage 3 (the
 masters and the optimizer state are sharded whatever their size).
@@ -90,6 +94,8 @@ def _shard_dim_for(shape: Tuple[int, ...], base_spec, sizes: dict, zero_size: in
         axes_here = _spec_axes_in_dim(entries[dim])
         if used_axes & set(axes_here):
             return None  # already ZeRO-sharded (explicit user spec) — keep it
+        if {"expert", "pipe"} & set(axes_here):
+            continue     # the experts' or the layers' dim: cut by its own axis
         tp_div = math.prod(sizes[a] for a in axes_here) if axes_here else 1
         if extent % tp_div != 0:
             continue
@@ -167,7 +173,10 @@ def plan_sharding(param_shapes: Any, stage: int, mesh, tp_specs: Optional[Any] =
         shape = shape_of(shaped)
         if threshold and _leaf_size(shape) < threshold:
             return tuple(base or ())
-        return _compose_spec(shape, base, sizes, zero_axes)
+        axes = zero_axes
+        if any("expert" in _spec_axes_in_dim(e) for e in base or ()):
+            axes = tuple(a for a in zero_axes if a != "expert")
+        return _compose_spec(shape, base, sizes, axes)
 
     # stage >= 1: master/opt sharded; no size threshold (the optimizer
     # state is the memory the stage exists to shard)

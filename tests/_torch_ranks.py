@@ -776,7 +776,61 @@ def prog_multi(parts: list):
     return out
 
 
-PROGRAMS = {"comm": prog_comm, "train": prog_train, "checkpoint": prog_checkpoint,
+def prog_moe_infer(model: str, params_np, ep: int, tokens, prompts, max_new: int):
+    """``init_inference`` with ``moe.ep_size``: each rank holds its experts
+    of every MoE leaf; ``forward`` logits and greedy ``generate`` tokens
+    (fp32), and the local shape of an expert leaf."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+
+    eng = ds.init_inference(CausalLM(model, dtype=torch.float32),
+                            config={"dtype": "float32", "moe": {"ep_size": ep}},
+                            params=params_from_jax(params_np, device="cpu"), device="cpu")
+    return {"logits": eng.forward(torch.as_tensor(tokens)).numpy(),
+            "greedy": eng.generate(prompts, max_new_tokens=max_new).numpy(),
+            "local_shapes": _shapes(eng.params)}
+
+
+def megatron_moe_state_dict(L: int = 2, E: int = 4, d: int = 16, f: int = 32,
+                            V: int = 64, seed: int = 0) -> tuple:
+    """(config dict, state dict) of a tiny Megatron-DeepSpeed MoE GPT in its
+    on-disk names and layouts (``tests/unit/test_module_inject.py``'s
+    ``test_megatron_gpt_moe_structure``, with random expert weights)."""
+    r = np.random.default_rng(seed)
+
+    def rand(*shape, scale=0.05):
+        return (r.standard_normal(shape) * scale).astype(np.float32)
+
+    sd = {"word_embeddings.weight": rand(V, d),
+          "position_embeddings.weight": rand(32, d),
+          "transformer.final_layernorm.weight": 1 + rand(d),
+          "transformer.final_layernorm.bias": rand(d)}
+    for i in range(L):
+        m = f"transformer.layers.{i}."
+        sd[m + "input_layernorm.weight"] = 1 + rand(d)
+        sd[m + "input_layernorm.bias"] = rand(d)
+        sd[m + "attention.query_key_value.weight"] = rand(3 * d, d)
+        sd[m + "attention.query_key_value.bias"] = rand(3 * d)
+        sd[m + "attention.dense.weight"] = rand(d, d)
+        sd[m + "attention.dense.bias"] = rand(d)
+        sd[m + "post_attention_layernorm.weight"] = 1 + rand(d)
+        sd[m + "post_attention_layernorm.bias"] = rand(d)
+        g = m + "mlp.deepspeed_moe."
+        sd[g + "gate.wg.weight"] = rand(E, d, scale=0.5)          # Linear [E, d]
+        for e in range(E):
+            ex = g + f"experts.deepspeed_experts.{e}."
+            sd[ex + "dense_h_to_4h.weight"] = rand(f, d)
+            sd[ex + "dense_h_to_4h.bias"] = rand(f)
+            sd[ex + "dense_4h_to_h.weight"] = rand(d, f)
+            sd[ex + "dense_4h_to_h.bias"] = rand(d)
+    cfg = {"model_type": "megatron_gpt_moe", "vocab_size": V, "hidden_size": d,
+           "num_layers": L, "num_attention_heads": 4, "max_position_embeddings": 32,
+           "intermediate_size": f, "num_experts": E, "moe_top_k": 1}
+    return cfg, sd
+
+
+PROGRAMS = {"comm": prog_comm, "moe_infer": prog_moe_infer, "train": prog_train, "checkpoint": prog_checkpoint,
             "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,
             "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,
             "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate,

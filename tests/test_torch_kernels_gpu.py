@@ -677,3 +677,109 @@ def test_decode_attention_int8_refuses_mismatched_inputs(cuda):
                                          v_scale=scale[:, :6].contiguous())):
         with pytest.raises((ValueError, TypeError, NotImplementedError)):
             bad()
+
+
+# ---------------------------------------------------------------------------
+# MoE and pipeline paths on the card (ROADMAP queue 1, item 9)
+# ---------------------------------------------------------------------------
+
+def _moe_engine(dtype, drop):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    model = CausalLM("tiny-moe", hidden_size=256, intermediate_size=512, num_heads=4,
+                     num_experts=8, moe_drop_tokens=drop, dtype=dtype)
+    params = model.init_fn(torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=dtype)
+    return deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": str(dtype).replace("torch.", "")}, params=params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop", [True, False])
+def test_moe_decode_graph_serves_generate_tokens(cuda, drop):
+    """An MoE model's decode tick captured once (the no-drop MoE in its
+    static form, the capacity path's index dispatch: no host sync inside
+    the capture), K4 once a layer in the graph, no new capture in steady
+    state; served fp32 greedy streams equal ``generate``."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference import Request
+
+    eng = _moe_engine(torch.float32, drop)
+    sv = eng.serving(b_slots=4, page_size=16, max_model_len=128)
+    ex = sv._exec
+    assert ex.captures == 1 and ex.graph_k4_launches == eng.model.config.num_layers
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, input_ids=rng.integers(1, 250, n).astype(np.int32),
+                    max_new_tokens=10) for i, n in enumerate((5, 40, 17, 70, 33))]
+    results = sv.run(reqs)
+    assert ex.captures == 1 and ex.replays > 0
+    for res in results:
+        req = reqs[res.rid]
+        base = eng.generate(req.input_ids[None], max_new_tokens=10)
+        np.testing.assert_array_equal(
+            res.output_ids, base[0, len(req.input_ids):].cpu().numpy())
+    assert sv.page_accounting()["balanced"]
+    sv.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop", [True, False])
+def test_moe_training_step_runs_the_kernels(cuda, drop):
+    """An MoE model at S=2048 trains through K1 (2 a layer under remat),
+    K2 and K3 (one a layer each); its fp32 gradients agree with the plain
+    attention branch's (the MoE layers are the same code on both)."""
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    grads = {}
+    for impl in ("auto", "xla"):
+        model = CausalLM("tiny-moe", hidden_size=256, intermediate_size=512, num_heads=4,
+                         max_seq_len=2048, remat=True, moe_drop_tokens=drop,
+                         dtype=torch.float32, attn_impl=impl)
+        params = tree_map(lambda x: x.requires_grad_(), model.init_fn(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+        tokens = torch.randint(0, 256, (1, 2048), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(1))
+        for fn in (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+            fn.launches = 0
+        model.loss_fn(params, {"input_ids": tokens}).backward()
+        counts = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkv.launches)
+        L = model.config.num_layers
+        assert counts == ((2 * L, L, L) if impl == "auto" else (0, 0, 0)), counts
+        grads[impl] = [p.grad for p in tree_leaves(params)]
+    for a, b in zip(grads["auto"], grads["xla"]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipeline_virtual_stages_match_unpipelined(cuda, schedule):
+    """4 virtual stages of 1 layer and 4 microbatches at S=2048 (bf16, the
+    kernels): the same loss and gradient norm as the un-pipelined engine
+    at gas=4 on the same rows, K1-K3 launched as there."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    cfg = {"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 4,
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+           "bf16": {"enabled": True}, "steps_per_print": 10 ** 9}
+    tokens = torch.randint(0, 256, (4, 2048), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    out = {}
+    for label, kw in (("plain", {}), ("pipe", dict(pipeline_stages=4, pipeline_microbatches=4,
+                                                   pipeline_schedule=schedule))):
+        model = CausalLM("tiny", hidden_size=256, intermediate_size=512, num_heads=4,
+                         num_layers=4, max_seq_len=2048, remat=True, **kw)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg)
+        for fn in (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+            fn.launches = 0
+        losses = [float(engine.train_batch(batch={"input_ids": tokens})) for _ in range(2)]
+        out[label] = (losses, engine.get_global_grad_norm(),
+                      (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+                       fa.flash_attention_bwd_dkv.launches))
+    assert out["pipe"][2] == out["plain"][2] == (2 * 2 * 4 * 4, 2 * 4 * 4, 2 * 4 * 4)
+    torch.testing.assert_close(torch.tensor(out["pipe"][0]), torch.tensor(out["plain"][0]),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(out["pipe"][1], out["plain"][1], rtol=1e-4, atol=0)

@@ -157,8 +157,15 @@ def test_params_round_trip_and_unported_configs_raise():
     assert all(a.shape == b.shape for a, b in zip(
         jax.tree_util.tree_leaves(params_to_numpy(own)),
         jax.tree_util.tree_leaves(back)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        CausalLM("tiny-moe").init_fn()
+    # MoE configs (stacked and the PR-MoE pyramid) initialise with the JAX
+    # package's keys and shapes
+    for name in ("tiny-moe", "tiny-prmoe"):
+        ref = jax.tree_util.tree_map(np.asarray, jtf.init_params(
+            jtf.get_config(name), jax.random.PRNGKey(0)))
+        own = params_to_numpy(CausalLM(name).init_fn(torch.Generator().manual_seed(0)))
+        assert jax.tree_util.tree_structure(own) == jax.tree_util.tree_structure(ref)
+        assert all(a.shape == b.shape for a, b in zip(
+            jax.tree_util.tree_leaves(own), jax.tree_util.tree_leaves(ref)))
     with pytest.raises(NotImplementedError, match="progressive layer drop"):
         ttf.forward(tcfg, tparams, torch.zeros((1, 8), dtype=torch.long),
                     deterministic=False, pld_theta=0.5)

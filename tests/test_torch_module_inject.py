@@ -216,17 +216,28 @@ def test_detect_arch_and_errors():
 
 
 def test_megatron_gpt_moe_refused_naming_item_9():
-    """The MoE policy is detected and its config read; loading it raises the
-    port's MoE refusal (ROADMAP queue 1, item 9)."""
-    d, L, E = 16, 2, 4
-    cfg_dict = {"model_type": "megatron_gpt_moe", "vocab_size": 64, "hidden_size": d,
-                "num_layers": L, "num_attention_heads": 4,
-                "max_position_embeddings": 32, "intermediate_size": 32,
-                "num_experts": E, "moe_top_k": 1}
+    """The MoE policy is detected and its config read, and (ROADMAP queue 1,
+    item 9, done) the checkpoint loads: the router transposed to
+    ``[L, d, E]``, each expert's Linears stacked to ``[L, E, ...]`` in
+    expert order, as the JAX loader builds them
+    (``tests/test_torch_moe.py`` holds the whole tree bit-equal to JAX's)."""
+    from tests._torch_ranks import megatron_moe_state_dict
+
+    d, L, E, f = 16, 2, 4, 32
+    cfg_dict, sd = megatron_moe_state_dict(L, E, d, f)
     assert detect_arch(cfg_dict) == "megatron_gpt_moe"
     assert config_from_hf(cfg_dict).num_experts == E
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_hf_checkpoint((cfg_dict, {}), device="cpu")
+    cfg, params = load_hf_checkpoint((cfg_dict, sd), device="cpu")
+    layers = params["layers"]
+    assert tuple(layers["router"].shape) == (L, d, E)
+    assert tuple(layers["w_in"].shape) == (L, E, d, f)
+    assert tuple(layers["b_in"].shape) == (L, E, f)
+    for e in range(E):
+        ex = f"transformer.layers.1.mlp.deepspeed_moe.experts.deepspeed_experts.{e}."
+        np.testing.assert_array_equal(layers["w_in"][1, e].numpy(),
+                                      sd[ex + "dense_h_to_4h.weight"].T)
+        np.testing.assert_array_equal(layers["b_down"][1, e].numpy(),
+                                      sd[ex + "dense_4h_to_h.bias"])
 
 
 def test_init_inference_from_live_module_greedy_equals_jax():

@@ -635,3 +635,32 @@ def test_breakdown_knobs_and_timers():
     assert see_memory_usage("x") is None
     report = memory_status("x", reset_max=True)
     assert report["device"] is None and report["host_peak_rss_gb"] > 0
+
+
+@pytest.mark.parametrize("kw", [{}, {"gradient_clipping": 0.05}, {"bf16": {"enabled": True}},
+                                 {"fp16": {"enabled": True, "loss_scale": 0}}])
+def test_leafwise_update_is_the_tree_update_bit_for_bit(kw):
+    """The one-device engine updates a leaf at a time (its memory: one
+    leaf's temporaries); the tree-wide chain on the same gradients gives
+    the same masters, moments, compute params and norms, bit for bit, with
+    clipping, bf16 over fp32 masters and fp16's loss scale."""
+    np_params = _jax_params("tiny-moe")
+    batches = _batches(256, 3, B=16)
+    config = _config(**kw)
+    out = []
+    for leafwise in (True, False):
+        engine = _port_engine("tiny-moe", np_params, config)
+        assert engine._leafwise
+        engine._leafwise = leafwise
+        losses = [float(engine.train_batch(batch=b)) for b in batches]
+        out.append((losses, engine.get_global_grad_norm(), engine.state))
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.dcp_engine import flatten_state
+
+    (la, na, sa), (lb, nb, sb) = out
+    assert la == lb and na == nb
+    flat_a, flat_b = {}, {}
+    flatten_state(sa, "state", flat_a)
+    flatten_state(sb, "state", flat_b)
+    assert sorted(flat_a) == sorted(flat_b) and any("/mu/" in k for k in flat_a)
+    for k in flat_a:
+        assert torch.equal(flat_a[k], flat_b[k]), k
