@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--profile] [--first-launch] [--tp-cards]
-    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp, sp, ep, pp)
+    python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp, sp, ep, pp, item 10)
+    python3 chip_smoke.py --only offload zeropp_onebit  # the build, then these phases
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -161,10 +162,25 @@ one JSON line each; any failure exits non-zero with no result line:
    ``ep4_mixtral8`` (Mixtral's widths at 8 layers over ep=4, the capacity
    path, against ZeRO-3 dp=4) and ``pp4_7b`` (llama2-7b over pp=4, GPipe
    and 1F1B, M=4, against ZeRO-3 dp=4), losses within TP_DP_LOSS_RTOL;
-9. with ``--profile`` only: ``torch.profiler`` device time by kernel for
+9. ZeRO-Offload, ZeRO-Infinity, ZeRO++ and the 1-bit optimizers
+   (ROADMAP queue 1, item 10): ``offload`` (llama2-7b at full width,
+   S=4096, its optimizer state in host RAM through the host step, 3 steps
+   on one card: step, host Adam and transfer rates, device peak under 80
+   GB, host RSS; layers cut to what host RAM holds, the cut printed; then
+   the train cell through the device engine, ``host_step``, ``streamed``,
+   NVMe and ZeRO-Infinity from one seed and batch: the first loss equal,
+   masters within OFFLOAD_MASTER_RTOL after step 1, NVMe and Infinity
+   resume bit-exact) and ``zeropp_onebit`` (the train cell at NCCL world
+   1: qwZ + qgZ against plain ZeRO-3 within JAX's bound with every
+   sharded gather int8; OneBitAdam's warm-up equal to AdamW's, its
+   exchange uint8 with nonzero error buffers; ZeroOneAdam through a local
+   step and OneBitLamb finite and falling); ``--only offload zeropp_onebit`` runs them alone
+   after the build; ``--tp-cards-only`` also takes ITEM10_CARD_CONFIGS
+   (4 cards): ``zpp4_7b`` and ``onebit4_740m``;
+10. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
-10. the ``kernels`` line: per kernel its launches on its main path (and on
+11. the ``kernels`` line: per kernel its launches on its main path (and on
    the MoE and pipeline paths), error against the plain version, times
    and the bound from this run's shapes (K1-K3 with a ``block_mask``
    record from the sparse main case).
@@ -2952,6 +2968,7 @@ def tp_card_rank(seed: int, config: str, out: str) -> None:
     run = {"train_7b": _tp_card_train_7b, "serve_70b": _tp_card_serve_70b,
            "cmp_70b8": _tp_card_cmp_70b8, "tp4_740m": _tp_card_tp4_740m,
            "ep4_mixtral8": _tp_card_ep4_mixtral8, "pp4_7b": _tp_card_pp4_7b,
+           "zpp4_7b": _tp_card_zpp4_7b, "onebit4_740m": _tp_card_onebit4_740m,
            "sp4_740m": lambda *a: _tp_card_sp(*a, "sp4_740m"),
            "uly_7b": lambda *a: _tp_card_sp(*a, "uly_7b")}[config]
     rec = run(seed, world, rank)
@@ -5365,6 +5382,489 @@ def _tp_card_pp4_7b(seed: int, world: int, rank: int) -> dict:
             "loss_max_rel_diff_vs_dp": rels}
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-Offload, ZeRO-Infinity, ZeRO++ and the 1-bit optimizers (ROADMAP
+# queue 1, item 10): phases ``offload`` and ``zeropp_onebit``
+# ---------------------------------------------------------------------------
+
+OFFLOAD_7B_MODEL, OFFLOAD_7B_S, OFFLOAD_7B_STEPS = "llama2-7b", 4096, 3
+# host bytes a parameter of the host step: fp32 master, m, v
+OFFLOAD_HOST_BYTES = 12
+# the share of MemAvailable the 7B phase's state may take (the rest: this
+# process, its CUDA context, the staging buffers, the page cache)
+OFFLOAD_HOST_SHARE = 0.88
+OFFLOAD_DEVICE_GB = 80.0
+# plain AdamW (fp32 moments on both sides: the host Adam keeps fp32)
+OFFLOAD_OPT = {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}}
+# an offload mode's masters after step 1 against the device engine's,
+# relative to each leaf's largest magnitude: the host Adam's lr/bc1 and
+# sqrt(v)/sqrt(bc2) round apart from the chain's m/bc1/sqrt(v/bc2) by a
+# few ulps of the update (3e-7 at the tiny model on the CPU)
+OFFLOAD_MASTER_RTOL = 1e-6
+OFFLOAD_MODES = ("device", "host_step", "streamed", "nvme", "infinity")
+# disk bytes a parameter: NVMe state (12) and a checkpoint's copy (12) +
+# bf16 files (2)
+OFFLOAD_DISK_BYTES = 26
+ZPP_STEPS, ONEBIT_STEPS, ONEBIT_FREEZE = 3, 6, 2
+# ZeroOneAdam through all of its phases within ZO_STEPS steps: variance
+# steps at counts 1, 2 and 4, a 1-bit step at 3, the variance frozen after
+# 4, then syncs at 5, 6 and 8 around a local step at 7 (the sync interval
+# doubles to 2 after step 5).  tests/test_torch_onebit.py holds the JAX
+# engine's loss falling and the port equal to it at these settings on the
+# tiny model
+ZO_CARD_HYPER = {"lr": 3e-5, "var_freeze_step": 4, "var_update_scaler": 1,
+                 "local_step_scaler": 1, "local_step_clipper": 2}
+ZO_STEPS = 8
+ZPP_BOUND = {"rtol": 0.05, "atol": 0.02}   # tests/unit/test_zeropp.py:42
+# 4 cards (``--tp-cards-only``): ZeRO++ at llama2-7b and OneBitAdam at the
+# train cell; rehearsed over 4 gloo ranks in tests/test_torch_{zeropp,onebit}.py
+ITEM10_CARD_CONFIGS = ("zpp4_7b", "onebit4_740m")
+
+
+def meminfo_gb() -> dict:
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable", "MemFree"):
+                out[key] = int(val.split()[0]) * 1024 / 1e9
+    return out
+
+
+def host_rss_gb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def _layer_params(cfg) -> tuple:
+    """(parameters a layer, parameters outside the layers)."""
+    rest = cfg.vocab_size * cfg.hidden_size * (1 if cfg.tie_embeddings else 2) \
+        + cfg.hidden_size
+    return (cfg.param_count - rest) // cfg.num_layers, rest
+
+
+def _fit_layers(cfg, budget_bytes: float, bytes_per_param: float) -> int:
+    per_layer, rest = _layer_params(cfg)
+    return max(0, min(cfg.num_layers,
+                      int((budget_bytes / bytes_per_param - rest) // per_layer)))
+
+
+def _offload_masters(engine) -> dict:
+    """The fp32 masters by path on the host (per-layer Infinity files
+    stacked back into the [L, ...] leaves)."""
+    from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path
+
+    if engine._param_offload is not None:
+        out = {}
+        for k, v in engine._param_offload.read_masters().items():
+            if k.startswith("layers."):
+                _, i, leaf = k.split(".", 2)
+                out.setdefault(f"layers/{leaf}", {})[int(i)] = torch.from_numpy(v)
+            else:
+                out[k] = torch.from_numpy(v)
+        return {k: torch.stack([v[i] for i in sorted(v)]) if isinstance(v, dict) else v
+                for k, v in out.items()}
+    if engine._offload is not None:
+        return {k: torch.from_numpy(v.copy()) for k, v in
+                engine._offload.read_masters().items()}
+    return {p: x.detach().to("cpu", copy=True)
+            for p, x in tree_flatten_with_path(engine.state.master_params)}
+
+
+def _masters_rel(got: dict, ref: dict) -> float:
+    worst = 0.0
+    for k, r in ref.items():
+        worst = max(worst, float((got[k] - r).abs().max() / r.abs().max().clamp(min=1e-30)))
+    return worst
+
+
+def _offload_config(mode: str, root: str) -> dict:
+    zero = {"stage": 1}
+    if mode == "host_step":
+        zero["offload_optimizer"] = {"device": "cpu"}
+    elif mode == "streamed":
+        zero["offload_optimizer"] = {"device": "cpu", "host_step": False}
+    elif mode == "nvme":
+        zero["offload_optimizer"] = {"device": "nvme", "nvme_path": os.path.join(root, "nvme"),
+                                     "pipeline_read": True, "pipeline_write": True}
+    elif mode == "infinity":
+        zero = {"stage": 3, "offload_param": {"device": "nvme",
+                                              "nvme_path": os.path.join(root, "inf")}}
+    return {"zero_optimization": zero, "optimizer": OFFLOAD_OPT,
+            "aio": {"thread_count": 8, "queue_depth": 16}}
+
+
+def _timed_step(engine, batch, per_step) -> tuple:
+    """(loss, seconds, the K1/K2/K3 launches the step made), the launches
+    checked against ``per_step``."""
+    before = kernel_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = float(engine.train_batch(batch=batch))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = tuple(a - b for a, b in zip(kernel_counts(), before))
+    check(got == per_step, f"an offload step launched K1/K2/K3 {got}, expected {per_step}")
+    return loss, dt, got
+
+
+def _launch_record(steps) -> dict:
+    """The measured launches of K1, K2, K3, a list of the steps' each."""
+    return {key: [got[i] for got in steps] for i, key in enumerate(("K1", "K2", "K3"))}
+
+
+def _offload_stats(engine) -> dict:
+    off = engine._offload or engine._param_offload
+    return dict(off.stats) if off is not None else {}
+
+
+def phase_offload_7b(seed: int) -> dict:
+    """llama2-7b at full width, S=4096, micro batch 1, bf16 over fp32
+    masters, AdamW, ZeRO stage 1 at one rank with the optimizer state in
+    host RAM (``offload_optimizer.device="cpu"``: the host step by JAX's
+    auto rule): OFFLOAD_7B_STEPS steps on one batch.  The layers are cut
+    (never the width) where host RAM cannot hold 12 B a parameter."""
+    from deepspeed_tpu_torch.models import get_config
+
+    mem = meminfo_gb()
+    cfg = get_config(OFFLOAD_7B_MODEL)
+    layers = _fit_layers(cfg, mem["MemAvailable"] * 1e9 * OFFLOAD_HOST_SHARE,
+                         OFFLOAD_HOST_BYTES)
+    check(layers >= 1, f"host RAM {mem} holds no layer of {OFFLOAD_7B_MODEL}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, engine = _train_engine(seed, OFFLOAD_7B_S, name=OFFLOAD_7B_MODEL,
+                                  num_layers=layers,
+                                  config_extra=_offload_config("host_step", ""))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(engine._offload is not None and engine._offload.storage == "cpu",
+          "the 7B offload engine did not take the host step")
+    L = model.config.num_layers
+    batch = _train_batch(model.config, OFFLOAD_7B_S, seed + 1)
+    reset_counts()
+    losses, step_s, stats, launches = [], [], [], []
+    for _ in range(OFFLOAD_7B_STEPS):
+        loss, dt, got = _timed_step(engine, batch, (2 * L, L, L))
+        losses.append(loss)
+        step_s.append(dt)
+        stats.append(_offload_stats(engine))
+        launches.append(got)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"phase": "offload", "case": "llama2-7b_host_step", "model": OFFLOAD_7B_MODEL,
+           "layers": L, "layers_published": cfg.num_layers,
+           "layers_cut": L < cfg.num_layers, "params": model.param_count,
+           "host_state_gb": engine._offload.optimizer.state_bytes() / 1e9,
+           "meminfo_gb_before": mem, "S": OFFLOAD_7B_S, "micro_batch": 1,
+           "init_s": init_s, "step_s": step_s, "losses": losses,
+           "host_adam_s": [s["adam_s"] for s in stats],
+           "host_adam_threads": engine._offload.optimizer.adam.num_threads,
+           "torch_threads": torch.get_num_threads(),
+           "grad_download_gbps": [s["download_gbps"] for s in stats],
+           "param_upload_gbps": [s["upload_gbps"] for s in stats],
+           "device_peak_gb": peak, "host_rss_gb": host_rss_gb(),
+           "launches_per_step": _launch_record(launches)}
+    emit(rec)
+    check(all(math.isfinite(x) for x in losses), f"non-finite 7B offload loss {losses}")
+    check(losses[-1] < losses[0], f"the 7B offload loss did not fall: {losses}")
+    check(peak < OFFLOAD_DEVICE_GB, f"the 7B offload peak {peak:.2f} GB is over the card")
+    del engine, model, batch
+    free_memory()
+    return rec
+
+
+def phase_offload_740m(seed: int) -> dict:
+    """The train cell (llama-740m, S=16384) from one seed and batch through
+    the device engine and each offload mode: the first loss equals the
+    device engine's, every mode's fp32 masters after step 1 lie within
+    OFFLOAD_MASTER_RTOL of its; the NVMe and Infinity state saved after
+    step 1 and resumed by a fresh engine gives step 2 bit for bit."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.models import get_config
+
+    S = TRAIN_SHAPE[1]
+    cfg = get_config(TRAIN_MODEL)
+    root = tempfile.mkdtemp(prefix="offload_")
+    free = shutil.disk_usage(root).free
+    layers = _fit_layers(cfg, free * 0.8, OFFLOAD_DISK_BYTES)
+    check(layers >= 1, f"{free / 1e9:.1f} GB free under {root} holds no layer")
+    L = layers
+    per_step = (2 * L, L, L)
+    batch = _train_batch(cfg, S, seed + 1)
+    out, ref = {"disk_free_gb": free / 1e9, "swap_root": root, "layers": L,
+                "layers_cut": L < cfg.num_layers}, None
+    try:
+        for mode in OFFLOAD_MODES:
+            t0 = time.perf_counter()
+            model, engine = _train_engine(seed, S, num_layers=L,
+                                          config_extra=_offload_config(mode, root))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            loss1, s1, got1 = _timed_step(engine, batch, per_step)
+            stats1 = _offload_stats(engine)
+            masters = _offload_masters(engine)
+            rec = {"init_s": init_s, "step_s": [s1], "losses": [loss1],
+                   "stats": [stats1], "launches": [got1]}
+            if ref is None:
+                ref = {"loss": loss1, "masters": masters}
+            else:
+                rec["first_loss_equal"] = loss1 == ref["loss"]
+                rec["masters_max_rel"] = _masters_rel(masters, ref["masters"])
+            del masters
+            if mode in ("nvme", "infinity"):
+                ckpt = os.path.join(root, f"ckpt_{mode}")
+                t = time.perf_counter()
+                engine.save_checkpoint(ckpt, tag="t")
+                rec["save_s"] = time.perf_counter() - t
+            loss2, s2, got2 = _timed_step(engine, batch, per_step)
+            rec["launches"].append(got2)
+            rec["losses"].append(loss2)
+            rec["step_s"].append(s2)
+            rec["stats"].append(_offload_stats(engine))
+            rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if mode in ("nvme", "infinity"):
+                after = _offload_masters(engine)
+                del engine, model
+                free_memory()
+                model, engine = _train_engine(seed, S, num_layers=L,
+                                              config_extra=_offload_config(mode, root))
+                t = time.perf_counter()
+                engine.load_checkpoint(ckpt, tag="t")
+                rec["load_s"] = time.perf_counter() - t
+                loss2r, _, _ = _timed_step(engine, batch, per_step)
+                resumed = _offload_masters(engine)
+                rec["resume_bit_exact"] = loss2r == loss2 and all(
+                    torch.equal(resumed[k], after[k]) for k in after)
+                del after, resumed
+                shutil.rmtree(ckpt, ignore_errors=True)
+            out[mode] = rec
+            del engine, model
+            free_memory()
+            shutil.rmtree(os.path.join(root, "nvme"), ignore_errors=True)
+            shutil.rmtree(os.path.join(root, "inf"), ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(phase="offload", case="llama-740m_modes", model=TRAIN_MODEL, S=S,
+               launches_per_step={mode: _launch_record(out[mode].pop("launches"))
+                                  for mode in OFFLOAD_MODES})
+    emit(out)
+    for mode in OFFLOAD_MODES[1:]:
+        rec = out[mode]
+        check(rec["first_loss_equal"], f"offload {mode}: first loss differs: {rec}")
+        check(rec["masters_max_rel"] <= OFFLOAD_MASTER_RTOL,
+              f"offload {mode}: masters {rec['masters_max_rel']} from the device engine's")
+        if mode in ("nvme", "infinity"):
+            check(rec["resume_bit_exact"], f"offload {mode}: resume is not bit-exact")
+    return out
+
+
+def phase_offload(seed: int) -> dict:
+    t0 = time.perf_counter()
+    rec = {"llama2-7b": phase_offload_7b(seed), "llama-740m": phase_offload_740m(seed)}
+    emit({"phase": "offload_done", "seconds": time.perf_counter() - t0})
+    return rec
+
+
+def _onebit_config(opt: str, **params) -> dict:
+    return {"optimizer": {"type": opt, "params": {"lr": 1e-4, **params}},
+            "zero_optimization": {"stage": 0}, "comms_logger": {"enabled": True}}
+
+
+def _logged_steps(engine, batch, steps, per_step, probe=None) -> tuple:
+    """(losses, step seconds, the comms logger's bytes by dtype, the
+    measured launches) of ``steps`` steps, and ``probe(engine)`` after
+    each step where given."""
+    from deepspeed_tpu_torch import comm
+
+    log = comm.get_comms_logger()
+    losses, step_s, wire, launches, probes = [], [], [], [], []
+    for _ in range(steps):
+        log.reset()
+        loss, dt, got = _timed_step(engine, batch, per_step)
+        losses.append(loss)
+        step_s.append(dt)
+        wire.append(log.totals_by_dtype())
+        launches.append(got)
+        if probe is not None:
+            probes.append(probe(engine))
+    out = (losses, step_s, wire, _launch_record(launches))
+    return out + (probes,) if probe is not None else out
+
+
+def phase_zeropp_onebit(seed: int) -> dict:
+    """The train cell at NCCL world 1 (every collective a copy: this prices
+    the code path, not the links): ZeRO-3 with qwZ + qgZ against plain
+    ZeRO-3, ZPP_STEPS steps (losses within JAX's qwZ bound; every gather
+    of a sharded compute leaf int8; the step overhead); OneBitAdam with
+    freeze_step=ONEBIT_FREEZE over ONEBIT_STEPS steps against AdamW (the
+    warm-up steps equal, the error buffers nonzero after the freeze, the
+    exchange uint8); ZeroOneAdam through its local steps (ZO_CARD_HYPER)
+    and OneBitLamb (losses finite and falling)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import get_config
+
+    t0 = time.perf_counter()
+    S = TRAIN_SHAPE[1]
+    cfg = get_config(TRAIN_MODEL)
+    L = cfg.num_layers
+    per_step = (2 * L, L, L)
+    batch = _train_batch(cfg, S, seed + 1)
+    out = {"phase": "zeropp_onebit", "model": TRAIN_MODEL, "S": S, "world_size": 1}
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                          world_size=1, verbose=False)
+    try:
+        runs = {}
+        for label, zero in (("plain", {"stage": 3}),
+                            ("qwz_qgz", {"stage": 3, "zero_quantized_weights": True,
+                                         "zero_quantized_gradients": True})):
+            model, engine = _train_engine(seed, S, config_extra={
+                "zero_optimization": zero, "comms_logger": {"enabled": True}})
+            reset_counts()
+            losses, step_s, wire, launches = _logged_steps(engine, batch, ZPP_STEPS,
+                                                           per_step)
+            part = engine.partition
+            runs[label] = {"losses": losses, "step_s": step_s, "launches": launches,
+                           "median_step_s": statistics.median(step_s[1:]),
+                           "wire_per_step": wire[-1],
+                           "num_quantized_leaves": part.num_quantized_leaves,
+                           "sharded_compute_leaves": sum(p is not None for p in part.pdims),
+                           "persistent_sharded_masters": sum(
+                               p is None and m is not None
+                               for p, m in zip(part.pdims, part.mdims))}
+            del engine, model
+            free_memory()
+        plain, zpp = runs["plain"], runs["qwz_qgz"]
+        zpp["step_overhead"] = zpp["median_step_s"] / plain["median_step_s"] - 1
+        zpp["loss_max_abs_diff"] = max(abs(a - b) for a, b in
+                                       zip(zpp["losses"], plain["losses"]))
+        out["zeropp"] = runs
+        onebit = {}
+        for label, cfg_extra, steps in (
+                ("adamw", _onebit_config("adamw"), ONEBIT_FREEZE + 1),
+                ("onebitadam", _onebit_config("OneBitAdam", freeze_step=ONEBIT_FREEZE),
+                 ONEBIT_STEPS),
+                ("zerooneadam", _onebit_config("ZeroOneAdam", **ZO_CARD_HYPER), ZO_STEPS),
+                ("onebitlamb", _onebit_config("OneBitLamb", freeze_step=2, lr=1e-3), 4)):
+            model, engine = _train_engine(seed, S, config_extra=cfg_extra)
+            reset_counts()
+            # after each step: whether it left an accumulated local update
+            # unsynced (0/1 Adam's local step)
+            losses, step_s, wire, launches, probes = _logged_steps(
+                engine, batch, steps, per_step,
+                probe=lambda e: bool(getattr(e._comm_error, "lrs", 0.0) > 0))
+            err = engine._comm_error
+            errs = err if isinstance(err, list) else getattr(err, "error", None)
+            onebit[label] = {"losses": losses, "step_s": step_s, "wire_per_step": wire,
+                             "launches": launches, "local_steps": sum(probes),
+                             "error_abs_sum": (None if errs is None else
+                                               float(sum(e.abs().sum() for e in errs)))}
+            del engine, model, err, errs
+            free_memory()
+        out["onebit"] = onebit
+    finally:
+        comm.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    check(all(math.isfinite(x) for x in zpp["losses"]), f"non-finite qwZ loss {zpp}")
+    check(all(abs(a - b) <= ZPP_BOUND["atol"] + ZPP_BOUND["rtol"] * abs(b)
+              for a, b in zip(zpp["losses"], plain["losses"])),
+          f"qwZ/qgZ losses outside JAX's bound of plain ZeRO-3: {zpp['losses']} "
+          f"{plain['losses']}")
+    gathers = zpp["wire_per_step"]["all_gather"]
+    check(gathers.get("int8", {}).get("calls") ==
+          plain["wire_per_step"]["all_gather"]["bfloat16"]["calls"]
+          - plain["persistent_sharded_masters"],
+          f"qwZ: not every gather of a sharded compute leaf was int8: {gathers}")
+    check(gathers.get("bfloat16", {}).get("calls", 0) == zpp["persistent_sharded_masters"],
+          f"qwZ: bf16 gathers beyond the persistent leaves' re-gathers: {gathers}")
+    check(zpp["num_quantized_leaves"] == zpp["sharded_compute_leaves"] > 0,
+          f"num_quantized_leaves {zpp['num_quantized_leaves']}")
+    check("reduce_scatter" not in zpp["wire_per_step"]
+          and zpp["wire_per_step"]["all_to_all"]["int8"]["calls"] > 0,
+          f"qgZ: the gradient reduce is not the int8 all-to-all: {zpp['wire_per_step']}")
+    ob, aw = onebit["onebitadam"], onebit["adamw"]
+    check(ob["losses"][:ONEBIT_FREEZE + 1] == aw["losses"],
+          f"OneBitAdam's warm-up differs from AdamW: {ob['losses']} {aw['losses']}")
+    check(ob["error_abs_sum"] > 0, "OneBitAdam's error buffers are zero after the freeze")
+    check("uint8" in ob["wire_per_step"][-1].get("all_gather", {}),
+          f"OneBitAdam's exchange is not uint8: {ob['wire_per_step'][-1]}")
+    for label in ("zerooneadam", "onebitlamb"):
+        ls = onebit[label]["losses"]
+        check(all(math.isfinite(x) for x in ls) and ls[-1] < ls[0],
+              f"{label}: losses not finite and falling: {ls}")
+    check(onebit["zerooneadam"]["local_steps"] >= 1,
+          f"ZeroOneAdam took no local step: {onebit['zerooneadam']}")
+    emit({"phase": "zeropp_onebit_done", "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _tp_card_zpp4_7b(seed: int, world: int, rank: int) -> dict:
+    """llama2-7b, ZeRO-3 with qwZ, qgZ and hpZ=2 at dp=``world`` against
+    plain ZeRO-3 at dp=``world`` on the same rows: losses within the qwZ
+    bound; all-gather bytes by dtype a step."""
+    from deepspeed_tpu_torch import comm
+
+    comm.configure({"enabled": True})
+    name, S = PP_CARD_MODEL, PP_CARD_S
+    out = {}
+    for label, zero in (("plain", {"stage": 3}),
+                        ("zpp", {"stage": 3, "zero_quantized_weights": True,
+                                 "zero_quantized_gradients": True,
+                                 "zero_hpz_partition_size": 2})):
+        model, engine = _train_engine(seed, S, name=name, config_extra={
+            "zero_optimization": zero, "comms_logger": {"enabled": True}})
+        L = model.config.num_layers
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, model.config.vocab_size, (world, S),
+                                            generator=gen, device="cuda")}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s, wire, _ = _logged_steps(engine, batch, ZERO_STEPS, (2 * L, L, L))
+        out[label] = {"losses": losses, "step_s": step_s,
+                      "median_step_s": statistics.median(step_s[1:]),
+                      "wire_per_step": wire[-1],
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del engine, model, batch
+        free_memory()
+    ok = all(abs(a - b) <= ZPP_BOUND["atol"] + ZPP_BOUND["rtol"] * abs(b)
+             for a, b in zip(out["zpp"]["losses"], out["plain"]["losses"]))
+    check(ok, f"zpp4_7b: losses outside the qwZ bound: {out}")
+    return {"model": name, "S": S, "dp": world, "hpz": 2, **out}
+
+
+def _tp_card_onebit4_740m(seed: int, world: int, rank: int) -> dict:
+    """OneBitAdam (freeze_step ONEBIT_FREEZE) against AdamW at dp=``world``
+    on the train cell: the warm-up equal, bytes a step after the freeze."""
+    from deepspeed_tpu_torch import comm
+
+    comm.configure({"enabled": True})
+    S = TRAIN_SHAPE[1]
+    out = {}
+    for label, extra, steps in (("adamw", _onebit_config("adamw"), ONEBIT_FREEZE + 1),
+                                ("onebitadam", _onebit_config(
+                                    "OneBitAdam", freeze_step=ONEBIT_FREEZE), ONEBIT_STEPS)):
+        model, engine = _train_engine(seed, S, config_extra=extra)
+        L = model.config.num_layers
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, model.config.vocab_size, (world, S),
+                                            generator=gen, device="cuda")}
+        reset_counts()
+        losses, step_s, wire, _ = _logged_steps(engine, batch, steps, (2 * L, L, L))
+        out[label] = {"losses": losses, "step_s": step_s, "wire_per_step": wire}
+        del engine, model, batch
+        free_memory()
+    check(out["onebitadam"]["losses"][:ONEBIT_FREEZE + 1] == out["adamw"]["losses"],
+          f"onebit4_740m: the warm-up differs from AdamW: {out}")
+    return {"model": TRAIN_MODEL, "S": S, "dp": world, "freeze_step": ONEBIT_FREEZE, **out}
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -5403,13 +5903,17 @@ def main() -> int:
                     help="after every phase, the configurations that need tensor "
                          "parallelism, one process per card (several cards)")
     ap.add_argument("--tp-cards-only", nargs="+",
-                    choices=TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS,
+                    choices=(TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS
+                             + ITEM10_CARD_CONFIGS),
                     metavar="CONFIG",
                     help="only the build, then these configurations, one process "
                          "per card (of " + ", ".join(
-                             TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS) + ")")
+                             TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS
+                             + ITEM10_CARD_CONFIGS) + ")")
     ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
+    ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit"),
+                    help="only the build, then these phases (no kernels line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -5434,6 +5938,13 @@ def main() -> int:
         print(nvidia_smi_line(), flush=True)
         phase_build()
         phase_tp_cards(args.seed, args.tp_cards_only)
+        return 0
+    if args.only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(nvidia_smi_line(), flush=True)
+        phase_build()
+        for name in args.only:
+            {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit}[name](args.seed)
         return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
@@ -5471,6 +5982,8 @@ def main() -> int:
     moe_serve = phase_moe_serving(args.seed)
     moe_train = phase_moe_train(args.seed)
     pipe = phase_pipeline(args.seed)
+    offload = phase_offload(args.seed)
+    zpp_onebit = phase_zeropp_onebit(args.seed)
     if args.tp_cards:
         phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -5501,6 +6014,19 @@ def main() -> int:
             rec["launches_moe_forward"] = moe_serve["k1_forward"]
         return rec
 
+    def item10_launches(i):
+        """The offload and ZeRO++/1-bit paths' launches of K1 (i=0), K2, K3,
+        as each of their steps measured them (one count a step)."""
+        key = ("K1", "K2", "K3")[i]
+        runs = {**zpp_onebit["zeropp"], **zpp_onebit["onebit"]}
+        return {"launches_offload_7b_per_step": offload["llama2-7b"]["launches_per_step"][key],
+                "offload_7b_layers": offload["llama2-7b"]["layers"],
+                "launches_offload_740m_per_step": {
+                    mode: rec[key]
+                    for mode, rec in offload["llama-740m"]["launches_per_step"].items()},
+                "launches_zeropp_onebit_per_step": {
+                    label: rec["launches"][key] for label, rec in runs.items()}}
+
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
         dlse) at the virtual ring's shard and at sp4_740m's, and the
@@ -5528,17 +6054,17 @@ def main() -> int:
                       launches_per_step_save_qkv=remat["save_qkv"]["launches_per_step"]["K1"],
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
-                      ring=ring_record("K1"), **item9_launches(0)),
+                      ring=ring_record("K1"), **item9_launches(0), **item10_launches(0)),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
-                      **item9_launches(1)),
+                      **item9_launches(1), **item10_launches(1)),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
-                      **item9_launches(2)),
+                      **item9_launches(2), **item10_launches(2)),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], design=K4_DESIGN, l2="flushed",

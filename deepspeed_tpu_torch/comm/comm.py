@@ -91,7 +91,9 @@ def timed_op(fn):
             axis = bound.arguments.get("axis")
             _comms_logger.append(fn.__name__, _nbytes(tensor),
                                  axis=None if axis is None else
-                                 "/".join(canonical_axes(axis)))
+                                 "/".join(canonical_axes(axis)),
+                                 dtype=(str(tensor.dtype).replace("torch.", "")
+                                        if isinstance(tensor, torch.Tensor) else None))
         return fn(tensor, *args, **kwargs)
 
     return wrapper

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels (``csrc/``), their Python wrappers and plain
-PyTorch versions (``kernels/``), the nvcc/ctypes builder (``op_builder/``),
+PyTorch versions (``kernels/``), the nvcc and g++ builders (``op_builder/``;
+the host ops: ``adam/cpu_adam.py`` and the aio engine of ``aio_bench.py``),
 block-sparse attention (``sparse_attention``) and the BERT-style layer API
 (``transformer``, imported on first access: it builds on
 ``models.transformer``, which imports this package)."""

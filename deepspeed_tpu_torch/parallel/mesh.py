@@ -404,22 +404,25 @@ def _check_factorization(zero_cfg) -> None:
         raise ValueError(
             f"{' and '.join(actives)} all factorize the data axis — "
             "enable exactly one")
-    if hpz > 1 or hier > 1:
-        raise NotImplementedError(
-            "ZeRO++ hpZ / hierarchical data parallelism is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+    # hpZ and the hierarchical DP size reuse MiCS's inner x outer split
+    # ('data' x 'data_outer'); the engine's planner diverges for them
+    # (hpZ: masters and gradients on the whole group, the compute view on
+    # the inner one; hierarchical: everything on the whole group)
+    if hpz > 1:
+        return hpz
+    if hier > 1:
+        return hier
+    return mics
 
 
 def engine_layout(mc, zero_cfg, world: int) -> MeshLayout:
     """The engine's layout over ``world`` ranks from the config's
-    parallelism degrees (``mc``: dp, tp, pp, ep, sp) and MiCS's
-    factorization (reference ``runtime/zero/mics.py:351``): ZeRO shards
-    within groups of ``mics_shard_size`` ranks, replicated across
-    'data_outer' replica groups.  The JAX package's arithmetic and
-    messages; the ZeRO++ factorizations (hpZ, the hierarchical DP size)
-    are not ported (ROADMAP queue 1, item 10)."""
-    _check_factorization(zero_cfg)
-    mics = zero_cfg.mics_shard_size
+    parallelism degrees (``mc``: dp, tp, pp, ep, sp) and the data axis's
+    factorization (MiCS, reference ``runtime/zero/mics.py:351``: ZeRO
+    shards within groups of ``mics_shard_size`` ranks, replicated across
+    'data_outer' replica groups; ZeRO++ hpZ and the hierarchical DP size
+    split it the same way).  The JAX package's arithmetic and messages."""
+    mics = _check_factorization(zero_cfg)
     dp_outer = 1
     if mics > 0:
         # ZeRO shards over ZERO_AXES=('data','expert'), so the shard
@@ -454,10 +457,12 @@ def resolve_engine_mesh(mc, zero_cfg, mesh=None):
     if isinstance(mesh, MeshLayout):
         mesh = initialize_mesh(mesh)
     if mesh is None:
-        return initialize_mesh(engine_layout(mc, zero_cfg, _world()))
-    _check_factorization(zero_cfg)
+        mesh = initialize_mesh(engine_layout(mc, zero_cfg, _world()))
+        _log_hierarchical(zero_cfg)
+        return mesh
+    mics = _check_factorization(zero_cfg)
     set_mesh(mesh)
-    mics = zero_cfg.mics_shard_size
+    _log_hierarchical(zero_cfg)
     if mics > 0:
         # ZeRO shard group on an explicit mesh = inner data x expert
         layout = layout_of(mesh)
@@ -468,6 +473,16 @@ def resolve_engine_mesh(mc, zero_cfg, mesh=None):
                 f"mesh's ZeRO group size data×expert={group}; build the "
                 f"mesh with MeshLayout(dp=mics//ep, dp_outer=...) instead")
     return mesh
+
+
+def _log_hierarchical(zero_cfg) -> None:
+    if zero_cfg.mics_shard_size > 0 and zero_cfg.mics_hierarchical_params_gather:
+        from ..utils.logging import log_dist
+
+        # the gathers over the factorized axes already run inner group by
+        # inner group: the knob is satisfied by the layout
+        log_dist("MiCS: hierarchical gather is implicit in the factorized "
+                 "mesh (per-axis process groups)", ranks=[0])
 
 
 def topology_from_mesh(mesh=None) -> ProcessTopology:

@@ -41,9 +41,20 @@ commit thread never shares a group with the training step's collectives.
 A load restores in place into a state dict built from the live engine
 (JAX's "restore against target"); DCP reshards by global offsets, so a
 checkpoint saved at world N loads at world M, and a one-device engine
-(no process group) reads a sharded checkpoint whole.  Left for later, each refused by name:
-offload state files (item 10), data-sampler and curriculum state (item
-11), fault-injection sites (item 12).
+(no process group) reads a sharded checkpoint whole.
+
+Host-stepped offload and ZeRO-Infinity keep the fp32 masters and the
+moments outside the state: they go beside it, one .npy a leaf and state,
+streamed a leaf at a time (``offload_optimizer/``, per rank above one
+data rank: ``offload_optimizer/rank<r>``), the JAX package's files.  The
+1-bit optimizers' per-rank state (error buffers; 0/1 Adam's moments,
+accumulators, drifted masters and counters) goes to ``comm_state/
+rank<r>.pt``; the DCP masters of a 0/1 Adam engine are the synced ones
+(the masters less the accumulated local update), the JAX engine's
+meaning.  A partial load (``load_module_only``,
+``load_optimizer_states=False``) of an offload engine is refused, as
+there.  Left for later, each refused by name: data-sampler and curriculum
+state (item 11), fault-injection sites (item 12).
 """
 from __future__ import annotations
 
@@ -150,6 +161,10 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
     (``optimizer``).  Tensors are the live ones (this rank's shards for a
     data-parallel engine: :func:`as_dtensors` wraps them)."""
     state, out = engine.state, {}
+    if state is None:   # ZeRO-Infinity: the whole state is in the offload files
+        if rest:
+            out["rng/dropout"] = engine.generator.get_state()
+        return out
     if module:
         flatten_state(state.params, "params", out)
         flatten_state(state.master_params, "master_params", out)
@@ -159,6 +174,15 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
         out["rng/dropout"] = engine.generator.get_state()
     if optimizer:
         flatten_state(state.opt_state, "opt_state", out)
+    if module and _zero_one(engine) is not None:
+        # the synced masters: each rank's drift is its own state (comm_state/)
+        zo = _zero_one(engine)
+        from ...utils.tree import tree_flatten_with_path
+
+        key = "master_params" if state.master_params is not None else "params"
+        for (path, _), acc in zip(tree_flatten_with_path(getattr(state, key)), zo.acc):
+            out[f"{key}/{path}"] = (out[f"{key}/{path}"].float() - acc).to(
+                out[f"{key}/{path}"].dtype)
     part = engine.partition
     if part is not None and any(part.uneven(i) for i in range(len(part.paths))):
         for key in sorted(out):   # collective: the same order on every rank
@@ -225,6 +249,71 @@ def as_dtensors(engine, flat: Dict[str, torch.Tensor],
         out[key] = DTensor.from_local(t, mesh, placements, run_check=False,
                                       shape=torch.Size(shape), stride=stride)
     return out
+
+
+def _zero_one(engine):
+    err = getattr(engine, "_comm_error", None)
+    return err if err is not None and hasattr(err, "acc") else None
+
+
+def _offload_of(engine):
+    return getattr(engine, "_offload", None) or getattr(engine, "_param_offload", None)
+
+
+def _rank_dir(engine, base: str) -> str:
+    """Per-rank state above one data rank (each holds its own)."""
+    if engine.dp_world > 1 or getattr(engine, "tp", 0) > 1:
+        from ... import comm
+
+        return os.path.join(base, f"rank{comm.get_rank()}")
+    return base
+
+
+def _save_side_state(engine, ckpt_dir: str) -> None:
+    """The offload files and the 1-bit per-rank state, beside the DCP state."""
+    off = _offload_of(engine)
+    if off is not None:
+        off.save_state_files(_rank_dir(engine, os.path.join(ckpt_dir, "offload_optimizer")))
+    err = getattr(engine, "_comm_error", None)
+    if err is not None:
+        from ... import comm
+
+        d = os.path.join(ckpt_dir, "comm_state")
+        os.makedirs(d, exist_ok=True)
+        state = engine.state
+        side = {"comm_error": err}
+        if _zero_one(engine) is not None:   # this rank's drifted masters
+            side["masters"] = (state.master_params if state.master_params is not None
+                               else state.params)
+        torch.save(side, os.path.join(d, f"rank{comm.get_rank() if engine.distributed else 0}.pt"))
+
+
+def _load_side_state(engine, ckpt_dir: str) -> None:
+    off = _offload_of(engine)
+    if off is not None:
+        d = _rank_dir(engine, os.path.join(ckpt_dir, "offload_optimizer"))
+        if not os.path.isdir(d):
+            raise FileNotFoundError(
+                f"checkpoint {ckpt_dir} has no offload_optimizer/ but this "
+                "engine runs a host-stepped offload optimizer — it was saved "
+                "without offload or from an incompatible config")
+        off.load_state_files(d)
+    if getattr(engine, "_comm_error", None) is not None:
+        from ... import comm
+
+        path = os.path.join(ckpt_dir, "comm_state",
+                            f"rank{comm.get_rank() if engine.distributed else 0}.pt")
+        side = torch.load(path, map_location=engine.device, weights_only=False)
+        engine._comm_error = side["comm_error"]
+        if "masters" in side:
+            key = ("master_params" if engine.state.master_params is not None
+                   else "params")
+            engine.state = dataclasses.replace(engine.state, **{key: side["masters"]})
+            if key == "master_params":
+                from ..engine import _cast_tree
+
+                engine.state = dataclasses.replace(engine.state, params=_cast_tree(
+                    side["masters"], engine.compute_dtype))
 
 
 def _ckpt_group(engine):
@@ -312,6 +401,7 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         with open(os.path.join(ckpt_dir, "ds_config.json"), "w") as f:
             json.dump(engine.config.to_dict(), f, indent=2, default=str)
     state_path = os.path.join(ckpt_dir, STATE_DIR)
+    _save_side_state(engine, ckpt_dir)
     if async_save:
         if engine._async_ckpt_engine is None:
             engine._async_ckpt_engine = AsyncCheckpointEngine(process_group=group)
@@ -366,6 +456,16 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"checkpoint tag dir not found: {ckpt_dir}")
     group = _ckpt_group(engine)
+    if _offload_of(engine) is not None and (load_module_only or not load_optimizer_states):
+        # the card's params derive from the host masters every step: a
+        # weights-only load would be overwritten by the next step
+        raise NotImplementedError(
+            "partial checkpoint loads (load_module_only / "
+            "load_optimizer_states=False) are not supported with a "
+            "host-stepped or param-offload optimizer: params are derived "
+            "from the host fp32 masters, so a weights-only load would be "
+            "discarded at the next step.  Load the full checkpoint, or "
+            "export weights via checkpoint/zero_to_fp32.py.")
     if engine.config.resilience.verify_on_load:
         _verify_on_rank0(engine, ckpt_dir)
     opt = load_optimizer_states and not load_module_only
@@ -379,6 +479,10 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         if hit is not None and target[key].dim() and part.uneven(hit[0]):
             target[key] = part.piece_of_true(hit[0], hit[1], target[key].to_local())
     state = engine.state
+    if state is None:   # ZeRO-Infinity: the generator, then the files
+        engine.generator.set_state(target["rng/dropout"])
+        _load_side_state(engine, ckpt_dir)
+        return _load_meta(engine, ckpt_dir, tag)
     kw = {"params": restore_state(state.params, "params", target),
           "master_params": restore_state(state.master_params, "master_params",
                                          target)}
@@ -389,7 +493,12 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if opt:
         kw["opt_state"] = restore_state(state.opt_state, "opt_state", target)
     engine.state = dataclasses.replace(state, **kw)
+    if opt:
+        _load_side_state(engine, ckpt_dir)
+    return _load_meta(engine, ckpt_dir, tag)
 
+
+def _load_meta(engine, ckpt_dir: str, tag):
     meta = {}
     meta_path = os.path.join(ckpt_dir, "client_state.json")
     if os.path.exists(meta_path):

@@ -59,12 +59,76 @@ class SchedulerConfig:
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+_OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+@dataclasses.dataclass
+class OffloadParamConfig:
+    """zero_optimization.offload_param (reference runtime/zero/offload_config.py):
+    ``device="nvme"`` runs ZeRO-Infinity's layer-streamed executor
+    (``runtime/zero/infinity.py``)."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+    def __post_init__(self):
+        self.device = str(getattr(self.device, "value", self.device))
+        if self.device not in _OFFLOAD_DEVICES:
+            raise ValueError(f"offload_param.device={self.device!r} not in "
+                             f"{_OFFLOAD_DEVICES}")
+        for knob in ("buffer_count", "buffer_size", "max_in_cpu"):
+            check_min(f"offload_param.{knob}", getattr(self, knob), 0)
+
+
+@dataclasses.dataclass
+class OffloadOptimizerConfig:
+    """zero_optimization.offload_optimizer (reference
+    runtime/zero/offload_config.py).  ``host_step``: True runs the host
+    SIMD Adam on RAM-resident state, False parks the state in pinned host
+    memory and streams it through the device update (``"streamed"``),
+    None picks as the JAX package does (``runtime/offload.py``)."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+    host_step: Optional[bool] = None
+
+    def __post_init__(self):
+        self.device = str(getattr(self.device, "value", self.device))
+        if self.device not in _OFFLOAD_DEVICES:
+            raise ValueError(f"offload_optimizer.device={self.device!r} not in "
+                             f"{_OFFLOAD_DEVICES}")
+        check_min("offload_optimizer.buffer_count", self.buffer_count, 0)
+        if not 0.0 <= self.ratio <= 1.0:
+            raise ValueError("offload_optimizer.ratio must be in [0, 1]")
+
+
+@dataclasses.dataclass
+class AIOConfig:
+    """``aio`` block: the NVMe engine's threads (the other knobs parse)."""
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+
 @dataclasses.dataclass
 class ZeroConfig:
     """zero_optimization block: stages 0-3 and MiCS (``mics_shard_size``)
-    over the data-parallel ranks (``runtime/zero``); offload and ZeRO++
-    are not ported.  The bucket and prefetch knobs parse and, as in the
-    JAX package, change nothing (collectives are per leaf)."""
+    over the data-parallel ranks (``runtime/zero``), ZeRO-Offload and
+    ZeRO-Infinity (``offload_optimizer``, ``offload_param``), ZeRO++
+    (``zero_quantized_weights``/``_gradients``, ``zero_hpz_partition_size``)
+    and the hierarchical DP size.  The JAX package's checks and messages.
+    The bucket and prefetch knobs parse and, as in the JAX package, change
+    nothing (collectives are per leaf)."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -74,8 +138,8 @@ class ZeroConfig:
     overlap_comm: bool = True
     round_robin_gradients: bool = False
     elastic_checkpoint: bool = False
-    offload_param: Optional[Dict[str, Any]] = None
-    offload_optimizer: Optional[Dict[str, Any]] = None
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
     sub_group_size: int = 1_000_000_000
     stage3_max_live_parameters: int = 1_000_000_000
     stage3_max_reuse_distance: int = 1_000_000_000
@@ -93,8 +157,43 @@ class ZeroConfig:
     def __post_init__(self):
         if not 0 <= self.stage <= 3:
             raise ValueError(f"zero_optimization.stage={self.stage} not in 0..3")
+        if isinstance(self.offload_param, dict):
+            self.offload_param = config_from_dict(OffloadParamConfig, self.offload_param)
+        if isinstance(self.offload_optimizer, dict):
+            self.offload_optimizer = config_from_dict(OffloadOptimizerConfig,
+                                                      self.offload_optimizer)
+        check_min("zero_optimization.zero_hpz_partition_size",
+                  self.zero_hpz_partition_size, 1)
+        if self.zero_quantized_weights or self.zero_quantized_gradients:
+            if self.stage != 3:
+                raise ValueError("ZeRO++ quantized collectives require stage 3")
+        if self.mics_shard_size == 0 or self.mics_shard_size < -1:
+            raise ValueError(
+                f"mics_shard_size={self.mics_shard_size} invalid: must be -1 "
+                "(disabled) or a positive shard-group size")
         if self.mics_shard_size > 0 and self.stage != 3:
             raise ValueError("mics_shard_size (MiCS) requires ZeRO stage 3")
+        if self.mics_hierarchical_params_gather and self.mics_shard_size <= 0:
+            raise ValueError(
+                "mics_hierarchical_params_gather requires mics_shard_size > 0")
+        if self.zero_hpz_partition_size > 1 and self.stage != 3:
+            raise ValueError(
+                "zero_hpz_partition_size (ZeRO++ hpZ) requires stage 3")
+        if self.zero_hierarchical_dp_size > 1 and self.stage != 3:
+            raise ValueError(
+                "zero_hierarchical_dp_size (hierarchical qgZ) requires "
+                "stage 3")
+        if self.zero_hierarchical_dp_size > 1 and self.mics_shard_size > 0:
+            raise ValueError(
+                "zero_hierarchical_dp_size and mics_shard_size both "
+                "factorize the data axis — enable exactly one")
+        if self.zero_hierarchical_dp_size > 1 \
+                and self.zero_hpz_partition_size > 1:
+            raise ValueError(
+                "zero_hierarchical_dp_size and zero_hpz_partition_size both "
+                "factorize the data axis — enable exactly one (hpZ makes "
+                "the outer hop the only explicit one; hierarchical qgZ needs masters "
+                "on both axes)")
 
 
 @dataclasses.dataclass
@@ -180,10 +279,6 @@ def _enabled(block: Any, *path: str) -> bool:
     return isinstance(block, dict) and bool(block.get("enabled", False))
 
 
-def _offloads(block: Optional[Dict[str, Any]]) -> bool:
-    return block is not None and str(block.get("device", "none")) != "none"
-
-
 class DeepSpeedConfig:
     """Master config: a dict, a JSON file path, or None; resolves the
     batch-size triad against the data-parallel world size."""
@@ -228,6 +323,7 @@ class DeepSpeedConfig:
                                            config.get("resilience", {}))
         self.comms_logger = config_from_dict(CommsLoggerConfig,
                                              config.get("comms_logger", {}))
+        self.aio = config_from_dict(AIOConfig, config.get("aio", {}))
 
         self.gradient_accumulation_steps: Optional[int] = config.get(
             C.GRADIENT_ACCUMULATION_STEPS)
@@ -249,13 +345,6 @@ class DeepSpeedConfig:
             if cond:
                 todo.append(f"{what} (ROADMAP queue 1, item {item})")
 
-        need(_offloads(zc.offload_param) or _offloads(zc.offload_optimizer),
-             "zero_optimization offload", 10)
-        need(zc.zero_quantized_weights or zc.zero_quantized_gradients
-             or zc.zero_hpz_partition_size > 1 or zc.zero_hierarchical_dp_size > 1,
-             "ZeRO++ (qwZ/qgZ/hpZ)", 10)
-        need(zc.mics_hierarchical_params_gather,
-             "MiCS hierarchical parameter gather", 10)
         need(mesh.pp > 1, "pipeline parallelism (mesh.pp)", 9)
         need(mesh.ep > 1, "expert parallelism (mesh.ep)", 9)
         need("compression_training" in cfg, "compression_training", 11)
@@ -277,6 +366,23 @@ class DeepSpeedConfig:
                 + "; ".join(todo))
 
         bad: List[str] = ["sparse_gradients"] if cfg.get("sparse_gradients") else []
+        # the JAX package's offload refusals, word for word
+        if zc.offload_param is not None and zc.offload_param.device == "cpu":
+            bad.append("zero_optimization.offload_param.device=cpu "
+                       "(use device=nvme for the layer-streamed param "
+                       "offload, or offload_optimizer for state-only offload)")
+        if zc.offload_param is not None and zc.offload_param.device == "nvme":
+            if not zc.offload_param.nvme_path:
+                bad.append("zero_optimization.offload_param.device=nvme "
+                           "requires nvme_path")
+            if zc.stage != 3:
+                bad.append("zero_optimization.offload_param requires "
+                           "stage=3 (reference restriction)")
+        if zc.offload_optimizer is not None and \
+                zc.offload_optimizer.device == "nvme" and \
+                not zc.offload_optimizer.nvme_path:
+            bad.append("zero_optimization.offload_optimizer.device=nvme "
+                       "requires nvme_path")
         ck = self.checkpoint_config
         bad += [f"checkpoint.{knob}" for knob in (
             "load_universal", "use_node_local_storage", "parallel_write_pipeline")
@@ -291,7 +397,7 @@ class DeepSpeedConfig:
             bad.append("activation_checkpointing.number_checkpoints")
         if bad:
             raise NotImplementedError(
-                "config enables features this build does not implement: "
+                "config enables features this build does not implement yet: "
                 + "; ".join(bad))
 
     # -- batch triad (reference runtime/config.py `_batch_assertion` et al.) --

@@ -80,10 +80,24 @@ the specs' 'pipe' dim), or every stage in this process (virtual stages)
 at a 'pipe' axis of 1; the embedding, head and norms every pipe rank
 holds sum their gradients over 'pipe' (the reference's ReduceTiedGrads).
 ``forward``/``backward``/``step`` are refused, as in the JAX engine.
+
+Offload (``runtime/offload.py``): ``offload_optimizer`` keeps the fp32
+masters and the moments in host RAM stepped by the host SIMD Adam
+(``host_step``, the card computing the gradients and getting the bf16
+params back), in NVMe files (``nvme``), or parked in pinned host memory
+and streamed through the engine's own update a leaf at a time
+(``streamed``); ``offload_param.device="nvme"`` hands the whole step to
+ZeRO-Infinity's layer-streamed executor (``runtime/zero/infinity.py``).
+ZeRO++ (``runtime/zero/zeropp.py``): qwZ/qgZ make the stage-3 gathers
+int8 on the wire, hpZ and the hierarchical DP size factorize the data
+axis.  The 1-bit optimizers: OneBitAdam/OneBitLamb exchange the
+gradients error-feedback sign-compressed after ``freeze_step``
+(``runtime/comm/compressed.py``), ZeroOneAdam runs its variance freeze
+and local steps (``runtime/comm/zero_one.py``).  Each composition the JAX
+engine refuses raises with its message.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: a 'pipe' axis with tensor, sequence or expert axes or with ZeRO
-stage 3, MoE on a 'seq' axis (item 9, left), offload, 1-bit and ZeRO++
-(item 10).
+stage 3, MoE on a 'seq' axis (item 9, left).
 """
 from __future__ import annotations
 
@@ -292,14 +306,24 @@ class DeepSpeedEngine:
                 dict(opt_cfg.params) if opt_cfg else {}, self.lr_schedule,
                 self.config.gradient_clipping, frozen_mask=self._frozen_mask)
 
+        self._check_compression(optimizer)
+
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
         self.plan = self.partition = None
-        self.state = self._init_state(init_fn, params, param_specs)
+        self._offload = self._param_offload = None
+        self._compute_cast = None
+        self._comm_error = None
+        if self._wants_param_offload():
+            self._param_offload = self._build_param_offload(model)
+            self.state = None
+            self.param_count = self._param_offload.param_count
+        else:
+            self.state = self._init_state(init_fn, params, param_specs)
+            self.param_count = (sum(math.prod(s) for s in self.partition.global_shapes)
+                                if self.partition is not None else
+                                sum(x.numel() for x in tree_leaves(self.state.params)))
         self._leafwise = optimizer is None and self._frozen_mask is None
-        self.param_count = (sum(math.prod(s) for s in self.partition.global_shapes)
-                            if self.partition is not None else
-                            sum(x.numel() for x in tree_leaves(self.state.params)))
 
         # -- bookkeeping --
         self.global_steps = 0
@@ -531,7 +555,18 @@ class DeepSpeedEngine:
                      "updates/grad-norm (model.frozen_spec)", ranks=[0])
         # masters are fresh fp32 (or wider) copies: the caller's tree is
         # never aliased; data-parallel, each leaf's copy is cut to this
-        # rank's shard before the next is made
+        # rank's shard before the next is made.  Host-stepped offload on
+        # one device: each leaf's master goes straight to host memory and
+        # only its compute view stays on the card
+        if not self.distributed and self._offload_mode(self.use_master_weights) in (
+                "host_step", "nvme"):
+            master = tree_map(lambda x: x.detach().to("cpu", _master_dtype(x), copy=True),
+                              params)
+            params0 = tree_map(lambda x: x.detach().to(self.device, self.compute_dtype)
+                               if x.is_floating_point() else x.detach().to(self.device),
+                               params)
+            del params
+            return self._host_offload_state(master, params0)
         if self.distributed:
             master = self._shard_state(params, self._tp_specs if self.tp
                                        else param_specs)
@@ -545,17 +580,174 @@ class DeepSpeedEngine:
                                tree_leaves(master), self.compute_dtype)))
         else:
             params0, master = master, None
-        opt_state = self.optimizer.init(master if master is not None else params0)
-        if self.fp16_enabled:
-            f16 = self.config.fp16
-            scaler = (static_loss_scale_state(f16.loss_scale) if f16.loss_scale > 0
-                      else dynamic_loss_scale_state(
-                          f16.initial_scale_power, f16.loss_scale_window,
-                          f16.min_loss_scale, f16.hysteresis))
+        mode = self._offload_mode(master is not None)
+        if mode in ("host_step", "nvme"):
+            return self._host_offload_state(master, params0)
+        if self._compression is not None and self._compression["algo"] == "zo":
+            from .comm.zero_one import init_zero_one_state
+
+            self._comm_error = init_zero_one_state(master if master is not None
+                                                   else params0, self.device)
+            opt_state = ()
         else:
-            scaler = no_loss_scale_state()
+            opt_state = self.optimizer.init(master if master is not None else params0)
+            if self._compression is not None:   # over the whole leaves
+                from .comm.compressed import init_error_tree
+
+                shapes = (self.partition.global_shapes if self.partition is not None
+                          else [tuple(x.shape) for x in tree_leaves(params0)])
+                self._comm_error = init_error_tree(
+                    [torch.empty(sh, device="meta") for sh in shapes], self.device)
+        from .offload import StreamedState
+
+        self._state_home = StreamedState(self.device, parked=mode == "streamed",
+                                         masters=master is not None)
+        if mode == "streamed" and not self._state_home.parked:
+            # host memory is the CPU device's memory: nothing to park (the
+            # JAX engine skips the placement on its CPU backend too)
+            log_dist("offload_optimizer.device=cpu: CPU device — host memory IS "
+                     "device memory; offload placement skipped", ranks=[0])
+        opt_state = self._state_home.park(opt_state)
+        if master is not None:
+            master = self._state_home.park(master)
         return TrainState(step=0, params=params0, master_params=master,
-                          opt_state=opt_state, scaler=scaler)
+                          opt_state=opt_state, scaler=self._scaler())
+
+    def _wants_param_offload(self) -> bool:
+        zpo = self.config.zero_config.offload_param
+        return zpo is not None and zpo.device == "nvme"
+
+    def _build_param_offload(self, model):
+        """ZeRO-Infinity's parameter offload (``runtime/zero/infinity.py``),
+        with the JAX engine's refusals of what does not compose."""
+        from .zero.infinity import InfinityParamEngine
+
+        if self._compression is not None:
+            raise NotImplementedError("offload_param + 1-bit optimizers: unsupported")
+        zoo = self.config.zero_config.offload_optimizer
+        if zoo is not None and zoo.device != "none":
+            raise NotImplementedError(
+                "offload_param already places the optimizer state on its "
+                "own NVMe path (masters + moments live beside the "
+                "params); a simultaneous offload_optimizer config would "
+                "be silently ignored — remove it")
+        if self._frozen_mask is not None:
+            raise NotImplementedError(
+                "model.frozen_spec does not compose with offload_param "
+                "(the layer-streamed host Adam steps every shard); use "
+                "the LoRA path (runtime/lora.py) to train adapters "
+                "against NVMe-resident frozen weights")
+        if self.tp or self.sp > 1 or self.pp > 1 or self.ep > 1:
+            raise NotImplementedError(
+                "offload_param runs over the data axes only in the port (its "
+                "per-layer files hold whole leaves)")
+        return InfinityParamEngine(self.config, model, self.lr_schedule,
+                                   self.device, self.generator)
+
+    def _check_compression(self, client_optimizer) -> None:
+        """``self._compression`` for the 1-bit optimizers (the JAX engine's
+        rules and messages): ``{"algo": "ef", "freeze_step"}`` for
+        OneBitAdam/OneBitLamb (the error-feedback exchange after
+        ``freeze_step``), ``{"algo": "zo", "hyper"}`` for ZeroOneAdam."""
+        self._compression = None
+        opt_cfg = self.config.optimizer
+        if client_optimizer is not None or opt_cfg is None:
+            return
+        norm_type = opt_cfg.type.lower().replace("_", "")
+        if norm_type not in ("onebitadam", "onebitlamb", "zerooneadam"):
+            return
+        opt_params = dict(opt_cfg.params)
+        if self.distributed:
+            from ..parallel.mesh import MESH_AXES, layout_of
+
+            sizes = dict(zip(MESH_AXES, layout_of(self.mesh).axis_sizes()))
+            for ax in ("model", "seq", "pipe", "expert"):
+                if sizes.get(ax, 1) > 1:
+                    raise ValueError(f"1-bit optimizers need a pure-DP mesh ({ax} "
+                                     f"axis has size {sizes[ax]})")
+        zoo = self.config.zero_config.offload_optimizer
+        if norm_type == "zerooneadam":
+            if self._frozen_mask is not None:
+                raise NotImplementedError(
+                    "model.frozen_spec does not compose with ZeroOneAdam "
+                    "(it owns its whole optimizer state outside the "
+                    "masked optax chain)")
+            if self.zero_stage != 0:
+                raise ValueError(
+                    "ZeroOneAdam composes with ZeRO stage 0 only (the "
+                    "in-region update reads replicated masters; the "
+                    "reference tutorial lists the same ZeRO "
+                    "incompatibility)")
+            if self.fp16_enabled:
+                raise NotImplementedError(
+                    "ZeroOneAdam + fp16 loss scaling: the local-step "
+                    "phase has no per-worker overflow protocol")
+            if self.config.gradient_clipping:
+                raise NotImplementedError(
+                    "ZeroOneAdam supports max_grad_norm=0 only "
+                    "(reference zoadam.py has the same default; clipping "
+                    "a locally-drifted update is undefined)")
+            if zoo is not None:
+                raise NotImplementedError("ZeroOneAdam + optimizer offload: unsupported")
+            self._compression = {"algo": "zo", "hyper": opt_params}
+            return
+        self._compression = {"algo": "ef",
+                             "freeze_step": int(opt_params.get("freeze_step", 100))}
+        if self.zero_stage > 1:
+            raise ValueError(
+                "1-bit optimizers compose with ZeRO stage <= 1 only "
+                "(stages 2/3 shard gradients; the reference has the "
+                "same restriction)")
+
+    def _scaler(self) -> LossScaleState:
+        if not self.fp16_enabled:
+            return no_loss_scale_state()
+        f16 = self.config.fp16
+        return (static_loss_scale_state(f16.loss_scale) if f16.loss_scale > 0
+                else dynamic_loss_scale_state(f16.initial_scale_power,
+                                              f16.loss_scale_window,
+                                              f16.min_loss_scale, f16.hysteresis))
+
+    def _offload_mode(self, has_masters: bool) -> str:
+        """Where the optimizer state rests (``runtime/offload.py``), with
+        the JAX engine's refusals of what does not compose."""
+        from .offload import resolve_offload_mode
+
+        mode = resolve_offload_mode(self.config, self.dp_world,
+                                    use_master_weights=has_masters,
+                                    fp16_enabled=self.fp16_enabled,
+                                    has_compression=False)
+        if mode in ("host_step", "nvme"):
+            if not has_masters:
+                raise ValueError("optimizer offload requires bf16/fp16 "
+                                 "compute (fp32 params have no separate masters "
+                                 "to offload)")
+            if self._frozen_mask is not None:
+                raise NotImplementedError(
+                    "model.frozen_spec does not compose with optimizer "
+                    "offload yet (the host-stepped executor updates every "
+                    "shard); drop the offload config or use the LoRA path "
+                    "(runtime/lora.py) which keeps frozen weights out of "
+                    "the optimizer entirely")
+        return mode
+
+    def _host_offload_state(self, master, params0) -> TrainState:
+        """The masters (a tree on the host or the card: this rank's
+        shards) handed to the host-stepped optimizer; the card keeps the
+        compute params alone."""
+        from .offload import HostSteppedOffload
+
+        mode = self._offload_mode(True)
+        paths = [p for p, _ in tree_flatten_with_path(master)]
+        host = {}
+        for path, x in zip(paths, tree_leaves(master)):
+            host[path] = x.detach().to("cpu", torch.float32).numpy()
+        del master
+        self._offload = HostSteppedOffload(
+            self.config, host, storage="cpu" if mode == "host_step" else "nvme",
+            device=self.device, fp16_enabled=self.fp16_enabled)
+        return TrainState(step=0, params=params0, master_params=None, opt_state=(),
+                          scaler=self._scaler())
 
     def _shard_state(self, params, param_specs):
         """Plan the ZeRO placements of the full tree and keep this rank's
@@ -575,9 +767,22 @@ class DeepSpeedEngine:
             shapes = tree_map(lambda x, spec: torch.empty(
                 _whole_shape(x.shape, spec, sizes), device="meta"),
                 template, self._tp_specs)
+        from ..parallel.mesh import ZERO_AXES
+
+        hpz = zc.zero_hpz_partition_size > 1
+        hier = zc.zero_hierarchical_dp_size > 1
+        # hpZ: masters, optimizer state and gradients over the whole group,
+        # the compute view over the inner one; hierarchical: all over both
+        zero_axes = (ZERO_AXES + ("data_outer",) if hpz else
+                     BATCH_AXES if hier else ZERO_AXES)
         self.plan = plan_sharding(shapes, self.zero_stage, self.mesh,
                                   tp_specs=param_specs,
-                                  persistence_threshold=zc.stage3_param_persistence_threshold)
+                                  persistence_threshold=zc.stage3_param_persistence_threshold,
+                                  zero_axes=zero_axes,
+                                  param_zero_axes=ZERO_AXES if hpz else None)
+        from .zero.zeropp import zeropp_settings
+
+        zeropp = zeropp_settings(zc, self.use_master_weights, self.compute_dtype)
         frozen = (None if self._frozen_mask is None
                   else [bool(m) for m in tree_leaves(self._frozen_mask)])
         true_shapes = None
@@ -586,7 +791,12 @@ class DeepSpeedEngine:
         self.partition = ZeroPartition(
             self.plan, template, self.use_master_weights, self.accum_dtype,
             frozen=frozen, global_shapes=[tuple(x.shape) for x in tree_leaves(shapes)],
-            true_shapes=true_shapes)
+            true_shapes=true_shapes, zero_axes=ZERO_AXES if hpz else zero_axes,
+            hpz=hpz, zeropp=zeropp)
+        if zeropp is not None and self.partition.num_quantized_leaves == 0:
+            log_dist("ZeRO++ enabled but no parameter is ZeRO-sharded (all "
+                     "below stage3_param_persistence_threshold or indivisible) "
+                     "— quantized collectives will not engage", ranks=[0])
         part, shards = self.partition, []
         for i, (x, d) in enumerate(zip(tree_leaves(params), part.mdims)):
             full = x.detach().to(self.device, _master_dtype(x), copy=True)
@@ -611,12 +821,16 @@ class DeepSpeedEngine:
         frozen leaves not requiring a gradient."""
         leaves = tree_leaves(self.state.params)
         if self.partition is not None:
-            leaves = self.partition.work_leaves(leaves)
+            leaves = self.partition.work_leaves(leaves, self._master_leaves())
         mask = (tree_leaves(self._frozen_mask) if self._frozen_mask is not None
                 else [False] * len(leaves))
         return tree_unflatten_like(self.state.params, [
             p.detach() if m else p.detach().requires_grad_()
             for p, m in zip(leaves, mask)])
+
+    def _master_leaves(self):
+        masters = self.state.master_params
+        return tree_leaves(masters) if masters is not None else None
 
     def _view(self, work):
         """What the model reads: ``work`` itself, or at ZeRO-3 a tree that
@@ -705,17 +919,105 @@ class DeepSpeedEngine:
             self._accum_grads = [a + g.to(self.accum_dtype)
                                  for a, g in zip(self._accum_grads, grads)]
 
+    def _leaf_reductions(self, i: int):
+        """Around leaf ``i``'s update: a per-leaf transform's sums and maxes
+        (1-bit LAMB's norms) over the whole leaf when this rank holds a
+        ZeRO shard of it."""
+        part = self.partition
+        if part is None or part.mdims[i] is None:
+            return contextlib.nullcontext()
+        from .fp16.onebit_lamb import leaf_reductions
+
+        axes = part.zaxes[i]
+        return leaf_reductions(lambda x: comm.all_reduce(x, comm.SUM, axes),
+                               lambda x: comm.all_reduce(x, comm.MAX, axes))
+
+    def _reduce_window(self, g_leaves, eff_gas: int):
+        """The window's local gradient sums -> the global sums at the
+        masters' placement; after ``freeze_step`` of a 1-bit optimizer,
+        the error-feedback compressed mean instead (its new errors kept in
+        ``_pending_error`` until the step is known to apply)."""
+        part, comp = self.partition, self._compression
+        if comp is None or self.state.step < comp["freeze_step"]:
+            return g_leaves if part is None else part.reduce_window(g_leaves)
+        from .comm.compressed import compressed_grads
+
+        inv = 1.0 / (float(self.state.scaler.loss_scale) * eff_gas)
+        # this rank's share of the global mean times the ranks is its own
+        # mean, the quantity the JAX engine exchanges
+        out, self._pending_error = compressed_grads(
+            [g * self.dp_world for g in g_leaves], self._comm_error, inv)
+        if part is None:
+            return out
+        return [part.local_slice(g, part.mdims[i], i) for i, g in enumerate(out)]
+
     def _apply_update(self, grads, eff_gas: int):
         """Unscale, overflow check, optimizer on the masters, skip on
         overflow, scaler update, master -> compute cast."""
+        if self._offload is not None:
+            return self._apply_update_host(grads, eff_gas)
+        if self._compression is not None and self._compression["algo"] == "zo":
+            return self._apply_update_zero_one(grads, eff_gas)
+        self._pending_error = None
         if self._leafwise:
-            return self._apply_update_leafwise(grads, eff_gas)
-        state, part = self.state, self.partition
-        if part is not None:   # the global sums, at the masters' placement
-            grads = tree_unflatten_like(grads, part.reduce_window(tree_leaves(grads)))
-        inv = 1.0 / (state.scaler.loss_scale * eff_gas)
+            metrics = self._apply_update_leafwise(grads, eff_gas)
+        else:
+            metrics = self._apply_update_tree(grads, eff_gas)
+        if self._pending_error is not None:
+            # an overflowed step must not leave its inf residual behind
+            if metrics["step_applied"]:
+                self._comm_error = self._pending_error
+            self._pending_error = None
+        return metrics
+
+    def _apply_update_zero_one(self, grads, eff_gas: int):
+        """0/1 Adam's step (``comm/zero_one.py``) on this rank's drifted
+        masters from its own unscaled gradients."""
+        from .comm.zero_one import zero_one_step
+
+        state = self.state
+        inv = 1.0 / (float(state.scaler.loss_scale) * eff_gas)
+        local = [g.to(torch.float32) * (self.dp_world * inv) for g in tree_leaves(grads)]
+        del grads
+        masters = state.master_params if self.use_master_weights else state.params
+        new_p, self._comm_error, gnorm = zero_one_step(
+            [x.float() for x in tree_leaves(masters)], local, self._comm_error,
+            state.step, float(self.lr_schedule(state.step)),
+            self._compression["hyper"])
+        new_masters = tree_unflatten_like(masters, [
+            p.to(x.dtype) for p, x in zip(new_p, tree_leaves(masters))])
+        self.state = TrainState(
+            step=state.step + 1,
+            params=(_cast_tree(new_masters, self.compute_dtype)
+                    if self.use_master_weights else new_masters),
+            master_params=new_masters if self.use_master_weights else None,
+            opt_state=(), scaler=state.scaler)
+        return {"grad_norm": gnorm, "loss_scale": state.scaler.loss_scale,
+                "step_applied": True}
+
+    def _unscale_factor(self, eff_gas: int) -> float:
+        """What unscales the window's summed gradients: 1 / (loss scale x
+        gas), times the predivide factor where they were prescaled."""
+        inv = 1.0 / (self.state.scaler.loss_scale * eff_gas)
         if self.config.prescale_gradients:
             inv = inv * self.config.gradient_predivide_factor
+        return inv
+
+    def _norm_of_squares(self, sq: list) -> torch.Tensor:
+        """The global norm from each leaf's sum of squares, added in tree
+        order (``global_norm``'s arithmetic), over the axes that shard the
+        leaves."""
+        if self.partition is not None:
+            return self.partition.norm_of_squares(sq)
+        total = sq[0]
+        for x in sq[1:]:
+            total = total + x
+        return torch.sqrt(total)
+
+    def _apply_update_tree(self, grads, eff_gas: int):
+        state, part = self.state, self.partition
+        grads = tree_unflatten_like(grads, self._reduce_window(tree_leaves(grads), eff_gas))
+        inv = self._unscale_factor(eff_gas)
         # the unscaled gradient is fp32 (fp64 for fp64 leaves) whatever the
         # accumulation dtype, as bf16 * fp32-scalar promotes in the JAX step
         grads = tree_map(
@@ -727,26 +1029,32 @@ class DeepSpeedEngine:
                       else part.all_finite(tree_leaves(grads)))
         norm = global_norm if part is None else part.global_norm
         grad_norm = norm(grads)
-        masters = state.master_params if self.use_master_weights else state.params
+        home = self._state_home   # the parked state comes onto the card ...
+        host = (state.master_params if self.use_master_weights else state.params,
+                state.opt_state)
+        masters, opt_in = home.fetch(*host)
+        home.ready()
         if finite:
             with (contextlib.nullcontext() if part is None
                   else sharded_norm(part.global_norm)):
-                updates, new_opt = self.optimizer.update(grads, state.opt_state,
-                                                         masters)
+                updates, new_opt = self.optimizer.update(grads, opt_in, masters)
             del grads
             new_masters = apply_updates(masters, updates)
             del updates
         else:   # overflow: skip (reference DynamicLossScaler semantics)
-            new_masters, new_opt = masters, state.opt_state
+            new_masters, new_opt = masters, opt_in
+        del masters, opt_in
+        # ... and goes back to its home
+        master_out, new_opt = home.put(host, (new_masters, new_opt))
         if self.use_master_weights:
             new_params = (_cast_tree(new_masters, self.compute_dtype) if part is None
                           else tree_unflatten_like(new_masters, part.compute_params(
                               tree_leaves(new_masters), self.compute_dtype)))
-            new_master_out = new_masters
         else:
-            new_params, new_master_out = new_masters, None
+            new_params, master_out = master_out, None
+        home.finish()
         self.state = TrainState(step=state.step + 1, params=new_params,
-                                master_params=new_master_out, opt_state=new_opt,
+                                master_params=master_out, opt_state=new_opt,
                                 scaler=update_scale(state.scaler, finite))
         return {"grad_norm": grad_norm, "loss_scale": state.scaler.loss_scale,
                 "step_applied": finite}
@@ -761,13 +1069,9 @@ class DeepSpeedEngine:
         temporaries instead of whole trees of them (a model of 3.2B
         parameters otherwise outgrows an 80 GB card in its update)."""
         state, part = self.state, self.partition
-        inv = 1.0 / (state.scaler.loss_scale * eff_gas)
-        if self.config.prescale_gradients:
-            inv = inv * self.config.gradient_predivide_factor
-        g_leaves = tree_leaves(grads)
+        inv = self._unscale_factor(eff_gas)
+        g_leaves = self._reduce_window(tree_leaves(grads), eff_gas)
         del grads
-        if part is not None:   # the global sums, at the masters' placement
-            g_leaves = part.reduce_window(g_leaves)
 
         def unscaled(g):
             return g.to(torch.promote_types(g.dtype, torch.float32)) * inv
@@ -777,35 +1081,45 @@ class DeepSpeedEngine:
             bad = [(~torch.isfinite(unscaled(g))).any() for g in g_leaves]
             finite = (not bool(torch.stack(bad).any()) if part is None
                       else part.none_bad(bad))
-        sq = [unscaled(g).square().sum() for g in g_leaves]
-        if part is None:   # global_norm's order and arithmetic
-            total = sq[0]
-            for x in sq[1:]:
-                total = total + x
-            grad_norm = torch.sqrt(total)
-        else:
-            grad_norm = part.norm_of_squares(sq)
+        grad_norm = self._norm_of_squares([unscaled(g).square().sum() for g in g_leaves])
         masters = state.master_params if self.use_master_weights else state.params
         if finite:
             paths = [p for p, _ in tree_flatten_with_path(masters)]
             trees = _ParamTrees(paths)
             opt_state = state.opt_state
             new_state = opt_state
+            home = self._state_home
+
+            def fetch(i):   # leaf i's master and state, onto the card where parked
+                host = (_leaf_at(masters, paths[i]), _state_leaf(opt_state, trees, i))
+                return host, home.fetch(*host)
+
+            nxt = fetch(0) if paths else None
             with sharded_norm(lambda _: grad_norm):
                 for i, path in enumerate(paths):
-                    m = _leaf_at(masters, path)
-                    upd, sub = self.optimizer.update(
-                        {"x": unscaled(g_leaves[i])}, _state_leaf(opt_state, trees, i),
-                        {"x": m})
+                    host, (m, sub_in) = nxt
+                    home.ready()
+                    # the next leaf's copy runs under this leaf's update
+                    nxt = fetch(i + 1) if i + 1 < len(paths) else None
+                    with self._leaf_reductions(i):
+                        upd, sub = self.optimizer.update(
+                            {"x": unscaled(g_leaves[i])}, sub_in, {"x": m})
                     g_leaves[i] = None
-                    new_state = _put_state_leaf(new_state, sub, trees, i)
-                    _set_leaf(masters, path, (m + upd["x"]).to(m.dtype))
+                    new = (m + upd["x"]).to(m.dtype)
+                    # each old leaf goes as its new one is placed: one
+                    # leaf's state and temporaries are live at a time
+                    del sub_in, upd, m
+                    placed = home.put(host, (new, sub))
+                    del host, sub
+                    new_state = _put_state_leaf(new_state, placed[1], trees, i)
+                    _set_leaf(masters, path, placed[0])
+                    del placed
                     if self.use_master_weights:
-                        new = _leaf_at(masters, path)
                         _set_leaf(state.params, path,
                                   _cast_tree(new, self.compute_dtype) if part is None
                                   else part.compute_param(i, new, self.compute_dtype))
-                    del upd, sub, m
+                    del new
+            home.finish()
             new_opt = new_state
         else:   # overflow: skip (reference DynamicLossScaler semantics)
             new_opt = state.opt_state
@@ -814,6 +1128,56 @@ class DeepSpeedEngine:
                                 opt_state=new_opt, scaler=update_scale(state.scaler, finite))
         return {"grad_norm": grad_norm, "loss_scale": state.scaler.loss_scale,
                 "step_applied": finite}
+
+    def _apply_update_host(self, grads, eff_gas: int):
+        """The host-stepped offload's update (JAX's grad-only step and
+        ``HostSteppedOffload.host_step``): the gradients unscaled by
+        ``loss_scale * gas`` (and the predivide factor), clipped by their
+        global norm on the card, then stepped by the host Adam a chunk at
+        a time; the new bf16 params come back into the compute tree."""
+        state, part = self.state, self.partition
+        g_leaves = self._reduce_window(tree_leaves(grads), eff_gas)
+        del grads
+        inv = self._unscale_factor(eff_gas)
+
+        def unscaled(g):
+            return g.to(torch.float32) * inv
+
+        grad_norm = self._norm_of_squares([unscaled(g).square().sum() for g in g_leaves])
+        # JAX's host step clips by min(1, clip / (norm + 1e-6)), not the
+        # device chain's select at the norm
+        clip = self.config.gradient_clipping
+        factor = (torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+                  if clip and clip > 0 else None)
+        lr = float(self.lr_schedule(state.step))
+        leaves = tree_leaves(state.params)
+        outs, gathers = [], []
+        for i, p in enumerate(leaves):
+            if part is None or part.mdims[i] == part.rdims[i]:
+                outs.append(p)
+            else:   # the master's shard comes up, then is gathered
+                outs.append(torch.empty(part.local_shape(i, part.mdims[i]),
+                                        dtype=p.dtype, device=p.device))
+                gathers.append(i)
+
+        class _Grads:   # each leaf's fp32 gradient made when it goes down
+            def __len__(self):
+                return len(g_leaves)
+
+            def __getitem__(self, i):
+                g = unscaled(g_leaves[i])
+                g_leaves[i] = None
+                return g if factor is None else g * factor
+
+        self._offload.host_step(_Grads(), outs, lr)
+        if gathers:
+            for i in gathers:
+                leaves[i] = part.compute_param(i, outs[i], self.compute_dtype)
+            state.params = tree_unflatten_like(state.params, leaves)
+        self.state = TrainState(step=state.step + 1, params=state.params,
+                                master_params=None, opt_state=(), scaler=state.scaler)
+        return {"grad_norm": grad_norm, "loss_scale": state.scaler.loss_scale,
+                "step_applied": True}
 
     def _finish_step(self, grads, losses, eff_gas: Optional[int] = None) -> dict:
         """Apply the window's gradients and do the step's bookkeeping (one
@@ -880,6 +1244,8 @@ class DeepSpeedEngine:
             raise RuntimeError("train_batch() inside an open forward/backward "
                                "window: call step() first")
         self.tput_timer.start()
+        if self._param_offload is not None:
+            return self._train_batch_param_offload(global_batch)
         if self.pipelined:
             return self._train_batch_pipelined(global_batch)
         work = self._work_tree()
@@ -893,6 +1259,21 @@ class DeepSpeedEngine:
         grads, self._accum_grads = self._accum_grads, None
         self.micro_steps += self.gas
         return self._finish_step(grads, losses)["loss"]
+
+    def _train_batch_param_offload(self, global_batch) -> torch.Tensor:
+        """ZeRO-Infinity's parameter offload: the layer-streamed executor
+        owns the whole step (forward and backward a layer at a time, the
+        host Adam over the NVMe state)."""
+        local = tree_map(lambda x: torch.stack([self._local_rows(x[i])[0]
+                                                for i in range(self.gas)]), global_batch)
+        loss, metrics = self._param_offload.train_batch(local)
+        if self.distributed:
+            loss = comm.all_reduce(loss, comm.AVG, BATCH_AXES)
+        self.global_steps += 1
+        self.micro_steps += self.gas
+        self._last_grad_norm = float(metrics["grad_norm"])
+        self.tput_timer.stop()
+        return loss
 
     def _train_batch_pipelined(self, global_batch) -> torch.Tensor:
         """A pipeline engine's step: the whole gas window in one call (the
@@ -958,10 +1339,13 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch) -> torch.Tensor:
         """Loss of one (global) micro-batch with dropout off, no gradient."""
+        if self._param_offload is not None:   # the same layer stream, forward only
+            return self._param_offload.eval_batch(
+                self._local_rows(tree_map(self._to_device, batch))[0])
         with torch.no_grad():
             params = tree_leaves(self.state.params)
             if self.partition is not None:
-                params = self.partition.work_leaves(params)
+                params = self.partition.work_leaves(params, self._master_leaves())
             return self._micro_loss(tree_unflatten_like(self.state.params, params),
                                     tree_map(self._to_device, batch),
                                     deterministic=True)[1]
@@ -971,6 +1355,14 @@ class DeepSpeedEngine:
             raise RuntimeError("pipeline engines train with train_batch(); "
                                "per-microbatch forward/backward is not exposed "
                                "(reference PipelineEngine restriction)")
+        if self._param_offload is not None:
+            raise RuntimeError(
+                "offload_param engines train with train_batch() (the layer-"
+                "streamed executor owns the fwd/bwd schedule)")
+        if self._compression is not None:
+            raise NotImplementedError(
+                "1-bit optimizers run through train_batch() (the compressed "
+                "exchange spans the whole accumulation window)")
 
     def forward(self, batch):
         """The micro-batch's loss (one micro-batch: ``[micro_batch, ...]``),
@@ -1031,7 +1423,9 @@ class DeepSpeedEngine:
         return [self.get_current_lr()]
 
     def get_current_lr(self) -> float:
-        return float(self.lr_schedule(self.state.step))
+        step = (self._param_offload.step_count if self._param_offload is not None
+                else self.state.step)
+        return float(self.lr_schedule(step))
 
     @property
     def loss_scale(self) -> float:
@@ -1054,6 +1448,10 @@ class DeepSpeedEngine:
         it as is.  Under tensor parallelism the leaves are this rank's
         model-axis shards (padded where uneven): :meth:`full_params` gives
         the whole tree."""
+        if self.state is None:
+            raise NotImplementedError(
+                "offload_param engines hold no device param tree; use "
+                "engine._param_offload.read_masters() for the fp32 leaves")
         if fp32 and self.state.master_params is not None:
             tree, which = self.state.master_params, "master"
         else:

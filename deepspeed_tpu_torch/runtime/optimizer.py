@@ -10,7 +10,9 @@ tensors — and the same links in the same order:
 
 with optax's arithmetic (fp32 moment math, its bias correction
 ``1 - b**count`` in fp32, moments stored at ``mu_dtype``/``nu_dtype``).
-Only Adam/AdamW are ported; the other names raise naming their ROADMAP
+Adam/AdamW and the 1-bit family are ported (OneBitAdam and ZeroOneAdam:
+Adam's math, the engine owning their compressed exchange; OneBitLamb:
+``fp16/onebit_lamb.py``); the other names raise naming their ROADMAP
 item.
 """
 from __future__ import annotations
@@ -35,12 +37,14 @@ ADAGRAD_OPTIMIZER = "adagrad"
 LION_OPTIMIZER = "lion"
 RMSPROP_OPTIMIZER = "rmsprop"
 
-SUPPORTED = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER]
+SUPPORTED = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+             ONEBIT_LAMB_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER]
 _UNPORTED = {
-    ONEBIT_ADAM_OPTIMIZER: 10, ONEBIT_LAMB_OPTIMIZER: 10,
-    ZERO_ONE_ADAM_OPTIMIZER: 10, LAMB_OPTIMIZER: 11, SGD_OPTIMIZER: 11,
+    LAMB_OPTIMIZER: 11, SGD_OPTIMIZER: 11,
     ADAGRAD_OPTIMIZER: 11, LION_OPTIMIZER: 11, RMSPROP_OPTIMIZER: 11,
 }
+ONEBIT_OPTIMIZERS = (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER,
+                     ZERO_ONE_ADAM_OPTIMIZER)
 
 _DTYPES = {None: None, "float64": torch.float64, "fp64": torch.float64,
            "float32": torch.float32, "fp32": torch.float32,
@@ -219,15 +223,20 @@ def scale_by_adam_ds(b1: float, b2: float, eps: float, mu_dtype=None,
     return GradientTransformation(init, update)
 
 
+def _map_n(fn, n: int, *trees):
+    """tree_map for a ``fn`` returning ``n`` leaves: ``n`` trees back."""
+    if isinstance(trees[0], dict):
+        parts = {k: _map_n(fn, n, *(t[k] for t in trees)) for k in sorted(trees[0])}
+        return tuple({k: parts[k][i] for k in parts} for i in range(n))
+    if isinstance(trees[0], (list, tuple)):   # a PR-MoE pyramid's layer list
+        parts = [_map_n(fn, n, *(t[j] for t in trees)) for j in range(len(trees[0]))]
+        return tuple(type(trees[0])(p[i] for p in parts) for i in range(n))
+    return fn(*trees)
+
+
 def _map3(fn, *trees):
     """tree_map for a ``fn`` returning three leaves: three trees back."""
-    if isinstance(trees[0], dict):
-        parts = {k: _map3(fn, *(t[k] for t in trees)) for k in sorted(trees[0])}
-        return tuple({k: parts[k][i] for k in parts} for i in range(3))
-    if isinstance(trees[0], (list, tuple)):   # a PR-MoE pyramid's layer list
-        parts = [_map3(fn, *(t[j] for t in trees)) for j in range(len(trees[0]))]
-        return tuple(type(trees[0])(p[i] for p in parts) for i in range(3))
-    return fn(*trees)
+    return _map_n(fn, 3, *trees)
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
@@ -266,6 +275,24 @@ def _base_transform(name: str, params: Dict[str, Any]) -> GradientTransformation
     b1, b2 = betas[0], betas[1]
     eps = params.get("eps", 1e-8)
     weight_decay = params.get("weight_decay", 0.0)
+    if name in (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER):
+        # Adam on the compressed-averaged gradient; the exchange itself is
+        # the engine's (runtime/comm/compressed.py, zero_one.py)
+        return _base_transform(ADAM_OPTIMIZER, {
+            k: v for k, v in params.items()
+            if k not in ("freeze_step", "cuda_aware", "comm_backend_name")})
+    if name == ONEBIT_LAMB_OPTIMIZER:
+        from .fp16.onebit_lamb import scale_by_onebit_lamb
+
+        return scale_by_onebit_lamb(
+            b1=b1, b2=b2, eps=eps, freeze_step=int(params.get("freeze_step", 100)),
+            weight_decay=weight_decay,
+            max_coeff=float(params.get("max_coeff", 10.0)),
+            min_coeff=float(params.get("min_coeff", 0.01)),
+            coeff_beta=float(params.get("coeff_beta", 0.9)),
+            factor_max=float(params.get("factor_max", 4.0)),
+            factor_min=float(params.get("factor_min", 0.5)),
+            factor_threshold=float(params.get("factor_threshold", 0.1)))
     mu_dtype, nu_dtype = params.get("mu_dtype"), params.get("nu_dtype")
     core = (scale_by_adam_ds(b1, b2, eps, mu_dtype=mu_dtype, nu_dtype=nu_dtype)
             if nu_dtype is not None else scale_by_adam(b1, b2, eps, mu_dtype=mu_dtype))

@@ -46,6 +46,23 @@ shard it (the ZeRO axes, 'model') and counts a replicated leaf once
 world so every rank skips together (:meth:`all_finite`).
 Collectives are per leaf: bucketing and overlap are later work (ROADMAP
 queue 1, item 4).
+
+ZeRO++ (``runtime/zero/zeropp.py``, JAX's ``make_zeropp_cast``): under
+qwZ/qgZ the step differentiates the fp32 master shard of every sharded,
+non-persistent leaf, and every read of it is
+:func:`ops.quantizer.quantized_all_gather` (int8 codes of the master and
+fp32 scales on the wire, landing the compute dtype; its backward the
+reduce-scatter, quantized under qgZ), so a remat recompute re-runs the
+quantized gather.  hpZ keeps the masters,
+the optimizer state and the gradients sharded over the whole group
+(``zero_axes + ('data_outer',)``, 'data_outer' minor: rank (o, j) holds
+piece ``j * n_outer + o``) and the compute view over the inner group
+only (``param_axes``): after an update, each compute shard is
+all-gathered over 'data_outer' (the outer hop, quantized under qwZ), the
+per-layer gathers at use stay within the inner group, and the inner
+shard's gradient is reduce-scattered over 'data_outer' (quantized under
+qgZ).  The hierarchical DP size shards everything over the whole group
+(outer-major) and reduces gradients in two quantized hops under qgZ.
 """
 from __future__ import annotations
 
@@ -91,6 +108,22 @@ def gather_param(shard: torch.Tensor, dim: int, axes=ZERO_AXES,
     return _GatherParam.apply(shard, dim, axes, grad_dtype)
 
 
+def _gather(value, dim, axes, grad_dtype, quant, hpz_master):
+    """A ZeRO shard gathered: an hpZ master piece in two hops (outer, then
+    inner), a quantized gather under ZeRO++, else :func:`gather_param`."""
+    if hpz_master:
+        inner = comm.all_gather(value.contiguous(), "data_outer", gather_dim=dim)
+        return comm.all_gather(inner, axes, gather_dim=dim)
+    if quant is not None:
+        from ...ops.quantizer import quantized_all_gather
+
+        return quantized_all_gather(value, axes, gather_dim=dim, block=quant["block"],
+                                    bits=quant["weight_bits"], out_dtype=quant["dtype"],
+                                    grad_bits=quant["grad_bits"],
+                                    grad_hierarchy=quant["hierarchy"])
+    return gather_param(value, dim, axes, grad_dtype)
+
+
 class ShardedParams(dict):
     """A parameter tree whose ZeRO-sharded leaves are gathered when read.
 
@@ -102,27 +135,33 @@ class ShardedParams(dict):
     leaf, None for a full one.  ``raw``/``local`` give the shards."""
 
     def __init__(self, local: Dict[str, Any], dims: Dict[str, Any],
-                 grad_dtype: torch.dtype = torch.float32, axes=ZERO_AXES):
+                 grad_dtype: torch.dtype = torch.float32, axes=ZERO_AXES,
+                 quant: Optional[dict] = None, hpz_master: bool = False):
         super().__init__(local)
         self.dims = dims
         self.grad_dtype = grad_dtype
         # the ZeRO axes: one tuple for every leaf, or a tree like ``dims``
         # (an expert leaf's are ('data',))
         self.axes = axes
+        # ZeRO++: the quantized gather's settings; an hpZ master view
+        self.quant, self.hpz_master = quant, hpz_master
+
+    def _like(self, local, dims, axes) -> "ShardedParams":
+        return ShardedParams(local, dims, self.grad_dtype, axes, self.quant, self.hpz_master)
 
     def _axes_of(self, key):
         return self.axes[key] if isinstance(self.axes, dict) else self.axes
 
     def _wrap(self, value, dim, axes):
         if isinstance(value, dict):
-            return ShardedParams(value, dim, self.grad_dtype, axes)
+            return self._like(value, dim, axes)
         if isinstance(value, (list, tuple)):
             per = axes if isinstance(axes, (list, tuple)) and not isinstance(
                 axes[0] if axes else None, str) else [axes] * len(value)
             return type(value)(self._wrap(v, d, a) for v, d, a in zip(value, dim, per))
         if dim is None:
             return value
-        return gather_param(value, dim, axes, self.grad_dtype)
+        return _gather(value, dim, axes, self.grad_dtype, self.quant, self.hpz_master)
 
     def __getitem__(self, key):
         return self._wrap(dict.__getitem__(self, key), self.dims[key], self._axes_of(key))
@@ -145,7 +184,7 @@ class ShardedParams(dict):
         out = {}
         for k in self:
             value, dim = self.raw(k)
-            out[k] = (ShardedParams(value, dim, self.grad_dtype, self._axes_of(k)).local()
+            out[k] = (self._like(value, dim, self._axes_of(k)).local()
                       if isinstance(value, dict) else value)
         return out
 
@@ -157,7 +196,7 @@ class ShardedParams(dict):
         for k in keys:
             if k in self:
                 local[k], dims[k] = self[k], None
-        return ShardedParams(local, dims, self.grad_dtype, self.axes)
+        return self._like(local, dims, self.axes)
 
     def unstack(self) -> List["ShardedParams"]:
         """Per-layer trees of a tree of stacked ``[L, ...]`` leaves: each
@@ -173,8 +212,7 @@ class ShardedParams(dict):
             dims.append(None if dim is None else dim - 1)
         axes = ({n: self._axes_of(n) for n in names} if isinstance(self.axes, dict)
                 else self.axes)
-        return [ShardedParams(dict(zip(names, layer)), dict(zip(names, dims)),
-                              self.grad_dtype, axes)
+        return [self._like(dict(zip(names, layer)), dict(zip(names, dims)), axes)
                 for layer in zip(*views)]
 
 
@@ -186,7 +224,9 @@ class ZeroPartition:
                  use_master_weights: bool, accum_dtype: torch.dtype,
                  frozen: Optional[List[bool]] = None,
                  global_shapes: Optional[List[tuple]] = None,
-                 true_shapes: Optional[List[tuple]] = None):
+                 true_shapes: Optional[List[tuple]] = None,
+                 zero_axes: tuple = ZERO_AXES, hpz: bool = False,
+                 zeropp: Optional[dict] = None):
         self.plan = plan
         self.stage = plan.stage
         self.template = template
@@ -208,7 +248,10 @@ class ZeroPartition:
         placements = _leaf_list(template, plan.master_specs)
         self.edims = [_expert_dim(p) for p in placements]
         self.pipe_dims = [shard_dim(p, ("pipe",)) for p in placements]
-        self.zaxes = [EXPERT_ZERO_AXES if e is not None else ZERO_AXES
+        # the axes each leaf's masters are cut over, and its compute view
+        # (hpZ: the inner group); hpZ's 'data_outer' is handled apart
+        self.hpz = hpz
+        self.zaxes = [EXPERT_ZERO_AXES if e is not None else tuple(zero_axes)
                       for e in self.edims]
         self.gaxes = [tuple(a for a in GRAD_AXES if not (e is not None and a == "expert"))
                       + (() if pd is not None else ("pipe",))
@@ -218,6 +261,13 @@ class ZeroPartition:
         self.pdims = [shard_dim(p, z) for p, z in
                       zip(_leaf_list(template, plan.param_specs), self.zaxes)]
         self.mdims = [shard_dim(p, z) for p, z in zip(placements, self.zaxes)]
+        # hpZ: a master piece is 1/(n_inner * n_outer), 'data_outer' minor
+        self.on = comm.get_axis_size("data_outer") if hpz else 1
+        self.oi = comm.axis_index("data_outer") if hpz else 0
+        self.hdims = [shard_dim(p, ("data_outer",)) if hpz else None for p in placements]
+        self.zeropp = zeropp
+        self.num_quantized_leaves = (sum(p is not None for p in self.pdims)
+                                     if zeropp is not None else 0)
         self.use_master_weights = use_master_weights
         # where the compute params rest: their own placement, or the
         # masters' when they are the masters (fp32/fp64 compute)
@@ -233,38 +283,69 @@ class ZeroPartition:
     def dims_tree(self, which: str) -> Any:
         return tree_unflatten_like(self.template, list(self._dims[which]))
 
+    def _outer(self, i: int) -> bool:
+        """Whether leaf ``i``'s masters are cut over 'data_outer' too (hpZ)."""
+        return self.hdims[i] is not None
+
     def local_shape(self, i: int, dim: Optional[int]) -> tuple:
+        """Leaf ``i``'s master piece shape (``dim``: its master dim)."""
         shape = list(self.shapes[i])
         if dim is not None:
-            shape[dim] //= self.zn[i]
+            shape[dim] //= self.zn[i] * (self.on if self._outer(i) else 1)
         return tuple(shape)
 
-    def local_slice(self, full: torch.Tensor, dim: Optional[int], i: int) -> torch.Tensor:
+    def local_slice(self, full: torch.Tensor, dim: Optional[int], i: int,
+                    which: str = "master") -> torch.Tensor:
+        """This rank's piece of ``full`` at leaf ``i``'s ``which`` placement
+        (an hpZ master: piece ``inner * n_outer + outer``)."""
         if dim is None:
             return full
-        return full.chunk(self.zn[i], dim)[self.zi[i]].contiguous()
+        piece = full.chunk(self.zn[i], dim)[self.zi[i]]
+        if which == "master" and self._outer(i):
+            piece = piece.chunk(self.on, dim)[self.oi]
+        return piece.contiguous()
 
     def shard_tree(self, full_tree: Any, which: str) -> Any:
         """This rank's shards of a full tree, at the ``which`` placement."""
+        kind = "param" if which == "param" or (which == "rest" and self.use_master_weights) \
+            else "master"
         return tree_unflatten_like(self.template, [
-            self.local_slice(x, d, i)
+            self.local_slice(x, d, i, kind)
             for i, (x, d) in enumerate(zip(tree_leaves(full_tree), self._dims[which]))])
 
     def view(self, local_tree: Any, which: str = "rest") -> ShardedParams:
-        """``local_tree`` as a :class:`ShardedParams` at ``which``."""
+        """``local_tree`` as a :class:`ShardedParams` at ``which``: its
+        reads gather (quantized under ZeRO++ for the compute params)."""
         axes = (tree_unflatten_like(self.template, list(self.zaxes))
-                if any(e is not None for e in self.edims) else ZERO_AXES)
-        return ShardedParams(local_tree, self.dims_tree(which), self.accum_dtype, axes)
+                if any(e is not None for e in self.edims) else self.zaxes[0]
+                if self.zaxes else ZERO_AXES)
+        compute = which == "param" or (which == "rest" and self.use_master_weights)
+        return ShardedParams(local_tree, self.dims_tree(which), self.accum_dtype, axes,
+                             quant=self.zeropp if compute and not self.hpz else None,
+                             hpz_master=self.hpz and not compute)
 
     # -- the step -----------------------------------------------------------
-    def work_leaves(self, rest_leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    def work_leaves(self, rest_leaves: List[torch.Tensor],
+                    masters: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
         """The leaves the forward differentiates: stage-3 shards stay
         shards (gathered at use); leaves resting sharded that the plan wants
         full in the forward (the fp32 masters at stages 1/2) are gathered
-        now."""
-        return [x if (r is None or p is not None)
-                else comm.all_gather(x, z, gather_dim=r)
-                for x, p, r, z in zip(rest_leaves, self.pdims, self.rdims, self.zaxes)]
+        now; an hpZ master piece resting as the compute param (fp32
+        compute) first takes its outer hop to the inner shard.  Under
+        qwZ/qgZ (outside hpZ) a sharded leaf's is its fp32 master shard
+        (given in ``masters``), as JAX's ``make_zeropp_cast``
+        differentiates the masters: its gather quantizes the master and
+        lands the compute dtype."""
+        out = []
+        for i, (x, p, r) in enumerate(zip(rest_leaves, self.pdims, self.rdims)):
+            if r is not None and self._outer(i) and not self.use_master_weights:
+                x = comm.all_gather(x.contiguous(), "data_outer", gather_dim=r)
+            if r is not None and p is None:
+                x = comm.all_gather(x, self.zaxes[i], gather_dim=r)
+            out.append(x)
+        if masters is not None and self.zeropp is not None and not self.hpz:
+            out = [m if p is not None else x for x, m, p in zip(out, masters, self.pdims)]
+        return out
 
     def reduce_micro(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """Stage 2: reduce-scatter each micro-batch's full gradient of a
@@ -282,6 +363,18 @@ class ZeroPartition:
         return ((self.stage == 2 and self.mdims[i] is not None)
                 or (self.stage == 3 and self.pdims[i] is not None))
 
+    def _outer_reduce(self, g: torch.Tensor, i: int) -> torch.Tensor:
+        """hpZ: the inner shard's gradient -> this rank's master piece, a
+        reduce-scatter over 'data_outer' (quantized under qgZ)."""
+        q = self.zeropp
+        if q is not None and q["grad_bits"] is not None:
+            from ...ops.quantizer import quantized_reduce_scatter
+
+            return quantized_reduce_scatter(g.float(), "data_outer",
+                                            scatter_dim=self.mdims[i], block=q["block"],
+                                            bits=q["grad_bits"]).to(g.dtype)
+        return comm.reduce_scatter(g, "data_outer", scatter_dim=self.mdims[i])
+
     def reduce_window(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The window's summed local gradients -> the global sums at the
         masters' placement."""
@@ -291,7 +384,10 @@ class ZeroPartition:
             if self.frozen[i]:
                 out[i] = g.new_zeros(self.local_shape(i, m))
             elif self._zero_reduced(i):
-                replicas = tuple(a for a in self.gaxes[i] if a not in self.zaxes[i])
+                zax = self.zaxes[i] + (("data_outer",) if self._outer(i) else ())
+                if self._outer(i):
+                    g = out[i] = self._outer_reduce(g, i)
+                replicas = tuple(a for a in self.gaxes[i] if a not in zax)
                 if comm.get_axis_size(replicas) > 1:
                     out[i] = comm.all_reduce(g, comm.SUM, replicas)
             else:
@@ -303,6 +399,8 @@ class ZeroPartition:
         (the ZeRO axes, 'model', 'expert' and 'pipe' where its spec cuts
         it); a leaf is replicated over the others."""
         axes = self.zaxes[i] if self.mdims[i] is not None else ()
+        if self._outer(i):
+            axes = axes + ("data_outer",)
         if self.tp_n > 1 and self.tdims[i] is not None:
             axes = axes + ("model",)
         if self.edims[i] is not None:
@@ -355,7 +453,22 @@ class ZeroPartition:
     def compute_param(self, i: int, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Leaf ``i``'s compute param at rest from its updated master shard:
         cast, then all-gathered where the plan keeps it replicated."""
+        q = self.zeropp
+        if (self._outer(i) and self.pdims[i] is not None and q is not None
+                and q["weight_bits"] is not None):
+            # hpZ's outer hop under qwZ: the fp32 master piece quantized, the
+            # inner shard at rest landed in the compute dtype
+            from ...ops.quantizer import quantized_all_gather
+
+            with torch.no_grad():
+                return quantized_all_gather(x, "data_outer", gather_dim=self.mdims[i],
+                                            block=q["block"], bits=q["weight_bits"],
+                                            out_dtype=dtype)
         x = x.to(dtype) if x.is_floating_point() else x
+        if self._outer(i):   # hpZ: the outer hop ...
+            x = comm.all_gather(x, "data_outer", gather_dim=self.mdims[i])
+            if self.pdims[i] is not None:   # ... to the inner shard at rest
+                return x
         if self.mdims[i] is not None and self.pdims[i] is None:
             x = comm.all_gather(x, self.zaxes[i], gather_dim=self.mdims[i])
         return x
@@ -383,29 +496,42 @@ class ZeroPartition:
         return best, _leaf(which, self.paths[best])
 
     def uneven(self, i: int) -> bool:
-        """Whether leaf ``i``'s model-axis shards carry padding."""
-        return self.true_shapes[i] != self.global_shapes[i]
+        """Whether leaf ``i`` goes into checkpoints whole: its model-axis
+        shards carry padding, or (hpZ) its master pieces lie in an order
+        DTensor does not describe."""
+        return self.true_shapes[i] != self.global_shapes[i] or self._outer(i)
 
     def whole_true(self, i: int, placements, x: torch.Tensor) -> torch.Tensor:
         """Leaf ``i`` whole at its true shape from this rank's piece ``x``
         at ``placements`` (collective over the ZeRO and model axes)."""
         z = shard_dim(placements, self.zaxes[i])
+        if z is not None and self._outer(i) and shard_dim(placements, ("data_outer",)) == z:
+            x = comm.all_gather(x.contiguous(), "data_outer", gather_dim=z)
         if z is not None:
             x = comm.all_gather(x.contiguous(), self.zaxes[i], gather_dim=z)
         t = self.tdims[i]
+        if t is None:
+            return x
         x = comm.all_gather(x.contiguous(), "model", gather_dim=t)
         return x.narrow(t, 0, self.true_shapes[i][t]).contiguous()
 
     def piece_of_true(self, i: int, placements, whole: torch.Tensor) -> torch.Tensor:
         """The inverse of :meth:`whole_true`: this rank's (padded) piece."""
         t = self.tdims[i]
-        extent = self.global_shapes[i][t]
-        pad = list(whole.shape)
-        pad[t] = extent - whole.shape[t]
-        x = torch.cat([whole, whole.new_zeros(pad)], t)
-        x = x.chunk(self.tp_n, t)[comm.axis_index("model")]
+        x = whole
+        if t is not None:
+            extent = self.global_shapes[i][t]
+            pad = list(whole.shape)
+            pad[t] = extent - whole.shape[t]
+            x = torch.cat([whole, whole.new_zeros(pad)], t)
+            x = x.chunk(self.tp_n, t)[comm.axis_index("model")]
         z = shard_dim(placements, self.zaxes[i])
-        return (x if z is None else x.chunk(self.zn[i], z)[self.zi[i]]).contiguous()
+        if z is None:
+            return x.contiguous()
+        x = x.chunk(self.zn[i], z)[self.zi[i]]
+        if self._outer(i) and shard_dim(placements, ("data_outer",)) == z:
+            x = x.chunk(self.on, z)[self.oi]
+        return x.contiguous()
 
 
 def _expert_dim(placements) -> Optional[int]:

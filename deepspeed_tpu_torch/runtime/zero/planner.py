@@ -157,12 +157,19 @@ def walk(fn, shapes: Any, *others: Any) -> Any:
 
 def plan_sharding(param_shapes: Any, stage: int, mesh, tp_specs: Optional[Any] = None,
                   persistence_threshold: int = 0,
-                  zero_axes: Tuple[str, ...] = ZERO_AXES) -> ZeroShardingPlan:
+                  zero_axes: Tuple[str, ...] = ZERO_AXES,
+                  param_zero_axes: Optional[Tuple[str, ...]] = None) -> ZeroShardingPlan:
     """The ZeRO plan for a tree of parameter shapes (anything with
     ``.shape``: tensors, meta tensors, ``torch.Size``).  ``mesh`` is a
     ``DeviceMesh`` from ``parallel.mesh.build_mesh`` or a ``MeshLayout``
     (planning needs no process group).  ``tp_specs``: an optional tree of
-    PartitionSpec-like tuples the ZeRO axes are composed onto."""
+    PartitionSpec-like tuples the ZeRO axes are composed onto.
+
+    ``param_zero_axes``: the compute params' axes where they differ from
+    the masters' (ZeRO++ hpZ, reference partition_parameters.py:1019
+    ``zero_hpz_partition_size``): the masters, optimizer state and
+    gradients shard over ``zero_axes`` (the whole group), the compute view
+    over the inner group only, on the masters' dim."""
     sizes = _sizes(mesh)
     shape_of = (lambda s: tuple(s) if isinstance(s, tuple) else tuple(s.shape))
     if tp_specs is None:
@@ -186,6 +193,21 @@ def plan_sharding(param_shapes: Any, stage: int, mesh, tp_specs: Optional[Any] =
     params = (walk(lambda s, b: spec_for(s, b, persistence_threshold),
                    param_shapes, base)
               if stage >= 3 else base)
+    if stage >= 3 and param_zero_axes is not None and \
+            tuple(param_zero_axes) != tuple(zero_axes):
+        drop = set(zero_axes) - set(param_zero_axes)
+
+        def inner(shaped, mspec, pspec):
+            if pspec == mspec:   # sharded: the same dim, inner axes only
+                out = [tuple(a for a in _spec_axes_in_dim(e) if a not in drop) or None
+                       for e in mspec]
+                out = [e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in out]
+                while out and out[-1] is None:
+                    out.pop()
+                return tuple(out)
+            return pspec   # persistent (replicated): stays as it is
+
+        params = walk(inner, param_shapes, master, params)
     # stage >= 2: grads land sharded; stage 3 grads follow the params
     grads = params if stage >= 3 else master if stage == 2 else base
 

@@ -45,13 +45,19 @@ class CommsLogger:
             lambda: defaultdict(lambda: [0, 0]))
         # (op name, axes) -> [count, total_bytes]
         self.axis_dict: Dict[tuple, list] = defaultdict(lambda: [0, 0])
+        # (op name, dtype) -> [count, total_bytes]: the wire format
+        self.dtype_dict: Dict[tuple, list] = defaultdict(lambda: [0, 0])
 
     def _should_log(self, op_name: str) -> bool:
         return self.enabled and (self.prof_all or op_name in self.prof_ops)
 
-    def append(self, op_name: str, msg_size: int, axis: str = None) -> None:
+    def append(self, op_name: str, msg_size: int, axis: str = None,
+               dtype: str = None) -> None:
         if not self._should_log(op_name):
             return
+        rec = self.dtype_dict[(op_name, dtype)]
+        rec[0] += 1
+        rec[1] += msg_size
         rec = self.comms_dict[op_name][msg_size]
         rec[0] += 1
         rec[1] += msg_size
@@ -73,6 +79,14 @@ class CommsLogger:
         for (op, axis), (count, total) in sorted(self.axis_dict.items(),
                                                  key=lambda kv: (kv[0][0], str(kv[0][1]))):
             out.setdefault(op, {})[str(axis)] = {"calls": count, "bytes": total}
+        return out
+
+    def totals_by_dtype(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """``{op: {dtype: {"calls": n, "bytes": b}}}``: the wire formats."""
+        out: Dict[str, Dict[str, Dict[str, int]]] = {}
+        for (op, dt), (count, total) in sorted(self.dtype_dict.items(),
+                                               key=lambda kv: (kv[0][0], str(kv[0][1]))):
+            out.setdefault(op, {})[str(dt)] = {"calls": count, "bytes": total}
         return out
 
     def log_all(self, print_log: bool = True, show_bandwidth: bool = False) -> str:
@@ -113,3 +127,4 @@ class CommsLogger:
     def reset(self) -> None:
         self.comms_dict.clear()
         self.axis_dict.clear()
+        self.dtype_dict.clear()

@@ -830,7 +830,155 @@ def megatron_moe_state_dict(L: int = 2, E: int = 4, d: int = 16, f: int = 32,
     return cfg, sd
 
 
-PROGRAMS = {"comm": prog_comm, "moe_infer": prog_moe_infer, "train": prog_train, "checkpoint": prog_checkpoint,
+def _item10_masters(engine) -> dict:
+    """The fp32 masters by path: the host's under offload, else gathered."""
+    off = engine._offload or engine._param_offload
+    if off is None:
+        return _full(engine)
+    return {k: np.array(v) for k, v in off.read_masters().items()}
+
+
+def _item10_view(engine) -> dict:
+    """The compute params the forward reads (gathered, quantized under
+    qwZ), by path, at fp32."""
+    out = {}
+
+    def walk(tree, prefix=""):
+        for k in (list(tree.keys()) if isinstance(tree, dict) else range(len(tree))):
+            v, path = tree[k], f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, (dict, list, tuple)):
+                walk(v, path)
+            else:
+                out[path] = v.detach().float().numpy()
+
+    with torch.no_grad():
+        walk(engine._view(engine._work_tree()))
+    return out
+
+
+def prog_item10(cases: list, batches):
+    """Each case: a ``tiny`` engine (``dtype``, default bf16; JAX's tree
+    from ``params_np`` or the seed's) trained on ``batches[:steps]``;
+    losses, norms, the comms logger's bytes by op and dtype, the count of
+    quantized leaves, the masters, the 1-bit error buffers, and with
+    ``view`` the compute params the first step reads; a case with
+    ``ckpt`` saves after ``save_at`` steps, trains on, and a fresh engine
+    resumes and trains the same steps (both trajectories returned)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+
+    def build(case):
+        model = CausalLM(case.get("model", "tiny"),
+                         dtype=getattr(torch, case.get("dtype", "bfloat16")))
+        params = (params_from_jax(case["params_np"], device="cpu")
+                  if case.get("params_np") is not None else None)
+        if params is not None and case.get("dtype") == "float64":
+            from deepspeed_tpu_torch.utils.tree import tree_map
+
+            params = tree_map(lambda x: x.double(), params)
+        engine, *_ = ds.initialize(model=model, config=case["config"], device="cpu",
+                                   params=params)
+        return engine
+
+    def train(engine, bs):
+        losses, norms = [], []
+        for b in bs:
+            losses.append(float(engine.train_batch(batch=b)))
+            norms.append(float(engine.get_global_grad_norm()))
+        return losses, norms
+
+    out = []
+    for case in cases:
+        engine = build(case)
+        rec = {"view": _item10_view(engine)} if case.get("view") else {}
+        logger = comm.get_comms_logger()
+        if logger is not None:
+            logger.reset()
+        bs = batches[:case.get("steps", len(batches))]
+        if case.get("ckpt"):
+            k = case["save_at"]
+            train(engine, bs[:k])
+            engine.save_checkpoint(case["ckpt"], tag="t")
+            rec["after"] = train(engine, bs[k:])[0]
+            rec["after_masters"] = _item10_masters(engine)
+            engine = build(case)
+            engine.load_checkpoint(case["ckpt"], tag="t")
+            rec["resumed"] = train(engine, bs[k:])[0]
+            rec["resumed_masters"] = _item10_masters(engine)
+        else:
+            rec["losses"], rec["norms"] = train(engine, bs)
+            rec["masters"] = _item10_masters(engine)
+        rec["dtypes"] = logger.totals_by_dtype() if logger is not None else None
+        rec["num_quantized"] = (engine.partition.num_quantized_leaves
+                                if engine.partition is not None else 0)
+        err = engine._comm_error
+        rec["errors"] = ([e.numpy() for e in err] if isinstance(err, list) else
+                         [e.numpy() for e in err.error] if err is not None else None)
+        if err is not None and hasattr(err, "acc"):   # 0/1 Adam: the synced masters
+            local = _flat(engine.state.master_params if engine.state.master_params
+                          is not None else engine.state.params)
+            rec["synced"] = {k: (v.float() - a).numpy()
+                             for (k, v), a in zip(local.items(), err.acc)}
+        out.append(rec)
+        del engine
+    return out
+
+
+def prog_quant_coll(layout: dict, xs, dys, gs, bits: int):
+    """The ZeRO++ collectives on this rank's piece of each input: codes and
+    scales of its shard, the quantized all-gather (and its backward, plain
+    and qgZ), the one-hop reduce-scatter over 'data' and, on a layout
+    with 'data_outer', the two-hop one."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import quantizer as qz
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout, initialize_mesh
+
+    initialize_mesh(MeshLayout(**layout))
+    comm.configure({"enabled": True})
+    r = comm.get_rank()
+    x = torch.from_numpy(xs[r])
+    q, scale = qz.quantize_blockwise(x, block=64, bits=bits)
+    out = {"q": q.numpy(), "scale": scale.numpy()}
+    axis = "data" if layout.get("dp_outer", 1) == 1 else ("data_outer", "data")
+    for gb in (None, 8):
+        xg = x.clone().requires_grad_()
+        y = qz.quantized_all_gather(xg, axis, gather_dim=0, block=64, bits=bits,
+                                    out_dtype=torch.float32, grad_bits=gb)
+        y.backward(torch.from_numpy(dys[r]))
+        out[f"gather{gb}"] = y.detach().numpy()
+        out[f"dx{gb}"] = xg.grad.numpy()
+    g = torch.from_numpy(gs[r])
+    out["rs"] = qz.quantized_reduce_scatter(g, "data", scatter_dim=0, block=64,
+                                            bits=bits).numpy()
+    if layout.get("dp_outer", 1) > 1:
+        out["hier"] = qz.hierarchical_quantized_reduce_scatter(
+            g, "data", "data_outer", scatter_dim=0, block=64, bits=bits).numpy()
+    out["dtypes"] = comm.get_comms_logger().totals_by_dtype()
+    return out
+
+
+def prog_onebit_coll(flats, errors, steps: int):
+    """``compressed_mean`` over 'data', ``steps`` times, each rank's error
+    carried: the means and the errors of every step."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout, initialize_mesh
+    from deepspeed_tpu_torch.runtime.comm.compressed import compressed_mean
+
+    initialize_mesh(MeshLayout(dp=comm.get_world_size()))
+    comm.configure({"enabled": True})
+    r = comm.get_rank()
+    err = torch.from_numpy(errors[r])
+    out = []
+    for t in range(steps):
+        m, err = compressed_mean(torch.from_numpy(flats[t][r]), err, "data", block=64)
+        out.append((m.numpy(), err.numpy()))
+    return {"steps": out, "dtypes": comm.get_comms_logger().totals_by_dtype()}
+
+
+PROGRAMS = {"item10": prog_item10, "quant_coll": prog_quant_coll,
+            "onebit_coll": prog_onebit_coll, "comm": prog_comm, "moe_infer": prog_moe_infer, "train": prog_train, "checkpoint": prog_checkpoint,
             "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,
             "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,
             "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate,
