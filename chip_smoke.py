@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--seed N] [--profile] [--first-launch] [--tp-cards]
     python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp, sp, ep, pp, item 10)
     python3 chip_smoke.py --only offload zeropp_onebit  # the build, then these phases
+    python3 chip_smoke.py --only train_extras lora_hybrid
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -135,7 +136,8 @@ one JSON line each; any failure exits non-zero with no result line:
    top-1 against bf16, forward and tick times beside the dequantized
    engine's) and ``generate_fallback`` (an engine over ``apply_fn``
    alone: a 2048-token prompt, 4 new tokens, K1 once per layer in each
-   bucketed forward, tokens reported against the cached ``generate``);
+   bucketed forward, tokens reported against the cached ``generate``,
+   whose dense prefill is held against the masked branch);
    then ``serving_extras`` (``phase_serving_extras``): the stream with
    int8 pages, a shared-prefix stream through a host tier (tokens equal
    to the tier-off run), speculative decoding (a perturbed draft, k =
@@ -177,11 +179,30 @@ one JSON line each; any failure exits non-zero with no result line:
    step and OneBitLamb finite and falling); ``--only offload zeropp_onebit`` runs them alone
    after the build; ``--tp-cards-only`` also takes ITEM10_CARD_CONFIGS
    (4 cards): ``zpp4_7b`` and ``onebit4_740m``;
-10. with ``--profile`` only: ``torch.profiler`` device time by kernel for
+10. the model-and-optimizer half of ROADMAP queue 1, item 11:
+   ``train_extras`` (the train cell, llama-740m at S=16384 uncut: LAMB,
+   SGD with Nesterov momentum, Adagrad, Lion and RMSprop, 3 steps each,
+   each first loss AdamW's bit for bit and its state's bytes a parameter
+   its own; progressive layer drop with K1/K2/K3 following each step's
+   host mask; random-LTD on every kept count from 8192 to 16384 with
+   K1-K3 on the kept subset and no plain-branch attention; the seqlen
+   curriculum through every S from 2048 to 16384; ``compute_eigenvalue``
+   at S=1024 on the plain branch, the only one JAX's dispatch can
+   differentiate twice, and the fp32 Hessian-vector product along its
+   vector against a central difference of fp32 gradients) and
+   ``lora_hybrid`` (llama2-7b at full width, LoRA rank 16 on wq/wk/wv/wo:
+   the dense prefill's logits against ``forward_cached``'s masked branch;
+   three rounds of ``DeepSpeedHybridEngine.generate`` on 4 prompts of 2048
+   tokens, 128 new, greedy, then ``train_batch`` on the 4 x 2176-token
+   rollouts; tokens equal to ``init_inference`` on the base, then on
+   ``fused(lora)`` after each step; the base bit-unchanged; K1 32 a
+   prefill, 64/32/32 a step); ``--only train_extras lora_hybrid`` runs
+   them alone after the build;
+11. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
-11. the ``kernels`` line: per kernel its launches on its main path (and on
-   the MoE and pipeline paths), error against the plain version, times
+12. the ``kernels`` line: per kernel its launches on its main path (and on
+   the MoE, pipeline, offload and item 11 paths), error against the plain version, times
    and the bound from this run's shapes (K1-K3 with a ``block_mask``
    record from the sparse main case).
 
@@ -221,10 +242,22 @@ SERVE_SHAPE = (1, 4096, 32, 32, 128, torch.bfloat16, True)
 # uly_7b's (4 cards): llama2-7b's 32 heads over sp=4 after Ulysses'
 # all-to-all, the whole S=32768 causal on each card's 8 heads
 ULY_SHAPE = (1, 32768, 8, 8, 128, torch.bfloat16, True)
+# item 11's new shapes: random-LTD's smallest kept subset of the train
+# cell, and the LoRA llama2-7b step on its 4 x 2176-token rollouts
+LTD_SHAPE = (1, 8192, 14, 14, 128, torch.bfloat16, True)
+LORA_SHAPE = (4, 2176, 32, 32, 128, torch.bfloat16, True)
+# forward_cached's dense prefill at llama2-7b: the hybrid engine's 4 x 2048
+# prompts and generate_fallback's cached generate of one
+HYBRID_PREFILL_SHAPE = (4, 2048, 32, 32, 128, torch.bfloat16, True)
+FALLBACK_PREFILL_SHAPE = (1, 2048, 32, 32, 128, torch.bfloat16, True)
 FWD_SHAPES = [
     TRAIN_SHAPE,
     SERVE_SHAPE,
     ULY_SHAPE,
+    LTD_SHAPE,
+    LORA_SHAPE,
+    HYBRID_PREFILL_SHAPE,
+    FALLBACK_PREFILL_SHAPE,
     (2, 2048, 32, 8, 128, torch.bfloat16, True),
     (2, 2048, 12, 12, 64, torch.bfloat16, True),
     (1, 2048, 16, 16, 128, torch.bfloat16, False),
@@ -235,6 +268,8 @@ FWD_SHAPES = [
 BWD_SHAPES = [
     TRAIN_SHAPE,
     ULY_SHAPE,
+    LTD_SHAPE,
+    LORA_SHAPE,
     (2, 2048, 32, 8, 128, torch.bfloat16, True),
     (2, 2048, 12, 12, 64, torch.bfloat16, True),
     (1, 2048, 16, 16, 128, torch.bfloat16, False),
@@ -243,7 +278,7 @@ BWD_SHAPES = [
     (1, 2048, 8, 2, 128, torch.float32, True),
     (1, 2048, 8, 2, 128, torch.float32, False),
 ]
-FP32_BWD_SHAPE = BWD_SHAPES[7]   # the fp32 record of the kernels line
+FP32_BWD_SHAPE = BWD_SHAPES[9]   # the fp32 record of the kernels line
 # From this length on, one fp32 [S, S] score plane per head is over 0.27 GB
 # and the plain versions run on slices of PLAIN_HEADS heads: compared on the
 # first slice, timed over all of them.
@@ -4502,13 +4537,17 @@ def phase_generate_fallback(engine, params, seed: int) -> dict:
           f"the engine's forward ({first})")
     cached = engine.generate(prompt, max_new_tokens=FALLBACK_NEW)
     new, ref = out[0, FALLBACK_PROMPT:].cpu(), cached[0, FALLBACK_PROMPT:].cpu()
+    # both generates attend to the prompt through K1: the cached one's
+    # dense prefill is held against the masked branch on the same prompt
+    dense = _dense_prefill_check(cfg, params, torch.from_numpy(prompt).to("cuda"))
     rec = {"phase": "generate_fallback", "prompt": FALLBACK_PROMPT,
            "new_tokens": FALLBACK_NEW, "forward_runs": runs[0], "k1_launches": k1,
            "k1_per_forward": k1 / runs[0], "probe_causal": True, "seconds": gen_s,
            "seconds_per_token": gen_s / FALLBACK_NEW,
            "first_token_equal_to_forward_argmax": True,
            "tokens_equal_to_cached": int((new == ref).sum()),
-           "first_token_equal_to_cached": bool(new[0] == ref[0])}
+           "first_token_equal_to_cached": bool(new[0] == ref[0]),
+           "dense_prefill": dense}
     emit(rec)
     del fb
     free_memory()
@@ -5865,6 +5904,505 @@ def _tp_card_onebit4_740m(seed: int, world: int, rank: int) -> dict:
     return {"model": TRAIN_MODEL, "S": S, "dp": world, "freeze_step": ONEBIT_FREEZE, **out}
 
 
+# ---------------------------------------------------------------------------
+# Item 11, the model-and-optimizer half: phases train_extras, lora_hybrid
+# ---------------------------------------------------------------------------
+
+# each optimizer's hyperparameters on the train cell (3 steps each), and its
+# state's bytes a parameter over fp32 masters
+EXTRA_OPTIMIZERS = {
+    "lamb": ({"lr": 1e-3, "betas": [0.9, 0.999], "weight_decay": 0.01}, 8),
+    "sgd": ({"lr": 1e-2, "momentum": 0.9, "nesterov": True}, 4),
+    "adagrad": ({"lr": 1e-2}, 4),
+    "lion": ({"lr": 1e-4, "betas": [0.9, 0.99], "weight_decay": 0.01}, 4),
+    "rmsprop": ({"lr": 1e-4}, 4),
+}
+EXTRA_STEPS = 3
+PLD_CONFIG = {"enabled": True, "theta": 0.5, "gamma": 0.5}
+PLD_STEPS = 5
+LTD_CONFIG = {"enabled": True, "min_value": 8192, "max_value": 16384,
+              "random_ltd_schedule": {"schedule_config": {"seq_per_step": 1024,
+                                                          "require_steps": 4}}}
+LTD_STEPS = 5
+# fixed_linear reads its difficulty at step 1 first: over 8 steps it runs
+# 2048, 4096, ..., 16384
+CURRICULUM_CONFIG = {"enabled": True, "curriculum_type": "seqlen",
+                     "min_difficulty": 2048, "max_difficulty": 16384,
+                     "schedule_type": "fixed_linear",
+                     "schedule_config": {"total_curriculum_step": 8,
+                                         "difficulty_step": 2048}}
+CURRICULUM_STEPS = 8
+EIG_S, EIG_ITERS = 1024, 10
+# the fp32 Hessian-vector product along the returned vector against the
+# central difference of fp32 gradients at +-EIG_FD_EPS (the vector has unit
+# norm): ||hvp - fd|| / ||fd|| at most EIG_FD_REL.  On the H100 along that
+# vector the difference's error falls as eps^2 (0.228 at 1e-2, 2.3e-3 at
+# 1e-3, 4.7e-4 at 3e-4: the curvature changes fast along it) down to the
+# gradients' fp32 noise (7e-4 at eps 0.1 along a random unit vector,
+# growing as 1/eps); a product that left a part of the model out would be
+# off by O(1)
+EIG_FD_EPS, EIG_FD_REL = 3e-4, 2e-3
+# forward_cached's dense prefill (K1) against its masked branch on the same
+# rows, llama2-7b bf16 with random weights: the worst row's ||dense -
+# masked|| / ||masked|| of the logits at most PREFILL_ROW_REL.  On the H100
+# at 4 x 2048: worst row 0.088, median 0.066 (two bf16 roundings of
+# attention through 32 random layers); a prefill that skips one 128-key
+# tile: median 0.88, worst 1.36 on the rows after it
+PREFILL_ROW_REL = 0.25
+LORA_MODEL, LORA_RANK, LORA_ALPHA, LORA_LR = "llama2-7b", 16, 32.0, 1e-3
+HYBRID_ROWS, HYBRID_PROMPT, HYBRID_NEW, HYBRID_ROUNDS = 4, 2048, 128, 3
+
+
+class _AttentionLog:
+    """Within the block: the q shape of every flash call the model makes
+    (K2/K3 run in their backward at the same shape) and the count of
+    plain-branch attention calls, read through ``models.transformer``'s
+    own names (the launch counters stay the wrappers')."""
+
+    def __init__(self):
+        self.shapes, self.plain = [], 0
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.models import transformer as tt
+
+        self._tt, self._flash, self._plain = tt, tt.flash_attention, tt._plain_attention
+
+        def flash(q, *a, **k):
+            self.shapes.append(tuple(q.shape))
+            return self._flash(q, *a, **k)
+
+        def plain(*a, **k):
+            self.plain += 1
+            return self._plain(*a, **k)
+
+        tt.flash_attention, tt._plain_attention = flash, plain
+        return self
+
+    def __exit__(self, *exc):
+        self._tt.flash_attention, self._tt._plain_attention = self._flash, self._plain
+
+    def take(self):
+        shapes, plain = sorted(set(self.shapes)), self.plain
+        self.shapes, self.plain = [], 0
+        return shapes, plain
+
+
+def _state_bytes(state) -> int:
+    """The bytes of an optimizer state's tensors (step counts aside)."""
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size() if state.dim() else 0
+    if dataclasses.is_dataclass(state):
+        return sum(_state_bytes(getattr(state, f.name)) for f in dataclasses.fields(state))
+    if isinstance(state, dict):
+        return sum(_state_bytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return sum(_state_bytes(v) for v in state)
+    return 0
+
+
+def _extra_optimizers(seed: int, batch) -> dict:
+    """AdamW's first step, then each optimizer EXTRA_STEPS steps from the
+    same seed and batch."""
+    S = TRAIN_SHAPE[1]
+    out = {}
+    _, engine = _train_engine(seed, S)
+    L = engine.model.config.num_layers
+    per_step = (2 * L, L, L)
+    reset_counts()
+    adamw_loss, adamw_s, _ = _timed_step(engine, batch, per_step)
+    out["adamw"] = {"first_loss": adamw_loss, "step_s": adamw_s}
+    del engine
+    free_memory()
+    from deepspeed_tpu_torch.runtime.optimizer import create_optimizer
+
+    for name, (params, per_param) in EXTRA_OPTIMIZERS.items():
+        config = {"optimizer": {"type": name, "params": params}}
+        t0 = time.perf_counter()
+        _, engine = _train_engine(seed, S, config_extra=config)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        steps = [_timed_step(engine, batch, per_step) for _ in range(EXTRA_STEPS)]
+        rec = {"init_s": init_s, "losses": [x[0] for x in steps],
+               "step_s": [x[1] for x in steps],
+               "launches_per_step": _launch_record([x[2] for x in steps]),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "state_bytes_per_param": _state_bytes(engine.state.opt_state)
+               / engine.param_count, "expected_bytes_per_param": per_param}
+        if name == "sgd":   # without momentum: no state at all
+            rec["no_momentum_state_bytes"] = _state_bytes(create_optimizer(
+                "sgd", {"lr": params["lr"]}).init(engine.state.master_params))
+        out[name] = rec
+        del engine
+        free_memory()
+    for name, (_, per_param) in EXTRA_OPTIMIZERS.items():
+        rec = out[name]
+        check(rec["losses"][0] == out["adamw"]["first_loss"],
+              f"{name}'s first loss {rec['losses'][0]} != AdamW's "
+              f"{out['adamw']['first_loss']}")
+        check(all(math.isfinite(x) for x in rec["losses"]), f"{name}: {rec['losses']}")
+        check(rec["state_bytes_per_param"] == per_param,
+              f"{name}'s state holds {rec['state_bytes_per_param']} B a parameter, "
+              f"expected {per_param}")
+    check(out["sgd"]["no_momentum_state_bytes"] == 0, "SGD without momentum keeps state")
+    return out
+
+
+def _extra_runs(seed: int, batch, config_extra: dict, steps: int, expect) -> list:
+    """``steps`` steps of the train cell under ``config_extra``; each
+    step's seconds, loss, K1/K2/K3 launches and attention shapes, checked
+    against ``expect(engine)`` (the launches and shapes the step must make,
+    read before it) and no plain-branch attention."""
+    _, engine = _train_engine(seed, TRAIN_SHAPE[1], config_extra=config_extra)
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    with _AttentionLog() as log:
+        reset_counts()   # the path's launches: counts to 0 just before
+        for _ in range(steps):
+            want, shapes_want, info = expect(engine)
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(engine.train_batch(batch=batch))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            got = tuple(a - b for a, b in zip(kernel_counts(), before))
+            shapes, plain = log.take()
+            recs.append({**info, "loss": loss, "step_s": dt, "launches": got,
+                         "shapes": shapes, "plain_attention_calls": plain})
+            check(got == want, f"{info}: K1/K2/K3 launched {got}, expected {want}")
+            check(shapes == shapes_want, f"{info}: attention shapes {shapes}, "
+                                         f"expected {shapes_want}")
+            check(plain == 0, f"{info}: {plain} plain-branch attention calls")
+            check(math.isfinite(loss), f"{info}: loss {loss}")
+    recs[-1]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    free_memory()
+    return recs
+
+
+def _eigen(seed: int) -> dict:
+    """``compute_eigenvalue`` on the train cell's widths at S=EIG_S, the
+    plain attention branch (what JAX's dispatch differentiates twice)."""
+    from deepspeed_tpu_torch.runtime.eigenvalue import hvp
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+    model, engine = _train_engine(seed, EIG_S, config_extra={
+        "eigenvalue": {"enabled": True, "max_iter": EIG_ITERS}})
+    batch = _train_batch(model.config, EIG_S, seed + 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam, per_leaf = engine.compute_eigenvalue(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    v = engine._eigenvalue_estimator.vector
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hv = tree_leaves(hvp(engine.loss_fn, engine.state.params, batch, gen,
+                         tree_unflatten_like(engine.state.params, v)))
+    # the returned vector's own Rayleigh quotient (the per-leaf values'
+    # sum) and its residual ||Hv - rq v|| / |rq|
+    rq = sum(per_leaf.values())
+    res = math.sqrt(sum(float(((h.float() - rq * x.float()) ** 2).sum())
+                        for h, x in zip(hv, v)))
+    rec = {"S": EIG_S, "max_iter": EIG_ITERS, "lambda_max": lam, "seconds": seconds,
+           "rayleigh_of_vector": rq, "residual_rel": res / max(abs(rq), 1e-30),
+           "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top_leaves": sorted(per_leaf.items(), key=lambda kv: -abs(kv[1]))[:4]}
+    check(math.isfinite(lam) and lam != 0.0, f"eigenvalue {lam}")
+    check(launches == (0, 0, 0), f"the plain branch launched K1/K2/K3 {launches}")
+    del hv
+    rec["fp32_hvp"] = _hvp_against_difference(
+        model.config, engine.state.master_params, batch, v)
+    del engine, model, v
+    free_memory()
+    return rec
+
+
+def _hvp_against_difference(cfg, masters, batch, v) -> dict:
+    """The double-backward product ``eigenvalue.hvp`` in fp32 at the fp32
+    masters along ``v`` (unit norm), against the central difference of two
+    fp32 gradients at masters +- EIG_FD_EPS v: the product through the
+    plain attention branch, checked on the card."""
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.runtime.eigenvalue import hvp
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+    model = CausalLM(TRAIN_MODEL, max_seq_len=cfg.max_seq_len, attn_impl="auto",
+                     dtype=torch.float32)
+    p = [x.detach().float() for x in tree_leaves(masters)]
+    norm = math.sqrt(sum(float(x.float().square().sum()) for x in v))
+    v = [x.float() / norm for x in v]
+
+    def gen():
+        return torch.Generator(device=p[0].device).manual_seed(0)
+
+    def grad_at(sign):
+        leaves = [(x + sign * EIG_FD_EPS * d).requires_grad_() for x, d in zip(p, v)]
+        with torch.enable_grad():
+            loss = model.loss_fn(tree_unflatten_like(masters, leaves), batch, gen())
+            loss = loss[0] if isinstance(loss, tuple) else loss
+            return torch.autograd.grad(loss, leaves)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hv = tree_leaves(hvp(model.loss_fn, tree_unflatten_like(masters, p), batch, gen(),
+                         tree_unflatten_like(masters, v)))
+    torch.cuda.synchronize()
+    hvp_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    plus = grad_at(1.0)
+    fd = [(a - b) / (2 * EIG_FD_EPS) for a, b in zip(plus, grad_at(-1.0))]
+    del plus
+    diff = math.sqrt(sum(float((h - f).square().sum()) for h, f in zip(hv, fd)))
+    ref = math.sqrt(sum(float(f.square().sum()) for f in fd))
+    rq = sum(float((h * x).sum()) for h, x in zip(hv, v))
+    rec = {"eps": EIG_FD_EPS, "rel_diff": diff / ref, "limit": EIG_FD_REL,
+           "fd_norm": ref, "rayleigh": rq, "hvp_s": hvp_s, "launches": launches}
+    check(launches == (0, 0, 0), f"the fp32 product launched K1/K2/K3 {launches}")
+    check(diff / ref <= EIG_FD_REL,
+          f"the fp32 Hessian-vector product is {diff / ref:.3e} (relative) from "
+          f"the central difference, above {EIG_FD_REL}")
+    del hv, fd, p, v, model
+    free_memory()
+    return rec
+
+
+def phase_train_extras(seed: int) -> dict:
+    """The train cell (llama-740m, S=16384, bf16 over fp32 masters, micro
+    batch 1, ``nothing_saveable``) under item 11's optimizers and data
+    efficiency features, from one seed and one batch."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import get_config
+    from deepspeed_tpu_torch.runtime.progressive_layer_drop import pld_keep_mask
+
+    t0 = time.perf_counter()
+    S = TRAIN_SHAPE[1]
+    cfg = get_config(TRAIN_MODEL)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.dims_per_head
+    batch = _train_batch(cfg, S, seed + 1)
+    out = {"phase": "train_extras", "model": TRAIN_MODEL, "S": S,
+           "optimizers": _extra_optimizers(seed, batch)}
+
+    def pld_expect(engine):
+        pld = engine.progressive_layer_drop   # its update_state's arithmetic
+        theta = float((1.0 - pld.theta) * np.exp(-pld.gamma * engine.global_steps)
+                      + pld.theta)
+        gen = torch.Generator()
+        gen.set_state(engine.pld_generator.get_state())
+        kept = int(pld_keep_mask(gen, L, theta).sum())
+        return ((2 * kept, kept, kept), [(1, S, H, hd)] if kept else [],
+                {"step": engine.global_steps + 1, "theta": theta, "kept_layers": kept})
+
+    out["pld"] = _extra_runs(seed, batch, {"progressive_layer_drop": PLD_CONFIG},
+                             PLD_STEPS, pld_expect)
+    check(any(r["kept_layers"] < L for r in out["pld"]), "no layer dropped in "
+                                                         f"{PLD_STEPS} steps")
+
+    def ltd_expect(engine):
+        keep = engine._random_ltd.update_seq(engine.global_steps)
+        return ((2 * L, L, L), [(1, keep, H, hd)],
+                {"step": engine.global_steps + 1, "keep": keep})
+
+    out["random_ltd"] = _extra_runs(
+        seed, batch, {"data_efficiency": {"data_routing": {"random_ltd": LTD_CONFIG}}},
+        LTD_STEPS, ltd_expect)
+    keeps = [r["keep"] for r in out["random_ltd"]]
+    lo, hi = LTD_CONFIG["min_value"], LTD_CONFIG["max_value"]
+    stride = (hi - lo) // LTD_CONFIG["random_ltd_schedule"]["schedule_config"]["require_steps"]
+    check(keeps == list(range(lo, hi + 1, stride)), f"random-LTD kept {keeps}")
+
+    def curriculum_expect(engine):
+        from deepspeed_tpu_torch.runtime.data_pipeline import CurriculumScheduler
+
+        probe = CurriculumScheduler({"curriculum_type": "seqlen",
+                                     **{k: v for k, v in CURRICULUM_CONFIG.items()
+                                        if k not in ("enabled", "curriculum_type")}})
+        probe.set_state(dict(engine.curriculum_scheduler.get_state()))
+        seq = probe.update_difficulty(engine.global_steps + 1)
+        return ((2 * L, L, L), [(1, seq, H, hd)], {"step": engine.global_steps + 1,
+                                                   "seq": seq})
+
+    out["curriculum"] = _extra_runs(seed, batch, {"curriculum_learning": CURRICULUM_CONFIG},
+                                    CURRICULUM_STEPS, curriculum_expect)
+    seqs = [r["seq"] for r in out["curriculum"]]
+    check(seqs == list(range(CURRICULUM_CONFIG["min_difficulty"],
+                             CURRICULUM_CONFIG["max_difficulty"] + 1,
+                             CURRICULUM_CONFIG["schedule_config"]["difficulty_step"])),
+          f"the curriculum ran S={seqs}")
+    out["eigenvalue"] = _eigen(seed)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def _checksum(tree) -> int:
+    """The integer sum of every leaf's 16-bit words (any flipped bit moves it)."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    return sum(int(x.view(torch.int16).sum(dtype=torch.int64)) for x in tree_leaves(tree))
+
+
+def _dense_prefill_check(cfg, params, tokens) -> dict:
+    """One prefill of whole rows through ``forward_cached``'s dense branch
+    (K1 once a layer, ``attn_impl="auto"``) against its masked branch
+    (``"xla"``, the cached einsum) on the same rows: the worst row's
+    ``||dense - masked|| / ||masked||`` of the logits is gated at
+    PREFILL_ROW_REL.  The yardstick, a masked prefill that leaves out one
+    128-key tile in the middle of every row (what a K1 that skipped a KV
+    tile would give), must be rejected on the median row after the tile."""
+    from deepspeed_tpu_torch.models.transformer import forward_cached, init_cache
+
+    B, S = tokens.shape
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    full = torch.ones(B, S, dtype=torch.bool, device=tokens.device)
+    hole = full.clone()
+    lo = S // 2
+    hole[:, lo:lo + 128] = False
+
+    def prefill(impl, mask):
+        cache = init_cache(cfg, B, S, device=tokens.device)
+        with torch.inference_mode():
+            logits, _ = forward_cached(cfg, params, tokens, cache, pos, mask,
+                                       attn_impl=impl)
+        return logits.float()
+
+    def row_rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
+
+    reset_counts()
+    dense = prefill("auto", full)
+    k1 = kernel_counts()
+    masked = prefill("xla", full)
+    err = row_rel(dense, masked)
+    del dense
+    yard = row_rel(prefill("xla", hole)[:, lo + 128:], masked[:, lo + 128:])
+    rec = {"shape": [B, S], "k1": k1[0], "masked_k1": kernel_counts()[0] - k1[0],
+           "worst_row_rel": float(err.max()), "median_row_rel": float(err.median()),
+           "yardstick_worst_row_rel": float(yard.max()),
+           "yardstick_median_row_rel": float(yard.median()), "limit": PREFILL_ROW_REL}
+    check(k1 == (cfg.num_layers, 0, 0) and rec["masked_k1"] == 0,
+          f"dense prefill launched K1/K2/K3 {k1}, the masked one K1 {rec['masked_k1']}")
+    check(rec["worst_row_rel"] <= PREFILL_ROW_REL,
+          f"the dense prefill's logits are {rec['worst_row_rel']:.3e} (worst row) "
+          f"from the masked branch's, above {PREFILL_ROW_REL}")
+    check(rec["yardstick_median_row_rel"] > PREFILL_ROW_REL,
+          f"the prefill gate passed the median row of a prefill that skips a "
+          f"128-key tile: {rec}")
+    del masked, err, yard
+    free_memory()
+    return rec
+
+
+def phase_lora_hybrid(seed: int) -> dict:
+    """DeepSpeed-Chat's actor loop on llama2-7b at full width: a LoRA
+    engine (rank LORA_RANK on ``DEFAULT_TARGETS``, AdamW) behind
+    ``DeepSpeedHybridEngine``; HYBRID_ROUNDS rounds of generate (greedy,
+    HYBRID_ROWS prompts of HYBRID_PROMPT tokens, HYBRID_NEW new) and a
+    ``train_batch`` on the rollouts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+    from deepspeed_tpu_torch.runtime.lora import LoRAConfig, LoRAModel
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    t_start = time.perf_counter()
+    base = CausalLM(LORA_MODEL)            # bf16 activations, attn_impl="auto"
+    cfg = base.config
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    params = base.init_fn(gen, device="cuda", dtype=torch.bfloat16)
+    model = LoRAModel(base, params, LoRAConfig(rank=LORA_RANK, alpha=LORA_ALPHA))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_micro_batch_size_per_gpu": HYBRID_ROWS, "gradient_accumulation_steps": 1,
+        "bf16": {"enabled": True}, "seed": seed, "steps_per_print": 10 ** 9,
+        "optimizer": {"type": "adamw", "params": {"lr": LORA_LR}}})
+    hybrid = DeepSpeedHybridEngine(engine)
+    base_sum = _checksum(model.base_params)
+    prompts = torch.randint(0, cfg.vocab_size, (HYBRID_ROWS, HYBRID_PROMPT),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    rec = {"phase": "lora_hybrid", "model": LORA_MODEL, "layers": L,
+           "lora_rank": LORA_RANK, "lora_params": engine.param_count,
+           "init_s": time.perf_counter() - t_start, "rounds": [],
+           "dense_prefill": _dense_prefill_check(cfg, params, prompts)}
+    torch.cuda.reset_peak_memory_stats()
+
+    def generate(eng, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=HYBRID_NEW, **kw)
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t, kernel_counts()
+
+    ref = None
+    with _AttentionLog() as log:
+        for r in range(HYBRID_ROUNDS + 1):
+            toks, gen_s, got = generate(hybrid)
+            shapes, _ = log.take()
+            if ref is None:   # B = 0: the fused tree is the base, bit for bit
+                plain = deepspeed_tpu_torch.init_inference(base, config={"dtype": "bf16"},
+                                                           params=params)
+            else:
+                plain = deepspeed_tpu_torch.init_inference(
+                    base, config={"dtype": "bf16"}, params=model.fused(engine.state.params))
+            want, ref_s, _ = generate(plain)
+            del plain
+            log.take()
+            equal = torch.equal(toks, want)
+            round_rec = {"round": r, "generate_s": gen_s, "reference_generate_s": ref_s,
+                         "prefill_launches": got, "prefill_shapes": shapes,
+                         "tokens_equal": equal}
+            check(got == (L, 0, 0), f"round {r}: generate launched K1/K2/K3 {got}, "
+                                    f"expected {L} in the prefill")
+            check(shapes == [(HYBRID_ROWS, HYBRID_PROMPT, cfg.num_heads, cfg.dims_per_head)],
+                  f"round {r}: prefill shapes {shapes}")
+            check(equal, f"round {r}: the hybrid's tokens differ from init_inference's "
+                         f"{'on the base' if ref is None else 'on fused(lora)'}")
+            ref = toks
+            if r == HYBRID_ROUNDS:   # the last generate checks the last step
+                rec["rounds"].append(round_rec)
+                break
+            lora_before = [x.clone() for x in tree_leaves(engine.state.params)]
+            reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(hybrid.train_batch(batch={"input_ids": toks}))
+            torch.cuda.synchronize()
+            round_rec.update(step_s=time.perf_counter() - t, loss=loss,
+                             step_launches=kernel_counts(),
+                             step_shapes=log.take()[0])
+            # from B = 0 the first step moves the B factors only (A's
+            # gradient is B's transpose times the weights' gradient)
+            moved = any(not torch.equal(a, b) for a, b in
+                        zip(lora_before, tree_leaves(engine.state.params)))
+            unchanged = _checksum(model.base_params) == base_sum
+            round_rec.update(adapters_moved=moved, base_unchanged=unchanged)
+            check(math.isfinite(loss), f"round {r}: loss {loss}")
+            check(unchanged, f"round {r}: the base weights changed")
+            check(moved, f"round {r}: the adapters did not move")
+            check(round_rec["step_launches"] == (2 * L, L, L),
+                  f"round {r}: a step launched K1/K2/K3 {round_rec['step_launches']}")
+            check(round_rec["step_shapes"] == [(HYBRID_ROWS, HYBRID_PROMPT + HYBRID_NEW,
+                                                cfg.num_heads, cfg.dims_per_head)],
+                  f"round {r}: step shapes {round_rec['step_shapes']}")
+            rec["rounds"].append(round_rec)
+    rec.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_start,
+               mean_generate_s=hybrid.report_generate_latency())
+    emit(rec)
+    del hybrid, engine, model, params, base
+    free_memory()
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -5912,7 +6450,8 @@ def main() -> int:
                              + ITEM10_CARD_CONFIGS) + ")")
     ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
-    ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit"),
+    ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit",
+                                                  "train_extras", "lora_hybrid"),
                     help="only the build, then these phases (no kernels line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5944,7 +6483,9 @@ def main() -> int:
         print(nvidia_smi_line(), flush=True)
         phase_build()
         for name in args.only:
-            {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit}[name](args.seed)
+            {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
+             "train_extras": phase_train_extras,
+             "lora_hybrid": phase_lora_hybrid}[name](args.seed)
         return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
@@ -5984,6 +6525,8 @@ def main() -> int:
     pipe = phase_pipeline(args.seed)
     offload = phase_offload(args.seed)
     zpp_onebit = phase_zeropp_onebit(args.seed)
+    extras = phase_train_extras(args.seed)
+    lora = phase_lora_hybrid(args.seed)
     if args.tp_cards:
         phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -6027,6 +6570,28 @@ def main() -> int:
                 "launches_zeropp_onebit_per_step": {
                     label: rec["launches"][key] for label, rec in runs.items()}}
 
+    def item11_launches(i):
+        """This slice's launches of K1 (i=0), K2, K3: per optimizer step,
+        per PLD step by its kept layers, per random-LTD kept count, per
+        curriculum length, per LoRA llama2-7b step and per hybrid prefill."""
+        key = ("K1", "K2", "K3")[i]
+        rec = {"launches_extra_optimizers_per_step": {
+                   name: extras["optimizers"][name]["launches_per_step"][key]
+                   for name in EXTRA_OPTIMIZERS},
+               "launches_pld_per_step": [
+                   {"kept_layers": r["kept_layers"], "launches": r["launches"][i]}
+                   for r in extras["pld"]],
+               "launches_random_ltd_per_keep": {
+                   str(r["keep"]): r["launches"][i] for r in extras["random_ltd"]},
+               "launches_curriculum_per_seq": {
+                   str(r["seq"]): r["launches"][i] for r in extras["curriculum"]},
+               "launches_lora_7b_per_step": [r["step_launches"][i]
+                                             for r in lora["rounds"] if "step_launches" in r]}
+        if i == 0:
+            rec["launches_hybrid_per_prefill"] = [r["prefill_launches"][0]
+                                                  for r in lora["rounds"]]
+        return rec
+
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
         dlse) at the virtual ring's shard and at sp4_740m's, and the
@@ -6054,17 +6619,18 @@ def main() -> int:
                       launches_per_step_save_qkv=remat["save_qkv"]["launches_per_step"]["K1"],
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
-                      ring=ring_record("K1"), **item9_launches(0), **item10_launches(0)),
+                      ring=ring_record("K1"), **item9_launches(0), **item10_launches(0),
+                      **item11_launches(0)),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
-                      **item9_launches(1), **item10_launches(1)),
+                      **item9_launches(1), **item10_launches(1), **item11_launches(1)),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
-                      **item9_launches(2), **item10_launches(2)),
+                      **item9_launches(2), **item10_launches(2), **item11_launches(2)),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], design=K4_DESIGN, l2="flushed",

@@ -20,7 +20,10 @@ with the paged decode-attention kernel, on one device or on a
 tensor-parallel serving mesh (``parallel.mesh.initialize_serving_mesh`` ->
 ``init_inference(mesh=)``); Hugging Face checkpoints and modules
 (``module_inject``: ``init_inference(<directory or module>)``) and
-weight-only int8/int4 inference.  ROADMAP.md lists what comes next.
+weight-only int8/int4 inference; MoE and pipelines, offload, ZeRO++ and
+the 1-bit optimizers; the other optimizers, progressive layer drop,
+random-LTD, the curricula, eigenvalue, LoRA training and the hybrid
+engine (``runtime/hybrid_engine.py``).  ROADMAP.md lists what comes next.
 """
 from __future__ import annotations
 

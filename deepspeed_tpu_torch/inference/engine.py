@@ -101,7 +101,7 @@ def place_params(model, params, mesh, dtype=None, device=None):
             if any(tuple(x.shape) != tuple(w.shape) for x, w in zip(
                     tree_leaves(params), tree_leaves(shards))):
                 params = model.shard_params(params, comm.axis_index("model"), n)
-    if dtype is not None:
+    if dtype is not None and params is not None:
         params = _cast_tree(params, dtype, device)
     return params
 

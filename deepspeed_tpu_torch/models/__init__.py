@@ -129,6 +129,7 @@ class CausalLM(nn.Module):
             out["positions"] = positions[:, lo:hi]
         if pld_theta is not None:
             out["pld_theta"] = pld_theta
+            out["pld_generator"] = batch.get("pld_generator")
         return out
     def frozen_spec(self) -> Optional[Dict[str, Any]]:
         """The engine's frozen-parameter contract (``requires_grad=False``
@@ -164,19 +165,21 @@ class CausalLM(nn.Module):
 
     def apply_fn(self, params, tokens, positions=None, rng=None,
                  deterministic=True, return_aux=False, pld_theta=None,
-                 gather_logits=True, seq_offset=0, seq_len=None):
+                 gather_logits=True, seq_offset=0, seq_len=None, pld_generator=None):
         return forward(self.config, params, tokens, positions=positions, rng=rng,
                        attn_impl=self.attn_impl, deterministic=deterministic,
                        return_aux=return_aux, pld_theta=pld_theta,
                        gather_logits=gather_logits, seq_offset=seq_offset,
-                       seq_len=seq_len)
+                       seq_len=seq_len, pld_generator=pld_generator)
 
     def _split(self, batch):
         """(tokens, labels, positions, pld_theta) of a batch: a dict with
         ``input_ids`` (``labels``, ``positions``, ``pld_theta`` optional) or
         the token tensor alone.  Labels default to the tokens shifted by one,
         with -100 (ignored) at the end (of the whole row: a slice from
-        :meth:`shard_sequence` carries its labels)."""
+        :meth:`shard_sequence` carries its labels).  The host generator
+        progressive layer drop draws from rides along as
+        ``pld_generator`` (the engine's)."""
         pld_theta = None
         if isinstance(batch, dict):
             tokens = batch["input_ids"]
@@ -198,7 +201,7 @@ class CausalLM(nn.Module):
         ignored labels.  An MoE model adds a third term, the scaled aux
         loss of this rank's rows."""
         tokens, labels, positions, pld_theta = self._split(batch)
-        seq = {k: batch[k] for k in ("seq_offset", "seq_len")
+        seq = {k: batch[k] for k in ("seq_offset", "seq_len", "pld_generator")
                if isinstance(batch, dict) and k in batch}
         sharded = tensor_parallel.active()
         moe = has_moe(self.config)
@@ -269,7 +272,7 @@ class CausalLM(nn.Module):
 
     def apply_cached(self, params, tokens, cache, positions, input_mask):
         return forward_cached(self.config, params, tokens, cache, positions,
-                              input_mask)
+                              input_mask, attn_impl=self.attn_impl)
 
     # -- block-paged decode contract (used by ServingEngine): one physical
     #    page pool multiplexed across decode slots via per-slot page tables --

@@ -4,7 +4,11 @@ tree and back, and a JAX paged KV pool to the port's.  The layouts are the
 same (``x @ W``; pools ``[L, P, page, Hkv, hd]``; MoE experts ``[L, E, d,
 f]``; a PR-MoE pyramid's list of per-layer dicts), so leaves map one to
 one without transposes; only a pipelined tree's layer stacks are
-reshaped (JAX ``[P, L/P, ...]``, the port ``[L, ...]``)."""
+reshaped (JAX ``[P, L/P, ...]``, the port ``[L, ...]``).  A LoRA adapter
+tree ``{target: {"A", "B"}}`` crosses with :func:`lora_from_jax` /
+``params_to_numpy``, an optimizer state (optax's tuples of named states,
+the port's tuples of dataclasses) leaves to numpy with
+:func:`opt_state_to_numpy`."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -92,4 +96,50 @@ def params_to_numpy(tree: Dict[str, Any], pipeline_stages: int = 1) -> Dict[str,
     if pipeline_stages > 1:
         out["layers"] = {k: v.reshape((pipeline_stages, -1) + v.shape[1:])
                          for k, v in out["layers"].items()}
+    return out
+
+
+def lora_from_jax(np_lora: Dict[str, Any], device="cuda",
+                  dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A JAX adapter tree (``init_lora_params``: ``{target: {"A": [L, d_in,
+    r], "B": [L, r, d_out]}}`` as numpy) -> the port's, checked leaf by
+    leaf (``params_to_numpy`` takes it back)."""
+    for target, ab in np_lora.items():
+        if set(ab) != {"A", "B"}:
+            raise KeyError(f"LoRA target {target!r}: keys {sorted(ab)}, not A and B")
+        a, b = np.shape(ab["A"]), np.shape(ab["B"])
+        if len(a) != 3 or len(b) != 3 or a[0] != b[0] or a[2] != b[1]:
+            raise ValueError(f"LoRA target {target!r}: A {a} and B {b} are not "
+                             "[L, d_in, r] and [L, r, d_out]")
+    return params_from_jax(np_lora, device=device, dtype=dtype)
+
+
+def opt_state_to_numpy(state) -> list:
+    """The array leaves of an optimizer state in order (every tensor or
+    array with a dimension; step counts and empty states left out), as
+    numpy: the port's state and optax's compare leaf for leaf when their
+    chains have the same links."""
+    import dataclasses
+
+    out: list = []
+
+    def walk(obj):
+        if isinstance(obj, torch.Tensor):
+            if obj.dim():
+                out.append(obj.detach().cpu().float().numpy()
+                           if obj.dtype in (torch.bfloat16, torch.float16)
+                           else obj.detach().cpu().numpy())
+        elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            for f in dataclasses.fields(obj):
+                walk(getattr(obj, f.name))
+        elif isinstance(obj, dict):
+            for k in sorted(obj):
+                walk(obj[k])
+        elif isinstance(obj, (list, tuple)):   # optax's states are NamedTuples
+            for o in obj:
+                walk(o)
+        elif hasattr(obj, "shape") and np.ndim(obj):
+            out.append(np.asarray(obj))
+
+    walk(state)
     return out

@@ -18,8 +18,10 @@ attention through the K4 kernel) and ``cross_entropy_loss``.  MoE layers
 the aux loss summed over the layers and returned by ``forward(...,
 return_aux=True)``) run on every path; a pipelined config
 (``pipeline_stages`` > 1) trains through ``pipeline_loss_and_backward``.
-Raising ``NotImplementedError`` until their slices land (ROADMAP queue 1):
-random-LTD, progressive layer drop, activation fake-quant.
+A training forward runs progressive layer drop (``pld_theta``: the kept
+layers only) and random-LTD (``random_ltd_keep`` tokens a layer, the kept
+subset on the flash kernels at its length).  Activation fake-quant raises
+``NotImplementedError`` until its slice lands (ROADMAP queue 1, item 11).
 
 Matmuls promote mixed operand dtypes the way ``jnp`` does (``_mm``): a
 bf16-activation model over fp32 weights computes those products in fp32.
@@ -1358,7 +1360,8 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
             seq_sharded: bool = True, return_aux: bool = False,
             pld_theta=None, token_type_ids: Optional[torch.Tensor] = None,
             gather_logits: bool = True, seq_offset: int = 0,
-            seq_len: Optional[int] = None):
+            seq_len: Optional[int] = None,
+            pld_generator: Optional[torch.Generator] = None):
     """tokens [B, S] -> logits [B, S, V] (+ aux dict if return_aux).
     Under tensor parallelism ``gather_logits=False`` returns this rank's
     vocabulary columns ``[B, S, V/tp]`` (the vocab-parallel loss reads
@@ -1371,13 +1374,14 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
     it draws one seed per layer, as the JAX package splits one key per
     layer.  ``cfg.remat`` recomputes each layer in the backward when
     autograd records the call.  ``seq_sharded`` is accepted for signature
-    parity and unused."""
-    if pld_theta is not None:
-        raise NotImplementedError(
-            "progressive layer drop is not ported yet (ROADMAP queue 1, item 11)")
-    if cfg.random_ltd and cfg.random_ltd_keep > 0:
-        raise NotImplementedError(
-            "random-LTD is not ported yet (ROADMAP queue 1, item 11)")
+    parity and unused.
+
+    ``pld_theta`` (progressive layer drop, training): the layers of a
+    [L] keep mask drawn on the host from ``pld_generator`` (a CPU
+    generator, seed 0 when None) run, the others are skipped.  A config
+    with ``random_ltd`` and ``random_ltd_keep`` runs each layer of a
+    training pass on ``random_ltd_keep`` tokens of each row drawn from
+    ``rng`` (``runtime/data_pipeline/data_routing/random_ltd.py``)."""
     _check_supported(cfg)
     B, S = tokens.shape
     tokens = tokens.long()
@@ -1390,15 +1394,71 @@ def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor
         # a ZeRO-3 tree: one gather serves both uses of the tied embedding
         params = params.pin("embed")
     x = _embed(cfg, params, tokens, positions, token_type_ids)
-    x, aux_total = run_layers(cfg, _layers(params), x, positions, seeds,
-                              _build_block(cfg, attn_impl, custom_positions),
-                              layer_windows(cfg))
+    block = _build_block(cfg, attn_impl, custom_positions)
+    if cfg.random_ltd and cfg.random_ltd_keep > 0:
+        block = _ltd_block(cfg, block, rng, tokens.device, deterministic)
+    layers, windows = _layers(params), layer_windows(cfg)
+    if pld_theta is not None:
+        layers, seeds = _pld_layers(cfg, layers, seeds, windows, pld_theta,
+                                    pld_generator)
+    x, aux_total = run_layers(cfg, layers, x, positions, seeds, block, windows)
     logits = _logits(cfg, params, x, gather_logits)
     if return_aux:
         if aux_total is None:
             aux_total = torch.zeros((), device=logits.device)
         return logits, {"moe_aux_loss": aux_total}
     return logits
+
+
+def _ltd_block(cfg: TransformerConfig, block, rng, device, deterministic: bool):
+    """``block`` on a random subset of ``cfg.random_ltd_keep`` tokens a
+    row, wrapped outside the remat checkpoint (JAX's ``_build_block``): the
+    backward recomputes the kept subset's layer only.  The inner block is
+    built for default positions, so the subset takes the flash kernels
+    wherever its length does."""
+    from ..runtime.data_pipeline.data_routing import random_ltd
+
+    if cfg.attention_layers is not None:
+        raise NotImplementedError(
+            "random-LTD with per-layer attention types is not supported "
+            "(the token-subset wrapper does not thread the window)")
+    if cfg.pipeline_stages > 1:
+        raise NotImplementedError(
+            "random-LTD with pipeline stages is not ported: the stage "
+            "executor builds its blocks without the token-drop wrapper")
+    if rng is None:
+        rng = torch.Generator(device=device)
+        rng.manual_seed(0)
+
+    def ltd(lp, x, positions, window, seed):
+        return random_ltd.random_ltd_block(
+            lambda xs, ps: block(lp, xs, ps, window, seed), x, positions, rng,
+            cfg.random_ltd_keep, deterministic)
+
+    return ltd
+
+
+def _pld_layers(cfg: TransformerConfig, layers, seeds, windows, theta, generator):
+    """The layers progressive layer drop keeps this pass and their seeds:
+    the [L] mask drawn on the host, so no device sync."""
+    from ..runtime import progressive_layer_drop
+
+    if cfg.pipeline_stages > 1 or not cfg.scan_layers or _het(cfg):
+        raise NotImplementedError(
+            "progressive layer drop requires the scanned-layers path "
+            "(scan_layers=True, pipeline_stages=1, uniform layers)")
+    if windows is not None:
+        raise NotImplementedError(
+            "progressive layer drop with per-layer attention types "
+            "is not supported")
+    if generator is None:
+        generator = torch.Generator()
+        generator.manual_seed(0)
+    keep = progressive_layer_drop.pld_keep_mask(generator, cfg.num_layers,
+                                                theta).tolist()
+    kept = [i for i, k in enumerate(keep) if k]
+    layers = list(layers)
+    return [layers[i] for i in kept], [seeds[i] for i in kept]
 
 
 def layer_seeds(cfg: TransformerConfig, deterministic: bool, rng, device,
@@ -1620,9 +1680,12 @@ def _attention_cached(cfg, q, ck, cv, q_pos, q_slot, valid, kpos, window=None):
 
 
 def _block_cached(cfg, lp, x, ck, cv, q_pos, q_slot, valid, kpos, next_slot,
-                  window=None):
+                  window=None, dense=False):
     """One block with cache read/write.  ck/cv are this layer's
-    [B,T,Hkv,hd] views into the cache, written in place."""
+    [B,T,Hkv,hd] views into the cache, written in place.  ``dense``: a
+    whole unpadded prompt at default positions into an empty cache, whose
+    attention over the cache is causal attention over the prompt itself:
+    the flash kernel's."""
     B, S, _ = x.shape
     h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
     q, k, v = _qkv(cfg, lp, h, B, S)
@@ -1631,8 +1694,12 @@ def _block_cached(cfg, lp, x, ck, cv, q_pos, q_slot, valid, kpos, next_slot,
                      rotary_dim=cfg.rotary_dim, interleaved=cfg.rope_interleaved)
     ck[:, next_slot:next_slot + S] = k.to(ck.dtype)
     cv[:, next_slot:next_slot + S] = v.to(cv.dtype)
-    attn = _attention_cached(cfg, q, ck, cv, q_pos, q_slot, valid, kpos,
-                             window=window)
+    if dense:
+        attn = flash_attention(q, k.to(ck.dtype), v.to(cv.dtype), causal=True,
+                               sm_scale=_sm_scale(cfg, q.shape[-1]))
+    else:
+        attn = _attention_cached(cfg, q, ck, cv, q_pos, q_slot, valid, kpos,
+                                 window=window)
     attn = _out_proj(cfg, lp, attn, B, S)
     if cfg.parallel_residual:
         h2 = h if cfg.shared_layernorm else _norm(
@@ -1645,13 +1712,18 @@ def _block_cached(cfg, lp, x, ck, cv, q_pos, q_slot, valid, kpos, next_slot,
 
 def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
                    tokens: torch.Tensor, cache: Dict[str, Any],
-                   positions: torch.Tensor, input_mask: torch.Tensor):
+                   positions: torch.Tensor, input_mask: torch.Tensor,
+                   attn_impl: str = "xla"):
     """Run ``tokens [B,S]`` (a prefill chunk or one decode token) against
     the cache, writing their K/V at slots ``next_slot..next_slot+S-1``.
 
     ``positions [B,S]``: absolute position ids.  ``input_mask [B,S]``: True
     for real tokens; False slots are written but never attended.  Returns
-    ``(logits [B,S,V], cache)`` — the same cache dict, updated in place."""
+    ``(logits [B,S,V], cache)`` — the same cache dict, updated in place.
+    A prefill into an empty cache of whole rows at default positions
+    attends through the flash kernel wherever ``attn_impl`` takes it at S
+    (``_takes_flash``: ``"auto"`` from S = 2048); one host read of the
+    mask and positions decides it."""
     _check_supported(cfg)
     if not cfg.causal:
         raise NotImplementedError(
@@ -1667,10 +1739,13 @@ def forward_cached(cfg: TransformerConfig, params: Dict[str, Any],
     q_slot = ns + torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens.long(), positions)
     windows = layer_windows(cfg)
+    dense = (ns == 0 and windows is None and _tp.size() == 1
+             and _takes_flash(cfg, S, attn_impl, False, None)
+             and bool(input_mask.all() & (positions == q_slot[None, :]).all()))
     for i in range(cfg.num_layers):
         x = _block_cached(cfg, _layer(params, i), x, cache["k"][i], cache["v"][i],
                           positions, q_slot, cache["valid"], cache["pos"], ns,
-                          None if windows is None else windows[i])
+                          None if windows is None else windows[i], dense=dense)
     x = _final_norm(cfg, params, x)
     cache["next_slot"] = ns + S
     return _tp.gather_from_model(_head(cfg, params, x), cfg.vocab_size), cache

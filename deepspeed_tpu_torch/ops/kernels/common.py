@@ -6,12 +6,16 @@
     The CUDA sources use the same value (``flash_attention_fwd.cu``).
   - ``pick_block()`` — largest power-of-two tile that divides the axis.
   - ``mask_to_i32()`` — masks cross the kernel boundary as int32.
+  - ``first_derivative_only()`` — refuses a second derivative through an
+    autograd Function whose backward autograd does not record.
 
 The Pallas module's ``interpret_default`` and ``parallel_semantics`` have no
 counterpart: a CUDA kernel has no interpret mode (the wrappers run the plain
 PyTorch version for CPU tensors) and blocks are always independent.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,3 +43,19 @@ def pick_block(n: int, want: int, floor: int = 8) -> int:
 def mask_to_i32(mask) -> torch.Tensor:
     """Boolean mask -> int32 for crossing the kernel boundary."""
     return torch.as_tensor(mask).to(torch.int32)
+
+
+def first_derivative_only(what: str):
+    """Decorates an autograd Function's ``backward`` that autograd does not
+    record (a kernel, a collective): asked to build a graph
+    (``create_graph=True``, the way to a second derivative) it raises,
+    where it would otherwise return a constant and leave the Function out
+    of the second derivative."""
+    def wrap(backward):
+        @functools.wraps(backward)
+        def checked(ctx, *grads):
+            if torch.is_grad_enabled():
+                raise NotImplementedError(f"a second derivative through {what}")
+            return backward(ctx, *grads)
+        return checked
+    return wrap

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..op_builder import KernelBuilder
-from .common import NEG_INF, pick_block
+from .common import NEG_INF, first_derivative_only, pick_block
 
 # Query rows per CTA of the CUDA kernels: S must be a multiple (the model
 # only dispatches here when S % 128 == 0).
@@ -492,6 +492,13 @@ def _backward(ctx, do, dlse=None):
     return dq, dk, dv
 
 
+_NO_SECOND = (
+    "the flash kernels: their backward is a kernel with no derivative of its "
+    "own (the JAX package fails here too, at jvp of its Pallas kernel); compute "
+    "the Hessian with attn_impl='xla', or under 'auto' at sequences shorter than "
+    "2048")
+
+
 class _Flash(torch.autograd.Function):
     """``_flash``: (out, lse) with the lse cotangent dropped (lse is only a
     residual of the backward); the block mask rides along as a
@@ -506,6 +513,7 @@ class _Flash(torch.autograd.Function):
         return out, lse
 
     @staticmethod
+    @first_derivative_only(_NO_SECOND)
     def backward(ctx, do, _dlse):
         return (*_backward(ctx, do), None, None, None)
 
@@ -523,6 +531,7 @@ class _FlashLse(torch.autograd.Function):
         return out, lse
 
     @staticmethod
+    @first_derivative_only(_NO_SECOND)
     def backward(ctx, do, dlse):
         return (*_backward(ctx, do, dlse), None, None)
 

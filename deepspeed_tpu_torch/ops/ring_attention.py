@@ -39,7 +39,7 @@ from typing import List, Optional
 
 import torch
 
-from .kernels.common import NEG_INF
+from .kernels.common import NEG_INF, first_derivative_only
 from .kernels.flash_attention import flash_attention
 
 SEQ_AXIS = "seq"
@@ -146,6 +146,7 @@ class _RingKV(torch.autograd.Function):
         return (*ks, *vs)
 
     @staticmethod
+    @first_derivative_only("the ring's K/V rotations")
     def backward(ctx, *grads):
         # an unused block's cotangent arrives as zeros (materialized), so
         # every rank makes every rotation back; the sums are fp32 (or wider)
@@ -212,6 +213,7 @@ class _AllToAll(torch.autograd.Function):
         return _comm().all_to_all(x.contiguous(), SEQ_AXIS, split_dim, concat_dim)
 
     @staticmethod
+    @first_derivative_only("Ulysses' all-to-all")
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
         return (_comm().all_to_all(g.contiguous(), SEQ_AXIS, concat_dim, split_dim),
@@ -246,6 +248,7 @@ class _GatherSeq(torch.autograd.Function):
         return _comm().all_gather(x.contiguous(), SEQ_AXIS, gather_dim=1)
 
     @staticmethod
+    @first_derivative_only("the sequence all-gather")
     def backward(ctx, g):
         return _comm().reduce_scatter(g.contiguous(), SEQ_AXIS, scatter_dim=1)
 

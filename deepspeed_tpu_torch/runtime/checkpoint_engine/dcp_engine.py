@@ -53,8 +53,11 @@ rank<r>.pt``; the DCP masters of a 0/1 Adam engine are the synced ones
 (the masters less the accumulated local update), the JAX engine's
 meaning.  A partial load (``load_module_only``,
 ``load_optimizer_states=False``) of an offload engine is refused, as
-there.  Left for later, each refused by name: data-sampler and curriculum
-state (item 11), fault-injection sites (item 12).
+there.  ``client_state.json`` also carries the curriculum's state under
+the JAX package's keys (``data_sampler``: the loader's sampler;
+``curriculum``: the legacy scheduler), restored on load, and the state
+dict progressive layer drop's host generator (``rng/pld``).  Left for
+later: the fault-injection sites (item 12).
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .checkpoint_engine import CheckpointEngine
@@ -161,10 +165,13 @@ def engine_state_dict(engine, module: bool = True, rest: bool = True,
     (``optimizer``).  Tensors are the live ones (this rank's shards for a
     data-parallel engine: :func:`as_dtensors` wraps them)."""
     state, out = engine.state, {}
+    pld = getattr(engine, "pld_generator", None)
     if state is None:   # ZeRO-Infinity: the whole state is in the offload files
         if rest:
             out["rng/dropout"] = engine.generator.get_state()
         return out
+    if rest and pld is not None:   # progressive layer drop's host generator
+        out["rng/pld"] = pld.get_state()
     if module:
         flatten_state(state.params, "params", out)
         flatten_state(state.master_params, "master_params", out)
@@ -318,7 +325,7 @@ def _load_side_state(engine, ckpt_dir: str) -> None:
 
 def _ckpt_group(engine):
     """The gloo group DCP plans over (None for a one-device engine)."""
-    if engine.partition is None:
+    if engine.partition is None and not engine.distributed:
         return None
     if getattr(engine, "_ckpt_pg", None) is None:
         import torch.distributed as dist
@@ -330,7 +337,7 @@ def _ckpt_group(engine):
 def _rank0(engine) -> bool:
     import torch.distributed as dist
 
-    return engine.partition is None or dist.get_rank() == 0
+    return not engine.distributed or dist.get_rank() == 0
 
 
 def _barrier(group) -> None:
@@ -346,8 +353,10 @@ def tree_summary(flat: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
 
 
 def _meta(engine, client_state) -> Dict[str, Any]:
-    """``client_state.json``: the JAX package's keys."""
-    return {"checkpoint_version": CHECKPOINT_VERSION,
+    """``client_state.json``: the JAX package's keys, the curriculum's
+    sampler (``data_sampler``) or scheduler (``curriculum``) state among
+    them."""
+    meta = {"checkpoint_version": CHECKPOINT_VERSION,
             "global_steps": engine.global_steps,
             "skipped_steps": engine.skipped_steps,
             "micro_steps": engine.micro_steps,
@@ -356,6 +365,25 @@ def _meta(engine, client_state) -> Dict[str, Any]:
             "mesh_shape": ({"data": engine.dp_world} if engine.mesh is None else
                            dict(zip(engine.mesh.mesh_dim_names, engine.mesh.shape))),
             "client_state": client_state or {}}
+    sampler = getattr(getattr(engine, "training_dataloader", None), "data_sampler", None)
+    if sampler is not None and hasattr(sampler, "state_dict"):
+        meta["data_sampler"] = _json_ready(sampler.state_dict())
+    elif getattr(engine, "curriculum_scheduler", None) is not None:
+        meta["curriculum"] = _json_ready(engine.curriculum_scheduler.get_state())
+    return meta
+
+
+def _json_ready(obj):
+    """numpy scalars and arrays as JSON numbers and lists."""
+    if isinstance(obj, dict):
+        return {k: _json_ready(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_ready(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
 
 
 def _publish_latest(save_dir: str, tag: str) -> None:
@@ -490,6 +518,8 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         kw["step"] = restore_state(state.step, "step", target)
         kw["scaler"] = restore_state(state.scaler, "scaler", target)
         engine.generator.set_state(target["rng/dropout"])
+        if "rng/pld" in target:
+            engine.pld_generator.set_state(target["rng/pld"])
     if opt:
         kw["opt_state"] = restore_state(state.opt_state, "opt_state", target)
     engine.state = dataclasses.replace(state, **kw)
@@ -507,6 +537,14 @@ def _load_meta(engine, ckpt_dir: str, tag):
         engine.global_steps = meta.get("global_steps", engine.global_steps)
         engine.skipped_steps = meta.get("skipped_steps", engine.skipped_steps)
         engine.micro_steps = meta.get("micro_steps", engine.micro_steps)
+        sampler = getattr(getattr(engine, "training_dataloader", None),
+                          "data_sampler", None)
+        if sampler is not None and meta.get("data_sampler") is not None \
+                and hasattr(sampler, "load_state_dict"):
+            sampler.load_state_dict(meta["data_sampler"])
+        elif getattr(engine, "curriculum_scheduler", None) is not None \
+                and meta.get("curriculum") is not None:
+            engine.curriculum_scheduler.set_state(meta["curriculum"])
     log_dist(f"loaded checkpoint {tag} from {ckpt_dir}", ranks=[0])
     return ckpt_dir, meta.get("client_state", {})
 

@@ -32,16 +32,20 @@ class RepeatingLoader:
 
 class DeepSpeedDataLoader:
     """Batches an indexable dataset into [batch_size, ...] numpy trees,
-    reshuffled per epoch from ``seed + epoch``."""
+    reshuffled per epoch from ``seed + epoch``, or in the index batches a
+    ``data_sampler`` draws (a curriculum sampler,
+    ``data_pipeline/data_sampler.py``), one drawn per batch yielded."""
 
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = True, collate_fn=None):
+                 seed: int = 0, drop_last: bool = True, collate_fn=None,
+                 data_sampler=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.collate_fn = collate_fn
+        self.data_sampler = data_sampler
         self.epoch = 0
 
     def __len__(self):
@@ -68,7 +72,29 @@ class DeepSpeedDataLoader:
                          for j in range(len(first)))
         return np.stack([np.asarray(it) for it in items])
 
+    def _iter_sampler(self) -> Iterator:
+        """Lazy: one index batch drawn per batch yielded, so a curriculum
+        sampler's consumed-batch count (and its checkpointed state) tracks
+        the batches trained."""
+        it = iter(self.data_sampler)
+        buf: list = []
+        produced = 0
+        while produced < len(self):
+            try:
+                b = next(it)
+            except StopIteration:
+                break
+            buf.extend(b if hasattr(b, "__len__") else [b])
+            while len(buf) >= self.batch_size and produced < len(self):
+                sel, buf = buf[:self.batch_size], buf[self.batch_size:]
+                produced += 1
+                yield self._collate([self.dataset[int(i)] for i in sel])
+
     def __iter__(self) -> Iterator:
+        if self.data_sampler is not None:
+            yield from self._iter_sampler()
+            self.epoch += 1
+            return
         idx = self._indices()
         for b in range(len(self)):
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]

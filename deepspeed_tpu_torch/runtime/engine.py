@@ -95,6 +95,14 @@ gradients error-feedback sign-compressed after ``freeze_step``
 (``runtime/comm/compressed.py``), ZeroOneAdam runs its variance freeze
 and local steps (``runtime/comm/zero_one.py``).  Each composition the JAX
 engine refuses raises with its message.
+The optional training features (``runtime/features.py``, the JAX
+engine's wiring and attribute names): progressive layer drop (the theta
+schedule a window, the model's layer mask drawn from the host
+``pld_generator``), the legacy seqlen curriculum (each window truncated
+to the scheduled length), random-LTD (the loss swapped to a model variant
+at each new kept count), the metric curricula (the loader's samplers) and
+``compute_eigenvalue``; any optimizer of ``runtime/optimizer.py``, LAMB's
+norms summed over the pieces of a leaf a rank holds (``_leaf_axes``).
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: a 'pipe' axis with tensor, sequence or expert axes or with ZeRO
 stage 3, MoE on a 'seq' axis (item 9, left).
@@ -118,6 +126,7 @@ from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import (tree_flatten_with_path, tree_leaves, tree_map,
                           tree_unflatten_like)
 from .config import DeepSpeedConfig
+from .features import wire_curriculum, wire_progressive_layer_drop, wire_random_ltd
 from .fp16.loss_scaler import (LossScaleState, dynamic_loss_scale_state,
                                grads_finite, no_loss_scale_state, scale_loss,
                                static_loss_scale_state, update_scale)
@@ -307,6 +316,11 @@ class DeepSpeedEngine:
                 self.config.gradient_clipping, frozen_mask=self._frozen_mask)
 
         self._check_compression(optimizer)
+        # -- optional training features (runtime/features.py) --
+        wire_progressive_layer_drop(self)
+        wire_curriculum(self)
+        wire_random_ltd(self, model)
+        self._check_data_efficiency()
 
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
@@ -422,6 +436,33 @@ class DeepSpeedEngine:
         self.dp_rank = comm.axis_index(BATCH_AXES)
         comm.configure(self.config.comms_logger)
 
+    def _check_data_efficiency(self) -> None:
+        """The JAX engine's refusals of what progressive layer drop and
+        random-LTD do not compose with."""
+        if self.pipelined:
+            schedule = getattr(self.model.config, "pipeline_schedule", "gpipe")
+            if self.progressive_layer_drop is not None:
+                raise NotImplementedError(
+                    "pipeline_schedule='1f1b' + progressive_layer_drop: the "
+                    "manual executor would silently drop pld_theta"
+                    if schedule == "1f1b" else
+                    "progressive layer drop requires the scanned-layers path "
+                    "(scan_layers=True, pipeline_stages=1, uniform layers)")
+            if self._random_ltd is not None:
+                raise NotImplementedError(
+                    "pipeline_schedule='1f1b' + random_ltd: unsupported"
+                    if schedule == "1f1b" else
+                    "random-LTD with pipeline stages is not ported: the stage "
+                    "executor builds its blocks without the token-drop wrapper")
+        if self._wants_param_offload():
+            if self._random_ltd is not None:
+                raise NotImplementedError(
+                    "offload_param + random_ltd: the layer-streamed executor "
+                    "builds its programs from the base model config")
+            if self.progressive_layer_drop is not None:
+                raise NotImplementedError(
+                    "offload_param + progressive_layer_drop: unsupported")
+
     def _check_pipeline(self, model) -> None:
         """``self.pipelined``: the model's config asks for pipeline stages
         (on the mesh's 'pipe' axis, or virtual stages in this process at an
@@ -455,7 +496,7 @@ class DeepSpeedEngine:
         Megatron path (a model with ``shard_params``, ``models.CausalLM``)
         or DTensor sharding propagation (``self._generic_tp``)."""
         self.tp, self.tp_rank, self._tp_specs = 0, 0, None
-        self._tp_shapes = None
+        self._tp_shapes = self._leaf_specs = None
         self._generic_tp = False
         if not self.distributed:
             return
@@ -640,7 +681,7 @@ class DeepSpeedEngine:
         if self.tp or self.sp > 1 or self.pp > 1 or self.ep > 1:
             raise NotImplementedError(
                 "offload_param runs over the data axes only in the port (its "
-                "per-layer files hold whole leaves)")
+                "per-layer files hold ZeRO-3 shards over the data axes)")
         return InfinityParamEngine(self.config, model, self.lr_schedule,
                                    self.device, self.generator)
 
@@ -805,12 +846,58 @@ class DeepSpeedEngine:
         return tree_unflatten_like(template, shards)
 
     def _build_dataloader(self, training_data):
+        """The loader, sampling through a curriculum sampler where the
+        config asks for one (the JAX engine's rules and messages)."""
         if training_data is None:
+            if self._curriculum_metric_path is not None:
+                raise ValueError(
+                    "a metric-driven curriculum samples THROUGH the engine "
+                    "dataloader — pass training_data to initialize()")
             return None
         from .dataloader import DeepSpeedDataLoader
 
-        return DeepSpeedDataLoader(training_data,
-                                   batch_size=self.micro_batch_size * self.dp_world)
+        rows = self.micro_batch_size * self.dp_world
+        sampler = None
+        ds_cfg = self.config.data_efficiency.data_sampling
+        if ds_cfg.enabled and ds_cfg.curriculum_learning.enabled:
+            if self._curriculum_metric_path is not None:
+                raise ValueError(
+                    "both the legacy curriculum_learning.metric_values_path "
+                    "sampler and data_efficiency.data_sampling."
+                    "curriculum_learning are configured — they would fight "
+                    "over the batch stream; enable exactly one")
+            from .data_pipeline.curriculum_scheduler import CurriculumScheduler
+            from .data_pipeline.data_sampler import MultiMetricCurriculumSampler
+
+            metrics = {}
+            for name, mc in ds_cfg.curriculum_learning.curriculum_metrics.items():
+                values = np.load(mc.metric_values_path)
+                if len(values) != len(training_data):
+                    raise ValueError(
+                        f"curriculum metric {name!r} has {len(values)} "
+                        f"values for a dataset of {len(training_data)} samples")
+                metrics[name] = {
+                    "values": values, "difficulty_type": mc.difficulty_type,
+                    "clustering_type": mc.clustering_type,
+                    "scheduler": CurriculumScheduler({
+                        "curriculum_type": name, "min_difficulty": mc.min_difficulty,
+                        "max_difficulty": mc.max_difficulty,
+                        "schedule_type": mc.schedule_type,
+                        "schedule_config": mc.schedule_config})}
+            sampler = MultiMetricCurriculumSampler(metrics, batch_size=rows,
+                                                   seed=self.config.seed)
+        elif self._curriculum_metric_path is not None:
+            from .data_pipeline.data_sampler import CurriculumBatchSampler
+
+            values = np.load(self._curriculum_metric_path)
+            if len(values) != len(training_data):
+                raise ValueError(
+                    f"curriculum metric file has {len(values)} values for a "
+                    f"dataset of {len(training_data)} samples")
+            sampler = CurriculumBatchSampler(values, batch_size=rows,
+                                             curriculum=self.curriculum_scheduler,
+                                             seed=self.config.seed)
+        return DeepSpeedDataLoader(training_data, batch_size=rows, data_sampler=sampler)
 
     # ------------------------------------------------------------------
     # The step
@@ -868,6 +955,8 @@ class DeepSpeedEngine:
         from ..models.transformer import row_offset
 
         local, lo = self._local_rows(one_batch)
+        if self.progressive_layer_drop is not None and not deterministic:
+            local = self._with_pld_theta(local)
         if self.sp > 1:
             local = self.model.shard_sequence(local, self.sp_rank, self.sp)
         fn = self._eval_fn if deterministic else self.loss_fn
@@ -892,6 +981,50 @@ class DeepSpeedEngine:
         if not self.distributed:
             return obj, obj.detach()
         return obj, comm.all_reduce(obj.detach(), comm.SUM, LOSS_AXES)
+
+    def _with_pld_theta(self, batch):
+        """The batch with the scheduled theta (``_inject_pld_theta`` of the
+        JAX engine: one value a window) and the host generator the model
+        draws its layer mask from."""
+        if not isinstance(batch, dict):
+            raise ValueError(
+                "progressive_layer_drop needs dict batches ({'input_ids': ...})"
+                " so the theta schedule can ride along as 'pld_theta'")
+        theta = self.progressive_layer_drop.update_state(self.global_steps)
+        return {**batch, "pld_theta": theta, "pld_generator": self.pld_generator}
+
+    def _data_efficiency(self, global_batch):
+        """A window's batch under the legacy seqlen curriculum (each leaf
+        whose last dim is the sequence truncated to the difficulty of the
+        coming step), and random-LTD's kept count for the step (the model
+        variant swapped at a new count)."""
+        if self._curriculum_seqlen:
+            diff = self.curriculum_scheduler.update_difficulty(self.global_steps + 1)
+            ref = (global_batch["input_ids"] if isinstance(global_batch, dict)
+                   and "input_ids" in global_batch else tree_leaves(global_batch)[0])
+            S = ref.shape[-1]
+            global_batch = tree_map(lambda x: x[..., :diff]
+                                    if x.ndim >= 3 and x.shape[-1] == S else x,
+                                    global_batch)
+        if self._random_ltd is not None:
+            keep = self._random_ltd.update_seq(self.global_steps)
+            if keep != self._ltd_keep:
+                self._swap_ltd_variant(keep)
+        return global_batch
+
+    def _swap_ltd_variant(self, keep: int) -> None:
+        """Point the loss at a model variant whose config keeps ``keep``
+        tokens a layer (the whole sequence from ``max_seq_len`` on)."""
+        self._ltd_keep = keep
+        active = keep < self.model.config.max_seq_len
+        variant = type(self.model)(
+            self.model.config, attn_impl=getattr(self.model, "attn_impl", "auto"),
+            random_ltd=active, random_ltd_keep=int(keep) if active else 0)
+        self.loss_fn = variant.loss_fn
+        if self._loss_terms is not None:
+            self._loss_terms = variant.loss_terms
+        log_dist(f"random-LTD: keep={keep} tokens/layer "
+                 f"({'active' if active else 'full sequence'})", ranks=[0])
 
     def _micro_grads(self, work, loss):
         """Scaled gradients of ``loss`` w.r.t. the leaves of ``work``, zeros
@@ -919,18 +1052,38 @@ class DeepSpeedEngine:
             self._accum_grads = [a + g.to(self.accum_dtype)
                                  for a, g in zip(self._accum_grads, grads)]
 
-    def _leaf_reductions(self, i: int):
-        """Around leaf ``i``'s update: a per-leaf transform's sums and maxes
-        (1-bit LAMB's norms) over the whole leaf when this rank holds a
-        ZeRO shard of it."""
-        part = self.partition
-        if part is None or part.mdims[i] is None:
+    def _leaf_axes(self, i: int) -> tuple:
+        """The mesh axes leaf ``i``'s local piece is cut over: its ZeRO axes
+        where this rank holds a shard of its master, and the model,
+        expert and pipe axes its spec cuts it over."""
+        part, axes = self.partition, ()
+        if part is not None and part.mdims[i] is not None:
+            axes += tuple(part.zaxes[i])
+        if self.tp and self._tp_specs is not None:
+            if self._leaf_specs is None:   # the specs in leaf order
+                specs = []
+                tree_map(lambda _, spec: specs.append(spec), self.state.params,
+                         self._tp_specs)
+                self._leaf_specs = specs
+            sizes = {"model": self.tp, "expert": self.ep, "pipe": self.pp}
+            axes += tuple(ax for ax, n in sizes.items() if n > 1 and
+                          tensor_parallel.spec_dim(self._leaf_specs[i], ax) is not None)
+        return axes
+
+    def _leaf_reductions(self, leaves):
+        """Around an update of ``leaves`` (indices into the masters, in the
+        order of the tree being updated): a per-leaf transform's sums and
+        maxes (LAMB's and 1-bit LAMB's norms) over the whole leaf where
+        this rank holds a piece of it."""
+        axes = [self._leaf_axes(i) for i in leaves]
+        if not any(axes):
             return contextlib.nullcontext()
         from .fp16.onebit_lamb import leaf_reductions
 
-        axes = part.zaxes[i]
-        return leaf_reductions(lambda x: comm.all_reduce(x, comm.SUM, axes),
-                               lambda x: comm.all_reduce(x, comm.MAX, axes))
+        return leaf_reductions([
+            (lambda x, a=a: comm.all_reduce(x, comm.SUM, a),
+             lambda x, a=a: comm.all_reduce(x, comm.MAX, a)) if a else None
+            for a in axes])
 
     def _reduce_window(self, g_leaves, eff_gas: int):
         """The window's local gradient sums -> the global sums at the
@@ -1036,7 +1189,8 @@ class DeepSpeedEngine:
         home.ready()
         if finite:
             with (contextlib.nullcontext() if part is None
-                  else sharded_norm(part.global_norm)):
+                  else sharded_norm(part.global_norm)), \
+                    self._leaf_reductions(range(len(tree_leaves(masters)))):
                 updates, new_opt = self.optimizer.update(grads, opt_in, masters)
             del grads
             new_masters = apply_updates(masters, updates)
@@ -1101,7 +1255,7 @@ class DeepSpeedEngine:
                     home.ready()
                     # the next leaf's copy runs under this leaf's update
                     nxt = fetch(i + 1) if i + 1 < len(paths) else None
-                    with self._leaf_reductions(i):
+                    with self._leaf_reductions([i]):
                         upd, sub = self.optimizer.update(
                             {"x": unscaled(g_leaves[i])}, sub_in, {"x": m})
                     g_leaves[i] = None
@@ -1243,6 +1397,7 @@ class DeepSpeedEngine:
         if self._accum_count or self._pending_loss is not None:
             raise RuntimeError("train_batch() inside an open forward/backward "
                                "window: call step() first")
+        global_batch = self._data_efficiency(global_batch)
         self.tput_timer.start()
         if self._param_offload is not None:
             return self._train_batch_param_offload(global_batch)
@@ -1349,6 +1504,31 @@ class DeepSpeedEngine:
             return self._micro_loss(tree_unflatten_like(self.state.params, params),
                                     tree_map(self._to_device, batch),
                                     deterministic=True)[1]
+
+    def compute_eigenvalue(self, batch, generator: Optional[torch.Generator] = None,
+                           v0=None):
+        """The Hessian's largest eigenvalue and the per-leaf Rayleigh
+        quotients at the current compute weights (``runtime/eigenvalue.py``,
+        the ``eigenvalue`` block's knobs), on the training loss of one
+        micro-batch with the dropout stream ``generator`` (seed 0 when
+        None).  ``v0``: the power iteration's starting vector."""
+        from .eigenvalue import Eigenvalue
+
+        if self.state is None or self.distributed or self.pipelined:
+            raise NotImplementedError(
+                "compute_eigenvalue runs on a one-device engine in the port (a "
+                "sharded, pipelined or param-offloaded tree is not ported)")
+        ec = self.config.eigenvalue
+        est = getattr(self, "_eigenvalue_estimator", None)
+        if est is None:
+            est = self._eigenvalue_estimator = Eigenvalue(
+                verbose=ec.verbose, max_iter=ec.max_iter, tol=ec.tol,
+                stability=ec.stability)
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        return est.compute_eigenvalue(self.loss_fn, self.state.params,
+                                      tree_map(self._to_device, batch), generator, v0=v0)
 
     def _refuse_pipeline(self):
         if self.pipelined:

@@ -28,35 +28,37 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
-from ...utils.tree import tree_map
+from ...utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
-# (sum_fn, max_fn) over a whole leaf from this rank's piece: the engine
-# sets it around a sharded leaf's update
+# Per leaf, in tree order, (sum_fn, max_fn) from this rank's piece to the
+# whole leaf, or None where the rank holds all of it: the engine sets it
+# around an update of sharded leaves
 _LEAF_REDUCE: contextvars.ContextVar = contextvars.ContextVar("leaf_reduce", default=None)
 
 
 @contextlib.contextmanager
-def leaf_reductions(sum_fn: Callable[[torch.Tensor], torch.Tensor],
-                    max_fn: Callable[[torch.Tensor], torch.Tensor]):
-    token = _LEAF_REDUCE.set((sum_fn, max_fn))
+def leaf_reductions(fns: Sequence[Optional[Tuple[Callable, Callable]]]):
+    token = _LEAF_REDUCE.set(list(fns))
     try:
         yield
     finally:
         _LEAF_REDUCE.reset(token)
 
 
-def _sum(x: torch.Tensor) -> torch.Tensor:
+def leaf_sum(i: int, x: torch.Tensor) -> torch.Tensor:
+    """The sum of leaf ``i`` (of the tree being updated) from this rank's
+    piece ``x``."""
     fns = _LEAF_REDUCE.get()
-    return fns[0](x.sum()) if fns else x.sum()
+    return fns[i][0](x.sum()) if fns and fns[i] else x.sum()
 
 
-def _max(x: torch.Tensor) -> torch.Tensor:
+def leaf_max(i: int, x: torch.Tensor) -> torch.Tensor:
     fns = _LEAF_REDUCE.get()
-    return fns[1](x.max()) if fns else x.max()
+    return fns[i][1](x.max()) if fns and fns[i] else x.max()
 
 
 @dataclasses.dataclass
@@ -89,8 +91,8 @@ def scale_by_onebit_lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             lamb_coeff_freeze=tree_map(lambda p: scalar(p, 0.0), params),
             last_factor=tree_map(lambda p: scalar(p, 1.0), params))
 
-    def norm(x):   # in fp32, as the JAX transform's _norm
-        return torch.sqrt(_sum(torch.square(x.to(torch.float32))))
+    def norm(i, x):   # in fp32, as the JAX transform's _norm
+        return torch.sqrt(leaf_sum(i, torch.square(x.to(torch.float32))))
 
     def update(updates, state, params=None):
         if params is None:
@@ -98,7 +100,7 @@ def scale_by_onebit_lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         count = state.count + 1
         warm = count <= freeze_step
 
-        def leaf(g, p, mu, nu, nu_fresh, coeff_frz, last_factor):
+        def leaf(i, g, p, mu, nu, nu_fresh, coeff_frz, last_factor):
             g32 = g.to(torch.float32)
             mu = b1 * mu + (1 - b1) * g32
             nu_live = b2 * nu + (1 - b2) * torch.square(g32)
@@ -108,7 +110,7 @@ def scale_by_onebit_lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             prelim = mu / denom
             p32 = p.to(torch.float32)
             upd = prelim + weight_decay * p32 if weight_decay else prelim
-            w_norm, u_norm = norm(p32), norm(upd)
+            w_norm, u_norm = norm(i, p32), norm(i, upd)
             one = torch.ones((), dtype=torch.float32, device=p.device)
             raw = torch.where((w_norm > 0) & (u_norm > 0),
                               w_norm / torch.clamp(u_norm, min=1e-30), one)
@@ -116,9 +118,9 @@ def scale_by_onebit_lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             coeff_frz_new = torch.where(coeff != 1.0,
                                         coeff_beta * coeff_frz + (1 - coeff_beta) * coeff,
                                         coeff_frz)
-            factor = _max(denom / (torch.sqrt(nu_fresh) + eps))
+            factor = leaf_max(i, denom / (torch.sqrt(nu_fresh) + eps))
             if weight_decay:
-                ratio = torch.clamp(norm(prelim) / torch.clamp(u_norm, min=1e-30), max=1.0)
+                ratio = torch.clamp(norm(i, prelim) / torch.clamp(u_norm, min=1e-30), max=1.0)
                 factor = factor * ratio + (1.0 - ratio)
             factor = torch.clamp(factor, factor_min, factor_max)
             factor = torch.minimum(torch.maximum(factor, last_factor * (1.0 - factor_threshold)),
@@ -131,8 +133,9 @@ def scale_by_onebit_lamb(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
         from ..optimizer import _map_n
 
+        index = tree_unflatten_like(updates, range(len(tree_leaves(updates))))
         out, mu, nu, nu_fresh, cf, lf = _map_n(
-            leaf, 6, updates, params, state.mu, state.nu, state.nu_fresh,
+            leaf, 6, index, updates, params, state.mu, state.nu, state.nu_fresh,
             state.lamb_coeff_freeze, state.last_factor)
         return out, OnebitLambState(count=count, mu=mu, nu=nu, nu_fresh=nu_fresh,
                                     lamb_coeff_freeze=cf, last_factor=lf)

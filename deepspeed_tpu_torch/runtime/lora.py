@@ -1,9 +1,16 @@
-"""LoRA adapters, the inference half (counterpart of
-``deepspeed_tpu/runtime/lora.py``): the config, the default targets and
-the fused view ``base + A @ B * (alpha / rank)`` that multi-tenant adapter
-serving (``inference/adapters.py``) folds a hot tenant into.  LoRA
-training (``init_lora_params``, ``LoRAModel``) is not ported yet (ROADMAP
-queue 1, item 11)."""
+"""LoRA adapters (counterpart of ``deepspeed_tpu/runtime/lora.py``;
+DeepSpeed-Chat's LoRA utilities and the reference hybrid engine's
+``fuse_lora_weight``).
+
+LoRA is a functional transform: the trainable tree is the adapter tree
+``{target: {"A": [L, d_in, r], "B": [L, r, d_out]}}`` and the base weights
+are a frozen constant the model closes over, so ``initialize(model=
+LoRAModel(base, base_params, cfg))`` trains only the adapters (under any
+ZeRO stage: the engine shards what it trains).  ``fused = base + A @ B *
+(alpha / rank)`` is a pure function; the base tree is never written, and
+"unfusing" is dropping a fused tree.  Multi-tenant adapter serving
+(``inference/adapters.py``) folds a hot tenant in with :func:`apply_lora`.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +19,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DEFAULT_TARGETS", "LoRAConfig", "apply_lora"]
+__all__ = ["DEFAULT_TARGETS", "LoRAConfig", "LoRAModel", "apply_lora",
+           "init_lora_params", "lora_param_specs"]
 
 # attention projections: DeepSpeed-Chat's default LoRA surface
 DEFAULT_TARGETS: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
@@ -68,3 +76,92 @@ def apply_lora(base_params: Dict[str, Any], lora: Dict[str, Any], scaling: float
     out = dict(base_params)
     out["layers"] = layers
     return out
+
+
+def init_lora_params(base_layers: Dict[str, Any], cfg: LoRAConfig,
+                     generator: torch.Generator) -> Dict[str, Any]:
+    """A/B factors for each targeted stacked layer weight [L, d_in, d_out]:
+    A = N(0, 1) / rank [L, d_in, r] drawn from ``generator`` (target by
+    target, in ``cfg.targets`` order), B = 0 [L, r, d_out], both fp32 on the
+    generator's device: B = 0 makes the first fused tree the base itself."""
+    cfg.validate()
+    out: Dict[str, Any] = {}
+    for k in cfg.targets:
+        if k not in base_layers:
+            raise ValueError(f"LoRA target {k!r} not in model layers "
+                             f"({sorted(base_layers)})")
+        w = base_layers[k]
+        if w.ndim != 3:
+            raise NotImplementedError(
+                f"LoRA target {k!r} has rank-{w.ndim} weight; only stacked "
+                "[L, d_in, d_out] matmul weights are supported")
+        L, d_in, d_out = w.shape
+        dev = generator.device
+        out[k] = {"A": torch.randn((L, d_in, cfg.rank), generator=generator,
+                                   device=dev) * (1.0 / cfg.rank),
+                  "B": torch.zeros((L, cfg.rank, d_out), device=dev)}
+    return out
+
+
+def lora_param_specs(cfg: LoRAConfig) -> Dict[str, Any]:
+    """The adapters are small (r << d): replicated over the model axis."""
+    return {k: {"A": (None, None, None), "B": (None, None, None)}
+            for k in cfg.targets}
+
+
+class LoRAModel:
+    """The engine's model contract over the adapter tree alone:
+    ``init_fn``, ``loss_fn``, ``loss_terms``, ``eval_fn``, ``param_specs``
+    and the KV-cache passthroughs, each reading ``fused(lora)``.  The frozen
+    base is kept in the model's compute dtype (the fused tree must match
+    the activations', and an fp32 base would double the frozen bytes)."""
+
+    def __init__(self, base_model, base_params: Dict[str, Any], lora_config: LoRAConfig):
+        from ..utils.logging import log_dist
+        from ..utils.tree import tree_leaves, tree_map
+
+        lora_config.validate()
+        self.base_model = base_model
+        dt = base_model.config.dtype
+        self.base_params = tree_map(
+            lambda x: x.detach().to(dt) if x.is_floating_point() else x.detach(),
+            base_params)
+        self.lora_config = lora_config
+        self.config = base_model.config
+        self.attn_impl = getattr(base_model, "attn_impl", "auto")
+        self.param_specs = lora_param_specs(lora_config)
+        n = sum(x.numel() for x in tree_leaves(self.base_params))
+        log_dist(f"LoRA: rank={lora_config.rank} over {list(lora_config.targets)} "
+                 f"— base {n:,} params frozen", ranks=[0])
+
+    def init_fn(self, generator: Optional[torch.Generator] = None, device=None):
+        if generator is None:
+            generator = torch.Generator(device=device or "cpu")
+            generator.manual_seed(0)
+        return init_lora_params(self.base_params["layers"], self.lora_config, generator)
+
+    def fused(self, lora: Dict[str, Any]) -> Dict[str, Any]:
+        """``base + A @ B * scaling`` (:func:`apply_lora`; differentiable
+        in the factors)."""
+        return apply_lora(self.base_params, lora, self.lora_config.scaling)
+
+    def loss_fn(self, lora, batch, rng=None):
+        return self.base_model.loss_fn(self.fused(lora), batch, rng)
+
+    def loss_terms(self, lora, batch, rng=None, deterministic: bool = False):
+        return self.base_model.loss_terms(self.fused(lora), batch, rng,
+                                          deterministic=deterministic)
+
+    def eval_fn(self, lora, batch, rng=None):
+        return self.base_model.eval_fn(self.fused(lora), batch, rng)
+
+    # the KV-cache decode contract (generation reads the fused weights)
+    def init_cache(self, *args, **kwargs):
+        return self.base_model.init_cache(*args, **kwargs)
+
+    def apply_cached(self, lora, tokens, cache, positions, input_mask):
+        return self.base_model.apply_cached(self.fused(lora), tokens, cache,
+                                            positions, input_mask)
+
+    def apply_fn(self, lora, *args, **kwargs):
+        return self.base_model.apply_fn(self.fused(lora), *args, **kwargs)

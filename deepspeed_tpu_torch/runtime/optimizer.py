@@ -6,14 +6,20 @@ shape — a :class:`GradientTransformation` of ``init(params) -> state`` and
 ``update(updates, state, params) -> (updates, state)`` over nested dicts of
 tensors — and the same links in the same order:
 
-    clip_by_global_norm -> Adam moments -> add_decayed_weights -> -lr(step)
+    clip_by_global_norm -> the optimizer's links -> -lr(step)
 
 with optax's arithmetic (fp32 moment math, its bias correction
 ``1 - b**count`` in fp32, moments stored at ``mu_dtype``/``nu_dtype``).
-Adam/AdamW and the 1-bit family are ported (OneBitAdam and ZeroOneAdam:
-Adam's math, the engine owning their compressed exchange; OneBitLamb:
-``fp16/onebit_lamb.py``); the other names raise naming their ROADMAP
-item.
+Each name has the JAX package's chain (``_base_transform``): Adam/AdamW
+(moments, then decoupled or L2 decay); LAMB (Adam's moments, decay, then
+optax's ``scale_by_trust_ratio``); SGD (decay, then ``trace``: momentum,
+optionally Nesterov); Adagrad (``scale_by_rss``); Lion (``scale_by_lion``,
+then decay); RMSprop (``scale_by_rms``); the 1-bit family (OneBitAdam and
+ZeroOneAdam: Adam's math, the engine owning their compressed exchange;
+OneBitLamb: ``fp16/onebit_lamb.py``).  LAMB's trust ratio is a ratio of
+whole-leaf norms: where the engine updates shards of a leaf it supplies
+the sums over the shards, leaf by leaf (``fp16/onebit_lamb.py``
+``leaf_reductions``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -37,12 +43,9 @@ ADAGRAD_OPTIMIZER = "adagrad"
 LION_OPTIMIZER = "lion"
 RMSPROP_OPTIMIZER = "rmsprop"
 
-SUPPORTED = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
-             ONEBIT_LAMB_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER]
-_UNPORTED = {
-    LAMB_OPTIMIZER: 11, SGD_OPTIMIZER: 11,
-    ADAGRAD_OPTIMIZER: 11, LION_OPTIMIZER: 11, RMSPROP_OPTIMIZER: 11,
-}
+SUPPORTED = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+             ONEBIT_LAMB_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER, SGD_OPTIMIZER,
+             ADAGRAD_OPTIMIZER, LION_OPTIMIZER, RMSPROP_OPTIMIZER]
 ONEBIT_OPTIMIZERS = (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER,
                      ZERO_ONE_ADAM_OPTIMIZER)
 
@@ -68,6 +71,27 @@ class ScaleByAdamState:
 @dataclasses.dataclass
 class ScaleByScheduleState:
     count: int
+
+
+@dataclasses.dataclass
+class TraceState:
+    trace: Any
+
+
+@dataclasses.dataclass
+class ScaleByRssState:
+    sum_of_squares: Any
+
+
+@dataclasses.dataclass
+class ScaleByLionState:
+    count: int
+    mu: Any
+
+
+@dataclasses.dataclass
+class ScaleByRmsState:
+    nu: Any
 
 
 def _dtype(name):
@@ -264,13 +288,8 @@ def scale_by_learning_rate(learning_rate: Union[float, Callable[[int], float]]
 
 def _base_transform(name: str, params: Dict[str, Any]) -> GradientTransformation:
     name = name.lower().replace("_", "")
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP queue 1, item "
-            f"{_UNPORTED[name]}); ported: {SUPPORTED}")
     if name not in SUPPORTED:
-        raise ValueError(f"unsupported optimizer {name!r}; supported: "
-                         f"{SUPPORTED + sorted(_UNPORTED)}")
+        raise ValueError(f"unsupported optimizer {name!r}; supported: {SUPPORTED}")
     betas = params.get("betas", (0.9, 0.999))
     b1, b2 = betas[0], betas[1]
     eps = params.get("eps", 1e-8)
@@ -296,6 +315,22 @@ def _base_transform(name: str, params: Dict[str, Any]) -> GradientTransformation
     mu_dtype, nu_dtype = params.get("mu_dtype"), params.get("nu_dtype")
     core = (scale_by_adam_ds(b1, b2, eps, mu_dtype=mu_dtype, nu_dtype=nu_dtype)
             if nu_dtype is not None else scale_by_adam(b1, b2, eps, mu_dtype=mu_dtype))
+    decay = add_decayed_weights(weight_decay) if weight_decay else identity()
+    if name == LAMB_OPTIMIZER:
+        return chain(core, decay, scale_by_trust_ratio())
+    if name == SGD_OPTIMIZER:
+        momentum = params.get("momentum", 0.0)
+        links = [add_decayed_weights(weight_decay)] if weight_decay else []
+        if momentum:
+            links.append(trace(momentum, nesterov=params.get("nesterov", False)))
+        return chain(*links) if links else identity()
+    if name == ADAGRAD_OPTIMIZER:
+        return scale_by_rss(params.get("initial_accumulator_value", 0.1), eps=eps)
+    if name == LION_OPTIMIZER:
+        lion_betas = params.get("betas", (0.9, 0.99))
+        return chain(scale_by_lion(lion_betas[0], lion_betas[1]), decay)
+    if name == RMSPROP_OPTIMIZER:
+        return scale_by_rms(decay=params.get("alpha", 0.99), eps=eps)
     links = [core]
     if weight_decay:
         if params.get("adam_w_mode", name == ADAMW_OPTIMIZER):
@@ -303,6 +338,100 @@ def _base_transform(name: str, params: Dict[str, Any]) -> GradientTransformation
         else:   # L2-regularization mode: decay added to the raw grad
             links.insert(0, add_decayed_weights(weight_decay))
     return chain(*links)
+
+
+def identity() -> GradientTransformation:
+    return GradientTransformation(lambda params: (), lambda u, s, p=None: (u, s))
+
+
+def scale_by_trust_ratio(min_norm: float = 0.0, trust_coefficient: float = 1.0,
+                         eps: float = 0.0) -> GradientTransformation:
+    """optax.scale_by_trust_ratio: each leaf's update times ``||p|| /
+    (||u|| + eps)`` (1 where either norm is 0), the norms over the whole
+    leaf in its own dtype."""
+    from .fp16.onebit_lamb import leaf_sum
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_trust_ratio needs the params")
+        out = []
+        for i, (u, p) in enumerate(zip(tree_leaves(updates), tree_leaves(params))):
+            def norm(x):
+                n = torch.sqrt(leaf_sum(i, x * x))
+                return torch.clamp(n, min=min_norm) if min_norm else n
+
+            p_norm, u_norm = norm(p), norm(u)
+            ratio = trust_coefficient * p_norm / (u_norm + eps)
+            safe = torch.where((p_norm == 0.0) | (u_norm == 0.0),
+                               torch.ones((), dtype=p.dtype, device=p.device), ratio)
+            out.append(u * safe)
+        return tree_unflatten_like(updates, out), state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax.trace: ``t = g + decay * t``; the update is ``t`` (``g + decay
+    * t`` with Nesterov)."""
+    def init(params):
+        return TraceState(trace=tree_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None):
+        new = tree_map(lambda g, t: g + decay * t, updates, state.trace)
+        out = tree_map(lambda g, t: g + decay * t, updates, new) if nesterov else new
+        return out, TraceState(trace=new)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_rss(initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7) -> GradientTransformation:
+    """optax.scale_by_rss (Adagrad): ``s += g**2``; ``g * rsqrt(s + eps)``
+    where ``s > 0``, else 0."""
+    def init(params):
+        return ScaleByRssState(sum_of_squares=tree_map(
+            lambda p: torch.full_like(p, initial_accumulator_value), params))
+
+    def update(updates, state, params=None):
+        sos = tree_map(lambda g, t: g * g + t, updates, state.sum_of_squares)
+        out = tree_map(lambda g, t: torch.where(t > 0, torch.rsqrt(t + eps),
+                                                torch.zeros_like(t)) * g, updates, sos)
+        return out, ScaleByRssState(sum_of_squares=sos)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_lion(b1: float = 0.9, b2: float = 0.99) -> GradientTransformation:
+    """optax.scale_by_lion: ``sign((1 - b1) g + b1 m)``, then ``m = (1 - b2)
+    g + b2 m``."""
+    def init(params):
+        return ScaleByLionState(count=0, mu=tree_map(torch.zeros_like, params))
+
+    def update(updates, state, params=None):
+        out = tree_map(lambda g, m: torch.sign((1.0 - b1) * g + b1 * m),
+                       updates, state.mu)
+        mu = tree_map(lambda g, m: (1.0 - b2) * g + b2 * m, updates, state.mu)
+        return out, ScaleByLionState(count=state.count + 1, mu=mu)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0) -> GradientTransformation:
+    """optax.scale_by_rms (RMSprop, eps inside the root, no bias
+    correction): ``nu = (1 - decay) g**2 + decay nu``; ``g * rsqrt(nu +
+    eps)``."""
+    def init(params):
+        return ScaleByRmsState(nu=tree_map(lambda p: torch.full_like(p, initial_scale),
+                                           params))
+
+    def update(updates, state, params=None):
+        nu = tree_map(lambda g, n: (1.0 - decay) * (g * g) + decay * n,
+                      updates, state.nu)
+        out = tree_map(lambda n, g: torch.rsqrt(n + eps) * g, nu, updates)
+        return out, ScaleByRmsState(nu=nu)
+
+    return GradientTransformation(init, update)
 
 
 def zero_frozen_updates(frozen_mask) -> GradientTransformation:

@@ -28,10 +28,20 @@ model's own block (``models/transformer.py``), with the flash kernels
 wherever the model's ``attn_impl`` takes them.  The JAX package's
 preconditions: a ``CausalLM`` of uniform layers, bf16, stage 3 and an
 ``nvme_path`` (the config checks those), no PR-MoE pyramid, no pipeline
-stages, no fp16, no random-LTD or progressive layer drop.  Above one data
-rank, every rank holds the whole model in its own files
-(``nvme_path/rank<r>``) and the gradients are averaged over the data
-axes before the host step.
+stages, no fp16, no random-LTD or progressive layer drop.
+
+Above one data rank each leaf is ZeRO-3 partitioned over the data axes
+(the planner's dim rule: the largest dim the ranks divide; a leaf no dim
+divides stays whole on every rank): each rank's files
+(``nvme_path/rank<r>``) hold its own shard of the master, the moments and
+the bf16 parameter, as the JAX package stores each process's own shards
+(its ``_leaf_shards``).  The layer loop gathers each layer's shards over
+the data axes before it computes (and the stem and head after each
+step); each micro-batch's gradients are reduce-scattered to the rank's
+shards at once, so the host fp32 gradients and the host Adam cover only
+them, and NVMe and host RAM per rank fall as 1/dp.  The gradient norm
+counts each distinct shard once (a whole leaf each rank holds weighs
+1/dp, JAX's ``weights``).
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from ... import comm
 from ...ops.adam.cpu_adam import DeepSpeedCPUAdam
 from ...parallel.mesh import BATCH_AXES
 from ...utils.logging import log_dist
+from .planner import _shard_dim_for
 from ..swap_tensor.partitioned_optimizer_swapper import TensorSwapper, aligned_empty
 
 STEM_KEYS = ("embed", "pos_embed", "type_embed", "embed_norm_scale", "embed_norm_bias")
@@ -122,6 +133,7 @@ class InfinityParamEngine:
         self._mu16 = str(p.get("mu_dtype", "")).lower() in ("bfloat16", "bf16")
         self._nu16 = str(p.get("nu_dtype", "")).lower() in ("bfloat16", "bf16")
         self._dp = comm.get_axis_size(BATCH_AXES) if comm.is_initialized() else 1
+        self._dp_rank = comm.axis_index(BATCH_AXES) if self._dp > 1 else 0
         nvme = config.zero_config.offload_param.nvme_path
         if self._dp > 1:   # each rank's files in its own directory
             nvme = os.path.join(nvme, f"rank{comm.get_rank()}")
@@ -158,6 +170,13 @@ class InfinityParamEngine:
                 "know where they belong")
         self._layer_shapes = {k: tuple(params["layers"][k].shape[1:])
                               for k in self.layer_keys}
+        # the ZeRO-3 dim of each leaf (None: whole on every rank), by the
+        # leaf's shape (a layer's leaves by their per-layer shape)
+        self.shard_dims: Dict[str, Optional[int]] = {}
+        for k in self.stem_keys + self.head_keys:
+            self.shard_dims[k] = self._dim_of(tuple(params[k].shape))
+        for k in self.layer_keys:
+            self.shard_dims[k] = self._dim_of(self._layer_shapes[k])
         self.param_count = sum(x.numel() for k, x in params.items() if k != "layers") \
             + sum(x.numel() for x in params["layers"].values())
         self._leaf_names: List[str] = []
@@ -171,23 +190,70 @@ class InfinityParamEngine:
             for k in self.layer_keys:
                 self._put(f"layers.{i}.{k}", layers[k][i])
         del layers
-        # double-buffered host buffers of the layer stream
-        self._layer_bufs = [{k: aligned_empty(self._layer_shapes[k], np.uint16)
+        # double-buffered host buffers of the layer stream (this rank's shards)
+        self._layer_bufs = [{k: aligned_empty(self._local_shape(k, self._layer_shapes[k]),
+                                              np.uint16)
                              for k in self.layer_keys} for _ in range(2)]
         self._host_grads: Optional[Dict[str, np.ndarray]] = None
 
+    # ------------------------------------------------------------------
+    # ZeRO-3 over the data axes
+    # ------------------------------------------------------------------
+    def _dim_of(self, shape) -> Optional[int]:
+        if self._dp == 1:
+            return None
+        return _shard_dim_for(shape, (), {}, self._dp, frozenset())
+
+    @staticmethod
+    def _key(name: str) -> str:
+        """The leaf key of a store name ('layers.3.wq' -> 'wq')."""
+        return name.split(".", 2)[2] if name.startswith("layers.") else name
+
+    def _local_shape(self, key: str, shape) -> tuple:
+        d = self.shard_dims[key]
+        if d is None:
+            return tuple(shape)
+        return tuple(n // self._dp if i == d else n for i, n in enumerate(shape))
+
+    def _local(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole leaf."""
+        d = self.shard_dims[self._key(name)]
+        return x if d is None else x.chunk(self._dp, dim=d)[self._dp_rank]
+
+    def _gather(self, key: str, x: torch.Tensor) -> torch.Tensor:
+        """A whole bf16 leaf from the ranks' shards (gloo carries no bf16:
+        there the shards travel as fp32, which holds them exactly)."""
+        d = self.shard_dims[key]
+        if d is None:
+            return x
+        wire = x if x.is_cuda else x.float()
+        return comm.all_gather(wire, BATCH_AXES, gather_dim=d).to(torch.bfloat16)
+
+    def _reduce_grad(self, key: str, g: torch.Tensor) -> torch.Tensor:
+        """A micro-batch's whole fp32 gradient -> the data ranks' mean,
+        this rank's shard of it."""
+        g = g.to(torch.float32)
+        if self._dp == 1:
+            return g
+        d = self.shard_dims[key]
+        if d is None:
+            return comm.all_reduce(g, comm.AVG, BATCH_AXES)
+        return comm.reduce_scatter(g, BATCH_AXES, scatter_dim=d) / self._dp
+
     def _put(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """Write leaf ``name``'s fp32 master, zero moments (at their store
-        dtype) and bf16 parameter; returns the bf16 parameter on the card."""
+        """Write this rank's shard of leaf ``name``: the fp32 master, zero
+        moments (at their store dtype) and the bf16 parameter; returns the
+        whole bf16 parameter on the card."""
+        whole16 = x.detach().to(torch.bfloat16)
+        x = self._local(name, x)
         master = x.detach().to("cpu", torch.float32).contiguous().numpy()
         self.swapper.write(f"{name}.master", master)
         zeros = np.zeros_like(master)
         self.swapper.write(f"{name}.exp_avg", self._store(zeros, self._mu16))
         self.swapper.write(f"{name}.exp_avg_sq", self._store(zeros, self._nu16))
-        p16 = x.detach().to(torch.bfloat16)
-        self.swapper.write(f"{name}.param", _bits(p16))
+        self.swapper.write(f"{name}.param", _bits(x.detach().to(torch.bfloat16)))
         self._leaf_names.append(name)
-        return p16.to(self.device)
+        return whole16.to(self.device)
 
     @staticmethod
     def _store(x32: np.ndarray, half: bool) -> np.ndarray:
@@ -213,7 +279,8 @@ class InfinityParamEngine:
             self.swapper.wait(h)
         bufs = self._layer_bufs[slot]
         # a copy on every device: the buffer is refilled by the next read
-        return {k: torch.from_numpy(bufs[k]).view(torch.bfloat16).to(self.device, copy=True)
+        return {k: self._gather(k, torch.from_numpy(bufs[k]).view(torch.bfloat16)
+                                .to(self.device, copy=True))
                 for k in self.layer_keys}
 
     def _block(self):
@@ -282,7 +349,8 @@ class InfinityParamEngine:
     # The step
     # ------------------------------------------------------------------
     def _accum(self, name: str, g: torch.Tensor) -> None:
-        arr = g.detach().to("cpu", torch.float32).numpy()
+        """Bank this rank's shard of a micro-batch's gradient in host fp32."""
+        arr = self._reduce_grad(self._key(name), g.detach()).to("cpu").numpy()
         if self._host_grads is None:
             self._host_grads = {}
         buf = self._host_grads.get(name)
@@ -394,14 +462,15 @@ class InfinityParamEngine:
         inv_gas = 1.0 / self.gas
         for g in grads.values():
             g *= inv_gas
-        if self._dp > 1:   # the data ranks' mean gradient, leaf by leaf
-            for name in self._leaf_names:
-                t = torch.from_numpy(grads[name])
-                t.copy_(comm.all_reduce(t, comm.AVG, BATCH_AXES))
+        self.stats["host_grad_bytes"] = sum(g.nbytes for g in grads.values())
         sq = 0.0
-        for name in self._leaf_names:
+        for name in self._leaf_names:   # a whole leaf on every rank counts once
             g = grads[name]
-            sq += float(np.vdot(g, g))
+            whole = self._dp > 1 and self.shard_dims[self._key(name)] is None
+            sq += float(np.vdot(g, g)) / (self._dp if whole else 1)
+        if self._dp > 1:
+            sq = float(comm.all_reduce(torch.tensor(sq, dtype=torch.float64),
+                                       comm.SUM, BATCH_AXES))
         gnorm = math.sqrt(sq)
         factor = 1.0
         if self.clip and self.clip > 0 and gnorm > self.clip:
@@ -436,10 +505,13 @@ class InfinityParamEngine:
         return gnorm
 
     def _refresh_resident(self, name: str, bits: np.ndarray) -> None:
+        """A stem or head leaf's new bf16 shard, gathered whole on the card
+        (collective: every rank refreshes the same leaves in turn)."""
         for res in (self._stem_dev, self._head_dev):
             if name in res:
-                res[name] = torch.from_numpy(np.ascontiguousarray(bits)).view(
-                    torch.bfloat16).to(self.device, copy=True)
+                res[name] = self._gather(name, torch.from_numpy(
+                    np.ascontiguousarray(bits)).view(torch.bfloat16).to(
+                        self.device, copy=True))
 
     # ------------------------------------------------------------------
     # Checkpointing: streamed leaf by leaf, so the 12 B/param state is
@@ -476,4 +548,6 @@ class InfinityParamEngine:
             in_dir, self._leaf_names, self._write_leaf_state, expected_shapes=shapes)
 
     def read_masters(self) -> Dict[str, np.ndarray]:
+        """This rank's fp32 master shards by store name (``shard_dims``
+        names each leaf's dim: None where every rank holds it whole)."""
         return {n: self.swapper.read(f"{n}.master") for n in self._leaf_names}

@@ -300,7 +300,8 @@ def _adam(engine):
 
 
 def _moments(engine) -> dict:
-    """Local shapes of the Adam moments (``mu``), by parameter path."""
+    """Local shapes of the Adam moments (``mu``), by parameter path (none
+    for an optimizer without them)."""
     from deepspeed_tpu_torch.runtime.optimizer import ScaleByAdamState
 
     def find(state):
@@ -313,7 +314,8 @@ def _moments(engine) -> dict:
                     return hit
         return None
 
-    return _shapes(find(engine.state.opt_state).mu)
+    adam = find(engine.state.opt_state)
+    return _shapes(adam.mu) if adam is not None else {}
 
 
 def _run_case(case: dict, params_np, batches):
@@ -977,7 +979,90 @@ def prog_onebit_coll(flats, errors, steps: int):
     return {"steps": out, "dtypes": comm.get_comms_logger().totals_by_dtype()}
 
 
-PROGRAMS = {"item10": prog_item10, "quant_coll": prog_quant_coll,
+def prog_infinity(config: dict, batches, ckpt_dir: str, save_at: int):
+    """ZeRO-Infinity (``tiny``, bf16, the seed's weights) trained on
+    ``batches``, saved after ``save_at`` steps, then a fresh engine resumed
+    from the save: each run's losses, norms and this rank's master shards
+    (``masters1`` after the first step),
+    the leaves' shard dims, the shapes its files hold, its host gradient
+    bytes and the bytes under its NVMe directory."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import CausalLM
+
+    def build():
+        engine, *_ = ds.initialize(model=CausalLM("tiny"), config=config, device="cpu")
+        return engine
+
+    def train(engine, bs):
+        losses, norms = [], []
+        for b in bs:
+            losses.append(float(engine.train_batch(batch=b)))
+            norms.append(float(engine.get_global_grad_norm()))
+        return losses, norms
+
+    engine = build()
+    off = engine._param_offload
+    losses, norms = train(engine, batches[:1])
+    first = {k: np.array(v) for k, v in off.read_masters().items()}
+    more = train(engine, batches[1:save_at])
+    losses, norms = losses + more[0], norms + more[1]
+    engine.save_checkpoint(ckpt_dir, tag="t")
+    after, after_norms = train(engine, batches[save_at:])
+    root = off.swapper.swap_dir
+    out = {"losses": losses + after, "norms": norms + after_norms, "masters1": first,
+           "masters": {k: np.array(v) for k, v in off.read_masters().items()},
+           "shard_dims": dict(off.shard_dims),
+           "file_shapes": {n: tuple(off.swapper.shape(f"{n}.master"))
+                           for n in off._leaf_names},
+           "host_grad_bytes": off.stats["host_grad_bytes"],
+           "nvme_bytes": sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(root) for f in fs)}
+    engine = build()
+    engine.load_checkpoint(ckpt_dir, tag="t")
+    out["resumed"] = train(engine, batches[save_at:])[0]
+    out["resumed_masters"] = {k: np.array(v)
+                              for k, v in engine._param_offload.read_masters().items()}
+    return out
+
+
+def prog_sparse(rows, values, dense_rows: int):
+    """``sparse_allreduce`` over 'data' of this rank's (rows, values)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.mesh import MeshLayout, initialize_mesh
+    from deepspeed_tpu_torch.runtime.sparse_tensor import SparseTensor, sparse_allreduce
+
+    initialize_mesh(MeshLayout(dp=comm.get_world_size()))
+    r = comm.get_rank()
+    out = sparse_allreduce(SparseTensor(torch.from_numpy(rows[r]), torch.from_numpy(values[r]),
+                                        dense_rows), "data")
+    return {"rows": out.rows.numpy(), "values": out.values.numpy(),
+            "dense": out.to_dense().numpy()}
+
+
+def prog_lora(config: dict, base_np, lora_np, batches, prompts, max_new: int):
+    """A ``LoRAModel`` over ``tiny`` (fp32) trained on ``batches`` under
+    ``config``; the losses, the whole adapter tree (gathered) and the
+    hybrid engine's greedy tokens after training."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.convert import lora_from_jax, params_from_jax
+    from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+    from deepspeed_tpu_torch.runtime.lora import LoRAConfig, LoRAModel
+
+    model = LoRAModel(CausalLM("tiny", dtype=torch.float32),
+                      params_from_jax(base_np, device="cpu"), LoRAConfig(rank=4, alpha=8.0))
+    engine, *_ = ds.initialize(model=model, config=config, device="cpu",
+                               params=lora_from_jax(lora_np, device="cpu"))
+    losses = [float(engine.train_batch(batch=b)) for b in batches]
+    tokens = DeepSpeedHybridEngine(engine).generate(prompts, max_new_tokens=max_new)
+    return {"losses": losses, "lora": _full(engine), "tokens": tokens.numpy(),
+            "local_shapes": _shapes(engine.state.master_params
+                                    if engine.state.master_params is not None
+                                    else engine.state.params)}
+
+
+PROGRAMS = {"item10": prog_item10, "infinity": prog_infinity, "sparse": prog_sparse,
+            "lora": prog_lora, "quant_coll": prog_quant_coll,
             "onebit_coll": prog_onebit_coll, "comm": prog_comm, "moe_infer": prog_moe_infer, "train": prog_train, "checkpoint": prog_checkpoint,
             "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,
             "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,

@@ -69,7 +69,14 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.moe.layer, deepspeed_tpu_torch.runtime.pipe, "
             "deepspeed_tpu_torch.runtime.pipe.schedule, "
             "deepspeed_tpu_torch.runtime.pipe.module, "
-            "deepspeed_tpu_torch.runtime.pipe.executor\n"
+            "deepspeed_tpu_torch.runtime.pipe.executor, "
+            "deepspeed_tpu_torch.runtime.features, "
+            "deepspeed_tpu_torch.runtime.progressive_layer_drop, "
+            "deepspeed_tpu_torch.runtime.data_pipeline, "
+            "deepspeed_tpu_torch.runtime.data_pipeline.data_routing, "
+            "deepspeed_tpu_torch.runtime.eigenvalue, "
+            "deepspeed_tpu_torch.runtime.sparse_tensor, "
+            "deepspeed_tpu_torch.runtime.hybrid_engine\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),

@@ -90,6 +90,50 @@ def test_forward_cached_prefill_and_decode_match_jax(name):
     np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), **TOL)
 
 
+@pytest.mark.parametrize("name", ["tiny", "tiny-gqa"])
+def test_forward_cached_dense_prefill_matches_jax(name, monkeypatch):
+    """A whole prompt at default positions into an empty cache, under an
+    ``attn_impl`` that takes the flash kernel at its S ("pallas" at 128),
+    attends through the flash wrapper (its plain version on the CPU), once
+    per layer; its logits and cache, and a decode token on that cache,
+    equal JAX's masked ``forward_cached`` and the port's own masked branch
+    ("xla")."""
+    jcfg, tcfg, jparams, tparams = _pair(name, seed=6)
+    B, S, T = 2, 128, 256
+    tokens = _tokens(tcfg.vocab_size, B=B, S=S, seed=7)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    mask = np.ones((B, S), bool)
+    calls = []
+    flash = ttf.flash_attention
+    monkeypatch.setattr(ttf, "flash_attention",
+                        lambda *a, **k: calls.append(a[0].shape) or flash(*a, **k))
+
+    jcache = jtf.init_cache(jcfg, B, T, dtype=jnp.float32)
+    jl, jcache = jtf.forward_cached(jcfg, jparams, jnp.asarray(tokens), jcache,
+                                    jnp.asarray(pos), jnp.asarray(mask))
+    out = {}
+    for impl in ("pallas", "xla"):
+        cache = ttf.init_cache(tcfg, B, T, dtype=torch.float32, device="cpu")
+        logits, cache = ttf.forward_cached(tcfg, tparams, torch.from_numpy(tokens),
+                                           cache, torch.from_numpy(pos),
+                                           torch.from_numpy(mask), attn_impl=impl)
+        out[impl] = logits, cache
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_allclose(cache["k"].numpy(), np.asarray(jcache["k"]), **TOL)
+        np.testing.assert_allclose(cache["v"].numpy(), np.asarray(jcache["v"]), **TOL)
+        if impl == "pallas":
+            assert calls == [(B, S, tcfg.num_heads, tcfg.dims_per_head)] * tcfg.num_layers
+    assert len(calls) == tcfg.num_layers        # the masked branch took none
+    nxt = np.asarray([[7], [9]], np.int32)
+    npos = np.full((B, 1), S, np.int32)
+    jl2, _ = jtf.forward_cached(jcfg, jparams, jnp.asarray(nxt), jcache,
+                                jnp.asarray(npos), jnp.ones((B, 1), bool))
+    tl2, _ = ttf.forward_cached(tcfg, tparams, torch.from_numpy(nxt), out["pallas"][1],
+                                torch.from_numpy(npos), torch.ones((B, 1), dtype=torch.bool),
+                                attn_impl="pallas")
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), **TOL)
+
+
 def test_cross_entropy_matches_jax():
     rs = np.random.RandomState(0)
     logits = rs.standard_normal((2, 8, 32)).astype(np.float32)
@@ -166,9 +210,12 @@ def test_params_round_trip_and_unported_configs_raise():
         assert jax.tree_util.tree_structure(own) == jax.tree_util.tree_structure(ref)
         assert all(a.shape == b.shape for a, b in zip(
             jax.tree_util.tree_leaves(own), jax.tree_util.tree_leaves(ref)))
-    with pytest.raises(NotImplementedError, match="progressive layer drop"):
-        ttf.forward(tcfg, tparams, torch.zeros((1, 8), dtype=torch.long),
-                    deterministic=False, pld_theta=0.5)
+    # progressive layer drop refuses a PR-MoE pyramid, as JAX's forward does
+    pyramid = ttf.get_config("tiny-prmoe")
+    with pytest.raises(NotImplementedError, match="progressive layer drop requires"):
+        ttf.forward(pyramid, CausalLM("tiny-prmoe").init_fn(torch.Generator()),
+                    torch.zeros((1, 8), dtype=torch.long), deterministic=False,
+                    pld_theta=0.5)
 
 
 def test_module_call_runs_the_forward():

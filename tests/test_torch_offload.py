@@ -319,3 +319,106 @@ def test_offload_refusals_match_jax(name, tmp_path):
     with pytest.raises(type(theirs)) as ours:
         ds.initialize(model=model, config=cfg, device="cpu")
     assert msg in str(ours.value)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-Infinity above one data rank: each rank stores its own shards
+# ---------------------------------------------------------------------------
+
+def _infinity_cfg(nvme, train_batch=4, gas=2):
+    return {"train_batch_size": train_batch, "gradient_accumulation_steps": gas,
+            "bf16": {"enabled": True}, "seed": 5, "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+            "zero_optimization": {"stage": 3, "offload_param": {
+                "device": "nvme", "nvme_path": str(nvme)}},
+            "steps_per_print": 10 ** 9}
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_infinity_at_two_ranks_stores_its_own_shards(world, tmp_path):
+    """gloo ranks: each rank's files hold its 1/world of every leaf the
+    planner shards (at 2 ranks every leaf of ``tiny``; at 3 none: no dim
+    divides, so every rank holds them whole and the norm weighs each 1/3),
+    its host gradients that share of the one-rank engine's bytes; the first
+    step's masters are the one-rank engine's within MASTER_RTOL, the 4
+    steps' losses and norms within 1e-4 (the mean over the ranks rounds
+    apart from the window's, and Adam carries it: 1.1e-5 at step 4 at 3
+    ranks); the resume of each rank's files is bit-exact."""
+    from ._torch_ranks import run_ranks
+
+    rows = 2 * world
+    rs = np.random.RandomState(3)
+    batches = [{"input_ids": rs.randint(0, 256, (rows, 16))} for _ in range(4)]
+    # one row a micro-batch in both runs: each row's bf16 gradient is the
+    # same computation, only their fp32 sums group differently
+    one, *_ = ds.initialize(model=CausalLM("tiny"), device="cpu",
+                            config=_infinity_cfg(tmp_path / "one", rows, gas=rows))
+    want = [float(one.train_batch(batch=batches[0]))]
+    full = {k: np.array(v) for k, v in one._param_offload.read_masters().items()}
+    want_norms = [one.get_global_grad_norm()]
+    for b in batches[1:]:
+        want.append(float(one.train_batch(batch=b)))
+        want_norms.append(one.get_global_grad_norm())
+    one_grad_bytes = one._param_offload.stats["host_grad_bytes"]
+    one_nvme = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp_path / "one") for f in fs)
+    res = run_ranks(world, "infinity", tmp_path, timeout=120,
+                    config=_infinity_cfg(tmp_path / "inf", rows, gas=2), batches=batches,
+                    ckpt_dir=str(tmp_path / "ckpt"), save_at=2)
+    dims = res[0]["shard_dims"]
+
+    def dim(name):
+        return dims[name.split(".", 2)[2] if name.startswith("layers.") else name]
+
+    sharded = sum(full[n].size for n in full if dim(n) is not None)
+    assert sharded == (sum(x.size for x in full.values()) if world == 2 else 0)
+    for r, rec in enumerate(res):
+        for name, shape in rec["file_shapes"].items():
+            whole, d = full[name].shape, dim(name)
+            expect = whole if d is None else tuple(
+                n // world if i == d else n for i, n in enumerate(whole))
+            assert shape == expect, (name, shape, whole)
+            ref = full[name] if d is None else np.split(full[name], world, axis=d)[r]
+            scale = max(np.abs(full[name]).max(), 1e-30)
+            assert np.abs(rec["masters1"][name] - ref).max() <= MASTER_RTOL * scale, name
+        assert rec["host_grad_bytes"] == one_grad_bytes - 4 * sharded * (world - 1) // world
+        if sharded:
+            assert rec["nvme_bytes"] < 0.6 * one_nvme
+        np.testing.assert_allclose(rec["losses"], want, rtol=1e-4)
+        np.testing.assert_allclose(rec["norms"], want_norms, rtol=1e-4)
+        assert rec["resumed"] == rec["losses"][2:]
+        for name, v in rec["resumed_masters"].items():
+            np.testing.assert_array_equal(v, rec["masters"][name])
+
+
+def test_mesh_config_block_trains_as_the_mesh_argument(tmp_path):
+    """``mesh: {pp: 2}`` and ``mesh: {ep: 2}`` in the config build the mesh
+    ``mesh=MeshLayout(...)`` names: the same trajectory, bit for bit (a
+    pipelined ``tiny`` over the 'pipe' axis, ``tiny-moe`` over 'expert')."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+
+    from ._torch_ranks import make_batches, run_ranks
+
+    for block in ({"pp": 2}, {"ep": 2}):
+        DeepSpeedConfig({"train_micro_batch_size_per_gpu": 1, "mesh": block})
+    base = {"train_batch_size": 4, "gradient_accumulation_steps": 1,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}, "seed": 3}
+    pp_kw = {"pipeline_stages": 2, "pipeline_microbatches": 2}
+    cases = [
+        {"config": {**base, "mesh": {"pp": 2}}, "model_kw": pp_kw, "no_params": True,
+         "dtype": "float32"},
+        {"config": base, "mesh": {"pp": 2}, "model_kw": pp_kw, "no_params": True,
+         "dtype": "float32"},
+        {"config": {**base, "mesh": {"ep": 2}}, "model": "tiny-moe", "no_params": True,
+         "dtype": "float32"},
+        {"config": base, "mesh": {"ep": 2}, "model": "tiny-moe", "no_params": True,
+         "dtype": "float32"},
+    ]
+    res = run_ranks(2, "train", tmp_path, timeout=120, cases=cases, params_np=None,
+                    batches=make_batches(3, 4, 7))
+    for rec in res:
+        for a, b in ((0, 1), (2, 3)):
+            assert rec[a]["losses"] == rec[b]["losses"]
+            assert np.isfinite(rec[a]["losses"]).all()
+            for k, v in rec[a]["masters"].items():
+                np.testing.assert_array_equal(v, rec[b]["masters"][k])

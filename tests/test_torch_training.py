@@ -365,17 +365,10 @@ def test_dataloader_and_batch_forms():
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": {"ep": 2}},
-    {"mesh": {"pp": 2}},
     {"compression_training": {}},
-    {"progressive_layer_drop": {"enabled": True}},
-    {"data_efficiency": {"data_routing": {"random_ltd": {"enabled": True}}}},
-    {"curriculum_learning": {"enabled": True}},
     {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"resilience": {"watchdog": {"enabled": True}}},
-    {"optimizer": {"type": "sgd", "params": {}}},
-    {"optimizer": {"type": "lamb", "params": {}}},
 ], ids=lambda o: "-".join(str(k) for k in o))
 def test_unported_options_raise(option):
     cfg = {"train_batch_size": 2, **option}
@@ -407,18 +400,25 @@ class _TensorParallelMPU:
 def test_unported_entry_points_raise():
     """What the trainer still refuses: a model-parallel degree above 1
     without a process group (tensor parallelism runs one rank per device,
-    ``tests/test_torch_tp.py``), random-LTD and progressive layer drop
-    (item 11, named)."""
+    ``tests/test_torch_tp.py``), and JAX's refusals of random-LTD and
+    progressive layer drop with per-layer attention windows (both run
+    otherwise: ``tests/test_torch_pld_ltd.py``)."""
     with pytest.raises(RuntimeError, match="process group"):
         ds.initialize(model=CausalLM("tiny"), config={"train_batch_size": 2},
                       mpu=_TensorParallelMPU(), device="cpu")
     batch = {"input_ids": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="random-LTD"):
-        model = CausalLM("tiny", random_ltd=True, random_ltd_keep=4)
+    windows = {"attention_layers": ("global", "local")}
+    with pytest.raises(NotImplementedError, match="random-LTD with per-layer attention"):
+        model = CausalLM("tiny", random_ltd=True, random_ltd_keep=4, **windows)
         model.loss_fn(model.init_fn(device="cpu"), batch)
-    with pytest.raises(NotImplementedError, match="progressive layer drop"):
-        model = CausalLM("tiny")
+    with pytest.raises(NotImplementedError, match="progressive layer drop with per-layer"):
+        model = CausalLM("tiny", **windows)
         model.loss_fn(model.init_fn(device="cpu"), {**batch, "pld_theta": 0.5})
+    for kw, extra in (({"random_ltd": True, "random_ltd_keep": 4}, {}),
+                      ({}, {"pld_theta": 0.5})):
+        model = CausalLM("tiny", **kw)
+        assert torch.isfinite(model.loss_fn(model.init_fn(device="cpu"),
+                                            {**batch, **extra}))
     for policy in ("save_attn", "save_qkv", "save_matmuls", "dots_saveable"):
         model = CausalLM("tiny", dtype=torch.float32, remat=True,
                          remat_policy=policy)
