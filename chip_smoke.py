@@ -4,6 +4,7 @@
     python3 chip_smoke.py --tp-cards-only CONFIG ...   # several cards (tp, sp, ep, pp, item 10)
     python3 chip_smoke.py --only offload zeropp_onebit  # the build, then these phases
     python3 chip_smoke.py --only train_extras lora_hybrid
+    python3 chip_smoke.py --only tooling
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -197,12 +198,24 @@ one JSON line each; any failure exits non-zero with no result line:
    rollouts; tokens equal to ``init_inference`` on the base, then on
    ``fused(lora)`` after each step; the base bit-unchanged; K1 32 a
    prefill, 64/32/32 a step); ``--only train_extras lora_hybrid`` runs
-   them alone after the build;
+   them alone after the build; then ``tooling`` (item 11's tooling half on
+   the train cell: TOOLING_STEPS steps under TOOLING_COMPRESSION — QAT
+   8 -> 4 bits, 8-bit activation fake-quant, sparse MLP and head pruning —
+   with 32/16/16 launches a step, the transformed leaves' dense ratios and
+   levels, and the kernel path against the plain branch at PARITY_S;
+   ``redundancy_clean`` to 7 heads, its ``init_inference`` forward against
+   the masked model's, ``student_initialization`` to 8 layers and one
+   step; the flops profiler at PROFILE_STEP of the plain cell against the
+   analytic count (``_profile_analytic``) and the CSV and TensorBoard
+   monitors read back; the autotuner over AUTOTUNE_SPACE, micro-batch 16
+   ending as ``compile_oom``, then a step; llama2-7b under
+   ``OnDevice(device="meta")``: no byte on the card), ``--only tooling``
+   alone after the build;
 11. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
 12. the ``kernels`` line: per kernel its launches on its main path (and on
-   the MoE, pipeline, offload and item 11 paths), error against the plain version, times
+   the MoE, pipeline, offload, item 11 and tooling paths), error against the plain version, times
    and the bound from this run's shapes (K1-K3 with a ``block_mask``
    record from the sparse main case).
 
@@ -250,6 +263,12 @@ LORA_SHAPE = (4, 2176, 32, 32, 128, torch.bfloat16, True)
 # prompts and generate_fallback's cached generate of one
 HYBRID_PREFILL_SHAPE = (4, 2048, 32, 32, 128, torch.bfloat16, True)
 FALLBACK_PREFILL_SHAPE = (1, 2048, 32, 32, 128, torch.bfloat16, True)
+# phase tooling's: the head-pruned llama-740m after redundancy_clean (7 of
+# its 14 heads) at the serving forward's S, and the autotuner's trial of
+# the train cell at micro-batch 16 (its forward runs K1 before the card
+# runs out of memory)
+CLEANED_SHAPE = (1, 4096, 7, 7, 128, torch.bfloat16, True)
+AUTOTUNE_OOM_SHAPE = (16, 16384, 14, 14, 128, torch.bfloat16, True)
 FWD_SHAPES = [
     TRAIN_SHAPE,
     SERVE_SHAPE,
@@ -258,6 +277,8 @@ FWD_SHAPES = [
     LORA_SHAPE,
     HYBRID_PREFILL_SHAPE,
     FALLBACK_PREFILL_SHAPE,
+    CLEANED_SHAPE,
+    AUTOTUNE_OOM_SHAPE,
     (2, 2048, 32, 8, 128, torch.bfloat16, True),
     (2, 2048, 12, 12, 64, torch.bfloat16, True),
     (1, 2048, 16, 16, 128, torch.bfloat16, False),
@@ -278,10 +299,10 @@ BWD_SHAPES = [
     (1, 2048, 8, 2, 128, torch.float32, True),
     (1, 2048, 8, 2, 128, torch.float32, False),
 ]
-FP32_BWD_SHAPE = BWD_SHAPES[9]   # the fp32 record of the kernels line
+FP32_BWD_SHAPE = (1, 2048, 8, 2, 128, torch.float32, True)   # the kernels line's fp32 record
 # From this length on, one fp32 [S, S] score plane per head is over 0.27 GB
-# and the plain versions run on slices of PLAIN_HEADS heads: compared on the
-# first slice, timed over all of them.
+# and the plain versions run on slices of one batch row's PLAIN_HEADS heads:
+# compared on the first slice, timed over all of them.
 CHUNK_FROM_S = 8192
 PLAIN_HEADS = 2
 # Agreement with the plain version, per output tensor [B, S, H, hd]:
@@ -518,30 +539,40 @@ def _pairs(S: int, causal: bool) -> int:
     return S * (S + 1) // 2 if causal else S * S
 
 
+# Tensor-core products a kernel does over each attended (query, key) pair:
+# the forward 2 (QK^T, PV), K2 3 (QK^T, dO V^T, dS K), K3 4 (the same two
+# scores, P^T dO, dS^T Q)
+ATTN_GEMMS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
+def attention_cost(kernel, B, S, Hq, Hkv, hd, esize, pairs) -> tuple:
+    """(operations, bytes) of one launch of ``kernel`` over ``pairs``
+    attended pairs.  Bytes: each input read once, each output written once
+    (fp32 lse/delta rows [B, Hq, S])."""
+    q_bytes, kv_bytes, row_bytes = (esize * B * S * Hq * hd, esize * B * S * Hkv * hd,
+                                    4 * B * Hq * S)
+    nbytes = {
+        "fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,             # q,k,v -> out,lse
+        "dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,         # q,k,v,dO,lse,delta -> dq
+        "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,        # ... -> dk,dv
+    }[kernel]
+    return ATTN_GEMMS[kernel] * 2.0 * B * Hq * pairs * hd, float(nbytes)
+
+
 def attention_bound_ms(B, S, Hq, Hkv, hd, dtype, causal, kernel="fwd",
                        pairs=None) -> tuple:
     """Least time for the work these inputs need, at the dtype's peak or
-    the memory rate.  Products over the attended (query, key) pairs
-    (``pairs``: the live pairs of a block mask; by default every pair, or
-    the causal triangle): the forward does 2 (QK^T, PV), K2 3 (QK^T, dO
-    V^T, dS K), K3 4 (the same two scores, P^T dO, dS^T Q).  Bytes: each
-    input read once, each output written once (fp32 lse/delta rows [B, Hq,
-    S])."""
+    the memory rate (``attention_cost``) over the attended (query, key)
+    pairs (``pairs``: the live pairs of a block mask; by default every
+    pair, or the causal triangle)."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    q_bytes, kv_bytes, row_bytes = (esize * B * S * Hq * hd, esize * B * S * Hkv * hd,
-                                    4 * B * Hq * S)
-    gemms, nbytes = {
-        "fwd": (2, 2 * q_bytes + 2 * kv_bytes + row_bytes),             # q,k,v -> out,lse
-        "dq": (3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),         # q,k,v,dO,lse,delta -> dq
-        "dkv": (4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),        # ... -> dk,dv
-    }[kernel]
-    flops = gemms * 2.0 * B * Hq * (_pairs(S, causal) if pairs is None else pairs) * hd
-    return _bound(flops, nbytes, dtype)
+    return _bound(*attention_cost(kernel, B, S, Hq, Hkv, hd, esize,
+                                  _pairs(S, causal) if pairs is None else pairs), dtype)
 
 
 def attention_flops(B, S, Hq, Hkv, hd, dtype, causal) -> float:
     """The forward's tensor-core work over the attended pairs (QK^T, PV)."""
-    return 2 * 2.0 * B * Hq * _pairs(S, causal) * hd
+    return attention_cost("fwd", B, S, Hq, Hkv, hd, 2, _pairs(S, causal))[0]
 
 
 def nvidia_smi_line() -> str:
@@ -759,27 +790,29 @@ def phase_first_launch():
                                f"{res.stderr[-4000:]}")
 
 
-def _heads(x, lo, hi, dim=2):
-    return x.narrow(dim, lo, hi - lo).contiguous()
+def _cut(x, sl):
+    """Slice ``sl`` = (batch row, first head, end head) of a [B, S, H, hd]
+    tensor or of a [B, H, S] row tensor (lse, delta)."""
+    b, lo, hi = sl
+    return x[b:b + 1].narrow(2 if x.dim() == 4 else 1, lo, hi - lo).contiguous()
 
 
 def _slices(shape):
-    """Head ranges the plain versions run on: None (all heads at once), or
-    slices of PLAIN_HEADS heads (MHA only) from CHUNK_FROM_S on."""
+    """Pieces the plain versions run on: None (all at once), or from
+    CHUNK_FROM_S on (MHA only) each batch row's heads PLAIN_HEADS at a
+    time, as (row, first head, end head)."""
     B, S, Hq, Hkv, hd, dtype, causal = shape
     if S < CHUNK_FROM_S:
         return None
     check(Hq == Hkv and Hq % PLAIN_HEADS == 0, "head slices need MHA")
-    return [(h, h + PLAIN_HEADS) for h in range(0, Hq, PLAIN_HEADS)]
+    return [(b, h, h + PLAIN_HEADS) for b in range(B) for h in range(0, Hq, PLAIN_HEADS)]
 
 
 def _parts(slices, *tensors):
-    """The plain version's inputs per head slice: q-like tensors sliced on
-    dim 2, the fp32 [B, H, S] rows (lse, delta) on dim 1."""
+    """The plain version's inputs per slice (``_cut``)."""
     if slices is None:
         return [list(tensors)]
-    return [[_heads(x, a, b, 2 if x.dim() == 4 else 1) for x in tensors]
-            for a, b in slices]
+    return [[_cut(x, sl) for x in tensors] for sl in slices]
 
 
 def _inputs(gen, shape, n):
@@ -794,8 +827,9 @@ def _shape_dict(shape, slices):
     d = {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
          "dtype": str(dtype).replace("torch.", ""), "causal": causal}
     if slices is not None:
-        d["plain_on"] = (f"heads {slices[0][0]}-{slices[0][1] - 1} compared; "
-                         f"plain_ms over all {len(slices)} slices of "
+        b, lo, hi = slices[0]
+        d["plain_on"] = (f"row {b}, heads {lo}-{hi - 1} compared; "
+                         f"plain_ms over all {len(slices)} slices of one row's "
                          f"{PLAIN_HEADS} heads")
     return d
 
@@ -905,8 +939,7 @@ def phase_fwd_kernel(gen: torch.Generator):
             torch.cuda.synchronize()
             ref, ref_lse = flash_attention_reference(*parts[0], causal, None, True)
             if slices is not None:
-                lo, hi = slices[0]
-                out, lse = _heads(out, lo, hi), _heads(lse, lo, hi, dim=1)
+                out, lse = _cut(out, slices[0]), _cut(lse, slices[0])
             tol = fwd_tol(dtype, S, causal)
             agree = compare(out, ref, plain_low_precision(*parts[0], causal), tol)
             lse_err = (lse - ref_lse).abs().max().item()
@@ -968,8 +1001,7 @@ def phase_bwd_kernels(gen: torch.Generator):
             # plain versions on the same residuals, head slice by head slice
             parts = _parts(slices, q, k, v, do, lse, delta)
             if slices is not None:   # MHA: q and kv heads slice alike
-                lo, hi = slices[0]
-                dq, dk, dv = (_heads(x, lo, hi) for x in (dq, dk, dv))
+                dq, dk, dv = (_cut(x, slices[0]) for x in (dq, dk, dv))
             low = plain_low_precision(*parts[0][:3], causal, *parts[0][3:])
             rq = flash_attention_bwd_dq_reference(*parts[0], causal)
             tol = AGREE_TOL["bwd"][dtype]
@@ -1452,9 +1484,8 @@ def phase_sparse_attention(gen: torch.Generator):
             parts = _parts(slices, q, k, v, do, lse, delta)
             p0 = parts[0]
             if slices is not None:
-                lo, hi = slices[0]
-                out_k, dq, dk, dv = (_heads(x, lo, hi) for x in (out_k, dq, dk, dv))
-                lse_k = _heads(lse, lo, hi, dim=1)
+                out_k, dq, dk, dv, lse_k = (_cut(x, slices[0])
+                                            for x in (out_k, dq, dk, dv, lse))
             else:
                 lse_k = lse
             ref, ref_lse = fa.flash_attention_reference(*p0[:3], causal, scale, True, bm)
@@ -1662,9 +1693,7 @@ def _ring_block(gen, B, Sl, H, hd, dtype) -> dict:
     dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
     parts = _parts(slices, q, k, v, do, lse, delta)
     if slices is not None:
-        lo, hi = slices[0]
-        out, lse, dq, dk, dv = (_heads(x, lo, hi, 2 if x.dim() == 4 else 1)
-                                for x in (out, lse, dq, dk, dv))
+        out, lse, dq, dk, dv = (_cut(x, slices[0]) for x in (out, lse, dq, dk, dv))
     with torch.no_grad():
         ref, ref_lse = fa.flash_attention_reference(*parts[0][:3], causal=False,
                                                     return_lse=True)
@@ -6403,6 +6432,454 @@ def phase_lora_hybrid(seed: int) -> dict:
     return rec
 
 
+# Item 11's tooling half (phase ``tooling``): the train cell (llama-740m,
+# S=16384, TRAIN_CONFIG) under compression training, its cleanup, the flops
+# profiler and the monitors on the plain cell, the autotuner, OnDevice
+TOOLING_STEPS = 6
+PLAIN_CELL_STEPS = 3
+TOOLING_COMPRESSION = {
+    "weight_quantization": {
+        "shared_parameters": {"enabled": True, "quantization_type": "symmetric",
+                              "schedule_offset": 1},
+        "different_groups": {"wq": {"params": {"start_bits": 8, "target_bits": 4,
+                                               "quantization_period": 2},
+                                    "modules": ["layers/w"]}}},
+    "activation_quantization": {
+        "shared_parameters": {"enabled": True, "quantization_type": "asymmetric"},
+        "different_groups": {"aq": {"params": {"bits": 8}, "modules": ["*"]}}},
+    "sparse_pruning": {
+        "shared_parameters": {"enabled": True, "schedule_offset": 2, "method": "l1"},
+        "different_groups": {"sp": {"params": {"dense_ratio": 0.5},
+                                    "modules": ["w_gate", "w_up", "w_down"]}}},
+    "head_pruning": {
+        "shared_parameters": {"enabled": True, "schedule_offset": 0},
+        "different_groups": {"hp": {"params": {"dense_ratio": 0.5}, "modules": ["wo"]}}},
+}
+TOOLING_HEAD_PRUNING = {"head_pruning": TOOLING_COMPRESSION["head_pruning"]}
+CLEAN_S = SERVE_SHAPE[1]
+# the cleaned model against the masked one in fp32: summation order only,
+# held at K1's fp32 per-element limit
+CLEAN_FP32_ROW_REL = AGREE_TOL["fwd"][torch.float32]["elem_rtol"]
+STUDENT_LAYERS = 8
+# the sparse masks keep their dense ratio 0.5 and the ties at the threshold
+# (JAX's `>=`): a few % more on the quantized grid, not the ~0.92 that the
+# fake-quant's own zeros leave without a mask
+PRUNE_KEPT_MAX = 0.55
+PROFILE_STEP, PROFILE_STEPS = 2, 3
+PROFILE_RTOL = 0.02
+# Micro-batch 2 is left out so the trials give the kernels only shapes
+# phase kernel holds (1, and 16's forward): K1 at (2, 16384, 14x128) equals
+# SDPA and a reference that rounds P to bf16 before PV, element for element
+# at its worst, yet on phase kernel's draw that element needs 0.121 rms
+# units, over AGREE_TOL's 0.1 (PERF.md; tests/k1_precision_probe.py).
+AUTOTUNE_SPACE = {"zero_stages": [0, 3], "mbs_candidates": [1, 16],
+                  "remat_policies": ["nothing_saveable"], "fast": True,
+                  "start_profile_step": 1, "end_profile_step": 3}
+
+
+def _steps(engine, batch, n):
+    """``n`` timed ``train_batch`` steps: (losses, seconds, K1/K2/K3 launches
+    of each step)."""
+    losses, secs, per_step = [], [], []
+    for _ in range(n):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        per_step.append(tuple(a - b for a, b in zip(kernel_counts(), before)))
+    return losses, secs, per_step
+
+
+def _row_rel(got, ref) -> float:
+    """The worst row's relative L2 distance (fp32)."""
+    g, r = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return float(((g - r).norm(dim=-1) / r.norm(dim=-1)).max())
+
+
+def _tooling_compression(seed: int, batch) -> dict:
+    """TOOLING_STEPS compressed steps of the train cell; then the
+    transformed leaves at the last step, and the kernel path against the
+    plain branch at PARITY_S (``_compressed_parity``)."""
+    from deepspeed_tpu_torch.compression import bit_schedule
+    from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path, tree_leaves
+
+    S = TRAIN_SHAPE[1]
+    # the plain cell's step under the same conditions (no monitor, no
+    # profiler), the compressed step's yardstick
+    _, engine = _train_engine(seed, S)
+    _, plain_secs, _ = _steps(engine, batch, PLAIN_CELL_STEPS)
+    del engine
+    free_memory()
+    extra = {"compression_training": TOOLING_COMPRESSION}
+    model, engine = _train_engine(seed, S, config_extra=extra)
+    cfg = model.config
+    L = cfg.num_layers
+    check(cfg.act_quant_bits == 8, "activation quantization was not wired into the model")
+    reset_counts()
+    losses, secs, per_step = _steps(engine, batch, TOOLING_STEPS)
+    launches = kernel_counts()
+    check(all(math.isfinite(x) for x in losses), f"compressed loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"compressed loss did not fall: {losses}")
+    check(all(p == (2 * L, L, L) for p in per_step),
+          f"compressed steps launched K1/K2/K3 {per_step}, expected {(2 * L, L, L)} each")
+    # the compute view the next step differentiates (every offset passed)
+    step = engine.state.step
+    paths = [p for p, _ in tree_flatten_with_path(engine.state.params)]
+    view = dict(zip(paths, engine._compressed(tree_leaves(engine.state.params))))
+    bits = bit_schedule(step, 8, 4, 1, 2)
+    kept, distinct, heads = {}, {}, []
+    with torch.no_grad():
+        for name in ("w_gate", "w_up", "w_down"):
+            w = view["layers/" + name]
+            kept[name] = [float((w[i] != 0).float().mean()) for i in range(L)]
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            w = view["layers/" + name]
+            distinct[name] = max(int(torch.unique(w[i]).numel()) for i in (0, L - 1))
+        wo = view["layers/wo"].reshape(L, cfg.num_heads, -1)
+        heads = [int((wo[i].abs().sum(-1) > 0).sum()) for i in range(L)]
+    check(all(0.5 <= k <= PRUNE_KEPT_MAX for ks in kept.values() for k in ks),
+          f"a pruned MLP leaf keeps outside [0.5, {PRUNE_KEPT_MAX}]: {kept}")
+    check(all(n <= 2 ** bits for n in distinct.values()),
+          f"a {bits}-bit leaf holds more than {2 ** bits} values: {distinct}")
+    check(all(h >= cfg.num_heads // 2 for h in heads) and min(heads) < cfg.num_heads,
+          f"head pruning kept {heads} of {cfg.num_heads} heads")
+    del engine, view, wo
+    free_memory()
+
+    parity = _compressed_parity(seed, extra)
+    return {"config": TOOLING_COMPRESSION, "losses": losses, "step_s": secs,
+            "median_step_s": statistics.median(secs[1:]),
+            "plain_cell_step_s": plain_secs,
+            "plain_cell_median_step_s": statistics.median(plain_secs[1:]),
+            "launches": dict(zip(("K1", "K2", "K3"), launches)),
+            "launches_per_step": dict(zip(("K1", "K2", "K3"), per_step[-1])),
+            "view_step": step, "view_bits": bits, "dense_kept": kept,
+            "max_distinct_values": distinct, "heads_kept": heads,
+            "parity": parity}
+
+
+def _compressed_parity(seed: int, extra: dict) -> dict:
+    """The kernel path against the plain branch at PARITY_S under
+    compression, step by step on the same weights: before each of
+    PARITY_STEPS steps, the loss and gradient norm of the engine's
+    compressed tree through the kernels (attn_impl "auto") and through the
+    plain branch ("xla"); the step then runs through the kernels.  (Two
+    free-running trajectories part by more than the plain gate allows once
+    a bf16 difference moves a weight or an activation across a fake-quant
+    level: 1.2% in loss at step 2 on the card.)"""
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 70)
+    base = CausalLM(TRAIN_MODEL, max_seq_len=PARITY_S)
+    params = base.init_fn(gen)
+    batch = {"input_ids": torch.randint(0, base.config.vocab_size, (1, PARITY_S),
+                                        generator=gen, device="cuda")}
+    model, eng = _train_engine(seed, PARITY_S, params=params, config_extra=extra)
+    del params
+    steps = []
+    for _ in range(PARITY_STEPS):
+        rec = {}
+        for impl in ("auto", "xla"):
+            model.attn_impl = impl
+            work = eng._work_tree()
+            before = kernel_counts()
+            loss = eng.loss_fn(eng._view(work), batch,
+                               torch.Generator(device="cuda").manual_seed(seed))
+            grads = torch.autograd.grad(loss, [x for x in tree_leaves(work) if x.requires_grad])
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            rec[impl] = {"loss": float(loss.detach()), "grad_norm": float(norm),
+                         "launches": tuple(a - b for a, b in zip(kernel_counts(), before))}
+            del work, loss, grads
+        model.attn_impl = "auto"
+        k, p = rec["auto"], rec["xla"]
+        rec["loss_rel"] = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        rec["grad_norm_rel"] = abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+        rec["train_loss"] = float(eng.train_batch(batch=batch))
+        steps.append(rec)
+    L = model.config.num_layers
+    del eng, model, batch
+    free_memory()
+    for i, rec in enumerate(steps):
+        check(rec["auto"]["launches"] == (2 * L, L, L) and rec["xla"]["launches"] == (0, 0, 0),
+              f"parity step {i}: launches {rec}")
+        check(rec["loss_rel"] <= PARITY_LOSS_RTOL and rec["grad_norm_rel"] <= PARITY_GRAD_NORM_RTOL,
+              f"compressed training, step {i}: kernel path vs plain branch {rec}")
+    return {"S": PARITY_S, "steps": steps, "loss_rtol": PARITY_LOSS_RTOL,
+            "grad_norm_rtol": PARITY_GRAD_NORM_RTOL}
+
+
+def _tooling_clean(seed: int) -> dict:
+    """``redundancy_clean`` of a head-pruned llama-740m (14 -> 7 heads):
+    its ``init_inference`` forward (K1 over 7 heads) against the masked
+    model's (K1 over 14, half of them zero in wo); then
+    ``student_initialization`` (16 -> STUDENT_LAYERS layers) and one train
+    step of the student.
+
+    The two bf16 forwards differ only in bf16 roundings (matmuls over
+    fewer columns, or a K dim half as long), which 16 random layers
+    amplify; the bound is the K1 path's own bf16 spread on the masked
+    model, its distance from the same model through the plain branch.  In
+    fp32 (K1's fp32 variant) the two agree to summation order:
+    CLEAN_FP32_ROW_REL."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.compression import (build_param_transform, redundancy_clean,
+                                                 student_initialization)
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.utils.tree import tree_map
+
+    cfg = CausalLM(TRAIN_MODEL).config
+    gen = torch.Generator(device="cuda").manual_seed(seed + 71)
+    params = CausalLM(TRAIN_MODEL).init_fn(gen)                  # fp32
+    tokens = torch.randint(0, cfg.vocab_size, (1, CLEAN_S), generator=gen, device="cuda")
+    block = {"compression_training": TOOLING_HEAD_PRUNING}
+    with torch.no_grad():
+        masked = build_param_transform(block, num_heads=cfg.num_heads)(params, 0)
+    cleaned, dims = redundancy_clean(params, block, num_heads=cfg.num_heads)
+    check(dims == {"num_heads": cfg.num_heads // 2}, f"redundancy_clean gave {dims}")
+
+    def logits(tree, heads, dtype, impl="auto"):
+        model = CausalLM(TRAIN_MODEL, max_seq_len=CLEAN_S, num_heads=heads,
+                         head_dim=cfg.dims_per_head, attn_impl=impl, dtype=dtype)
+        eng = deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "bf16" if dtype == torch.bfloat16 else "float32"},
+            params=tree_map(lambda x: x.to(dtype), tree))
+        reset_counts()
+        out = eng.forward(tokens).float()
+        torch.cuda.synchronize()
+        return out, kernel_counts()[0]
+
+    H, h = cfg.num_heads, dims["num_heads"]
+    got, k1_clean = logits(cleaned, h, torch.bfloat16)
+    ref, k1_masked = logits(masked, H, torch.bfloat16)
+    rel = _row_rel(got, ref)
+    del got
+    plain, _ = logits(masked, H, torch.bfloat16, impl="xla")
+    bound = _row_rel(ref, plain)
+    del plain
+    dense, _ = logits(params, H, torch.bfloat16)
+    yard = _row_rel(dense, ref)
+    del dense, ref
+    got32, _ = logits(cleaned, h, torch.float32)
+    ref32, _ = logits(masked, H, torch.float32)
+    rel32 = _row_rel(got32, ref32)
+    del got32, ref32, masked, cleaned
+    free_memory()
+    rec = {"S": CLEAN_S, "new_dims": dims, "worst_row_rel": rel,
+           "bound_kernel_vs_plain_row_rel": bound, "unpruned_vs_masked_row_rel": yard,
+           "fp32_worst_row_rel": rel32, "fp32_limit": CLEAN_FP32_ROW_REL,
+           "k1_launches": {"cleaned": k1_clean, "masked": k1_masked},
+           "k1_shape_cleaned": [1, CLEAN_S, h, cfg.dims_per_head]}
+    emit({"phase": "tooling/clean_forward", **rec})
+    check(k1_clean == cfg.num_layers and k1_masked == cfg.num_layers,
+          f"the forwards launched K1 {k1_clean}/{k1_masked} times, expected {cfg.num_layers}")
+    check(rel <= bound, f"the cleaned model's logits stray from the masked model's "
+                        f"further than K1's own bf16 spread: {rec}")
+    check(rel32 <= CLEAN_FP32_ROW_REL, f"fp32: the cleaned model's logits stray: {rec}")
+    check(yard > bound, f"the clean gate passes the unpruned model too: {rec}")
+    lr_block = {"compression_training": {"layer_reduction": {
+        "enabled": True, "keep_number_layer": STUDENT_LAYERS}}}
+    student = student_initialization(params, lr_block)
+    del params
+    S = TRAIN_SHAPE[1]
+    _, eng = _train_engine(seed, S, params=student, num_layers=STUDENT_LAYERS)
+    del student
+    reset_counts()
+    losses, secs, per_step = _steps(eng, _train_batch(cfg, S, seed + 72), 1)
+    check(math.isfinite(losses[0]) and per_step[0] == (2 * STUDENT_LAYERS, STUDENT_LAYERS,
+                                                       STUDENT_LAYERS),
+          f"the student's step: loss {losses}, launches {per_step}")
+    del eng
+    free_memory()
+    return {**rec, "student_layers": STUDENT_LAYERS, "student_loss": losses[0],
+            "student_step_s": secs[0], "student_launches": per_step[0]}
+
+
+def _profile_analytic(model, S: int) -> dict:
+    """The work a step of the train cell executes: every matmul 2*M*K*N
+    forward and twice that backward, the layers' recompute under
+    nothing_saveable but its last product (w_down, whose output no
+    backward reads), and the attention kernels' own count per launch
+    (``attention_cost``: K1 twice a layer, K2 and K3 once).  The port's
+    own per-launch count (``kernel_cost``, what its profiler adds for each
+    ctypes launch) must equal ``attention_cost`` here."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import attended_pairs, kernel_cost
+
+    cfg = model.config
+    shapes = model.init_fn(torch.Generator(), device="meta")
+    layer = {k: x for k, x in shapes["layers"].items() if x.dim() == 3}
+    per_token = {k: 2 * x.shape[0] * x.shape[1] * x.shape[2] for k, x in layer.items()}
+    head = 2 * cfg.hidden_size * cfg.vocab_size
+    matmul = 3 * S * (sum(per_token.values()) + head)
+    recompute = S * (sum(per_token.values()) - per_token["w_down"])
+    pairs = _pairs(S, True)
+    dims = (1, S, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, 2, pairs)
+    cost = {k: attention_cost(k, *dims)[0] for k in ATTN_GEMMS}
+    port = {k: kernel_cost(k, *dims) for k in ATTN_GEMMS}
+    check(attended_pairs(S, True) == pairs
+          and all(port[k] == attention_cost(k, *dims) for k in ATTN_GEMMS),
+          f"the port's kernel_cost {port} differs from attention_cost at {dims}")
+    attn = cfg.num_layers * (2 * cost["fwd"] + cost["dq"] + cost["dkv"])
+    return {"matmul": matmul, "recompute": recompute, "attention": attn,
+            "total": matmul + recompute + attn,
+            "formula": "3*S*(sum over the layer matrices of 2*L*in*out + 2*d*V) "
+                       "+ S*(the same sum but w_down) + L*(2*K1 + K2 + K3), "
+                       "K = ATTN_GEMMS[kernel]*2*Hq*S*(S+1)/2*hd"}
+
+
+def _tooling_profile_monitor(seed: int, batch) -> dict:
+    """The plain train cell with the flops profiler at PROFILE_STEP and the
+    CSV and TensorBoard monitors into a temporary directory."""
+    import tempfile
+
+    S = TRAIN_SHAPE[1]
+    out = tempfile.mkdtemp(prefix="tooling_")
+    report = os.path.join(out, "flops_profile.txt")
+    extra = {"flops_profiler": {"enabled": True, "profile_step": PROFILE_STEP,
+                                "output_file": report},
+             "csv_monitor": {"enabled": True, "output_path": out, "job_name": "cell"},
+             "tensorboard": {"enabled": True, "output_path": out, "job_name": "cell"}}
+    model, engine = _train_engine(seed, S, config_extra=extra)
+    reset_counts()
+    losses, secs, per_step = _steps(engine, batch, PROFILE_STEPS)
+    prof = engine.flops_profiler.as_dict()
+    want = _profile_analytic(model, S)
+    rel = abs(prof["flops"] - want["total"]) / want["total"]
+    check(rel <= PROFILE_RTOL, f"profiled flops {prof['flops']} vs analytic "
+                               f"{want['total']}: {rel:.4f} > {PROFILE_RTOL}")
+    check(prof["kernel_flops"] > 0 and "attention kernels' flops" in open(report).read(),
+          f"the profile has no attention row: {prof}")
+    engine.monitor.tb_monitor.summary_writer.close()
+    csv_rows = open(os.path.join(out, "cell", "Train_Samples_train_loss.csv")).read()
+    csv_losses = [float(r.split(",")[1]) for r in csv_rows.splitlines()[1:]]
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+
+    tb = []
+    for name in sorted(os.listdir(os.path.join(out, "cell"))):
+        if name.startswith("events"):
+            for event in EventFileLoader(os.path.join(out, "cell", name)).Load():
+                # the loader may hand a scalar over as a one-element tensor
+                tb += [(v.tag, v.simple_value if v.HasField("simple_value")
+                        else v.tensor.float_val[0] if v.tensor.float_val
+                        else float(torch.frombuffer(bytearray(v.tensor.tensor_content),
+                                                    dtype=torch.float32)[0]), event.step)
+                       for v in event.summary.value if v.tag == "Train/Samples/train_loss"]
+    check(csv_losses == losses, f"CSV losses {csv_losses} != train_batch's {losses}")
+    check([(s, v) for _, v, s in tb] == [(i + 1, float(torch.tensor(x).float()))
+                                          for i, x in enumerate(losses)],
+          f"TensorBoard losses {tb} != train_batch's {losses}")
+    del engine, model
+    free_memory()
+    return {"profile_step": PROFILE_STEP, "counted_flops": prof["flops"],
+            "kernel_flops": prof["kernel_flops"], "dispatched_flops": prof["dispatched_flops"],
+            "bytes_accessed": prof["bytes accessed"], "profiled_step_s": prof["duration_s"],
+            "analytic": want, "rel_diff": rel, "limit": PROFILE_RTOL,
+            "report": open(report).read().splitlines(), "losses": losses, "step_s": secs,
+            "launches_per_step": per_step,
+            "monitor": {"csv": csv_losses, "tensorboard": [v for _, v, _ in tb]}}
+
+
+def _tooling_autotune(seed: int) -> dict:
+    """Gridsearch over AUTOTUNE_SPACE on the train cell (fast mode): the
+    micro-batch the card cannot hold ends its sweep as ``compile_oom``."""
+    import tempfile
+
+    from deepspeed_tpu_torch.autotuning import autotune
+    from deepspeed_tpu_torch.models import CausalLM
+
+    S = TRAIN_SHAPE[1]
+    rd = tempfile.mkdtemp(prefix="autotune_")
+    base = {**TRAIN_CONFIG, "seed": seed,
+            "autotuning": {"enabled": True, "results_dir": rd, **AUTOTUNE_SPACE}}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 73)
+    vocab = CausalLM(TRAIN_MODEL).config.vocab_size
+    t0 = time.perf_counter()
+    reset_counts()
+    best, records = autotune(
+        lambda: CausalLM(TRAIN_MODEL, max_seq_len=S), base,
+        lambda e: {"input_ids": torch.randint(0, vocab, (e.train_batch_size, S),
+                                              generator=gen, device="cuda")})
+    launches = kernel_counts()
+    seconds = time.perf_counter() - t0
+    recs = [r.as_dict() for r in records]
+    for stage in AUTOTUNE_SPACE["zero_stages"]:
+        mine = [r for r in recs if r["config_overrides"]["zero_optimization"]["stage"] == stage]
+        check(mine and mine[-1]["status"] == "compile_oom"
+              and mine[-1]["config_overrides"]["train_micro_batch_size_per_gpu"] == 16,
+              f"stage {stage}: micro-batch 16 did not end as compile_oom: {mine}")
+        check(all(r["status"] == "ok" for r in mine[:-1]), f"stage {stage}: {mine}")
+    check(sorted(os.listdir(rd)) == ["best_config.json", "records.json"],
+          f"autotuning results: {os.listdir(rd)}")
+    free_memory()
+    # the card trains afterwards
+    cfg = CausalLM(TRAIN_MODEL).config
+    _, eng = _train_engine(seed, S)
+    after, _, _ = _steps(eng, _train_batch(cfg, S, seed + 74), 1)
+    check(math.isfinite(after[0]), f"training after the autotuner: loss {after}")
+    del eng
+    free_memory()
+    return {"space": AUTOTUNE_SPACE, "records": recs, "best": best, "seconds": seconds,
+            "launches": dict(zip(("K1", "K2", "K3"), launches)), "loss_after": after[0],
+            "card_memory_bytes": torch.cuda.get_device_properties(0).total_memory}
+
+
+def _tooling_on_device() -> dict:
+    """llama2-7b under ``OnDevice(device="meta")``: no byte on the card, the
+    shapes of the real tree."""
+    from deepspeed_tpu_torch import OnDevice
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path
+
+    model = CausalLM(LORA_MODEL)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with OnDevice(dtype=torch.bfloat16, device="meta"):
+        meta = model.init_fn(torch.Generator())
+    meta_bytes = torch.cuda.memory_allocated() - before
+    real = model.init_fn(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    shapes = {p: (tuple(x.shape), x.dtype) for p, x in tree_flatten_with_path(meta)}
+    same = shapes == {p: (tuple(x.shape), x.dtype) for p, x in tree_flatten_with_path(real)}
+    real_bytes = sum(x.numel() * x.element_size() for _, x in tree_flatten_with_path(real))
+    del real
+    free_memory()
+    check(meta_bytes == 0, f"OnDevice(meta) allocated {meta_bytes} bytes on the card")
+    check(same, "the meta tree's shapes differ from the real tree's")
+    return {"model": LORA_MODEL, "meta_bytes": meta_bytes, "real_tree_bytes": real_bytes,
+            "leaves": len(shapes), "shapes_equal": same}
+
+
+def phase_tooling(seed: int) -> dict:
+    """Item 11's tooling half on the train cell: compression training,
+    cleanup and layer reduction, the flops profiler and the monitors, the
+    autotuner, OnDevice."""
+    from deepspeed_tpu_torch.models import CausalLM
+
+    t0 = time.perf_counter()
+    # phase train's batch: the plain cell below is that cell
+    batch = _train_batch(CausalLM(TRAIN_MODEL).config, TRAIN_SHAPE[1], seed + 1)
+    rec = {"phase": "tooling", "model": TRAIN_MODEL, "S": TRAIN_SHAPE[1]}
+    for part, run in (("compression", lambda: _tooling_compression(seed, batch)),
+                      ("clean", lambda: _tooling_clean(seed)),
+                      ("flops_profiler", lambda: _tooling_profile_monitor(seed, batch)),
+                      ("autotune", lambda: _tooling_autotune(seed)),
+                      ("on_device", _tooling_on_device)):
+        t = time.perf_counter()
+        rec[part] = run()
+        rec[part]["part_seconds"] = time.perf_counter() - t
+        emit({"phase": f"tooling/{part}", **rec[part]})   # each part as it ends
+    rec["compressed_step_s_vs_plain_cell"] = {
+        "compressed": rec["compression"]["median_step_s"],
+        "plain": rec["compression"]["plain_cell_median_step_s"]}
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"phase": "tooling", "seconds": rec["seconds"],
+          "compressed_step_s_vs_plain_cell": rec["compressed_step_s_vs_plain_cell"],
+          "part_seconds": {k: rec[k]["part_seconds"] for k in (
+              "compression", "clean", "flops_profiler", "autotune", "on_device")}})
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -6451,7 +6928,8 @@ def main() -> int:
     ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit",
-                                                  "train_extras", "lora_hybrid"),
+                                                  "train_extras", "lora_hybrid",
+                                                  "tooling"),
                     help="only the build, then these phases (no kernels line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6485,7 +6963,7 @@ def main() -> int:
         for name in args.only:
             {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
              "train_extras": phase_train_extras,
-             "lora_hybrid": phase_lora_hybrid}[name](args.seed)
+             "lora_hybrid": phase_lora_hybrid, "tooling": phase_tooling}[name](args.seed)
         return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
@@ -6527,6 +7005,7 @@ def main() -> int:
     zpp_onebit = phase_zeropp_onebit(args.seed)
     extras = phase_train_extras(args.seed)
     lora = phase_lora_hybrid(args.seed)
+    tooling = phase_tooling(args.seed)
     if args.tp_cards:
         phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -6592,6 +7071,22 @@ def main() -> int:
                                                   for r in lora["rounds"]]
         return rec
 
+    def tooling_launches(i):
+        """Phase tooling's launches of K1 (i=0), K2, K3: per compressed step,
+        in the compressed run, per profiled-cell step, in the autotuner's
+        trials; K1 in the cleaned and masked forwards."""
+        key = ("K1", "K2", "K3")[i]
+        comp, prof = tooling["compression"], tooling["flops_profiler"]
+        rec = {"launches_tooling_compressed_per_step": comp["launches_per_step"][key],
+               "launches_tooling_compressed": comp["launches"][key],
+               "launches_tooling_student_step": tooling["clean"]["student_launches"][i],
+               "launches_tooling_profiled_cell_per_step": [p[i] for p in
+                                                           prof["launches_per_step"]],
+               "launches_tooling_autotune": tooling["autotune"]["launches"][key]}
+        if i == 0:
+            rec["launches_tooling_clean_forwards"] = tooling["clean"]["k1_launches"]
+        return rec
+
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
         dlse) at the virtual ring's shard and at sp4_740m's, and the
@@ -6620,17 +7115,19 @@ def main() -> int:
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
                       ring=ring_record("K1"), **item9_launches(0), **item10_launches(0),
-                      **item11_launches(0)),
+                      **item11_launches(0), **tooling_launches(0)),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
-                      **item9_launches(1), **item10_launches(1), **item11_launches(1)),
+                      **item9_launches(1), **item10_launches(1), **item11_launches(1),
+                      **tooling_launches(1)),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
-                      **item9_launches(2), **item10_launches(2), **item11_launches(2)),
+                      **item9_launches(2), **item10_launches(2), **item11_launches(2),
+                      **tooling_launches(2)),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], design=K4_DESIGN, l2="flushed",

@@ -23,13 +23,17 @@ tensor-parallel serving mesh (``parallel.mesh.initialize_serving_mesh`` ->
 weight-only int8/int4 inference; MoE and pipelines, offload, ZeRO++ and
 the 1-bit optimizers; the other optimizers, progressive layer drop,
 random-LTD, the curricula, eigenvalue, LoRA training and the hybrid
-engine (``runtime/hybrid_engine.py``).  ROADMAP.md lists what comes next.
+engine (``runtime/hybrid_engine.py``); compression training
+(``compression``), the flops profiler (``profiling``), the autotuner
+(``autotuning``), the monitors (``monitor``) and ``OnDevice``.  ROADMAP.md
+lists what comes next.
 """
 from __future__ import annotations
 
 from typing import Any
 
 from .accelerator import get_accelerator
+from .utils.init_on_device import OnDevice
 
 __version__ = "0.1.0"
 
@@ -137,4 +141,4 @@ def init_inference(model: Any = None, config=None, device=None, **kwargs):
     return InferenceEngine(model, config=cfg, device=device, **engine_kwargs)
 
 
-__all__ = ["initialize", "init_inference", "get_accelerator", "__version__"]
+__all__ = ["initialize", "init_inference", "get_accelerator", "OnDevice", "__version__"]

@@ -75,6 +75,7 @@ from ..parallel import tensor_parallel
 from ..models.transformer import (ADAPTER_TARGETS, cow_copy_pool, normalize_kv_dtype,
                                   paged_pool_cache, paged_pool_tuple)
 from ..ops.kernels.decode_attention import decode_attention
+from ..utils.compile_counter import record_compile
 from ..utils.tree import tree_leaves, tree_map
 from .engine import check_mesh_model, install_mesh, place_params
 from .kv_tiering import extract_pool_page, inject_pool_page
@@ -145,6 +146,7 @@ def capture_graph(fn, device, region, before_capture=None):
     # were first issued there
     with torch.no_grad(), region(), torch.cuda.graph(graph, stream=side):
         out = fn()
+    record_compile()
     return graph, out, decode_attention.launches - before
 
 

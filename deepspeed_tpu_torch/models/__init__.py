@@ -91,9 +91,12 @@ class CausalLM(nn.Module):
         weights, each leaf drawn whole and cut (``cuts``: the 'expert' and
         'pipe' axes too); ``streamed=True``: the layer-streamed init, whose
         shards are drawn a layer at a time and whose values differ
-        (``transformer.init_params``)."""
-        return init_params(self.config, generator, device=device, dtype=dtype, tp=tp,
-                           streamed=streamed, cuts=cuts)
+        (``transformer.init_params``).  Inside an active ``OnDevice``
+        the context's device and dtype apply."""
+        from ..utils.init_on_device import on_device_init
+
+        return on_device_init(lambda g, **kw: init_params(self.config, g, **kw))(
+            generator, device=device, dtype=dtype, tp=tp, streamed=streamed, cuts=cuts)
 
     @property
     def param_specs(self) -> Dict[str, Any]:

@@ -314,9 +314,6 @@ def _check_supported(cfg: TransformerConfig) -> None:
             raise NotImplementedError(
                 "pipeline parallelism with per-layer attention types "
                 "(attention_layers) is not supported")
-    if cfg.act_quant_bits:
-        raise NotImplementedError(
-            "activation fake-quant is not ported yet (ROADMAP queue 1, item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -1092,9 +1089,39 @@ def _draw(cfg: TransformerConfig, x, seed, site: int, draw):
 #   out     = x1 + dropout(_mlp_out(acts))
 # ---------------------------------------------------------------------------
 
+def _act_stats_reduce():
+    """Under a process group whose data or 'seq' axes cut the batch, the
+    combination of a per-tensor activation statistic over them (the whole
+    tensor's, as GSPMD computes it in the JAX package); else None."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from .. import comm
+    from ..parallel.mesh import BATCH_AXES
+
+    axes = tuple(a for a in BATCH_AXES + ("seq",) if comm.get_axis_size(a) > 1)
+    if not axes:
+        return None
+    return lambda x, op: comm.all_reduce(x, comm.MAX if op == "max" else comm.MIN, axes)
+
+
+def _maybe_act_quant(cfg: TransformerConfig, h):
+    """Activation fake-quant at the post-norm matmul inputs (the JAX
+    package's one shared site of every block variant): dynamic per-tensor
+    statistics, which stay on the device (the paged decode runs inside a
+    CUDA graph)."""
+    if not cfg.act_quant_bits:
+        return h
+    from ..compression.quantize import activation_fake_quant
+
+    return activation_fake_quant(h, cfg.act_quant_bits, symmetric=cfg.act_quant_symmetric,
+                                 reduce=_act_stats_reduce())
+
+
 def _attn_in(cfg, lp, x, positions):
     B, S, _ = x.shape
-    h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    h = _maybe_act_quant(cfg, _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias")))
     q, k, v = _qkv(cfg, lp, h, B, S)
     if cfg.position == "rope":
         q, k = _rope(q, k, positions, cfg.rope_theta, cfg.dims_per_head,
@@ -1111,9 +1138,10 @@ def _attn_residual(cfg, lp, x, attn, seed):
         h = (_norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
              if cfg.shared_layernorm
              else _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias")))
-        return x + a, h
+        return x + a, _maybe_act_quant(cfg, h)
     x1 = x + a
-    return x1, _norm(cfg, x1, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+    return x1, _maybe_act_quant(cfg, _norm(cfg, x1, lp["mlp_norm_scale"],
+                                           lp.get("mlp_norm_bias")))
 
 
 def _mlp_residual(cfg, lp, acts, seed):
@@ -1125,7 +1153,7 @@ def _mlp_residual(cfg, lp, acts, seed):
 def _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions, window, seed):
     """Post-LN's first half: x1 = LN(x + attn(x))."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, lp, x, B, S)
+    q, k, v = _qkv(cfg, lp, _maybe_act_quant(cfg, x), B, S)
     attn = _attention(cfg, q, k, v, positions, attn_impl, custom_positions,
                       window=window)
     a = _dropout(cfg, _out_proj(cfg, lp, attn, B, S), seed, _SITE_ATTN)
@@ -1143,7 +1171,7 @@ def _block_postln(cfg: TransformerConfig, lp: Dict[str, Any], x, positions,
     x = LN(x + mlp(x))."""
     x1 = _postln_attn(cfg, lp, x, positions, attn_impl, custom_positions,
                       window, seed)
-    m, aux = _mlp_residual(cfg, lp, _mlp_in(cfg, lp, x1), seed)
+    m, aux = _mlp_residual(cfg, lp, _mlp_in(cfg, lp, _maybe_act_quant(cfg, x1)), seed)
     return _postln_out(cfg, lp, x1 + m), aux
 
 
@@ -1256,7 +1284,7 @@ def _build_block(cfg: TransformerConfig, attn_impl: str, custom_positions: bool)
             def first(lp, x, positions, window, seed):
                 x1 = _postln_attn(cfg, lp, x, positions, attn_impl,
                                   custom_positions, window, seed)
-                return (x1, *_mlp_in(cfg, lp, x1))
+                return (x1, *_mlp_in(cfg, lp, _maybe_act_quant(cfg, x1)))
 
             x1, *acts = _ckpt(first, lp, x, positions, window, seed)
             m, aux = _ckpt(mlp_part, lp, tuple(acts), seed)
@@ -1687,7 +1715,7 @@ def _block_cached(cfg, lp, x, ck, cv, q_pos, q_slot, valid, kpos, next_slot,
     attention over the cache is causal attention over the prompt itself:
     the flash kernel's."""
     B, S, _ = x.shape
-    h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    h = _maybe_act_quant(cfg, _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias")))
     q, k, v = _qkv(cfg, lp, h, B, S)
     if cfg.position == "rope":
         q, k = _rope(q, k, q_pos, cfg.rope_theta, cfg.dims_per_head,
@@ -1702,11 +1730,11 @@ def _block_cached(cfg, lp, x, ck, cv, q_pos, q_slot, valid, kpos, next_slot,
                                  window=window)
     attn = _out_proj(cfg, lp, attn, B, S)
     if cfg.parallel_residual:
-        h2 = h if cfg.shared_layernorm else _norm(
-            cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+        h2 = h if cfg.shared_layernorm else _maybe_act_quant(cfg, _norm(
+            cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias")))
         return x + attn + _mlp(cfg, lp, h2)
     x = x + attn
-    h = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+    h = _maybe_act_quant(cfg, _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias")))
     return x + _mlp(cfg, lp, h)
 
 
@@ -1955,7 +1983,7 @@ def _block_paged(cfg, lp, x, ck, cv, positions, write_idx, page_table, T,
     B, S, _ = x.shape
     P, ps, nkv, hd = ck.shape
     ckf, cvf = ck.view(P * ps, nkv, hd), cv.view(P * ps, nkv, hd)
-    h = _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias"))
+    h = _maybe_act_quant(cfg, _norm(cfg, x, lp["attn_norm_scale"], lp.get("attn_norm_bias")))
     q, k, v = _qkv_paged(cfg, lp, h, B, S, ad, ad_scale)
     if cfg.position == "rope":
         q, k = _rope(q, k, positions, cfg.rope_theta, hd,
@@ -1988,11 +2016,11 @@ def _block_paged(cfg, lp, x, ck, cv, positions, write_idx, page_table, T,
         attn = _attention_paged(cfg, q, gk, gv, positions)
     attn = _out_proj_paged(cfg, lp, attn, B, S, ad, ad_scale)
     if cfg.parallel_residual:
-        h2 = h if cfg.shared_layernorm else _norm(
-            cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+        h2 = h if cfg.shared_layernorm else _maybe_act_quant(cfg, _norm(
+            cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias")))
         return x + attn + _mlp(cfg, lp, h2)
     x = x + attn
-    h = _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias"))
+    h = _maybe_act_quant(cfg, _norm(cfg, x, lp["mlp_norm_scale"], lp.get("mlp_norm_bias")))
     return x + _mlp(cfg, lp, h)
 
 

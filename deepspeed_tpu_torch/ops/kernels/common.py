@@ -8,6 +8,10 @@
   - ``mask_to_i32()`` — masks cross the kernel boundary as int32.
   - ``first_derivative_only()`` — refuses a second derivative through an
     autograd Function whose backward autograd does not record.
+  - ``cost_sinks`` / ``note_cost()`` — a kernel launched through ctypes is
+    invisible to PyTorch's dispatcher, so ``torch.utils.flop_counter``
+    cannot count it: each wrapper reports its launch's operations and
+    bytes here while a sink listens (the flops profiler's).
 
 The Pallas module's ``interpret_default`` and ``parallel_semantics`` have no
 counterpart: a CUDA kernel has no interpret mode (the wrappers run the plain
@@ -59,3 +63,12 @@ def first_derivative_only(what: str):
             return backward(ctx, *grads)
         return checked
     return wrap
+
+
+# listeners ``sink(kernel, flops, nbytes)`` of the kernels' launches
+cost_sinks: list = []
+
+
+def note_cost(kernel: str, flops: float, nbytes: float) -> None:
+    for sink in list(cost_sinks):
+        sink(kernel, flops, nbytes)

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..op_builder import KernelBuilder
-from .common import NEG_INF, first_derivative_only, pick_block
+from .common import NEG_INF, cost_sinks, first_derivative_only, note_cost, pick_block
 
 # Query rows per CTA of the CUDA kernels: S must be a multiple (the model
 # only dispatches here when S % 128 == 0).
@@ -331,6 +331,42 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = Tr
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
+# the tensor-core products each kernel runs over every attended (query,
+# key) pair: the forward 2 (QK^T, PV), K2 3 (QK^T, dO V^T, dS K), K3 4 (the
+# same two scores, P^T dO, dS^T Q)
+GEMMS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
+def attended_pairs(S: int, causal: bool, block_mask=None) -> int:
+    """How many (query, key) pairs a row block attends: all, the causal
+    triangle, or the live elements of a block mask (ANDed with causal)."""
+    if block_mask is not None:
+        return int(attended(S, causal, block_mask).sum())
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def kernel_cost(kernel: str, B: int, S: int, Hq: int, Hkv: int, hd: int,
+                esize: int, pairs: int) -> tuple:
+    """(operations, bytes) of one launch of ``kernel`` ("fwd", "dq",
+    "dkv"): ``GEMMS[kernel] * 2 * B * Hq * pairs * hd`` operations; bytes
+    with each input read once and each output written once (q-sized
+    tensors q, dO, out, dq; k/v-sized k, v, dk, dv; the fp32 lse/delta rows
+    [B, Hq, S])."""
+    q_bytes, kv_bytes, row_bytes = (esize * B * S * Hq * hd, esize * B * S * Hkv * hd,
+                                    4 * B * Hq * S)
+    nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,       # q,k,v -> out,lse
+              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,     # q,k,v,dO,lse,delta -> dq
+              "dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}[kernel]   # ... -> dk,dv
+    return GEMMS[kernel] * 2.0 * B * Hq * pairs * hd, float(nbytes)
+
+
+def _note_launch(name: str, kernel: str, q, k, causal: bool, block_mask) -> None:
+    if cost_sinks:
+        B, S, Hq, hd = q.shape
+        note_cost(name, *kernel_cost(kernel, B, S, Hq, k.shape[2], hd, q.element_size(),
+                                     attended_pairs(S, causal, block_mask)))
+
+
 def _check(q, k, v):
     if not (q.dim() == k.dim() == v.dim() == 4):
         raise ValueError("flash_attention takes q [B,S,Hq,hd], k/v [B,S,Hkv,hd]")
@@ -387,6 +423,7 @@ def _launch(q, k, v, causal: bool, sm_scale: float, block_mask=None):
         raise RuntimeError("flash_attention_fwd launch failed: "
                            + _error_string(lib, err))
     flash_attention.launches += 1
+    _note_launch("flash_attention", "fwd", q, k, causal, block_mask)
     return out, lse
 
 
@@ -429,6 +466,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
         raise RuntimeError("flash_attention_bwd_dq launch failed: "
                            + _error_string(lib, err))
     flash_attention_bwd_dq.launches += 1
+    _note_launch("flash_attention_bwd_dq", "dq", q, k, causal, block_mask)
     return dq
 
 
@@ -460,6 +498,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
         raise RuntimeError("flash_attention_bwd_dkv launch failed: "
                            + _error_string(lib, err))
     flash_attention_bwd_dkv.launches += 1
+    _note_launch("flash_attention_bwd_dkv", "dkv", q, k, causal, block_mask)
     return dk, dv
 
 

@@ -389,6 +389,51 @@ class ResilienceConfig:
     watchdog: Optional[Dict[str, Any]] = None
 
 
+@dataclasses.dataclass
+class TensorBoardConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class WandbConfig:
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+@dataclasses.dataclass
+class CSVConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class MonitorConfig:
+    """The monitor backends (``monitor/monitor.py``)."""
+    tensorboard: TensorBoardConfig = dataclasses.field(default_factory=TensorBoardConfig)
+    wandb: WandbConfig = dataclasses.field(default_factory=WandbConfig)
+    csv_monitor: CSVConfig = dataclasses.field(default_factory=CSVConfig)
+
+    @property
+    def enabled(self) -> bool:
+        return self.tensorboard.enabled or self.wandb.enabled or self.csv_monitor.enabled
+
+
+@dataclasses.dataclass
+class FlopsProfilerConfig:
+    """``flops_profiler`` block (``profiling/flops_profiler``)."""
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
 class DeepSpeedConfigError(Exception):
     pass
 
@@ -454,6 +499,10 @@ class DeepSpeedConfig:
             CurriculumLearningLegacyConfig, config.get("curriculum_learning", {}))
         self.data_efficiency = config_from_dict(DataEfficiencyConfig,
                                                 config.get("data_efficiency", {}))
+        self.monitor_config = config_from_dict(MonitorConfig, {
+            k: v for k, v in config.items() if k in ("tensorboard", "wandb", "csv_monitor")})
+        self.flops_profiler = config_from_dict(FlopsProfilerConfig,
+                                               config.get("flops_profiler", {}))
 
         self.gradient_accumulation_steps: Optional[int] = config.get(
             C.GRADIENT_ACCUMULATION_STEPS)
@@ -475,10 +524,6 @@ class DeepSpeedConfig:
             if cond:
                 todo.append(f"{what} (ROADMAP queue 1, item {item})")
 
-        need("compression_training" in cfg, "compression_training", 11)
-        need(any(_enabled(cfg, k) for k in ("tensorboard", "wandb", "csv_monitor")),
-             "monitor backends", 11)
-        need(_enabled(cfg, "flops_profiler"), "flops profiler", 11)
         need(_enabled(cfg, "resilience", "watchdog"), "hang watchdog", 12)
         need(_enabled(cfg, "elasticity"), "elasticity", 13)
         if todo:

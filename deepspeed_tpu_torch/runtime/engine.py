@@ -103,9 +103,17 @@ to the scheduled length), random-LTD (the loss swapped to a model variant
 at each new kept count), the metric curricula (the loader's samplers) and
 ``compute_eigenvalue``; any optimizer of ``runtime/optimizer.py``, LAMB's
 norms summed over the pieces of a leaf a rank holds (``_leaf_axes``).
+Compression training (``compression/``, ``wire_compression``): each step
+transforms the compute tree outside the gradient, which is then taken at
+the transformed tree, as the JAX engine's ``compute_tree`` does; a leaf a
+rank holds a piece of takes its statistics over the whole leaf
+(``_compressed``); activation fake-quant runs in the model.  The
+monitors (``monitor/``) receive each step's events, and the flops
+profiler (``profiling/``) counts the step at ``profile_step``.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: a 'pipe' axis with tensor, sequence or expert axes or with ZeRO
-stage 3, MoE on a 'seq' axis (item 9, left).
+stage 3, MoE on a 'seq' axis (item 9, left); compression with a 'pipe'
+or 'expert' axis above 1 (item 11, left).
 """
 from __future__ import annotations
 
@@ -126,7 +134,8 @@ from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import (tree_flatten_with_path, tree_leaves, tree_map,
                           tree_unflatten_like)
 from .config import DeepSpeedConfig
-from .features import wire_curriculum, wire_progressive_layer_drop, wire_random_ltd
+from .features import (wire_compression, wire_curriculum, wire_flops_profiler,
+                       wire_progressive_layer_drop, wire_random_ltd)
 from .fp16.loss_scaler import (LossScaleState, dynamic_loss_scale_state,
                                grads_finite, no_loss_scale_state, scale_loss,
                                static_loss_scale_state, update_scale)
@@ -242,6 +251,10 @@ class DeepSpeedEngine:
                  lr_scheduler: Optional[Callable[[int], float]] = None,
                  training_data: Any = None, device=None, mesh=None,
                  param_specs: Any = None, mpu=None):
+        from ..utils.init_on_device import ENGINE_REFUSAL, current_on_device
+
+        if current_on_device() is not None:
+            raise RuntimeError(ENGINE_REFUSAL)
         # -- model contract resolution --
         self.model = model
         self._eval_fn = self._loss_terms = None
@@ -315,6 +328,20 @@ class DeepSpeedEngine:
                 dict(opt_cfg.params) if opt_cfg else {}, self.lr_schedule,
                 self.config.gradient_clipping, frozen_mask=self._frozen_mask)
 
+        # -- compression (QAT / pruning transform on the compute tree,
+        #    activation fake-quant in the model) --
+        wire_compression(self, model)
+        if self._compression_transform is not None:
+            if self.pipelined and getattr(model.config, "pipeline_schedule",
+                                          "gpipe") == "1f1b":
+                raise NotImplementedError(
+                    "pipeline_schedule='1f1b' + compression_training: the "
+                    "manual executor differentiates the raw params")
+            if self.pp > 1 or self.ep > 1:
+                raise NotImplementedError(
+                    "compression_training with a 'pipe' or 'expert' axis above 1: "
+                    "a leaf those axes cut would take its statistics over this "
+                    "rank's stages or experts only (ROADMAP queue 1, item 11, left)")
         self._check_compression(optimizer)
         # -- optional training features (runtime/features.py) --
         wire_progressive_layer_drop(self)
@@ -338,6 +365,12 @@ class DeepSpeedEngine:
                                 if self.partition is not None else
                                 sum(x.numel() for x in tree_leaves(self.state.params)))
         self._leafwise = optimizer is None and self._frozen_mask is None
+        if self._compression_transform is not None and (
+                not self.use_master_weights
+                or (self.partition is not None and self.partition.zeropp is not None)):
+            raise NotImplementedError(
+                "compression_training with fp32 compute / ZeRO++ "
+                "quantized gather is not supported yet")
 
         # -- bookkeeping --
         self.global_steps = 0
@@ -361,7 +394,9 @@ class DeepSpeedEngine:
         self._pending_ckpt_thread = None
         self._async_ckpt_error = None
         self._data_iterator = None
+        wire_flops_profiler(self)
         self.training_dataloader = self._build_dataloader(training_data)
+        self.monitor = self._build_monitor()
         log_dist(
             f"engine ready: params={self.param_count:,} zero_stage={self.zero_stage} "
             f"dtype={self.compute_dtype} device={self.device} "
@@ -663,8 +698,15 @@ class DeepSpeedEngine:
         with the JAX engine's refusals of what does not compose."""
         from .zero.infinity import InfinityParamEngine
 
+        if self._compression_transform is not None:
+            raise NotImplementedError(
+                "offload_param + compression_training: unsupported")
         if self._compression is not None:
             raise NotImplementedError("offload_param + 1-bit optimizers: unsupported")
+        if self.config.flops_profiler.enabled:
+            raise NotImplementedError(
+                "offload_param + flops_profiler: the profiler hooks the "
+                "fused jitted step, which this path replaces")
         zoo = self.config.zero_config.offload_optimizer
         if zoo is not None and zoo.device != "none":
             raise NotImplementedError(
@@ -730,6 +772,11 @@ class DeepSpeedEngine:
                     "a locally-drifted update is undefined)")
             if zoo is not None:
                 raise NotImplementedError("ZeroOneAdam + optimizer offload: unsupported")
+            if self._compression_transform is not None:
+                raise NotImplementedError(
+                    "ZeroOneAdam + compression_training: the in-region "
+                    "update differentiates the raw masters and would "
+                    "silently skip the QAT/pruning transform")
             self._compression = {"algo": "zo", "hyper": opt_params}
             return
         self._compression = {"algo": "ef",
@@ -757,12 +804,17 @@ class DeepSpeedEngine:
         mode = resolve_offload_mode(self.config, self.dp_world,
                                     use_master_weights=has_masters,
                                     fp16_enabled=self.fp16_enabled,
-                                    has_compression=False)
+                                    has_compression=self._compression_transform is not None)
         if mode in ("host_step", "nvme"):
             if not has_masters:
                 raise ValueError("optimizer offload requires bf16/fp16 "
                                  "compute (fp32 params have no separate masters "
                                  "to offload)")
+            if self._compression_transform is not None:
+                raise NotImplementedError(
+                    "compression_training with host-stepped optimizer offload is "
+                    "not supported: the grad-only step differentiates the raw "
+                    "params and would silently skip the QAT/pruning transform")
             if self._frozen_mask is not None:
                 raise NotImplementedError(
                     "model.frozen_spec does not compose with optimizer "
@@ -909,11 +961,53 @@ class DeepSpeedEngine:
         leaves = tree_leaves(self.state.params)
         if self.partition is not None:
             leaves = self.partition.work_leaves(leaves, self._master_leaves())
+        if self._compression_transform is not None:
+            leaves = self._compressed(leaves)
         mask = (tree_leaves(self._frozen_mask) if self._frozen_mask is not None
                 else [False] * len(leaves))
         return tree_unflatten_like(self.state.params, [
             p.detach() if m else p.detach().requires_grad_()
             for p, m in zip(leaves, mask)])
+
+    def _compressed(self, leaves: list) -> list:
+        """The compression transform of the compute leaves at this step
+        (the JAX engine's ``compute_tree``: applied outside the gradient,
+        which is then taken with respect to the transformed tree).  A leaf
+        this rank holds a piece of (ZeRO-3, the 'model' axis) takes the
+        operations' operands over the whole leaf, gathered, and applies
+        them to its piece, so the statistics and thresholds are the whole
+        leaf's."""
+        from ..compression.compress import apply_op
+
+        tf, part, step = self._compression_transform, self.partition, self.state.step
+        paths = [p for p, _ in tree_flatten_with_path(self.state.params)]
+        specs = part.placements("param") if part is not None else None
+        out = []
+        with torch.no_grad():
+            for i, (path, x) in enumerate(zip(paths, leaves)):
+                if not tf.touches(path, x.ndim):
+                    out.append(x)
+                elif part is None:
+                    out.append(tf.apply_leaf(path, x, step))
+                else:
+                    spec = specs[i]
+                    whole = part.whole_true(i, spec, x)
+                    for op in tf.leaf_ops(path, whole, step):
+                        pieces = tuple(self._piece_operand(i, spec, t, whole.shape,
+                                                           scale=j == 0 and op[0] == "quant")
+                                       for j, t in enumerate(op[-1]))
+                        x = apply_op(op[:-1] + (pieces,), x)
+                    out.append(x)
+        return out
+
+    def _piece_operand(self, i: int, spec, t, shape, scale: bool):
+        """This rank's piece of an operand broadcast over the whole leaf
+        (a per-tensor statistic broadcasts as it is; a quantization scale's
+        padding is 1, so a padded zero weight stays 0)."""
+        if t is None or t.numel() == 1:
+            return t
+        piece = self.partition.piece_of_true(i, spec, t.expand(shape))
+        return torch.where(piece == 0, torch.ones_like(piece), piece) if scale else piece
 
     def _master_leaves(self):
         masters = self.state.master_params
@@ -1346,12 +1440,36 @@ class DeepSpeedEngine:
             log_dist(f"step {self.global_steps}: grad overflow, step skipped; "
                      f"loss scale -> {self.state.scaler.loss_scale}", ranks=[0])
         self.tput_timer.stop()
+        self._emit_monitor_events(metrics)
         if self.global_steps % self.config.steps_per_print == 0:
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
                      f"lr={self.get_current_lr():.3e}, "
                      f"loss={float(metrics['loss']):.4f}, "
                      f"grad_norm={self._last_grad_norm:.3f}", ranks=[0])
         return metrics
+
+    def _build_monitor(self):
+        if not self.config.monitor_config.enabled:
+            return None
+        from ..monitor.monitor import MonitorMaster
+
+        return MonitorMaster(self.config.monitor_config)
+
+    def _emit_monitor_events(self, metrics) -> None:
+        """The JAX engine's training events (the live ``train/tflops_est``
+        and ``train/mfu_est`` gauges read per-program accounting, ROADMAP
+        queue 1, item 12)."""
+        if self.monitor is None:
+            return
+        events = [("Train/Samples/train_loss", float(metrics["loss"]), self.global_steps),
+                  ("Train/Samples/lr", self.get_current_lr(), self.global_steps)]
+        if self.fp16_enabled and "loss_scale" in metrics:
+            events.append(("Train/Samples/loss_scale",
+                           float(metrics["loss_scale"]), self.global_steps))
+        if self.progressive_layer_drop is not None:
+            events.append(("Train/Samples/pld_theta",
+                           self.progressive_layer_drop.get_theta(), self.global_steps))
+        self.monitor.write_events(events)
 
     # ------------------------------------------------------------------
     # Public API
@@ -1401,6 +1519,22 @@ class DeepSpeedEngine:
         self.tput_timer.start()
         if self._param_offload is not None:
             return self._train_batch_param_offload(global_batch)
+        fp = self.config.flops_profiler
+        if self.flops_profiler is not None and self.global_steps + 1 == fp.profile_step:
+            self.flops_profiler.start_profile()
+            try:
+                loss = self._train_window(global_batch)
+            finally:
+                self.flops_profiler.stop_profile()
+            self.flops_profiler.print_model_profile(
+                profile_step=fp.profile_step, module_depth=fp.module_depth,
+                top_modules=fp.top_modules, detailed=fp.detailed,
+                output_file=fp.output_file)
+            return loss
+        return self._train_window(global_batch)
+
+    def _train_window(self, global_batch) -> torch.Tensor:
+        """The step's forward/backward over the window and its update."""
         if self.pipelined:
             return self._train_batch_pipelined(global_batch)
         work = self._work_tree()
@@ -1428,6 +1562,8 @@ class DeepSpeedEngine:
         self.micro_steps += self.gas
         self._last_grad_norm = float(metrics["grad_norm"])
         self.tput_timer.stop()
+        metrics["loss"] = loss
+        self._emit_monitor_events(metrics)
         return loss
 
     def _train_batch_pipelined(self, global_batch) -> torch.Tensor:
@@ -1501,6 +1637,10 @@ class DeepSpeedEngine:
             params = tree_leaves(self.state.params)
             if self.partition is not None:
                 params = self.partition.work_leaves(params, self._master_leaves())
+            if self._compression_transform is not None:
+                # the same quantized/pruned view training optimizes, or
+                # validation metrics overstate the compressed model
+                params = self._compressed(params)
             return self._micro_loss(tree_unflatten_like(self.state.params, params),
                                     tree_map(self._to_device, batch),
                                     deterministic=True)[1]

@@ -237,7 +237,14 @@ class PipelineModule(nn.Module):
                 tp=None, cuts=None, dtype=None):
         """The layers' parameters from ``generator`` (stacked ``[P, ...]``
         over the stages when ``num_stages > 1``); ``cuts`` keeps this
-        rank's stages of a 'pipe' axis."""
+        rank's stages of a 'pipe' axis.  Inside an active ``OnDevice``
+        the context's device and dtype apply."""
+        from ...utils.init_on_device import on_device_init
+
+        return on_device_init(self._init_impl)(generator, device=device, tp=tp,
+                                               cuts=cuts, dtype=dtype)
+
+    def _init_impl(self, generator=None, device=None, tp=None, cuts=None, dtype=None):
         from ...accelerator import resolve_device
 
         device = resolve_device(device if device is not None or generator is None

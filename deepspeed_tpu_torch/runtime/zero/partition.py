@@ -280,6 +280,12 @@ class ZeroPartition:
         self._dims = {"param": self.pdims, "master": self.mdims, "rest": self.rdims}
 
     # -- placement helpers ------------------------------------------------
+    def placements(self, which: str) -> list:
+        """Each leaf's placements: of the compute params (``"param"``) or
+        of the masters (``"master"``)."""
+        specs = self.plan.param_specs if which == "param" else self.plan.master_specs
+        return _leaf_list(self.template, specs)
+
     def dims_tree(self, which: str) -> Any:
         return tree_unflatten_like(self.template, list(self._dims[which]))
 

@@ -1061,6 +1061,39 @@ def prog_lora(config: dict, base_np, lora_np, batches, prompts, max_new: int):
                                     else engine.state.params)}
 
 
+def prog_compress_view(cases: list, params_np):
+    """Each case: the compressed compute tree a step differentiates, each
+    leaf gathered whole (collective), by path, in fp32."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    out = []
+    for case in cases:
+        engine = _engine(case, params_np)
+        part, leaves = engine.partition, tree_leaves(engine._work_tree())
+        specs = part.placements("param")
+        paths = list(_flat(engine.state.params))
+        out.append({p: part.whole_true(i, specs[i], x.detach()).float().numpy()
+                    for i, (p, x) in enumerate(zip(paths, leaves))})
+        del engine
+    return out
+
+
+def prog_replicas(tree_np, bad_rank: int, bad_leaf: str):
+    """``utils.debug.assert_replicas_consistent`` over the world on a tree
+    every rank builds alike, but for one leaf on ``bad_rank`` (none when
+    ``bad_rank`` < 0): ("ok", checksums) or ("raised", message)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils.debug import assert_replicas_consistent
+
+    tree = {k: torch.from_numpy(v.copy()) for k, v in tree_np.items()}
+    if comm.get_rank() == bad_rank:
+        tree[bad_leaf].view(-1)[0] += 1
+    try:
+        return "ok", assert_replicas_consistent(tree, name="probe")
+    except RuntimeError as e:
+        return "raised", str(e)
+
+
 PROGRAMS = {"item10": prog_item10, "infinity": prog_infinity, "sparse": prog_sparse,
             "lora": prog_lora, "quant_coll": prog_quant_coll,
             "onebit_coll": prog_onebit_coll, "comm": prog_comm, "moe_infer": prog_moe_infer, "train": prog_train, "checkpoint": prog_checkpoint,
@@ -1068,7 +1101,8 @@ PROGRAMS = {"item10": prog_item10, "infinity": prog_infinity, "sparse": prog_spa
             "routing": prog_routing, "generate": prog_generate, "generic": prog_generic,
             "subset": prog_subset, "multi": prog_multi, "sp_gate": prog_sp_gate,
             "hf_load": prog_hf_load, "quant_tp": prog_quant_tp,
-            "serve_extras": prog_serve_extras}
+            "serve_extras": prog_serve_extras, "compress_view": prog_compress_view,
+            "replicas": prog_replicas}
 
 
 def main() -> int:

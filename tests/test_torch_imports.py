@@ -76,7 +76,15 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.runtime.data_pipeline.data_routing, "
             "deepspeed_tpu_torch.runtime.eigenvalue, "
             "deepspeed_tpu_torch.runtime.sparse_tensor, "
-            "deepspeed_tpu_torch.runtime.hybrid_engine\n"
+            "deepspeed_tpu_torch.runtime.hybrid_engine, "
+            "deepspeed_tpu_torch.compression, deepspeed_tpu_torch.compression.compress, "
+            "deepspeed_tpu_torch.compression.prune, deepspeed_tpu_torch.compression.quantize, "
+            "deepspeed_tpu_torch.profiling, deepspeed_tpu_torch.profiling.flops_profiler, "
+            "deepspeed_tpu_torch.profiling.flops_profiler.profiler, "
+            "deepspeed_tpu_torch.autotuning, deepspeed_tpu_torch.autotuning.autotuner, "
+            "deepspeed_tpu_torch.monitor, deepspeed_tpu_torch.monitor.monitor, "
+            "deepspeed_tpu_torch.utils.debug, deepspeed_tpu_torch.utils.init_on_device, "
+            "deepspeed_tpu_torch.utils.compile_counter\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),

@@ -783,3 +783,54 @@ def test_pipeline_virtual_stages_match_unpipelined(cuda, schedule):
     torch.testing.assert_close(torch.tensor(out["pipe"][0]), torch.tensor(out["plain"][0]),
                                rtol=1e-5, atol=0)
     torch.testing.assert_close(out["pipe"][1], out["plain"][1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+def test_profiled_step_counts_the_kernels_per_launch(cuda):
+    """The flops profiler at a bf16 train step through K1-K3 (``remat``: K1
+    twice a layer): the kernels' products over the causal pairs, counted
+    by hand, added per launch, every matmul 2*M*K*N forward and twice that
+    backward, and the recompute of the layers but w_down, exactly."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    S = 2048
+    model = CausalLM("tiny", dtype=torch.bfloat16, remat=True, max_seq_len=S,
+                     hidden_size=256, num_heads=2, intermediate_size=512)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_batch_size": 1, "bf16": {"enabled": True},
+        "flops_profiler": {"enabled": True, "profile_step": 1}})
+    engine.train_batch(batch={"input_ids": torch.randint(0, 256, (1, S), device="cuda")})
+    cfg = model.config
+    L, d, f = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    layers = 2 * S * L * (4 * d * d + 3 * d * f)
+    head = 2 * S * d * cfg.vocab_size
+    # K1 twice a layer (2 products a pair), K2 (3) and K3 (4) once
+    kern = (2 * 2 + 3 + 4) * 2.0 * cfg.num_heads * (S * (S + 1) // 2) * cfg.dims_per_head * L
+    got = engine.flops_profiler.as_dict()
+    assert got["kernel_flops"] == kern
+    assert got["flops"] == 3 * (layers + head) + layers - 2 * S * L * f * d + kern
+
+
+@pytest.mark.gpu
+def test_compile_counter_counts_the_decode_capture(cuda):
+    """The paged server captures its decode step once at build: the
+    compile counter moves by the captures its program inventory counts."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import Request
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.utils.compile_counter import compile_counter
+
+    count = compile_counter()
+    model = CausalLM("tiny", dtype=torch.bfloat16, hidden_size=256, num_heads=2)   # hd 128
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16"},
+        params=model.init_fn(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16))
+    before = count()
+    sv = eng.serving(b_slots=2, page_size=8, max_model_len=64)
+    built = count() - before
+    sv.run([Request(0, input_ids=np.arange(1, 9), max_new_tokens=6)])
+    assert built == sv.program_inventory()["captures"] == 1
+    assert count() - before == 1      # the run replays, it captures nothing

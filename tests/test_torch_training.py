@@ -364,14 +364,29 @@ def test_dataloader_and_batch_forms():
         fresh[0].train_batch(batch={"input_ids": micro[0]["input_ids"][:1]})
 
 
+# item 11's tooling half is ported: its blocks now build their feature on
+# the engine (the attribute each wires); the rest still raise
+PORTED_OPTIONS = {"compression_training": "_compression_transform",
+                  "tensorboard": "monitor", "flops_profiler": "flops_profiler"}
+
+
 @pytest.mark.parametrize("option", [
     {"compression_training": {}},
     {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"resilience": {"watchdog": {"enabled": True}}},
 ], ids=lambda o: "-".join(str(k) for k in o))
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
     cfg = {"train_batch_size": 2, **option}
+    key = next(iter(option))
+    if key in PORTED_OPTIONS:
+        if key == "tensorboard":
+            cfg["tensorboard"] = {"enabled": True, "output_path": str(tmp_path)}
+        eng, *_ = ds.initialize(model=CausalLM("tiny", dtype=torch.float32), config=cfg,
+                                device="cpu")
+        # an empty compression block wires nothing, as in the JAX engine
+        assert (getattr(eng, PORTED_OPTIONS[key]) is None) == (key == "compression_training")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ds.initialize(model=CausalLM("tiny", dtype=torch.float32), config=cfg,
                       device="cpu")
