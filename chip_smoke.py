@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only offload zeropp_onebit  # the build, then these phases
     python3 chip_smoke.py --only train_extras lora_hybrid
     python3 chip_smoke.py --only tooling
+    python3 chip_smoke.py --only observability
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -170,8 +171,9 @@ one JSON line each; any failure exits non-zero with no result line:
    S=4096, its optimizer state in host RAM through the host step, 3 steps
    on one card: step, host Adam and transfer rates, device peak under 80
    GB, host RSS; layers cut to what host RAM holds, the cut printed; then
-   the train cell through the device engine, ``host_step``, ``streamed``,
-   NVMe and ZeRO-Infinity from one seed and batch: the first loss equal,
+   the train cell cut to OFFLOAD_740M_LAYERS layers through the device
+   engine, ``host_step``, ``streamed``, NVMe and ZeRO-Infinity from one
+   seed and batch: the first loss equal,
    masters within OFFLOAD_MASTER_RTOL after step 1, NVMe and Infinity
    resume bit-exact) and ``zeropp_onebit`` (the train cell at NCCL world
    1: qwZ + qgZ against plain ZeRO-3 within JAX's bound with every
@@ -210,12 +212,32 @@ one JSON line each; any failure exits non-zero with no result line:
    monitors read back; the autotuner over AUTOTUNE_SPACE, micro-batch 16
    ending as ``compile_oom``, then a step; llama2-7b under
    ``OnDevice(device="meta")``: no byte on the card), ``--only tooling``
-   alone after the build;
+   alone after the build; then ``observability`` (ROADMAP item 12): its
+   serving part runs right after the paged serving path on that engine and
+   stream (monitor, watchdog, one SLO rule that must fire and one that must
+   not, program statistics sampled every OBS_SAMPLE_EVERY-th invocation,
+   ``/metrics`` scraped on an ephemeral 127.0.0.1 port, a ``torch.profiler``
+   window over OBS_SERVE_WINDOW working ticks: tokens equal to the plain
+   run's, one capture, decode invocations = ticks, the decode program's
+   counted FLOP = one eager decode step's with K4's cost sink = this
+   script's ``decode_work``; its ticks held beside phase paged_serving's
+   plain rerun of the stream); its train part after ``tooling`` (the train
+   cell with an
+   ``InMemoryMonitor``, the watchdog at OBS_WATCHDOG_S and
+   ``DS_TPU_PEAK_TFLOPS=989``, OBS_STEPS steps: ``train_step``'s counted
+   FLOP = the flops profiler's, the last ``train/tflops_est`` within
+   OBS_TFLOPS_RTOL of FLOP over the median step, ``train/mfu_est`` =
+   that over 989; a trace window whose middle OBS_WINDOW_STEPS steps each
+   hold 2L/L/L K1/K2/K3 kernel events launched inside their ``train.batch``;
+   the step with the hooks off and on in turns), beside three children (``--watchdog-child``) that arm a 2 s
+   watchdog around a 10 s device sleep and a ``synchronize``, a host copy
+   or an NCCL barrier and must exit 85 within 15 s; ``--only
+   observability`` builds its own llama2-7b engine and plain run first;
 11. with ``--profile`` only: ``torch.profiler`` device time by kernel for
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
 12. the ``kernels`` line: per kernel its launches on its main path (and on
-   the MoE, pipeline, offload, item 11 and tooling paths), error against the plain version, times
+   the MoE, pipeline, offload, item 11, tooling and observability paths), error against the plain version, times
    and the bound from this run's shapes (K1-K3 with a ``block_mask``
    record from the sparse main case).
 
@@ -1188,18 +1210,24 @@ def decode_compare(got, ref, low, G, tol) -> dict:
     return out
 
 
-def decode_bound_ms(case, lengths, int8: bool = False) -> tuple:
-    """Least time for K4's work on these inputs: the K/V bytes of the
-    attended rows (int8: one byte an element plus the two fp32 scales of
-    each row) plus q, out and the mask (and the page table), against 4 *
-    attended * Hq * hd operations (q.k and p.v) at the dtype's peak."""
+def decode_work(case, lengths, int8: bool = False) -> tuple:
+    """(operations, bytes) of K4's work on these inputs: 4 * attended * Hq
+    * hd operations (q.k and p.v); the K/V bytes of the attended rows
+    (int8: one byte an element plus the two fp32 scales of each row) plus
+    q, out and the mask (and the page table)."""
     label, B, Hq, Hkv, hd, dtype, page, maxp = case
     esize = torch.tensor([], dtype=dtype).element_size()
     attended = sum(n + 1 for n in lengths)
     kv = (2 * attended * (Hkv * hd + 4) if int8
           else 2 * attended * Hkv * hd * esize)
     nbytes = (kv + 2 * B * Hq * hd * esize + 4 * B * page * maxp + 4 * B * maxp)
-    return _bound(4.0 * attended * Hq * hd, nbytes, dtype)
+    return 4.0 * attended * Hq * hd, float(nbytes)
+
+
+def decode_bound_ms(case, lengths, int8: bool = False) -> tuple:
+    """Least time for K4's work on these inputs (``decode_work``) at the
+    dtype's peak or the memory rate."""
+    return _bound(*decode_work(case, lengths, int8), case[5])
 
 
 def decode_lengths(case, seed: int) -> list:
@@ -3478,12 +3506,18 @@ def phase_serving(seed: int, profile: bool):
     del tokens
     free_memory()
     paged, first, stream = phase_paged_serving(engine, params, seed, profile)
+    # phase observability's serving part, on this engine and stream
+    t0 = time.perf_counter()
+    obs = observability_serving(engine, seed, stream, first, paged["rerun_run"])
+    obs["part_seconds"] = time.perf_counter() - t0
+    emit({"phase": "observability/serving", "seconds": obs["part_seconds"]})
     phase_serve_tp(engine, params, seed, stream, first)
     item6 = {"hf_load": phase_hf_load(engine, params, seed, stream, first),
              "quantized": phase_quantized(engine, params, seed, stream),
              "generate_fallback": phase_generate_fallback(engine, params, seed)}
     item6["serving_extras"] = phase_serving_extras(engine, params, seed, stream,
                                                    first, paged)
+    item6["observability"] = obs
     del engine, params
     free_memory()
     return launches, paged, item6
@@ -3494,11 +3528,14 @@ def _percentile(xs, q):
     return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
 
 
-def _serve_once(engine, stream, label, shared=True, **serve_kw):
+def _serve_once(engine, stream, label, shared=True, before_run=None, keep_ticks=False,
+                **serve_kw):
     """One fresh ServingEngine over the stream (``serve_kw``: the serving
     extras); per-tick times by wrapping its decode tick (the tick ends in a
     host fetch of the tokens, so the host clock around it is the tick's
-    time).  ``shared``: the stream's shared prefix must be shared."""
+    time).  ``shared``: the stream's shared prefix must be shared;
+    ``before_run(sv)`` runs between the build and the run; ``keep_ticks``
+    keeps every tick's seconds in the record (``tick_s``)."""
     from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 
     torch.cuda.synchronize()
@@ -3517,6 +3554,8 @@ def _serve_once(engine, stream, label, shared=True, **serve_kw):
         tick_s.append(time.perf_counter() - t)
 
     sv._decode_tick = timed_tick
+    if before_run is not None:
+        before_run(sv)
     t0 = time.perf_counter()
     results = sv.run(list(stream))
     run_s = time.perf_counter() - t0
@@ -3542,6 +3581,8 @@ def _serve_once(engine, stream, label, shared=True, **serve_kw):
            "prefix_hits": sv.prefix_hits, "cow_copies": sv.cow_copies,
            "prefix_shared_tokens": sv.prefix_shared_tokens,
            "page_accounting": acct}
+    if keep_ticks:
+        rec["tick_s"] = tick_s
     cfg = engine.model.config
     spec = sv._spec
     captures = 1 + (spec.captures if spec is not None else 0)
@@ -3720,6 +3761,8 @@ def phase_paged_serving(engine, params, seed: int, profile: bool):
     free_memory()
     sv, second, rec2 = _serve_once(engine, stream, "rerun")
     emit(rec2)
+    # the plain run phase observability's instrumented run is held beside
+    launches["rerun_run"] = {key: rec2[key] for key in OBS_RUN_KEYS}
     same = all(np.array_equal(first[r], second[r]) for r in first)
     check(same, "the rerun of the stream served other tokens")
     if profile:
@@ -5240,7 +5283,9 @@ def phase_moe_train(seed: int) -> dict:
         check(engine.ep == 1 and engine.partition is not None,
               "the mesh engine is not data-parallel")
         batch = _train_batch(model.config, S, seed + 1)
+        torch.cuda.reset_peak_memory_stats()
         rec = _moe_train_step_record(engine, batch, per_step, "moe_train ep=1")
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         same = (rec["losses"] == ref["losses"] and rec["grad_norms"] == ref["norms"]
                 and all(torch.equal(m.cpu(), r) for m, r in zip(
                     tree_leaves(engine.state.master_params), ref["masters"])))
@@ -5473,6 +5518,11 @@ OFFLOAD_MODES = ("device", "host_step", "streamed", "nvme", "infinity")
 # disk bytes a parameter: NVMe state (12) and a checkpoint's copy (12) +
 # bf16 files (2)
 OFFLOAD_DISK_BYTES = 26
+# the 740m modes' depth: 2 of the cell's 16 layers keep the whole script
+# well inside its time limit on a slow host (the offload phase took 254 s
+# at 16 layers, 170-212 s at 8 and 170 s at 4 on a slower host, most of it
+# the NVMe and Infinity files, which scale with the layers)
+OFFLOAD_740M_LAYERS = 2
 ZPP_STEPS, ONEBIT_STEPS, ONEBIT_FREEZE = 3, 6, 2
 # ZeroOneAdam through all of its phases within ZO_STEPS steps: variance
 # steps at counts 1, 2 and 4, a 1-bit step at 3, the variance frozen after
@@ -5659,7 +5709,7 @@ def phase_offload_740m(seed: int) -> dict:
     cfg = get_config(TRAIN_MODEL)
     root = tempfile.mkdtemp(prefix="offload_")
     free = shutil.disk_usage(root).free
-    layers = _fit_layers(cfg, free * 0.8, OFFLOAD_DISK_BYTES)
+    layers = min(OFFLOAD_740M_LAYERS, _fit_layers(cfg, free * 0.8, OFFLOAD_DISK_BYTES))
     check(layers >= 1, f"{free / 1e9:.1f} GB free under {root} holds no layer")
     L = layers
     per_step = (2 * L, L, L)
@@ -5979,7 +6029,9 @@ EIG_FD_EPS, EIG_FD_REL = 3e-4, 2e-3
 # tile: median 0.88, worst 1.36 on the rows after it
 PREFILL_ROW_REL = 0.25
 LORA_MODEL, LORA_RANK, LORA_ALPHA, LORA_LR = "llama2-7b", 16, 32.0, 1e-3
-HYBRID_ROWS, HYBRID_PROMPT, HYBRID_NEW, HYBRID_ROUNDS = 4, 2048, 128, 3
+# two rounds: a generate on the base, a step, a generate on the fused tree,
+# a step, the last generate (the host-bound generates set the phase's time)
+HYBRID_ROWS, HYBRID_PROMPT, HYBRID_NEW, HYBRID_ROUNDS = 4, 2048, 128, 2
 
 
 class _AttentionLog:
@@ -6880,6 +6932,466 @@ def phase_tooling(seed: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Observability and resilience (ROADMAP item 12) on the train and serving
+# cells: per-program statistics and the live train/tflops_est and
+# train/mfu_est gauges, the device-trace window, SLO rules, /metrics, the
+# hang watchdog in the trainer, the serving engine and a child process
+# ---------------------------------------------------------------------------
+
+OBS_PEAK_TFLOPS = "989"                 # the card's bf16 peak (PEAK_FLOPS), as TFLOP/s
+OBS_WATCHDOG_S = 120.0
+OBS_STEPS, OBS_WINDOW_STEPS, OBS_TRAIN_TURNS = 6, 2, 3
+# the train window: OBS_WINDOW_STEPS steps held to their exact kernel
+# events, between one step at each edge of the window (reported, not
+# held): a whole-script run on an H100 saw the profiler keep 63 of a
+# window's 64 K1 events, a loss at an edge of the capture
+OBS_WINDOW_EDGE = 1
+OBS_TFLOPS_RTOL = 0.10                  # last train/tflops_est against FLOP / median step
+OBS_SAMPLE_EVERY = 10
+OBS_SERVE_WINDOW = 3                    # working ticks in the serving trace window
+# the child: a 2 s watchdog around a ~10 s device sleep and one blocking
+# wait; it must exit RC_HANG within 15 s of arming
+OBS_CHILD_WATCHDOG_S, OBS_CHILD_SLEEP_S, OBS_CHILD_LIMIT_S = 2.0, 10.0, 15.0
+OBS_WAITS = ("synchronize", "cpu_copy", "nccl_barrier")
+OBS_RUN_KEYS = ("mean_decode_tick_ms", "median_decode_tick_ms", "run_s",
+                "output_tok_per_s", "engine_build_s", "ttft_p50_s", "ttft_p99_s")
+OBS_KERNEL_SYMBOLS = {"K1": "flash_fwd_wgmma_kernel", "K2": "flash_bwd_dq_kernel",
+                      "K3": "flash_bwd_dkv_kernel", "K4": "decode_attention_kernel"}
+
+
+def watchdog_child(wait: str) -> int:
+    """Arm a HangWatchdog of OBS_CHILD_WATCHDOG_S around a device sleep of
+    ~OBS_CHILD_SLEEP_S and then one blocking wait (``wait``: a
+    ``torch.cuda.synchronize``, the host copy of a tensor the sleep's stream
+    writes, or an NCCL barrier queued behind the sleep).  The watchdog's
+    daemon thread can only run if the blocked call released the GIL; then
+    it exits the process with RC_HANG.  Prints the arming time first."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.resilience import HangWatchdog
+
+    torch.cuda.set_device(0)
+    # released by the parent when the card is free to share: until then
+    # nothing here touches CUDA (an end of input without the word: exit)
+    if sys.stdin.readline().strip() != "go":
+        return 0
+    t_go = time.time()
+    x = torch.zeros(1024, device="cuda")
+    if wait == "nccl_barrier":
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                rank=0, world_size=1)
+        dist.barrier()          # the communicator exists before the window
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(int(1e8))
+    end.record()
+    end.synchronize()
+    cycles_per_s = 1e8 / (start.elapsed_time(end) / 1e3)
+    wd = HangWatchdog(timeout_s=OBS_CHILD_WATCHDOG_S, poll_s=0.02)
+    label = f"device wait {wait}"
+    print(json.dumps({"armed_epoch": time.time(), "released_epoch": t_go,
+                      "cycles_per_s": cycles_per_s}), flush=True)
+    with wd.armed(label):
+        torch.cuda._sleep(int(cycles_per_s * OBS_CHILD_SLEEP_S))
+        if wait == "synchronize":
+            torch.cuda.synchronize()
+        elif wait == "cpu_copy":
+            x.add_(1).cpu()
+        else:
+            dist.barrier()
+    # reached only if the wait returned before the watchdog could exit
+    print(json.dumps({"returned_epoch": time.time()}), flush=True)
+    return 0
+
+
+_OBS_CHILDREN: dict = {}   # wait -> (start epoch, Popen), between the two parts
+
+
+def _start_watchdog_children() -> None:
+    """Start the children early (their imports overlap the serving part);
+    each waits for ``go`` on its input before it touches the card."""
+    for wait in OBS_WAITS:
+        _OBS_CHILDREN[wait] = (time.time(), subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--watchdog-child", wait],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+
+
+def _release_watchdog_children() -> None:
+    for _, p in _OBS_CHILDREN.values():
+        p.stdin.write("go\n")
+        p.stdin.flush()   # communicate() closes it
+
+
+def _join_watchdog_children() -> dict:
+    out = {}
+    children = dict(_OBS_CHILDREN)
+    _OBS_CHILDREN.clear()
+    for wait, (t0, p) in children.items():
+        try:
+            stdout, stderr = p.communicate(timeout=90)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        end = time.time()
+        lines = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+        armed = next((ln["armed_epoch"] for ln in lines if "armed_epoch" in ln), None)
+        released = next((ln["released_epoch"] for ln in lines if "released_epoch" in ln),
+                        None)
+        out[wait] = {"rc": p.returncode, "child_wall_s": end - t0,
+                     "exit_after_release_s": end - released if released else None,
+                     "exit_after_arming_s": end - armed if armed is not None else None,
+                     "returned_before_exit": any("returned_epoch" in ln for ln in lines),
+                     "report_names_label": f"'device wait {wait}'" in stderr,
+                     "stderr_tail": stderr.strip().splitlines()[-3:]}
+    return out
+
+
+def _trace_kernels(path: str, annotation: str, kernels) -> dict:
+    """Count ``kernels``' events (OBS_KERNEL_SYMBOLS) in a torch.profiler
+    Chrome trace, and how many of them lie inside an ``annotation`` range:
+    on the GPU timeline (``gpu_user_annotation``), or launched (by their
+    runtime call's correlation id) inside the CPU range."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {"gpu": [], "cpu": []}
+    launch_ts = {}
+    graph_launches = 0
+    for e in events:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if name == annotation and cat in ("gpu_user_annotation", "user_annotation"):
+            side = "gpu" if cat == "gpu_user_annotation" else "cpu"
+            ranges[side].append((e["ts"], e["ts"] + e.get("dur", 0)))
+        if cat in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launch_ts[corr] = e["ts"]
+            if "GraphLaunch" in name:
+                graph_launches += 1
+
+    def inside(ts, side, dur=0):
+        return any(lo <= ts and ts + dur <= hi for lo, hi in ranges[side])
+
+    cpu_ranges = sorted(ranges["cpu"])
+    out = {"annotations": {k: len(v) for k, v in ranges.items()},
+           "graph_launches": graph_launches,
+           # each annotation range's events, in order (by launch)
+           "per_range": [{key: 0 for key in kernels} for _ in cpu_ranges]}
+    for key in kernels:
+        sym = OBS_KERNEL_SYMBOLS[key]
+        ks = [e for e in events if e.get("cat") == "kernel" and sym in e.get("name", "")]
+        gpu = sum(inside(e["ts"], "gpu", e.get("dur", 0)) for e in ks)
+        cpu = 0
+        for e in ks:
+            ts = launch_ts.get((e.get("args") or {}).get("correlation"), -1)
+            i = next((i for i, (lo, hi) in enumerate(cpu_ranges) if lo <= ts <= hi), None)
+            if i is not None:
+                cpu += 1
+                out["per_range"][i][key] += 1
+        out[key] = {"events": len(ks), "inside_gpu_range": gpu,
+                    "launched_inside_cpu_range": cpu}
+    return out
+
+
+def observability_train(seed: int, profiler_flops=None) -> dict:
+    """The train cell with a monitor and the watchdog: ``train_step``'s
+    counted FLOP against the analytic count (and the flops profiler's, when
+    phase tooling ran), the live gauges against FLOP over the measured
+    step, a device-trace window of OBS_WINDOW_STEPS steps, then the step
+    with the hooks off and on in turns."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.monitor import InMemoryMonitor
+    from deepspeed_tpu_torch.observability import device_profiler as dp
+    from deepspeed_tpu_torch.observability.program_stats import PEAK_TFLOPS_ENV
+
+    S = TRAIN_SHAPE[1]
+    old_peak = os.environ.get(PEAK_TFLOPS_ENV)
+    os.environ[PEAK_TFLOPS_ENV] = OBS_PEAK_TFLOPS
+    trace_dir = tempfile.mkdtemp(prefix="obs_train_trace_")
+    try:
+        # the watchdog children run while the two engines are built
+        _release_watchdog_children()
+        model, on = _train_engine(seed, S, config_extra={"resilience": {"watchdog": {
+            "enabled": True, "timeout_s": OBS_WATCHDOG_S}}})
+        mon = on.monitor = InMemoryMonitor()
+        on._watchdog.monitor = mon
+        _, off = _train_engine(seed, S)
+        cfg = model.config
+        L = cfg.num_layers
+        batch = _train_batch(cfg, S, seed + 1)
+        t = time.perf_counter()
+        rec = {"watchdog_children": _join_watchdog_children()}
+        rec["watchdog_children_wait_s"] = time.perf_counter() - t
+        # the main path: counts to 0 just before, read just after
+        reset_counts()
+        losses, secs, per_step = _steps(on, batch, OBS_STEPS)
+        flops = on.program_catalog.flops_of("train_step")
+        analytic = _profile_analytic(model, S)["total"]
+        tf = mon.series("train/tflops_est")
+        mfu = mon.series("train/mfu_est")
+        med = statistics.median(secs[1:])
+        want = flops / med / 1e12
+        rec.update({"steps": OBS_STEPS, "step_s": secs, "losses": losses,
+                    "launches_per_step": per_step, "train_step_flops": flops,
+                    "analytic_flops": analytic, "profiler_flops": profiler_flops,
+                    "train_step_row": on.program_catalog.table()["train_step"],
+                    "tflops_est": tf, "mfu_est": mfu, "median_step_s": med,
+                    "flops_over_median_step_tflops": want,
+                    "last_tflops_est_rel_err": (abs(tf[-1][1] - want) / want if tf
+                                                else float("inf")),
+                    "watchdog_fired": on._watchdog.fired})
+        check(all(p == (2 * L, L, L) for p in per_step),
+              f"observability train steps launched K1/K2/K3 {per_step}")
+        check(abs(flops - analytic) / analytic <= PROFILE_RTOL,
+              f"train_step FLOP {flops} vs analytic {analytic}")
+        check(profiler_flops is None or flops == profiler_flops,
+              f"train_step FLOP {flops} != the flops profiler's {profiler_flops}")
+        check([s for s, _ in tf] == list(range(2, OBS_STEPS + 1))
+              and [s for s, _ in mfu] == list(range(2, OBS_STEPS + 1)),
+              f"gauges at steps {tf} / {mfu}")
+        check(rec["last_tflops_est_rel_err"] <= OBS_TFLOPS_RTOL,
+              f"train/tflops_est {tf[-1][1]} vs FLOP / median step {want}")
+        check(all(abs(m - v * 1e12 / (float(OBS_PEAK_TFLOPS) * 1e12)) <= 1e-12 * max(m, 1e-30)
+                  + 1e-15 for (_, m), (_, v) in zip(mfu, tf)),
+              f"train/mfu_est {mfu} != train/tflops_est / {OBS_PEAK_TFLOPS}")
+        check(not on._watchdog.fired, "the train watchdog fired")
+        # the device-trace window: OBS_WINDOW_STEPS steps between its edges
+        units = OBS_WINDOW_STEPS + 2 * OBS_WINDOW_EDGE
+        cap = dp.capture_device_trace(trace_dir, n_units=units)
+        check(cap is not None and cap.failed is None, "the train trace window did not start")
+        t = time.perf_counter()
+        _, win_s, win_steps = _steps(on, batch, units)
+        check(not cap.active and cap.trace_path is not None,
+              f"the window did not close after {units} steps: {cap.failed}")
+        window = _trace_kernels(cap.trace_path, "train.batch", ("K1", "K2", "K3"))
+        window.update(window_steps_s=win_s, window_s=time.perf_counter() - t,
+                      annotations_entered=cap.annotations,
+                      trace_mb=os.path.getsize(cap.trace_path) / 1e6)
+        rec["trace_window"] = window
+        check(window["annotations"]["cpu"] == units,
+              f"train.batch annotations in the window: {window['annotations']}")
+        held = window["per_range"][OBS_WINDOW_EDGE:OBS_WINDOW_EDGE + OBS_WINDOW_STEPS]
+        check(all(r == {"K1": 2 * L, "K2": L, "K3": L} for r in held),
+              f"trace window: K1/K2/K3 events a train.batch {window['per_range']}, "
+              f"expected {(2 * L, L, L)} in each of the middle {OBS_WINDOW_STEPS}")
+        # the hooks' cost: the same step, hooks off and on, in turns
+        _steps(off, batch, 1)
+        turns = {"off": [], "on": []}
+        for _ in range(OBS_TRAIN_TURNS):
+            turns["off"] += _steps(off, batch, 1)[1]
+            turns["on"] += _steps(on, batch, 1)[1]
+        rec["turns_step_s"] = turns
+        rec["turns_median_step_s"] = {k: statistics.median(v) for k, v in turns.items()}
+        on._watchdog.stop()
+        del on, off, model, batch
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        if old_peak is None:
+            os.environ.pop(PEAK_TFLOPS_ENV, None)
+        else:
+            os.environ[PEAK_TFLOPS_ENV] = old_peak
+        free_memory()
+    children = rec["watchdog_children"]
+    check(children["synchronize"]["rc"] == 85
+          and children["synchronize"]["exit_after_arming_s"] <= OBS_CHILD_LIMIT_S
+          and children["synchronize"]["report_names_label"],
+          f"the watchdog child blocked in torch.cuda.synchronize: {children['synchronize']}")
+    return rec
+
+
+def check_k4_cost() -> dict:
+    """K4's cost sink (``decode_cost``, from the launch's shapes) against
+    this script's own formula (``decode_work``) at the serving cell's decode
+    shape with every slot's keys attended, in bf16 and int8."""
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_cost
+
+    case = next(c for c in DECODE_CASES if c[0] == "serve")
+    _, B, Hq, Hkv, hd, dtype, page, maxp = case
+    esize = torch.tensor([], dtype=dtype).element_size()
+    full = [page * maxp - 1] * B
+    out = {}
+    for int8 in (False, True):
+        port = decode_cost(B, Hq, Hkv, hd, esize, page, maxp, page * maxp, int8=int8)
+        mine = decode_work(case, full, int8=int8)
+        check(port == mine, f"K4's cost sink {port} != decode_work {mine} (int8={int8})")
+        out["int8" if int8 else "bf16"] = {"flops": port[0], "bytes": port[1]}
+    return out
+
+
+def observability_serving(engine, seed: int, stream, first, plain: dict) -> dict:
+    """The serving cell with the monitor, the watchdog, two SLO rules (one
+    must fire, one must not), program statistics sampled every
+    OBS_SAMPLE_EVERY-th invocation and the /metrics endpoint on an
+    ephemeral 127.0.0.1 port, a device-trace window over its first
+    OBS_SERVE_WINDOW working ticks.  Its ticks after the window are held
+    beside ``plain``, the same stream's plain run before it on the same
+    engine (``first`` its tokens): the hooks' cost, in turns."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    from deepspeed_tpu_torch.monitor import InMemoryMonitor
+    from deepspeed_tpu_torch.observability import SloRule
+    from deepspeed_tpu_torch.observability import device_profiler as dp
+    from deepspeed_tpu_torch.observability import export
+    from deepspeed_tpu_torch.profiling.flops_profiler.profiler import CostCounter
+    from deepspeed_tpu_torch.resilience import HangWatchdog
+
+    _start_watchdog_children()
+    cfg = engine.model.config
+    L = cfg.num_layers
+    rec = {"k4_cost": check_k4_cost()}
+    trace_dir = tempfile.mkdtemp(prefix="obs_serve_trace_")
+    env = {export.METRICS_PORT_ENV: "0", export.METRICS_HOST_ENV: "127.0.0.1"}
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    caps = []
+
+    def instrumented(mon, wd=None):
+        return dict(monitor=mon, watchdog=wd, program_stats_sample_every=OBS_SAMPLE_EVERY,
+                    slo_rules=[SloRule.parse("serve/queue_depth < 0", name="must_fire"),
+                               SloRule.parse("serve/free_pages >= 0", name="must_not_fire")])
+
+    def arm(sv):
+        caps.append(dp.capture_device_trace(trace_dir, n_units=OBS_SERVE_WINDOW))
+
+    def restore_env():
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if export.get_metrics_server() is not None:
+            export.get_metrics_server().close()
+            export._METRICS_SERVER = None
+
+    try:
+        mon = InMemoryMonitor()
+        wd = HangWatchdog(timeout_s=OBS_WATCHDOG_S, monitor=mon)
+        reset_counts()
+        sv, outs, run = _serve_once(engine, stream, "observability", before_run=arm,
+                                    keep_ticks=True, **instrumented(mon, wd))
+        ticks = run.pop("tick_s")
+        ex = sv._exec
+        stats = sv.program_stats()
+        health = sv.health()
+        port = health["metrics_port"]
+        check(port is not None, "no /metrics endpoint under DS_TPU_METRICS_PORT=0")
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=30).read().decode()
+        # one eager decode step under the counter (every slot inactive: it
+        # writes only to the trash page): the K4 launches and their cost
+        ex._g_active.zero_()
+        with torch.no_grad(), CostCounter() as counter:
+            ex._decode_forward(ex._g_pt, ex._g_len, ex._g_tok, ex._g_active)
+        torch.cuda.synchronize()
+        eager = counter.cost()
+        cap = caps[0]
+        check(cap is not None and cap.failed is None and cap.trace_path is not None,
+              f"the serving trace window failed: {cap and cap.failed}")
+        window = _trace_kernels(cap.trace_path, "serve.decode", ("K4",))
+        decode = stats["decode"]
+        k4_flops = L * rec["k4_cost"]["bf16"]["flops"]
+        rec.update({
+            "run": {k: run[k] for k in ("run_s", "output_tok_per_s", "decode_ticks",
+                                        "mean_decode_tick_ms", "median_decode_tick_ms",
+                                        "graph_captures", "k4_counter", "engine_build_s",
+                                        "ttft_p50_s", "ttft_p99_s")},
+            "tokens_equal_uninstrumented": all(np.array_equal(outs[r], first[r])
+                                               for r in first),
+            "program_stats": stats, "alerts": health["alerts"],
+            "slo_states": sv.slo_states(), "metrics_port": port,
+            "scrape_has": {key: key in body for key in (
+                "dstpu_serve_tokens_per_sec", 'dstpu_serve_program_flops{program="decode"}',
+                'dstpu_alert{rule="must_fire"} 1', 'dstpu_alert{rule="must_not_fire"} 0')},
+            "decode_eager_cost": {k: eager[k] for k in (
+                "flops", "bytes accessed", "kernel_flops", "kernel_bytes",
+                "kernel_launches")},
+            "decode_sampled_mean_ms": 1e3 * decode.get("sampled_mean_s", float("nan")),
+            "decode_tick_median_ms": run["median_decode_tick_ms"],
+            "watchdog_fired": wd.fired, "trace_window": window,
+            "k4_in_window": ("kernel events inside the replays" if window["K4"]["events"]
+                             else "graph launches only")})
+        check(rec["tokens_equal_uninstrumented"],
+              "the instrumented run served other tokens than the plain run")
+        check(ex.captures == 1, f"captures {ex.captures}")
+        check(decode["invocations"] == ex.replays,
+              f"decode invocations {decode['invocations']} != ticks {ex.replays}")
+        check(eager["kernel_launches"] == {"decode": L}
+              and eager["kernel_flops"] == k4_flops and decode["flops"] == eager["flops"],
+              f"decode FLOP {decode['flops']} vs the counted step {eager} "
+              f"(K4 {k4_flops})")
+        check(decode["synced_samples"] == decode["invocations"] // OBS_SAMPLE_EVERY,
+              f"decode samples {decode}")
+        check(health["alerts"] == ["must_fire"], f"alerts {health['alerts']}")
+        check(all(rec["scrape_has"].values()), f"/metrics lacks {rec['scrape_has']}")
+        check(not wd.fired, "the serving watchdog fired")
+        wd.stop()
+        del sv, ex
+        free_memory()
+        after = ticks[OBS_SERVE_WINDOW:]
+        rec["turns"] = {"off": plain,
+                        "on": {**{k: run[k] for k in OBS_RUN_KEYS},
+                               "mean_decode_tick_ms_after_window":
+                                   1e3 * statistics.mean(after),
+                               "median_decode_tick_ms_after_window":
+                                   1e3 * statistics.median(after)}}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        restore_env()
+    return rec
+
+
+def phase_observability(seed: int, serving=None, tooling=None) -> dict:
+    """The observability phase alone (``--only observability``): the
+    llama2-7b engine, its serving stream and one plain run of it, then the
+    serving part, the watchdog children and the train part."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    t0 = time.perf_counter()
+    if serving is None:
+        model = CausalLM("llama2-7b")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = model.init_fn(gen, device="cuda", dtype=torch.bfloat16)
+        engine = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
+                                                    params=params)
+        stream = serving_stream(seed, model.config.vocab_size)
+        sv, first, plain = _serve_once(engine, stream, "plain")
+        del sv
+        free_memory()
+        setup_s = time.perf_counter() - t0
+        t = time.perf_counter()
+        serving = observability_serving(engine, seed, stream, first,
+                                        {k: plain[k] for k in OBS_RUN_KEYS})
+        serving["part_seconds"] = time.perf_counter() - t
+        del engine, params, model
+        free_memory()
+    else:
+        setup_s = 0.0
+    rec = observability_summary(seed, serving, tooling)
+    rec["setup_s"] = setup_s
+    return rec
+
+
+def observability_summary(seed: int, serving: dict, tooling=None) -> dict:
+    """The train part (with the watchdog children beside its engine build)
+    after the serving part; one line for the phase."""
+    t = time.perf_counter()
+    profiler_flops = tooling["flops_profiler"]["counted_flops"] if tooling else None
+    train = observability_train(seed, profiler_flops)
+    train["part_seconds"] = time.perf_counter() - t
+    rec = {"phase": "observability", "train": train, "serving": serving,
+           "part_seconds": {"serving": serving["part_seconds"],
+                            "train_and_watchdog": train["part_seconds"]},
+           "seconds": serving["part_seconds"] + train["part_seconds"]}
+    emit(rec)
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -6929,8 +7441,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit",
                                                   "train_extras", "lora_hybrid",
-                                                  "tooling"),
+                                                  "tooling", "observability"),
                     help="only the build, then these phases (no kernels line)")
+    ap.add_argument("--watchdog-child", metavar="WAIT",
+                    help=argparse.SUPPRESS)   # phase observability's watchdog child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -6939,6 +7453,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.first_launch:
         return first_launches()
+    if args.watchdog_child:
+        return watchdog_child(args.watchdog_child)
     if args.probe_shared_card:
         backend, port, rank = args.probe_shared_card
         return shared_card_child(backend, int(port), int(rank))
@@ -6963,7 +7479,8 @@ def main() -> int:
         for name in args.only:
             {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
              "train_extras": phase_train_extras,
-             "lora_hybrid": phase_lora_hybrid, "tooling": phase_tooling}[name](args.seed)
+             "lora_hybrid": phase_lora_hybrid, "tooling": phase_tooling,
+             "observability": phase_observability}[name](args.seed)
         return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
@@ -7006,6 +7523,7 @@ def main() -> int:
     extras = phase_train_extras(args.seed)
     lora = phase_lora_hybrid(args.seed)
     tooling = phase_tooling(args.seed)
+    obs = observability_summary(args.seed, item6["observability"], tooling)
     if args.tp_cards:
         phase_tp_cards(args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -7115,19 +7633,22 @@ def main() -> int:
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
                       ring=ring_record("K1"), **item9_launches(0), **item10_launches(0),
-                      **item11_launches(0), **tooling_launches(0)),
+                      **item11_launches(0), **tooling_launches(0),
+                      launches_observability_per_step=obs["train"]["launches_per_step"][0][0]),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
                       **item9_launches(1), **item10_launches(1), **item11_launches(1),
-                      **tooling_launches(1)),
+                      **tooling_launches(1),
+                      launches_observability_per_step=obs["train"]["launches_per_step"][0][1]),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
                       **item9_launches(2), **item10_launches(2), **item11_launches(2),
-                      **tooling_launches(2)),
+                      **tooling_launches(2),
+                      launches_observability_per_step=obs["train"]["launches_per_step"][0][2]),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],
                       dec["serve"], design=K4_DESIGN, l2="flushed",
@@ -7144,6 +7665,8 @@ def main() -> int:
                       launches_moe_serving=moe_serve["k4"]["counter"],
                       launches_moe_serving_per_tick=moe_serve["k4"]["per_tick"],
                       moe_serving_ticks=moe_serve["k4"]["ticks"],
+                      launches_observability_serving=obs["serving"]["run"]["k4_counter"],
+                      cost_sink=obs["serving"]["k4_cost"],
                       int8={"case": "serve", "design": K4_INT8_DESIGN,
                             **{key: dec["serve-int8"][key] for key in (
                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -60,11 +60,21 @@ are captured in its one CUDA graph (the eager warm-up runs on the capture
 stream create the NCCL communicators first), and every rank samples the
 same token from the same gathered logits.
 
-Not ported (``NotImplementedError`` naming the ROADMAP item): per-program
-accounting (item 12).
+Per-program accounting (``observability/program_stats.py``): every entry
+point counts its program in the engine's ``ProgramCatalog`` under the JAX
+executor's names (``decode``, ``prefill_<bucket>``, ``cow``,
+``tier_extract``, ``tier_inject``) and samples every Nth invocation's
+synced wall time when asked.  A program's cost is counted once (when the
+catalog counts costs), on its first eager run; the decode step's on the
+last eager warm-up run of its capture (:func:`capture_graph`), so the
+replays, where no Python runs, count invocations only.  As in the JAX executor, the COW copy and the tier
+movers are run once at build (on the trash page) through their entry
+points, so every inventory program is in the catalog before the first
+tick.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -74,6 +84,7 @@ from ..accelerator import resolve_device
 from ..parallel import tensor_parallel
 from ..models.transformer import (ADAPTER_TARGETS, cow_copy_pool, normalize_kv_dtype,
                                   paged_pool_cache, paged_pool_tuple)
+from ..observability.program_stats import account, finish_sample
 from ..ops.kernels.decode_attention import decode_attention
 from ..utils.compile_counter import record_compile
 from ..utils.tree import tree_leaves, tree_map
@@ -126,17 +137,24 @@ def copy_tree(live, new) -> None:
             a.copy_(b)
 
 
-def capture_graph(fn, device, region, before_capture=None):
+def capture_graph(fn, device, region, before_capture=None, catalog=None,
+                  name: Optional[str] = None):
     """``fn()`` run ``_GRAPH_WARMUP`` times eagerly on a side stream (which
     builds the kernels and, on a mesh, the NCCL communicators), then
     captured once on that stream (``before_capture()`` runs between the
-    two).  Returns ``(graph, outputs, k4)``: the outputs are the graph's
-    static result tensors, ``k4`` the K4 launches recorded in it."""
+    two).  With a ``catalog`` that does not know program ``name`` yet, the
+    last warm-up run is counted as its cost (never the capture itself).
+    Returns ``(graph, outputs, k4)``: the outputs are the graph's static
+    result tensors, ``k4`` the K4 launches recorded in it."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
+    count = catalog is not None and catalog.count_costs and not catalog.known(name)
     with torch.no_grad(), torch.cuda.stream(side), region():
-        for _ in range(_GRAPH_WARMUP):
-            fn()
+        for i in range(_GRAPH_WARMUP):
+            if count and i == _GRAPH_WARMUP - 1:
+                catalog.register_call(name, fn)
+            else:
+                fn()
     torch.cuda.current_stream(device).wait_stream(side)
     if before_capture is not None:
         before_capture()
@@ -156,8 +174,10 @@ class MeshExecutor:
     def __init__(self, model, params, num_pages: int, page_size: int,
                  b_slots: int, pages_per_slot: int, dtype=None, kv_dtype=None,
                  mesh=None, prefix_cache: bool = True, host_tier: bool = False,
-                 adapters=None, device=None):
+                 adapters=None, device=None, catalog=None):
         self.mesh, self.tp, self.ranks = self._install_mesh(model, mesh), 1, 1
+        # the engine's ProgramCatalog (None: no accounting)
+        self.catalog = catalog
         if self.mesh is not None:
             import torch.distributed as dist
 
@@ -197,6 +217,16 @@ class MeshExecutor:
         self._graph = None
         if self.device.type == "cuda":
             self._capture_decode()
+        # the COW copy and the tier round trip once, on the trash page,
+        # through the entry points: their programs are in the catalog from
+        # the start, as the JAX executor's prewarm puts them there
+        if self._cow_prog is not None:
+            self.cow(0, 0)
+        if self.host_tier:
+            slabs, ready = self.extract(0)
+            if ready is not None:
+                ready.synchronize()
+            self.inject(slabs, 0)
 
     @staticmethod
     def _install_mesh(model, mesh):
@@ -344,7 +374,8 @@ class MeshExecutor:
                 logged.update(log.totals_by_axis())
 
         self._graph, self._g_logits, self.graph_k4_launches = capture_graph(
-            lambda: self._decode_forward(*args), dev, self._region, snapshot)
+            lambda: self._decode_forward(*args), dev, self._region, snapshot,
+            catalog=self.catalog, name="decode")
         if log is not None:
             self.graph_collectives = {
                 op: {axes: rec["calls"] - logged.get(op, {}).get(axes, {}).get("calls", 0)
@@ -372,23 +403,30 @@ class MeshExecutor:
                 self._g_len.copy_(torch.from_numpy(lengths))
                 self._g_tok.copy_(torch.from_numpy(last_tok.astype(np.int64)))
                 self._g_active.copy_(torch.from_numpy(active))
-                self._graph.replay()
-                self.replays += 1
-                logits = self._g_logits[:, -1, :]
+                logits, t0 = account(self.catalog, "decode", self._replay_decode)
             else:
                 dev = self.device
-                logits = self._decode_forward(
+                logits, t0 = account(self.catalog, "decode", self._decode_forward, (
                     torch.from_numpy(page_table).to(dev),
                     torch.from_numpy(lengths).to(dev),
                     torch.from_numpy(last_tok.astype(np.int64)).to(dev),
-                    torch.from_numpy(active).to(dev))[:, -1, :]
+                    torch.from_numpy(active).to(dev)))
+            logits = logits[:, -1, :]
             temp, top_k, top_p, seeds = lanes
             pos = (lengths + 1).tolist()
             nxt = sample_tokens(
                 logits, temp, top_k, top_p,
                 lambda: [position_generator(int(s), p, self.device)
                          for s, p in zip(seeds, pos)])
-            return nxt.cpu().numpy()
+            nxt = nxt.cpu().numpy()
+        if t0 is not None:   # the host copy above waited for the step
+            finish_sample(self.catalog, "decode", nxt, t0)
+        return nxt
+
+    def _replay_decode(self):
+        self._graph.replay()
+        self.replays += 1
+        return self._g_logits
 
     # ----------------------------------------------------------- prefill
 
@@ -401,6 +439,15 @@ class MeshExecutor:
         the adapter row the prefill reads (the registry's; zeros when
         None)."""
         self._prefill_buckets[s_pad] = self._prefill_buckets.get(s_pad, 0) + 1
+        name = f"prefill_{s_pad}"
+        tok, t0 = account(self.catalog, name, self._prefill, (
+            s_pad, pt_row, tokens, n_real, start, lane_t, lane_k, lane_p, lane_s, slot))
+        if t0 is not None:   # int() above waited for the step
+            finish_sample(self.catalog, name, tok, t0)
+        return tok
+
+    def _prefill(self, s_pad, pt_row, tokens, n_real, start, lane_t, lane_k, lane_p,
+                 lane_s, slot) -> int:
         dev = self.device
         ad = None
         if self._ad is not None:
@@ -428,7 +475,10 @@ class MeshExecutor:
         """Snapshot physical page ``src`` onto ``dst`` across all layers
         (the copy-on-write boundary page), in place."""
         with torch.no_grad():
-            self._cow_prog(self.pools, int(src), int(dst))
+            _, t0 = account(self.catalog, "cow", self._cow_prog,
+                            (self.pools, int(src), int(dst)))
+        if t0 is not None:
+            finish_sample(self.catalog, "cow", self.pools, t0)
 
     # --------------------------------------------------------- tier moves
 
@@ -437,14 +487,22 @@ class MeshExecutor:
         host slabs in canonical pool order (pinned, asynchronous on a
         card).  Returns ``(slabs, event)``; the pool is only read."""
         with torch.no_grad():
-            return extract_pool_page(self.pools, int(src),
-                                     pin=self.device.type == "cuda")
+            out, t0 = account(self.catalog, "tier_extract", extract_pool_page,
+                              (self.pools, int(src), self.device.type == "cuda"))
+        if t0 is not None:   # the host copies land when their event does
+            if out[1] is not None:
+                out[1].synchronize()
+            self.catalog.record_sync("tier_extract", time.perf_counter() - t0)
+        return out
 
     def inject(self, slabs, dst: int) -> None:
         """Promote half: the host slabs written into physical page ``dst``
         on the current stream (the one the decode graph replays on)."""
         with torch.no_grad():
-            inject_pool_page(self.pools, slabs, int(dst))
+            _, t0 = account(self.catalog, "tier_inject", inject_pool_page,
+                            (self.pools, slabs, int(dst)))
+        if t0 is not None:
+            finish_sample(self.catalog, "tier_inject", self.pools, t0)
 
     # ----------------------------------------------------- weight swap
 

@@ -61,13 +61,29 @@ input, the scheduler's ``now`` (arrivals, deadlines), is rank 0's,
 broadcast on each tick that reads it (or the caller's ``step(now=)``,
 which every rank passes alike).
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item (queue 1, item 12): the monitor, the watchdog, SLO rules and
-per-program statistics.
+Observability and resilience, as in the JAX engine: ``monitor`` receives
+the once-at-init ``serve/*`` facts (pool bytes, mesh, int8 store), each
+working tick's gauges (queue, slots, pages, prefix cache, throughput, the
+extras' counters, ``serve/program_flops{program=...}``,
+``serve/device_seconds_total{program=...}``, ``alert{rule=...}``),
+``serve/ttft_s`` per admission and ``serve/weight_*`` per weight swap;
+``watchdog`` (a ``resilience.HangWatchdog``) is armed around each device
+call and its host fetch; ``slo_rules`` (``observability.SloRule``s) are
+evaluated every working tick; every program call is counted in a
+``ProgramCatalog`` (:meth:`~ServingEngine.program_stats`), its cost
+counted on its first run when a monitor or sampling reads it, and
+``program_stats_sample_every=N`` times every Nth invocation of each
+program synchronously.  ``DS_TPU_METRICS_PORT`` serves the monitor on
+``/metrics`` (the bound port is ``health()["metrics_port"]``) and
+``DS_TPU_DEVICE_TRACE`` arms a ``torch.profiler`` window counted down one
+unit a working tick.  No gauge, alert or sample feeds a scheduling
+decision, so the ranks of a mesh stay in step; sampling every Nth
+invocation is deterministic, so every rank syncs on the same tick.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -76,6 +92,10 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 
 from ..models.transformer import PAGE_SIZE
+from ..observability.device_profiler import device_trace_unit, maybe_capture_from_env
+from ..observability.export import maybe_start_metrics_server
+from ..observability.program_stats import ProgramCatalog
+from ..observability.slo import SloEvaluator, SloRule
 from ..observability.trace import (get_tracer, new_trace_id, trace_context,
                                    trace_count, trace_span)
 from ..resilience.fault_injection import (SITE_SERVE_ADMIT, SITE_SERVE_DECODE,
@@ -100,11 +120,6 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _refused(option: str, item: int, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option}: {what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 class ServeTimeout(RuntimeError):
@@ -223,22 +238,16 @@ class ServingEngine:
                  host_tier_pages: Optional[int] = None,
                  speculative: Optional[SpeculativeConfig] = None,
                  program_stats_sample_every: int = 0,
-                 slo_rules=None, adapters: Optional[AdapterRegistry] = None,
+                 slo_rules: Optional[List[SloRule]] = None,
+                 adapters: Optional[AdapterRegistry] = None,
                  device=None):
-        for option, value, what in (
-                ("monitor", monitor, "the serve/* gauges"),
-                ("watchdog", watchdog, "the hang watchdog"),
-                ("slo_rules", slo_rules or None, "SLO evaluation"),
-                ("program_stats_sample_every", program_stats_sample_every or None,
-                 "per-program statistics")):
-            if value is not None:
-                raise _refused(option, 12, what)
         if not hasattr(model, "apply_paged"):
             raise ValueError(
                 "ServingEngine needs a model with the paged decode contract "
                 "(init_paged_cache/apply_paged); see models.CausalLM")
         self.model = model
-        self.monitor = None
+        self.monitor = monitor
+        self.watchdog = watchdog
         self.b_slots = int(b_slots)
         self.page_size = int(page_size)
         self.max_model_len = int(max_model_len or model.config.max_seq_len)
@@ -276,15 +285,38 @@ class ServingEngine:
             raise ValueError(
                 f"probe_after_ticks={self.probe_after_ticks} must be >= 1")
         self.mesh = mesh
+        # per-program accounting: every program call counted; its cost
+        # counted at first sight when something reads it (a monitor's
+        # gauges, sampled statistics: a counted run pays the counter's host
+        # work, which lands on a request's time to first token); every Nth
+        # invocation's wall time sampled through a device sync (0 = never)
+        self._catalog = ProgramCatalog(
+            sample_every=program_stats_sample_every,
+            count_costs=monitor is not None or bool(program_stats_sample_every))
+        # SLO rules, evaluated once per working tick over the monitor's
+        # gauges and the tracer's span quantiles
+        self._slo = SloEvaluator(slo_rules) if slo_rules else None
         self._exec = MeshExecutor(model, params, self.num_pages,
                                   self.page_size, self.b_slots,
                                   self.pages_per_slot, dtype=dtype,
                                   kv_dtype=kv_dtype, mesh=mesh,
                                   prefix_cache=prefix_cache,
                                   host_tier=host_tier_pages is not None,
-                                  adapters=adapters, device=device)
+                                  adapters=adapters, device=device,
+                                  catalog=self._catalog)
         self.params = self._exec.params   # the rank's shards on a mesh
         self.kv_dtype = self._exec.kv_dtype
+        # the env-armed device-trace window (DS_TPU_DEVICE_TRACE) opens
+        # after the executor captured its decode graph (the JAX engine arms
+        # it before building its programs): the profiler's activity tracing
+        # during a CUDA-graph capture can break the capture, and a capture
+        # is not a tick the window is meant to show
+        maybe_capture_from_env()
+        # the env-gated /metrics endpoint (DS_TPU_METRICS_PORT), process-
+        # global; a taken fixed port falls back to an ephemeral bind, and
+        # health() reports the port actually bound
+        srv = maybe_start_metrics_server(monitor)
+        self.metrics_port = srv.port if srv is not None else None
         # ---- multi-tenant adapters: host stacks (numpy, the registry's
         # layout) mirrored into the executor's device stacks a slot at a time
         self.adapters = adapters
@@ -372,6 +404,8 @@ class ServingEngine:
         if speculative is not None:
             self._spec = SpeculativeDecoder(speculative, self._exec,
                                             self.max_model_len)
+        if self.monitor is not None:
+            self._write_init_gauges()
         log_dist(f"serving engine ready: b_slots={self.b_slots} "
                  f"pages={self.num_pages}x{self.page_size} "
                  f"(max_model_len={self.max_model_len}) "
@@ -391,6 +425,45 @@ class ServingEngine:
             inv["speculative"] = self._spec.program_inventory()
             inv["captures"] += self._spec.captures
         return inv
+
+    def program_stats(self) -> Dict[str, Dict[str, Any]]:
+        """Per-program accounting table: for every program this engine has
+        invoked (decode, each prefill bucket, COW, the tier movers, draft
+        and verify under speculation), the counted FLOP and bytes of one
+        invocation, the invocation count, the executed-FLOP ledger and
+        (with ``program_stats_sample_every`` > 0) the sampled device wall
+        time.  Mirrored in ``health()["program_stats"]`` and the
+        ``serve/program_flops{program=...}`` gauges."""
+        return self._catalog.table()
+
+    def slo_states(self) -> Dict[str, Dict[str, Any]]:
+        """Per-rule SLO snapshot (empty when no rules are configured)."""
+        return self._slo.states() if self._slo is not None else {}
+
+    def _write_init_gauges(self) -> None:
+        """The facts constant for the engine's lifetime (the pool never
+        reallocates, the mesh never changes), written once: the exposition
+        serves the latest value per name from the first scrape."""
+        info = self._exec.mesh_info()
+        pb = self._exec.pool_bytes
+        # the part of the pool spent on an int8 store's per-row scales
+        scale_bytes = sum(a.numel() * a.element_size() for a in self._exec.pools[2:])
+        self.monitor.write_events(
+            [("serve/mesh_devices", float(info["mesh_devices"]), 0),
+             ("serve/kv_pool_bytes_total", float(pb["total"]), 0),
+             ("serve/kv_pool_bytes_per_device", float(pb["per_device"]), 0),
+             ("serve/kvq_enabled", 1.0 if self._exec.quantized else 0.0, 0),
+             ("serve/kvq_scale_bytes_total", float(scale_bytes), 0),
+             ("serve/kvq_page_bytes", float(pb["total"] // self.num_pages), 0)]
+            + [(f"serve/mesh_axis_{a}", float(n), 0)
+               for a, n in info["mesh_axes"].items()])
+
+    def _armed(self, label: str):
+        """The watchdog's deadline around a device call and its host
+        fetch, or a no-op context without a watchdog."""
+        if self.watchdog is not None:
+            return self.watchdog.armed(label)
+        return contextlib.nullcontext()
 
     def adapter_stats(self) -> Dict[str, Dict[str, int]]:
         """Per-tenant admission/token counters, keyed by adapter id (empty
@@ -657,6 +730,11 @@ class ServingEngine:
         self.weight_updates += 1
         dt = time.monotonic() - t0
         self._refresh_lat_s.append(dt)
+        if self.monitor is not None:
+            self.monitor.write_events([
+                ("serve/weight_epoch", float(self._weight_epoch), self._tick),
+                ("serve/weight_updates_total", float(self.weight_updates), self._tick),
+                ("serve/weight_refresh_s", dt, self._tick)])
         acct = self.page_accounting()
         if not acct["balanced"]:   # pragma: no cover - defensive
             raise RuntimeError(f"page accounting unbalanced after the weight "
@@ -1022,19 +1100,21 @@ class ServingEngine:
         with trace_span("serve.prefill", rid=req.rid, slot=slot, bucket=s_pad,
                         shared_tokens=n_shared):
             maybe_fire(SITE_SERVE_PREFILL, rid=req.rid, slot=slot)
-            if match.cow_src is not None:
-                # private[0] is the boundary logical page; rows past
-                # cow_valid are donor rows the tail prefill overwrites
-                # before causality can expose them
-                self._exec.cow(match.cow_src, private[0])
-                self.cow_copies += 1
+            with self._armed(f"serve.prefill rid={req.rid!r}"):
+                if match.cow_src is not None:
+                    # private[0] is the boundary logical page; rows past
+                    # cow_valid are donor rows the tail prefill overwrites
+                    # before causality can expose them
+                    self._exec.cow(match.cow_src, private[0])
+                    self.cow_copies += 1
+                    if self._spec is not None:
+                        self._spec.cow(self._exec._cow_prog, match.cow_src, private[0])
+                pt_row = self._page_table[slot:slot + 1]
+                # the first token's host read is inside the watchdog window
+                tok = self._exec.prefill(s_pad, pt_row, toks, S_tail, n_shared,
+                                         lane_t, lane_k, lane_p, lane_s, slot=slot)
                 if self._spec is not None:
-                    self._spec.cow(self._exec._cow_prog, match.cow_src, private[0])
-            pt_row = self._page_table[slot:slot + 1]
-            tok = self._exec.prefill(s_pad, pt_row, toks, S_tail, n_shared,
-                                     lane_t, lane_k, lane_p, lane_s, slot=slot)
-            if self._spec is not None:
-                self._spec.prefill(s_pad, pt_row, toks, S_tail, n_shared)
+                    self._spec.prefill(s_pad, pt_row, toks, S_tail, n_shared)
         t = time.monotonic()
         self._slot_failures[slot] = 0   # quarantine counts consecutive fails
         lc = self._lifecycle_pending.pop(req.rid, [])
@@ -1080,6 +1160,9 @@ class ServingEngine:
                 self._share_page(p)
             for p in released:
                 self._drop_page(p)
+        if self.monitor is not None:
+            self.monitor.write_events([
+                ("serve/ttft_s", t - self._arrival_abs(req), self._tick)])
         if req.eos_token_id is not None and tok == req.eos_token_id:
             self._finish(slot, "eos")
         elif req.max_new_tokens == 1:
@@ -1108,8 +1191,10 @@ class ServingEngine:
             if rid_map is not None:
                 sp.set(slot_rids=rid_map)
             maybe_fire(SITE_SERVE_DECODE, tick=self._tick)
-            nxt = self._exec.decode(self._page_table, self._lengths,
-                                    self._last_tok, self._active, lanes)
+            with self._armed(f"serve.decode tick {self._tick}"):
+                # the tokens' host copy is inside the watchdog window
+                nxt = self._exec.decode(self._page_table, self._lengths,
+                                        self._last_tok, self._active, lanes)
         active_slots = np.flatnonzero(self._active)
         trace_count("serve.tokens", float(len(active_slots)))
         for slot in active_slots:
@@ -1137,9 +1222,11 @@ class ServingEngine:
             if rid_map is not None:
                 sp.set(slot_rids=rid_map)
             maybe_fire(SITE_SERVE_DECODE, tick=self._tick)
-            emitted, n_emit = self._spec.tick(
-                self._page_table, self._lengths, self._last_tok, self._active,
-                self._lanes(), sampled=self._lane_temp > 0.0)
+            with self._armed(f"serve.decode tick {self._tick} "
+                             f"(speculative k={self._spec.k})"):
+                emitted, n_emit = self._spec.tick(
+                    self._page_table, self._lengths, self._last_tok, self._active,
+                    self._lanes(), sampled=self._lane_temp > 0.0)
         total = 0
         for slot in np.flatnonzero(self._active):
             st = self._slots[slot]
@@ -1233,8 +1320,9 @@ class ServingEngine:
         try:
             with trace_span("serve.probe", slot=slot):
                 maybe_fire(SITE_SERVE_PREFILL, rid="__canary__", slot=slot)
-                self._exec.prefill(s_pad, self._page_table[slot:slot + 1], toks,
-                                   1, 0, 0.0, 0, 1.0, 0)
+                with self._armed(f"serve.probe slot={slot}"):
+                    self._exec.prefill(s_pad, self._page_table[slot:slot + 1], toks,
+                                       1, 0, 0.0, 0, 1.0, 0)
         except BaseException as e:
             self._page_table[slot, :] = 0
             self._fence_tick[slot] = self._tick
@@ -1310,6 +1398,16 @@ class ServingEngine:
                 self._decode_tick(rid_map)
                 if not self._draining:
                     self._admit(now)
+                # SLO evaluation every working tick, with or without a
+                # gauge backend (span-quantile rules need none)
+                if self._slo is not None:
+                    self._slo.evaluate(monitor=self.monitor, tracer=get_tracer())
+                # gauges on working ticks only: idle arrival-wait ticks
+                # would dilute the occupancy series
+                self._write_gauges()
+                # one working tick = one unit of an open device-trace window
+                # (idle ticks must not spend it before any work lands in it)
+                device_trace_unit()
         return (int(self._active.sum()) + len(self._queue)
                 + len(self._pending))
 
@@ -1383,8 +1481,9 @@ class ServingEngine:
     def health(self) -> Dict[str, Any]:
         """One-call snapshot of the loop: queue, slots, pages, prefix cache,
         host tier, weight epochs, adapters, speculation and resilience
-        counters (the JAX engine's keys; ``program_stats``, ``alerts`` and
-        ``metrics_port`` stay empty until item 12 is ported)."""
+        counters, the per-program accounting, the firing SLO rules and the
+        bound ``/metrics`` port (None without one): the JAX engine's
+        keys."""
         now = time.monotonic()
         acct = self.page_accounting()
         pb = self._exec.pool_bytes
@@ -1456,9 +1555,9 @@ class ServingEngine:
             "oldest_request_age_s": round(self._oldest_age_s(now), 4),
             "retry_after_hint_s": self._retry_after_hint(),
             "unclaimed_results": len(self._finished_order),
-            "program_stats": {},
-            "alerts": [],
-            "metrics_port": None,
+            "program_stats": self.program_stats(),
+            "alerts": self._slo.firing() if self._slo is not None else [],
+            "metrics_port": self.metrics_port,
         }
 
     def drain(self, max_ticks: Optional[int] = None) -> List[Request]:
@@ -1484,3 +1583,104 @@ class ServingEngine:
                  f"handed back, {len(self._finished_order)} result(s) "
                  "claimable", ranks=[0])
         return unserved
+
+    def _write_gauges(self) -> None:
+        if self.monitor is None:
+            return
+        active = float(self._active.sum())
+        elapsed = max(time.monotonic() - self._t0, 1e-9)
+        self.monitor.write_events([
+            ("serve/queue_depth",
+             float(len(self._queue) + len(self._pending)), self._tick),
+            ("serve/active_slots", active, self._tick),
+            ("serve/slot_occupancy", active / self.b_slots, self._tick),
+            ("serve/free_pages", float(len(self._free_pages)), self._tick),
+            ("serve/tokens_per_sec", self._tokens_out / elapsed, self._tick),
+            ("serve/shed_total", float(self.shed_count), self._tick),
+            ("serve/deadline_expired_total", float(self.deadline_count),
+             self._tick),
+            ("serve/quarantined_slots", float(self._quarantined.sum()),
+             self._tick),
+            ("serve/quarantined_pages", float(len(self._quarantined_pages)),
+             self._tick),
+            ("serve/probes_total", float(self.probe_count), self._tick),
+            ("serve/unfenced_total", float(self.unfence_count), self._tick),
+            ("serve/referenced_pages",
+             float((self._refcount[1:] > 0).sum()), self._tick),
+            ("serve/pages_hwm", float(self._pages_hwm), self._tick),
+            ("serve/prefix_hits_total", float(self.prefix_hits), self._tick),
+            ("serve/prefix_misses_total", float(self.prefix_misses),
+             self._tick),
+            ("serve/prefix_shared_tokens_total",
+             float(self.prefix_shared_tokens), self._tick),
+            ("serve/prefix_index_entries",
+             float(len(self._prefix) if self._prefix is not None else 0),
+             self._tick),
+            ("serve/prefix_evictions_total",
+             float(self._prefix.evictions if self._prefix is not None
+                   else 0), self._tick),
+            ("serve/cow_copies_total", float(self.cow_copies), self._tick),
+            ("serve/sampled_admissions_total",
+             float(self.sampled_admissions), self._tick),
+            ("serve/weight_epoch", float(self._weight_epoch), self._tick),
+            ("serve/oldest_request_age_s",
+             self._oldest_age_s(time.monotonic()), self._tick),
+        ])
+        if self._tier is not None:
+            self.monitor.write_events([
+                ("serve/tier_demoted_pages", float(self._prefix.demoted),
+                 self._tick),
+                ("serve/tier_host_bytes", float(self._tier.bytes()),
+                 self._tick),
+                ("serve/tier_demotions_total", float(self.demotions),
+                 self._tick),
+                ("serve/tier_promotions_total", float(self.promotions),
+                 self._tick),
+            ])
+        if self._spec is not None:
+            self.monitor.write_events([
+                ("serve/spec_emitted_tokens_total",
+                 float(self._spec.emitted_tokens), self._tick),
+                ("serve/spec_mean_accepted_len",
+                 self._spec.mean_accepted_len(), self._tick),
+            ])
+        if self.adapters is not None:
+            # per-tenant accounting: the {adapter=...} suffix rides the flat
+            # monitor stream like the program gauges and renders as a real
+            # Prometheus label, one admissions/tokens series per tenant
+            ad_active = sum(
+                1 for s in np.flatnonzero(self._active)
+                if self._slots[s].request.adapter_id is not None)
+            ad_events = [
+                ("serve/adapter_loaded",
+                 float(len(self.adapters.loaded())), self._tick),
+                ("serve/adapter_active_slots", float(ad_active), self._tick),
+                ("serve/adapter_resolve_miss_total",
+                 float(self.adapters.resolve_miss_total), self._tick),
+            ]
+            for aid, n in self._adapter_admit_by_id.items():
+                ad_events.append(
+                    (f"serve/adapter_admissions_total{{adapter={aid}}}",
+                     float(n), self._tick))
+            for aid, n in self._adapter_tokens_by_id.items():
+                ad_events.append(
+                    (f"serve/adapter_tokens_total{{adapter={aid}}}",
+                     float(n), self._tick))
+            self.monitor.write_events(ad_events)
+        # per-program accounting gauges: the {program=...} suffix rides the
+        # flat monitor stream and the Prometheus exposition renders it as a
+        # real label (dstpu_serve_program_flops{program="decode"}).
+        # device_seconds_total is 0 until synced sampling is enabled;
+        # gauge_rows() is the flat fast path, no table build per tick.
+        prog_events = []
+        for name, flops_total, device_s in self._catalog.gauge_rows():
+            prog_events.append((f"serve/program_flops{{program={name}}}",
+                                float(flops_total), self._tick))
+            prog_events.append(
+                (f"serve/device_seconds_total{{program={name}}}",
+                 float(device_s), self._tick))
+        if prog_events:
+            self.monitor.write_events(prog_events)
+        # SLO firing states as alert{rule=...} gauges -> dstpu_alert{...}
+        if self._slo is not None:
+            self.monitor.write_events(self._slo.gauge_events(self._tick))

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import paged_pool_cache, paged_pool_tuple
+from ..observability.program_stats import account, finish_sample
 from ..parallel import tensor_parallel
 from ..utils.tree import tree_map
 from .engine import place_params
@@ -145,6 +146,10 @@ def perturbed_draft(model, params, scale: float = 1e-3, seed: int = 0):
         return draft, tree_map(perturb, params)
 
 
+# the steps' program names in the catalog (the JAX decoder's)
+PROGRAMS = {"draft": "draft_decode", "verify": "verify"}
+
+
 def _icdf(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The inverse-CDF draw of each row of ``probs`` [N, V] at its uniform
     ``u`` [N] (no host synchronisation)."""
@@ -173,6 +178,9 @@ class SpeculativeDecoder:
         self.kv_dtype = target_exec.kv_dtype
         self.device = target_exec.device
         self.mesh = target_exec.mesh
+        # per-program accounting in the target executor's catalog: the
+        # draft_decode / verify / draft_prefill_<bucket> rows
+        self.catalog = target_exec.catalog
         tp = target_exec.tp
         if tp > 1 and self.draft_model.config.kv_heads % tp:
             raise ValueError(
@@ -281,19 +289,26 @@ class SpeculativeDecoder:
 
     def _run(self, name: str):
         """One step's outputs: its graph replayed on CUDA, the step run
-        eagerly on the CPU."""
+        eagerly on the CPU; counted in the catalog as the JAX decoder's
+        ``draft_decode`` / ``verify`` programs."""
+        prog = PROGRAMS[name]
         if name in self._graphs:
             graph, out = self._graphs[name]
-            graph.replay()
-            return out
-        return self._step(name)
+            _, t0 = account(self.catalog, prog, graph.replay)
+        else:
+            out, t0 = account(self.catalog, prog, self._step, (name,))
+        if t0 is not None:
+            finish_sample(self.catalog, prog, out, t0)
+        return out
 
     def _capture(self) -> None:
         dev = self.device
         g_d, d_out, self.draft_k4_launches = capture_graph(
-            lambda: self._step("draft"), dev, self._region)
+            lambda: self._step("draft"), dev, self._region, catalog=self.catalog,
+            name=PROGRAMS["draft"])
         g_v, v_out, self.verify_k4_launches = capture_graph(
-            lambda: self._step("verify"), dev, self._region)
+            lambda: self._step("verify"), dev, self._region, catalog=self.catalog,
+            name=PROGRAMS["verify"])
         self._graphs = {"draft": (g_d, d_out), "verify": (g_v, v_out)}
         self.captures += 2
 
@@ -372,6 +387,13 @@ class SpeculativeDecoder:
         table row and ``start`` of the target prefill that just ran; the
         draft emits nothing)."""
         self._draft_prefill_buckets[s_pad] = self._draft_prefill_buckets.get(s_pad, 0) + 1
+        name = f"draft_prefill_{s_pad}"
+        _, t0 = account(self.catalog, name, self._prefill,
+                        (s_pad, pt_row, tokens, n_real, start))
+        if t0 is not None:
+            finish_sample(self.catalog, name, self.dpools, t0)
+
+    def _prefill(self, s_pad, pt_row, tokens, n_real, start) -> None:
         dev = self.device
         with torch.no_grad(), self._region():
             self.draft_model.apply_paged(

@@ -13,9 +13,9 @@ registered tensors before the end stamp (only while tracing is enabled).
 
 The process-global tracer (:func:`get_tracer` / :func:`configure_tracer` /
 :func:`trace_span` / :func:`trace_count`) is the instrumentation surface.
-``DS_TPU_TRACE=1`` enables it at import (``DS_TPU_TRACE_CAPACITY`` sizes
-the ring); the Chrome-trace exporter is not ported yet (ROADMAP queue 1,
-item 12).
+``DS_TPU_TRACE=1`` enables it at import; ``DS_TPU_TRACE=/path/out.json``
+also writes a Chrome/Perfetto trace at interpreter exit (``export.py``;
+``DS_TPU_TRACE_CAPACITY`` sizes the ring).
 """
 from __future__ import annotations
 
@@ -187,8 +187,8 @@ _NULL_SPAN = _NullSpan()
 
 class _AnnotationSpan:
     """Annotation-only span: what ``trace_span`` returns while a device
-    capture is active but the HOST tracer is disabled — the XLA timeline
-    still gets the named region, with no host recording cost.  ``sync``
+    capture is active but the HOST tracer is disabled — the profiler's
+    timeline still gets the named region, with no host recording cost.  ``sync``
     and ``set`` are no-ops like the null span's.  A profiler hiccup must
     never fail the instrumented section, so every annotation call is
     guarded."""
@@ -265,7 +265,7 @@ class _SpanCtx:
         fac = _DEVICE_ANNOTATION
         if fac is not None:
             # device capture active: mirror this span as a named region on
-            # the XLA profiler's host timeline.  Never let a profiler
+            # the profiler's timeline (torch.profiler.record_function).  Never let a profiler
             # hiccup fail the instrumented section itself.
             try:
                 annot = fac(self._span.name)
@@ -471,8 +471,9 @@ def trace_span(name: str, **attrs) -> Any:
     if not _GLOBAL.enabled:
         fac = _DEVICE_ANNOTATION
         if fac is not None:
-            # device capture active with the host tracer off: the XLA
-            # timeline still gets the named region (device_profiler.py)
+            # device capture active with the host tracer off: the
+            # profiler's timeline still gets the named region
+            # (device_profiler.py)
             return _AnnotationSpan(name, fac)
         return _NULL_SPAN
     return _SpanCtx(_GLOBAL, name, attrs or None)
@@ -562,3 +563,15 @@ if _env_spec and _env_spec.lower() not in ("0", "false", "off", "no"):
             TRACE_CAPACITY_ENV, _cap)
         _cap_n = None
     configure_tracer(enabled=True, capacity=_cap_n)
+    if _env_spec.lower() not in ("1", "true", "on", "yes"):
+        import atexit
+
+        def _export_at_exit(path=_env_spec):
+            from .export import write_chrome_trace
+
+            try:
+                write_chrome_trace(path)
+            except Exception:
+                pass
+
+        atexit.register(_export_at_exit)

@@ -27,8 +27,9 @@ outside the contract, and the kernel (zeros) and the plain version (the
 mean of the masked values) need not agree there.
 
 CUDA tensors launch ``ops/csrc/decode_attention.cu`` (built by the op
-builder at first use; ``decode_attention.launches`` counts the launches) or
-raise; CPU tensors run :func:`decode_attention_reference`.  The wrapper
+builder at first use; ``decode_attention.launches`` counts the launches,
+and while a cost counter listens each launch reports :func:`decode_cost`
+through ``common.note_cost``) or raise; CPU tensors run :func:`decode_attention_reference`.  The wrapper
 allocates its output, launches on the current stream and never
 synchronises, so a CUDA graph can capture it.  The kernel splits each
 (slot, KV head)'s keys over a thread-block cluster: tiles of ``rows`` keys
@@ -46,7 +47,7 @@ from typing import Optional
 import torch
 
 from ..op_builder import KernelBuilder
-from .common import NEG_INF, mask_to_i32
+from .common import NEG_INF, cost_sinks, mask_to_i32, note_cost
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)          # query heads per KV head the kernel is built for
@@ -254,6 +255,20 @@ def decode_attention_split_reference(q, k, v, mask, page_table=None,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def decode_cost(B: int, Hq: int, Hkv: int, hd: int, esize: int, page: int,
+                maxp: int, T: int, int8: bool = False) -> tuple:
+    """(operations, bytes) of one K4 launch, from its shapes alone: every row
+    counted over all ``maxp * page`` keys its page table can map, so a
+    captured decode step has one fixed cost.  Operations: ``4 * B * keys *
+    Hq * hd`` (q.k and p.v); bytes: the K and V rows read once (int8: one
+    byte an element plus each row's fp32 scale), q read and out written,
+    the int32 mask ``[B, T]`` and page table ``[B, maxp]``."""
+    keys = B * maxp * page
+    kv = 2 * keys * (Hkv * hd + 4) if int8 else 2 * keys * Hkv * hd * esize
+    nbytes = kv + 2 * B * Hq * hd * esize + 4 * B * T + 4 * B * maxp
+    return 4.0 * keys * Hq * hd, float(nbytes)
+
+
 def _launch(q, k, v, mask, page_table, sm_scale: float, k_scale=None, v_scale=None):
     B, Hq, hd = q.shape
     page, Hkv = k.shape[1], k.shape[2]
@@ -301,6 +316,10 @@ def _launch(q, k, v, mask, page_table, sm_scale: float, k_scale=None, v_scale=No
         raise RuntimeError("decode_attention launch failed: "
                            + lib.ds_cuda_error_string(err).decode())
     decode_attention.launches += 1
+    if cost_sinks:
+        note_cost("decode", *decode_cost(B, Hq, Hkv, hd, q.element_size(), page,
+                                         page_table.shape[1], mask.shape[1],
+                                         int8=bool(scales)))
     return out
 
 

@@ -4,15 +4,25 @@
 A :class:`FaultInjector` holds an ordered list of :class:`FaultRule`s.  The
 production code calls :func:`maybe_fire` at named hook points (sites);
 with no injector installed the call is a dict lookup and a ``None`` check.
-The port wires the serving sites: ``serve.tick`` (top of every
-``ServingEngine.step``), ``serve.admit`` (before a queued request is
-popped for admission), ``serve.prefill`` (immediately before the prefill's
-device work, slot-attributable; the canary probe too), ``serve.decode``
-(immediately before the decode tick's device work, fleet-wide) and
-``serve.replay`` (``ServingSupervisor``, before each in-flight request is
-re-submitted).  The other site names are kept for the paths still to be
-ported (the checkpoint sites and the hang watchdog: ROADMAP queue 1, item
-12).
+Sites wired into the port:
+
+- ``ckpt.save``: entry of ``save_engine_checkpoint``, before any file is
+  written (``path`` = the tag directory);
+- ``ckpt.publish_latest``: immediately before the ``latest`` pointer is
+  written (the synchronous and the background commit);
+- ``ckpt.load``: entry of ``load_engine_checkpoint`` (``path`` = the tag
+  directory about to be read), before its verification;
+- ``train.step``: entry of ``DeepSpeedEngine.train_batch``, inside the
+  watchdog's window;
+- ``serve.tick`` (top of every ``ServingEngine.step``), ``serve.admit``
+  (before a queued request is popped for admission), ``serve.prefill``
+  (immediately before the prefill's device work, slot-attributable; the
+  canary probe too), ``serve.decode`` (immediately before the decode
+  tick's device work, fleet-wide) and ``serve.replay``
+  (``ServingSupervisor``, before each in-flight request is re-submitted).
+
+The supervisor, pod and fleet site names are kept for the paths still to
+be ported (ROADMAP queue 1, items 13-14).
 
 Fault kinds: ``raise`` (raise :class:`InjectedFault`), ``delay`` (sleep
 ``delay_s``), ``corrupt`` (flip bytes in ``target``, resolved against the

@@ -56,8 +56,12 @@ meaning.  A partial load (``load_module_only``,
 there.  ``client_state.json`` also carries the curriculum's state under
 the JAX package's keys (``data_sampler``: the loader's sampler;
 ``curriculum``: the legacy scheduler), restored on load, and the state
-dict progressive layer drop's host generator (``rng/pld``).  Left for
-later: the fault-injection sites (item 12).
+dict progressive layer drop's host generator (``rng/pld``).
+
+The fault-injection sites sit where the JAX engine has them: ``ckpt.save``
+before any file of the tag is written, ``ckpt.publish_latest`` just before
+``latest`` moves (the synchronous and the background commit share
+:func:`commit_tag`), and ``ckpt.load`` before the tag is verified.
 """
 from __future__ import annotations
 
@@ -70,6 +74,8 @@ import numpy as np
 import torch
 
 from .checkpoint_engine import CheckpointEngine
+from ...resilience.fault_injection import (SITE_CKPT_LOAD, SITE_CKPT_SAVE,
+                                           SITE_LATEST_PUBLISH, maybe_fire)
 from ...resilience.integrity import (LATEST_FILE, build_manifest,
                                      mark_incomplete, read_latest,
                                      verify_checkpoint_dir, write_manifest)
@@ -412,6 +418,7 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     _check_no_open_window(engine, "save_checkpoint()")
     tag = str(tag or f"global_step{engine.global_steps}")
     ckpt_dir = os.path.join(save_dir, tag)
+    maybe_fire(SITE_CKPT_SAVE, path=ckpt_dir, tag=tag)
     async_save = engine.config.checkpoint_config.async_save
     # one save in flight: the previous must be durable before this one
     # reuses its host buffers or moves `latest` after it
@@ -459,6 +466,7 @@ def commit_tag(engine, group, save_dir: str, ckpt_dir: str, tag: str,
     if _rank0(engine):
         write_manifest(ckpt_dir, manifest)
         if save_latest:
+            maybe_fire(SITE_LATEST_PUBLISH, path=save_dir, tag=tag)
             _publish_latest(save_dir, tag)
     _barrier(group)
 
@@ -483,6 +491,7 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     ckpt_dir = os.path.join(load_dir, str(tag))
     if not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"checkpoint tag dir not found: {ckpt_dir}")
+    maybe_fire(SITE_CKPT_LOAD, path=ckpt_dir, tag=str(tag))
     group = _ckpt_group(engine)
     if _offload_of(engine) is not None and (load_module_only or not load_optimizer_states):
         # the card's params derive from the host masters every step: a

@@ -381,12 +381,29 @@ class CommsLoggerConfig:
 
 
 @dataclasses.dataclass
+class WatchdogConfig:
+    """Hang watchdog (``resilience/watchdog.py``): armed around
+    ``train_batch`` and async-checkpoint finalization; past ``timeout_s`` it
+    dumps an all-thread stack report through the monitor layer and exits
+    ``exit_code`` so a supervisor can recycle the process."""
+    enabled: bool = False
+    timeout_s: float = 600.0
+    exit_code: int = 85   # resilience.watchdog.RC_HANG
+
+    def __post_init__(self):
+        if not float(self.timeout_s) > 0.0:
+            raise ValueError(f"resilience.watchdog.timeout_s={self.timeout_s} "
+                             "must be > 0")
+
+
+@dataclasses.dataclass
 class ResilienceConfig:
     """``resilience`` block: ``verify_on_load`` checks a tag against its
-    manifest before anything is restored.  The hang watchdog is not
-    ported (ROADMAP queue 1, item 12)."""
+    manifest before anything is restored; ``watchdog`` arms the hang
+    watchdog (fault injection is set by ``DS_TPU_FAULTS`` or the tests,
+    never by the config)."""
     verify_on_load: bool = True
-    watchdog: Optional[Dict[str, Any]] = None
+    watchdog: WatchdogConfig = dataclasses.field(default_factory=WatchdogConfig)
 
 
 @dataclasses.dataclass
@@ -524,7 +541,6 @@ class DeepSpeedConfig:
             if cond:
                 todo.append(f"{what} (ROADMAP queue 1, item {item})")
 
-        need(_enabled(cfg, "resilience", "watchdog"), "hang watchdog", 12)
         need(_enabled(cfg, "elasticity"), "elasticity", 13)
         if todo:
             raise NotImplementedError(

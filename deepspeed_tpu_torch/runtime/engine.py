@@ -110,6 +110,15 @@ rank holds a piece of takes its statistics over the whole leaf
 (``_compressed``); activation fake-quant runs in the model.  The
 monitors (``monitor/``) receive each step's events, and the flops
 profiler (``profiling/``) counts the step at ``profile_step``.
+Observability and resilience, as in the JAX engine: ``train_batch`` runs
+under a ``train.batch`` span, fires the ``train.step`` fault site and, with
+``resilience.watchdog``, runs inside the hang watchdog's window (as does
+``wait_for_checkpoint``); with a monitor, the first step is counted under
+the flops profiler's counter as the ``train_step`` program of
+``program_catalog`` and every later step's events carry the live
+``train/tflops_est`` and ``train/mfu_est`` gauges; ``DS_TPU_METRICS_PORT``
+serves the monitor on ``/metrics`` and ``DS_TPU_DEVICE_TRACE`` arms a
+``torch.profiler`` window counted down one unit a step.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: a 'pipe' axis with tensor, sequence or expert axes or with ZeRO
 stage 3, MoE on a 'seq' axis (item 9, left); compression with a 'pipe'
@@ -120,6 +129,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -127,8 +137,13 @@ import torch
 
 from .. import comm
 from ..accelerator import resolve_device
+from ..observability.device_profiler import device_trace_unit, maybe_capture_from_env
+from ..observability.export import maybe_start_metrics_server
+from ..observability.program_stats import ProgramCatalog, peak_flops_per_sec
+from ..observability.trace import trace_span
 from ..parallel import tensor_parallel
 from ..parallel.mesh import BATCH_AXES
+from ..resilience.fault_injection import SITE_TRAIN_STEP, maybe_fire
 from ..utils.logging import log_dist
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import (tree_flatten_with_path, tree_leaves, tree_map,
@@ -159,6 +174,14 @@ def _set_leaf(tree, path: str, value) -> None:
     for part in head:
         tree = tree[int(part)] if isinstance(tree, (list, tuple)) else tree[part]
     tree[int(last) if isinstance(tree, list) else last] = value
+
+
+def _empty_tree(tree) -> None:
+    """Empty ``tree``'s dicts and lists in place (a tuple stays as it is)."""
+    if isinstance(tree, (dict, list)):
+        for sub in (tree.values() if isinstance(tree, dict) else tree):
+            _empty_tree(sub)
+        tree.clear()
 
 
 class _ParamTrees:
@@ -395,8 +418,24 @@ class DeepSpeedEngine:
         self._async_ckpt_error = None
         self._data_iterator = None
         wire_flops_profiler(self)
+        # per-program accounting: with a monitor, the first train_batch step
+        # is counted under the flops profiler's counter and registered as
+        # the program "train_step"; every step counts an invocation, and the
+        # wall clock between step returns feeds the live train/tflops_est
+        # and train/mfu_est gauges
+        self.program_catalog = ProgramCatalog()
+        self._step_flops: Optional[float] = None
+        self._step_wall_t: Optional[float] = None
+        self._step_wall_s: Optional[float] = None   # EMA of the inter-step wall
+        self._accounting = False                    # inside train_batch's window
         self.training_dataloader = self._build_dataloader(training_data)
         self.monitor = self._build_monitor()
+        # opt-in /metrics endpoint (DS_TPU_METRICS_PORT): no socket unasked
+        maybe_start_metrics_server(self.monitor)
+        # env-armed device-trace window (DS_TPU_DEVICE_TRACE): train_batch
+        # counts it down one unit a step
+        maybe_capture_from_env()
+        self._watchdog = self._build_watchdog()
         log_dist(
             f"engine ready: params={self.param_count:,} zero_stage={self.zero_stage} "
             f"dtype={self.compute_dtype} device={self.device} "
@@ -1319,6 +1358,9 @@ class DeepSpeedEngine:
         state, part = self.state, self.partition
         inv = self._unscale_factor(eff_gas)
         g_leaves = self._reduce_window(tree_leaves(grads), eff_gas)
+        # the window's tree is the engine's own (``_finish_step``): emptied,
+        # it leaves each gradient's last reference in ``g_leaves``
+        _empty_tree(grads)
         del grads
 
         def unscaled(g):
@@ -1349,10 +1391,12 @@ class DeepSpeedEngine:
                     home.ready()
                     # the next leaf's copy runs under this leaf's update
                     nxt = fetch(i + 1) if i + 1 < len(paths) else None
-                    with self._leaf_reductions([i]):
-                        upd, sub = self.optimizer.update(
-                            {"x": unscaled(g_leaves[i])}, sub_in, {"x": m})
+                    # the gradient goes before the update's temporaries come
+                    g = unscaled(g_leaves[i])
                     g_leaves[i] = None
+                    with self._leaf_reductions([i]):
+                        upd, sub = self.optimizer.update({"x": g}, sub_in, {"x": m})
+                    del g
                     new = (m + upd["x"]).to(m.dtype)
                     # each old leaf goes as its new one is placed: one
                     # leaf's state and temporaries are live at a time
@@ -1430,8 +1474,12 @@ class DeepSpeedEngine:
     def _finish_step(self, grads, losses, eff_gas: Optional[int] = None) -> dict:
         """Apply the window's gradients and do the step's bookkeeping (one
         path for ``train_batch`` and ``step``)."""
-        metrics = self._apply_update(tree_unflatten_like(self.state.params, grads),
-                                     eff_gas or self.gas)
+        tree = tree_unflatten_like(self.state.params, grads)
+        # the callers' window list is handed over, so that an update a leaf
+        # at a time frees each gradient as it is used
+        grads.clear()
+        metrics = self._apply_update(tree, eff_gas or self.gas)
+        del tree
         metrics["loss"] = torch.stack(losses).mean()
         self.global_steps += 1
         self._last_grad_norm = float(metrics["grad_norm"])
@@ -1440,6 +1488,8 @@ class DeepSpeedEngine:
             log_dist(f"step {self.global_steps}: grad overflow, step skipped; "
                      f"loss scale -> {self.state.scaler.loss_scale}", ranks=[0])
         self.tput_timer.stop()
+        if self._accounting:
+            self._account_step()
         self._emit_monitor_events(metrics)
         if self.global_steps % self.config.steps_per_print == 0:
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
@@ -1455,10 +1505,34 @@ class DeepSpeedEngine:
 
         return MonitorMaster(self.config.monitor_config)
 
+    def _build_watchdog(self):
+        wd = self.config.resilience.watchdog
+        if not wd.enabled:
+            return None
+        from ..resilience.watchdog import HangWatchdog
+
+        return HangWatchdog(timeout_s=wd.timeout_s, exit_code=wd.exit_code,
+                            monitor=self.monitor)
+
+    def _account_step(self) -> None:
+        """Count one ``train_step`` invocation and EMA the wall clock
+        between step returns (the JAX engine's accounting; the step's cost
+        is registered by ``_train_batch_impl`` from its counted first
+        step).  A step ends in a host read of its gradient norm, so the wall
+        between returns is the step's time."""
+        now = time.perf_counter()
+        self.program_catalog.invoke("train_step")
+        if self._step_wall_t is not None:
+            dt = now - self._step_wall_t
+            self._step_wall_s = (dt if self._step_wall_s is None
+                                 else 0.8 * self._step_wall_s + 0.2 * dt)
+        self._step_wall_t = now
+
     def _emit_monitor_events(self, metrics) -> None:
-        """The JAX engine's training events (the live ``train/tflops_est``
-        and ``train/mfu_est`` gauges read per-program accounting, ROADMAP
-        queue 1, item 12)."""
+        """The JAX engine's training events, with the live roofline gauges:
+        ``train/tflops_est`` (the counted step's FLOP over the inter-step
+        wall EMA) and ``train/mfu_est`` (that over ``DS_TPU_PEAK_TFLOPS``; 0
+        until a peak is stated)."""
         if self.monitor is None:
             return
         events = [("Train/Samples/train_loss", float(metrics["loss"]), self.global_steps),
@@ -1469,6 +1543,12 @@ class DeepSpeedEngine:
         if self.progressive_layer_drop is not None:
             events.append(("Train/Samples/pld_theta",
                            self.progressive_layer_drop.get_theta(), self.global_steps))
+        if self._step_flops and self._step_wall_s:
+            achieved = self._step_flops / self._step_wall_s
+            peak = peak_flops_per_sec()
+            events.append(("train/tflops_est", achieved / 1e12, self.global_steps))
+            events.append(("train/mfu_est", achieved / peak if peak else 0.0,
+                           self.global_steps))
         self.monitor.write_events(events)
 
     # ------------------------------------------------------------------
@@ -1499,7 +1579,23 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None, batch=None) -> torch.Tensor:
         """One full optimizer step over gas micro-batches; returns the mean
-        loss (a device scalar)."""
+        loss (a device scalar).  The ``train.step`` fault site fires on
+        entry, inside the hang watchdog's window (``resilience.watchdog``);
+        the call runs under a ``train.batch`` span and counts one unit of
+        an open device-trace window."""
+        step = self.global_steps + 1
+        with trace_span("train.batch", step=step):
+            if self._watchdog is None:
+                maybe_fire(SITE_TRAIN_STEP, step=step)
+                loss = self._train_batch_impl(data_iter, batch)
+            else:
+                with self._watchdog.armed(f"train_batch step {step}"):
+                    maybe_fire(SITE_TRAIN_STEP, step=step)
+                    loss = self._train_batch_impl(data_iter, batch)
+        device_trace_unit()
+        return loss
+
+    def _train_batch_impl(self, data_iter, batch) -> torch.Tensor:
         if batch is None:
             if data_iter is None:
                 if self.training_dataloader is None:
@@ -1517,24 +1613,50 @@ class DeepSpeedEngine:
                                "window: call step() first")
         global_batch = self._data_efficiency(global_batch)
         self.tput_timer.start()
-        if self._param_offload is not None:
-            return self._train_batch_param_offload(global_batch)
-        fp = self.config.flops_profiler
-        if self.flops_profiler is not None and self.global_steps + 1 == fp.profile_step:
-            self.flops_profiler.start_profile()
-            try:
-                loss = self._train_window(global_batch)
-            finally:
-                self.flops_profiler.stop_profile()
-            self.flops_profiler.print_model_profile(
-                profile_step=fp.profile_step, module_depth=fp.module_depth,
-                top_modules=fp.top_modules, detailed=fp.detailed,
-                output_file=fp.output_file)
-            return loss
-        return self._train_window(global_batch)
+        self._accounting = True
+        try:
+            if self._param_offload is not None:
+                return self._train_batch_param_offload(global_batch)
+            fp = self.config.flops_profiler
+            if self.flops_profiler is not None and self.global_steps + 1 == fp.profile_step:
+                self.flops_profiler.start_profile()
+                try:
+                    loss = self._train_window(global_batch)
+                finally:
+                    self.flops_profiler.stop_profile()
+                self.flops_profiler.print_model_profile(
+                    profile_step=fp.profile_step, module_depth=fp.module_depth,
+                    top_modules=fp.top_modules, detailed=fp.detailed,
+                    output_file=fp.output_file)
+                if self._step_flops is None and self.monitor is not None:
+                    prof = self.flops_profiler.as_dict()   # this step, counted
+                    self._register_step(prof["flops"], prof.get("bytes accessed", 0.0))
+                return loss
+            if self._step_flops is None and self.monitor is not None:
+                # the step's cost: this step itself, counted (once; never an
+                # extra run), where the JAX engine analyses its lowered step
+                from ..profiling.flops_profiler.profiler import CostCounter
+
+                counter = CostCounter()
+                with counter:
+                    loss = self._train_window(global_batch)
+                cost = counter.cost()
+                self._register_step(cost["flops"], cost["bytes accessed"])
+                return loss
+            return self._train_window(global_batch)
+        finally:
+            self._accounting = False
+
+    def _register_step(self, flops: float, nbytes: float) -> None:
+        self.program_catalog.register("train_step", flops=flops, bytes=nbytes)
+        self._step_flops = self.program_catalog.flops_of("train_step")
 
     def _train_window(self, global_batch) -> torch.Tensor:
         """The step's forward/backward over the window and its update."""
+        with trace_span("train.step", step=self.global_steps + 1):
+            return self._train_window_impl(global_batch)
+
+    def _train_window_impl(self, global_batch) -> torch.Tensor:
         if self.pipelined:
             return self._train_batch_pipelined(global_batch)
         work = self._work_tree()
@@ -1563,6 +1685,7 @@ class DeepSpeedEngine:
         self._last_grad_norm = float(metrics["grad_norm"])
         self.tput_timer.stop()
         metrics["loss"] = loss
+        self._account_step()
         self._emit_monitor_events(metrics)
         return loss
 
@@ -1697,7 +1820,8 @@ class DeepSpeedEngine:
         if self._accum_count == 0:
             self.tput_timer.start()
             self._work = self._work_tree()
-        loss, report = self._micro_loss(self._work, tree_map(self._to_device, batch))
+        with trace_span("train.forward", micro=self._accum_count):
+            loss, report = self._micro_loss(self._work, tree_map(self._to_device, batch))
         self._pending_loss, self._pending_report = loss, report
         # data-parallel: the micro-batch's global loss (backward()
         # differentiates this rank's share of it)
@@ -1711,7 +1835,8 @@ class DeepSpeedEngine:
         if self._pending_loss is None:
             raise RuntimeError("backward() without a preceding forward()")
         pending, self._pending_loss = self._pending_loss, None
-        self._bank(self._micro_grads(self._work, pending))
+        with trace_span("train.backward", micro=self._accum_count):
+            self._bank(self._micro_grads(self._work, pending))
         self._window_losses.append(self._pending_report)
         self._accum_count += 1
         self.micro_steps += 1
@@ -1731,7 +1856,8 @@ class DeepSpeedEngine:
         grads, losses = self._accum_grads, self._window_losses
         self._accum_grads, self._window_losses, self._work = None, [], None
         self._accum_count = 0
-        return self._finish_step(grads, losses)
+        with trace_span("train.step", step=self.global_steps + 1):
+            return self._finish_step(grads, losses)
 
     def is_gradient_accumulation_boundary(self) -> bool:
         """True while the banked micro-batches fill the window, i.e. the
@@ -1806,16 +1932,24 @@ class DeepSpeedEngine:
         (``wait_for_checkpoint``).  Returns the tag's directory."""
         from .checkpoint_engine.dcp_engine import save_engine_checkpoint
 
-        return save_engine_checkpoint(self, save_dir, tag=tag,
-                                      client_state=client_state,
-                                      save_latest=save_latest)
+        with trace_span("ckpt.save", tag=str(tag) if tag is not None else
+                        f"global_step{self.global_steps}"):
+            return save_engine_checkpoint(self, save_dir, tag=tag,
+                                          client_state=client_state,
+                                          save_latest=save_latest)
 
     def wait_for_checkpoint(self):
         """Block until an in-flight async save is durable and ``latest`` is
-        published; re-raises a failed save.  No-op otherwise."""
+        published; re-raises a failed save.  No-op otherwise.  The join is
+        bounded and the hang watchdog is armed around it, so a wedged
+        storage write ends in a stack report and a restartable exit."""
         from .checkpoint_engine.async_engine import wait_for_pending_checkpoint
 
-        return wait_for_pending_checkpoint(self)
+        with trace_span("ckpt.finalize"):
+            if self._watchdog is None:
+                return wait_for_pending_checkpoint(self)
+            with self._watchdog.armed("async-checkpoint finalize"):
+                return wait_for_pending_checkpoint(self)
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True, load_module_only=False):
@@ -1827,6 +1961,7 @@ class DeepSpeedEngine:
         so ``load_lr_scheduler_states`` has nothing of its own to load.)"""
         from .checkpoint_engine.dcp_engine import load_engine_checkpoint
 
-        return load_engine_checkpoint(
-            self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
-            load_module_only=load_module_only)
+        with trace_span("ckpt.load", tag=str(tag) if tag is not None else "latest"):
+            return load_engine_checkpoint(
+                self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+                load_module_only=load_module_only)

@@ -235,10 +235,18 @@ def scale_by_adam_ds(b1: float, b2: float, eps: float, mu_dtype=None,
         bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
 
         def upd(g, m, n):
+            # b1*m + (1-b1)*g and (1-b2)*g^2 + b2*n, then m/bc1 / (sqrt(n/bc2)
+            # + eps), each sum and quotient taken in place on a temporary
+            # made here: the same roundings in the same order, one fewer
+            # leaf-sized temporary live at the update's peak
             g32 = g.float()
-            m32 = b1 * m.float() + (1.0 - b1) * g32
-            n32 = b2 * n.float() + (1.0 - b2) * g32.square()
-            out = (m32 / bc1) / (torch.sqrt(n32 / bc2) + eps)
+            m32 = m.float() * b1
+            m32.add_(g32 * (1.0 - b1))
+            n32 = g32.square().mul_(1.0 - b2)
+            n32.add_(n.float() * b2)
+            den = (n32 / bc2).sqrt_().add_(eps)
+            out = (m32 / bc1).div_(den)
+            del den
             return out, m32.to(m.dtype), n32.to(n.dtype)
 
         out, mu, nu = _map3(upd, updates, state.mu, state.nu)

@@ -65,6 +65,11 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.observability.trace, "
             "deepspeed_tpu_torch.observability.flight_recorder, "
             "deepspeed_tpu_torch.observability.slo, "
+            "deepspeed_tpu_torch.observability.export, "
+            "deepspeed_tpu_torch.observability.program_stats, "
+            "deepspeed_tpu_torch.observability.device_profiler, "
+            "deepspeed_tpu_torch.observability.trace_assembly, "
+            "deepspeed_tpu_torch.resilience.watchdog, "
             "deepspeed_tpu_torch.moe, deepspeed_tpu_torch.moe.sharded_moe, "
             "deepspeed_tpu_torch.moe.layer, deepspeed_tpu_torch.runtime.pipe, "
             "deepspeed_tpu_torch.runtime.pipe.schedule, "

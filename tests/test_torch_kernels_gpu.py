@@ -834,3 +834,41 @@ def test_compile_counter_counts_the_decode_capture(cuda):
     sv.run([Request(0, input_ids=np.arange(1, 9), max_new_tokens=6)])
     assert built == sv.program_inventory()["captures"] == 1
     assert count() - before == 1      # the run replays, it captures nothing
+
+
+@pytest.mark.gpu
+def test_flops_profiler_counts_k4_in_a_paged_tick(cuda):
+    """K4 reports its cost from its launch shapes: one decode step of the
+    paged server under the counter sees one K4 launch a layer, each
+    ``4 * B * maxp * page * Hq * hd`` operations and its K/V, q, out, mask
+    and page-table bytes (counted here by hand), and the server's
+    ``decode`` program registered the same step's count at its capture."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.profiling.flops_profiler.profiler import CostCounter
+
+    model = CausalLM("tiny", dtype=torch.bfloat16, hidden_size=256, num_heads=2)   # hd 128
+    cfg = model.config
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bf16"},
+        params=model.init_fn(torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16))
+    from deepspeed_tpu_torch.monitor import InMemoryMonitor
+
+    B, page, maxp = 2, 8, 8
+    sv = eng.serving(b_slots=B, page_size=page, max_model_len=page * maxp,
+                     monitor=InMemoryMonitor())
+    ex = sv._exec
+    with torch.no_grad(), CostCounter() as counter:
+        ex._decode_forward(ex._g_pt, ex._g_len, ex._g_tok, ex._g_active)
+    torch.cuda.synchronize()
+    cost = counter.cost()
+    L, Hq, Hkv, hd = cfg.num_layers, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+    keys = B * maxp * page
+    assert cost["kernel_launches"] == {"decode": L}
+    assert cost["kernel_flops"] == L * 4.0 * keys * Hq * hd
+    assert cost["kernel_bytes"] == L * (2 * keys * Hkv * hd * 2 + 2 * B * Hq * hd * 2
+                                        + 4 * B * maxp * page + 4 * B * maxp)
+    row = sv.program_stats()["decode"]
+    assert row["flops"] == cost["flops"] and row["invocations"] == 0
+    assert sv.program_inventory()["captures"] == 1
+

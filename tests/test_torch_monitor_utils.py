@@ -138,7 +138,10 @@ def test_monitor_master_fans_out(tmp_path):
 def test_engine_events_are_the_losses(tmp_path, extra):
     """``Train/Samples/train_loss`` and ``lr`` each step (``loss_scale``
     under fp16, ``pld_theta`` under progressive layer drop), in the CSV
-    monitor, equal to what ``train_batch`` returned."""
+    monitor, equal to what ``train_batch`` returned; from step 2, once an
+    inter-step wall exists, the live ``train/tflops_est`` and
+    ``train/mfu_est`` gauges (0 without ``DS_TPU_PEAK_TFLOPS``), as the JAX
+    engine writes them."""
     config = {"train_batch_size": 2, "steps_per_print": 10 ** 9,
               "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
               "csv_monitor": {"enabled": True, "output_path": str(tmp_path), "job_name": "j"}}
@@ -157,7 +160,12 @@ def test_engine_events_are_the_losses(tmp_path, extra):
     names = sorted(os.listdir(tmp_path / "j"))
     want = {"plain": [], "fp16": ["Train_Samples_loss_scale.csv"],
             "pld": ["Train_Samples_pld_theta.csv"]}[extra]
-    assert names == sorted(["Train_Samples_lr.csv", "Train_Samples_train_loss.csv"] + want)
+    assert names == sorted(["Train_Samples_lr.csv", "Train_Samples_train_loss.csv",
+                            "train_mfu_est.csv", "train_tflops_est.csv"] + want)
+    for name in ("train_tflops_est.csv", "train_mfu_est.csv"):
+        rows = (tmp_path / "j" / name).read_text().splitlines()[1:]
+        assert [int(r.split(",")[0]) for r in rows] == [2, 3]
+        assert all(float(r.split(",")[1]) >= 0 for r in rows)
     lr = (tmp_path / "j" / "Train_Samples_lr.csv").read_text().splitlines()[1:]
     assert [float(r.split(",")[1]) for r in lr] == [1e-3] * 3
 

@@ -390,18 +390,43 @@ def test_deadline_shed_and_drain(tiny):
 
 
 def test_refused_options_name_their_roadmap_item(tiny):
-    """What is still refused names its ROADMAP item (the monitor, the
-    watchdog, SLO rules and per-program statistics: item 12; the fleet:
-    item 14); the serving extras of item 7 and ``update_params`` build
+    """What is still refused names its ROADMAP item (the fleet: item 14).
+    Item 12's options (the monitor, the watchdog, SLO rules, per-program
+    statistics) build and serve a request as the plain engine does
+    (tests/test_torch_observability.py holds them against JAX); the
+    serving extras of item 7 and ``update_params`` build
     (tests/test_torch_{kv_quant,kv_tiering,speculative,adapters,
     serving_supervisor}.py hold them against JAX)."""
+    from deepspeed_tpu_torch.monitor import InMemoryMonitor
+    from deepspeed_tpu_torch.observability import SloRule
+    from deepspeed_tpu_torch.resilience import HangWatchdog
+
     _, _, teng, tserve = tiny
-    for kwargs, item in (({"monitor": object()}, "item 12"),
-                         ({"watchdog": object()}, "item 12"),
-                         ({"slo_rules": [object()]}, "item 12"),
-                         ({"program_stats_sample_every": 2}, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            teng.serving(**SERVE, **kwargs)
+    req = lambda: Request(rid="one", input_ids=np.array([5, 9, 2], np.int32),  # noqa: E731
+                          max_new_tokens=4)
+    (want,) = tserve.run([req()])
+    wd = HangWatchdog(timeout_s=60.0)
+    for kwargs, surface in (({"monitor": InMemoryMonitor()}, "monitor"),
+                            ({"watchdog": wd}, "watchdog"),
+                            ({"slo_rules": [SloRule.parse("serve/queue_depth < 64")]},
+                             "slo"),
+                            ({"program_stats_sample_every": 2}, "stats")):
+        sv = teng.serving(**SERVE, **kwargs)
+        (got,) = sv.run([req()])
+        np.testing.assert_array_equal(got.output_ids, want.output_ids)
+        if surface == "monitor":
+            assert sv.monitor.latest("serve/active_slots") is not None
+        elif surface == "slo":
+            # evaluated every working tick; without a monitor a gauge rule
+            # sees no data and holds its state, as in the JAX engine
+            assert sv._slo.evaluations == 3 and sv.health()["alerts"] == []
+            assert sv.slo_states()["serve/queue_depth < 64"]["value"] is None
+        elif surface == "stats":
+            assert sv.program_stats()["decode"]["synced_samples"] == 1
+        assert sv.program_stats()["decode"]["invocations"] == 3
+        _balanced(sv)
+    assert not wd.fired
+    wd.stop()
     for kwargs in ({"host_tier_pages": 4}, {"kv_dtype": "int8"},
                    {"probe_after_ticks": 3}):
         assert teng.serving(**SERVE, **kwargs).page_accounting()["balanced"]

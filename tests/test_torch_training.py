@@ -364,10 +364,11 @@ def test_dataloader_and_batch_forms():
         fresh[0].train_batch(batch={"input_ids": micro[0]["input_ids"][:1]})
 
 
-# item 11's tooling half is ported: its blocks now build their feature on
-# the engine (the attribute each wires); the rest still raise
+# items 11 and 12 are ported: these blocks now build their feature on the
+# engine (the attribute each wires); the rest still raise
 PORTED_OPTIONS = {"compression_training": "_compression_transform",
-                  "tensorboard": "monitor", "flops_profiler": "flops_profiler"}
+                  "tensorboard": "monitor", "flops_profiler": "flops_profiler",
+                  "resilience": "_watchdog"}
 
 
 @pytest.mark.parametrize("option", [
@@ -386,6 +387,9 @@ def test_unported_options_raise(option, tmp_path):
                                 device="cpu")
         # an empty compression block wires nothing, as in the JAX engine
         assert (getattr(eng, PORTED_OPTIONS[key]) is None) == (key == "compression_training")
+        if key == "resilience":
+            assert eng._watchdog.timeout_s == 600.0 and eng._watchdog.exit_code == 85
+            eng._watchdog.stop()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ds.initialize(model=CausalLM("tiny", dtype=torch.float32), config=cfg,
