@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only train_extras lora_hybrid
     python3 chip_smoke.py --only tooling
     python3 chip_smoke.py --only observability
+    python3 chip_smoke.py --only elastic
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -92,7 +93,7 @@ one JSON line each; any failure exits non-zero with no result line:
    ``initialize(mesh=MeshLayout(sp=1))`` at one card: losses and masters
    bit-equal to the one-device engine's, the 'seq' plumbing costing
    nothing);
-   ``checkpoint`` (S=16384, full width, in a
+   ``checkpoint`` (S=16384, full width at CKPT_LAYERS layers, in a
    temporary directory outside the checkout, removed after): train 2
    steps, ``save_checkpoint``, train 2; a fresh engine
    ``load_checkpoint``s and trains the same 2 (losses and every master bit
@@ -100,7 +101,24 @@ one JSON line each; any failure exits non-zero with no result line:
    engine resumes from that tag bit for bit; GB written, save and load
    GB/s (sha256 of the payload included), the async return and commit
    times; the depth is cut (never the width) if the disk cannot hold two
-   tags;
+   tags; ``elastic`` (ROADMAP item 13's single-host half: llama-740m at
+   full width cut to ELASTIC_LAYERS layers, S=16384, the batch triad from
+   the ``elasticity`` block's plan, micro-batch 1 x gas 4 at one card;
+   ELASTIC_STEPS steps here uninterrupted, then ``python -m
+   deepspeed_tpu_torch.launcher --elastic_restarts 2`` (no ``--num_gpus``
+   on one card: the launcher counts the GPUs, and ``/proc`` shows it never
+   initializes CUDA: no ``/dev/nvidia*`` open, where the training process
+   and a process that only called ``torch.cuda.device_count()`` hold them) on
+   this script's ``--elastic-child``, whose process gets SIGTERM after
+   step ELASTIC_SIGTERM_AFTER: it saves at the next step boundary and exits
+   75, the supervisor relaunches it once, the new process resumes from
+   that tag to the end; losses and the final masters' checksum bit-equal
+   to the uninterrupted run's, K1/K2/K3 4/2/2 a micro-step in both
+   processes from the libraries built here, time to recover split into
+   its parts, both processes' memory peaks, ``ds_report``'s output;
+   ``--tp-cards-only`` also takes ELASTIC_CARD_CONFIGS (4 cards):
+   ``elastic4_740m``, ZeRO-2 over 4 ranks with SIGTERM to one rank,
+   relaunched at 2 cards);
 6. the serving path at full llama2-7b width and depth with random weights
    from the seed: ``init_inference`` -> ``engine.forward`` on S=4096 (K1
    must launch once per layer), the same tokens through the plain
@@ -237,7 +255,8 @@ one JSON line each; any failure exits non-zero with no result line:
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
 12. the ``kernels`` line: per kernel its launches on its main path (and on
-   the MoE, pipeline, offload, item 11, tooling and observability paths), error against the plain version, times
+   the MoE, pipeline, offload, item 11, tooling, observability and elastic
+   paths), error against the plain version, times
    and the bound from this run's shapes (K1-K3 with a ``block_mask``
    record from the sparse main case).
 
@@ -404,6 +423,10 @@ REMAT_HELD_RTOL, REMAT_HELD_ATOL_GB = 0.1, 0.1
 # bytes a parameter of a checkpoint: bf16 params, fp32 masters, bf16 mu,
 # fp32 nu (TRAIN_CONFIG)
 CKPT_BYTES_PER_PARAM = 2 + 4 + 2 + 4
+# phase checkpoint's depth, of llama-740m's 16 layers: the script's time
+# limit since phase elastic (the save, load and resume of a tag through
+# separate processes) joined it; the rates are per byte, at ~4.9 GB a tag
+CKPT_LAYERS = 8
 # bf16 kernel path vs bf16 plain branch (P rounded at different points),
 # every step: a few times the gaps measured on the card (5.7e-4 in loss,
 # 0.67% in gradient norm at step 3; PERF.md)
@@ -3088,9 +3111,10 @@ def _dir_gb(path: str) -> float:
 
 
 def phase_checkpoint(seed: int):
-    """Save, resume and async-save llama-740m at S=16384 (full width), in a
-    temporary directory outside the checkout: the resumed run's losses and
-    every master must equal the uninterrupted run's, bit for bit."""
+    """Save, resume and async-save llama-740m at S=16384 (full width,
+    CKPT_LAYERS layers), in a temporary directory outside the checkout: the
+    resumed run's losses and every master must equal the uninterrupted
+    run's, bit for bit."""
     import shutil
     import tempfile
 
@@ -3105,7 +3129,7 @@ def phase_checkpoint(seed: int):
 
         cfg = get_config(TRAIN_MODEL)
         state_gb = CKPT_BYTES_PER_PARAM * cfg.param_count / 1e9
-        layers = cfg.num_layers
+        layers = CKPT_LAYERS
         # two tags must fit: cut depth (never width) until they do
         while layers > 1 and 2.2 * state_gb * layers / cfg.num_layers > disk.free / 1e9:
             layers -= 1
@@ -7392,6 +7416,426 @@ def observability_summary(seed: int, serving: dict, tooling=None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase elastic (ROADMAP queue 1, item 13's single-host half): the launcher
+# starting llama-740m training, one process per card; SIGTERM mid-run; the
+# agent saves at the step boundary and exits 75; the supervisor relaunches;
+# the new process resumes from the tag and trains to the end
+# ---------------------------------------------------------------------------
+
+ELASTIC_LAYERS = 2            # of llama-740m's 16: the time limit
+ELASTIC_STEPS = 8
+ELASTIC_SIGTERM_AFTER = 3     # SIGTERM once the first process logged this step
+ELASTIC_TIMEOUT_S = 600
+ELASTIC_BACKOFF_S = 1.0
+# bench.py's training defaults without the batch triad, which the elastic
+# plan sets: at world 1 micro-batch 1 x gas 4, at 2 cards gas 2, at 4 gas 1
+ELASTIC_CONFIG = {
+    **{k: v for k, v in TRAIN_CONFIG.items()
+       if k not in ("train_micro_batch_size_per_gpu", "gradient_accumulation_steps")},
+    "elasticity": {"enabled": True, "max_train_batch_size": 4, "micro_batch_sizes": [1],
+                   "min_gpus": 1, "max_gpus": 4},
+}
+ELASTIC_CARD_CONFIGS = ("elastic4_740m",)
+ELASTIC4_SIGTERM_RANK = 2
+ELASTIC4_RELAUNCH_GPUS = 2
+
+
+def _elastic_engine(seed: int, layers: int, zero_stage: int):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    config = {**ELASTIC_CONFIG, "seed": seed,
+              "zero_optimization": {"stage": zero_stage}}
+    model = CausalLM(TRAIN_MODEL, max_seq_len=TRAIN_SHAPE[1], dtype=torch.bfloat16,
+                     num_layers=layers)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config)
+    return model, engine
+
+
+def _elastic_batch(vocab: int, seed: int, step: int) -> dict:
+    """The global batch of ``step``: every rank draws all of it and trains
+    on its own rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300 + step)
+    rows = ELASTIC_CONFIG["elasticity"]["max_train_batch_size"]
+    return {"input_ids": torch.randint(0, vocab, (rows, TRAIN_SHAPE[1]), generator=gen,
+                                       device="cuda")}
+
+
+def _process_start_time(pid="self") -> float:
+    """The wall-clock time a process started: its start in clock ticks after
+    boot (``/proc/<pid>/stat``) against the boot-time clock now (the whole
+    seconds of ``/proc/stat``'s ``btime`` would cost up to a second)."""
+    with open(f"/proc/{pid}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    since = time.clock_gettime(time.CLOCK_BOOTTIME) - ticks / os.sysconf("SC_CLK_TCK")
+    return time.time() - since
+
+
+def _exited(pid: int) -> bool:
+    """Whether ``pid`` has exited (gone, or a zombie its parent has not
+    reaped yet)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def elastic_child(out: str) -> int:
+    """One rank of phase ``elastic``, started by the launcher: the
+    elastic-planned engine under ``ElasticAgent.run``, one JSON line a step
+    (loss, seconds, K1/K2/K3 launches) into ``out/rank<r>.jsonl``."""
+    proc_start = _process_start_time()
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's reference
+    torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.elasticity import ElasticAgent
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    with open(os.path.join(out, "spec.json")) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    log = open(os.path.join(out, f"rank{rank}.jsonl"), "a")
+
+    def record(**kw):
+        log.write(json.dumps({"pid": os.getpid(), "rank": rank, "t": time.time(), **kw})
+                  + "\n")
+        log.flush()
+
+    record(event="start", proc_start=proc_start)
+    comm.init_distributed(verbose=False)
+    model, engine = _elastic_engine(spec["seed"], spec["layers"], spec["zero_stage"])
+    torch.cuda.synchronize()
+    record(event="engine", world=engine.dp_world, micro=engine.micro_batch_size,
+           gas=engine.gas, batch=engine.train_batch_size)
+    agent = ElasticAgent(engine, spec["ckpt_dir"])
+    vocab = model.config.vocab_size
+    reset_counts()
+
+    def step_fn(engine, step):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(engine.train_batch(batch=_elastic_batch(vocab, spec["seed"], step)))
+        torch.cuda.synchronize()
+        record(step=step + 1, loss=loss, step_s=time.perf_counter() - t,
+               launches=[a - b for a, b in zip(kernel_counts(), before)])
+
+    last = agent.run(step_fn, spec["steps"])
+    rc = agent.exit_code(last, spec["steps"])
+    checksum = _checksum(engine.full_params(fp32=True)) if rc == 0 else None
+    record(event="exit", last=last, rc=rc, checksum=checksum,
+           resumed_step=agent.resumed_step, resumed_tag=agent.resumed_tag,
+           restore_s=agent.timings.get("restore_s"), save_s=agent.timings.get("save_s"),
+           peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+           libraries={b.name: {"path": str(b.library_path()), "loaded": b._lib is not None,
+                               "built_here_s": b.build_seconds} for b in fa.builders()})
+    log.close()
+    comm.destroy_process_group()
+    return rc
+
+
+def _elastic_run(root: str, num_gpus, restarts: int, sigterm_rank=None) -> dict:
+    """``python -m deepspeed_tpu_torch.launcher`` on this script's
+    ``--elastic-child``, with ``--num_gpus num_gpus`` (None: none, the
+    launcher counts the host's GPUs); with ``sigterm_rank``, that rank's
+    first process gets SIGTERM once it logged step ELASTIC_SIGTERM_AFTER.
+    The launcher runs in a session of its own, killed whole on the
+    deadline."""
+    import signal
+
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher",
+           "-H", os.path.join(root, "no_hostfile"),
+           *(["--num_gpus", str(num_gpus)] if num_gpus is not None else []),
+           "--master_port", str(_free_port()), "--elastic_restarts", str(restarts),
+           "--elastic_ckpt_dir", os.path.join(root, "ckpt"),
+           "--elastic_backoff", str(ELASTIC_BACKOFF_S),
+           os.path.abspath(__file__), "--elastic-child", root]
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    logf = open(os.path.join(root, f"launcher_{time.time_ns()}.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+    victim = sigterm_at = exit_seen_at = cuda_use = None
+
+    def records(rank):
+        path = os.path.join(root, f"rank{rank}.jsonl")
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.endswith("\n")]
+
+    try:
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                raise RuntimeError(f"elastic: the launcher passed its {ELASTIC_TIMEOUT_S} s")
+            if sigterm_rank is not None and victim is None:
+                recs = records(sigterm_rank)
+                if any(r.get("step") == ELASTIC_SIGTERM_AFTER for r in recs):
+                    victim = recs[0]["pid"]
+                    os.kill(victim, signal.SIGTERM)
+                    sigterm_at = time.time()
+            if victim is not None and exit_seen_at is None and _exited(victim):
+                exit_seen_at = time.time()
+            # the launcher's and a training process's use of CUDA, sampled
+            # while that process trains (after the relaunch, if any)
+            if cuda_use is None and (sigterm_rank is None or exit_seen_at is not None):
+                live = [r["pid"] for r in records(0) if "step" in r and r["pid"] != victim]
+                use = {"launcher": _cuda_use(proc.pid),
+                       "training_process": _cuda_use(live[-1])} if live else {}
+                if use and None not in use.values():
+                    cuda_use = use
+            # poll finely until the signalled process is gone: a 4-card step
+            # is a few tens of milliseconds
+            time.sleep(0.005 if sigterm_rank is not None and exit_seen_at is None else 0.05)
+    finally:
+        logf.close()
+    with open(logf.name) as f:
+        tail = f.read()[-4000:]
+    return {"rc": proc.returncode, "sigterm_at": sigterm_at, "victim": victim,
+            "exit_seen_at": exit_seen_at, "launcher_log_tail": tail,
+            "launcher_pid": proc.pid, "cuda_use": cuda_use,
+            "records": {r: records(r) for r in range(num_gpus or torch.cuda.device_count())}}
+
+
+def _cuda_use(pid: int) -> dict:
+    """Whether process ``pid`` has the CUDA driver library mapped
+    (``libcuda.so`` in ``/proc/<pid>/maps``) and holds a GPU's device file
+    open (``/dev/nvidia*`` among ``/proc/<pid>/fd``); a PID namespace hides
+    neither.  ``import torch`` maps the library in any process; the driver
+    opens the device files once CUDA is initialized (``cuInit``, as any
+    ``torch.cuda`` query does) and keeps them.  None once it has exited."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            driver = any("libcuda.so" in line for line in f)
+        names = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return None
+    fds = []
+    for fd in names:
+        try:
+            fds.append(os.readlink(f"/proc/{pid}/fd/{fd}"))
+        except OSError:
+            pass
+    return {"libcuda_mapped": driver,
+            "nvidia_device_files": sorted({t for t in fds if t.startswith("/dev/nvidia")})}
+
+
+def _by_process(recs) -> list:
+    """A rank's records split by process, in order: each process's start,
+    engine, step and exit records."""
+    procs = {}
+    for r in recs:
+        procs.setdefault(r["pid"], {"steps": []})
+        p = procs[r["pid"]]
+        if "step" in r:
+            p["steps"].append(r)
+        else:
+            p[r["event"]] = r
+    return list(procs.values())
+
+
+def _recovery(run: dict, first: dict, second: dict) -> dict:
+    """Time to recover, from SIGTERM to the resumed process's first
+    completed step, and its parts (wall clock of one host)."""
+    boundary = first["steps"][-1]["t"]
+    resumed_start = second["start"]["proc_start"]
+    built = second["engine"]["t"]
+    first_step = second["steps"][0]
+    parts = {"to_step_boundary_s": boundary - run["sigterm_at"],
+             "save_s": first["exit"]["save_s"],
+             "exit_s": run["exit_seen_at"] - first["exit"]["t"],
+             "backoff_s": resumed_start - run["exit_seen_at"],
+             "start_to_engine_s": built - resumed_start,
+             "load_s": second["exit"]["restore_s"],
+             "first_step_s": first_step["step_s"]}
+    total = first_step["t"] - run["sigterm_at"]
+    parts["other_s"] = total - sum(parts.values())
+    return {"time_to_recover_s": total, **parts,
+            "process_start_resolution_s": 1.0 / os.sysconf("SC_CLK_TCK")}
+
+
+def phase_elastic(seed: int) -> dict:
+    """The single-card run: the uninterrupted 8 steps here, then the
+    launcher with a SIGTERM after step ELASTIC_SIGTERM_AFTER; losses and
+    the final masters' checksum bit-equal, one relaunch, K1-K3 from the
+    built libraries in both processes, time to recover with its parts,
+    ``ds_report``'s output."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    stage = TRAIN_CONFIG["zero_optimization"]["stage"]
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model, engine = _elastic_engine(seed, ELASTIC_LAYERS, stage)
+    check(engine.gas == 4 and engine.micro_batch_size == 1,
+          f"elastic plan at world 1: micro {engine.micro_batch_size} gas {engine.gas}")
+    per_step = (2 * ELASTIC_LAYERS * engine.gas, ELASTIC_LAYERS * engine.gas,
+                ELASTIC_LAYERS * engine.gas)
+    vocab = model.config.vocab_size
+    reset_counts()
+    want_losses, want_launches, want_step_s = [], [], []
+    for step in range(ELASTIC_STEPS):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want_losses.append(float(engine.train_batch(batch=_elastic_batch(vocab, seed, step))))
+        torch.cuda.synchronize()
+        want_step_s.append(time.perf_counter() - t)
+        want_launches.append([a - b for a, b in zip(kernel_counts(), before)])
+    want_checksum = _checksum(engine.get_params(fp32=True))
+    params = model.param_count
+    parent_peak = torch.cuda.max_memory_allocated() / 1e9
+    del engine, model
+    free_memory()
+    parent_held = torch.cuda.memory_reserved() / 1e9
+    root = tempfile.mkdtemp(prefix="ds_port_elastic_")
+    try:
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump({"seed": seed, "layers": ELASTIC_LAYERS, "steps": ELASTIC_STEPS,
+                       "zero_stage": stage, "ckpt_dir": os.path.join(root, "ckpt")}, f)
+        # one card: no --num_gpus, so the launcher counts the host's GPUs
+        run = _elastic_run(root, None if torch.cuda.device_count() == 1 else 1, 2,
+                           sigterm_rank=0)
+        procs = _by_process(run["records"][0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    import contextlib
+    import io
+
+    from deepspeed_tpu_torch import env_report
+
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        report_rc = env_report.main([])
+    emit({"phase": "ds_report", "rc": report_rc, "lines": report.getvalue().splitlines()})
+    check(report_rc == 0, "ds_report failed")
+    check(run["rc"] == 0, f"the launcher exited {run['rc']}:\n{run['launcher_log_tail']}")
+    check(len(procs) == 2, f"{len(procs)} training processes, expected 2 (one relaunch)")
+    first, second = procs
+    got_losses = [s["loss"] for p in procs for s in p["steps"]]
+    saved = first["exit"]["last"]
+    rec = {"phase": "elastic", "model": TRAIN_MODEL, "layers": ELASTIC_LAYERS,
+           "depth_cut": {"num_layers": ELASTIC_LAYERS}, "params": params,
+           "S": TRAIN_SHAPE[1], "config": ELASTIC_CONFIG, "steps": ELASTIC_STEPS,
+           "plan_world1": {"micro": second["engine"]["micro"], "gas": second["engine"]["gas"]},
+           "sigterm_after_step": ELASTIC_SIGTERM_AFTER, "saved_at_step": saved,
+           "first_exit_rc": first["exit"]["rc"], "resumed_tag": second["exit"]["resumed_tag"],
+           "resumed_step": second["exit"]["resumed_step"], "second_exit_rc": second["exit"]["rc"],
+           "processes": len(procs), "launcher_rc": run["rc"],
+           "losses": got_losses, "uninterrupted_losses": want_losses,
+           "bit_equal_losses": got_losses == want_losses,
+           "checksum": second["exit"]["checksum"], "uninterrupted_checksum": want_checksum,
+           "launches_per_step": {"uninterrupted": want_launches,
+                                 "first_process": [s["launches"] for s in first["steps"]],
+                                 "resumed_process": [s["launches"] for s in second["steps"]]},
+           "expected_per_step": per_step,
+           "libraries": {"first_process": first["exit"]["libraries"],
+                         "resumed_process": second["exit"]["libraries"]},
+           "step_s": {"uninterrupted": want_step_s,
+                      "first_process": [s["step_s"] for s in first["steps"]],
+                      "resumed_process": [s["step_s"] for s in second["steps"]]},
+           "recovery": _recovery(run, first, second),
+           "launcher_num_gpus_flag": torch.cuda.device_count() != 1,
+           "cuda_use": run["cuda_use"],
+           # the control: a process that only counts GPUs through CUDA
+           "cuda_use_counting_through_cuda": json.loads(subprocess.run(
+               [sys.executable, "-c", "import json, os, torch; torch.cuda.device_count(); "
+                "import chip_smoke; print(json.dumps(chip_smoke._cuda_use(os.getpid())))"],
+               cwd=ROOT, capture_output=True, text=True, check=True).stdout.splitlines()[-1]),
+           "peak_memory_gb": {"parent_reference": parent_peak,
+                              "parent_reserved_during_children": parent_held,
+                              "first_process": first["exit"]["peak_memory_gb"],
+                              "resumed_process": second["exit"]["peak_memory_gb"]},
+           "nvidia_smi": nvidia_smi_line(), "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(first["exit"]["rc"] == 75 and saved == first["steps"][-1]["step"]
+          and saved >= ELASTIC_SIGTERM_AFTER,
+          f"the first process did not save at its step boundary and exit 75: {first['exit']}")
+    check(rec["resumed_tag"] == f"global_step{saved}" and rec["resumed_step"] == saved,
+          f"the relaunched process did not resume from the saved tag: {second['exit']}")
+    check(second["exit"]["rc"] == 0 and second["steps"][-1]["step"] == ELASTIC_STEPS,
+          "the relaunched process did not finish")
+    use = run["cuda_use"] or {}
+    check(use.get("training_process", {}).get("nvidia_device_files")
+          and rec["cuda_use_counting_through_cuda"]["nvidia_device_files"],
+          f"the probe did not see CUDA initialized: {use}, "
+          f"{rec['cuda_use_counting_through_cuda']}")
+    check(not use["launcher"]["nvidia_device_files"],
+          f"the launcher initialized CUDA: {use['launcher']}")
+    check(rec["bit_equal_losses"], "the resumed run's losses differ from the uninterrupted "
+                                   f"run's: {got_losses} vs {want_losses}")
+    check(rec["checksum"] == want_checksum, "the final masters differ from the "
+                                             "uninterrupted run's")
+    check(all(tuple(x) == per_step for x in want_launches + [
+              s["launches"] for s in first["steps"] + second["steps"]]),
+          f"K1/K2/K3 a step are not {per_step}: {rec['launches_per_step']}")
+    for p in ("first_process", "resumed_process"):
+        libs = rec["libraries"][p]
+        check(all(libs[n]["loaded"] and libs[n]["built_here_s"] == 0.0 for n in libs),
+              f"the {p} did not load the built K1-K3 libraries: {libs}")
+    return rec
+
+
+def phase_elastic4(seed: int) -> None:
+    """``elastic4_740m`` (4 cards): ZeRO-2 at the phase's widths over 4
+    ranks uninterrupted, then again with SIGTERM to rank ELASTIC4_SIGTERM_RANK
+    only (every rank must save the same step and exit 75), relaunched at
+    ELASTIC4_RELAUNCH_GPUS cards (the plan's batch of 4 kept: gas 2) to the
+    end; losses within TP_DP_LOSS_RTOL of the uninterrupted dp=4 run."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    check(world >= 4, f"elastic4_740m needs 4 cards, found {world}")
+    runs = {}
+    for label in ("uninterrupted", "preempted"):
+        root = tempfile.mkdtemp(prefix=f"ds_port_elastic4_{label}_")
+        try:
+            with open(os.path.join(root, "spec.json"), "w") as f:
+                json.dump({"seed": seed, "layers": ELASTIC_LAYERS, "steps": ELASTIC_STEPS,
+                           "zero_stage": 2, "ckpt_dir": os.path.join(root, "ckpt")}, f)
+            if label == "uninterrupted":
+                runs[label] = [_elastic_run(root, 4, 0)]
+            else:
+                runs[label] = [_elastic_run(root, 4, 0, sigterm_rank=ELASTIC4_SIGTERM_RANK),
+                               _elastic_run(root, ELASTIC4_RELAUNCH_GPUS, 1)]
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    ref = runs["uninterrupted"][0]
+    check(ref["rc"] == 0, f"the uninterrupted dp=4 run exited {ref['rc']}")
+    want = [s["loss"] for s in _by_process(ref["records"][0])[0]["steps"]]
+    stopped, resumed = runs["preempted"]
+    exits = [_by_process(stopped["records"][r])[0]["exit"] for r in range(4)]
+    # rank 0's file holds both runs: the 4-card process, then the 2-card one
+    first, later = _by_process(resumed["records"][0])[:2]
+    got = [s["loss"] for p in (first, later) for s in p["steps"]]
+    rec = {"phase": "tp_cards_elastic4_740m", "world_size": 4,
+           "relaunch_gpus": ELASTIC4_RELAUNCH_GPUS, "sigterm_rank": ELASTIC4_SIGTERM_RANK,
+           "saved_steps": [e["last"] for e in exits], "exit_rcs": [e["rc"] for e in exits],
+           "stopped_rc": stopped["rc"], "resumed_rc": resumed["rc"],
+           "resumed_plan": {k: later["engine"][k] for k in ("world", "micro", "gas", "batch")},
+           "resumed_tag": later["exit"]["resumed_tag"], "losses": got,
+           "uninterrupted_losses": want,
+           "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+           "nvidia_smi": nvidia_smi_line(), "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(len(set(rec["saved_steps"])) == 1 and set(rec["exit_rcs"]) == {75},
+          f"the ranks did not all save the same step and exit 75: {rec['saved_steps']}")
+    check(rec["resumed_plan"]["gas"] == 2 and rec["resumed_plan"]["batch"] == 4
+          and resumed["rc"] == 0 and len(got) == ELASTIC_STEPS,
+          f"the relaunch at 2 cards did not keep the batch or finish: {rec}")
+    check(rec["loss_max_rel_diff"] <= TP_DP_LOSS_RTOL,
+          f"elastic4_740m: losses differ from dp=4's beyond {TP_DP_LOSS_RTOL}")
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -7429,22 +7873,21 @@ def main() -> int:
     ap.add_argument("--tp-cards", action="store_true",
                     help="after every phase, the configurations that need tensor "
                          "parallelism, one process per card (several cards)")
-    ap.add_argument("--tp-cards-only", nargs="+",
-                    choices=(TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS
-                             + ITEM10_CARD_CONFIGS),
-                    metavar="CONFIG",
+    card_configs = (TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS
+                    + ITEM10_CARD_CONFIGS + ELASTIC_CARD_CONFIGS)
+    ap.add_argument("--tp-cards-only", nargs="+", choices=card_configs, metavar="CONFIG",
                     help="only the build, then these configurations, one process "
-                         "per card (of " + ", ".join(
-                             TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS
-                             + ITEM10_CARD_CONFIGS) + ")")
+                         "per card (of " + ", ".join(card_configs) + ")")
     ap.add_argument("--tp-card-rank", nargs=2, metavar="ARG",
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit",
                                                   "train_extras", "lora_hybrid",
-                                                  "tooling", "observability"),
+                                                  "tooling", "observability", "elastic"),
                     help="only the build, then these phases (no kernels line)")
     ap.add_argument("--watchdog-child", metavar="WAIT",
                     help=argparse.SUPPRESS)   # phase observability's watchdog child
+    ap.add_argument("--elastic-child", metavar="DIR",
+                    help=argparse.SUPPRESS)   # phase elastic's training process
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -7455,6 +7898,8 @@ def main() -> int:
         return first_launches()
     if args.watchdog_child:
         return watchdog_child(args.watchdog_child)
+    if args.elastic_child:
+        return elastic_child(args.elastic_child)
     if args.probe_shared_card:
         backend, port, rank = args.probe_shared_card
         return shared_card_child(backend, int(port), int(rank))
@@ -7470,7 +7915,11 @@ def main() -> int:
     if args.tp_cards_only:
         print(nvidia_smi_line(), flush=True)
         phase_build()
-        phase_tp_cards(args.seed, args.tp_cards_only)
+        rank_configs = [c for c in args.tp_cards_only if c not in ELASTIC_CARD_CONFIGS]
+        if rank_configs:
+            phase_tp_cards(args.seed, rank_configs)
+        if "elastic4_740m" in args.tp_cards_only:
+            phase_elastic4(args.seed)
         return 0
     if args.only:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7480,7 +7929,7 @@ def main() -> int:
             {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
              "train_extras": phase_train_extras,
              "lora_hybrid": phase_lora_hybrid, "tooling": phase_tooling,
-             "observability": phase_observability}[name](args.seed)
+             "observability": phase_observability, "elastic": phase_elastic}[name](args.seed)
         return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
@@ -7514,6 +7963,7 @@ def main() -> int:
     phase_train_zero(args.seed)
     phase_frozen(args.seed)
     phase_checkpoint(args.seed)
+    elastic = phase_elastic(args.seed)
     serve_launches, k4_launches, item6 = phase_serving(args.seed, args.profile)
     moe_serve = phase_moe_serving(args.seed)
     moe_train = phase_moe_train(args.seed)
@@ -7605,6 +8055,14 @@ def main() -> int:
             rec["launches_tooling_clean_forwards"] = tooling["clean"]["k1_launches"]
         return rec
 
+    def elastic_launches(i):
+        """Phase elastic's launches of K1 (i=0), K2, K3 a step: the
+        uninterrupted run here, the launched process SIGTERM-ed mid-run and
+        the relaunched one."""
+        return {"launches_elastic_per_step": {
+            run: [step[i] for step in steps]
+            for run, steps in elastic["launches_per_step"].items()}}
+
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
         dlse) at the virtual ring's shard and at sp4_740m's, and the
@@ -7633,21 +8091,21 @@ def main() -> int:
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
                       ring=ring_record("K1"), **item9_launches(0), **item10_launches(0),
-                      **item11_launches(0), **tooling_launches(0),
+                      **item11_launches(0), **tooling_launches(0), **elastic_launches(0),
                       launches_observability_per_step=obs["train"]["launches_per_step"][0][0]),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
                       **item9_launches(1), **item10_launches(1), **item11_launches(1),
-                      **tooling_launches(1),
+                      **tooling_launches(1), **elastic_launches(1),
                       launches_observability_per_step=obs["train"]["launches_per_step"][0][1]),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
                       **item9_launches(2), **item10_launches(2), **item11_launches(2),
-                      **tooling_launches(2),
+                      **tooling_launches(2), **elastic_launches(2),
                       launches_observability_per_step=obs["train"]["launches_per_step"][0][2]),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],

@@ -3,10 +3,10 @@
 
 Same JSON keys and the same batch triad (train_batch = micro_batch x
 gradient_accumulation_steps x dp_world; the engine resolves it over its
-data-parallel world).  A config
-that turns on a feature the port does not have yet fails at once, naming
-the ROADMAP item that ports it: a knob that parses but does nothing would
-be a silent lie.
+data-parallel world; with ``elasticity`` enabled it comes from the elastic
+plan at that world).  A knob that parses but does nothing would be a
+silent lie, so the JAX package's accepted-but-unimplemented knobs fail at
+once.
 """
 from __future__ import annotations
 
@@ -451,17 +451,34 @@ class FlopsProfilerConfig:
     output_file: Optional[str] = None
 
 
+@dataclasses.dataclass
+class ElasticityConfig:
+    """``elasticity`` block (``elasticity/elasticity.py``): the batch triad
+    comes from the elastic plan at the engine's data-parallel world."""
+    enabled: bool = False
+    max_train_batch_size: int = 2000
+    micro_batch_sizes: List[int] = dataclasses.field(default_factory=lambda: [2, 4, 6])
+    min_gpus: int = 1
+    max_gpus: int = 10000
+    min_time: int = 0
+    version: float = 0.1
+    ignore_non_elastic_batch_info: bool = False
+    prefer_larger_batch: bool = True
+    num_gpus_per_node: int = 1
+    model_parallel_size: int = 1
+
+    def __post_init__(self):
+        for name in ("max_train_batch_size", "min_gpus", "max_gpus", "min_time",
+                     "num_gpus_per_node", "model_parallel_size"):
+            setattr(self, name, int(getattr(self, name)))
+        self.micro_batch_sizes = [int(m) for m in self.micro_batch_sizes]
+        self.version = float(self.version)
+        check_min("elasticity.num_gpus_per_node", self.num_gpus_per_node, 1)
+        check_min("elasticity.model_parallel_size", self.model_parallel_size, 1)
+
+
 class DeepSpeedConfigError(Exception):
     pass
-
-
-def _enabled(block: Any, *path: str) -> bool:
-    """``block[path...]["enabled"]`` of a raw config dict, False if absent."""
-    for key in path:
-        if not isinstance(block, dict):
-            return False
-        block = block.get(key, {})
-    return isinstance(block, dict) and bool(block.get("enabled", False))
 
 
 class DeepSpeedConfig:
@@ -520,6 +537,9 @@ class DeepSpeedConfig:
             k: v for k, v in config.items() if k in ("tensorboard", "wandb", "csv_monitor")})
         self.flops_profiler = config_from_dict(FlopsProfilerConfig,
                                                config.get("flops_profiler", {}))
+        self.elasticity = config_from_dict(ElasticityConfig,
+                                           config.get("elasticity", {}))
+        self.elastic_plan = None
 
         self.gradient_accumulation_steps: Optional[int] = config.get(
             C.GRADIENT_ACCUMULATION_STEPS)
@@ -535,18 +555,6 @@ class DeepSpeedConfig:
         """Fail fast on settings whose feature the port does not have yet
         (and on the JAX package's own accepted-but-unimplemented knobs)."""
         cfg, zc = self._param_dict, self.zero_config
-        todo: List[str] = []
-
-        def need(cond: bool, what: str, item: int) -> None:
-            if cond:
-                todo.append(f"{what} (ROADMAP queue 1, item {item})")
-
-        need(_enabled(cfg, "elasticity"), "elasticity", 13)
-        if todo:
-            raise NotImplementedError(
-                "config enables features the PyTorch port does not have yet: "
-                + "; ".join(todo))
-
         bad: List[str] = ["sparse_gradients"] if cfg.get("sparse_gradients") else []
         # the JAX package's offload refusals, word for word
         if zc.offload_param is not None and zc.offload_param.device == "cpu":
@@ -584,6 +592,9 @@ class DeepSpeedConfig:
 
     # -- batch triad (reference runtime/config.py `_batch_assertion` et al.) --
     def resolve_batch_triad(self, dp_world_size: int) -> None:
+        if self.elasticity.enabled:
+            self._resolve_elastic_triad(dp_world_size)
+            return
         tb, mb, gas = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
                        self.gradient_accumulation_steps)
         if tb is not None and mb is not None and gas is not None:
@@ -610,6 +621,33 @@ class DeepSpeedConfig:
                 f"micro_batch({mb}) * gas({gas}) * dp_world({dp_world_size})")
         self.train_batch_size, self.train_micro_batch_size_per_gpu = tb, mb
         self.gradient_accumulation_steps = gas
+
+    def _resolve_elastic_triad(self, dp_world_size: int) -> None:
+        """Elastic mode: the batch triad comes from the elastic plan, not the
+        user's knobs (explicit batch settings conflict unless
+        ``ignore_non_elastic_batch_info``)."""
+        from ..elasticity import (ensure_immutable_elastic_config,
+                                  resolve_plan_for_current_world)
+        if self.elastic_plan is not None:
+            return  # already resolved (the engine calls resolve_batch_triad again)
+        ec = self.elasticity
+        user_set = [k for k, v in (
+            ("train_batch_size", self.train_batch_size),
+            ("train_micro_batch_size_per_gpu", self.train_micro_batch_size_per_gpu),
+            ("gradient_accumulation_steps", self.gradient_accumulation_steps),
+        ) if v is not None]
+        if user_set and not ec.ignore_non_elastic_batch_info:
+            raise DeepSpeedConfigError(
+                f"elasticity is enabled but {user_set} are also set; elastic "
+                "training derives the batch triad from the plan — remove them "
+                "or set elasticity.ignore_non_elastic_batch_info")
+        ensure_immutable_elastic_config(dataclasses.asdict(ec))
+        plan = resolve_plan_for_current_world(
+            ec, dp_world_size, node_size=ec.num_gpus_per_node,
+            model_parallel_size=ec.model_parallel_size)
+        (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+         self.gradient_accumulation_steps) = plan.as_triad()
+        self.elastic_plan = plan
 
     @property
     def zero_optimization_stage(self) -> int:

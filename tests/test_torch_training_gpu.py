@@ -11,6 +11,13 @@ file imports no jax, so it runs on the GPU machine on its own:
 
     python -m pytest --noconftest -m gpu tests/test_torch_training_gpu.py -q
 """
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -115,3 +122,37 @@ def test_resume_is_bit_exact(cuda, tmp_path, async_save):
                     tree_leaves(b.state.master_params) + tree_leaves(b.state.params)):
         assert torch.equal(x, y)
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.gpu
+def test_launched_child_loads_the_built_kernels(cuda, tmp_path):
+    """``python -m deepspeed_tpu_torch.launcher --num_gpus 1`` starts a
+    training process that trains through K1-K3 from the libraries this
+    process built (it builds none itself and never falls back to the plain
+    version)."""
+    for b in fa.builders():
+        b.build()
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"mode": "kernels", "out": str(tmp_path), "model": MODEL,
+                                "config": CONFIG}))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DS_ACCELERATOR", "RANK", "LOCAL_RANK", "WORLD_SIZE",
+                        "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(root)
+    res = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.launcher", "-H",
+                          str(tmp_path / "no_hostfile"), "--num_gpus", "1", "--master_port",
+                          str(port), "--module", "tests._torch_elastic_child", str(spec)],
+                         cwd=str(root), env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rec = json.loads((tmp_path / "kernels0.json").read_text())
+    gas = CONFIG["gradient_accumulation_steps"]
+    assert rec["launches"] == [2 * LAYERS * gas, LAYERS * gas, LAYERS * gas]
+    assert np.isfinite(rec["loss"])
+    for b in fa.builders():
+        lib = rec["libraries"][b.name]
+        assert lib["loaded"] and lib["built_here_s"] == 0.0
+        assert lib["path"] == str(b.library_path())
