@@ -118,7 +118,25 @@ one JSON line each; any failure exits non-zero with no result line:
    its parts, both processes' memory peaks, ``ds_report``'s output;
    ``--tp-cards-only`` also takes ELASTIC_CARD_CONFIGS (4 cards):
    ``elastic4_740m``, ZeRO-2 over 4 ranks with SIGTERM to one rank,
-   relaunched at 2 cards);
+   relaunched at 2 cards); ``pod`` (item 13's pod half, the same cell:
+   ``python -m deepspeed_tpu_torch.launcher --pod_coord_dir S --pod_lease
+   1.0 --pod_miss_limit 3 --elastic_restarts 2`` with ``-H`` naming one
+   host h0 and ``--launcher local`` starts this script's ``--pod-child``
+   as h0 of a two-host pod whose h1 is ``tests/_torch_pod_peer.py``, a
+   plain process holding no card; POD_STEPS steps, a pod-scope checkpoint
+   every POD_CKPT_EVERY; h1 is SIGKILLed when the coordinator announces
+   POD_HOLD_TAG, before its host manifest lands; h0's heartbeat watchdog
+   declares it dead and exits 87; the supervisor runs one more round at
+   generation 2, whose process quarantines the torn tag, resumes from
+   global_step2 at [h0] and commits the rest: losses and the final
+   checksum bit-equal to ``elastic``'s uninterrupted run, K1/K2/K3 16/8/8
+   a step from the built libraries, no ``/dev/nvidia*`` in the launcher
+   or the peer, time to detect and time to recover with their parts, the
+   pod save's parts; then the replica hooks at full width in this process:
+   ``replica_snapshot`` -> ``replica_ingest`` into a second engine
+   bit-equal with both directions' GB/s, and a ``HostReplicator`` refusing
+   the slab at the store's 64 MiB cap within POD_REPLICA_MAX_S; 4 cards:
+   ``pod4_740m`` in POD_CARD_CONFIGS);
 6. the serving path at full llama2-7b width and depth with random weights
    from the seed: ``init_inference`` -> ``engine.forward`` on S=4096 (K1
    must launch once per layer), the same tokens through the plain
@@ -255,8 +273,8 @@ one JSON line each; any failure exits non-zero with no result line:
    one warm train step, one forward, one decode step and 10 warm decode
    ticks of the serving engine, and the device's busy share;
 12. the ``kernels`` line: per kernel its launches on its main path (and on
-   the MoE, pipeline, offload, item 11, tooling, observability and elastic
-   paths), error against the plain version, times
+   the MoE, pipeline, offload, item 11, tooling, observability, elastic
+   and pod paths), error against the plain version, times
    and the bound from this run's shapes (K1-K3 with a ``block_mask``
    record from the sparse main case).
 
@@ -424,9 +442,10 @@ REMAT_HELD_RTOL, REMAT_HELD_ATOL_GB = 0.1, 0.1
 # fp32 nu (TRAIN_CONFIG)
 CKPT_BYTES_PER_PARAM = 2 + 4 + 2 + 4
 # phase checkpoint's depth, of llama-740m's 16 layers: the script's time
-# limit since phase elastic (the save, load and resume of a tag through
-# separate processes) joined it; the rates are per byte, at ~4.9 GB a tag
-CKPT_LAYERS = 8
+# limit since phases elastic and pod (the save, load and resume of tags
+# through separate processes) joined it; the rates are per byte, at ~2.6 GB
+# a tag
+CKPT_LAYERS = 4
 # bf16 kernel path vs bf16 plain branch (P rounded at different points),
 # every step: a few times the gaps measured on the card (5.7e-4 in loss,
 # 0.67% in gradient norm at step 3; PERF.md)
@@ -5524,7 +5543,9 @@ def _tp_card_pp4_7b(seed: int, world: int, rank: int) -> dict:
 # queue 1, item 10): phases ``offload`` and ``zeropp_onebit``
 # ---------------------------------------------------------------------------
 
-OFFLOAD_7B_MODEL, OFFLOAD_7B_S, OFFLOAD_7B_STEPS = "llama2-7b", 4096, 3
+# two steps show the loss falling; a third cost ~9 s of the script's time
+# limit once phase pod joined it
+OFFLOAD_7B_MODEL, OFFLOAD_7B_S, OFFLOAD_7B_STEPS = "llama2-7b", 4096, 2
 # host bytes a parameter of the host step: fp32 master, m, v
 OFFLOAD_HOST_BYTES = 12
 # the share of MemAvailable the 7B phase's state may take (the rest: this
@@ -7536,6 +7557,15 @@ def elastic_child(out: str) -> int:
     return rc
 
 
+def _clean_env() -> dict:
+    """This process's environment for a launcher: the repo on the path and
+    no rank variables of its own."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    return env
+
+
 def _elastic_run(root: str, num_gpus, restarts: int, sigterm_rank=None) -> dict:
     """``python -m deepspeed_tpu_torch.launcher`` on this script's
     ``--elastic-child``, with ``--num_gpus num_gpus`` (None: none, the
@@ -7552,12 +7582,9 @@ def _elastic_run(root: str, num_gpus, restarts: int, sigterm_rank=None) -> dict:
            "--elastic_ckpt_dir", os.path.join(root, "ckpt"),
            "--elastic_backoff", str(ELASTIC_BACKOFF_S),
            os.path.abspath(__file__), "--elastic-child", root]
-    env = {**os.environ, "PYTHONPATH": ROOT}
-    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
-        env.pop(key, None)
     logf = open(os.path.join(root, f"launcher_{time.time_ns()}.log"), "w")
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
-                            start_new_session=True)
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=_clean_env(), stdout=logf,
+                            stderr=subprocess.STDOUT, start_new_session=True)
     deadline = time.monotonic() + ELASTIC_TIMEOUT_S
     victim = sigterm_at = exit_seen_at = cuda_use = None
 
@@ -7660,12 +7687,14 @@ def _recovery(run: dict, first: dict, second: dict) -> dict:
             "process_start_resolution_s": 1.0 / os.sysconf("SC_CLK_TCK")}
 
 
-def phase_elastic(seed: int) -> dict:
+def phase_elastic(seed: int) -> tuple:
     """The single-card run: the uninterrupted 8 steps here, then the
     launcher with a SIGTERM after step ELASTIC_SIGTERM_AFTER; losses and
     the final masters' checksum bit-equal, one relaunch, K1-K3 from the
     built libraries in both processes, time to recover with its parts,
-    ``ds_report``'s output."""
+    ``ds_report``'s output.  Returns the record and phase ``pod``'s
+    reference: the same run's first POD_STEPS losses, its checksum after
+    them, and its engine (kept on the card for the replica hooks)."""
     import shutil
     import tempfile
 
@@ -7689,9 +7718,17 @@ def phase_elastic(seed: int) -> dict:
         torch.cuda.synchronize()
         want_step_s.append(time.perf_counter() - t)
         want_launches.append([a - b for a, b in zip(kernel_counts(), before)])
+        if step + 1 == POD_STEPS:   # phase pod's uninterrupted run is this one's start
+            pod_checksum = _checksum(engine.get_params(fp32=True))
     want_checksum = _checksum(engine.get_params(fp32=True))
     params = model.param_count
     parent_peak = torch.cuda.max_memory_allocated() / 1e9
+    reference = {"seed": seed, "losses": want_losses[:POD_STEPS], "checksum": pod_checksum,
+                 "launches": want_launches[:POD_STEPS], "engine": engine,
+                 "what": "phase elastic's in-process run"}
+    # phase pod's replica hooks reuse this engine, so its state stays on the
+    # card through the children: recorded beside what the parent holds
+    held_engine_gb = engine.replica_nbytes() / 1e9
     del engine, model
     free_memory()
     parent_held = torch.cuda.memory_reserved() / 1e9
@@ -7751,6 +7788,7 @@ def phase_elastic(seed: int) -> dict:
                cwd=ROOT, capture_output=True, text=True, check=True).stdout.splitlines()[-1]),
            "peak_memory_gb": {"parent_reference": parent_peak,
                               "parent_reserved_during_children": parent_held,
+                              "of_which_engine_held_for_pod": held_engine_gb,
                               "first_process": first["exit"]["peak_memory_gb"],
                               "resumed_process": second["exit"]["peak_memory_gb"]},
            "nvidia_smi": nvidia_smi_line(), "seconds": time.perf_counter() - t0}
@@ -7780,7 +7818,7 @@ def phase_elastic(seed: int) -> dict:
         libs = rec["libraries"][p]
         check(all(libs[n]["loaded"] and libs[n]["built_here_s"] == 0.0 for n in libs),
               f"the {p} did not load the built K1-K3 libraries: {libs}")
-    return rec
+    return rec, reference
 
 
 def phase_elastic4(seed: int) -> None:
@@ -7836,6 +7874,530 @@ def phase_elastic4(seed: int) -> None:
           f"elastic4_740m: losses differ from dp=4's beyond {TP_DP_LOSS_RTOL}")
 
 
+# ---------------------------------------------------------------------------
+# Phase pod (ROADMAP queue 1, item 13's pod half): the launcher in pod mode
+# starting llama-740m training as host h0 of a two-host pod whose h1 is a
+# simulated host holding no card; h1 dies in the middle of a pod-scope
+# checkpoint, h0's heartbeat watchdog declares it dead and exits 87, the
+# supervisor bumps the pod generation and relaunches, and the new process
+# quarantines the torn tag and resumes from the tag both hosts attested
+# ---------------------------------------------------------------------------
+
+POD_STEPS = 6
+POD_CKPT_EVERY = 2
+POD_HOSTS = ("h0", "h1")
+POD_LEASE_S = 1.0
+POD_MISS_LIMIT = 3
+POD_HOLD_TAG = "global_step4"   # h1 dies once this commit is announced
+POD_COMMIT_TIMEOUT_S = 120.0
+POD_TIMEOUT_S = 600
+POD_CARD_CONFIGS = ("pod4_740m",)
+POD4_GPUS = {"h0": "0,1", "h1": "2,3"}
+POD4_KILL_AFTER = 3             # SIGKILL h1's spawner once rank 0 logged this step
+POD_REPLICA_MAX_S = 1.0         # the over-cap refusal must not touch the slab
+
+
+def pod_child(out: str) -> int:
+    """One rank of phase ``pod`` (and ``pod4_740m``), started by the launcher
+    in pod mode: ``PodContext.from_env`` over the spec's hosts, a started
+    ``HeartbeatWatchdog``, the elastic-planned engine under
+    ``PodElasticAgent.run``; one JSON line a step (loss, seconds, K1/K2/K3
+    launches) and a line a save (its parts) into ``out/pod_rank<r>.jsonl``.
+    When the watchdog declares a peer dead the rank records it and exits 87
+    (``os._exit``, from the watchdog's thread)."""
+    proc_start = _process_start_time()
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's reference
+    torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.elasticity import (RC_POD_PEER_LOST, PodContext,
+                                                PodElasticAgent, PodPeerLost,
+                                                shrink_to_healthy)
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.config import ElasticityConfig
+
+    with open(os.path.join(out, "pod_spec.json")) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    log = open(os.path.join(out, f"pod_rank{rank}.jsonl"), "a")
+    ctx = PodContext.from_env(hosts=spec["pod_hosts"],
+                              commit_timeout_s=spec["commit_timeout_s"])
+
+    def record(**kw):
+        log.write(json.dumps({"pid": os.getpid(), "rank": rank, "host": ctx.host_id,
+                              "generation": ctx.generation, "t": time.time(), **kw}) + "\n")
+        log.flush()
+
+    def peer_dead(host):
+        record(event="peer_dead", dead=host)
+        os._exit(RC_POD_PEER_LOST)
+
+    record(event="start", proc_start=proc_start, hosts=ctx.hosts,
+           env={k: os.environ.get(k) for k in ("DS_TPU_POD_COORD_DIR", "DS_TPU_POD_GENERATION",
+                                               "DS_TPU_POD_LEASE", "DS_TPU_POD_MISS_LIMIT",
+                                               "DS_TPU_POD_HOST")})
+    watchdog = ctx.watchdog(on_peer_dead=peer_dead).start()
+    comm.init_distributed(verbose=False)
+    # the round's plan over the pod's hosts (one card each as far as the
+    # plan knows): printed, not applied, as h1 holds no card
+    members, plan = shrink_to_healthy(ElasticityConfig(**ELASTIC_CONFIG["elasticity"]),
+                                      ctx.hosts, chips_per_host=1)
+    model, engine = _elastic_engine(spec["seed"], spec["layers"], spec["zero_stage"])
+    torch.cuda.synchronize()
+    record(event="engine", world=engine.dp_world, micro=engine.micro_batch_size,
+           gas=engine.gas, batch=engine.train_batch_size,
+           host_plan={"members": members, "triad": list(plan.as_triad())})
+    agent = PodElasticAgent(engine, spec["ckpt_dir"], ctx, watchdog=watchdog,
+                            ckpt_every=spec["ckpt_every"])
+    vocab = model.config.vocab_size
+    save = agent._save
+
+    def recorded_save():
+        t = time.perf_counter()
+        tag = f"global_step{engine.global_steps}"
+        save()
+        record(event="save", tag=tag, s=time.perf_counter() - t, **ctx.timings)
+    agent._save = recorded_save
+    reset_counts()
+
+    def step_fn(engine, step):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(engine.train_batch(batch=_elastic_batch(vocab, spec["seed"], step)))
+        torch.cuda.synchronize()
+        record(step=step + 1, loss=loss, step_s=time.perf_counter() - t,
+               launches=[a - b for a, b in zip(kernel_counts(), before)])
+
+    try:
+        last = agent.run(step_fn, spec["steps"])
+    except PodPeerLost as e:
+        record(event="peer_lost", dead=e.host)
+        log.close()
+        os._exit(e.rc)
+    rc = agent.exit_code(last, spec["steps"])
+    checksum = _checksum(engine.full_params(fp32=True)) if rc == 0 else None
+    record(event="exit", last=last, rc=rc, checksum=checksum,
+           resumed_step=agent.resumed_step, resumed_tag=agent.resumed_tag,
+           restore_s=agent.timings.get("restore_s"), sweep_s=agent.timings.get("sweep_s"),
+           peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+           libraries={b.name: {"path": str(b.library_path()), "loaded": b._lib is not None,
+                               "built_here_s": b.build_seconds} for b in fa.builders()})
+    log.close()
+    watchdog.stop()
+    comm.destroy_process_group()
+    return rc
+
+
+def _pod_records(root: str, rank: int) -> list:
+    path = os.path.join(root, f"pod_rank{rank}.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def _pod_launcher(root: str, hostfile: str, restarts: int, extra=()) -> list:
+    return [sys.executable, "-m", "deepspeed_tpu_torch.launcher", "-H", hostfile,
+            "--launcher", "local", "--master_port", str(_free_port()), *extra,
+            "--pod_coord_dir", os.path.join(root, "store"),
+            "--pod_lease", str(POD_LEASE_S), "--pod_miss_limit", str(POD_MISS_LIMIT),
+            "--elastic_restarts", str(restarts), "--elastic_ckpt_dir",
+            os.path.join(root, "ckpt"), "--elastic_backoff", str(ELASTIC_BACKOFF_S),
+            os.path.abspath(__file__), "--pod-child", root]
+
+
+def _pod_run(root: str) -> dict:
+    """The simulated peer h1 (``tests/_torch_pod_peer.py``, a plain
+    process), then the launcher in pod mode on this script's
+    ``--pod-child`` as host h0; SIGKILL to h1 once it holds at
+    POD_HOLD_TAG.  Both run in sessions of their own, killed whole on the
+    deadline."""
+    import signal
+
+    env = _clean_env()
+    peer_spec = os.path.join(root, "peer_spec.json")
+    with open(peer_spec, "w") as f:
+        json.dump({"store": os.path.join(root, "store"), "host": POD_HOSTS[1],
+                   "lease_s": POD_LEASE_S, "ckpt_dir": os.path.join(root, "ckpt"),
+                   "out": os.path.join(root, "peer.jsonl"), "hold_tag": POD_HOLD_TAG}, f)
+    peer = subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "_torch_pod_peer.py"),
+                             peer_spec], cwd=ROOT, env=env, start_new_session=True,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    hostfile = os.path.join(root, "hostfile")
+    with open(hostfile, "w") as f:
+        f.write(f"{POD_HOSTS[0]} slots=1\n")
+    logf = open(os.path.join(root, f"pod_launcher_{time.time_ns()}.log"), "w")
+    proc = subprocess.Popen(_pod_launcher(root, hostfile, 2), cwd=ROOT, env=env, stdout=logf,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    deadline = time.monotonic() + POD_TIMEOUT_S
+    kill_at = exit_seen_at = victim = None
+    cuda_use = {}
+
+    def peer_records():
+        path = os.path.join(root, "peer.jsonl")
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.endswith("\n")]
+
+    try:
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"pod: the launcher passed its {POD_TIMEOUT_S} s")
+            recs = _pod_records(root, 0)
+            if kill_at is None and any(r.get("event") == "hold" for r in peer_records()):
+                cuda_use["peer"] = _cuda_use(peer.pid)
+                os.killpg(peer.pid, signal.SIGKILL)
+                kill_at = time.time()
+                peer.wait()
+                victim = recs[0]["pid"] if recs else None
+            if victim is not None and exit_seen_at is None and _exited(victim):
+                exit_seen_at = time.time()
+            live = [r["pid"] for r in recs if "step" in r]
+            if "training_process" not in cuda_use and live and kill_at is None:
+                use = {"launcher": _cuda_use(proc.pid), "training_process": _cuda_use(live[-1])}
+                if None not in use.values():
+                    cuda_use.update(use)
+            time.sleep(0.005 if kill_at is not None and exit_seen_at is None else 0.05)
+    finally:
+        for p in (proc, peer):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        logf.close()
+    with open(logf.name) as f:
+        tail = f.read()[-6000:]
+    return {"rc": proc.returncode, "kill_at": kill_at, "exit_seen_at": exit_seen_at,
+            "victim": victim, "launcher_log_tail": tail, "cuda_use": cuda_use,
+            "records": _pod_records(root, 0), "peer": peer_records()}
+
+
+def _pod_recovery(run: dict, first: dict, second: dict) -> dict:
+    """Time to detect (SIGKILL of h1 to h0's exit 87) and time to recover
+    (SIGKILL to the resumed process's first completed step), with their
+    parts (wall clock of one host)."""
+    declared = first["peer_dead"]["t"]
+    resumed_start = second["start"]["proc_start"]
+    first_step = second["steps"][0]
+    # the supervisor's jittered backoff, as it logged it; the rest of the
+    # gap to the new process is the reap and the per-node spawner's start
+    backoff = re.findall(r"relaunching \(restart \d+/\d+\) after ([0-9.]+)s",
+                         run["launcher_log_tail"])
+    detect = {"declared_s": declared - run["kill_at"],
+              "exit_s": run["exit_seen_at"] - declared}
+    parts = {**detect,
+             "backoff_s": float(backoff[0]) if backoff else 0.0,
+             "reap_and_spawn_s": resumed_start - run["exit_seen_at"]
+             - (float(backoff[0]) if backoff else 0.0),
+             "start_to_engine_s": second["engine"]["t"] - resumed_start,
+             "sweep_s": second["exit"]["sweep_s"],
+             "load_s": second["exit"]["restore_s"],
+             "first_step_s": first_step["step_s"]}
+    total = first_step["t"] - run["kill_at"]
+    parts["other_s"] = total - sum(parts.values())
+    return {"time_to_detect_s": run["exit_seen_at"] - run["kill_at"],
+            "time_to_recover_s": total, **parts,
+            "process_start_resolution_s": 1.0 / os.sysconf("SC_CLK_TCK")}
+
+
+def _pod_by_process(recs) -> list:
+    procs = {}
+    for r in recs:
+        p = procs.setdefault(r["pid"], {"steps": [], "saves": []})
+        if "step" in r:
+            p["steps"].append(r)
+        elif r["event"] == "save":
+            p["saves"].append(r)
+        else:
+            p[r["event"]] = r
+    return list(procs.values())
+
+
+def _pod_replica_hooks(reference: dict, seed: int) -> dict:
+    """The replica hooks at full width, here: ``replica_snapshot`` of the
+    reference engine, ``replica_ingest`` into a second engine built the same
+    way (parameters, masters and moments bit-equal after it), then a
+    ``HostReplicator`` sealing every step refuses the slab at the store's
+    cap before building, checksumming or encoding it, within
+    POD_REPLICA_MAX_S, and counts the refusal."""
+    import tempfile
+
+    from deepspeed_tpu_torch.elasticity import (REPLICA_MAX_BYTES, FileCoordinationStore,
+                                                HostReplicator, read_replica)
+    from deepspeed_tpu_torch.utils.tree import tree_flatten_with_path
+
+    src = reference["engine"]
+    _, dst = _elastic_engine(seed + 1, ELASTIC_LAYERS, TRAIN_CONFIG["zero_optimization"]["stage"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    slab = src.replica_snapshot()
+    snap_s = time.perf_counter() - t
+    t = time.perf_counter()
+    step = dst.replica_ingest(slab)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t
+    gb = len(slab) / 1e9
+
+    def leaves(e):
+        state = dataclasses.asdict(e.state)
+        return tree_flatten_with_path({k: state[k] for k in ("params", "master_params",
+                                                              "opt_state")})
+    pairs = list(zip(leaves(src), leaves(dst)))
+    equal = all(pa == pb and (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+                for (pa, a), (pb, b) in pairs)
+    del slab
+    store_dir = tempfile.mkdtemp(prefix="ds_port_pod_store_")
+    try:
+        store = FileCoordinationStore(store_dir)
+        rep = HostReplicator(store, POD_HOSTS[0], 1, list(POD_HOSTS), src.replica_snapshot,
+                             replica_every_k=1)
+        t = time.perf_counter()
+        sealed = rep.maybe_replicate(src.global_steps)
+        refuse_s = time.perf_counter() - t
+        rep.stop()
+        published = read_replica(store, POD_HOSTS[0]) is not None
+    finally:
+        import shutil
+
+        shutil.rmtree(store_dir, ignore_errors=True)
+    out = {"slab_gb": gb, "step": step, "source_step": src.global_steps,
+           "leaves": len(pairs), "bit_equal": equal,
+           "snapshot_s": snap_s, "snapshot_gb_per_s": gb / snap_s,
+           "ingest_s": ingest_s, "ingest_gb_per_s": gb / ingest_s,
+           "cap_bytes": REPLICA_MAX_BYTES, "refused": not sealed and not published,
+           "publish_failures": rep.publish_failures, "refuse_s": refuse_s}
+    del dst
+    return out
+
+
+def phase_pod(seed: int, reference=None) -> dict:
+    """The lost-host recovery on one card (see the module docstring's phase
+    ``pod``), held bit-equal to phase ``elastic``'s uninterrupted run (or
+    this phase's own when it runs alone), then the replica hooks."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    stage = TRAIN_CONFIG["zero_optimization"]["stage"]
+    free_memory()
+    if reference is None or reference["seed"] != seed:
+        model, engine = _elastic_engine(seed, ELASTIC_LAYERS, stage)
+        vocab, losses, launches = model.config.vocab_size, [], []
+        reset_counts()
+        for step in range(POD_STEPS):
+            before = kernel_counts()
+            losses.append(float(engine.train_batch(batch=_elastic_batch(vocab, seed, step))))
+            launches.append([a - b for a, b in zip(kernel_counts(), before)])
+        reference = {"seed": seed, "losses": losses, "launches": launches, "engine": engine,
+                     "checksum": _checksum(engine.get_params(fp32=True)),
+                     "what": "this phase's own in-process run"}
+        del model, engine
+    free_memory()
+    per_step = (2 * ELASTIC_LAYERS * 4, ELASTIC_LAYERS * 4, ELASTIC_LAYERS * 4)
+    root = tempfile.mkdtemp(prefix="ds_port_pod_")
+    try:
+        with open(os.path.join(root, "pod_spec.json"), "w") as f:
+            json.dump({"seed": seed, "layers": ELASTIC_LAYERS, "steps": POD_STEPS,
+                       "zero_stage": stage, "ckpt_dir": os.path.join(root, "ckpt"),
+                       "ckpt_every": POD_CKPT_EVERY, "pod_hosts": list(POD_HOSTS),
+                       "commit_timeout_s": POD_COMMIT_TIMEOUT_S}, f)
+        run = _pod_run(root)
+        from deepspeed_tpu_torch.elasticity import (FileCoordinationStore, dead_set,
+                                                    read_generation)
+        from deepspeed_tpu_torch.resilience import read_pod_manifest
+
+        store = FileCoordinationStore(os.path.join(root, "store"))
+        ckpt = os.path.join(root, "ckpt")
+        tags = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+        pod_manifests = {t: read_pod_manifest(os.path.join(ckpt, t)) for t in tags
+                         if os.path.isdir(os.path.join(ckpt, t))}
+        store_state = {"generation": read_generation(store), "dead": dead_set(store),
+                       "commits": {g: store.get(f"commit/{g}") for g in store.list("commit")}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    procs = _pod_by_process(run["records"])
+    check(run["rc"] == 0, f"the pod launcher exited {run['rc']}:\n{run['launcher_log_tail']}")
+    check(len(procs) == 2, f"{len(procs)} training processes, expected 2 (one relaunch)")
+    first, second = procs
+    got = [s["loss"] for s in first["steps"] if s["step"] <= second["exit"]["resumed_step"]] \
+        + [s["loss"] for s in second["steps"]]
+    want = reference["losses"]
+    saves = [{k: s.get(k) for k in ("generation", "tag", "s", "engine_save_s",
+                                    "host_manifest_s", "pod_commit_wait_s")}
+             for p in procs for s in p["saves"]]
+    launcher_log = run["launcher_log_tail"]
+    rec = {"phase": "pod", "model": TRAIN_MODEL, "layers": ELASTIC_LAYERS,
+           "depth_cut": {"num_layers": ELASTIC_LAYERS}, "S": TRAIN_SHAPE[1],
+           "steps": POD_STEPS, "ckpt_every": POD_CKPT_EVERY, "hosts": list(POD_HOSTS),
+           "lease_s": POD_LEASE_S, "miss_limit": POD_MISS_LIMIT, "hold_tag": POD_HOLD_TAG,
+           "reference": reference["what"],
+           "first": {"generation": first["start"]["generation"],
+                     "hosts": first["start"]["hosts"], "env": first["start"]["env"],
+                     "host_plan": first["engine"]["host_plan"],
+                     "steps": [s["step"] for s in first["steps"]],
+                     "peer_dead": first.get("peer_dead", {}).get("dead")},
+           "second": {"generation": second["start"]["generation"],
+                      "hosts": second["start"]["hosts"],
+                      "host_plan": second["engine"]["host_plan"],
+                      "resumed_tag": second["exit"]["resumed_tag"],
+                      "resumed_step": second["exit"]["resumed_step"],
+                      "steps": [s["step"] for s in second["steps"]], "rc": second["exit"]["rc"],
+                      "plan": {k: second["engine"][k] for k in ("world", "micro", "gas",
+                                                                 "batch")}},
+           "launcher_rc": run["rc"], "launcher_saw_87": "rc=87" in launcher_log,
+           "tags": tags, "pod_manifests": pod_manifests, "store": store_state,
+           "losses": got, "uninterrupted_losses": want, "bit_equal_losses": got == want,
+           "checksum": second["exit"]["checksum"], "uninterrupted_checksum": reference["checksum"],
+           "launches_per_step": {"first_process": [s["launches"] for s in first["steps"]],
+                                 "resumed_process": [s["launches"] for s in second["steps"]]},
+           "expected_per_step": per_step,
+           "libraries": {"first_process": first["exit"]["libraries"]
+                         if "exit" in first else None,
+                         "resumed_process": second["exit"]["libraries"]},
+           "saves": saves, "recovery": _pod_recovery(run, first, second),
+           "step_s": [s["step_s"] for p in procs for s in p["steps"]],
+           "peer": [r.get("event") + ":" + str(r.get("tag", "")) for r in run["peer"]],
+           "cuda_use": run["cuda_use"],
+           "peak_memory_gb": second["exit"]["peak_memory_gb"],
+           "nvidia_smi": nvidia_smi_line()}
+    replica = _pod_replica_hooks(reference, seed)
+    reference.pop("engine", None)
+    free_memory()
+    rec["replica"] = replica
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    check(first["start"]["generation"] == 1 and first["start"]["hosts"] == list(POD_HOSTS),
+          f"the first round was not generation 1 of both hosts: {first['start']}")
+    step2 = pod_manifests.get("global_step2") or {}
+    check(step2.get("generation") == 1 and step2.get("hosts") == list(POD_HOSTS),
+          f"global_step2 is not pod-committed by both hosts in generation 1: {pod_manifests}")
+    check(first.get("peer_dead", {}).get("dead") == POD_HOSTS[1] and "exit" not in first
+          and rec["launcher_saw_87"],
+          f"h0 did not declare h1 dead and exit 87: {first.get('peer_dead')}\n{launcher_log}")
+    check(store_state["dead"] == [POD_HOSTS[1]] and store_state["generation"] == 2,
+          f"not exactly one more round at generation 2 with dead/h1: {store_state}")
+    check(f"{POD_HOLD_TAG}.corrupt" in tags and second["exit"]["resumed_tag"] == "global_step2",
+          f"the torn {POD_HOLD_TAG} was not quarantined, or the resume was not from "
+          f"global_step2: {tags}, {second['exit']}")
+    check(second["start"]["hosts"] == [POD_HOSTS[0]] and second["exit"]["rc"] == 0
+          and [s["step"] for s in second["steps"]] == list(range(3, POD_STEPS + 1)),
+          f"the second round did not train steps 3-{POD_STEPS} at [h0]: {rec['second']}")
+    for tag in (POD_HOLD_TAG, f"global_step{POD_STEPS}"):
+        check((pod_manifests.get(tag) or {}).get("generation") == 2
+              and pod_manifests[tag]["hosts"] == [POD_HOSTS[0]],
+              f"{tag} is not pod-committed by [h0] in generation 2: {pod_manifests.get(tag)}")
+    check(rec["bit_equal_losses"], f"the resumed run's losses differ from the uninterrupted "
+                                   f"run's: {got} vs {want}")
+    check(rec["checksum"] == reference["checksum"],
+          "the final masters differ from the uninterrupted run's")
+    check(all(tuple(x) == per_step for x in rec["launches_per_step"]["first_process"]
+              + rec["launches_per_step"]["resumed_process"]),
+          f"K1/K2/K3 a step are not {per_step}: {rec['launches_per_step']}")
+    libs = rec["libraries"]["resumed_process"]
+    check(all(libs[n]["loaded"] and libs[n]["built_here_s"] == 0.0 for n in libs),
+          f"the resumed process did not load the built K1-K3 libraries: {libs}")
+    use = run["cuda_use"]
+    check(use.get("training_process", {}).get("nvidia_device_files"),
+          f"the probe did not see the training process hold the card: {use}")
+    check(not use["launcher"]["nvidia_device_files"] and not use["peer"]["nvidia_device_files"],
+          f"the launcher or the simulated peer opened the card: {use}")
+    check(replica["bit_equal"] and replica["step"] == replica["source_step"],
+          f"the replica round trip is not bit-equal: {replica}")
+    check(replica["refused"] and replica["publish_failures"] == 1
+          and replica["refuse_s"] < POD_REPLICA_MAX_S,
+          f"the over-cap slab was not refused within {POD_REPLICA_MAX_S} s: {replica}")
+    return rec
+
+
+def phase_pod4(seed: int) -> None:
+    """``pod4_740m`` (4 cards): two host aliases of 2 cards each on this
+    machine (``--launcher local``, slots narrowed to 0,1 and 2,3), ZeRO-2 at
+    phase ``pod``'s widths.  h1's spawner is SIGKILLed after step
+    POD4_KILL_AFTER: both ranks of h0 exit 87 out of the wedged NCCL step;
+    the next round runs h0's 2 cards (the plan's batch of 4: gas 2) from
+    the last pod-committed tag.  Losses within TP_DP_LOSS_RTOL of an
+    uninterrupted dp=4 run."""
+    import shutil
+    import signal
+    import tempfile
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    check(world >= 4, f"pod4_740m needs 4 cards, found {world}")
+    root = tempfile.mkdtemp(prefix="ds_port_pod4_ref_")
+    try:
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump({"seed": seed, "layers": ELASTIC_LAYERS, "steps": POD_STEPS,
+                       "zero_stage": 2, "ckpt_dir": os.path.join(root, "ckpt")}, f)
+        ref = _elastic_run(root, 4, 0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(ref["rc"] == 0, f"the uninterrupted dp=4 run exited {ref['rc']}")
+    want = [s["loss"] for s in _by_process(ref["records"][0])[0]["steps"]]
+    root = tempfile.mkdtemp(prefix="ds_port_pod4_")
+    try:
+        with open(os.path.join(root, "pod_spec.json"), "w") as f:
+            json.dump({"seed": seed, "layers": ELASTIC_LAYERS, "steps": POD_STEPS,
+                       "zero_stage": 2, "ckpt_dir": os.path.join(root, "ckpt"),
+                       "ckpt_every": POD_CKPT_EVERY, "pod_hosts": list(POD_HOSTS),
+                       "commit_timeout_s": POD_COMMIT_TIMEOUT_S}, f)
+        hostfile = os.path.join(root, "hostfile")
+        with open(hostfile, "w") as f:
+            f.write("".join(f"{h} slots={world}\n" for h in POD_HOSTS))
+        include = "@".join(f"{h}:{POD4_GPUS[h]}" for h in POD_HOSTS)
+        logf = open(os.path.join(root, "launcher.log"), "w")
+        proc = subprocess.Popen(_pod_launcher(root, hostfile, 1, ("-i", include)), cwd=ROOT,
+                                env=_clean_env(), stdout=logf, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        deadline, killed = time.monotonic() + POD_TIMEOUT_S, None
+        try:
+            while proc.poll() is None:
+                check(time.monotonic() < deadline, f"pod4: past {POD_TIMEOUT_S} s")
+                if killed is None and any(r.get("step") == POD4_KILL_AFTER
+                                          for r in _pod_records(root, 0)):
+                    spawner = subprocess.run(["pgrep", "-P", str(proc.pid), "-f",
+                                              "node_rank=1"], capture_output=True,
+                                             text=True).stdout.split()
+                    check(len(spawner) == 1, f"pod4: h1's spawner not found: {spawner}")
+                    os.kill(int(spawner[0]), signal.SIGKILL)
+                    killed = time.time()
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            logf.close()
+        with open(logf.name) as f:
+            log = f.read()
+        recs = {r: _pod_by_process(_pod_records(root, r)) for r in range(4)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, later = recs[0][:2] if len(recs[0]) >= 2 else (recs[0] + [{}, {}])[:2]
+    got = [s["loss"] for s in first.get("steps", [])
+           if s["step"] <= later.get("exit", {}).get("resumed_step", 0)] \
+        + [s["loss"] for s in later.get("steps", [])]
+    rec = {"phase": "tp_cards_pod4_740m", "world_size": 4, "hosts": POD4_GPUS,
+           "kill_after_step": POD4_KILL_AFTER, "launcher_rc": proc.returncode,
+           "h0_peer_dead": [p[0].get("peer_dead", {}).get("dead") for r, p in recs.items()
+                            if r < 2 and p],
+           "exits_87_logged": log.count("rc=87"),
+           "resumed_plan": {k: later.get("engine", {}).get(k)
+                            for k in ("world", "micro", "gas", "batch")},
+           "resumed_tag": later.get("exit", {}).get("resumed_tag"), "losses": got,
+           "uninterrupted_losses": want,
+           "loss_max_rel_diff": (max(abs(a - b) / abs(b) for a, b in zip(got, want))
+                                 if len(got) == len(want) else None),
+           "nvidia_smi": nvidia_smi_line(), "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(proc.returncode == 0, f"pod4: the launcher exited {proc.returncode}:\n{log[-4000:]}")
+    check(rec["h0_peer_dead"] == [POD_HOSTS[1]] * 2,
+          f"pod4: both ranks of h0 did not declare h1 dead: {rec['h0_peer_dead']}")
+    check(rec["resumed_plan"]["gas"] == 2 and rec["resumed_plan"]["batch"] == 4
+          and len(got) == POD_STEPS, f"pod4: the 2-card round did not keep the batch: {rec}")
+    check(rec["loss_max_rel_diff"] <= TP_DP_LOSS_RTOL,
+          f"pod4_740m: losses differ from dp=4's beyond {TP_DP_LOSS_RTOL}")
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -7874,7 +8436,7 @@ def main() -> int:
                     help="after every phase, the configurations that need tensor "
                          "parallelism, one process per card (several cards)")
     card_configs = (TP_CARD_CONFIGS + SP_CARD_CONFIGS + ITEM9_CARD_CONFIGS
-                    + ITEM10_CARD_CONFIGS + ELASTIC_CARD_CONFIGS)
+                    + ITEM10_CARD_CONFIGS + ELASTIC_CARD_CONFIGS + POD_CARD_CONFIGS)
     ap.add_argument("--tp-cards-only", nargs="+", choices=card_configs, metavar="CONFIG",
                     help="only the build, then these configurations, one process "
                          "per card (of " + ", ".join(card_configs) + ")")
@@ -7882,12 +8444,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # CONFIG DIR: one rank of --tp-cards
     ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit",
                                                   "train_extras", "lora_hybrid",
-                                                  "tooling", "observability", "elastic"),
+                                                  "tooling", "observability", "elastic",
+                                                  "pod"),
                     help="only the build, then these phases (no kernels line)")
     ap.add_argument("--watchdog-child", metavar="WAIT",
                     help=argparse.SUPPRESS)   # phase observability's watchdog child
     ap.add_argument("--elastic-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase elastic's training process
+    ap.add_argument("--pod-child", metavar="DIR",
+                    help=argparse.SUPPRESS)   # phase pod's training process
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -7900,6 +8465,8 @@ def main() -> int:
         return watchdog_child(args.watchdog_child)
     if args.elastic_child:
         return elastic_child(args.elastic_child)
+    if args.pod_child:
+        return pod_child(args.pod_child)
     if args.probe_shared_card:
         backend, port, rank = args.probe_shared_card
         return shared_card_child(backend, int(port), int(rank))
@@ -7915,21 +8482,30 @@ def main() -> int:
     if args.tp_cards_only:
         print(nvidia_smi_line(), flush=True)
         phase_build()
-        rank_configs = [c for c in args.tp_cards_only if c not in ELASTIC_CARD_CONFIGS]
+        rank_configs = [c for c in args.tp_cards_only
+                        if c not in ELASTIC_CARD_CONFIGS + POD_CARD_CONFIGS]
         if rank_configs:
             phase_tp_cards(args.seed, rank_configs)
         if "elastic4_740m" in args.tp_cards_only:
             phase_elastic4(args.seed)
+        if "pod4_740m" in args.tp_cards_only:
+            phase_pod4(args.seed)
         return 0
     if args.only:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(nvidia_smi_line(), flush=True)
         phase_build()
+        reference = None
         for name in args.only:
-            {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
-             "train_extras": phase_train_extras,
-             "lora_hybrid": phase_lora_hybrid, "tooling": phase_tooling,
-             "observability": phase_observability, "elastic": phase_elastic}[name](args.seed)
+            if name == "elastic":
+                _, reference = phase_elastic(args.seed)
+            elif name == "pod":
+                phase_pod(args.seed, reference)
+            else:
+                {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
+                 "train_extras": phase_train_extras,
+                 "lora_hybrid": phase_lora_hybrid, "tooling": phase_tooling,
+                 "observability": phase_observability}[name](args.seed)
         return 0
     if args.ab_check:
         return ab_check(args.ab_check[1:], args.ab_check[0])
@@ -7963,7 +8539,9 @@ def main() -> int:
     phase_train_zero(args.seed)
     phase_frozen(args.seed)
     phase_checkpoint(args.seed)
-    elastic = phase_elastic(args.seed)
+    elastic, elastic_ref = phase_elastic(args.seed)
+    pod = phase_pod(args.seed, elastic_ref)
+    del elastic_ref
     serve_launches, k4_launches, item6 = phase_serving(args.seed, args.profile)
     moe_serve = phase_moe_serving(args.seed)
     moe_train = phase_moe_train(args.seed)
@@ -8063,6 +8641,13 @@ def main() -> int:
             run: [step[i] for step in steps]
             for run, steps in elastic["launches_per_step"].items()}}
 
+    def pod_launches(i):
+        """Phase pod's launches of K1 (i=0), K2, K3 a step: the launched
+        process that lost its peer and the relaunched one."""
+        return {"launches_pod_per_step": {
+            run: [step[i] for step in steps]
+            for run, steps in pod["launches_per_step"].items()}}
+
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
         dlse) at the virtual ring's shard and at sp4_740m's, and the
@@ -8091,21 +8676,21 @@ def main() -> int:
                       serving_shape_ms=fwd[SERVE_SHAPE]["ms"],
                       block_mask=block_mask("K1", ":88"),
                       ring=ring_record("K1"), **item9_launches(0), **item10_launches(0),
-                      **item11_launches(0), **tooling_launches(0), **elastic_launches(0),
+                      **item11_launches(0), **tooling_launches(0), **elastic_launches(0), **pod_launches(0),
                       launches_observability_per_step=obs["train"]["launches_per_step"][0][0]),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
                       block_mask=block_mask("K2", ":202"), ring=ring_record("K2"),
                       **item9_launches(1), **item10_launches(1), **item11_launches(1),
-                      **tooling_launches(1), **elastic_launches(1),
+                      **tooling_launches(1), **elastic_launches(1), **pod_launches(1),
                       launches_observability_per_step=obs["train"]["launches_per_step"][0][1]),
         _kernel_entry("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                       jax_src + ":236", train_launches[2], k3, design=K3_DESIGN,
                       bound_share=k3["bound_share"], fp32=fp32_record(1),
                       block_mask=block_mask("K3", ":254"), ring=ring_record("K3"),
                       **item9_launches(2), **item10_launches(2), **item11_launches(2),
-                      **tooling_launches(2), **elastic_launches(2),
+                      **tooling_launches(2), **elastic_launches(2), **pod_launches(2),
                       launches_observability_per_step=obs["train"]["launches_per_step"][0][2]),
         _kernel_entry("decode_attention", src + "decode_attention.cu",
                       "tools/retired_decode_attention.py:53", k4_launches["counter"],

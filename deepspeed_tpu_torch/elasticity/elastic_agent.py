@@ -51,6 +51,18 @@ def _group_world() -> int:
     return 1
 
 
+def _max_over_ranks(value: int) -> int:
+    """The MAX of ``value`` over the default group (every rank calls it at
+    the same point): a host tensor takes the gloo half of
+    "cpu:gloo,cuda:nccl"; a group of NCCL alone needs one on the card."""
+    import torch.distributed as dist
+
+    device = ("cuda" if str(dist.get_backend()) == "nccl" else "cpu")
+    flag = torch.tensor([int(value)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return int(flag.item())
+
+
 def _is_rank0() -> bool:
     import torch.distributed as dist
 
@@ -136,6 +148,10 @@ class ElasticAgent:
         for tag in candidate_tags(self.ckpt_dir):
             tag_dir = os.path.join(self.ckpt_dir, tag)
             try:
+                # subclass hook (the pod agent): verification of the
+                # commit's scope before any engine state is touched; a
+                # failure quarantines and falls back like a failed load
+                self._pre_load_verify(tag_dir)
                 try:
                     self.engine.load_checkpoint(self.ckpt_dir, tag=tag)
                 except KeyboardInterrupt:
@@ -185,18 +201,10 @@ class ElasticAgent:
         same boundary), so every rank saves and exits at the same step."""
         if _group_world() <= 1:
             return self.guard.should_stop
-        import torch.distributed as dist
-
-        # a host tensor takes the gloo half of "cpu:gloo,cuda:nccl"; a
-        # group of NCCL alone needs one on the card
-        device = ("cuda" if str(dist.get_backend()) == "nccl" else "cpu")
-        flag = torch.tensor([int(self.guard.should_stop)], dtype=torch.int32,
-                            device=device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
         # the reduced flag, never the live one: a signal landing during the
         # all-reduce latches here only, and the ranks stop together at the
         # next boundary
-        agreed = bool(flag.item())
+        agreed = bool(_max_over_ranks(int(self.guard.should_stop)))
         if agreed and not self.guard.should_stop:
             self.guard.should_stop = True
             log_dist("elastic stop: a peer rank latched a preemption signal",
@@ -260,7 +268,13 @@ class ElasticAgent:
         return 0 if last_step >= total_steps else RC_PREEMPTED
 
     def _save(self) -> None:
+        """One save at the agent's tag policy; the pod agent overrides it
+        with the pod-scope commit."""
         self.engine.save_checkpoint(self.ckpt_dir, tag=self.tag)
+
+    def _pre_load_verify(self, tag_dir: str) -> None:
+        """Verification of a tag's commit scope before it is loaded (the
+        base agent relies on the engine's manifest check)."""
 
     def _join_pending_save(self) -> None:
         """Commit barrier before the process may exit (a no-op after a
@@ -278,9 +292,15 @@ class ElasticAgent:
         if self.tag is not None or self.keep <= 0 or not _is_rank0():
             return
         committed = [t for t in candidate_tags(self.ckpt_dir)
-                     if os.path.exists(os.path.join(self.ckpt_dir, t, MANIFEST_FILE))]
+                     if self._tag_committed(os.path.join(self.ckpt_dir, t))]
         for old in committed[self.keep:]:
             shutil.rmtree(os.path.join(self.ckpt_dir, old), ignore_errors=True)
+
+    def _tag_committed(self, tag_dir: str) -> bool:
+        """The commit test of pruning and its keep count; the pod agent
+        tightens it to pod-committed, so a torn pod tag is neither deleted
+        under a late writer nor counted against the kept generations."""
+        return os.path.exists(os.path.join(tag_dir, MANIFEST_FILE))
 
 
 def resolve_plan_for_current_world(config, dp_world_size: int,

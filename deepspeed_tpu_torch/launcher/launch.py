@@ -11,6 +11,9 @@ Rank ``r`` of host ``I`` is ``RANK = (GPUs of hosts before I) + r``; its
 ``LOCAL_RANK`` is ``r``, an index into the host's visible GPUs (the
 launcher sets ``CUDA_VISIBLE_DEVICES`` where a filter narrowed them).
 
+In pod mode (``DS_TPU_POD_COORD_DIR`` in its environment) every rank also
+gets ``DS_TPU_POD_HOST``, this host's name in the launcher's pool.
+
 SIGTERM to the spawner (a preemption notice to the host) is passed on to
 the ranks, and the spawner waits for them however long their save takes:
 they stop at the step they agree on, save and exit ``RC_PREEMPTED``.  The
@@ -27,7 +30,7 @@ import subprocess
 import sys
 from typing import Dict, List, Optional
 
-from .runner import decode_world_info, wait_all_or_fail
+from .runner import decode_world_info, reap_grace_s, wait_all_or_fail
 
 
 def rank_envs(active, node_rank: int) -> List[Dict[str, str]]:
@@ -94,13 +97,15 @@ def main(argv=None) -> int:
     env = dict(os.environ)
     env.update({"MASTER_ADDR": args.master_addr, "MASTER_PORT": str(args.master_port),
                 "DS_TPU_WORLD_INFO": args.world_info})
+    if env.get("DS_TPU_POD_COORD_DIR"):   # pod mode: the ranks' host id
+        env["DS_TPU_POD_HOST"] = list(active)[args.node_rank]
 
     procs: List[subprocess.Popen] = []
     previous = forward_sigterm(procs)
     try:
         procs.extend(start_local_ranks(cmd, active, args.node_rank, env,
                                        die_with_parent=True))
-        return wait_all_or_fail(procs)
+        return wait_all_or_fail(procs, kill_grace_s=reap_grace_s(env))
     finally:
         signal.signal(signal.SIGTERM, previous)
 

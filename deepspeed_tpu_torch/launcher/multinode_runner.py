@@ -15,7 +15,9 @@ process per GPU:
   host as a local process.
 
 All reach the one rank contract ``comm.init_distributed`` reads: ``RANK``,
-``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``.
+``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; and
+``LOCAL_WORLD_SIZE``, ``NODE_RANK`` and, in pod mode, ``DS_TPU_POD_HOST``
+(the host's name in the pool).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from collections import OrderedDict
 from typing import Dict, List, Optional
 
 from ..utils.logging import logger
-from .runner import narrowed_hosts, wait_all_or_fail
+from .runner import narrowed_hosts, reap_grace_s, wait_all_or_fail
 
 
 class MultiNodeRunner:
@@ -39,6 +41,7 @@ class MultiNodeRunner:
         self.hosts = list(active)
         self.base_env = base_env
         self.pool = pool or {}            # host -> total GPUs (before filters)
+        self.pod = bool(base_env.get("DS_TPU_POD_COORD_DIR"))
 
     def env_for(self, host: str) -> Dict[str, str]:
         """The exports of one host's spawner: the job's, plus
@@ -94,7 +97,7 @@ class SSHRunner(MultiNodeRunner):
                         shlex.join(cmd[:6]) + " ...")
             procs.append(subprocess.Popen(cmd))
         rc = wait_all_or_fail(
-            procs,
+            procs, kill_grace_s=reap_grace_s(self.base_env),
             on_fail=lambda i, rc: logger.error(
                 "launcher: host %s failed first with rc=%d", self.hosts[i], rc))
         if rc == 130:
@@ -103,22 +106,46 @@ class SSHRunner(MultiNodeRunner):
 
 
 def _rank_bootstrap_cmd(user_cmd: List[str], rank_vars: List[str],
-                        local_rank_vars: List[str]) -> str:
+                        local_rank_vars: List[str], active=None,
+                        pod: bool = False) -> str:
     """One shell line that maps the scheduler's rank variables onto
     ``RANK`` and ``LOCAL_RANK``, then execs the user command: srun and
     mpirun start every task from one command, so a rank can only be read
     inside the task.  If NO variable of a chain is set the shell itself
     fails with a message naming them (bash ``:?``), better than exporting
-    garbage and dying later in ``init_distributed``."""
+    garbage and dying later in ``init_distributed``.
+
+    Given ``active`` (host -> GPU indices), the line also exports
+    ``NODE_RANK`` and ``LOCAL_WORLD_SIZE``, and with ``pod``
+    ``DS_TPU_POD_HOST``, read off the rank: the runners place rank ``r`` on
+    the ``r``-th slot of ``active``'s hosts in order.  A task whose
+    scheduler local rank disagrees with that placement fails before it
+    starts, instead of running under another host's name."""
 
     def chain(names: List[str], what: str) -> str:
         msg = f"no scheduler {what} variable set (tried {' '.join(names)})"
         return ("".join("${%s:-" % v for v in names[:-1])
                 + "${%s:?%s}" % (names[-1], msg) + "}" * (len(names) - 1))
 
-    return (f'export RANK="{chain(rank_vars, "rank")}"; '
-            f'export LOCAL_RANK="{chain(local_rank_vars, "local rank")}"; '
-            f"exec {shlex.join(user_cmd)}")
+    line = (f'export RANK="{chain(rank_vars, "rank")}"; '
+            f'export LOCAL_RANK="{chain(local_rank_vars, "local rank")}"; ')
+    if active is not None:
+        hosts = list(active)
+        nodes = [i for i, h in enumerate(hosts) for _ in active[h]]
+        first = [nodes.index(i) for i in range(len(hosts))]
+        line += (f"_n=({' '.join(map(str, nodes))}); "
+                 f"_s=({' '.join(str(len(active[h])) for h in hosts)}); "
+                 f"_f=({' '.join(map(str, first))}); "
+                 f'export NODE_RANK="${{_n[$RANK]:?rank $RANK is outside the '
+                 f'launcher task list of {len(nodes)}}}"; '
+                 'export LOCAL_WORLD_SIZE="${_s[$NODE_RANK]}"; '
+                 '[ "$((RANK - _f[NODE_RANK]))" = "$LOCAL_RANK" ] || { echo "rank $RANK '
+                 'has local rank $LOCAL_RANK where the launcher placed it at '
+                 '$((RANK - _f[NODE_RANK])) of host $NODE_RANK" >&2; exit 1; }; ')
+        if pod:
+            line += (f"_h=({' '.join(shlex.quote(h) for h in hosts)}); "
+                     'export DS_TPU_POD_HOST="${_h[$NODE_RANK]}"; ')
+    return line + f"exec {shlex.join(user_cmd)}"
 
 
 class _SchedulerRunner(MultiNodeRunner):
@@ -260,7 +287,7 @@ class SlurmRunner(_SchedulerRunner):
         if getattr(self.args, "launcher_args", ""):
             srun += shlex.split(self.args.launcher_args)
         cmd = srun + ["bash", "-c", _rank_bootstrap_cmd(
-            user_cmd, ["SLURM_PROCID"], ["SLURM_LOCALID"])]
+            user_cmd, ["SLURM_PROCID"], ["SLURM_LOCALID"], self.active, self.pod)]
         logger.info("launcher[slurm]: %s (SLURM_HOSTFILE=%s)",
                     shlex.join(cmd[:10]) + " ...", hf.name)
         env = dict(os.environ)
@@ -302,7 +329,8 @@ class MPIRunner(_SchedulerRunner):
             local_vars = ["MPI_LOCALRANKID"]
         if getattr(self.args, "launcher_args", ""):
             cmd += shlex.split(self.args.launcher_args)
-        cmd += ["bash", "-c", _rank_bootstrap_cmd(user_cmd, rank_vars, local_vars)]
+        cmd += ["bash", "-c", _rank_bootstrap_cmd(user_cmd, rank_vars, local_vars,
+                                                  self.active, self.pod)]
         logger.info("launcher[%s]: %s", flavor, shlex.join(cmd[:8]) + " ...")
         return subprocess.call(cmd)
 
@@ -318,4 +346,4 @@ class LocalRunner(MultiNodeRunner):
             env.update(self.env_for(host))
             procs.append(subprocess.Popen(
                 self.spawner_cmd(host, user_cmd, master_addr="127.0.0.1"), env=env))
-        return wait_all_or_fail(procs)
+        return wait_all_or_fail(procs, kill_grace_s=reap_grace_s(self.base_env))

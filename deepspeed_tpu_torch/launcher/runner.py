@@ -16,7 +16,9 @@ Resource discovery, in order:
   3. this host alone, with ``--num_gpus`` slots or every GPU it has.
 
 Fan-out:
-  - one local host        -> its ranks start here (``launch.start_local_ranks``);
+  - one local host        -> its ranks start here (``launch.start_local_ranks``):
+                             ``localhost``, or one host of any name under
+                             ``--launcher local``;
   - several hosts         -> one per-node spawner a host (``python -m
                              deepspeed_tpu_torch.launcher.launch``) by ssh, or
                              one task a GPU by srun/mpirun
@@ -35,6 +37,18 @@ at a step boundary its peers agreed on: the round waits for them and
 returns ``RC_PREEMPTED``, which the supervisor relaunches.  The launcher
 never touches CUDA: it counts GPUs through ``nvidia-smi``, in a process of
 its own.
+
+Pod mode (``--pod_coord_dir DIR``, storage every host shares): every round
+bumps the pod generation in the coordination store and exports
+``DS_TPU_POD_COORD_DIR``, ``DS_TPU_POD_GENERATION``, ``DS_TPU_POD_LEASE``
+and ``DS_TPU_POD_MISS_LIMIT`` to every rank (and ``DS_TPU_POD_HOST``, the
+host's name in the pool); hosts the store marks dead (``dead/<host>``)
+are left out of the pool, a pool that is all dead returns
+``RC_POD_UNRECOVERABLE`` (86, terminal), and the progress signal counts
+pod-committed tags only.  A rank exits ``RC_POD_PEER_LOST`` (87) when its
+heartbeat watchdog declared a peer dead: a failed round, reaped at once.
+A round that fails otherwise gives its survivors time to declare the
+lost host before they are killed (``reap_grace_s``).
 """
 from __future__ import annotations
 
@@ -57,11 +71,12 @@ DEFAULT_MASTER_PORT = 29500
 # a rank's exit after the elastic agent saved at the agreed stop step
 # (``elasticity.elastic_agent.RC_PREEMPTED``, EX_TEMPFAIL)
 RC_PREEMPTED = 75
+# pod mode: every host of the pool is dead (``pod_agent.RC_POD_UNRECOVERABLE``)
+RC_POD_UNRECOVERABLE = 86
 # seconds a survivor of a failed rank gets between SIGTERM and SIGKILL
 KILL_GRACE_S = 15.0
 SCHEDULERS = ("slurm", "openmpi", "impi", "mpich")
 # options of the JAX launcher whose subsystem the port has not yet
-POD_FLAGS = ("--pod_coord_dir", "--pod_lease", "--pod_miss_limit")
 FLEET_FLAGS = ("--fleet", "--fleet_coord_dir", "--fleet_lease", "--fleet_miss_limit",
                "--fleet_routers", "--fleet_daemon")
 
@@ -122,9 +137,17 @@ def parse_args(args=None):
                    help="checkpoint dir the training script writes; lets "
                         "the supervisor track committed-step progress so "
                         "productive restarts refresh the restart budget")
-    for flag in POD_FLAGS:
-        p.add_argument(flag, default=None, help="not ported yet: the pod "
-                       "coordination store (ROADMAP queue 1, item 13)")
+    p.add_argument("--pod_coord_dir", default="",
+                   help="pod coordination store root (storage every host "
+                        "mounts): heartbeat leases, dead-host exclusion and a "
+                        "pod generation bumped every round, exported as "
+                        "DS_TPU_POD_GENERATION")
+    p.add_argument("--pod_lease", type=float, default=5.0,
+                   help="heartbeat lease seconds (renewed every lease/3); a "
+                        "host is dead after --pod_miss_limit missed leases")
+    p.add_argument("--pod_miss_limit", type=int, default=3,
+                   help="missed leases before a host is declared dead and its "
+                        "peers exit 87 for the pod to re-form")
     for flag in FLEET_FLAGS:
         p.add_argument(flag, default=None, help="not ported yet: the serving "
                        "fleet (ROADMAP queue 1, item 14)",
@@ -135,11 +158,6 @@ def parse_args(args=None):
     p.add_argument("user_script", help="training script (or module with --module)")
     p.add_argument("user_args", nargs=argparse.REMAINDER)
     parsed = p.parse_args(args)
-    given = [f for f in POD_FLAGS if getattr(parsed, f[2:]) is not None]
-    if given:
-        p.error(f"{', '.join(given)}: the pod coordination store (heartbeat "
-                "leases, dead-host exclusion, pod generations) is not ported "
-                "yet (ROADMAP queue 1, item 13)")
     given = [f for f in FLEET_FLAGS if getattr(parsed, f[2:]) is not None]
     if given:
         p.error(f"{', '.join(given)}: the serving fleet is not ported yet "
@@ -305,12 +323,27 @@ def _build_user_cmd(args) -> List[str]:
     return cmd + list(args.user_args)
 
 
+def reap_grace_s(env) -> float:
+    """Seconds between SIGTERM and SIGKILL when a failed round is reaped,
+    for ranks started with ``env``: ``KILL_GRACE_S``, and in pod mode at
+    least the time a survivor's watchdog takes to declare its lost peer
+    (``DS_TPU_POD_LEASE`` times ``DS_TPU_POD_MISS_LIMIT``, one scan period
+    of a third of a lease, and a lease of margin).  A shorter grace kills
+    the survivor before its ``dead/<host>`` marker lands, and the next
+    round puts the dead host back in the pool."""
+    if not env.get("DS_TPU_POD_COORD_DIR"):
+        return KILL_GRACE_S
+    lease = float(env["DS_TPU_POD_LEASE"])
+    return max(KILL_GRACE_S, lease * (int(env["DS_TPU_POD_MISS_LIMIT"]) + 1) + lease / 3.0)
+
+
 def wait_all_or_fail(procs, poll_s: float = 0.2, on_fail=None,
                      kill_grace_s: Optional[float] = None) -> int:
     """Wait on a set of processes; on the FIRST failed exit, terminate the
     survivors and return that exit code (a sequential ``wait`` loop would
     hang on an earlier-indexed process blocked in rendezvous while a later
-    one has already died).  ``RC_PREEMPTED`` is no failure: that rank saved
+    one has already died; ``RC_POD_PEER_LOST``, 87, is such a failure, as
+    its peers may be wedged).  ``RC_PREEMPTED`` is no failure: that rank saved
     at a stop step its peers agreed on and stop at too, so they are waited
     for, however long their save takes, and the call returns
     ``RC_PREEMPTED`` once all have exited.  KeyboardInterrupt terminates
@@ -333,6 +366,7 @@ def wait_all_or_fail(procs, poll_s: float = 0.2, on_fail=None,
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
+            logger.info("launcher: process %d exited rc=%s", p.pid, p.returncode)
 
     try:
         while True:
@@ -361,6 +395,8 @@ def _run_local(args, active, pool, simulate: bool = False) -> int:
     env = dict(os.environ)
     env.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(args.master_port),
                 "DS_TPU_WORLD_INFO": encode_world_info(active)})
+    if args.pod_coord_dir:
+        env.update(_pod_env(args), DS_TPU_POD_HOST=list(active)[0])
     if simulate:
         env.update({"DS_ACCELERATOR": "cpu", "CUDA_VISIBLE_DEVICES": ""})
     elif narrowed_hosts(active, pool):
@@ -370,7 +406,7 @@ def _run_local(args, active, pool, simulate: bool = False) -> int:
                 shlex.join(cmd))
     procs = start_local_ranks(cmd, active, node_rank=0, env=env)
     return wait_all_or_fail(
-        procs, on_fail=lambda i, rc: logger.error(
+        procs, kill_grace_s=reap_grace_s(env), on_fail=lambda i, rc: logger.error(
             "launcher: local rank %d failed first with rc=%d", i, rc))
 
 
@@ -382,19 +418,104 @@ def main(args=None) -> int:
             f.write(str(os.getpid()))
     if args.elastic_restarts > 0:
         from ..elasticity.supervisor import Supervisor
-        from ..resilience import checkpoint_progress_fn
+        from ..resilience import checkpoint_progress_fn, pod_checkpoint_progress_fn
 
-        progress_fn = (checkpoint_progress_fn(args.elastic_ckpt_dir)
-                       if args.elastic_ckpt_dir else None)
+        progress_fn = None
+        if args.elastic_ckpt_dir:
+            # pod mode: only tags every host attested count as progress (a
+            # tag one host committed is what the pod restore rejects)
+            progress_fn = (pod_checkpoint_progress_fn if args.pod_coord_dir
+                           else checkpoint_progress_fn)(args.elastic_ckpt_dir)
         # every attempt re-runs _dispatch, i.e. reads the hostfile and
         # discovers the pool again: a resized job relaunches at its new size
-        return Supervisor(lambda _round: _dispatch(args),
+        attempt = (_pod_attempt(args) if args.pod_coord_dir
+                   else lambda _round: _dispatch(args))
+        return Supervisor(attempt,
                           max_restarts=args.elastic_restarts,
                           backoff_s=args.elastic_backoff,
                           backoff_max_s=args.elastic_backoff_max,
                           progress_fn=progress_fn,
-                          zero_progress_limit=args.elastic_zero_progress).run()
+                          zero_progress_limit=args.elastic_zero_progress,
+                          # an all-dead pool stays dead until an operator
+                          # clears the markers: relaunching cannot help
+                          terminal_rcs=((RC_POD_UNRECOVERABLE,) if args.pod_coord_dir
+                                        else ())).run()
     return _dispatch(args)
+
+
+def _pod_attempt(args):
+    """Pod mode's round: bump the pod generation in the coordination store,
+    export the membership epoch and the heartbeat contract to this process's
+    environment (the children inherit it), then launch."""
+    from ..elasticity.coordination import FileCoordinationStore, bump_generation
+
+    store = FileCoordinationStore(args.pod_coord_dir)
+
+    def attempt(_round: int) -> int:
+        gen = bump_generation(store)
+        os.environ["DS_TPU_POD_GENERATION"] = str(gen)
+        os.environ["DS_TPU_POD_COORD_DIR"] = args.pod_coord_dir
+        os.environ["DS_TPU_POD_LEASE"] = str(args.pod_lease)
+        os.environ["DS_TPU_POD_MISS_LIMIT"] = str(args.pod_miss_limit)
+        logger.info("launcher: pod generation %d (coordination store %s)",
+                    gen, args.pod_coord_dir)
+        return _dispatch(args)
+
+    return attempt
+
+
+def _shrink_to_admitted(active: "OrderedDict[str, List[int]]"
+                        ) -> "OrderedDict[str, List[int]]":
+    """Pod mode: with the elastic envelope in ``DEEPSPEED_ELASTICITY_CONFIG``,
+    trim the healthy pool to the largest host count the plan admits (its
+    GPUs counted) BEFORE launching; otherwise an inadmissible count makes
+    every rank fail ``ElasticityIncompatibleWorldSize`` and the supervisor
+    relaunches the same failure.  Without the variable the pool launches as
+    it is."""
+    raw = os.environ.get("DEEPSPEED_ELASTICITY_CONFIG")
+    if not raw or len(active) <= 1:
+        return active
+    try:
+        from ..elasticity.pod_agent import shrink_to_healthy
+        from ..runtime.config import ElasticityConfig
+
+        members, plan = shrink_to_healthy(
+            ElasticityConfig(**json.loads(raw)), list(active),
+            chips_per_host=min(len(s) for s in active.values()))
+    except Exception as e:
+        logger.warning("launcher: DEEPSPEED_ELASTICITY_CONFIG unusable for pool "
+                       "shrinking (%s: %s); launching every healthy host",
+                       type(e).__name__, e)
+        return active
+    if len(members) < len(active):
+        # keep the pool's own order (rank 0 = first ACTIVE host)
+        kept = list(active)[:len(members)]
+        logger.warning("launcher: the elastic plan admits %d of %d healthy "
+                       "host(s) (valid counts %s); launching %s", len(members),
+                       len(active), list(plan.valid_device_counts), kept)
+        return OrderedDict((h, active[h]) for h in kept)
+    return active
+
+
+def _drop_hosts(filter_str: str, hosts) -> str:
+    """``filter_str`` (the '@'-separated ``host[:slots]`` grammar) without
+    the terms naming ``hosts``."""
+    return "@".join(t for t in filter_str.split("@")
+                    if t.strip() and t.split(":")[0].strip() not in hosts)
+
+
+def _pod_env(args) -> dict:
+    """The pod contract for the ranks of other hosts (the supervisor's round
+    set it in this process only); without ``--elastic_restarts`` nothing
+    bumped the generation, so it is the store's current one."""
+    gen = os.environ.get("DS_TPU_POD_GENERATION")
+    if not gen:
+        from ..elasticity.coordination import FileCoordinationStore, read_generation
+
+        gen = str(read_generation(FileCoordinationStore(args.pod_coord_dir)))
+    return {"DS_TPU_POD_COORD_DIR": args.pod_coord_dir, "DS_TPU_POD_GENERATION": gen,
+            "DS_TPU_POD_LEASE": str(args.pod_lease),
+            "DS_TPU_POD_MISS_LIMIT": str(args.pod_miss_limit)}
 
 
 def _dispatch(args) -> int:
@@ -425,17 +546,41 @@ def _dispatch(args) -> int:
                 "host filters given but no hostfile found at "
                 f"{args.hostfile!r} (single-host fallback has no pool)")
         pool = OrderedDict([("localhost", gpus or local_gpu_count())])
-    active = parse_resource_filter(pool, args.include, args.exclude)
+    include, exclude = args.include, args.exclude
+    if args.pod_coord_dir:
+        # hosts a heartbeat watchdog declared dead (durable `dead/<host>`
+        # markers) stay out of every later round until cleared
+        # (elasticity.clear_dead)
+        from ..elasticity.coordination import FileCoordinationStore, dead_set
+
+        dead = set(dead_set(FileCoordinationStore(args.pod_coord_dir))) & set(pool)
+        if dead:
+            logger.warning("launcher: excluding dead host(s) %s from the pool "
+                           "(pod coordination store %s)", sorted(dead),
+                           args.pod_coord_dir)
+            pool = OrderedDict((h, n) for h, n in pool.items() if h not in dead)
+            # a filter's terms for the dead hosts go with them
+            include, exclude = (_drop_hosts(f, dead) for f in (include, exclude))
+            if not pool or (args.include and not include):
+                logger.error("every host in the pool is marked dead in the pod "
+                             "coordination store — clear the markers once "
+                             "capacity returns (elasticity.clear_dead)")
+                return RC_POD_UNRECOVERABLE
+    active = parse_resource_filter(pool, include, exclude)
     if args.num_nodes > 0:
         active = OrderedDict(list(active.items())[:args.num_nodes])
     if gpus:
         active = OrderedDict((h, s[:gpus]) for h, s in active.items())
+    if args.pod_coord_dir:
+        active = _shrink_to_admitted(active)
     if not active:
         raise ValueError("resource filters selected zero hosts")
 
     hosts = list(active)
     multi = len(hosts) > 1 or args.force_multi
-    if not multi and hosts[0] in ("localhost", "127.0.0.1"):
+    # one host that is this machine (by name, or by --launcher local): its
+    # ranks start here, without a per-node spawner in between
+    if not multi and (hosts[0] in ("localhost", "127.0.0.1") or args.launcher == "local"):
         return _run_local(args, active, pool)
 
     from .multinode_runner import LocalRunner, MPIRunner, SlurmRunner, SSHRunner
@@ -446,6 +591,8 @@ def _dispatch(args) -> int:
     base_env = {"MASTER_ADDR": master, "MASTER_PORT": str(args.master_port),
                 "WORLD_SIZE": str(sum(map(len, active.values()))),
                 "DS_TPU_WORLD_INFO": encode_world_info(active)}
+    if args.pod_coord_dir:
+        base_env.update(_pod_env(args))
     if args.launcher == "slurm":
         runner = SlurmRunner(args, active, base_env, pool=pool)
     elif args.launcher in ("openmpi", "impi", "mpich"):

@@ -1,10 +1,15 @@
 """Cross-process trace assembly: span segments of several processes merged
 into one Perfetto file (counterpart of
-``deepspeed_tpu/observability/trace_assembly.py``, the half that needs no
-coordination store; copied: framework-free).
+``deepspeed_tpu/observability/trace_assembly.py``; copied: framework-free).
 
 - :func:`span_record` — one completed span as a JSON-safe segment record
   (``t0``/``dur`` on the recording process's monotonic clock).
+- :class:`TraceSegmentPublisher` — drains newly completed spans from a
+  tracer ring (optionally filtered) and CAS-appends them as bounded
+  segments under a coordination-store key (``fleet/trace/<owner>``,
+  ``elasticity.coordination.append_trace_segment``), each with the writing
+  process's monotonic/epoch clock anchor; :func:`load_segments` reads them
+  back.
 - :func:`clock_offsets` / :func:`assemble_fleet_trace` — merge per-owner
   segment documents (``{"owner_id", "anchor": {"epoch", "mono"}, "attrs",
   "spans": [record, ...], "dropped"}``) into ONE Chrome/Perfetto trace:
@@ -16,17 +21,17 @@ coordination store; copied: framework-free).
 
 Within one host ``time.time()`` is shared, so anchor-based correction is
 exact up to the anchor read jitter; across hosts it inherits the hosts'
-wall-clock agreement.  Publishing segments to a coordination store
-(``TraceSegmentPublisher``) and reading them back (``load_segments``) need
-the store of ``elasticity/coordination.py``: ROADMAP queue 1, item 13.
+wall-clock agreement.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Optional
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
 
-from .trace import Span
+from .trace import Span, Tracer, get_tracer
 
 __all__ = ["TraceSegmentPublisher", "assemble_fleet_trace", "clock_offsets",
            "events_for_trace", "load_segments", "span_record"]
@@ -61,22 +66,97 @@ def span_record(span: Span) -> Dict[str, Any]:
 
 
 class TraceSegmentPublisher:
-    """Publishes an owner's completed spans to the coordination store: not
-    ported yet, it needs ``elasticity/coordination.py`` (ROADMAP queue 1,
-    item 13)."""
+    """Incremental publisher of one owner's completed spans to the store.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TraceSegmentPublisher: publishing trace segments to a "
-            "coordination store is not ported yet (ROADMAP queue 1, item 13)")
+    ``span_filter(span) -> bool`` selects which ring spans belong to this
+    owner (fleet members filter on their ambient ``engine`` tag; the
+    router takes the ``fleet.*`` spans) — necessary because in-process
+    harnesses share ONE tracer ring between N simulated processes, and
+    harmless in production where the filter passes everything the process
+    recorded.  A watermark on span END time makes publishes incremental:
+    each call ships only spans that completed since the previous one.
 
+    ``min_interval_s`` rate-limits non-forced publishes on the host
+    monotonic clock (members additionally ride the beat cadence);
+    ``publish(force=True)`` bypasses it — the final flush of a bench/soak.
+    """
+
+    def __init__(self, store, owner_id: str, prefix: str = "fleet/trace",
+                 max_spans: int = 2048,
+                 span_filter: Optional[Callable[[Span], bool]] = None,
+                 min_interval_s: float = 0.25):
+        self.store = store
+        self.owner_id = str(owner_id)
+        self.prefix = str(prefix)
+        self.max_spans = int(max_spans)
+        self.span_filter = span_filter
+        self.min_interval_s = float(min_interval_s)
+        self._published_until = float("-inf")   # watermark on span END
+        self._last_publish_t: Optional[float] = None
+        self.published_total = 0
+        self.dropped_total = 0
+        self.publishes_total = 0
+        # per-publish store CAS wall time (bounded window): what
+        # serve_bench --collect_traces reports p50/p99 over
+        self._cas_lat_s: deque = deque(maxlen=2048)
+
+    def pending(self, tracer: Optional[Tracer] = None) -> List[Span]:
+        """Completed ring spans past the watermark that pass the filter
+        (read-only — publish() is what advances the watermark)."""
+        tracer = tracer if tracer is not None else get_tracer()
+        out: List[Span] = []
+        for r in tracer.recorder.snapshot():
+            if not hasattr(r, "t0") or r.dur_s is None:
+                continue   # counters and still-open spans never publish
+            if r.t0 + r.dur_s <= self._published_until:
+                continue
+            if self.span_filter is not None and not self.span_filter(r):
+                continue
+            out.append(r)
+        return out
+
+    def publish(self, tracer: Optional[Tracer] = None, force: bool = False,
+                attrs: Optional[Dict] = None) -> int:
+        """Ship newly completed spans as one CAS-appended segment; returns
+        the number published (0 when rate-limited, disabled, or idle)."""
+        tracer = tracer if tracer is not None else get_tracer()
+        if not tracer.enabled:
+            return 0
+        now = time.monotonic()
+        if not force and self._last_publish_t is not None \
+                and now - self._last_publish_t < self.min_interval_s:
+            return 0
+        spans = self.pending(tracer)
+        self._last_publish_t = now
+        if not spans:
+            return 0
+        from ..elasticity.coordination import append_trace_segment
+
+        records = [span_record(s) for s in spans]
+        t0 = time.perf_counter()
+        doc = append_trace_segment(self.store, self.owner_id, records,
+                                   prefix=self.prefix,
+                                   max_spans=self.max_spans, attrs=attrs)
+        self._cas_lat_s.append(time.perf_counter() - t0)
+        self._published_until = max(s.t0 + s.dur_s for s in spans)
+        self.published_total += len(records)
+        self.dropped_total = int(doc.get("dropped") or 0)
+        self.publishes_total += 1
+        return len(records)
+
+    def cas_latencies(self) -> List[float]:
+        """Recent per-publish store CAS wall times in seconds."""
+        return list(self._cas_lat_s)
+
+
+# ----------------------------------------------------------------- assembly
 
 def load_segments(store, prefix: str = "fleet/trace") -> Dict[str, Dict]:
-    """owner_id -> newest segment document from the coordination store:
-    not ported yet (ROADMAP queue 1, item 13)."""
-    raise NotImplementedError(
-        "load_segments: reading trace segments from a coordination store is "
-        "not ported yet (ROADMAP queue 1, item 13)")
+    """owner_id -> newest segment document (thin wrapper so assembly-side
+    callers never import the coordination module directly)."""
+    from ..elasticity.coordination import read_trace_segments
+
+    return read_trace_segments(store, prefix=prefix)
 
 
 def clock_offsets(segments: Dict[str, Dict]) -> Dict[str, float]:

@@ -11,10 +11,10 @@ watchdog.
   at load; corrupt tags are quarantined (``<tag>.corrupt``);
 - ``watchdog``: :class:`HangWatchdog` armed around ``train_batch``,
   async-checkpoint finalization and the serving engine's device calls;
-- :func:`checkpoint_progress_fn`: the supervisor's progress signal.
-
-The pod and host manifests (ROADMAP queue 1, item 13's pod half) are not
-ported yet.
+- ``integrity``'s pod scope: host manifests, the coordinator's
+  ``pod_manifest.json`` (:func:`commit_pod_manifest`) and its verification;
+- :func:`checkpoint_progress_fn` and, in pod mode,
+  :func:`pod_checkpoint_progress_fn`: the supervisor's progress signal.
 """
 from .fault_injection import (FaultInjector, FaultRule, InjectedFault, SITE_CKPT_LOAD,
                               SITE_CKPT_SAVE, SITE_LATEST_PUBLISH, SITE_SERVE_ADMIT,
@@ -22,9 +22,13 @@ from .fault_injection import (FaultInjector, FaultRule, InjectedFault, SITE_CKPT
                               SITE_SERVE_TICK, SITE_SUPERVISOR_ATTEMPT, SITE_TRAIN_STEP,
                               clear_injector,
                               get_injector, install_injector, maybe_fire)
-from .integrity import (CORRUPT_SUFFIX, INCOMPLETE_MARKER, LATEST_FILE,
-                        MANIFEST_FILE, CheckpointIntegrityError, candidate_tags,
-                        quarantine_tag, read_tag_step, verify_checkpoint_dir)
+from .integrity import (CORRUPT_SUFFIX, HOST_MANIFEST_DIR, INCOMPLETE_MARKER, LATEST_FILE,
+                        MANIFEST_FILE, POD_MANIFEST_FILE, CheckpointIntegrityError,
+                        PodCommitTimeout, candidate_tags, commit_pod_manifest,
+                        host_payload_files, pod_checkpoint_progress_fn, pod_committed,
+                        quarantine_tag, read_host_manifests, read_pod_manifest,
+                        read_tag_step, verify_checkpoint_dir, verify_pod_checkpoint_dir,
+                        write_host_manifest)
 from .watchdog import RC_HANG, HangWatchdog, format_stack_report
 
 __all__ = ["FaultInjector", "FaultRule", "InjectedFault", "SITE_CKPT_LOAD",
@@ -34,7 +38,11 @@ __all__ = ["FaultInjector", "FaultRule", "InjectedFault", "SITE_CKPT_LOAD",
            "install_injector", "maybe_fire", "CORRUPT_SUFFIX", "INCOMPLETE_MARKER",
            "LATEST_FILE", "MANIFEST_FILE", "CheckpointIntegrityError", "candidate_tags",
            "quarantine_tag", "read_tag_step", "verify_checkpoint_dir", "RC_HANG",
-           "HangWatchdog", "format_stack_report", "checkpoint_progress_fn"]
+           "HangWatchdog", "format_stack_report", "checkpoint_progress_fn",
+           "HOST_MANIFEST_DIR", "POD_MANIFEST_FILE", "PodCommitTimeout", "commit_pod_manifest",
+           "host_payload_files", "pod_checkpoint_progress_fn", "pod_committed",
+           "read_host_manifests", "read_pod_manifest", "verify_pod_checkpoint_dir",
+           "write_host_manifest"]
 
 
 def checkpoint_progress_fn(ckpt_dir: str):

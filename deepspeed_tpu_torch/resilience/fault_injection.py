@@ -19,10 +19,15 @@ Sites wired into the port:
   (immediately before the prefill's device work, slot-attributable; the
   canary probe too), ``serve.decode`` (immediately before the decode
   tick's device work, fleet-wide) and ``serve.replay``
-  (``ServingSupervisor``, before each in-flight request is re-submitted).
+  (``ServingSupervisor``, before each in-flight request is re-submitted);
+- ``supervisor.attempt`` (each round of the elastic supervisor);
+- the pod sites: ``pod.heartbeat`` (each lease renewal), ``pod.rendezvous``,
+  ``ckpt.shard_commit`` (before a host manifest lands), ``pod.replica_seal``
+  and ``pod.adopt`` (``elasticity/``), and the ``store.*`` sites of every
+  op through a ``FaultyStore``.
 
-The supervisor, pod and fleet site names are kept for the paths still to
-be ported (ROADMAP queue 1, items 13-14).
+The fleet's ``fleet.channel_append`` fires in the store's channels; the
+fleet itself is ROADMAP queue 1, item 14.
 
 Fault kinds: ``raise`` (raise :class:`InjectedFault`), ``delay`` (sleep
 ``delay_s``), ``corrupt`` (flip bytes in ``target``, resolved against the

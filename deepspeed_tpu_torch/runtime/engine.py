@@ -1951,6 +1951,34 @@ class DeepSpeedEngine:
             with self._watchdog.armed("async-checkpoint finalize"):
                 return wait_for_pending_checkpoint(self)
 
+    def replica_snapshot(self) -> bytearray:
+        """This rank's live state as one host-RAM byte slab for the pod
+        replica layer (``elasticity/replication.py``): a device->host copy,
+        never a file (``checkpoint_engine/replica_snapshot.py``)."""
+        from .checkpoint_engine.dcp_engine import _check_no_open_window
+        from .checkpoint_engine.replica_snapshot import snapshot_train_state
+
+        _check_no_open_window(self, "replica_snapshot()")
+        with trace_span("pod.replica_snapshot"):
+            return snapshot_train_state(self)
+
+    def replica_nbytes(self) -> int:
+        """The size of :meth:`replica_snapshot`'s slab, copying nothing."""
+        from .checkpoint_engine.replica_snapshot import slab_nbytes
+
+        return slab_nbytes(self)
+
+    def replica_ingest(self, payload) -> int:
+        """Rebuild the state from a replica slab, in place (the live-
+        adoption path); a slab of another config or data-parallel world
+        raises.  Returns the restored global step."""
+        from .checkpoint_engine.dcp_engine import _check_no_open_window
+        from .checkpoint_engine.replica_snapshot import ingest_train_state
+
+        _check_no_open_window(self, "replica_ingest()")
+        with trace_span("pod.replica_ingest"):
+            return ingest_train_state(self, payload)
+
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True, load_module_only=False):
         """Restore a tag (default: the one ``latest`` names) into this

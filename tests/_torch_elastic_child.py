@@ -19,6 +19,14 @@ on the CPU over gloo, and it reads the rank contract from the environment.
   latches a stop; ``SPEC["save_delay_s"]`` makes every save start that
   much later.  The rank exits with ``ElasticAgent.exit_code``; after the
   last step rank 0 saves the fp32 masters by path to ``<out>/final.pt``;
+- ``"pod"``: as ``"train"``, under ``PodElasticAgent`` with the pod
+  context the launcher's pod mode exported (``PodContext.from_env`` over
+  ``SPEC["pod_hosts"]``) and a started ``HeartbeatWatchdog``, checkpointing
+  every ``SPEC["ckpt_every"]`` steps.  Step records add ``host`` and
+  ``generation``.  A ``SPEC["hold"]`` entry ``{"rank", "after_step",
+  "ready"}`` makes that rank touch ``ready`` and wait to be killed.  When
+  the watchdog declares a peer dead the rank records ``{"event":
+  "peer_dead"}`` and exits 87 (``os._exit``, as the default watchdog does);
 - ``"kernels"`` (on a card): ``CausalLM("tiny", **SPEC["model"])`` in bf16
   under ``SPEC["config"]``, one ``train_batch``, and the K1/K2/K3 launches
   with each kernel library's path, whether it loaded and the seconds this
@@ -91,6 +99,59 @@ def _train(spec: dict, rank: int, out: Path) -> int:
     return agent.exit_code(last, spec["steps"])
 
 
+def _pod(spec: dict, rank: int, out: Path) -> int:
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.elasticity import (RC_POD_PEER_LOST, PodContext,
+                                                PodElasticAgent, PodPeerLost)
+    from deepspeed_tpu_torch.models import CausalLM
+
+    from tests._torch_ranks import make_batches
+
+    engine, *_ = ds.initialize(model=CausalLM("tiny", dtype=torch.float32),
+                               config=spec["config"], device="cpu")
+    batches = make_batches(spec["steps"], engine.train_batch_size, seed=spec["data_seed"],
+                           ignore=spec.get("ignore", True))
+    ctx = PodContext.from_env(hosts=spec["pod_hosts"],
+                              commit_timeout_s=spec.get("commit_timeout_s", 60.0))
+    log = open(out / f"rank{rank}.jsonl", "a")
+
+    def record(**kw):
+        log.write(json.dumps({"pid": os.getpid(), "rank": rank, "host": ctx.host_id,
+                              "generation": ctx.generation, **kw}) + "\n")
+        log.flush()
+
+    def peer_dead(host):
+        record(event="peer_dead", dead=host, t=time.time())
+        os._exit(RC_POD_PEER_LOST)
+
+    watchdog = ctx.watchdog(on_peer_dead=peer_dead).start()
+    agent = PodElasticAgent(engine, spec["ckpt_dir"], ctx, watchdog=watchdog,
+                            ckpt_every=spec["ckpt_every"])
+    record(event="start", hosts=ctx.hosts)
+
+    def step_fn(engine, step):
+        loss = float(engine.train_batch(batch=batches[step]))
+        record(world=engine.dp_world, step=step + 1, loss=loss, gas=engine.gas,
+               micro=engine.micro_batch_size)
+        hold = spec.get("hold")
+        if hold and hold["rank"] == rank and hold["after_step"] == step + 1:
+            Path(hold["ready"]).touch()
+            time.sleep(600)
+
+    try:
+        last = agent.run(step_fn, spec["steps"])
+    except PodPeerLost as e:
+        record(event="peer_lost", dead=e.host)
+        log.close()
+        os._exit(e.rc)
+    record(event="exit", last=last, resumed_step=agent.resumed_step,
+           resumed_tag=agent.resumed_tag)
+    log.close()
+    watchdog.stop()
+    agent.guard.uninstall()
+    return agent.exit_code(last, spec["steps"])
+
+
 def _kernels(spec: dict, rank: int, out: Path) -> int:
     import numpy as np
 
@@ -135,6 +196,8 @@ def main() -> int:
         rc = 0
     elif spec["mode"] == "kernels":
         rc = _kernels(spec, rank, out)
+    elif spec["mode"] == "pod":
+        rc = _pod(spec, rank, out)
     else:
         rc = _train(spec, rank, out)
     assert "jax" not in sys.modules, "the launched child imported jax"

@@ -1094,7 +1094,21 @@ def prog_replicas(tree_np, bad_rank: int, bad_leaf: str):
         return "raised", str(e)
 
 
-PROGRAMS = {"item10": prog_item10, "infinity": prog_infinity, "sparse": prog_sparse,
+def prog_replica_slab(config: dict, steps: int, seed: int):
+    """A tiny ``CausalLM`` engine under ``config`` at this world, ``steps``
+    steps, then this rank's replica slab (``engine.replica_snapshot()``) as
+    a uint8 tensor: the slab of a ZeRO shard of this world."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import CausalLM
+
+    engine, *_ = ds.initialize(model=CausalLM("tiny", dtype=torch.float32), config=config,
+                               device="cpu")
+    for b in make_batches(steps, engine.train_batch_size, seed=seed):
+        engine.train_batch(batch=b)
+    return torch.frombuffer(bytearray(engine.replica_snapshot()), dtype=torch.uint8)
+
+
+PROGRAMS = {"item10": prog_item10, "replica_slab": prog_replica_slab, "infinity": prog_infinity, "sparse": prog_sparse,
             "lora": prog_lora, "quant_coll": prog_quant_coll,
             "onebit_coll": prog_onebit_coll, "comm": prog_comm, "moe_infer": prog_moe_infer, "train": prog_train, "checkpoint": prog_checkpoint,
             "tiling": prog_tiling, "serve": prog_serve, "ring": prog_ring,

@@ -92,7 +92,13 @@ def test_import_loads_no_jax_pydantic_or_reference():
             "deepspeed_tpu_torch.utils.compile_counter, deepspeed_tpu_torch.elasticity, "
             "deepspeed_tpu_torch.elasticity.elasticity, "
             "deepspeed_tpu_torch.elasticity.elastic_agent, "
-            "deepspeed_tpu_torch.elasticity.supervisor, deepspeed_tpu_torch.launcher, "
+            "deepspeed_tpu_torch.elasticity.supervisor, "
+            "deepspeed_tpu_torch.elasticity.coordination, "
+            "deepspeed_tpu_torch.elasticity.store_faults, "
+            "deepspeed_tpu_torch.elasticity.replication, "
+            "deepspeed_tpu_torch.elasticity.pod_agent, "
+            "deepspeed_tpu_torch.runtime.checkpoint_engine.replica_snapshot, "
+            "deepspeed_tpu_torch.launcher, "
             "deepspeed_tpu_torch.launcher.runner, deepspeed_tpu_torch.launcher.launch, "
             "deepspeed_tpu_torch.launcher.multinode_runner, "
             "deepspeed_tpu_torch.launcher.ds_ssh, "

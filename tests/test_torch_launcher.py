@@ -17,8 +17,9 @@ which commits; a ZeRO-2 job at ``--simulate 2`` where only rank 1 gets SIGTERM,
 both ranks saving the same step, resumed at ``--simulate 1`` (the global
 batch kept, gradient accumulation absorbing the change) and, SIGTERM-ed
 again, relaunched by the supervisor, every loss within 1e-5 of the
-uninterrupted world-1 run in fp32; the pod and fleet options refused,
-naming their ROADMAP items; ``env_report`` without a card, building
+uninterrupted world-1 run in fp32; the fleet options refused, naming
+ROADMAP item 14, and the pod options reaching pod mode (its runs are in
+``tests/test_torch_pod.py``); ``env_report`` without a card, building
 nothing.  The launched children run ``tests/_torch_elastic_child.py``.
 """
 import json
@@ -223,15 +224,30 @@ def test_parse_args_keeps_the_user_command():
     ["--fleet", "2"], ["--fleet_coord_dir", "/x"], ["--fleet_lease", "1"],
     ["--fleet_miss_limit", "2"], ["--fleet_routers", "2"], ["--fleet_daemon"]],
     ids=lambda f: f[0])
-def test_pod_and_fleet_options_are_refused_naming_their_item(flag, capsys):
+def test_pod_and_fleet_options_are_refused_naming_their_item(flag, capsys, monkeypatch,
+                                                            tmp_path):
+    """The fleet options refuse, naming ROADMAP item 14; the pod options
+    (item 13, ported) parse and put the launcher in pod mode."""
+    if flag[0].startswith("--pod"):
+        extra = [] if flag[0] == "--pod_coord_dir" else ["--pod_coord_dir",
+                                                         str(tmp_path / "coord")]
+        a = runner.parse_args([*extra, *flag, "--elastic_restarts", "1", "train.py"])
+        assert a.pod_coord_dir and (a.pod_lease, a.pod_miss_limit) == (
+            float(flag[1]) if flag[0] == "--pod_lease" else 5.0,
+            int(flag[1]) if flag[0] == "--pod_miss_limit" else 3)
+        seen = []
+        monkeypatch.setattr(runner, "_pod_attempt",
+                            lambda args: lambda _round: seen.append(args) or 0)
+        assert runner.main([*extra, *flag, "--elastic_restarts", "1", "train.py"]) == 0
+        assert len(seen) == 1 and seen[0].pod_coord_dir == a.pod_coord_dir
+        return
     with pytest.raises(SystemExit) as e:
         runner.parse_args([*flag, "train.py"])
     assert e.value.code == 2
-    item = 13 if flag[0].startswith("--pod") else 14
     assert f"{flag[0]}: " in capsys.readouterr().err
     with pytest.raises(SystemExit):
         runner.parse_args([*flag, "train.py"])
-    assert f"(ROADMAP queue 1, item {item})" in capsys.readouterr().err
+    assert "(ROADMAP queue 1, item 14)" in capsys.readouterr().err
 
 
 def test_scheduler_launcher_without_a_pool_refuses(tmp_path, monkeypatch):
@@ -361,6 +377,41 @@ def test_mpi_runner_dialects(flavor, scheduler_backends):
     else:
         assert cmd[3:5] == ["-hosts", "h1:2,h2:2"] and "-genv" in cmd
         assert "PMI_RANK" in cmd[-1] and "MPI_LOCALRANKID" in cmd[-1]
+
+
+SCHED_VARS = {"slurm": ("SLURM_PROCID", "SLURM_LOCALID"),
+              "openmpi": ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_LOCAL_RANK"),
+              "mpich": ("PMI_RANK", "MPI_LOCALRANKID")}
+
+
+@pytest.mark.parametrize("pod", [False, True], ids=["plain", "pod"])
+@pytest.mark.parametrize("flavor", list(SCHED_VARS))
+def test_scheduler_tasks_get_their_node_and_pod_host(flavor, pod, scheduler_backends):
+    """srun/mpirun start every task from one command: the bootstrap reads
+    NODE_RANK and LOCAL_WORLD_SIZE (and in pod mode DS_TPU_POD_HOST) off
+    the rank, as the runners placed it, and a task the scheduler put
+    elsewhere fails instead of running under another host's name."""
+    active = OrderedDict([("n1", [0, 1]), ("n 2", [0, 1, 2])])
+    base = {"MASTER_ADDR": "n1", "MASTER_PORT": "29500", "WORLD_SIZE": "5",
+            "DS_TPU_WORLD_INFO": runner.encode_world_info(active)}
+    if pod:
+        base.update(DS_TPU_POD_COORD_DIR="/shared/coord", DS_TPU_POD_GENERATION="1",
+                    DS_TPU_POD_LEASE="5.0", DS_TPU_POD_MISS_LIMIT="3")
+    cls = SlurmRunner if flavor == "slurm" else MPIRunner
+    cls(_runner_args(flavor), active, base, pool={"n1": 2, "n 2": 3}).launch(
+        ["bash", "-c", "echo $NODE_RANK/$LOCAL_WORLD_SIZE/${DS_TPU_POD_HOST-unset}"])
+    rank_var, local_var = SCHED_VARS[flavor]
+
+    def task(rank, local):
+        return subprocess.run(["bash", "-c", scheduler_backends["cmd"][-1]],
+                              env={"PATH": "/usr/bin:/bin", rank_var: str(rank),
+                                   local_var: str(local)}, capture_output=True, text=True)
+    got = [task(r, l).stdout.strip() for r, l in ((0, 0), (1, 1), (2, 0), (3, 1), (4, 2))]
+    hosts = ["n1", "n1", "n 2", "n 2", "n 2"] if pod else ["unset"] * 5
+    assert got == [f"{n}/{w}/{h}" for n, w, h in zip([0, 0, 1, 1, 1], [2, 2, 3, 3, 3], hosts)]
+    misplaced = task(2, 1)                   # rank 2 is local rank 0 of n 2
+    assert misplaced.returncode != 0 and "placed it at 0 of host 1" in misplaced.stderr
+    assert task(5, 0).returncode != 0        # no such task
 
 
 def test_scheduler_runners_refuse_narrowed_hosts(scheduler_backends):

@@ -712,10 +712,18 @@ def test_assemble_fleet_trace_equal_jax(tmp_path):
     sp.dur_s = 0.5
     rec = TA.span_record(sp)
     assert rec["tags"]["slot_rids"] == {"0": "a"} and isinstance(rec["tags"]["o"], str)
-    for refused in (lambda: TA.TraceSegmentPublisher(None, "x"),
-                    lambda: TA.load_segments(None)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            refused()
+    # the publisher and the loader work on a coordination store
+    from deepspeed_tpu.elasticity.coordination import FileCoordinationStore as JStore
+    from deepspeed_tpu_torch.elasticity.coordination import FileCoordinationStore
+    from deepspeed_tpu_torch.observability.trace import Tracer
+
+    tracer = Tracer(enabled=True)
+    with tracer.span("fleet.route", rid=1):
+        pass
+    store = FileCoordinationStore(str(tmp_path / "coord"))
+    assert TA.TraceSegmentPublisher(store, "x").publish(tracer, force=True) == 1
+    assert TA.load_segments(store) == JA.load_segments(JStore(str(tmp_path / "coord")))
+    assert TA.load_segments(store)["x"]["spans"][0]["tags"] == {"rid": 1}
 
 
 def test_counter_event_renders_like_jax():
