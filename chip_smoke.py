@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only tooling
     python3 chip_smoke.py --only observability
     python3 chip_smoke.py --only elastic
+    python3 chip_smoke.py --only fleet
     python3 chip_smoke.py --ab NAME=PATH ...   # K1 (K2/K3, K4) variants side by side
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases,
@@ -183,7 +184,24 @@ one JSON line each; any failure exits non-zero with no result line:
    K4 over B*(k+1) rows), per-slot LoRA adapters and ``fuse_adapter``,
    and the supervisor's warm restart after a planted fault; each run
    with no new capture in steady state and the page accounting balanced,
-   the greedy streams held to fp32 on decisive positions;
+   the greedy streams held to fp32 on decisive positions; then ``fleet``
+   (ROADMAP item 14's fleet half, ``fleet_7b4``: llama2-7b's widths at
+   FLEET_LAYERS layers in fp32, the same seeded weights in every process):
+   the stream through one supervised member here as the reference, then
+   FLEET_MEMBERS member processes (this script's ``--fleet-member``, each
+   the port's ``FleetMemberDaemon`` over a warmed ``supervised_serving``)
+   routed by a coordinator ``FleetRouter`` and a standby in this process
+   over ``StoreMemberProxy`` handles; the member holding the most streams
+   is SIGKILLed once one of them has FLEET_KILL_JOURNALED journaled
+   tokens, and the coordinator router FLEET_COORD_KILL_ROUNDS rounds after
+   the first resumed token: every request finished once at full length
+   and token-equal to the reference, every stream of the victim failed
+   over and one resumed from the journal, the standby in a higher term,
+   each survivor's pages balanced with one capture and 4 K4 a replayed
+   tick, and the K1 and K4 kernel events that torch.profiler counts over
+   its serving equal to its K1 count and its replays' K4; the times to
+   detect the loss and to fail over, the tokens re-decoded, each member's
+   start-to-ready seconds;
 8. MoE and pipeline parallelism (ROADMAP queue 1, item 9): ``moe_serving``
    (Mixtral-8x7B's widths, MOE_SERVE_LAYERS of 32 layers, bf16, no-drop:
    ``forward`` at S=4096 with K1 once a layer, the 24-request stream with
@@ -231,10 +249,11 @@ one JSON line each; any failure exits non-zero with no result line:
    vector against a central difference of fp32 gradients) and
    ``lora_hybrid`` (llama2-7b at full width, LoRA rank 16 on wq/wk/wv/wo:
    the dense prefill's logits against ``forward_cached``'s masked branch;
-   three rounds of ``DeepSpeedHybridEngine.generate`` on 4 prompts of 2048
-   tokens, 128 new, greedy, then ``train_batch`` on the 4 x 2176-token
+   HYBRID_ROUNDS rounds of ``DeepSpeedHybridEngine.generate`` on 4 prompts of
+   2048 tokens, 128 new, greedy, then ``train_batch`` on the 4 x 2176-token
    rollouts; tokens equal to ``init_inference`` on the base, then on
-   ``fused(lora)`` after each step; the base bit-unchanged; K1 32 a
+   ``fused(lora)`` after the step; the base bit-unchanged after every
+   generate and every step; K1 32 a
    prefill, 64/32/32 a step); ``--only train_extras lora_hybrid`` runs
    them alone after the build; then ``tooling`` (item 11's tooling half on
    the train cell: TOOLING_STEPS steps under TOOLING_COMPRESSION — QAT
@@ -5563,10 +5582,11 @@ OFFLOAD_MODES = ("device", "host_step", "streamed", "nvme", "infinity")
 # disk bytes a parameter: NVMe state (12) and a checkpoint's copy (12) +
 # bf16 files (2)
 OFFLOAD_DISK_BYTES = 26
-# the 740m modes' depth: 2 of the cell's 16 layers keep the whole script
-# well inside its time limit on a slow host (the offload phase took 254 s
-# at 16 layers, 170-212 s at 8 and 170 s at 4 on a slower host, most of it
-# the NVMe and Infinity files, which scale with the layers)
+# the 740m modes' depth: 2 of the cell's 16 layers, the least that runs
+# ZeRO-Infinity's layer prefetch and both buffer slots, keep the whole
+# script well inside its time limit on a slow host (the offload phase took
+# 254 s at 16 layers, 170-212 s at 8 and 170 s at 4 on a slower host, most
+# of it the NVMe and Infinity files, which scale with the layers)
 OFFLOAD_740M_LAYERS = 2
 ZPP_STEPS, ONEBIT_STEPS, ONEBIT_FREEZE = 3, 6, 2
 # ZeroOneAdam through all of its phases within ZO_STEPS steps: variance
@@ -6074,8 +6094,11 @@ EIG_FD_EPS, EIG_FD_REL = 3e-4, 2e-3
 # tile: median 0.88, worst 1.36 on the rows after it
 PREFILL_ROW_REL = 0.25
 LORA_MODEL, LORA_RANK, LORA_ALPHA, LORA_LR = "llama2-7b", 16, 32.0, 1e-3
-# two rounds: a generate on the base, a step, a generate on the fused tree,
-# a step, the last generate (the host-bound generates set the phase's time)
+# two rounds of a generate and a step: a generate on the base, a step, a
+# generate on the fused tree, a step (the host-bound generates set the
+# phase's time); the base is checked bit-unchanged after each generate and
+# each step.  HYBRID_NEW stays a multiple of 128: the rollouts' step and
+# the prompts' prefill both reach K1 only at S % 128 == 0
 HYBRID_ROWS, HYBRID_PROMPT, HYBRID_NEW, HYBRID_ROUNDS = 4, 2048, 128, 2
 
 
@@ -6431,7 +6454,7 @@ def phase_lora_hybrid(seed: int) -> dict:
     engine (rank LORA_RANK on ``DEFAULT_TARGETS``, AdamW) behind
     ``DeepSpeedHybridEngine``; HYBRID_ROUNDS rounds of generate (greedy,
     HYBRID_ROWS prompts of HYBRID_PROMPT tokens, HYBRID_NEW new) and a
-    ``train_batch`` on the rollouts."""
+    ``train_batch`` on the rollouts, the base bit-unchanged after each."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM
     from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
@@ -6470,9 +6493,11 @@ def phase_lora_hybrid(seed: int) -> dict:
 
     ref = None
     with _AttentionLog() as log:
-        for r in range(HYBRID_ROUNDS + 1):
+        for r in range(HYBRID_ROUNDS):
             toks, gen_s, got = generate(hybrid)
             shapes, _ = log.take()
+            # a generate on fused(lora) must leave the base as it found it
+            unfused = _checksum(model.base_params) == base_sum
             if ref is None:   # B = 0: the fused tree is the base, bit for bit
                 plain = deepspeed_tpu_torch.init_inference(base, config={"dtype": "bf16"},
                                                            params=params)
@@ -6485,7 +6510,8 @@ def phase_lora_hybrid(seed: int) -> dict:
             equal = torch.equal(toks, want)
             round_rec = {"round": r, "generate_s": gen_s, "reference_generate_s": ref_s,
                          "prefill_launches": got, "prefill_shapes": shapes,
-                         "tokens_equal": equal}
+                         "tokens_equal": equal, "base_unchanged_after_generate": unfused}
+            check(unfused, f"round {r}: the generate left the base weights changed")
             check(got == (L, 0, 0), f"round {r}: generate launched K1/K2/K3 {got}, "
                                     f"expected {L} in the prefill")
             check(shapes == [(HYBRID_ROWS, HYBRID_PROMPT, cfg.num_heads, cfg.dims_per_head)],
@@ -6493,9 +6519,6 @@ def phase_lora_hybrid(seed: int) -> dict:
             check(equal, f"round {r}: the hybrid's tokens differ from init_inference's "
                          f"{'on the base' if ref is None else 'on fused(lora)'}")
             ref = toks
-            if r == HYBRID_ROUNDS:   # the last generate checks the last step
-                rec["rounds"].append(round_rec)
-                break
             lora_before = [x.clone() for x in tree_leaves(engine.state.params)]
             reset_counts()
             torch.cuda.synchronize()
@@ -7138,6 +7161,16 @@ def _trace_kernels(path: str, annotation: str, kernels) -> dict:
     return out
 
 
+def _trace_kernel_events(path: str, kernels) -> dict:
+    """The number of ``kernels``' events (OBS_KERNEL_SYMBOLS) in a
+    torch.profiler Chrome trace, kernels replayed by a CUDA graph
+    included."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    return {key: sum(OBS_KERNEL_SYMBOLS[key] in name for name in names) for key in kernels}
+
+
 def observability_train(seed: int, profiler_flops=None) -> dict:
     """The train cell with a monitor and the watchdog: ``train_step``'s
     counted FLOP against the analytic count (and the flops profiler's, when
@@ -7507,6 +7540,8 @@ def elastic_child(out: str) -> int:
     """One rank of phase ``elastic``, started by the launcher: the
     elastic-planned engine under ``ElasticAgent.run``, one JSON line a step
     (loss, seconds, K1/K2/K3 launches) into ``out/rank<r>.jsonl``."""
+    from torch.profiler import ProfilerActivity, profile
+
     proc_start = _process_start_time()
     torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's reference
     torch.backends.cudnn.allow_tf32 = False
@@ -7905,6 +7940,8 @@ def pod_child(out: str) -> int:
     launches) and a line a save (its parts) into ``out/pod_rank<r>.jsonl``.
     When the watchdog declares a peer dead the rank records it and exits 87
     (``os._exit``, from the watchdog's thread)."""
+    from torch.profiler import ProfilerActivity, profile
+
     proc_start = _process_start_time()
     torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's reference
     torch.backends.cudnn.allow_tf32 = False
@@ -8398,6 +8435,455 @@ def phase_pod4(seed: int) -> None:
           f"pod4_740m: losses differ from dp=4's beyond {TP_DP_LOSS_RTOL}")
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP item 14's fleet half (phase ``fleet``): ``fleet_7b4``, llama2-7b's
+# widths at FLEET_LAYERS of its 32 layers in fp32; FLEET_MEMBERS member
+# daemons (this script's ``--fleet-member``) on the one card, routed by a
+# coordinator FleetRouter and a standby in this process over
+# StoreMemberProxy handles; the member with the most streams is SIGKILLed
+# mid-stream, then the coordinator router is killed
+# ---------------------------------------------------------------------------
+
+FLEET_CONFIG = "fleet_7b4"
+FLEET_MODEL = "llama2-7b"
+FLEET_LAYERS = 4               # of 32: three members and a reference on one card
+FLEET_SEED_OFFSET = 900        # the weights' seed: seed + this, in every process
+FLEET_MEMBERS = 3
+FLEET_LEASE_S = 1.0            # member lease; dead after FLEET_MISS_LIMIT missed
+FLEET_MISS_LIMIT = 3
+FLEET_ROUTER_LEASE_S = 2.0     # the coordinator election's lease
+FLEET_JOURNAL_FLUSH_MS = 50.0  # token-journal appends on the store clock
+FLEET_KILL_JOURNALED = 8       # SIGKILL once one of the victim's streams has this many journaled
+FLEET_COORD_KILL_ROUNDS = 5    # router rounds after the first resumed token
+FLEET_READY_TIMEOUT_S = 300
+FLEET_TIMEOUT_S = 300
+FLEET_SERVE = {"b_slots": SERVE_SLOTS, "page_size": SERVE_PAGE, "max_model_len": SERVE_MAX_LEN}
+
+
+def _fleet_engine(seed: int):
+    """``fleet_7b4``: the same seeded fp32 weights in every process."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+
+    model = CausalLM(FLEET_MODEL, num_layers=FLEET_LAYERS, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed + FLEET_SEED_OFFSET)
+    params = model.init_fn(gen, device="cuda", dtype=torch.float32)
+    engine = deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"},
+                                                params=params)
+    return model, params, engine
+
+
+def _fleet_copies(stream):
+    return [dataclasses.replace(r) for r in stream]
+
+
+def _serve_counts(sup, base=None) -> dict:
+    """A supervised engine's kernel counters and the work that implies
+    them: prefills, decode ticks (graph replays), K4 launches a replay."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+
+    ex = sup.engine._exec
+    out = {"k1": fa.flash_attention.launches, "k4_counter": decode_attention.launches,
+           "prefills": sum(ex._prefill_buckets.values()), "ticks": ex.replays,
+           "graph_k4": ex.graph_k4_launches, "captures": ex.captures,
+           "restarts": sup.restarts}
+    if base is not None:
+        for key in ("prefills", "ticks"):
+            out[key] -= base[key]
+    out["k4_replayed"] = out["graph_k4"] * out["ticks"]
+    return out
+
+
+def fleet_member_child(spec_path: str) -> int:
+    """One member of phase ``fleet``: ``fleet_7b4`` under
+    ``supervised_serving``, warmed, then the port's ``FleetMemberDaemon``
+    (``inference/fleet_member.serve_member``) until the router's
+    ``shutdown`` verb; JSON records (start, ready with the weights'
+    checksum, counts after each working round, exit) into the spec's
+    ``out``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    proc_start = _process_start_time()
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the parent's reference
+    torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch.inference.fleet_member import serve_member, warm_up
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    eid = spec["engine_id"]
+    log = open(spec["out"], "a")
+
+    def record(**kw):
+        log.write(json.dumps({"pid": os.getpid(), "engine": eid, "t": time.time(), **kw}) + "\n")
+        log.flush()
+
+    record(event="start", proc_start=proc_start)
+    _, params, engine = _fleet_engine(spec["seed"])
+    checksum = _checksum(params)
+    del params
+    sup = engine.supervised_serving(max_restarts=spec["max_restarts"], **FLEET_SERVE)
+    built = time.time()
+    warm_up(sup.engine)
+    torch.cuda.synchronize()
+    warmed = time.time()
+    # the member's whole serving life under torch.profiler: its K1 and K4
+    # kernel events, the replayed ones included, are counted at exit
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    profiler_start_s = time.time() - warmed
+    reset_counts()
+    base = _serve_counts(sup)
+    last = [None]
+
+    def on_round(rounds: int) -> None:
+        if rounds == 1:
+            record(event="ready", proc_start=proc_start, built=built, warmed=warmed,
+                   start_to_ready_s=time.time() - proc_start, checksum=checksum,
+                   profiler_start_s=profiler_start_s,
+                   libraries={b.name: {"loaded": b._lib is not None,
+                                       "built_here_s": b.build_seconds}
+                              for b in fa.builders() + da.builders()})
+        # after every round that prefilled or replayed: a SIGKILLed member's
+        # last record is at most one round old
+        counts = _serve_counts(sup, base)
+        if counts != last[0]:
+            last[0] = counts
+            record(event="counts", rounds=rounds, **counts)
+
+    member, daemon, rounds = serve_member(
+        eid, sup, spec["coord_dir"], lease_s=spec["lease_s"], idle_sleep_s=0.0005,
+        ready_file=spec["ready_file"], on_round=on_round)
+    torch.cuda.synchronize()
+    counts = _serve_counts(sup, base)
+    prof.stop()
+    trace = os.path.join(os.path.dirname(spec["out"]), f"trace_{eid}.json")
+    prof.export_chrome_trace(trace)
+    profiled = _trace_kernel_events(trace, ("K1", "K4"))
+    os.remove(trace)
+    sv = sup.engine
+    record(event="exit", rounds=rounds, alive=member.alive, shutdown=daemon.shutdown,
+           page_accounting=sv.page_accounting(), inventory=sv.program_inventory(),
+           peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+           k1_profiled=profiled["K1"], k4_profiled=profiled["K4"], **counts)
+    log.close()
+    sv.close()
+    return 0 if member.alive and daemon.shutdown else 1
+
+
+def _fleet_records(path: str) -> dict:
+    """A member's records by event (the last of each)."""
+    out = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                if line.endswith("\n"):
+                    rec = json.loads(line)
+                    out[rec["event"]] = rec
+    return out
+
+
+def _fleet_members(root: str, seed: int) -> tuple:
+    """Start FLEET_MEMBERS ``--fleet-member`` children at once, each in a
+    session of its own; wait for every ``ready_file``."""
+    procs, logs, specs = {}, {}, {}
+    env = _clean_env()
+    for i in range(FLEET_MEMBERS):
+        eid = f"engine{i}"
+        spec = {"engine_id": eid, "seed": seed, "coord_dir": os.path.join(root, "store"),
+                "lease_s": FLEET_LEASE_S, "max_restarts": 5,
+                "ready_file": os.path.join(root, f"ready_{eid}"),
+                "out": os.path.join(root, f"member_{eid}.jsonl")}
+        specs[eid] = spec
+        path = os.path.join(root, f"spec_{eid}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        logs[eid] = open(os.path.join(root, f"{eid}.log"), "w")
+        procs[eid] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fleet-member", path], cwd=ROOT,
+            env=env, stdout=logs[eid], stderr=subprocess.STDOUT, start_new_session=True)
+    deadline = time.monotonic() + FLEET_READY_TIMEOUT_S
+    for eid, spec in specs.items():
+        while not os.path.exists(spec["ready_file"]):
+            if procs[eid].poll() is not None or time.monotonic() > deadline:
+                logs[eid].flush()
+                with open(logs[eid].name) as f:
+                    tail = f.read()[-4000:]
+                raise RuntimeError(f"fleet: member {eid} never came ready "
+                                   f"(rc {procs[eid].poll()}):\n{tail}")
+            time.sleep(0.05)
+    return procs, logs, specs
+
+
+def _fleet_reap(procs, logs, grace_s: float = 60.0) -> dict:
+    import signal
+
+    rcs = {}
+    deadline = time.monotonic() + grace_s
+    for eid, p in procs.items():
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        rcs[eid] = p.returncode
+    for f in logs.values():
+        f.close()
+    return rcs
+
+
+def phase_fleet(seed: int) -> dict:
+    """Phase ``fleet`` (see the module docstring): the fault-free reference
+    through one supervised member here, then the member processes, the
+    SIGKILL of the busiest member mid-stream and the coordinator's death,
+    every stream token-equal to the reference in fp32."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    from deepspeed_tpu_torch.elasticity import FileCoordinationStore, dead_set, read_generation
+    from deepspeed_tpu_torch.inference import FleetRouter, StoreMemberProxy
+    from deepspeed_tpu_torch.inference.fleet_member import warm_up
+
+    t0 = time.perf_counter()
+    free_memory()
+    # 1. the fault-free reference: the stream through one supervised member
+    model, params, engine = _fleet_engine(seed)
+    cfg = model.config
+    checksum = _checksum(params)
+    stream = serving_stream(seed, cfg.vocab_size)
+    want = {r.rid: r.max_new_tokens for r in stream}
+    sup = engine.supervised_serving(max_restarts=5, **FLEET_SERVE)
+    warm_up(sup.engine)
+    torch.cuda.synchronize()
+    reset_counts()
+    base = _serve_counts(sup)
+    t = time.perf_counter()
+    ref_results = sup.run(_fleet_copies(stream))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t
+    ref = {r.rid: np.asarray(r.output_ids) for r in ref_results}
+    ref_tokens = sum(len(v) for v in ref.values())
+    ref_counts = _serve_counts(sup, base)
+    ref_acct = sup.engine.page_accounting()
+    check(sorted(ref) == sorted(want) and all(
+        r.finish_reason == "length" and len(r.output_ids) == want[r.rid] for r in ref_results),
+        "fleet: the reference run did not finish every request at its length")
+    check(ref_acct["balanced"] and ref_counts["captures"] == 1 and ref_counts["k4_counter"] == 0,
+          f"fleet: the reference run's accounting or captures: {ref_acct}, {ref_counts}")
+    sup.engine.close()
+    del sup, engine, params, model, ref_results
+    free_memory()
+
+    # 2. the member processes and the two routers
+    root = tempfile.mkdtemp(prefix="ds_port_fleet_")
+    procs, logs = {}, {}
+    try:
+        t_spawn = time.time()
+        procs, logs, specs = _fleet_members(root, seed)
+        t_ready = time.time()
+        store = FileCoordinationStore(os.path.join(root, "store"))
+        kw = {"lease_s": FLEET_ROUTER_LEASE_S, "miss_limit": FLEET_MISS_LIMIT,
+              "journal_every_k": None, "journal_flush_ms": FLEET_JOURNAL_FLUSH_MS}
+
+        def router(rid):
+            proxies = [StoreMemberProxy(f"engine{i}", store, router_id=rid,
+                                        lease_s=FLEET_LEASE_S) for i in range(FLEET_MEMBERS)]
+            for p in proxies:
+                p.beat()
+            return FleetRouter(store, proxies, router_id=rid, **kw)
+
+        coord, standby = router("router0"), router("router1")
+        coord.step()
+        standby.step()
+        check(coord.is_coordinator and not standby.is_coordinator,
+              "fleet: router0 did not win the first term")
+        t_submit = time.time()
+        for r in _fleet_copies(stream):
+            coord.submit(r)
+        results = []
+        ev = {"victim": None, "kill_t": None, "detect_t": None, "first_resumed_t": None,
+              "coord_kill_t": None, "takeover_t": None, "coord_kill_round": None}
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        rounds = 0
+        while True:
+            if coord.alive:
+                coord.step()
+                results += coord.take_results()
+            standby.step()
+            results += standby.take_results()
+            rounds += 1
+            now = time.time()
+            if ev["victim"] is None:
+                owners = dict(coord._owner)
+                load = {e: sum(1 for o in owners.values() if o == e) for e in sorted(procs)}
+                victim = max(sorted(load), key=lambda e: load[e])
+                journaled = {rid: len(doc.get("tokens") or ())
+                             for rid, doc in coord._journal_docs.items()
+                             if rid in coord._requests and owners.get(rid) == victim}
+                if journaled and max(journaled.values()) >= FLEET_KILL_JOURNALED:
+                    os.killpg(procs[victim].pid, signal.SIGKILL)
+                    ev["kill_t"] = time.time()
+                    procs[victim].wait()
+                    ev["victim"] = victim
+                    ev["victim_rids"] = sorted(r for r, o in owners.items() if o == victim)
+                    ev["journaled_at_kill"] = journaled
+                    ev["victim_load"] = load
+                    prog = store.get(f"fleet/progress/{victim}") or {}
+                    ev["progress_at_kill"] = {rid: len(toks)
+                                              for rid, toks in prog.get("streams") or ()}
+            elif ev["detect_t"] is None and ev["victim"] in coord._failed_engines:
+                ev["detect_t"] = now
+            elif ev["detect_t"] is not None and ev["first_resumed_t"] is None:
+                live = coord if coord.alive else standby
+                for rid in ev["victim_rids"]:
+                    owner = live._owner.get(rid)
+                    done = any(r.rid == rid for r in results)
+                    if done or (owner is not None
+                                and live.members[owner].stream_progress().get(rid)):
+                        ev["first_resumed_t"] = now
+                        ev["first_resumed_round"] = rounds
+                        break
+            if ev["first_resumed_t"] is not None and coord.alive \
+                    and rounds >= ev["first_resumed_round"] + FLEET_COORD_KILL_ROUNDS:
+                ev["coord_term"] = coord.term
+                ev["coord_generation"] = coord.generation
+                coord.kill()
+                ev["coord_kill_t"] = now
+                ev["coord_kill_round"] = rounds
+            if ev["coord_kill_t"] is not None and ev["takeover_t"] is None \
+                    and standby.is_coordinator:
+                ev["takeover_t"] = now
+            if ev["takeover_t"] is not None and standby.outstanding() == 0 \
+                    and not store.list("fleet/requests"):
+                break
+            check(time.monotonic() < deadline,
+                  f"fleet: the stream did not finish within {FLEET_TIMEOUT_S} s: {ev}, "
+                  f"{len(results)} results, coordinator alive {coord.alive}")
+            time.sleep(0.001)
+        t_done = time.time()
+        for eid, p in standby.members.items():
+            if p.alive:
+                p.send_control("shutdown")
+        rcs = _fleet_reap({e: p for e, p in procs.items() if e != ev["victim"]},
+                          {e: f for e, f in logs.items() if e != ev["victim"]})
+        logs[ev["victim"]].close()
+        members = {eid: _fleet_records(spec["out"]) for eid, spec in specs.items()}
+        store_state = {"dead": dead_set(store, prefix="fleet/dead"),
+                       "journal_left": store.list("fleet/requests"),
+                       "coordinator": store.get("fleet/coordinator"),
+                       "generation": read_generation(store, key="fleet/generation")}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in logs.values():
+            f.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    by = {}
+    dup = []
+    for r in results:
+        if r.rid in by:
+            dup.append(r.rid)
+        by[r.rid] = r
+    victim = ev["victim"]
+    inflight = sorted(ev["progress_at_kill"])
+    fleet_tokens = sum(len(r.output_ids) for r in by.values())
+    redecoded = {str(rid): ev["progress_at_kill"][rid] - by[rid].resumed_tokens
+                 for rid in inflight if rid in by}
+    survivors = [e for e in sorted(members) if e != victim]
+    per_member = {}
+    for eid, recs in members.items():
+        last = recs.get("exit") or recs.get("counts") or {}
+        per_member[eid] = {
+            "start_to_ready_s": recs.get("ready", {}).get("start_to_ready_s"),
+            "checksum": recs.get("ready", {}).get("checksum"),
+            "of_which_profiler_start_s": recs.get("ready", {}).get("profiler_start_s"),
+            "libraries": recs.get("ready", {}).get("libraries"),
+            "rc": rcs.get(eid), "killed": eid == victim,
+            **{key: last.get(key) for key in ("k1", "k4_counter", "prefills", "ticks",
+                                              "graph_k4", "k4_replayed", "k1_profiled",
+                                              "k4_profiled", "captures", "restarts",
+                                              "page_accounting", "rounds",
+                                              "peak_memory_gb")}}
+    rec = {"phase": "fleet", "config": FLEET_CONFIG, "model": FLEET_MODEL,
+           "layers": FLEET_LAYERS, "depth_cut": {"num_layers": FLEET_LAYERS},
+           "dtype": "float32", "members": FLEET_MEMBERS, "serve": FLEET_SERVE,
+           "lease_s": FLEET_LEASE_S, "miss_limit": FLEET_MISS_LIMIT,
+           "router_lease_s": FLEET_ROUTER_LEASE_S,
+           "journal_flush_ms": FLEET_JOURNAL_FLUSH_MS, "requests": len(stream),
+           "reference": {"run_s": ref_s, "output_tokens": ref_tokens,
+                         "output_tok_per_s": ref_tokens / ref_s, **ref_counts,
+                         "page_accounting": ref_acct},
+           "weights_checksum": checksum,
+           "spawn_to_all_ready_s": t_ready - t_spawn,
+           "victim": victim, "victim_load_at_kill": ev.get("victim_load"),
+           "victim_inflight_at_kill": inflight,
+           "journaled_at_kill": {str(k): v for k, v in ev["journaled_at_kill"].items()},
+           "time_to_detect_s": ev["detect_t"] - ev["kill_t"],
+           "time_to_failover_s": ev["first_resumed_t"] - ev["kill_t"],
+           "tokens_redecoded": sum(redecoded.values()), "redecoded_by_rid": redecoded,
+           "coordinator_term": ev.get("coord_term"), "standby_term": standby.term,
+           "coordinator_kill_to_takeover_s": ev["takeover_t"] - ev["coord_kill_t"],
+           "router_rounds": rounds,
+           "fleet_run_s": t_done - t_submit, "fleet_output_tokens": fleet_tokens,
+           "fleet_output_tok_per_s": fleet_tokens / (t_done - t_submit),
+           "failovers_by_rid": {str(r.rid): r.failovers for r in by.values() if r.failovers},
+           "resumed_by_rid": {str(r.rid): r.resumed_tokens for r in by.values()
+                              if r.resumed_tokens},
+           "duplicates": dup, "store": store_state, "per_member": per_member,
+           "nvidia_smi": nvidia_smi_line()}
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    check(not dup and sorted(by) == sorted(want),
+          f"fleet: lost or doubled requests: {sorted(set(want) - set(by))}, {dup}")
+    for rid, r in by.items():
+        check(r.finish_reason in ("length", "eos") and len(r.output_ids) == want[rid],
+              f"fleet: request {rid} ended {r.finish_reason} at {len(r.output_ids)} tokens")
+        check(np.array_equal(np.asarray(r.output_ids), ref[rid]),
+              f"fleet: request {rid}'s tokens differ from the fault-free run "
+              f"(failovers {r.failovers}, resumed {r.resumed_tokens})")
+    check(inflight and all(by[rid].failovers >= 1 for rid in inflight),
+          f"fleet: a stream in flight on {victim} was not failed over: "
+          f"{ {str(r): by[r].failovers for r in inflight} }")
+    check(any(by[rid].resumed_tokens > 0 for rid in inflight),
+          f"fleet: no failed-over stream resumed from the journal: {rec['resumed_by_rid']}")
+    check(standby.is_coordinator and standby.term > rec["coordinator_term"],
+          f"fleet: the standby's term {standby.term} is not above the dead "
+          f"coordinator's {rec['coordinator_term']}")
+    check(store_state["dead"] == [victim] and not store_state["journal_left"],
+          f"fleet: the store after the run: {store_state}")
+    for eid in survivors:
+        m = per_member[eid]
+        check(m["rc"] == 0 and m["page_accounting"]["balanced"]
+              and m["captures"] == 1 and m["k4_counter"] == 0 and m["restarts"] == 0,
+              f"fleet: survivor {eid}: {m}")
+        # the profiler's kernel events against the counters and the replays
+        check(m["k1_profiled"] == m["k1"] and m["k4_profiled"] == m["k4_replayed"],
+              f"fleet: survivor {eid}'s profiled launches K1 {m['k1_profiled']}, K4 "
+              f"{m['k4_profiled']} against K1 {m['k1']} and {m['graph_k4']} K4 launches "
+              f"a replay x {m['ticks']} replays")
+    for eid, m in per_member.items():
+        check(m["checksum"] == checksum, f"fleet: {eid}'s weights differ: {m['checksum']} "
+                                         f"vs {checksum}")
+        # the paged prefill (a survivor's re-prefill too) attends with the
+        # einsum over the gathered pages, as the JAX package's
+        # ``_attention_paged`` does: K1 launches no time in a member; K4
+        # runs inside the captured decode graph, FLEET_LAYERS a replay
+        check(m["k1"] == 0 and m["graph_k4"] == FLEET_LAYERS and m["ticks"] > 0,
+              f"fleet: {eid}'s launches do not follow its prefills and ticks: {m}")
+        # K4's library is loaded by the capture; K1's is not on this path
+        check(m["libraries"]["decode_attention"]["loaded"]
+              and all(lib["built_here_s"] == 0.0 for lib in m["libraries"].values()),
+              f"fleet: {eid} built a kernel or did not load K4's: {m['libraries']}")
+    return rec
+
+
 def _kernel_entry(name, source, replaces, launches, rec, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
@@ -8445,7 +8931,7 @@ def main() -> int:
     ap.add_argument("--only", nargs="+", choices=("offload", "zeropp_onebit",
                                                   "train_extras", "lora_hybrid",
                                                   "tooling", "observability", "elastic",
-                                                  "pod"),
+                                                  "pod", "fleet"),
                     help="only the build, then these phases (no kernels line)")
     ap.add_argument("--watchdog-child", metavar="WAIT",
                     help=argparse.SUPPRESS)   # phase observability's watchdog child
@@ -8453,6 +8939,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # phase elastic's training process
     ap.add_argument("--pod-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase pod's training process
+    ap.add_argument("--fleet-member", metavar="SPEC",
+                    help=argparse.SUPPRESS)   # one member process of phase fleet
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -8467,6 +8955,8 @@ def main() -> int:
         return elastic_child(args.elastic_child)
     if args.pod_child:
         return pod_child(args.pod_child)
+    if args.fleet_member:
+        return fleet_member_child(args.fleet_member)
     if args.probe_shared_card:
         backend, port, rank = args.probe_shared_card
         return shared_card_child(backend, int(port), int(rank))
@@ -8501,6 +8991,8 @@ def main() -> int:
                 _, reference = phase_elastic(args.seed)
             elif name == "pod":
                 phase_pod(args.seed, reference)
+            elif name == "fleet":
+                phase_fleet(args.seed)
             else:
                 {"offload": phase_offload, "zeropp_onebit": phase_zeropp_onebit,
                  "train_extras": phase_train_extras,
@@ -8543,6 +9035,7 @@ def main() -> int:
     pod = phase_pod(args.seed, elastic_ref)
     del elastic_ref
     serve_launches, k4_launches, item6 = phase_serving(args.seed, args.profile)
+    fleet = phase_fleet(args.seed)
     moe_serve = phase_moe_serving(args.seed)
     moe_train = phase_moe_train(args.seed)
     pipe = phase_pipeline(args.seed)
@@ -8648,6 +9141,25 @@ def main() -> int:
             run: [step[i] for step in steps]
             for run, steps in pod["launches_per_step"].items()}}
 
+    def fleet_launches(kernel):
+        """Phase fleet's launches of K1 or K4 in each member process: the
+        kernel events a survivor's torch.profiler counted over its serving
+        life (the SIGKILLed member's profile dies with it: null), beside
+        what its counters imply (K1's wrapper count; K4's graph launches a
+        replay x replays), its prefills and decode ticks."""
+        key = {"K1": "k1", "K4": "k4_replayed"}[kernel]
+        derived = {"K1": "the wrapper's count",
+                   "K4": "graph launches a replay x replays"}[kernel]
+        return {"launches_fleet": {eid: {
+                    "launches": m[f"{kernel.lower()}_profiled"],
+                    "counted_by": "torch.profiler kernel events",
+                    "launches_derived": m[key], "derived_as": derived,
+                    "prefills": m["prefills"], "decode_ticks": m["ticks"],
+                    "killed": m["killed"]}
+                    for eid, m in fleet["per_member"].items()},
+                "launches_fleet_reference": fleet["reference"][key],
+                "launches_fleet_reference_derived_as": derived}
+
     def ring_record(name):
         """The ring's launch pattern: one block (non-causal; K2/K3 with
         dlse) at the virtual ring's shard and at sp4_740m's, and the
@@ -8677,7 +9189,8 @@ def main() -> int:
                       block_mask=block_mask("K1", ":88"),
                       ring=ring_record("K1"), **item9_launches(0), **item10_launches(0),
                       **item11_launches(0), **tooling_launches(0), **elastic_launches(0), **pod_launches(0),
-                      launches_observability_per_step=obs["train"]["launches_per_step"][0][0]),
+                      launches_observability_per_step=obs["train"]["launches_per_step"][0][0],
+                      **fleet_launches("K1")),
         _kernel_entry("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                       jax_src + ":189", train_launches[1], k2, design=K2_DESIGN,
                       bound_share=k2["bound_share"], fp32=fp32_record(0),
@@ -8709,6 +9222,7 @@ def main() -> int:
                       launches_moe_serving_per_tick=moe_serve["k4"]["per_tick"],
                       moe_serving_ticks=moe_serve["k4"]["ticks"],
                       launches_observability_serving=obs["serving"]["run"]["k4_counter"],
+                      **fleet_launches("K4"),
                       cost_sink=obs["serving"]["k4_cost"],
                       int8={"case": "serve", "design": K4_INT8_DESIGN,
                             **{key: dec["serve-int8"][key] for key in (

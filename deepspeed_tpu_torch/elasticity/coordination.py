@@ -38,7 +38,7 @@ On top of it, four protocols:
 
 The lease/dead-marker helpers take a ``prefix`` so tiers share one
 implementation without sharing a namespace: pods lease under
-``heartbeat/`` + ``dead/``, the serving fleet (ROADMAP item 14) under
+``heartbeat/`` + ``dead/``, the serving fleet (``inference/fleet.py``) under
 ``fleet/heartbeat`` + ``fleet/dead``; its channels, residency digests and
 trace segments live here too.  Fault sites ``pod.heartbeat``,
 ``pod.rendezvous`` and ``fleet.channel_append`` hook the live paths.

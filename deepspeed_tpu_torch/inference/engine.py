@@ -43,8 +43,9 @@ an 'expert' axis and each rank holds its experts of every MoE leaf; the
 capacity path exchanges its buffers over the axis.  Paged serving keeps
 the JAX package's ('data', 'model') serving mesh with the experts whole.
 
-Not ported yet (raises ``NotImplementedError`` naming the ROADMAP row):
-the serving fleet.
+``serving_fleet`` builds a :class:`~.fleet.FleetRouter` over supervised
+serving engines in this process (``fleet.py``; one member per process is
+``fleet_daemon.py`` behind the ``fleet_member`` entry point).
 """
 from __future__ import annotations
 
@@ -308,9 +309,54 @@ class InferenceEngine:
                                  max_restarts=max_restarts,
                                  monitor=kwargs.get("monitor"))
 
-    def serving_fleet(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the serving fleet is not ported yet (ROADMAP queue 1, item 14)")
+    def serving_fleet(self, n_engines: int = None, coord_dir: str = None,
+                      store=None, router_id: str = "router0",
+                      max_restarts: int = 5, lease_s: float = None,
+                      miss_limit: int = None, max_fleet_queue: int = None,
+                      fleet_monitor=None, metrics_port: int = None,
+                      **kwargs):
+        """A :class:`~.fleet.FleetRouter` over ``n_engines`` supervised
+        serving engines in this process (each a :meth:`supervised_serving`
+        sharing this engine's model and params, with a KV pool and decode
+        graphs of its own), leased on a coordination store (``store=``, or
+        ``coord_dir`` for the file backend).  ``metrics_port=0`` gives every
+        member its own ephemeral /metrics endpoint.
+
+        ``n_engines`` / ``coord_dir`` / ``lease_s`` / ``miss_limit`` left
+        unset fall back to the launcher's exported contract
+        (``DS_TPU_FLEET_SIZE`` / ``_COORD_DIR`` / ``_LEASE`` /
+        ``_MISS_LIMIT``, ``--fleet N ...``), then to 2 / 5.0 s / 3; an
+        explicit argument always wins.  See docs/FLEET.md."""
+        import os
+
+        from ..elasticity.coordination import FileCoordinationStore
+        from .fleet import FleetMember, FleetRouter
+
+        env = os.environ
+        if n_engines is None:
+            n_engines = int(env.get("DS_TPU_FLEET_SIZE", 2))
+        if lease_s is None:
+            lease_s = float(env.get("DS_TPU_FLEET_LEASE", 5.0))
+        if miss_limit is None:
+            miss_limit = int(env.get("DS_TPU_FLEET_MISS_LIMIT", 3))
+        if store is None:
+            coord_dir = coord_dir or env.get("DS_TPU_FLEET_COORD_DIR")
+            if not coord_dir:
+                raise ValueError(
+                    "serving_fleet needs store= or coord_dir= (the "
+                    "coordination store engines lease on; the launcher's "
+                    "--fleet flags export DS_TPU_FLEET_COORD_DIR)")
+            store = FileCoordinationStore(coord_dir)
+        members = [
+            FleetMember(f"engine{i}",
+                        self.supervised_serving(max_restarts=max_restarts,
+                                                **kwargs),
+                        store, lease_s=lease_s, metrics_port=metrics_port)
+            for i in range(int(n_engines))]
+        return FleetRouter(store, members, router_id=router_id,
+                           lease_s=lease_s, miss_limit=miss_limit,
+                           max_fleet_queue=max_fleet_queue,
+                           monitor=fleet_monitor)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))

@@ -49,6 +49,13 @@ pod-committed tags only.  A rank exits ``RC_POD_PEER_LOST`` (87) when its
 heartbeat watchdog declared a peer dead: a failed round, reaped at once.
 A round that fails otherwise gives its survivors time to declare the
 lost host before they are killed (``reap_grace_s``).
+
+Fleet mode (``--fleet N``, with ``--fleet_coord_dir`` or the pod store):
+every rank gets ``DS_TPU_FLEET_SIZE``, ``_COORD_DIR``, ``_LEASE`` and
+``_MISS_LIMIT`` (``fleet_env``), which ``InferenceEngine.serving_fleet``
+reads; ``--fleet_daemon`` also starts N member daemons on this host
+(``python -m deepspeed_tpu_torch.inference.fleet_member``, one process an
+engine) and reaps them after the serving script exits.
 """
 from __future__ import annotations
 
@@ -76,9 +83,8 @@ RC_POD_UNRECOVERABLE = 86
 # seconds a survivor of a failed rank gets between SIGTERM and SIGKILL
 KILL_GRACE_S = 15.0
 SCHEDULERS = ("slurm", "openmpi", "impi", "mpich")
-# options of the JAX launcher whose subsystem the port has not yet
-FLEET_FLAGS = ("--fleet", "--fleet_coord_dir", "--fleet_lease", "--fleet_miss_limit",
-               "--fleet_routers", "--fleet_daemon")
+# the member daemon a ``--fleet_daemon`` launch starts, one per engine
+FLEET_MEMBER_MODULE = "deepspeed_tpu_torch.inference.fleet_member"
 
 
 def parse_args(args=None):
@@ -148,26 +154,114 @@ def parse_args(args=None):
     p.add_argument("--pod_miss_limit", type=int, default=3,
                    help="missed leases before a host is declared dead and its "
                         "peers exit 87 for the pod to re-form")
-    for flag in FLEET_FLAGS:
-        p.add_argument(flag, default=None, help="not ported yet: the serving "
-                       "fleet (ROADMAP queue 1, item 14)",
-                       **({"action": "store_const", "const": True}
-                          if flag == "--fleet_daemon" else {}))
+    p.add_argument("--fleet", type=int, default=0, metavar="N",
+                   help="serving fleet: export DS_TPU_FLEET_SIZE=N and the fleet "
+                        "lease contract, so the serving script's "
+                        "InferenceEngine.serving_fleet() builds N leased engines "
+                        "and a FleetRouter on the coordination store")
+    p.add_argument("--fleet_coord_dir", default="",
+                   help="fleet coordination store root (default: --pod_coord_dir): "
+                        "engines lease under fleet/*, the router is elected by CAS "
+                        "on fleet/coordinator")
+    p.add_argument("--fleet_lease", type=float, default=5.0,
+                   help="fleet engine lease seconds; the router fails an engine's "
+                        "requests over after --fleet_miss_limit missed leases")
+    p.add_argument("--fleet_miss_limit", type=int, default=3,
+                   help="missed leases before the router declares an engine dead "
+                        "and fails its requests over")
+    p.add_argument("--fleet_daemon", action="store_true",
+                   help="start the N --fleet members as member daemons, one process "
+                        "each (python -m " + FLEET_MEMBER_MODULE + ", coupled to the "
+                        "router through the store alone); the serving script "
+                        "drives StoreMemberProxy handles")
+    p.add_argument("--fleet_routers", type=int, default=0, metavar="N",
+                   help="sharded admission: export DS_TPU_FLEET_ROUTERS=N, so the "
+                        "serving script runs N routers under one coordinator "
+                        "election, each claiming rid-hash admission partitions")
     p.add_argument("--force_multi", action="store_true",
                    help="use the multinode path even for a single local host")
     p.add_argument("user_script", help="training script (or module with --module)")
     p.add_argument("user_args", nargs=argparse.REMAINDER)
     parsed = p.parse_args(args)
-    given = [f for f in FLEET_FLAGS if getattr(parsed, f[2:]) is not None]
-    if given:
-        p.error(f"{', '.join(given)}: the serving fleet is not ported yet "
-                "(ROADMAP queue 1, item 14)")
     if parsed.elastic_zero_progress > 0 and not parsed.elastic_ckpt_dir:
         # without a progress source the breaker never arms: the job would
         # crash-loop through the whole restart budget undiagnosed
         p.error("--elastic_zero_progress needs --elastic_ckpt_dir (the "
                 "breaker tracks committed checkpoint steps)")
+    # the JAX launcher's checks, message for message
+    if parsed.fleet:
+        if parsed.fleet < 1:
+            p.error(f"--fleet {parsed.fleet}: need at least one engine")
+        if not (parsed.fleet_coord_dir or parsed.pod_coord_dir):
+            p.error("--fleet needs a coordination store: pass "
+                    "--fleet_coord_dir (or --pod_coord_dir, which it "
+                    "defaults to) — engine leases and the coordinator "
+                    "election live there")
+    if parsed.fleet_daemon and not parsed.fleet:
+        p.error("--fleet_daemon needs --fleet N: the daemons ARE the "
+                "fleet members")
+    if parsed.fleet_routers:
+        if parsed.fleet_routers < 1:
+            p.error(f"--fleet_routers {parsed.fleet_routers}: need at "
+                    "least one router")
+        if not parsed.fleet:
+            p.error("--fleet_routers needs --fleet N: routers shard "
+                    "admission over the fleet's store")
     return parsed
+
+
+def fleet_env(args) -> dict:
+    """The fleet contract exported to every child process: size, store root
+    and lease cadence (``InferenceEngine.serving_fleet`` reads them), plus
+    ``DS_TPU_FLEET_DAEMON`` under ``--fleet_daemon`` and
+    ``DS_TPU_FLEET_ROUTERS`` under ``--fleet_routers``."""
+    if not args.fleet:
+        return {}
+    env = {
+        "DS_TPU_FLEET_SIZE": str(args.fleet),
+        "DS_TPU_FLEET_COORD_DIR": args.fleet_coord_dir or args.pod_coord_dir,
+        "DS_TPU_FLEET_LEASE": str(args.fleet_lease),
+        "DS_TPU_FLEET_MISS_LIMIT": str(args.fleet_miss_limit),
+    }
+    if args.fleet_daemon:
+        env["DS_TPU_FLEET_DAEMON"] = "1"
+    if args.fleet_routers:
+        env["DS_TPU_FLEET_ROUTERS"] = str(args.fleet_routers)
+    return env
+
+
+def spawn_fleet_daemons(args, env) -> list:
+    """Start the ``--fleet N`` member daemons as children of the launcher:
+    one ``python -m deepspeed_tpu_torch.inference.fleet_member`` process per
+    engine (``engine0`` ... ``engine<N-1>``, read from
+    ``DS_TPU_FLEET_ENGINE_ID``), coupled to the router through the store
+    alone.  Returns the ``subprocess.Popen`` handles; the caller reaps them
+    after the serving script exits (the script shuts members down through
+    the control channel)."""
+    procs = []
+    for i in range(args.fleet):
+        child_env = dict(env)
+        child_env["DS_TPU_FLEET_ENGINE_ID"] = f"engine{i}"
+        procs.append(subprocess.Popen([sys.executable, "-m", FLEET_MEMBER_MODULE],
+                                      env=child_env))
+        logger.info("launcher: fleet member daemon engine%d -> pid %d",
+                    i, procs[-1].pid)
+    return procs
+
+
+def reap_fleet_daemons(procs, grace_s: float = 10.0) -> None:
+    """SIGTERM the member daemons still running, SIGKILL any that outlive
+    ``grace_s``."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    deadline = time.time() + grace_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.1, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
 
 
 def fetch_hostfile(path: str) -> "OrderedDict[str, int]":
@@ -401,13 +495,18 @@ def _run_local(args, active, pool, simulate: bool = False) -> int:
         env.update({"DS_ACCELERATOR": "cpu", "CUDA_VISIBLE_DEVICES": ""})
     elif narrowed_hosts(active, pool):
         env["CUDA_VISIBLE_DEVICES"] = visible_devices(active[list(active)[0]], env)
+    env.update(fleet_env(args))
+    daemons = spawn_fleet_daemons(args, env) if args.fleet_daemon else []
     cmd = _build_user_cmd(args)
     logger.info("launcher: %d local rank(s): %s", sum(map(len, active.values())),
                 shlex.join(cmd))
-    procs = start_local_ranks(cmd, active, node_rank=0, env=env)
-    return wait_all_or_fail(
-        procs, kill_grace_s=reap_grace_s(env), on_fail=lambda i, rc: logger.error(
-            "launcher: local rank %d failed first with rc=%d", i, rc))
+    try:
+        procs = start_local_ranks(cmd, active, node_rank=0, env=env)
+        return wait_all_or_fail(
+            procs, kill_grace_s=reap_grace_s(env), on_fail=lambda i, rc: logger.error(
+                "launcher: local rank %d failed first with rc=%d", i, rc))
+    finally:
+        reap_fleet_daemons(daemons)
 
 
 def main(args=None) -> int:
@@ -593,6 +692,7 @@ def _dispatch(args) -> int:
                 "DS_TPU_WORLD_INFO": encode_world_info(active)}
     if args.pod_coord_dir:
         base_env.update(_pod_env(args))
+    base_env.update(fleet_env(args))
     if args.launcher == "slurm":
         runner = SlurmRunner(args, active, base_env, pool=pool)
     elif args.launcher in ("openmpi", "impi", "mpich"):

@@ -26,8 +26,8 @@ Sites wired into the port:
   and ``pod.adopt`` (``elasticity/``), and the ``store.*`` sites of every
   op through a ``FaultyStore``.
 
-The fleet's ``fleet.channel_append`` fires in the store's channels; the
-fleet itself is ROADMAP queue 1, item 14.
+The fleet's ``fleet.channel_append`` fires in the store's channels (the
+assignment, result and control channels of ``inference/fleet_daemon.py``).
 
 Fault kinds: ``raise`` (raise :class:`InjectedFault`), ``delay`` (sleep
 ``delay_s``), ``corrupt`` (flip bytes in ``target``, resolved against the

@@ -18,7 +18,7 @@ import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.inference import sampling as jsampling
 from deepspeed_tpu.models import CausalLM as JaxCausalLM
-from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, SamplingParams
+from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, Request, SamplingParams
 from deepspeed_tpu_torch.inference import sampling as tsampling
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.inference.quantization import QuantizedWeight
@@ -135,7 +135,8 @@ def test_sampled_stream_resumes_at_any_position():
     np.testing.assert_array_equal(resumed, full)
 
 
-def test_config_and_unported_paths():
+def test_config_and_unported_paths(tmp_path, monkeypatch):
+    monkeypatch.delenv("DS_TPU_FLEET_COORD_DIR", raising=False)
     cfg = DeepSpeedInferenceConfig.from_dict(
         {"dtype": "fp32", "tp": {"tp_size": 1}, "max_out_tokens": "auto",
          "no_such_knob": 1})
@@ -162,8 +163,18 @@ def test_config_and_unported_paths():
         deepspeed_tpu_torch.init_inference("/some/hf/checkpoint", device="cpu")
     eng = deepspeed_tpu_torch.init_inference(model, params=params, device="cpu")
     assert eng.params["embed"].dtype == torch.bfloat16   # default dtype
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.serving_fleet()
+    # the serving fleet (item 14) builds its members on this engine's weights
+    # (tests/test_torch_fleet.py); without a store it says so
+    with pytest.raises(ValueError, match="coord_dir"):
+        eng.serving_fleet(b_slots=1, page_size=8, max_model_len=32)
+    router = eng.serving_fleet(n_engines=1, coord_dir=str(tmp_path / "fleet"), b_slots=1,
+                               page_size=8, max_model_len=32)
+    ids = np.array([3, 1, 4, 1, 5], np.int32)
+    (res,) = router.run([Request(rid=0, input_ids=ids, max_new_tokens=3)], max_ticks=100)
+    (want,) = eng.serving(b_slots=1, page_size=8, max_model_len=32).run(
+        [Request(rid=0, input_ids=ids, max_new_tokens=3)])
+    np.testing.assert_array_equal(res.output_ids, want.output_ids)
+    assert res.finish_reason == "length" and len(res.output_ids) == 3
     # the supervisor is ported (tests/test_torch_serving_supervisor.py)
     sup = eng.supervised_serving(b_slots=1, page_size=8, max_model_len=32)
     assert type(sup).__name__ == "ServingSupervisor" and sup.restarts == 0

@@ -17,10 +17,12 @@ which commits; a ZeRO-2 job at ``--simulate 2`` where only rank 1 gets SIGTERM,
 both ranks saving the same step, resumed at ``--simulate 1`` (the global
 batch kept, gradient accumulation absorbing the change) and, SIGTERM-ed
 again, relaunched by the supervisor, every loss within 1e-5 of the
-uninterrupted world-1 run in fp32; the fleet options refused, naming
-ROADMAP item 14, and the pod options reaching pod mode (its runs are in
-``tests/test_torch_pod.py``); ``env_report`` without a card, building
-nothing.  The launched children run ``tests/_torch_elastic_child.py``.
+uninterrupted world-1 run in fp32; the fleet options parsing and
+exporting the JAX launcher's ``fleet_env`` and refusing as it does, the
+member daemons started one per engine and reaped (the fleet's runs are in
+``tests/test_torch_fleet_daemon.py``), and the pod options reaching pod
+mode (its runs are in ``tests/test_torch_pod.py``); ``env_report`` without
+a card, building nothing.  The launched children run ``tests/_torch_elastic_child.py``.
 """
 import json
 import os
@@ -219,6 +221,23 @@ def test_parse_args_keeps_the_user_command():
     assert runner.parse_args(["--num_chips", "4", "t.py"]).num_gpus == 4
 
 
+FLEET_ENV_KEY = {"--fleet": "DS_TPU_FLEET_SIZE", "--fleet_coord_dir": "DS_TPU_FLEET_COORD_DIR",
+                 "--fleet_lease": "DS_TPU_FLEET_LEASE",
+                 "--fleet_miss_limit": "DS_TPU_FLEET_MISS_LIMIT",
+                 "--fleet_routers": "DS_TPU_FLEET_ROUTERS",
+                 "--fleet_daemon": "DS_TPU_FLEET_DAEMON"}
+
+
+def _parse_outcome(mod, argv, capsys):
+    """``(fleet_env, None)`` of a parse, or ``(None, (exit code, error
+    message))`` of a refusal (without the program's name)."""
+    try:
+        return mod.fleet_env(mod.parse_args(argv)), None
+    except SystemExit as e:
+        line = capsys.readouterr().err.strip().splitlines()[-1]
+        return None, (e.code, line.split(" error: ", 1)[1])
+
+
 @pytest.mark.parametrize("flag", [
     ["--pod_coord_dir", "/x"], ["--pod_lease", "2.0"], ["--pod_miss_limit", "5"],
     ["--fleet", "2"], ["--fleet_coord_dir", "/x"], ["--fleet_lease", "1"],
@@ -226,8 +245,11 @@ def test_parse_args_keeps_the_user_command():
     ids=lambda f: f[0])
 def test_pod_and_fleet_options_are_refused_naming_their_item(flag, capsys, monkeypatch,
                                                             tmp_path):
-    """The fleet options refuse, naming ROADMAP item 14; the pod options
-    (item 13, ported) parse and put the launcher in pod mode."""
+    """No option is refused any more: the pod options (item 13) put the
+    launcher in pod mode; each fleet option (item 14) parses beside
+    ``--fleet 2`` and a store and lands in ``fleet_env`` as the JAX
+    launcher exports it, and alone it parses or is refused as the JAX
+    launcher's."""
     if flag[0].startswith("--pod"):
         extra = [] if flag[0] == "--pod_coord_dir" else ["--pod_coord_dir",
                                                          str(tmp_path / "coord")]
@@ -241,13 +263,73 @@ def test_pod_and_fleet_options_are_refused_naming_their_item(flag, capsys, monke
         assert runner.main([*extra, *flag, "--elastic_restarts", "1", "train.py"]) == 0
         assert len(seen) == 1 and seen[0].pod_coord_dir == a.pod_coord_dir
         return
-    with pytest.raises(SystemExit) as e:
-        runner.parse_args([*flag, "train.py"])
-    assert e.value.code == 2
-    assert f"{flag[0]}: " in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        runner.parse_args([*flag, "train.py"])
-    assert "(ROADMAP queue 1, item 14)" in capsys.readouterr().err
+    base = {"--fleet": ["--fleet_coord_dir", "/c"],
+            "--fleet_coord_dir": ["--fleet", "2"]}.get(flag[0],
+                                                     ["--fleet", "2", "--fleet_coord_dir", "/c"])
+    env, err = _parse_outcome(runner, [*base, *flag, "serve.py"], capsys)
+    assert err is None and env == _parse_outcome(jax_runner, [*base, *flag, "serve.py"],
+                                                 capsys)[0]
+    value = "1" if flag[0] == "--fleet_daemon" else flag[1]
+    if flag[0] == "--fleet_lease":
+        value = "1.0"
+    assert env[FLEET_ENV_KEY[flag[0]]] == value
+    assert env["DS_TPU_FLEET_SIZE"] == "2"
+    alone = _parse_outcome(runner, [*flag, "serve.py"], capsys)
+    assert alone == _parse_outcome(jax_runner, [*flag, "serve.py"], capsys)
+    assert (alone[1] is not None) == (flag[0] in ("--fleet", "--fleet_routers",
+                                                  "--fleet_daemon"))
+    assert "item 14" not in str(alone)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fleet", "0", "--fleet_daemon"], ["--fleet", "-1", "--fleet_coord_dir", "/c"],
+    ["--fleet", "2", "--fleet_coord_dir", "/c", "--fleet_routers", "-1"],
+    ["--fleet", "0", "--fleet_routers", "2"], ["--fleet", "3", "--pod_coord_dir", "/p"]],
+    ids=lambda a: " ".join(a))
+def test_fleet_flags_errors_and_env_equal_jax(argv, capsys):
+    """The JAX launcher's parse errors, message for message (``--fleet 0``
+    is no fleet, so ``--fleet_daemon`` needs ``--fleet N``), and its
+    ``fleet_env`` (the store defaults to ``--pod_coord_dir``)."""
+    got = _parse_outcome(runner, [*argv, "serve.py"], capsys)
+    assert got == _parse_outcome(jax_runner, [*argv, "serve.py"], capsys)
+    if argv[-1] == "/p":
+        assert got[0] == {"DS_TPU_FLEET_SIZE": "3", "DS_TPU_FLEET_COORD_DIR": "/p",
+                          "DS_TPU_FLEET_LEASE": "5.0", "DS_TPU_FLEET_MISS_LIMIT": "3"}
+    else:
+        assert got[1][0] == 2
+
+
+def test_fleet_daemons_are_started_per_engine_and_reaped(monkeypatch):
+    """``spawn_fleet_daemons`` starts one ``fleet_member`` module a member,
+    ``DS_TPU_FLEET_ENGINE_ID`` engine0..N-1 over the exported contract;
+    ``reap_fleet_daemons`` SIGTERMs those still running."""
+    started = []
+
+    class Proc:
+        def __init__(self, cmd, env):
+            started.append((cmd, env))
+            self.pid, self.rc, self.terminated = 100 + len(started), None, False
+
+        def poll(self):
+            return self.rc
+
+        def terminate(self):
+            self.terminated, self.rc = True, -15
+
+        def wait(self, timeout=None):
+            return self.rc
+
+    monkeypatch.setattr(runner.subprocess, "Popen", Proc)
+    args = runner.parse_args(["--fleet", "2", "--fleet_daemon", "--fleet_coord_dir", "/c",
+                              "serve.py"])
+    env = {"BASE": "1", **runner.fleet_env(args)}
+    procs = runner.spawn_fleet_daemons(args, env)
+    assert [c for c, _ in started] == [[sys.executable, "-m", runner.FLEET_MEMBER_MODULE]] * 2
+    assert [e["DS_TPU_FLEET_ENGINE_ID"] for _, e in started] == ["engine0", "engine1"]
+    assert all(e["DS_TPU_FLEET_COORD_DIR"] == "/c" and e["BASE"] == "1" for _, e in started)
+    procs[1].rc = 0                   # exited on its own
+    runner.reap_fleet_daemons(procs, grace_s=0.1)
+    assert procs[0].terminated and not procs[1].terminated
 
 
 def test_scheduler_launcher_without_a_pool_refuses(tmp_path, monkeypatch):

@@ -389,9 +389,11 @@ def test_deadline_shed_and_drain(tiny):
     _balanced(tserve)
 
 
-def test_refused_options_name_their_roadmap_item(tiny):
-    """What is still refused names its ROADMAP item (the fleet: item 14).
-    Item 12's options (the monitor, the watchdog, SLO rules, per-program
+def test_refused_options_name_their_roadmap_item(tiny, tmp_path):
+    """``serving_fleet`` (item 14, ported) serves the request through a
+    router over two supervised engines, as the plain engine does
+    (tests/test_torch_fleet.py holds the fleet against JAX's).  Item 12's
+    options (the monitor, the watchdog, SLO rules, per-program
     statistics) build and serve a request as the plain engine does
     (tests/test_torch_observability.py holds them against JAX); the
     serving extras of item 7 and ``update_params`` build
@@ -440,8 +442,12 @@ def test_refused_options_name_their_roadmap_item(tiny):
         tserve.submit(Request(rid="t", input_ids=np.array([1], np.int32),
                               adapter_id="tenant"))
     assert teng.supervised_serving(**SERVE).restarts == 0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        teng.serving_fleet()
+    router = teng.serving_fleet(n_engines=2, coord_dir=str(tmp_path / "fleet"), **SERVE)
+    (got,) = router.run([req()], max_ticks=200)
+    np.testing.assert_array_equal(got.output_ids, want.output_ids)
+    assert got.failovers == 0 and router.health()["engines_live"] == 2
+    for m in router.members.values():
+        _balanced(m.sup.engine)
     pool = {"k": np.zeros((1, 2, 8, 4, 16), np.int8), "v": np.ones((1, 2, 8, 4, 16), np.int8),
             "k_scale": np.full((1, 2, 8), 0.5, np.float32)}
     back = params_to_numpy(pool_from_jax(pool, "cpu"))
